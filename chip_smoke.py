@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the port's live-market selection path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--seed N] [--phases 1,2,3,4]
+    python3 chip_smoke.py [--seed N]
 
 Phases:
 
@@ -23,11 +23,14 @@ Phases:
    kernels' launch counters — then hold each kernel against its plain
    version at the shapes that path gave it (the service fleet's own
    tensors; one member row for ``select``, as ``top_k`` serves it) and
-   time it there: those are the numbers of the ``kernels`` record.
+   time it there: those are the numbers of the ``kernels`` record;
+5. run a second 1,000-event daemon on the same service under
+   ``torch.profiler`` and report the card's busy share: the union of its
+   kernel and copy intervals over the run's wall time.
 
-Every check that fails exits non-zero.  The last three lines are the
-``{"kernels": [...]}`` record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+Every phase runs on every call.  Every check that fails exits non-zero.
+The last three lines are the ``{"kernels": [...]}`` record, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero before printing any result.  It imports ``torch``, ``numpy``, the
 standard library and the port (``src/repro_torch``), nothing else.
 """
@@ -48,11 +51,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 REL_TOL, ABS_TOL = 1e-4, 1e-6
 SOURCE = "src/repro_torch/csrc/rank_delta.cu"
-#: the TPU kernel each CUDA kernel replaces: the fused Pallas body
-#: (``_make_kernel``) and, for ``select``, its in-kernel top-k tail
+#: what each CUDA kernel replaces on the main path: the fused Pallas body
+#: (``_make_kernel``) for ``rowmin`` and ``fold``; for ``select``, the
+#: ``jax.lax.top_k`` that the reference fleet's ``top_k`` serves from
+#: (the service calls ``top_k``, never ``reprice_with_heads``)
 REPLACES = {"rowmin": "src/repro/kernels/rank_delta.py:69",
             "fold": "src/repro/kernels/rank_delta.py:69",
-            "select": "src/repro/kernels/rank_delta.py:157"}
+            "select": "src/repro/selector/rank.py:1218"}
+#: ``select`` also ports the Pallas kernel's in-kernel top-k tail, which
+#: only ``fused_reprice_heads`` runs (phases 2 and 3, not the service)
+ALSO_REPLACES = {"select": "src/repro/kernels/rank_delta.py:157"}
 KERNELS = ("rowmin", "fold", "select")
 
 
@@ -105,15 +113,14 @@ def time_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
 def phase_build(torch) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build_all(["rank_delta"])
+    _, text = _build.build("rank_delta")
     log(f"[build] nvcc rank_delta.cu: {time.perf_counter() - t0:.2f} s "
         f"-> {_build.BUILD_DIR}")
-    for name, (_, text) in sorted(built.items()):
-        for line in text.splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "Compiling entry" in line
-                                         or "smem" in line):
-                log(f"[build] {line.strip()}")
+    for line in text.splitlines():
+        if "ptxas info" in line and ("registers" in line
+                                     or "Compiling entry" in line
+                                     or "smem" in line):
+            log(f"[build] {line.strip()}")
     log(f"[build] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     check(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -474,7 +481,47 @@ def phase_service(np, seed, n_jobs=64, n_cfgs=10_000, n_events=1_000,
     log("[service] spans (count x mean ms): " + ", ".join(
         f"{name} {h['count']} x {h['sum'] * 1e3 / h['count']:.4f}"
         for name, h in spans.items() if h["count"]))
-    return fleet
+    return service, store, table
+
+
+# --- phase 5 --------------------------------------------------------------------
+
+def phase_busy(torch, seed, service, store, table, n_events=1_000):
+    """The card's busy share over a second daemon run on the warm
+    service, traced by ``torch.profiler`` (CUDA activity only): the union
+    of the kernel and copy intervals the trace holds, over the run's wall
+    time.  Reported as not measured when the trace holds no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.market import (SelectionDaemon, SimulatedSpotFeed,
+                                    synthetic_stream)
+    feed = SimulatedSpotFeed(dict(table.items()), seed=seed + 1,
+                             change_fraction=0.01)
+    daemon = SelectionDaemon(service, feed)
+    events = synthetic_stream(store.job_ids, n_events, seed=seed + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = daemon.run(events)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    head = (f"[busy] {n_events} events ({stats.ticks} ticks, "
+            f"{stats.decisions} decisions) in {wall:.3f} s under the "
+            f"profiler")
+    if not spans:
+        log(f"{head}: busy share not measured (no device activity in the "
+            f"trace)")
+        return
+    log(f"{head}: {len(spans)} device intervals, busy {busy_us / 1e3:.3f} "
+        f"ms = {busy_us / 1e6 / wall:.3%} of the wall time")
 
 
 def phase_main_path_kernels(torch, np, seed, fleet, errs, k=10):
@@ -505,9 +552,7 @@ def phase_main_path_kernels(torch, np, seed, fleet, errs, k=10):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4")
     args = ap.parse_args()
-    phases = {int(p) for p in args.phases.split(",")}
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -525,40 +570,38 @@ def main() -> int:
 
     phase_build(torch)
     done("build")
-    errs, times = {name: 0.0 for name in KERNELS}, {}
-    if 2 in phases:
-        errs, main_shape, big_shape = phase_parity(torch, np, args.seed)
-        time_kernels(torch, big_shape)
-        times = time_kernels(torch, main_shape)
-        done("parity")
-    if 3 in phases:
-        phase_fleet(torch, np, args.seed, 64, 10_000, 16, 100, 10,
-                    "64x10000x16", card)
-        phase_fleet(torch, np, args.seed + 1, 64, 100_000, 16, 20, 10,
-                    "64x100000x16", card)
-        done("fleet")
-    launches = {name: None for name in KERNELS}
-    if 4 in phases:
-        rd.reset_launches()
-        fleet = phase_service(np, args.seed)
-        launches = dict(rd.LAUNCHES)
-        done("service")
-        for name in KERNELS:
-            check(launches[name] > 0, f"kernel {name} was not launched on "
-                  f"the main path")
-        times = phase_main_path_kernels(torch, np, args.seed, fleet, errs)
-        done("main-path kernels")
+    errs, main_shape, big_shape = phase_parity(torch, np, args.seed)
+    time_kernels(torch, big_shape)
+    time_kernels(torch, main_shape)
+    done("parity")
+    phase_fleet(torch, np, args.seed, 64, 10_000, 16, 100, 10,
+                "64x10000x16", card)
+    phase_fleet(torch, np, args.seed + 1, 64, 100_000, 16, 20, 10,
+                "64x100000x16", card)
+    done("fleet")
+    rd.reset_launches()
+    service, store, table = phase_service(np, args.seed)
+    launches = dict(rd.LAUNCHES)
+    done("service")
+    for name in KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on "
+              f"the main path")
+    times = phase_main_path_kernels(torch, np, args.seed, service._batched,
+                                    errs)
+    done("main-path kernels")
+    phase_busy(torch, args.seed, service, store, table)
+    done("busy")
     kernels = []
     for name in KERNELS:
-        r = times.get(name, {})
-        bound = r.get("bound", (None, None))
+        r = times[name]
         kernels.append({
             "name": f"rank_delta_{name}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "parity": "ok",
-            "ms": r.get("ms"),
-            "plain_ms": r.get("plain_ms"), "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": r.get("library_ms")})
+            "max_abs_err": errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+        if name in ALSO_REPLACES:
+            kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,8 @@ git-ignored) with
 and is loaded with :mod:`ctypes`.  The file name carries a hash of the
 source and the flags, so an edited source never loads a stale library.
 No fast math: the kernels' exactness depends on IEEE-rounded float32
-arithmetic.  :func:`build_all` starts one ``nvcc`` per source, all at
-once, waits for them together and returns the compiler's output
-(``-Xptxas -v``: registers and shared memory per kernel).
+arithmetic.  :func:`build` returns the compiler's output (``-Xptxas
+-v``: registers and shared memory per kernel).
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines without ``nvcc``.
@@ -26,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: the repository root's ``build/`` (``src/repro_torch/kernels`` -> root)
@@ -55,36 +54,23 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
-    """Compile every named source whose library is missing, one ``nvcc``
-    process each, all started together; returns ``{name: (library,
-    compiler output)}`` (the output is empty for a library that was
-    already built).  Raises with the compiler's output if any build
+def build(name: str) -> Tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns
+    ``(library, compiler output)`` (the output is empty for a library that
+    was already built).  Raises with the compiler's output if ``nvcc``
     fails."""
+    out = _target(name)
+    if out.exists():
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: (_target(n), "") for n in names}
-    procs: List[tuple] = []
-    nvcc = None
-    for name, (out, _) in targets.items():
-        if out.exists():
-            continue
-        nvcc = nvcc or _nvcc()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp,
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)))
-    failures = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        targets[name] = (out, log)
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)        # atomic: readers see whole files
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return targets
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)                # atomic: readers see whole files
+    return out, proc.stdout
 
 
 def load(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
@@ -98,7 +84,7 @@ def load(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
         with _LOCK:
             lib = _LIBS.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(build_all([name])[name][0]))
+                lib = ctypes.CDLL(str(build(name)[0]))
                 for fn, argtypes in signatures.items():
                     getattr(lib, fn).argtypes = list(argtypes)
                     getattr(lib, fn).restype = ctypes.c_int
