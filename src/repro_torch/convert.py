@@ -9,25 +9,44 @@ The port reads what the reference writes, without importing it:
   (``PallasBatchedRankState``), handed over as numpy arrays, rebuilt as a
   :class:`~repro_torch.selector.TorchFusedRankState` that continues the
   same price stream mid-tick: its row minima and accumulators are taken
-  as they are, not recomputed.
+  as they are, not recomputed;
+* :func:`model_config_from_reference` — a
+  :class:`~repro_torch.models.ModelConfig` from ``dataclasses.asdict`` of
+  a reference config;
+* :func:`lm_params_from_reference` — the reference ``LM``'s parameter
+  tree, handed over as numpy arrays, loaded into the port's
+  :class:`~repro_torch.models.LM`; :func:`lm_state_from_reference` does
+  the same for a decode state.  The reference stacks each layer cycle's
+  leaves along a leading ``(n_cycles,)`` axis (``{"cycles": {"b{i}":
+  ...}, "rem": {"r{j}": ...}}``); both are unstacked into the port's one
+  dict per layer.  Leaf layouts stay the reference's (``wq`` (d, H, D),
+  ``wo`` (H, D, d), ...).  The reference stores float32 weights and casts
+  each use to the compute dtype; the port stores each weight in the dtype
+  its uses read, which gives the same values.
 
 Decision journals need no converter: both packages write and read the
 same ``repro.market.decision-journal`` v2 format.
 """
 from __future__ import annotations
 
-from typing import Hashable, Mapping, Optional, Sequence, Union
+import dataclasses
+import math
+from typing import (Any, Dict, Hashable, List, Mapping, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
 
+from repro_torch.models.lm import LM
+from repro_torch.models.types import ModelConfig
 from repro_torch.selector.fused_rank import TorchFusedRankState, \
     resolve_device
 from repro_torch.selector.rank import _position_index
 from repro_torch.selector.store import ProfilingStore
 
 __all__ = ["FLEET_ARRAYS", "fleet_state_from_reference",
-           "store_from_reference"]
+           "lm_params_from_reference", "lm_state_from_reference",
+           "model_config_from_reference", "store_from_reference"]
 
 #: the reference fleet's attributes a conversion reads, as numpy arrays
 FLEET_ARRAYS = ("d_hours", "d_mask", "d_prices", "d_row_best",
@@ -94,3 +113,77 @@ def fleet_state_from_reference(
     used = set(slots.values())
     state._free = [s for s in range(cap - 1, -1, -1) if s not in used]
     return state
+
+
+# --- the LM substrate ---------------------------------------------------------
+
+def model_config_from_reference(d: Mapping[str, Any]) -> ModelConfig:
+    """A port config from ``dataclasses.asdict`` of a reference
+    ``ModelConfig`` (the same fields; tuples may arrive as lists)."""
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    unknown = sorted(set(d) - names)
+    if unknown:
+        raise ValueError(f"fields the port's ModelConfig lacks: {unknown}")
+    kw = dict(d)
+    if "block_pattern" in kw:
+        kw["block_pattern"] = tuple(kw["block_pattern"])
+    return ModelConfig(**kw)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack_layers(cfg: ModelConfig, stack: Mapping[str, Any]
+                   ) -> List[Dict[str, Any]]:
+    """The reference's cycle-stacked layer tree as one dict per layer, in
+    depth order: cycle c's block i is layer ``c * cycle + i``, and the
+    remainder layers follow."""
+    cyc = math.lcm(len(cfg.block_pattern),
+                   cfg.moe_period if cfg.num_experts else 1)
+    n_cycles, rem = divmod(cfg.num_layers, cyc)
+    cycles = stack.get("cycles", {}) or {}
+    rems = stack.get("rem", {}) or {}
+    if (n_cycles and len(cycles) != cyc) or len(rems) != rem:
+        raise ValueError(f"{cfg.name}: a stack of {len(cycles)} cycle "
+                         f"blocks and {len(rems)} remainder layers does not "
+                         f"hold {cfg.num_layers} layers in cycles of {cyc}")
+    layers = []
+    for c in range(n_cycles):
+        for i in range(cyc):
+            layers.append(_map_leaves(lambda a, c=c: np.asarray(a)[c],
+                                      cycles[f"b{i}"]))
+    for j in range(rem):
+        layers.append(_map_leaves(np.asarray, rems[f"r{j}"]))
+    return layers
+
+
+def lm_params_from_reference(cfg: ModelConfig, params: Mapping[str, Any], *,
+                             device: Union[str, torch.device] = "cuda"
+                             ) -> LM:
+    """The reference ``LM.init`` tree (``{"embed", "final_norm",
+    "stack"}``, leaves as numpy arrays) loaded into a port :class:`LM` on
+    ``device``."""
+    tree = {"embed": _map_leaves(np.asarray, params["embed"]),
+            "final_norm": _map_leaves(np.asarray, params["final_norm"]),
+            "layers": _unstack_layers(cfg, params["stack"])}
+    return LM(cfg, device=device, params=tree)
+
+
+def lm_state_from_reference(cfg: ModelConfig, state: Mapping[str, Any], *,
+                            device: Union[str, torch.device] = "cuda"
+                            ) -> List[Dict[str, torch.Tensor]]:
+    """A reference decode state (``LM.init_state`` / ``prefill``'s
+    stacked tree, leaves as numpy arrays) as the port's per-layer list.
+    The reference's bf16 leaves arrive as float32 numpy (numpy has no
+    bf16) and are cast back to the compute dtype; the WKV state stays
+    float32."""
+    dev = resolve_device(device)
+    out = []
+    for layer in _unstack_layers(cfg, state):
+        out.append({k: torch.tensor(np.asarray(v)).to(
+            device=dev, dtype=torch.float32 if k == "wkv"
+            else cfg.compute_dtype) for k, v in layer.items()})
+    return out

@@ -13,10 +13,12 @@ daemon and journal replay (DESIGN.md §6, §8).
                (the reference's journal format, byte for byte);
   replay    -- :class:`RecordedPriceFeed` / :func:`record_feed` and
                :class:`JournalReplayer`: audit a decision journal against
-               cold re-ranks at each reconstructed price epoch.
+               cold re-ranks at each reconstructed price epoch;
+  migration -- :func:`should_migrate`: the hysteresis advisor that gates
+               moving a running fleet (the LM decode fleet's placement).
 
-The reference's serving front-end, migration advisor, polling feed and
-turbulence sweeps are not ported yet.
+The reference's serving front-end, polling feed and turbulence sweeps are
+not ported yet.
 """
 from repro_torch.market.daemon import (DaemonStats, SelectionDaemon,
                                        Submission, Tick, metrics_record,
@@ -26,12 +28,14 @@ from repro_torch.market.feed import (FeedError, MarketEvent, PriceDelta,
 from repro_torch.market.replay import (JournalReplayer, RecordedPriceFeed,
                                        ReplayAudit, ReplayMismatch,
                                        ReplayedDecision, record_feed)
+from repro_torch.market.migration import MigrationAdvice, should_migrate
 from repro_torch.market.ticker import PriceTicker
 
 __all__ = [
     "DaemonStats", "FeedError", "JournalReplayer", "MarketEvent",
-    "PriceDelta", "PriceFeed", "PriceTicker", "RecordedPriceFeed",
-    "ReplayAudit", "ReplayMismatch", "ReplayedDecision", "SelectionDaemon",
+    "MigrationAdvice", "PriceDelta", "PriceFeed", "PriceTicker",
+    "RecordedPriceFeed", "ReplayAudit", "ReplayMismatch",
+    "ReplayedDecision", "SelectionDaemon",
     "SimulatedSpotFeed", "Submission", "Tick", "metrics_record",
-    "record_feed", "synthetic_stream",
+    "record_feed", "should_migrate", "synthetic_stream",
 ]

@@ -1,0 +1,305 @@
+"""Decoder-only language model, dense and RWKV-6 families (counterpart of
+``repro/models/lm.py``).
+
+* **A loop over layers.**  The reference stacks each layer cycle's
+  parameters and runs one ``lax.scan``; here :class:`LM` is an
+  :class:`torch.nn.Module` holding one :class:`Block` per layer, run by a
+  Python loop.  :func:`repro_torch.convert.lm_params_from_reference`
+  unstacks the reference's cycle-stacked leaves into it.
+* **Three entry modes**, as the reference: ``forward`` (causal, no cache;
+  the logits only — ``loss`` and ``fused_xent`` wait for training),
+  ``prefill`` (causal, writes the KV/recurrent state) and ``decode_step``
+  (one token, reads and writes the state).  A state is a list with one
+  dict per layer; KV caches are written in place.
+* **Parameters** are stored in the dtype their uses read (see
+  :mod:`repro_torch.models.types`) and never require gradients.
+
+Not ported yet: MoE layers, the RG-LRU block, cross-attention and the
+frontend embeddings (ROADMAP.md §A).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
+from repro_torch.models.types import (ModelConfig, NotPortedError, ParamSpec,
+                                      SpecTree, init_params, map_specs)
+from repro_torch.selector.fused_rank import resolve_device
+
+__all__ = ["Block", "LM", "LayerPlan", "block_apply", "block_cache_specs",
+           "block_specs", "layer_plans", "param_specs"]
+
+State = List[Dict[str, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    kind: str                   # "attn" | "rec" | "rwkv"
+    moe: bool = False
+    window: Optional[int] = None
+
+
+def layer_plans(cfg: ModelConfig) -> List[LayerPlan]:
+    plans = []
+    for i in range(cfg.num_layers):
+        kind = cfg.block_kind(i)
+        window = cfg.window if (kind == "attn" and cfg.window) else None
+        plans.append(LayerPlan(kind=kind, moe=cfg.is_moe_layer(i),
+                               window=window))
+    return plans
+
+
+def _check_plan(plan: LayerPlan) -> None:
+    if plan.kind == "rec":
+        raise NotPortedError("the RG-LRU block is not ported yet")
+    if plan.moe:
+        raise NotPortedError("MoE layers are not ported yet")
+    if plan.kind not in ("attn", "rwkv"):
+        raise ValueError(plan.kind)
+
+
+# ---------------------------------------------------------------------------
+# per-layer specs / apply
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ModelConfig, plan: LayerPlan) -> Dict[str, Any]:
+    _check_plan(plan)
+    s: Dict[str, Any] = {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg)}
+    if plan.kind == "attn":
+        s["attn"] = L.attn_specs(cfg)
+        s["mlp"] = L.mlp_specs(cfg)
+    else:
+        s["tm"] = R.rwkv_time_mix_specs(cfg)
+        s["cm"] = R.rwkv_channel_mix_specs(cfg)
+    return s
+
+
+def block_cache_specs(cfg: ModelConfig, plan: LayerPlan, batch: int,
+                      max_len: int) -> Dict[str, ParamSpec]:
+    """ParamSpec tree for this layer's decode state."""
+    _check_plan(plan)
+    if plan.kind == "attn":
+        shape, axes = L.kv_cache_shape(cfg, batch, max_len)
+        return {"k": ParamSpec(shape, axes, init="zeros"),
+                "v": ParamSpec(shape, axes, init="zeros")}
+    return {name: ParamSpec(shape, axes, init="zeros", dtype=dtype)
+            for name, (shape, axes, dtype) in
+            R.rwkv_state_shapes(cfg, batch).items()}
+
+
+def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
+                mode: str, positions=None, cache=None, pos=None):
+    """One layer in mode ``train``, ``prefill`` or ``decode``.  Returns
+    (x, new_cache); ``new_cache`` is ``{}`` without a cache."""
+    new_cache: Dict[str, torch.Tensor] = {}
+    cache = cache or {}
+    if plan.kind == "attn":
+        h = L.norm_apply(p["ln1"], x, cfg.norm)
+        if mode in ("train", "prefill"):
+            attn_cache = {"k": cache["k"], "v": cache["v"]} \
+                if "k" in cache else None
+            y, nc = L.attn_apply(p["attn"], cfg, h, mode="causal",
+                                 positions=positions, window=plan.window,
+                                 cache=attn_cache)
+        elif mode == "decode":
+            y, nc = L.attn_apply(p["attn"], cfg, h, mode="decode",
+                                 positions=positions, window=plan.window,
+                                 cache={"k": cache["k"], "v": cache["v"]},
+                                 pos=pos)
+        else:
+            raise NotPortedError(f"mode {mode!r} is not ported yet")
+        if nc is not None:
+            new_cache.update(nc)
+        x = x + y
+        h = L.norm_apply(p["ln2"], x, cfg.norm)
+        return x + L.mlp_apply(p["mlp"], cfg, h), new_cache
+    # rwkv
+    h = L.norm_apply(p["ln1"], x, "layernorm")
+    st = {"shift": cache["tm_shift"], "wkv": cache["wkv"]} \
+        if "wkv" in cache else None
+    y, ns = R.rwkv_time_mix_apply(p["tm"], cfg, h, state=st)
+    if ns is not None:
+        new_cache["tm_shift"] = ns["shift"]
+        new_cache["wkv"] = ns["wkv"]
+    x = x + y
+    h = L.norm_apply(p["ln2"], x, "layernorm")
+    st = {"shift": cache["cm_shift"]} if "cm_shift" in cache else None
+    y, ns = R.rwkv_channel_mix_apply(p["cm"], cfg, h, state=st)
+    if ns is not None:
+        new_cache["cm_shift"] = ns["shift"]
+    return x + y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig) -> SpecTree:
+    """The model's spec tree, ``{"embed", "final_norm", "layers": [one
+    dict per layer]}``, without allocating anything."""
+    return {"embed": L.embed_specs(cfg),
+            "final_norm": L.norm_specs(cfg),
+            "layers": [block_specs(cfg, plan) for plan in layer_plans(cfg)]}
+
+
+def _parameter_dict(leaves: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in leaves.items()})
+
+
+class Block(nn.Module):
+    """One layer's parameters: a :class:`torch.nn.ParameterDict` per group
+    (``ln1``, ``attn``, ``mlp``, ``ln2`` or ``ln1``, ``tm``, ``ln2``,
+    ``cm``), indexable like the reference's parameter dicts."""
+
+    def __init__(self, groups: Mapping[str, Mapping[str, torch.Tensor]]):
+        super().__init__()
+        self.groups = nn.ModuleDict({k: _parameter_dict(v)
+                                     for k, v in groups.items()})
+
+    def __getitem__(self, name: str) -> nn.ParameterDict:
+        return self.groups[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.groups
+
+
+def _leaf_tensor(value, spec: ParamSpec, compute_dtype: torch.dtype,
+                 device: torch.device, where: str) -> torch.Tensor:
+    t = value if isinstance(value, torch.Tensor) else \
+        torch.tensor(np.asarray(value))
+    if tuple(t.shape) != tuple(spec.shape):
+        raise ValueError(f"{where}: shape {tuple(t.shape)}, expected "
+                         f"{spec.shape}")
+    return t.to(device=device, dtype=spec.storage_dtype(compute_dtype))
+
+
+def _load_tree(specs, values, compute_dtype, device, where=""):
+    if isinstance(specs, ParamSpec):
+        return _leaf_tensor(values, specs, compute_dtype, device, where)
+    if isinstance(specs, dict):
+        if set(values) != set(specs):
+            raise ValueError(f"{where or 'params'}: keys {sorted(values)}, "
+                             f"expected {sorted(specs)}")
+        return {k: _load_tree(v, values[k], compute_dtype, device,
+                              f"{where}/{k}") for k, v in specs.items()}
+    if len(values) != len(specs):
+        raise ValueError(f"{where}: {len(values)} entries, expected "
+                         f"{len(specs)}")
+    return [_load_tree(s, v, compute_dtype, device, f"{where}/{i}")
+            for i, (s, v) in enumerate(zip(specs, values))]
+
+
+class LM(nn.Module):
+    """Decoder-only LM (dense and RWKV-6 families) on one device.
+
+    ``device`` defaults to the card; with no CUDA device that raises
+    :class:`~repro_torch.selector.BackendUnavailableError`.  ``params``
+    (``{"embed", "final_norm", "layers": [per-layer dicts]}``, tensors or
+    numpy arrays) loads given weights; without it the weights are drawn
+    from a :class:`torch.Generator` seeded with ``seed`` on ``device``.
+    """
+
+    def __init__(self, cfg: ModelConfig, *,
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 params: Optional[Mapping[str, Any]] = None):
+        super().__init__()
+        if cfg.is_encdec:
+            raise NotPortedError("encoder-decoder models are not ported yet")
+        if cfg.frontend:
+            raise NotPortedError("frontend embeddings are not ported yet")
+        self.cfg = cfg
+        self.plans = layer_plans(cfg)
+        self.device = resolve_device(device)
+        specs = self.param_specs()
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            values = init_params(specs, gen, cfg.compute_dtype, self.device)
+        else:
+            values = _load_tree(specs, params, cfg.compute_dtype,
+                                self.device)
+        self.embed = _parameter_dict(values["embed"])
+        self.final_norm = _parameter_dict(values["final_norm"])
+        self.blocks = nn.ModuleList(Block(v) for v in values["layers"])
+
+    # -- specs -----------------------------------------------------------------
+    def param_specs(self) -> SpecTree:
+        return param_specs(self.cfg)
+
+    def state_specs(self, batch: int, max_len: int) -> List[Dict]:
+        return [block_cache_specs(self.cfg, plan, batch, max_len)
+                for plan in self.plans]
+
+    def init_state(self, batch: int, max_len: int) -> State:
+        return map_specs(
+            lambda s: torch.zeros(s.shape, device=self.device,
+                                  dtype=s.storage_dtype(
+                                      self.cfg.compute_dtype)),
+            self.state_specs(batch, max_len))
+
+    # -- the stack -------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = L.embed_apply(self.embed, tokens)
+        return x * math.sqrt(self.cfg.d_model)
+
+    def _stack(self, x, *, mode: str, positions, state: Optional[State],
+               pos: Optional[int] = None) -> Tuple[torch.Tensor,
+                                                   Optional[State]]:
+        new_state: Optional[State] = [] if state is not None else None
+        for i, (plan, block) in enumerate(zip(self.plans, self.blocks)):
+            x, nc = block_apply(self.cfg, plan, block, x, mode=mode,
+                                positions=positions,
+                                cache=state[i] if state is not None else None,
+                                pos=pos)
+            if new_state is not None:
+                new_state.append(nc)
+        return x, new_state
+
+    @staticmethod
+    def _positions(B: int, T: int, start: int, device) -> torch.Tensor:
+        return torch.arange(start, start + T, dtype=torch.int32,
+                            device=device).expand(B, T)
+
+    # -- forward ----------------------------------------------------------------
+    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Training-mode logits (B, T, V) of ``batch["tokens"]``."""
+        x = self._embed(batch["tokens"])
+        B, T = x.shape[:2]
+        x, _ = self._stack(x, mode="train",
+                           positions=self._positions(B, T, 0, x.device),
+                           state=None)
+        x = L.norm_apply(self.final_norm, x, self.cfg.norm)
+        return L.head_apply(self.embed, self.cfg, x)
+
+    # -- serving ------------------------------------------------------------------
+    def prefill(self, batch: Mapping[str, torch.Tensor], state: State
+                ) -> Tuple[torch.Tensor, State]:
+        """Run the prompt through the stack, filling the state.  Returns
+        (last-position logits (B, V), new state)."""
+        x = self._embed(batch["tokens"])
+        B, T = x.shape[:2]
+        x, new_state = self._stack(
+            x, mode="prefill", positions=self._positions(B, T, 0, x.device),
+            state=state)
+        x = L.norm_apply(self.final_norm, x[:, -1:], self.cfg.norm)
+        return L.head_apply(self.embed, self.cfg, x)[:, 0], new_state
+
+    def decode_step(self, token: torch.Tensor, pos: int, state: State
+                    ) -> Tuple[torch.Tensor, State]:
+        """One decode step.  token: (B,) ints; pos: the index at which the
+        new token is written (cache entries [0, pos] valid)."""
+        pos = int(pos)
+        x = self._embed(token[:, None])
+        x, new_state = self._stack(
+            x, mode="decode",
+            positions=self._positions(x.shape[0], 1, pos, x.device),
+            state=state, pos=pos)
+        x = L.norm_apply(self.final_norm, x, self.cfg.norm)
+        return L.head_apply(self.embed, self.cfg, x)[:, 0], new_state

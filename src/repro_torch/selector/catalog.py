@@ -212,8 +212,8 @@ class GcpVmCatalog(BaseCatalog):
 class TpuSliceCatalog(BaseCatalog):
     """TPU slice x mesh-split options priced per chip-hour (DESIGN.md §3).
 
-    Entries are duck-typed ``MeshOption``-likes (the reference
-    package's ``repro.core.tpu_flora``): anything with ``.name``,
+    Entries are duck-typed ``MeshOption``-likes
+    (:mod:`repro_torch.core.tpu_flora`): anything with ``.name``,
     ``.chips`` and ``.hourly_cost(price_model)``.
     """
 

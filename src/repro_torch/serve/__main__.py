@@ -1,0 +1,97 @@
+"""Serve a model with batched requests through the engine.
+
+    python -m repro_torch.serve --arch qwen3-1.7b            # full width, card
+    python -m repro_torch.serve --arch rwkv6-3b --reduced --device cpu
+
+The counterpart of the reference's ``examples/serve_lm.py``.  Without
+``--reduced`` the model runs at the published width with random bf16
+weights drawn from ``--seed`` on the card; ``--reduced --device cpu``
+runs the reference example's small run on the CPU.  With ``--report
+R.json`` (a dry-run report) the decode fleet's mesh is first planned
+through the selection service (class A, state-resident), and the engine
+records the placement.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core.costmodel import TpuPriceModel
+from repro_torch.core.tpu_flora import service_from_dryrun_report
+from repro_torch.kernels import ops
+from repro_torch.models import build_model, count_params
+from repro_torch.serve.engine import Engine, Request, plan_decode_placement
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=configs.PORTED)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the same-family shrunken config (CPU tests' size)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="cache length (default: max(64, prompt + new))")
+    ap.add_argument("--report", default=None,
+                    help="dry-run report: plan the decode mesh via the "
+                         "selection service before serving")
+    ap.add_argument("--market", default="ondemand",
+                    choices=["ondemand", "spot"])
+    args = ap.parse_args(argv)
+
+    placement = None
+    if args.report and os.path.exists(args.report):
+        with open(args.report) as f:
+            service = service_from_dryrun_report(
+                json.load(f), TpuPriceModel(args.market),
+                device=args.device)
+        placement = plan_decode_placement(service)
+        print(f"[serve] placement: mesh {placement.config_id} "
+              f"at {placement.hourly_cost:.2f} $/h "
+              f"(class {placement.job_class.value})")
+
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = configs.reduced(cfg)
+    model = build_model(cfg, device=args.device, seed=args.seed)
+    width = "reduced" if args.reduced else "full width"
+    print(f"[serve] {cfg.name} ({width}, {cfg.dtype}) on {model.device}: "
+          f"{count_params(model.param_specs()) / 1e6:.1f}M params, "
+          f"{args.slots} decode slots")
+
+    max_len = args.max_len or max(64, args.prompt_len + args.max_new)
+    eng = Engine(model, slots=args.slots, max_len=max_len,
+                 placement=placement, device=args.device)
+    rng = np.random.default_rng(args.seed + 1)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               args.prompt_len),
+                    max_new_tokens=args.max_new)
+            for i in range(args.requests)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    comps = eng.serve(reqs)
+    secs = time.perf_counter() - t0
+    for c in sorted(comps, key=lambda c: c.uid):
+        print(f"  req {c.uid}: {len(c.tokens)} tokens "
+              f"(prefill {c.prefill_ms:.0f} ms, decode {c.decode_ms:.0f} ms)"
+              f" -> {c.tokens[:8]}")
+    new = sum(len(c.tokens) for c in comps)
+    print(f"[serve] {len(comps)} requests, {new} new tokens in {secs:.3f} s "
+          f"({eng.prefills} prefills, {eng.decode_steps} decode steps); "
+          f"kernel launches {ops.launches()}")
+    if torch.cuda.is_available() and model.device.type == "cuda":
+        print(f"[serve] device {torch.cuda.get_device_name(model.device)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version,
-and the fleet state and service on CUDA against the same on the CPU.
+the fleet state and service on CUDA against the same on the CPU, and a
+reduced-config serving engine whose kernel counters move.
 
 Every test here needs a CUDA device and carries the ``cuda`` marker; without
 one it skips.  The file imports no JAX, so it runs on a machine with the
@@ -11,7 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rank_delta as rd
+from repro_torch.kernels import rwkv6_scan as wk
+from repro_torch.models import LM
+from repro_torch.serve import Engine, Request
 from repro_torch.selector import (IdentityCatalog, PriceTable,
                                   ProfilingStore, SelectionService,
                                   TorchFusedRankState, rank_dense,
@@ -179,3 +185,137 @@ def test_cuda_service_serves_through_the_kernels(cuda_device):
         ref.reprice(deltas)
     assert all(n > 0 for n in rd.LAUNCHES.values()), rd.LAUNCHES
     assert gpu.reprice_dispatches == 3
+
+
+# --- the LM kernels -----------------------------------------------------------
+
+#: (B, T, H, G, D, causal, window): GQA, MQA, bidirectional, windowed,
+#: ragged T, every head size the kernel is built for
+ATTN_CASES = [
+    (2, 128, 4, 2, 64, True, None),
+    (2, 64, 8, 1, 32, True, None),
+    (1, 96, 2, 2, 16, False, None),
+    (1, 256, 4, 4, 32, True, 64),
+    (2, 12, 16, 8, 128, True, None),
+    (1, 100, 4, 2, 80, True, 16),
+    (1, 130, 2, 1, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
+    """The kernel against its plain version on the same card tensors
+    (fp32 atol 2e-5, bf16 atol 2e-2, rtol 1e-2), one launch per call."""
+    B, T, H, G, D, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(case[:5]))
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
+                           ).to(dtype)
+               for shape in ((B, T, H, D), (B, T, G, D), (B, T, G, D)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=1e-2)
+
+
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 8, 2, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head sizes"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 32), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 32), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q, q)
+
+
+def _wkv_inputs(device, B, T, H, N, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, N), generator=gen, device=device
+                           ).to(dtype) for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
+                                  device=device)) * 0.5 + 0.45
+    u = torch.randn((H, N), generator=gen, device=device) * 0.5
+    s0 = torch.randn((B, H, N, N), generator=gen, device=device)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 3, 64), (1, 37, 2, 64),
+                                   (2, 100, 2, 16), (1, 64, 4, 32)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_wkv6_matches_plain(cuda_device, shape, dtype):
+    """The kernel against its plain version (atol 1e-4, rtol 1e-3): a
+    decode step, ragged T, both model head sizes, one launch per call."""
+    args = _wkv_inputs(cuda_device, *shape, dtype)
+    before = wk.LAUNCHES["wkv6"]
+    y, sT = wk.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    y_p, s_p = wk.wkv6_scan_ref(*args)
+    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(sT.cpu().numpy(), s_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
+
+
+def test_cuda_wkv6_state_carry(cuda_device):
+    r, k, v, w, u, s0 = _wkv_inputs(cuda_device, 1, 64, 2, 64,
+                                    torch.float32, seed=3)
+    y_full, s_full = wk.wkv6_scan_ref(r, k, v, w, u, s0)
+    y1, s_mid = wk.wkv6(r[:, :29].contiguous(), k[:, :29].contiguous(),
+                        v[:, :29].contiguous(), w[:, :29].contiguous(), u,
+                        s0)
+    y2, sT = wk.wkv6(r[:, 29:].contiguous(), k[:, 29:].contiguous(),
+                     v[:, 29:].contiguous(), w[:, 29:].contiguous(), u,
+                     s_mid)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).cpu().numpy(),
+                               y_full.cpu().numpy(), atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(sT.cpu().numpy(), s_full.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
+
+
+def _params_of(lm):
+    return {"embed": dict(lm.embed.items()),
+            "final_norm": dict(lm.final_norm.items()),
+            "layers": [{g: dict(block[g].items()) for g in block.groups}
+                       for block in lm.blocks]}
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "rwkv6-3b"])
+def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name):
+    """A reduced (fp32) model served on the card: each layer's kernel
+    launches once per prefill (flash attention) or once per model call
+    (WKV6), and the prefill logits equal the same weights' on the CPU
+    within the decode-parity tolerance (2e-3)."""
+    cfg = configs.reduced(configs.get(name))
+    cpu = LM(cfg, device="cpu", seed=1)
+    gpu = LM(cfg, device=cuda_device, params=_params_of(cpu))
+    eng = Engine(gpu, slots=2, max_len=24, device=cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 12))
+    fa.reset_launches()
+    wk.reset_launches()
+    comps = eng.serve([Request(uid=i, prompt=p, max_new_tokens=4)
+                       for i, p in enumerate(prompts)])
+    assert sorted(c.uid for c in comps) == [0, 1, 2]
+    assert eng.prefills == 2 and eng.decode_steps == 6
+    if name == "qwen3-1.7b":
+        assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * 2
+        assert wk.LAUNCHES["wkv6"] == 0
+    else:
+        assert wk.LAUNCHES["wkv6"] == cfg.num_layers * (2 + 6)
+        assert fa.LAUNCHES["flash_attention"] == 0
+    tokens = torch.as_tensor(prompts[:2])
+    want, _ = cpu.prefill({"tokens": tokens}, cpu.init_state(2, 24))
+    got, _ = gpu.prefill({"tokens": tokens.to(cuda_device)},
+                         gpu.init_state(2, 24))
+    assert float((got.cpu() - want).abs().max()) < 2e-3

@@ -3,8 +3,9 @@ quiet fall-back to the CPU.
 
 A subprocess blocks ``jax`` and ``repro`` (the exact name or a ``repro.``
 prefix) on ``sys.meta_path``, imports every module of ``repro_torch``, and
-then builds the two entry points without ``device=``; with CUDA hidden
-both must raise ``BackendUnavailableError``.  The sources of the package
+then builds the entry points without ``device=`` (the fleet state, the
+selection service, the LM and the serving engine); with CUDA hidden each
+must raise ``BackendUnavailableError``.  The sources of the package
 and of ``chip_smoke.py`` are also scanned for such imports, including the
 ones inside functions that an import does not execute.
 """
@@ -60,6 +61,19 @@ try:
     raised["service"] = None
 except BackendUnavailableError as e:
     raised["service"] = type(e).__name__
+from repro_torch import configs
+from repro_torch.models import LM, build_model
+from repro_torch.serve import Engine
+cfg = configs.reduced(configs.get("qwen3-1.7b"))
+for name, make in (("lm", lambda: LM(cfg)),
+                   ("build_model", lambda: build_model(cfg)),
+                   ("engine", lambda: Engine(LM(cfg, device="cpu"), slots=1,
+                                             max_len=8))):
+    try:
+        make()
+        raised[name] = None
+    except BackendUnavailableError as e:
+        raised[name] = type(e).__name__
 print(json.dumps({"modules": names, "leaked": leaked, "raised": raised,
                   "cuda": torch.cuda.is_available()}))
 """
@@ -84,12 +98,22 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.selector.fused_rank",
                 "repro_torch.selector.service", "repro_torch.market.replay",
                 "repro_torch.market.daemon", "repro_torch.obs.registry",
-                "repro_torch.core.trace", "repro_torch.selector.store"}
+                "repro_torch.core.trace", "repro_torch.selector.store",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.rwkv6_scan", "repro_torch.kernels.ops",
+                "repro_torch.kernels.ref", "repro_torch.models.types",
+                "repro_torch.models.layers", "repro_torch.models.recurrent",
+                "repro_torch.models.lm", "repro_torch.models.registry",
+                "repro_torch.configs", "repro_torch.configs.qwen3_1_7b",
+                "repro_torch.configs.rwkv6_3b", "repro_torch.core.tpu_flora",
+                "repro_torch.market.migration", "repro_torch.serve.engine",
+                "repro_torch.serve.__main__"}
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
     assert res["cuda"] is False
-    assert res["raised"] == {"state": "BackendUnavailableError",
-                             "service": "BackendUnavailableError"}
+    assert res["raised"] == dict.fromkeys(
+        ("state", "service", "lm", "build_model", "engine"),
+        "BackendUnavailableError")
 
 
 def _imported_modules(path: Path):
@@ -106,7 +130,7 @@ def _imported_modules(path: Path):
 
 def test_sources_name_no_jax_or_reference_import():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 35
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
