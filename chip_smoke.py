@@ -7,14 +7,15 @@ one CUDA card and check them.
 Phases:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
-   process per source, all started together (``-Xptxas -v`` registers
-   and shared memory printed);
+   process per source, all started together (``-Xptxas -v`` registers,
+   shared memory and spills printed, and each source's build time);
 2. hold every ``rank_delta`` kernel against its plain PyTorch version on
    the card: ragged shapes, fully masked rows, a member with fewer
    profiled configs than k, an identity tick (bitwise), 1% and 30%
-   changed columns, and the fleet's own shapes — then time each kernel,
-   its plain version and, where one exists, the one PyTorch call that
-   computes the same thing;
+   changed columns, k past the two-stage ``select``'s cap (the k-round
+   kernel), and the fleet's own shapes — then time each kernel, its
+   plain version, the kernel it replaced (the k-round ``select``) and,
+   where one exists, the one PyTorch call that computes the same thing;
 3. run :class:`TorchFusedRankState` at 64 jobs x 10,000 configs x 16
    members for 100 ticks (1% of prices per tick) and at 64 x 100,000 for
    10 (cut from 20 to leave room for the LM phases), holding every member
@@ -25,24 +26,26 @@ Phases:
    journal with ``JournalReplayer`` — the selection path, read through
    the kernels' launch counters — then hold each kernel against its
    plain version at the shapes that path gave it and time it there;
-5. hold the flash-attention and WKV6 kernels against their plain
-   versions: bf16 and fp32; causal, windowed and bidirectional; GQA and
-   MQA; ragged T; head sizes 16 to 128; a decode step, ragged T and a
+5. hold both flash-attention kernels and the WKV6 kernel against their
+   plain versions: the tensor-core kernel (bf16) and the scalar one
+   (fp32, and bf16 at D = 80); causal, windowed and bidirectional; GQA
+   and MQA; ragged T; head sizes 16 to 128; a decode step, ragged T and a
    two-call state carry for WKV6;
 6. plan the decode fleet's mesh through the port's selection service from
    a hand-made dry-run report;
 7. serve ``qwen3-1.7b`` and then ``rwkv6-3b`` at full width (random bf16
    weights from the seed): 8 requests of 1,024-token prompts over 4
    slots, 32 new tokens each — the LM path, read through the kernels'
-   launch counters (28 flash-attention launches per prefill; 32 WKV6
-   launches per prefill and per decode step) — after a warm-up at the
-   traffic's shapes, and once more for the spread.  Then: all logits
-   finite;
-   the first wave's prefill logits against a pass whose kernel is
-   swapped for its plain version; prefill + decode against ``forward``
-   at full width, 4 layers, fp32; and the kernel at the shapes the path
-   gave it, against its plain version and timed beside its bound and,
-   for attention, ``scaled_dot_product_attention``;
+   launch counters (28 flash-attention launches per prefill, every one
+   the tensor-core kernel; 32 WKV6 launches per prefill and per decode
+   step) — after a warm-up at the traffic's shapes, and once more for
+   the spread.  Then: all logits finite; the first wave's prefill logits
+   against a pass whose kernel is swapped for its plain version; prefill
+   + decode against ``forward`` at full width, 4 layers, fp32 (the
+   scalar attention kernel); and the kernels at the shapes the path gave
+   them, against their plain versions and timed beside their bounds, the
+   kernel they replaced (the scalar attention kernel, bf16) and, for
+   attention, ``scaled_dot_product_attention``;
 8. last, the profiled phases: a second 1,000-event daemon on phase 4's
    service under ``torch.profiler`` (the card's busy share), then each
    model's first-wave prefill and 8 decode steps (device time by kernel,
@@ -50,7 +53,13 @@ Phases:
 
 Every phase runs on every call.  Every check that fails exits non-zero.
 The last three lines are the ``{"kernels": [...]}`` record, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  Without a
+name and power limit, and ``{"ok": true, "device": {...}}``.  In the
+record, ``earlier_ms`` is the time, on the same inputs in the same run,
+of the kernel the entry's function ran on before this kernel (the k-round
+``select``, the scalar attention kernel in bf16); null where the kernel
+is the one that was there.  ``select``'s entries add ``device_ms`` and
+``library_device_ms``: the same calls replayed from a CUDA graph, the
+card's time without the host's.  Without a
 CUDA device the script exits non-zero before printing any result.  It
 imports ``torch``, ``numpy``, the standard library and the port
 (``src/repro_torch``), nothing else.
@@ -82,11 +91,16 @@ SOURCE = "src/repro_torch/csrc/rank_delta.cu"
 #: (the service calls ``top_k``, never ``reprice_with_heads``)
 REPLACES = {"rowmin": "src/repro/kernels/rank_delta.py:69",
             "fold": "src/repro/kernels/rank_delta.py:69",
-            "select": "src/repro/selector/rank.py:1218"}
+            "select": "src/repro/selector/rank.py:1218",
+            "select_rounds": "src/repro/selector/rank.py:1218"}
 #: ``select`` also ports the Pallas kernel's in-kernel top-k tail, which
 #: only ``fused_reprice_heads`` runs (phases 2 and 3, not the service)
-ALSO_REPLACES = {"select": "src/repro/kernels/rank_delta.py:157"}
-KERNELS = ("rowmin", "fold", "select")
+ALSO_REPLACES = {"select": "src/repro/kernels/rank_delta.py:157",
+                 "select_rounds": "src/repro/kernels/rank_delta.py:157"}
+KERNELS = ("rowmin", "fold", "select", "select_rounds")
+#: the kernels the selection path launches (``select_rounds`` serves only
+#: k above ``rank_delta.SELECT_CAP``; the path's k is 10)
+PATH_KERNELS = ("rowmin", "fold", "select")
 SOURCES = ("rank_delta", "flash_attention", "wkv6_scan")
 
 
@@ -135,15 +149,49 @@ def time_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, calls: int = 50, replays: int = 20) -> float:
+    """Device time of ``fn`` per call with the host out of the way:
+    ``calls`` calls captured in one CUDA graph, replayed.  Where a call's
+    host work outlasts its kernels, ``time_ms`` reads the host and this
+    reads the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * calls)
+
+
 # --- phase 1 --------------------------------------------------------------------
 
 def phase_build(torch) -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+
+    def timed(name):
+        t = time.perf_counter()
+        lib, out = _build.build(name)
+        return lib, out, time.perf_counter() - t
+
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
-        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+        built = dict(zip(SOURCES, pool.map(timed, SOURCES)))
     log(f"[build] nvcc {', '.join(s + '.cu' for s in SOURCES)} in "
-        f"parallel: {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
+        f"parallel: {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR} ("
+        + ", ".join(f"{s}.cu {built[s][2]:.2f} s" for s in SOURCES) + ")")
     for name in SOURCES:
         for line in built[name][1].splitlines():
             if "ptxas info" in line and ("registers" in line
@@ -210,11 +258,18 @@ def max_err(torch, a, b) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def check_select(torch, scores, finite, k, label, errs) -> None:
-    """The ``select`` kernel against the plain stable sort: the same
-    indices and values, and every head k distinct configs."""
+def check_select(torch, scores, finite, k, label, errs,
+                 kernel="select") -> None:
+    """The ``select`` kernel (``select_rounds`` past the cap) against the
+    plain stable sort: the same indices and values, and every head k
+    distinct configs."""
     from repro_torch.kernels import rank_delta as rd
+    check((kernel == "select_rounds") == (k > rd.SELECT_CAP),
+          f"{label}: k={k} is not {kernel}'s")
+    before = rd.LAUNCHES[kernel]
     ti_k, tv_k = rd._launch_select(scores, finite, k)
+    check(rd.LAUNCHES[kernel] == before + 1, f"{label}: {kernel} did not "
+          f"launch")
     ti_p, tv_p = rd.select_heads_plain(scores, finite, k)
     check(torch.equal(ti_k, ti_p), f"{label}: select indices differ from "
           f"the stable sort")
@@ -222,7 +277,7 @@ def check_select(torch, scores, finite, k, label, errs) -> None:
     rows = ti_k.cpu().numpy()
     check(all(len(set(r)) == len(r) for r in rows),
           f"{label}: a head repeats a config")
-    errs["select"] = max(errs["select"], max_err(torch, tv_k, tv_p))
+    errs[kernel] = max(errs[kernel], max_err(torch, tv_k, tv_p))
 
 
 def check_kernels(torch, t, label, k, errs, identity=False) -> None:
@@ -253,6 +308,9 @@ def check_kernels(torch, t, label, k, errs, identity=False) -> None:
               f"{label}: identity tick not bitwise unchanged")
     kk = min(k, C)
     check_select(torch, s_k, t["finite"], kk, label, errs)
+    if C > rd.SELECT_CAP:       # the k-round kernel, past the cap
+        check_select(torch, s_k, t["finite"], rd.SELECT_CAP + 1,
+                     label + " k > cap", errs, "select_rounds")
     out, rb, moved, ti, _ = rd.fused_reprice_heads(*args, t["finite"], k=kk)
     ti_k, _ = rd.select_heads_plain(s_k, t["finite"], kk)
     check(torch.equal(out, s_k) and torch.equal(rb, rb_k)
@@ -309,6 +367,18 @@ def time_kernels(torch, t, k=10, heads=None):
                  t["rb"], rb_new, t["rm"], t["scores"])
     inf = torch.tensor(float("inf"), device=t["scores"].device)
     masked = torch.where(sel_finite, sel_scores, inf)
+    kr = min(rd.SELECT_CAP + 1, C)
+    out_i = torch.empty((R, kr), dtype=torch.int32, device=masked.device)
+    out_v = torch.empty((R, kr), dtype=torch.float32, device=masked.device)
+
+    def rounds(kk):
+        """The k-round ``select`` kernel, the one the two-stage kernel
+        replaced, at any k."""
+        rd._build.check(rd._lib().rank_delta_select_rounds(
+            sel_scores.data_ptr(), sel_finite.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), R, C, kk, rd._stream(sel_scores)),
+            "rank_delta_select_rounds")
+
     res = {
         "rowmin": dict(
             ms=time_ms(torch, lambda: rd._launch_rowmin(
@@ -323,10 +393,22 @@ def time_kernels(torch, t, k=10, heads=None):
         "select": dict(
             ms=time_ms(torch, lambda: rd._launch_select(
                 sel_scores, sel_finite, k)),
+            earlier_ms=time_ms(torch, lambda: rounds(k)),
             plain_ms=time_ms(torch, lambda: rd.select_heads_plain(
                 sel_scores, sel_finite, k)),
             library_ms=time_ms(torch, lambda: torch.topk(
+                masked, k, dim=1, largest=False)),
+            device_ms=graph_ms(torch, lambda: rd._launch_select(
+                sel_scores, sel_finite, k)),
+            library_device_ms=graph_ms(torch, lambda: torch.topk(
                 masked, k, dim=1, largest=False))),
+        # the k-round kernel where it serves now: k past the cap
+        "select_rounds": dict(
+            ms=time_ms(torch, lambda: rounds(kr)),
+            plain_ms=time_ms(torch, lambda: rd.select_heads_plain(
+                sel_scores, sel_finite, kr)),
+            library_ms=time_ms(torch, lambda: torch.topk(
+                masked, kr, dim=1, largest=False))),
     }
     mask = t["mask"]
     nnz = float(mask.sum())
@@ -338,12 +420,20 @@ def time_kernels(torch, t, k=10, heads=None):
         J * C * 5 + 3 * C * 4 + 2 * J * 4 + S * J * 4 + 2 * S * C * 4,
         5 * nnz + 4 * member_cells)
     res["select"]["bound"] = bound_ms(R * C * 5 + R * k * 8, R * C)
+    res["select_rounds"]["bound"] = bound_ms(R * C * 5 + R * kr * 8, R * C)
     for name, r in res.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain "
+        earlier = f", k-round kernel {r['earlier_ms']:.4f} ms" \
+            if "earlier_ms" in r else ""
+        if "device_ms" in r:
+            earlier += (f"; replayed from a CUDA graph, kernel "
+                        f"{r['device_ms']:.4f} ms, library "
+                        f"{r['library_device_ms']:.4f} ms")
+        log(f"[time] {name}: kernel {r['ms']:.4f} ms{earlier}, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) at J={J} C={C} "
-            f"S={R if name == 'select' else S} k={k}")
+            f"S={R if name.startswith('select') else S} "
+            f"k={kr if name == 'select_rounds' else k}")
     return res
 
 
@@ -593,6 +683,8 @@ ATTN_CASES = [
     (1, 100, 4, 2, 80, True, 16),
     (1, 130, 2, 1, 128, False, None),
     (1, 200, 4, 4, 64, True, 48),
+    (1, 100, 4, 1, 64, True, None),
+    (1, 1000, 4, 2, 128, True, 300),
 ]
 #: (B, T, H, N): a decode step, ragged T, both model head sizes
 WKV_CASES = [(2, 1, 3, 64), (4, 1, 40, 64), (1, 37, 2, 64), (2, 100, 2, 16),
@@ -608,11 +700,16 @@ LM_KERNELS = {
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:28",
         arch="qwen3-1.7b"),
+    "flash_attention_scalar": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:28"),
     "wkv6": dict(
         source="src/repro_torch/csrc/wkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:25",
         arch="rwkv6-3b"),
 }
+#: the kernel each served model's path runs
+SERVED = ("flash_attention", "wkv6")
 
 
 def allclose(torch, a, b, atol, rtol) -> bool:
@@ -645,8 +742,14 @@ def wkv_inputs(torch, B, T, H, N, dtype, seed, random_state=True,
 
 
 def check_attention(torch, q, k, v, causal, window, label, errs=None):
+    """The kernel :func:`flash_attention.variant` names against the plain
+    version; the error goes to ``errs`` under its record name."""
     from repro_torch.kernels import flash_attention as fa
+    kind = fa.variant(q.dtype, q.shape[-1])
+    before = fa.LAUNCHES[f"flash_attention_{kind}"]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    check(fa.LAUNCHES[f"flash_attention_{kind}"] == before + 1,
+          f"{label}: the {kind} kernel did not launch")
     want = fa.attention_ref(q, k, v, causal=causal, window=window)
     sync(torch, q.device)
     atol, rtol = ATTN_TOL[str(q.dtype).split(".")[-1]]
@@ -657,7 +760,8 @@ def check_attention(torch, q, k, v, causal, window, label, errs=None):
           f"{label}: flash attention outside atol {atol} rtol {rtol} "
           f"(max |err| {err:.3g})")
     if errs is not None:
-        errs["flash_attention"] = max(errs["flash_attention"], err)
+        name = "flash_attention" if kind == "tc" else "flash_attention_scalar"
+        errs[name] = max(errs[name], err)
     return err
 
 
@@ -678,6 +782,7 @@ def check_wkv(torch, args, label, errs=None):
 
 
 def phase_lm_parity(torch, dev="cuda"):
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -687,9 +792,9 @@ def phase_lm_parity(torch, dev="cuda"):
                                   sum(case[:5]), dev)
             err = check_attention(torch, q, k, v, causal, window,
                                   f"attn {case} {name}")
-            log(f"[lm-parity] flash attention {name} B={B} T={T} H={H} "
-                f"G={G} D={D} causal={causal} window={window}: max |err| "
-                f"{err:.3g} ok")
+            log(f"[lm-parity] flash attention {name} "
+                f"({fa.variant(dtype, D)}) B={B} T={T} H={H} G={G} D={D} "
+                f"causal={causal} window={window}: max |err| {err:.3g} ok")
         for case in WKV_CASES:
             args = wkv_inputs(torch, *case, dtype, sum(case), dev=dev)
             err = check_wkv(torch, args, f"wkv {case} {name}")
@@ -864,9 +969,13 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
           f"{eng.decode_steps} decode steps")
     L = cfg.num_layers
     if kernel == "flash_attention":
-        expect = {"flash_attention": L * eng.prefills, "wkv6": 0}
+        # every prefill launch the tensor-core kernel
+        n = L * eng.prefills
+        expect = {"flash_attention": n, "flash_attention_tc": n,
+                  "flash_attention_scalar": 0, "wkv6": 0}
     else:
-        expect = {"flash_attention": 0,
+        expect = {"flash_attention": 0, "flash_attention_tc": 0,
+                  "flash_attention_scalar": 0,
                   "wkv6": L * (eng.prefills + eng.decode_steps)}
     check(launches == expect, f"{name}: kernel launches {launches}, "
           f"expected {expect} for {L} layers")
@@ -943,7 +1052,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
                   N=cfg.rwkv_head_dim, dtype=cfg.compute_dtype)
     del model, eng, logits, logits_p, first
     free_card(torch, dev)
-    return dict(kernel=kernel, launches=launches[kernel], shapes=shapes)
+    return dict(kernel=kernel, launches=launches, shapes=shapes)
 
 
 def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
@@ -992,7 +1101,10 @@ def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
 def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
     """The kernel at the shapes its path gave it: held against its plain
     version, then timed beside the plain version, the library call (SDPA
-    for attention, none for WKV6) and its bound."""
+    for attention, none for WKV6) and its bound.  For attention, also the
+    scalar kernel on the same bf16 inputs (the kernel this path ran
+    before the tensor-core one: ``earlier_ms``) and, as its own entry
+    under ``"scalar"``, on fp32 inputs of the same shape, its dtype."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
     sh = shapes
@@ -1000,23 +1112,48 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
     if kernel == "flash_attention":
         H, G, D = sh["H"], sh["G"], sh["D"]
         q, k, v = attn_inputs(torch, B, T, H, G, D, dt, seed, dev)
-        check_attention(torch, q, k, v, True, None,
-                        f"path shape {(B, T, H, G, D)}", errs)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        err = check_attention(torch, q, k, v, True, None,
+                              f"path shape {(B, T, H, G, D)}", errs)
+        log(f"[lm-parity] flash attention bfloat16 (tc) at the path shape "
+            f"B={B} T={T} H={H} G={G} D={D}: max |err| {err:.3g} ok")
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        r = dict(
-            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                         causal=True),
-                       iters=20, warmup=3),
-            plain_ms=time_ms(torch, lambda: fa.attention_ref(
-                q, k, v, causal=True), iters=5, warmup=1),
-            library_ms=time_ms(torch, lambda: sdpa(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-                iters=20, warmup=3))
         pairs = B * H * T * (T + 1) // 2
-        n_bytes = 2 * (2 * B * T * H * D + 2 * B * T * G * D)
-        r["bound"] = bound_ms(n_bytes, 4 * D * pairs, BF16_FLOPS_PER_S)
+        n_elems = 2 * B * T * H * D + 2 * B * T * G * D
+
+        def timed(q, k, v, kind, ops_per_s):
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            out = dict(
+                ms=time_ms(torch, lambda: fa._launch(q, k, v, True, None,
+                                                     kind),
+                           iters=50 if kind == "tc" else 10, warmup=3),
+                plain_ms=time_ms(torch, lambda: fa.attention_ref(
+                    q, k, v, causal=True), iters=5, warmup=1),
+                library_ms=time_ms(torch, lambda: sdpa(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                    iters=50, warmup=3),
+                bound=bound_ms(q.element_size() * n_elems, 4 * D * pairs,
+                               ops_per_s))
+            del qt, kt, vt
+            return out
+
+        r = timed(q, k, v, "tc", BF16_FLOPS_PER_S)
+        r["earlier_ms"] = time_ms(torch, lambda: fa._launch(
+            q, k, v, True, None, "scalar"), iters=10, warmup=2)
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        err = check_attention(torch, q32, k32, v32, True, None,
+                              f"path shape {(B, T, H, G, D)} fp32", errs)
+        log(f"[lm-parity] flash attention float32 (scalar) at the path "
+            f"shape: max |err| {err:.3g} ok")
+        # the scalar kernel's fp32 FMAs: the fp32 peak off the tensor cores
+        r["scalar"] = timed(q32, k32, v32, "scalar", FP32_FLOPS_PER_S)
+        del q32, k32, v32
         what = f"B={B} T={T} H={H} G={G} D={D} causal bf16"
+        sc = r["scalar"]
+        log(f"[time] flash_attention_scalar: kernel {sc['ms']:.4f} ms, "
+            f"plain {sc['plain_ms']:.4f} ms, library "
+            f"{sc['library_ms']:.4f} ms, bound {sc['bound'][0]:.5f} ms "
+            f"({sc['bound'][1]}) at B={B} T={T} H={H} G={G} D={D} causal "
+            f"fp32")
     else:
         H, N = sh["d"] // sh["N"], sh["N"]
         args = wkv_inputs(torch, B, T, H, N, dt, seed, random_state=False,
@@ -1039,7 +1176,9 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
         r["decode_bound"] = wkv_bound(1)
         what = f"B={B} T={T} H={H} N={N} bf16 r/k/v"
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-    log(f"[time] {kernel}: kernel {r['ms']:.4f} ms, plain "
+    earlier = f", scalar kernel {r['earlier_ms']:.4f} ms" \
+        if "earlier_ms" in r else ""
+    log(f"[time] {kernel}: kernel {r['ms']:.4f} ms{earlier}, plain "
         f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
         f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) at {what}")
     if "decode_ms" in r:
@@ -1071,19 +1210,22 @@ def main() -> int:
     phase_build(torch)
     done("build")
     errs, main_shape, big_shape = phase_parity(torch, np, args.seed)
-    time_kernels(torch, big_shape)
+    # the fleet heads tick's k-head: every member row of 64 x 100k x 16
+    heads_times = time_kernels(torch, big_shape)
     time_kernels(torch, main_shape)
     done("parity")
     phase_fleet(torch, np, args.seed, 64, 10_000, 16, 100, 10,
                 "64x10000x16", card)
+    rd.reset_launches()
     phase_fleet(torch, np, args.seed + 1, 64, 100_000, 16, 10, 10,
                 "64x100000x16", card)
+    fleet_heads_launches = rd.LAUNCHES["select"]
     done("fleet")
     rd.reset_launches()
     service, store, table = phase_service(np, args.seed)
     launches = dict(rd.LAUNCHES)
     done("service")
-    for name in KERNELS:
+    for name in PATH_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on "
               f"the main path")
     times = phase_main_path_kernels(torch, np, args.seed, service._batched,
@@ -1096,8 +1238,8 @@ def main() -> int:
     from repro_torch import configs
     lm_errs = {name: 0.0 for name in LM_KERNELS}
     lm_runs = {}
-    for name, spec in LM_KERNELS.items():
-        cfg = configs.get(spec["arch"])
+    for name in SERVED:
+        cfg = configs.get(LM_KERNELS[name]["arch"])
         run = phase_serve(torch, np, cfg, args.seed, card, placement)
         check(run["kernel"] == name, f"{cfg.name} ran {run['kernel']}")
         phase_parity_4_layers(torch, cfg, args.seed)
@@ -1111,28 +1253,45 @@ def main() -> int:
     phase_busy(torch, args.seed, service, store, table)
     done("busy")
     del service, store, table
-    for spec in LM_KERNELS.values():
-        phase_lm_profile(torch, np, configs.get(spec["arch"]), args.seed)
+    for name in SERVED:
+        phase_lm_profile(torch, np, configs.get(LM_KERNELS[name]["arch"]),
+                         args.seed)
     done("profile")
+
+    def entry(name, source, replaces, n_launches, err, r):
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": n_launches,
+             "max_abs_err": err, "ms": r["ms"],
+             "earlier_ms": r.get("earlier_ms"), "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+             "library_ms": r["library_ms"]}
+        if "device_ms" in r:
+            e.update(device_ms=r["device_ms"],
+                     library_device_ms=r["library_device_ms"])
+        return e
+
     kernels = []
     for name in KERNELS:
-        r = times[name]
-        kernels.append({
-            "name": f"rank_delta_{name}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+        kernels.append(entry(f"rank_delta_{name}", SOURCE, REPLACES[name],
+                             launches[name], errs[name], times[name]))
         if name in ALSO_REPLACES:
             kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
+    # the same select kernel at the fleet heads tick's shape (B2)
+    kernels.append(entry("rank_delta_select_heads_64x100000x16", SOURCE,
+                         ALSO_REPLACES["select"], launches["select"],
+                         errs["select"], heads_times["select"]))
+    kernels[-1]["fleet_launches"] = fleet_heads_launches
+    qwen, rwkv = lm_runs["flash_attention"], lm_runs["wkv6"]
+    runs = {"flash_attention": (qwen["launches"]["flash_attention_tc"],
+                                qwen["times"]),
+            "flash_attention_scalar": (
+                qwen["launches"]["flash_attention_scalar"],
+                qwen["times"]["scalar"]),
+            "wkv6": (rwkv["launches"]["wkv6"], rwkv["times"])}
     for name, spec in LM_KERNELS.items():
-        run, r = lm_runs[name], lm_runs[name]["times"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": run["launches"],
-            "max_abs_err": lm_errs[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+        n_launches, r = runs[name]
+        kernels.append(entry(name, spec["source"], spec["replaces"],
+                             n_launches, lm_errs[name], r))
         if "decode_ms" in r:
             kernels[-1].update(decode_ms=r["decode_ms"],
                                decode_bound_ms=r["decode_bound"][0])

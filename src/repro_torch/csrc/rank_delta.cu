@@ -23,6 +23,32 @@
 // unchanged.  The row minima are order-free and so bitwise equal to any
 // other exact evaluation; only the order of the member sums differs from
 // the reference, which its float32 tolerance envelope covers.
+//
+// The k-head (select) replaces jax.lax.top_k in the reference fleet's
+// top_k (repro/selector/rank.py:1218) and the Pallas kernel's in-kernel
+// top-k tail (repro/kernels/rank_delta.py:157).  For each row it returns
+// the k lowest (masked score, column) pairs in lexicographic order, k
+// distinct columns, unprofiled (non-finite) columns as +inf in catalog
+// order.  What bounds it: memory, 5 bytes a cell read once (1 x 10,000:
+// 0.015 us; 16 x 100,000: 2.4 us), so launch latency, the number of SMs
+// at work and the length of each warp's dependent chain of shuffles
+// decide its time.  The design, for k <= kSelectCap (64):
+//   - Each candidate is one 64-bit key: the score's order-preserving bits
+//     (-0.0 first made +0.0, which lex_less ties with it; non-finite
+//     +inf) over the column.  Lexicographic order is one integer compare,
+//     and keys are distinct because columns are.
+//   - Stage 1: a grid of (chunks of 2,048 columns) x rows.  Each warp
+//     reads 256 columns once (float4 scores and uchar4 flags where C is
+//     a multiple of 4) and sorts their keys with a bitonic network, 8 a
+//     lane: fixed work, no data-dependent chain.  Its best 32 or 64 keys
+//     merge with the other warps' in a tree (the minimum of one list and
+//     the other reversed is bitonic; a bitonic merge sorts it), and the
+//     chunk's k best go to scratch.
+//   - Stage 2, a second launch: one block per row merges its chunks'
+//     lists the same way and unpacks the k-head, reading each value back
+//     from the row.
+// At 1 x 10,000 that is 5 + 1 blocks; at 16 x 100,000, 784 + 16.  k above
+// the cap keeps the k-round kernel (select_kernel), chosen by k alone.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -149,10 +175,11 @@ __device__ __forceinline__ bool lex_less(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
 }
 
-// The k-head: one block per member row, k rounds of a block-wide
-// lexicographic argmin over (masked score, column).  Taken columns are
-// kept in a shared-memory bitmap, so a head is always k distinct configs
-// even when a member has fewer than k profiled ones.
+// The k-round k-head, for k above kSelectCap: one block per member row,
+// k rounds of a block-wide lexicographic argmin over (masked score,
+// column).  Taken columns are kept in a shared-memory bitmap, so a head
+// is always k distinct configs even when a member has fewer than k
+// profiled ones.
 __global__ void select_kernel(const float* __restrict__ scores,
                               const uint8_t* __restrict__ finite,
                               float* __restrict__ top_v,
@@ -195,6 +222,202 @@ __global__ void select_kernel(const float* __restrict__ scores,
   }
 }
 
+// --- the two-stage k-head ------------------------------------------------
+
+constexpr int kSelectCap = 64;          // the largest k the two stages serve
+constexpr int kChunkThreads = 256;      // 8 warps a block, both stages
+constexpr int kLaneKeys = 8;            // keys a lane sorts in stage 1
+constexpr int kSelectChunk = kChunkThreads * kLaneKeys;   // 2,048 columns
+constexpr uint64_t kNoKey = ~0ull;      // sorts after every real key
+constexpr unsigned kFull = 0xffffffffu;
+
+// (masked score, column) as one key whose unsigned order is lex_less's.
+__device__ __forceinline__ uint64_t pack_key(float v, bool fin, int c) {
+  uint32_t u;
+  if (!fin) u = 0x7f800000u;                       // +inf
+  else if (v != v) u = 0x7fc00000u;                // NaN after +inf
+  else u = __float_as_uint(v == 0.0f ? 0.0f : v);  // -0.0 ties +0.0
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((uint64_t)u << 32) | (uint32_t)c;
+}
+
+// Warp-wide bitonic networks over 64-bit keys held M to a lane: the key
+// in e[r] of lane l has index r * 32 + l.  min/max of one compare-swap
+// go to the lower/upper index of an ascending pair.
+template <int M>
+__device__ __forceinline__ void cswap(uint64_t (&e)[M], int d, int size,
+                                      int lane) {
+  if (d >= 32) {                       // both keys in this lane
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const int p = r ^ (d / 32);
+      if (p > r) {
+        const bool up = ((r * 32 + lane) & size) == 0;
+        const uint64_t lo = e[r] < e[p] ? e[r] : e[p];
+        const uint64_t hi = e[r] < e[p] ? e[p] : e[r];
+        e[r] = up ? lo : hi;
+        e[p] = up ? hi : lo;
+      }
+    }
+  } else {                             // the partner is lane ^ d
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const uint64_t o = __shfl_xor_sync(kFull, e[r], d);
+      const bool up = ((r * 32 + lane) & size) == 0;
+      const bool lower = (lane & d) == 0;
+      e[r] = (lower == up) ? (e[r] < o ? e[r] : o) : (e[r] < o ? o : e[r]);
+    }
+  }
+}
+
+// Sort the warp's 32 M keys ascending.
+template <int M>
+__device__ __forceinline__ void warp_sort(uint64_t (&e)[M], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * M; size *= 2)
+#pragma unroll
+    for (int d = size / 2; d > 0; d /= 2) cswap<M>(e, d, size, lane);
+}
+
+// e and f ascending lists of 32 R keys: e becomes the 32 R smallest of
+// both, ascending (the minimum of e and f reversed is bitonic; a bitonic
+// merge sorts it).
+template <int R>
+__device__ __forceinline__ void warp_merge(uint64_t (&e)[R],
+                                           const uint64_t (&f)[R], int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint64_t fr = __shfl_sync(kFull, f[R - 1 - r], 31 - lane);
+    e[r] = e[r] < fr ? e[r] : fr;
+  }
+#pragma unroll
+  for (int d = 16 * R; d > 0; d /= 2) cswap<R>(e, d, 64 * R, lane);
+}
+
+// The block's 8 warp lists (32 R keys each, ascending) merged in a tree
+// through shared memory; warp 0's e ends with the block's best.
+template <int R>
+__device__ __forceinline__ void block_merge(uint64_t (&e)[R],
+                                            uint64_t (*lists)[32 * R],
+                                            int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) lists[warp][r * 32 + lane] = e[r];
+  __syncthreads();
+#pragma unroll
+  for (int half = kChunkThreads / kWarp / 2; half > 0; half /= 2) {
+    if (warp < half) {
+      uint64_t f[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) f[r] = lists[warp + half][r * 32 + lane];
+      warp_merge<R>(e, f, lane);
+#pragma unroll
+      for (int r = 0; r < R; ++r) lists[warp][r * 32 + lane] = e[r];
+    }
+    __syncthreads();
+  }
+}
+
+// Stage 1: block (chunk, row) writes the k best keys of its kSelectChunk
+// columns to part[row][chunk][:k].  Each warp sorts 256 of them, 8 a
+// lane, read once (float4 scores and uchar4 flags where ``vec``: C a
+// multiple of 4, aligned bases), and keeps its 32 R best.
+template <int R>
+__global__ void __launch_bounds__(kChunkThreads)
+select_chunk_kernel(const float* __restrict__ scores,
+                    const uint8_t* __restrict__ finite,
+                    uint64_t* __restrict__ part, int C, int k, int vec) {
+  __shared__ uint64_t lists[kChunkThreads / kWarp][32 * R];
+  const int s = blockIdx.y, chunk = blockIdx.x;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int c0 = chunk * kSelectChunk + warp * 32 * kLaneKeys;
+  const size_t row = (size_t)s * C;
+  uint64_t e[kLaneKeys];
+  if (vec) {
+    const float4* sv = reinterpret_cast<const float4*>(scores + row);
+    const uchar4* fv = reinterpret_cast<const uchar4*>(finite + row);
+#pragma unroll
+    for (int j = 0; j < kLaneKeys / 4; ++j) {
+      const int c = c0 + 128 * j + 4 * lane;
+      if (c < C) {
+        const float4 v = sv[c / 4];
+        const uchar4 f = fv[c / 4];
+        e[4 * j] = pack_key(v.x, f.x, c);
+        e[4 * j + 1] = pack_key(v.y, f.y, c + 1);
+        e[4 * j + 2] = pack_key(v.z, f.z, c + 2);
+        e[4 * j + 3] = pack_key(v.w, f.w, c + 3);
+      } else {
+        e[4 * j] = e[4 * j + 1] = e[4 * j + 2] = e[4 * j + 3] = kNoKey;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kLaneKeys; ++j) {
+      const int c = c0 + 32 * j + lane;
+      e[j] = c < C ? pack_key(scores[row + c], finite[row + c], c) : kNoKey;
+    }
+  }
+  warp_sort<kLaneKeys>(e, lane);
+  uint64_t best[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) best[r] = e[r];
+  block_merge<R>(best, lists, warp, lane);
+  if (warp != 0) return;
+  uint64_t* out = part + ((size_t)s * gridDim.x + chunk) * k;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r * 32 + lane < k) out[r * 32 + lane] = best[r];
+}
+
+// Stage 2: one block per row; warp w merges the lists of chunks w, w + 8,
+// ..., the block merges the warps', and warp 0 unpacks the k-head.
+template <int R>
+__global__ void __launch_bounds__(kChunkThreads)
+select_merge_kernel(const float* __restrict__ scores,
+                    const uint8_t* __restrict__ finite,
+                    const uint64_t* __restrict__ part,
+                    float* __restrict__ top_v, int* __restrict__ top_i, int C,
+                    int k, int nchunks) {
+  __shared__ uint64_t lists[kChunkThreads / kWarp][32 * R];
+  const int s = blockIdx.x;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  uint64_t e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) e[r] = kNoKey;
+  for (int c = warp; c < nchunks; c += kChunkThreads / kWarp) {
+    const uint64_t* p = part + ((size_t)s * nchunks + c) * k;
+    uint64_t f[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      f[r] = r * 32 + lane < k ? p[r * 32 + lane] : kNoKey;
+    warp_merge<R>(e, f, lane);
+  }
+  block_merge<R>(e, lists, warp, lane);
+  if (warp != 0) return;
+  const size_t row = (size_t)s * C;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int idx = r * 32 + lane;
+    if (idx < k) {
+      const int c = (int)(uint32_t)e[r];   // a row holds k columns
+      top_i[(size_t)s * k + idx] = c;
+      top_v[(size_t)s * k + idx] = finite[row + c] ? scores[row + c]
+                                                   : CUDART_INF_F;
+    }
+  }
+}
+
+template <int R>
+int select_two_stage(const float* scores, const uint8_t* finite,
+                     float* top_v, int* top_i, uint64_t* part, int S, int C,
+                     int k, int vec, cudaStream_t stream) {
+  const int nchunks = (C + kSelectChunk - 1) / kSelectChunk;
+  select_chunk_kernel<R><<<dim3(nchunks, S), kChunkThreads, 0, stream>>>(
+      scores, finite, part, C, k, vec);
+  select_merge_kernel<R><<<S, kChunkThreads, 0, stream>>>(
+      scores, finite, part, top_v, top_i, C, k, nchunks);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -223,9 +446,10 @@ int rank_delta_fold(const float* hours, const uint8_t* mask,
   return (int)cudaGetLastError();
 }
 
-int rank_delta_select(const float* scores, const uint8_t* finite,
-                      float* top_v, int* top_i, int S, int C, int k,
-                      void* stream) {
+// The k-round kernel (any k in [1, C]).
+int rank_delta_select_rounds(const float* scores, const uint8_t* finite,
+                             float* top_v, int* top_i, int S, int C, int k,
+                             void* stream) {
   const size_t smem = sizeof(uint32_t) * (size_t)((C + 31) / 32);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -237,6 +461,24 @@ int rank_delta_select(const float* scores, const uint8_t* finite,
     select_kernel<<<S, kSelectThreads, smem, (cudaStream_t)stream>>>(
         scores, finite, top_v, top_i, C, k);
   return (int)cudaGetLastError();
+}
+
+// The two-stage kernels, k in [1, min(C, 64)]: part is scratch for S x
+// ceil(C / cols) x k keys, and cols must be the kernels' chunk (2,048);
+// vec != 0 only where C % 4 == 0 and scores and finite start 16- and
+// 4-byte aligned.
+int rank_delta_select(const float* scores, const uint8_t* finite,
+                      float* top_v, int* top_i, uint64_t* part, int S, int C,
+                      int k, int cols, int vec, void* stream) {
+  if (S <= 0) return (int)cudaGetLastError();
+  if (k < 1 || k > kSelectCap || k > C || cols != kSelectChunk)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 32)
+    return select_two_stage<1>(scores, finite, top_v, top_i, part, S, C, k,
+                               vec, st);
+  return select_two_stage<2>(scores, finite, top_v, top_i, part, S, C, k,
+                             vec, st);
 }
 
 }  // extern "C"

@@ -5,14 +5,21 @@ Counterpart of the reference's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (body
 ``_kernel``).  ``q`` is ``(B, Tq, H, D)``, ``k`` and ``v`` are ``(B, Tk, G,
 D)`` with ``H = G * R``; query head ``h`` reads KV head ``h // R``.  The
-kernel lives in ``csrc/flash_attention.cu`` (see its header for the work
-split, the masking and what bounds it on the card).
+kernels live in ``csrc/flash_attention.cu`` (see its header for the work
+split, the masking and what bounds them on the card).  Two variants, chosen
+by :func:`variant` from the dtype and the head size alone:
+
+* ``tc`` — ``flash_fwd_sm90``, on the tensor cores (wgmma fed by TMA), for
+  bf16 at ``D`` in :data:`TC_HEAD_DIMS`;
+* ``scalar`` — ``flash_fwd_kernel``, scalar fp32 FMAs, for fp32 at every
+  ``D`` and for bf16 at ``D = 80`` (160-byte rows fit no swizzle width).
 
 :func:`attention_ref` is the plain PyTorch version, the counterpart of the
 reference's oracle ``repro.kernels.ref.attention_ref``.
 :func:`flash_attention` takes it for tensors on the CPU; for CUDA tensors
-it launches the kernel or raises, and never falls back.  :data:`LAUNCHES`
-counts kernel launches and nothing else.
+it launches a kernel or raises, and never falls back.  :data:`LAUNCHES`
+counts kernel launches and nothing else: ``flash_attention`` is the total,
+``flash_attention_tc`` and ``flash_attention_scalar`` each variant.
 """
 from __future__ import annotations
 
@@ -24,15 +31,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "attention_ref", "flash_attention",
-           "reset_launches"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "TC_HEAD_DIMS", "attention_ref",
+           "flash_attention", "reset_launches", "variant"]
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
+                             "flash_attention_scalar": 0}
 #: the head sizes the kernel is built for: every attention config of the
 #: repository up to 128 (the reduced configs' 16, stablelm's 80) and the
 #: reference kernel tests' 32 and 64
 HEAD_DIMS = (16, 32, 64, 80, 128)
+#: the bf16 head sizes the tensor-core kernel takes: rows of 32, 64, 128
+#: or 2 x 128 bytes, one swizzle width each
+TC_HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"
@@ -41,6 +52,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P],
+    "flash_attention_fwd_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, ctypes.c_float, _P],
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,6 +61,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def variant(dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call runs: ``"tc"`` for bf16 at ``D`` in
+    :data:`TC_HEAD_DIMS`, else ``"scalar"``."""
+    return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS \
+        else "scalar"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -95,7 +115,11 @@ def _check(q, k, v, window) -> None:
                          f"got {window!r}")
 
 
-def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, window: Optional[int],
+            kind: Optional[str] = None) -> torch.Tensor:
+    """Launch ``kind`` (default: :func:`variant`'s choice) on CUDA
+    tensors; ``"scalar"`` takes every dtype and head size it is built
+    for, ``"tc"`` only what :func:`variant` routes to it."""
     B, Tq, H, D = q.shape
     Tk, G = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODES:
@@ -108,14 +132,30 @@ def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if min(B, Tq, Tk) < 1:
         raise ValueError("empty batch or sequence")
+    kind = kind or variant(q.dtype, D)
     o = torch.empty_like(q)
     lib = _build.load(_SOURCE, _SIGNATURES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Tq, Tk,
-        H, G, D, int(causal), window or 0, 1.0 / math.sqrt(D),
-        _DTYPE_CODES[q.dtype], stream), "flash_attention_fwd")
+    stream = _build.current_stream(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Tq,
+            Tk, H, G, D, int(causal), window or 0, 1.0 / math.sqrt(D))
+    if kind == "tc":
+        if variant(q.dtype, D) != "tc":
+            raise ValueError(f"the tensor-core kernel takes bf16 at head "
+                             f"sizes {TC_HEAD_DIMS}, got {q.dtype} at {D}")
+        # the tensor maps' rule: 16-byte aligned bases (row strides of 2D
+        # bytes are multiples of 16 at every such D)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
+        _build.check(lib.flash_attention_fwd_sm90(*args, stream),
+                     "flash_attention_fwd_sm90")
+    elif kind == "scalar":
+        _build.check(lib.flash_attention_fwd(*args, _DTYPE_CODES[q.dtype],
+                                             stream), "flash_attention_fwd")
+    else:
+        raise ValueError(f"unknown kernel variant {kind!r}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{kind}"] += 1
     return o
 
 
@@ -124,8 +164,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` (the reference's argument order,
     without its TPU block sizes): ``(B, Tq, H, D)`` in ``q``'s dtype.
-    CUDA tensors run the kernel (bf16 or fp32, contiguous, ``D`` in
-    :data:`HEAD_DIMS`); CPU tensors the plain version."""
+    CUDA tensors run a kernel (bf16 or fp32, contiguous, ``D`` in
+    :data:`HEAD_DIMS`; the variant :func:`variant` names); CPU tensors the
+    plain version."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)

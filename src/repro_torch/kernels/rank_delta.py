@@ -12,8 +12,11 @@ shared (J x C) universe:
   norm_old)``; changed columns take ``P``, the others ``scores + D``
   (kernel ``fold``);
 * **heads** — optionally every member's k best ``(index, value)`` in
-  (score, catalog order), always k *distinct* configs (kernel
-  ``select``).
+  (score, catalog order), always k *distinct* configs: for k up to
+  :data:`SELECT_CAP` one pass over the row in two stages (kernel
+  ``select``: per-chunk heads of :data:`SELECT_CHUNK` columns, then a
+  merge; two launches on the stream, one count), above it k rounds of a
+  block-wide argmin (kernel ``select_rounds``), chosen by k alone.
 
 The kernels live in ``csrc/rank_delta.cu`` (see its header for what
 bounds them on the card and why the arithmetic is exact).  Each public
@@ -35,12 +38,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "fold_plain", "fused_reprice", "fused_reprice_heads",
-           "fused_reprice_plain", "reset_launches", "rowmin_plain",
-           "select_heads", "select_heads_plain"]
+__all__ = ["LAUNCHES", "SELECT_CAP", "SELECT_CHUNK", "fold_plain",
+           "fused_reprice", "fused_reprice_heads", "fused_reprice_plain",
+           "reset_launches", "rowmin_plain", "select_heads",
+           "select_heads_plain"]
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
-LAUNCHES: Dict[str, int] = {"rowmin": 0, "fold": 0, "select": 0}
+LAUNCHES: Dict[str, int] = {"rowmin": 0, "fold": 0, "select": 0,
+                             "select_rounds": 0}
+#: the largest k the two-stage ``select`` serves (``kSelectCap`` in
+#: ``csrc/rank_delta.cu``); larger k take ``select_rounds``
+SELECT_CAP = 64
+#: columns a stage-1 block of ``select`` reads (``kSelectChunk``)
+SELECT_CHUNK = 2048
 
 _SOURCE = "rank_delta"
 _P = ctypes.c_void_p
@@ -48,7 +58,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "rank_delta_rowmin": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rank_delta_fold": [_P] * 10 + [_I, _I, _I, _P],
-    "rank_delta_select": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rank_delta_select": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rank_delta_select_rounds": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -154,7 +165,7 @@ def _check_k(k: int, C: int) -> int:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _build.current_stream(t)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -204,12 +215,33 @@ def _launch_tick(hours, mask, old_prices, new_prices, changed, row_best,
 
 
 def _launch_select(scores, finite, k):
+    """The k-head on the card: the two-stage ``select`` for k up to
+    :data:`SELECT_CAP`, else ``select_rounds``."""
     S, C = scores.shape
-    top_i = torch.empty((S, k), dtype=torch.int32, device=scores.device)
-    top_v = torch.empty((S, k), dtype=torch.float32, device=scores.device)
+    dev = scores.device
+    if k > SELECT_CAP:
+        top_i = torch.empty((S, k), dtype=torch.int32, device=dev)
+        top_v = torch.empty((S, k), dtype=torch.float32, device=dev)
+        _build.check(_lib().rank_delta_select_rounds(
+            scores.data_ptr(), finite.data_ptr(), top_v.data_ptr(),
+            top_i.data_ptr(), S, C, k, _stream(scores)),
+            "rank_delta_select_rounds")
+        LAUNCHES["select_rounds"] += 1
+        return top_i, top_v
+    # one allocation (at one row the call is bound by the host's work):
+    # top_i, top_v, then the stage-1 keys, 8-byte aligned
+    chunks = -(-C // SELECT_CHUNK)
+    buf = torch.empty((2 + 2 * chunks, S, k), dtype=torch.int32, device=dev)
+    top_i, top_v = buf[0], buf[1].view(torch.float32)
+    # vector loads where every row starts 16 (scores) and 4 (flags) bytes
+    # aligned: a shape and address rule, decided before the launch
+    vec = C % 4 == 0 and scores.data_ptr() % 16 == 0 \
+        and finite.data_ptr() % 4 == 0
+    base = buf.data_ptr()
     _build.check(_lib().rank_delta_select(
-        scores.data_ptr(), finite.data_ptr(), top_v.data_ptr(),
-        top_i.data_ptr(), S, C, k, _stream(scores)), "rank_delta_select")
+        scores.data_ptr(), finite.data_ptr(), base + 4 * S * k, base,
+        base + 8 * S * k, S, C, k, SELECT_CHUNK, int(vec), _stream(scores)),
+        "rank_delta_select")
     LAUNCHES["select"] += 1
     return top_i, top_v
 
@@ -232,7 +264,8 @@ def fused_reprice(hours, mask, old_prices, new_prices, changed, row_best,
 def select_heads(scores, finite, k: int):
     """Every row's k-head ``(indices (S, k) int32, values (S, k))`` in
     (score, catalog order) over the ``inf``-masked scores.  CUDA tensors
-    run the ``select`` kernel; CPU tensors the plain stable sort."""
+    run the ``select`` kernels (``select_rounds`` above
+    :data:`SELECT_CAP`); CPU tensors the plain stable sort."""
     if not isinstance(scores, torch.Tensor) or scores.dim() != 2:
         raise ValueError("scores must be an (S, C) tensor")
     S, C = scores.shape

@@ -97,7 +97,7 @@ def _launch(r, k, v, w, u, s0):
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     lib = _build.load(_SOURCE, _SIGNATURES)
-    stream = torch.cuda.current_stream(r.device).cuda_stream
+    stream = _build.current_stream(r)
     _build.check(lib.wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, T, H,

@@ -72,7 +72,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
     before = dict(rd.LAUNCHES)
     s, rb, mv, ti, tv = rd.fused_reprice_heads(*t, fin, k=10)
     assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
-        {"rowmin": 1, "fold": 1, "select": 1}
+        {"rowmin": 1, "fold": 1, "select": 1, "select_rounds": 0}
     rb_p, mv_p = rd.rowmin_plain(t[0], t[1], t[3], t[5])
     assert torch.equal(rb, rb_p) and int(mv) == int(mv_p)
     s_p = rd.fold_plain(*t[:6], rb, t[6], t[7])
@@ -97,6 +97,59 @@ def test_cuda_select_distinct_when_k_exceeds_finite(cuda_device):
     assert ti.tolist() == [[1, 4, 0, 2, 3, 5]]
     assert tv[0, :2].tolist() == [1.0, 1.0]
     assert torch.isinf(tv[0, 2:]).all()
+
+
+def _select_inputs(device, S, C, seed, p_finite=0.8):
+    rng = np.random.default_rng(seed)
+    scores = rng.uniform(0.0, 10.0, (S, C)).astype(np.float32)
+    finite = rng.random((S, C)) < p_finite
+    return (torch.from_numpy(scores).to(device),
+            torch.from_numpy(finite).to(device))
+
+
+def _assert_select_exact(scores, finite, k, kernel="select"):
+    """The card's k-head equals the plain stable sort in indices and
+    values (bit for bit), through the kernel that ``k`` names."""
+    before = dict(rd.LAUNCHES)
+    ti, tv = rd.select_heads(scores, finite, k)
+    torch.cuda.synchronize()
+    assert {n: rd.LAUNCHES[n] - before[n] for n in ("select",
+                                                   "select_rounds")} == \
+        {"select": int(kernel == "select"),
+         "select_rounds": int(kernel == "select_rounds")}
+    pi, pv = rd.select_heads_plain(scores, finite, k)
+    assert torch.equal(ti, pi)
+    assert torch.equal(tv.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("S, C, k", [(1, 10_000, 1), (1, 10_000, 10),
+                                     (16, 100_000, 10), (5, 4_097, 10),
+                                     (3, 777, 33), (2, 20, 20)],
+                         ids=str)
+def test_cuda_select_matches_stable_sort(cuda_device, S, C, k):
+    """The two-stage ``select`` at the service's row (1 x 10k), the fleet
+    heads (16 x 100k), C not a multiple of the chunk nor of 4, k over a
+    warp's 32 slots, and k = C."""
+    _assert_select_exact(*_select_inputs(cuda_device, S, C, seed=C + k), k)
+
+
+def test_cuda_select_edge_rows(cuda_device):
+    """A wholly unprofiled row (catalog order), k above a row's finite
+    count, ties in catalog order, -0.0 against +0.0 (one score), and k at
+    the two-stage cap and one above it (the k-round kernel)."""
+    scores, finite = _select_inputs(cuda_device, 4, 9_000, seed=1)
+    finite[1] = False                       # wholly unprofiled
+    finite[2] = False
+    finite[2, [17, 4_500, 8_999]] = True    # 3 finite, k = 10
+    scores[3] = 2.0
+    scores[3, :100:3] = -0.0                # 100 tied signed zeros first
+    scores[3, 1:100:3] = 0.0
+    scores[3, 2:100:3] = -0.0
+    _assert_select_exact(scores, finite, 10)
+    ties, fin = _select_inputs(cuda_device, 3, 30_000, seed=2)
+    ties = torch.floor(ties / 4)            # three distinct scores
+    _assert_select_exact(ties, fin, rd.SELECT_CAP)
+    _assert_select_exact(ties, fin, rd.SELECT_CAP + 1, "select_rounds")
 
 
 def _fleet(device, seed=5, J=21, C=700, n_members=6):
@@ -154,8 +207,8 @@ def test_cuda_fleet_matches_cpu_fleet_and_cold_rank(cuda_device):
 
 def test_cuda_service_serves_through_the_kernels(cuda_device):
     """A ``torch_fused`` service on the card: submissions before and after
-    a tick launch every kernel and agree with a numpy service under the
-    contract."""
+    a tick launch every kernel of the path and agree with a numpy service
+    under the contract."""
     rng = np.random.default_rng(2)
     ids = [f"c{i}" for i in range(300)]
     quotes = {c: float(p) for c, p in zip(ids, rng.uniform(1, 20, 300))}
@@ -183,14 +236,18 @@ def test_cuda_service_serves_through_the_kernels(cuda_device):
                   rng.choice(300, 9, replace=False)}
         gpu.reprice(deltas)
         ref.reprice(deltas)
-    assert all(n > 0 for n in rd.LAUNCHES.values()), rd.LAUNCHES
+    # every kernel of the path; the k-round select serves only k > 64
+    assert all(rd.LAUNCHES[n] > 0 for n in ("rowmin", "fold", "select")) \
+        and rd.LAUNCHES["select_rounds"] == 0, rd.LAUNCHES
     assert gpu.reprice_dispatches == 3
 
 
 # --- the LM kernels -----------------------------------------------------------
 
 #: (B, T, H, G, D, causal, window): GQA, MQA, bidirectional, windowed,
-#: ragged T, every head size the kernel is built for
+#: ragged T (12, 100, 130, 1000: no multiple of the 128-row tile), every
+#: head size the kernels are built for, and the qwen3-1.7b prefill's
+#: shape
 ATTN_CASES = [
     (2, 128, 4, 2, 64, True, None),
     (2, 64, 8, 1, 32, True, None),
@@ -199,6 +256,9 @@ ATTN_CASES = [
     (2, 12, 16, 8, 128, True, None),
     (1, 100, 4, 2, 80, True, 16),
     (1, 130, 2, 1, 128, False, None),
+    (1, 100, 4, 1, 64, True, None),
+    (1, 1000, 4, 2, 128, True, 300),
+    (4, 1024, 16, 8, 128, True, None),
 ]
 
 
@@ -206,23 +266,50 @@ ATTN_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
-    """The kernel against its plain version on the same card tensors
-    (fp32 atol 2e-5, bf16 atol 2e-2, rtol 1e-2), one launch per call."""
+    """The kernel :func:`fa.variant` names against the plain version on
+    the same card tensors (fp32 atol 2e-5, bf16 atol 2e-2, rtol 1e-2):
+    the tensor-core kernel for bf16 at D != 80, the scalar one otherwise;
+    one launch per call, counted in the total and its variant."""
     B, T, H, G, D, causal, window = case
     gen = torch.Generator(device=cuda_device).manual_seed(sum(case[:5]))
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
                            ).to(dtype)
                for shape in ((B, T, H, D), (B, T, G, D), (B, T, G, D)))
-    before = fa.LAUNCHES["flash_attention"]
+    kind = fa.variant(dtype, D)
+    assert kind == ("tc" if dtype == torch.bfloat16 and D != 80
+                    else "scalar")
+    before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_attention": 1, "flash_attention_tc": int(kind == "tc"),
+        "flash_attention_scalar": int(kind == "scalar")}
     want = fa.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
                                rtol=1e-2)
+
+
+def test_cuda_flash_attention_scalar_kernel_on_bf16(cuda_device):
+    """The scalar kernel still takes bf16 at every head size (the path
+    D = 80 runs on): at the qwen3-1.7b prefill shape it agrees with the
+    plain version and with the tensor-core kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
+                           ).to(torch.bfloat16)
+               for shape in ((2, 300, 16, 128), (2, 300, 8, 128),
+                             (2, 300, 8, 128)))
+    scalar = fa._launch(q, k, v, True, None, "scalar")
+    tc = fa._launch(q, k, v, True, None, "tc")
+    want = fa.attention_ref(q, k, v, causal=True)
+    for got in (scalar, tc):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=2e-2,
+                                   rtol=1e-2)
+    with pytest.raises(ValueError, match="tensor-core"):
+        fa._launch(q.float(), k.float(), v.float(), True, None, "tc")
 
 
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
@@ -308,8 +395,9 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name):
                        for i, p in enumerate(prompts)])
     assert sorted(c.uid for c in comps) == [0, 1, 2]
     assert eng.prefills == 2 and eng.decode_steps == 6
-    if name == "qwen3-1.7b":
+    if name == "qwen3-1.7b":       # fp32: the scalar kernel
         assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * 2
+        assert fa.LAUNCHES["flash_attention_scalar"] == cfg.num_layers * 2
         assert wk.LAUNCHES["wkv6"] == 0
     else:
         assert wk.LAUNCHES["wkv6"] == cfg.num_layers * (2 + 6)

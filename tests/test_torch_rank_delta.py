@@ -198,6 +198,21 @@ def test_select_heads_plain_ties_and_unprofiled_order():
     assert torch.isinf(tv[0, 4:]).all()
 
 
+def test_select_heads_plain_ties_signed_zeros_in_catalog_order():
+    """-0.0 and +0.0 are one score (the kernel's packed keys canonicalise
+    -0.0 for that): they tie and resolve in catalog order, whichever sign
+    comes first, and each head keeps its own column's value."""
+    scores = torch.tensor([[0.0, -0.0, 2.0, -0.0, 0.0, -1.0],
+                           [-0.0, 0.0, -0.0, 0.0, 5.0, 1.0]])
+    finite = torch.tensor([[True, True, True, True, True, True],
+                           [True, True, False, True, True, True]])
+    ti, tv = rd.select_heads(scores, finite, 5)
+    assert ti.tolist() == [[5, 0, 1, 3, 4], [0, 1, 3, 5, 4]]
+    assert torch.signbit(tv[0, 2]) and not torch.signbit(tv[0, 1])
+    assert torch.equal(tv, scores.gather(1, ti.long()).where(
+        finite.gather(1, ti.long()), torch.tensor(float("inf"))))
+
+
 def test_wrappers_validate_inputs():
     t = list(_torch(*_universe(4)))
     fin = torch.ones_like(t[7], dtype=torch.bool)
@@ -234,4 +249,5 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     rd.fused_reprice(*u)
     rd.fused_reprice_heads(*u, fin, k=3)
     rd.select_heads(u[7], fin, 3)
-    assert rd.LAUNCHES == {"rowmin": 0, "fold": 0, "select": 0}
+    assert rd.LAUNCHES == {"rowmin": 0, "fold": 0, "select": 0,
+                           "select_rounds": 0}
