@@ -29,8 +29,9 @@ Phases:
 5. hold both flash-attention kernels and the WKV6 kernel against their
    plain versions: the tensor-core kernel (bf16) and the scalar one
    (fp32, and bf16 at D = 80); causal, windowed and bidirectional; GQA
-   and MQA; ragged T; head sizes 16 to 128; a decode step, ragged T and a
-   two-call state carry for WKV6;
+   and MQA; ragged T; head sizes 16 to 128; for WKV6 a decode step,
+   ragged T, one step past the split kernel's chunk, RWKV-6's strong
+   decays (w = exp(-exp(x)), x in [-8, 2]) and a two-call state carry;
 6. plan the decode fleet's mesh through the port's selection service from
    a hand-made dry-run report;
 7. serve ``qwen3-1.7b`` and then ``rwkv6-3b`` at full width (random bf16
@@ -44,8 +45,9 @@ Phases:
    + decode against ``forward`` at full width, 4 layers, fp32 (the
    scalar attention kernel); and the kernels at the shapes the path gave
    them, against their plain versions and timed beside their bounds, the
-   kernel they replaced (the scalar attention kernel, bf16) and, for
-   attention, ``scaled_dot_product_attention``;
+   kernel they replaced (the scalar attention kernel, bf16; the sequential
+   WKV6 kernel) and, for attention, ``scaled_dot_product_attention``; for
+   WKV6 also the decode step back to back and from a CUDA graph;
 8. last, the profiled phases: a second 1,000-event daemon on phase 4's
    service under ``torch.profiler`` (the card's busy share), then each
    model's first-wave prefill and 8 decode steps (device time by kernel,
@@ -56,11 +58,14 @@ The last three lines are the ``{"kernels": [...]}`` record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  In the
 record, ``earlier_ms`` is the time, on the same inputs in the same run,
 of the kernel the entry's function ran on before this kernel (the k-round
-``select``, the scalar attention kernel in bf16); null where the kernel
-is the one that was there.  ``select``'s entries add ``device_ms`` and
-``library_device_ms``: the same calls replayed from a CUDA graph, the
-card's time without the host's.  Without a
-CUDA device the script exits non-zero before printing any result.  It
+``select``, the scalar attention kernel in bf16, the sequential WKV6
+kernel); null where the kernel is the one that was there.  ``select``'s
+entries add ``device_ms`` and ``library_device_ms``: the same calls
+replayed from a CUDA graph, the card's time without the host's.
+``wkv6`` adds the decode step's times (``decode_ms`` back to back,
+``decode_graph_ms`` from a CUDA graph, ``decode_earlier_ms`` and
+``decode_earlier_graph_ms`` the sequential kernel) and its bound.  Without a CUDA device the script exits
+non-zero before printing any result.  It
 imports ``torch``, ``numpy``, the standard library and the port
 (``src/repro_torch``), nothing else.
 """
@@ -686,9 +691,13 @@ ATTN_CASES = [
     (1, 100, 4, 1, 64, True, None),
     (1, 1000, 4, 2, 128, True, 300),
 ]
-#: (B, T, H, N): a decode step, ragged T, both model head sizes
+#: (B, T, H, N): a decode step, ragged T, both model head sizes, and one
+#: step past the split kernel's 16-step chunk
 WKV_CASES = [(2, 1, 3, 64), (4, 1, 40, 64), (1, 37, 2, 64), (2, 100, 2, 16),
-             (1, 64, 4, 32)]
+             (1, 64, 4, 32), (2, 17, 3, 64)]
+#: (B, T, H, N) with RWKV-6's own decay range, w = exp(-exp(x)) for x
+#: uniform in [-8, 2] (w from about 6e-4 to just below 1)
+WKV_STRONG_CASES = [(2, 17, 3, 64), (1, 1025, 2, 64), (2, 50, 2, 16)]
 #: the end-to-end bound on kernel vs plain prefill logits in bf16 (relative
 #: L2; the reason is at its check in ``phase_serve``)
 REL_L2_TOL = 0.1
@@ -729,12 +738,16 @@ def attn_inputs(torch, B, T, H, G, D, dtype, seed, dev="cuda"):
 
 
 def wkv_inputs(torch, B, T, H, N, dtype, seed, random_state=True,
-               dev="cuda"):
+               dev="cuda", strong=False):
     gen = torch.Generator(device=dev).manual_seed(seed)
     r, k, v = (torch.randn((B, T, H, N), generator=gen, device=dev
                            ).to(dtype) for _ in range(3))
-    w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
-                                  device=dev)) * 0.5 + 0.45
+    if strong:      # RWKV-6's decay: w = exp(-exp(x)), x in [-8, 2]
+        x = torch.rand((B, T, H, N), generator=gen, device=dev) * 10 - 8
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
+                                      device=dev)) * 0.5 + 0.45
     u = torch.randn((H, N), generator=gen, device=dev) * 0.5
     s0 = torch.randn((B, H, N, N), generator=gen, device=dev) \
         * float(random_state)
@@ -766,8 +779,14 @@ def check_attention(torch, q, k, v, causal, window, label, errs=None):
 
 
 def check_wkv(torch, args, label, errs=None):
+    """The split kernel (one launch) against the plain version; returns
+    the larger max |err| of y and s_T."""
     from repro_torch.kernels import rwkv6_scan as wk
+    before = dict(wk.LAUNCHES)
     y, sT = wk.wkv6(*args)
+    check({n: wk.LAUNCHES[n] - before[n] for n in before}
+          == {"wkv6": 1, "wkv6_seq": 0},
+          f"{label}: wkv6 did not launch the split kernel once")
     y_p, s_p = wk.wkv6_scan_ref(*args)
     sync(torch, y.device)
     atol, rtol = WKV_TOL
@@ -800,6 +819,13 @@ def phase_lm_parity(torch, dev="cuda"):
             err = check_wkv(torch, args, f"wkv {case} {name}")
             log(f"[lm-parity] wkv6 {name} B,T,H,N={case}: max |err| "
                 f"{err:.3g} ok")
+        for case in WKV_STRONG_CASES:
+            args = wkv_inputs(torch, *case, dtype, sum(case), dev=dev,
+                              strong=True)
+            err = check_wkv(torch, args, f"wkv strong decay {case} {name}")
+            log(f"[lm-parity] wkv6 {name} strong decays (w from "
+                f"{float(args[3].min()):.2g} to {float(args[3].max()):.6f}) "
+                f"B,T,H,N={case}: max |err| {err:.3g} ok")
         # the two-call state carry
         r, k, v, w, u, s0 = wkv_inputs(torch, 1, 64, 2, 64, dtype, 11,
                                        dev=dev)
@@ -972,11 +998,14 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         # every prefill launch the tensor-core kernel
         n = L * eng.prefills
         expect = {"flash_attention": n, "flash_attention_tc": n,
-                  "flash_attention_scalar": 0, "wkv6": 0}
+                  "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
     else:
+        # every model call launches the split kernel, never the
+        # sequential one
         expect = {"flash_attention": 0, "flash_attention_tc": 0,
                   "flash_attention_scalar": 0,
-                  "wkv6": L * (eng.prefills + eng.decode_steps)}
+                  "wkv6": L * (eng.prefills + eng.decode_steps),
+                  "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
           f"expected {expect} for {L} layers")
     hist = metrics.snapshot()["histograms"]
@@ -1161,12 +1190,32 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
         check_wkv(torch, args, f"path shape {(B, T, H, N)}", errs)
         dec = wkv_inputs(torch, B, 1, H, N, dt, seed + 1, dev=dev)
         check_wkv(torch, dec, f"decode shape {(B, 1, H, N)}", errs)
+        # the sequential kernel (the one this path ran before), held
+        # against the plain version on the same inputs before it is timed
+        for label, inputs in (("path", args), ("decode", dec)):
+            got = wk._launch(*inputs, variant="seq")
+            sync(torch, dev)
+            check(all(allclose(torch, a, b, *WKV_TOL)
+                      for a, b in zip(got, wk.wkv6_scan_ref(*inputs))),
+                  f"wkv6: the sequential kernel at the {label} shape "
+                  f"differs from the plain version")
+        del got
+
+        def split(inputs):
+            return lambda: wk.wkv6(*inputs)
+
+        def seq(inputs):
+            return lambda: wk._launch(*inputs, variant="seq")
         r = dict(
-            ms=time_ms(torch, lambda: wk.wkv6(*args), iters=20, warmup=3),
+            ms=time_ms(torch, split(args), iters=20, warmup=3),
+            earlier_ms=time_ms(torch, seq(args), iters=10, warmup=2),
             plain_ms=time_ms(torch, lambda: wk.wkv6_scan_ref(*args),
                              iters=3, warmup=1),
             library_ms=None,
-            decode_ms=time_ms(torch, lambda: wk.wkv6(*dec), iters=200))
+            decode_ms=time_ms(torch, split(dec), iters=200),
+            decode_graph_ms=graph_ms(torch, split(dec)),
+            decode_earlier_ms=time_ms(torch, seq(dec), iters=200),
+            decode_earlier_graph_ms=graph_ms(torch, seq(dec)))
 
         def wkv_bound(steps):
             n_bytes = (3 * 2 + 4 + 4) * B * steps * H * N + 4 * H * N \
@@ -1175,16 +1224,20 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
         r["bound"] = wkv_bound(T)
         r["decode_bound"] = wkv_bound(1)
         what = f"B={B} T={T} H={H} N={N} bf16 r/k/v"
+        del args, dec
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-    earlier = f", scalar kernel {r['earlier_ms']:.4f} ms" \
-        if "earlier_ms" in r else ""
+    earlier = f", {'sequential' if kernel == 'wkv6' else 'scalar'} kernel " \
+        f"{r['earlier_ms']:.4f} ms" if "earlier_ms" in r else ""
     log(f"[time] {kernel}: kernel {r['ms']:.4f} ms{earlier}, plain "
         f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
         f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) at {what}")
     if "decode_ms" in r:
         log(f"[time] {kernel}: decode step (T=1) kernel "
-            f"{r['decode_ms']:.4f} ms, bound {r['decode_bound'][0]:.6f} ms "
-            f"({r['decode_bound'][1]})")
+            f"{r['decode_ms']:.4f} ms back to back, "
+            f"{r['decode_graph_ms']:.5f} ms from a CUDA graph; sequential "
+            f"kernel {r['decode_earlier_ms']:.4f} ms back to back, "
+            f"{r['decode_earlier_graph_ms']:.5f} ms from a CUDA graph; "
+            f"bound {r['decode_bound'][0]:.6f} ms ({r['decode_bound'][1]})")
     return r
 
 
@@ -1293,8 +1346,12 @@ def main() -> int:
         kernels.append(entry(name, spec["source"], spec["replaces"],
                              n_launches, lm_errs[name], r))
         if "decode_ms" in r:
-            kernels[-1].update(decode_ms=r["decode_ms"],
-                               decode_bound_ms=r["decode_bound"][0])
+            kernels[-1].update(
+                decode_ms=r["decode_ms"],
+                decode_graph_ms=r["decode_graph_ms"],
+                decode_earlier_ms=r["decode_earlier_ms"],
+                decode_earlier_graph_ms=r["decode_earlier_graph_ms"],
+                decode_bound_ms=r["decode_bound"][0])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

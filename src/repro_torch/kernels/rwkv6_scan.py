@@ -16,8 +16,14 @@ its header for the work split and what bounds it on the card).
 T in float32, the counterpart of the reference's oracle
 ``repro.models.recurrent.wkv6_scan_ref``.  :func:`wkv6` takes it for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises,
-and never falls back.  :data:`LAUNCHES` counts kernel launches and nothing
-else.
+and never falls back.
+
+Two kernels, both in ``csrc/wkv6_scan.cu``: ``wkv6_split`` (variant
+``"split"``), which :func:`wkv6` launches, and the sequential
+``wkv6_seq`` it replaced (variant ``"seq"``), kept as the yardstick and
+reached only through ``_launch(..., variant="seq")``.  :data:`LAUNCHES`
+counts kernel launches and nothing else: ``wkv6`` every launch of either,
+``wkv6_seq`` the sequential kernel's.
 """
 from __future__ import annotations
 
@@ -28,11 +34,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["HEAD_SIZES", "LAUNCHES", "reset_launches", "wkv6",
+__all__ = ["HEAD_SIZES", "LAUNCHES", "VARIANTS", "reset_launches", "wkv6",
            "wkv6_scan_ref"]
 
-#: kernel launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"wkv6": 0}
+#: kernel launches since the last :func:`reset_launches`: ``wkv6`` counts
+#: both variants, ``wkv6_seq`` the sequential one alone
+LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_seq": 0}
+#: the kernels ``_launch`` takes by name: the column- and row-split kernel
+#: and the sequential one it replaced
+VARIANTS = ("split", "seq")
 #: the head sizes the kernel is built for: rwkv6-3b's 64, the reduced
 #: configs' 16 and the reference kernel tests' 32
 HEAD_SIZES = (16, 32, 64)
@@ -40,7 +50,7 @@ HEAD_SIZES = (16, 32, 64)
 _SOURCE = "wkv6_scan"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"wkv6_fwd": [_P] * 8 + [_I, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"wkv6_fwd": [_P] * 8 + [_I] * 6 + [_P]}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -79,7 +89,13 @@ def _check(r, k, v, w, u, s0) -> Tuple[int, int, int, int]:
     return B, T, H, N
 
 
-def _launch(r, k, v, w, u, s0):
+def _launch(r, k, v, w, u, s0, variant: str = "split"):
+    """Launch ``variant`` on CUDA tensors: ``"split"`` (the default, what
+    :func:`wkv6` runs) or ``"seq"``.  y and s_T are allocated apart: the
+    state a prefill hands on would otherwise keep the prefill's y alive."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown kernel variant {variant!r}; "
+                         f"expected one of {VARIANTS}")
     B, T, H, N = r.shape
     if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype or \
             v.dtype != r.dtype:
@@ -94,15 +110,20 @@ def _launch(r, k, v, w, u, s0):
                     ("s0", s0)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"copies 16 bytes at a time)")
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     lib = _build.load(_SOURCE, _SIGNATURES)
-    stream = _build.current_stream(r)
     _build.check(lib.wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, T, H,
-        N, _DTYPE_CODES[r.dtype], stream), "wkv6_fwd")
+        N, _DTYPE_CODES[r.dtype], VARIANTS.index(variant),
+        _build.current_stream(r)), f"wkv6_{variant}")
     LAUNCHES["wkv6"] += 1
+    if variant == "seq":
+        LAUNCHES["wkv6_seq"] += 1
     return y, sT
 
 

@@ -324,35 +324,75 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
         fa.flash_attention(q, q, q)
 
 
-def _wkv_inputs(device, B, T, H, N, dtype, seed=0):
+def _wkv_inputs(device, B, T, H, N, dtype, seed=0, strong=False):
     gen = torch.Generator(device=device).manual_seed(seed)
     r, k, v = (torch.randn((B, T, H, N), generator=gen, device=device
                            ).to(dtype) for _ in range(3))
-    w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
-                                  device=device)) * 0.5 + 0.45
+    if strong:     # RWKV-6's own decay: w = exp(-exp(x)), x in [-8, 2]
+        x = torch.rand((B, T, H, N), generator=gen, device=device) * 10 - 8
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.sigmoid(torch.randn((B, T, H, N), generator=gen,
+                                      device=device)) * 0.5 + 0.45
     u = torch.randn((H, N), generator=gen, device=device) * 0.5
     s0 = torch.randn((B, H, N, N), generator=gen, device=device)
     return r, k, v, w, u, s0
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 3, 64), (1, 37, 2, 64),
-                                   (2, 100, 2, 16), (1, 64, 4, 32)],
-                         ids=str)
+def _wkv_close(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-3)
+
+
+#: a decode step at two widths, ragged T, T one past the split kernel's
+#: 16-step chunk and past a power of two, all three head sizes, and
+#: rwkv6-3b's prefill and decode shapes at batch 4
+WKV_SHAPES = [(2, 1, 3, 64), (1, 37, 2, 64), (2, 100, 2, 16), (1, 64, 4, 32),
+              (2, 17, 3, 64), (1, 1025, 2, 64), (4, 1024, 40, 64),
+              (4, 1, 40, 64)]
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_cuda_wkv6_matches_plain(cuda_device, shape, dtype):
-    """The kernel against its plain version (atol 1e-4, rtol 1e-3): a
-    decode step, ragged T, both model head sizes, one launch per call."""
+    """The split kernel against its plain version (atol 1e-4, rtol 1e-3),
+    one launch of it per call and none of the sequential kernel."""
     args = _wkv_inputs(cuda_device, *shape, dtype)
-    before = wk.LAUNCHES["wkv6"]
-    y, sT = wk.wkv6(*args)
+    before = dict(wk.LAUNCHES)
+    got = wk.wkv6(*args)
     torch.cuda.synchronize()
-    assert wk.LAUNCHES["wkv6"] == before + 1
-    y_p, s_p = wk.wkv6_scan_ref(*args)
-    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(),
-                               atol=1e-4, rtol=1e-3)
-    np.testing.assert_allclose(sT.cpu().numpy(), s_p.cpu().numpy(),
-                               atol=1e-4, rtol=1e-3)
+    assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
+        "wkv6": 1, "wkv6_seq": 0}
+    _wkv_close(got, wk.wkv6_scan_ref(*args))
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 3, 64), (1, 1025, 2, 64),
+                                   (2, 50, 2, 16), (1, 40, 3, 32)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_wkv6_strong_decays(cuda_device, shape, dtype):
+    """RWKV-6's own decay range (w from about 6e-4 to just below 1)."""
+    args = _wkv_inputs(cuda_device, *shape, dtype, seed=7, strong=True)
+    _wkv_close(wk.wkv6(*args), wk.wkv6_scan_ref(*args))
+
+
+@pytest.mark.parametrize("shape", [(4, 1024, 40, 64), (4, 1, 40, 64),
+                                   (2, 100, 2, 16), (1, 64, 4, 32)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_wkv6_split_matches_sequential(cuda_device, shape, dtype):
+    """The split kernel against the sequential one it replaced, on the
+    same inputs; the sequential kernel counts under both names."""
+    args = _wkv_inputs(cuda_device, *shape, dtype, seed=5)
+    split = wk.wkv6(*args)
+    before = dict(wk.LAUNCHES)
+    seq = wk._launch(*args, variant="seq")
+    torch.cuda.synchronize()
+    assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
+        "wkv6": 1, "wkv6_seq": 1}
+    _wkv_close(split, seq)
 
 
 def test_cuda_wkv6_state_carry(cuda_device):
@@ -401,6 +441,7 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name):
         assert wk.LAUNCHES["wkv6"] == 0
     else:
         assert wk.LAUNCHES["wkv6"] == cfg.num_layers * (2 + 6)
+        assert wk.LAUNCHES["wkv6_seq"] == 0
         assert fa.LAUNCHES["flash_attention"] == 0
     tokens = torch.as_tensor(prompts[:2])
     want, _ = cpu.prefill({"tokens": tokens}, cpu.init_state(2, 24))

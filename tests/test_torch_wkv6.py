@@ -47,6 +47,15 @@ def _inputs(seed, B, T, H, N, random_state=False):
     return r, k, v, w, u, s0
 
 
+def _real_decay_inputs(seed, B, T, H, N, random_state):
+    """RWKV-6's own decay range: w = exp(-exp(x)), x uniform in [-8, 2],
+    so w runs from about 6e-4 to just below 1."""
+    r, k, v, _, u, s0 = _inputs(seed, B, T, H, N, random_state)
+    x = np.random.default_rng(seed + 1).uniform(-8.0, 2.0, (B, T, H, N))
+    w = np.exp(-np.exp(x)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
 def _close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=RTOL)
@@ -127,3 +136,65 @@ def test_wrapper_rejects_bad_shapes(bad):
         r, k, v, w = (a[:, :0] for a in (r, k, v, w))
     with pytest.raises(ValueError):
         wk.wkv6(r, k, v, w, u, s0)
+
+
+@pytest.mark.parametrize("T", [3, 1025])
+@pytest.mark.parametrize("random_state", [False, True])
+def test_real_decay_range_matches_reference(T, random_state):
+    """Strong and weak decays together, at T = 3 and at T = 1025 (one past
+    a power-of-two chunk), from a zero and from a random state."""
+    B, H, N = 1, 2, 16
+    arrays = _real_decay_inputs(T + random_state, B, T, H, N, random_state)
+    w = arrays[3]
+    assert 5e-4 < w.min() and w.max() < 1.0
+    assert T < 1000 or (w.min() < 1e-3 and w.max() > 0.999)
+    y_ref, s_ref = jrec.wkv6_scan_ref(*(jnp.asarray(a) for a in arrays))
+    y, s = ops.wkv6(*(torch.from_numpy(a) for a in arrays))
+    _close(y, y_ref)
+    _close(s, s_ref)
+
+
+def test_cpu_counts_no_launch():
+    """On the CPU the wrapper takes the plain version and counts neither
+    kernel."""
+    arrays = _real_decay_inputs(4, 2, 5, 2, 32, True)
+    wk.reset_launches()
+    ops.wkv6(*(torch.from_numpy(a) for a in arrays))
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_seq": 0}
+
+
+@pytest.mark.parametrize("variant", ["scalar", "tc", "", "SEQ", None])
+def test_launch_accepts_only_known_variants(variant):
+    """``_launch`` names its kernels ``"split"`` and ``"seq"`` and refuses
+    any other name before it touches a device or counts a launch."""
+    assert wk.VARIANTS == ("split", "seq")
+    tens = [torch.from_numpy(a) for a in _inputs(2, 1, 3, 2, 16)]
+    before = dict(wk.LAUNCHES)
+    with pytest.raises(ValueError, match="variant"):
+        wk._launch(*tens, variant=variant)
+    assert wk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["fp16", "w_bf16", "head_size",
+                                 "not_contiguous"])
+def test_launch_checks_before_it_launches(bad):
+    """``_launch`` refuses a dtype, head size or layout the kernels do not
+    take before it builds, launches or counts anything."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a)
+                         for a in _inputs(2, 1, 3, 2, 16))
+    err = TypeError
+    if bad == "fp16":
+        r, k, v = (a.half() for a in (r, k, v))
+    elif bad == "w_bf16":
+        w = w.bfloat16()
+    elif bad == "head_size":
+        r, k, v, w = (a[..., :8].contiguous() for a in (r, k, v, w))
+        u, s0 = u[:, :8].contiguous(), s0[..., :8, :8].contiguous()
+        err = ValueError
+    else:
+        r = r.transpose(1, 2).contiguous().transpose(1, 2)
+        err = ValueError
+    before = dict(wk.LAUNCHES)
+    with pytest.raises(err):
+        wk._launch(r, k, v, w, u, s0)
+    assert wk.LAUNCHES == before
