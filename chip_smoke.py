@@ -28,26 +28,31 @@ Phases:
    plain version at the shapes that path gave it and time it there;
 5. hold both flash-attention kernels and the WKV6 kernel against their
    plain versions: the tensor-core kernel (bf16) and the scalar one
-   (fp32, and bf16 at D = 80); causal, windowed and bidirectional; GQA
-   and MQA; ragged T; head sizes 16 to 128; for WKV6 a decode step,
+   (fp32); causal, windowed and bidirectional; GQA and MQA; ragged T;
+   head sizes 16 to 128, with D = 80 (a 64-column block and a 16-column
+   tail) also at stablelm-3b's prefill shape, GQA, T = 1, 100, 129 and a
+   windowed T = 1,000; for WKV6 a decode step,
    ragged T, one step past the split kernel's chunk, RWKV-6's strong
    decays (w = exp(-exp(x)), x in [-8, 2]) and a two-call state carry;
 6. plan the decode fleet's mesh through the port's selection service from
    a hand-made dry-run report;
-7. serve ``qwen3-1.7b`` and then ``rwkv6-3b`` at full width (random bf16
-   weights from the seed): 8 requests of 1,024-token prompts over 4
-   slots, 32 new tokens each — the LM path, read through the kernels'
-   launch counters (28 flash-attention launches per prefill, every one
-   the tensor-core kernel; 32 WKV6 launches per prefill and per decode
-   step) — after a warm-up at the traffic's shapes, and once more for
-   the spread.  Then: all logits finite; the first wave's prefill logits
-   against a pass whose kernel is swapped for its plain version; prefill
-   + decode against ``forward`` at full width, 4 layers, fp32 (the
-   scalar attention kernel); and the kernels at the shapes the path gave
-   them, against their plain versions and timed beside their bounds, the
-   kernel they replaced (the scalar attention kernel, bf16; the sequential
-   WKV6 kernel) and, for attention, ``scaled_dot_product_attention``; for
-   WKV6 also the decode step back to back and from a CUDA graph;
+7. serve ``qwen3-1.7b``, ``stablelm-3b`` and then ``rwkv6-3b`` at full
+   width (random bf16 weights from the seed): 8 requests of 1,024-token
+   prompts over 4 slots, 32 new tokens each — the LM path, read through
+   the kernels' launch counters (28 and 32 flash-attention launches per
+   prefill, every one the tensor-core kernel; 32 WKV6 launches per
+   prefill and per decode step) — after a warm-up at the traffic's
+   shapes, and once more for the spread.  Then: all logits finite; the
+   first wave's prefill logits against a pass whose kernel is swapped
+   for its plain version; for attention, the first wave's prefill timed
+   in turns with the tensor-core kernel and with the scalar one it
+   replaced; prefill + decode against ``forward`` at full width, 4
+   layers, fp32 (the scalar attention kernel); and the kernels at the
+   shapes the path gave them, against their plain versions and timed
+   beside their bounds, the kernel they replaced (the scalar attention
+   kernel, bf16; the sequential WKV6 kernel) and, for attention,
+   ``scaled_dot_product_attention``; for WKV6 also the decode step back
+   to back and from a CUDA graph;
 8. last, the profiled phases: a second 1,000-event daemon on phase 4's
    service under ``torch.profiler`` (the card's busy share), then each
    model's first-wave prefill and 8 decode steps (device time by kernel,
@@ -64,8 +69,12 @@ entries add ``device_ms`` and ``library_device_ms``: the same calls
 replayed from a CUDA graph, the card's time without the host's.
 ``wkv6`` adds the decode step's times (``decode_ms`` back to back,
 ``decode_graph_ms`` from a CUDA graph, ``decode_earlier_ms`` and
-``decode_earlier_graph_ms`` the sequential kernel) and its bound.  Without a CUDA device the script exits
-non-zero before printing any result.  It
+``decode_earlier_graph_ms`` the sequential kernel) and its bound.
+``flash_attention`` (qwen3-1.7b, D = 128) and ``flash_attention_d80``
+(stablelm-3b, D = 80) add ``wave_ms`` and ``wave_earlier_ms``: the first
+wave's prefill with the tensor-core kernel and with the scalar one.
+Without a CUDA device the script exits non-zero before printing any
+result.  It
 imports ``torch``, ``numpy``, the standard library and the port
 (``src/repro_torch``), nothing else.
 """
@@ -690,6 +699,14 @@ ATTN_CASES = [
     (1, 200, 4, 4, 64, True, 48),
     (1, 100, 4, 1, 64, True, None),
     (1, 1000, 4, 2, 128, True, 300),
+    # D = 80: stablelm-3b's prefill (MHA), GQA, ragged T = 100, a window
+    # over T = 1,000, T = 1 and T = 129 (one past a 128-row tile)
+    (4, 1024, 32, 32, 80, True, None),
+    (2, 256, 8, 2, 80, True, None),
+    (1, 100, 4, 4, 80, True, None),
+    (1, 1000, 4, 2, 80, True, 300),
+    (2, 1, 4, 4, 80, True, None),
+    (1, 129, 4, 2, 80, False, None),
 ]
 #: (B, T, H, N): a decode step, ragged T, both model head sizes, and one
 #: step past the split kernel's 16-step chunk
@@ -704,21 +721,24 @@ REL_L2_TOL = 0.1
 #: the reference kernel tests' tolerances
 ATTN_TOL = {"float32": (2e-5, 1e-2), "bfloat16": (2e-2, 1e-2)}
 WKV_TOL = (1e-4, 1e-3)
+#: the record's LM entries: ``flash_attention`` is the tensor-core kernel
+#: at qwen3-1.7b's D = 128, ``flash_attention_d80`` the same kernel at
+#: stablelm-3b's D = 80, ``flash_attention_scalar`` the scalar kernel
+#: (fp32) at qwen3-1.7b's shape
+_ATTN = dict(op="flash_attention",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:28")
 LM_KERNELS = {
-    "flash_attention": dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:28",
-        arch="qwen3-1.7b"),
-    "flash_attention_scalar": dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:28"),
-    "wkv6": dict(
-        source="src/repro_torch/csrc/wkv6_scan.cu",
-        replaces="src/repro/kernels/rwkv6_scan.py:25",
-        arch="rwkv6-3b"),
+    "flash_attention": _ATTN,
+    "flash_attention_d80": _ATTN,
+    "flash_attention_scalar": _ATTN,
+    "wkv6": dict(op="wkv6", source="src/repro_torch/csrc/wkv6_scan.cu",
+                 replaces="src/repro/kernels/rwkv6_scan.py:25"),
 }
-#: the kernel each served model's path runs
-SERVED = ("flash_attention", "wkv6")
+#: (model, record entry of the kernel its path runs), in serving order
+SERVED = [("qwen3-1.7b", "flash_attention"),
+          ("stablelm-3b", "flash_attention_d80"),
+          ("rwkv6-3b", "wkv6")]
 
 
 def allclose(torch, a, b, atol, rtol) -> bool:
@@ -754,9 +774,11 @@ def wkv_inputs(torch, B, T, H, N, dtype, seed, random_state=True,
     return r, k, v, w, u, s0
 
 
-def check_attention(torch, q, k, v, causal, window, label, errs=None):
+def check_attention(torch, q, k, v, causal, window, label, errs=None,
+                    name=None):
     """The kernel :func:`flash_attention.variant` names against the plain
-    version; the error goes to ``errs`` under its record name."""
+    version; the error goes to ``errs`` under the record entry ``name``
+    (default: the variant's entry at qwen3-1.7b's shape)."""
     from repro_torch.kernels import flash_attention as fa
     kind = fa.variant(q.dtype, q.shape[-1])
     before = fa.LAUNCHES[f"flash_attention_{kind}"]
@@ -773,7 +795,8 @@ def check_attention(torch, q, k, v, causal, window, label, errs=None):
           f"{label}: flash attention outside atol {atol} rtol {rtol} "
           f"(max |err| {err:.3g})")
     if errs is not None:
-        name = "flash_attention" if kind == "tc" else "flash_attention_scalar"
+        name = name or ("flash_attention" if kind == "tc"
+                        else "flash_attention_scalar")
         errs[name] = max(errs[name], err)
     return err
 
@@ -1076,12 +1099,51 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         f"|logit| {float(b.abs().max()):.3g}, argmax agreement "
         f"{agree:.0%}; all finite")
 
+    waves = None
+    if kernel == "flash_attention":
+        waves = prefill_turns(torch, model, first, slots,
+                              prompt_len + max_new, dev)
+        log(f"[serve] {name}: first-wave prefill ({slots} x {prompt_len} "
+            f"tokens) in turns: tensor-core kernel {waves['tc'] * 1e3:.3f} "
+            f"ms = {slots * prompt_len / waves['tc']:.1f} tokens/s, scalar "
+            f"kernel (the one it replaced) {waves['scalar'] * 1e3:.3f} ms = "
+            f"{slots * prompt_len / waves['scalar']:.1f} tokens/s")
     shapes = dict(B=slots, T=prompt_len, d=cfg.d_model, H=cfg.num_heads,
                   G=cfg.num_kv_heads, D=cfg.head_dim,
                   N=cfg.rwkv_head_dim, dtype=cfg.compute_dtype)
     del model, eng, logits, logits_p, first
     free_card(torch, dev)
-    return dict(kernel=kernel, launches=launches, shapes=shapes)
+    return dict(kernel=kernel, launches=launches, shapes=shapes,
+                waves=waves, layers=L)
+
+
+def prefill_turns(torch, model, batch, slots, max_len, dev="cuda"):
+    """Seconds of one prefill of ``batch`` with the path's attention
+    kernel (``"tc"``) and with the scalar kernel on the same bf16 inputs
+    (``"scalar"``), each the mean of two runs taken in turns (tc, scalar,
+    scalar, tc) on the host clock around work that ends in a
+    synchronize: what the tensor-core kernel changes end to end."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def scalar(q, k, v, *, causal=True, window=None):
+        return fa._launch(q, k, v, causal, window, "scalar")
+    path = ops.flash_attention
+    secs = {"tc": [], "scalar": []}
+    try:
+        for which in ("tc", "scalar", "scalar", "tc"):
+            ops.flash_attention = path if which == "tc" else scalar
+            with torch.inference_mode():
+                state = model.init_state(slots, max_len)
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                model.prefill(batch, state)
+                sync(torch, dev)
+                secs[which].append(time.perf_counter() - t0)
+            del state
+    finally:
+        ops.flash_attention = path
+    return {w: sum(v) / len(v) for w, v in secs.items()}
 
 
 def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
@@ -1127,22 +1189,25 @@ def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
     free_card(torch, dev)
 
 
-def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
+def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
+                   name=None, scalar_entry=False):
     """The kernel at the shapes its path gave it: held against its plain
     version, then timed beside the plain version, the library call (SDPA
-    for attention, none for WKV6) and its bound.  For attention, also the
-    scalar kernel on the same bf16 inputs (the kernel this path ran
-    before the tensor-core one: ``earlier_ms``) and, as its own entry
+    for attention, none for WKV6) and its bound; ``name`` is its record
+    entry (default ``kernel``).  For attention, also the scalar kernel on
+    the same bf16 inputs (the kernel this path ran before the tensor-core
+    one: ``earlier_ms``) and, with ``scalar_entry``, as its own entry
     under ``"scalar"``, on fp32 inputs of the same shape, its dtype."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
+    name = name or kernel
     sh = shapes
     B, T, dt = sh["B"], sh["T"], sh["dtype"]
     if kernel == "flash_attention":
         H, G, D = sh["H"], sh["G"], sh["D"]
         q, k, v = attn_inputs(torch, B, T, H, G, D, dt, seed, dev)
         err = check_attention(torch, q, k, v, True, None,
-                              f"path shape {(B, T, H, G, D)}", errs)
+                              f"path shape {(B, T, H, G, D)}", errs, name)
         log(f"[lm-parity] flash attention bfloat16 (tc) at the path shape "
             f"B={B} T={T} H={H} G={G} D={D}: max |err| {err:.3g} ok")
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1168,6 +1233,8 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
         r = timed(q, k, v, "tc", BF16_FLOPS_PER_S)
         r["earlier_ms"] = time_ms(torch, lambda: fa._launch(
             q, k, v, True, None, "scalar"), iters=10, warmup=2)
+        what = f"B={B} T={T} H={H} G={G} D={D} causal bf16"
+    if kernel == "flash_attention" and scalar_entry:
         q32, k32, v32 = (x.float() for x in (q, k, v))
         err = check_attention(torch, q32, k32, v32, True, None,
                               f"path shape {(B, T, H, G, D)} fp32", errs)
@@ -1176,14 +1243,13 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
         # the scalar kernel's fp32 FMAs: the fp32 peak off the tensor cores
         r["scalar"] = timed(q32, k32, v32, "scalar", FP32_FLOPS_PER_S)
         del q32, k32, v32
-        what = f"B={B} T={T} H={H} G={G} D={D} causal bf16"
         sc = r["scalar"]
         log(f"[time] flash_attention_scalar: kernel {sc['ms']:.4f} ms, "
             f"plain {sc['plain_ms']:.4f} ms, library "
             f"{sc['library_ms']:.4f} ms, bound {sc['bound'][0]:.5f} ms "
             f"({sc['bound'][1]}) at B={B} T={T} H={H} G={G} D={D} causal "
             f"fp32")
-    else:
+    if kernel == "wkv6":
         H, N = sh["d"] // sh["N"], sh["N"]
         args = wkv_inputs(torch, B, T, H, N, dt, seed, random_state=False,
                           dev=dev)
@@ -1228,7 +1294,7 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda"):
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
     earlier = f", {'sequential' if kernel == 'wkv6' else 'scalar'} kernel " \
         f"{r['earlier_ms']:.4f} ms" if "earlier_ms" in r else ""
-    log(f"[time] {kernel}: kernel {r['ms']:.4f} ms{earlier}, plain "
+    log(f"[time] {name}: kernel {r['ms']:.4f} ms{earlier}, plain "
         f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
         f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) at {what}")
     if "decode_ms" in r:
@@ -1291,13 +1357,25 @@ def main() -> int:
     from repro_torch import configs
     lm_errs = {name: 0.0 for name in LM_KERNELS}
     lm_runs = {}
-    for name in SERVED:
-        cfg = configs.get(LM_KERNELS[name]["arch"])
+    for arch, name in SERVED:
+        cfg = configs.get(arch)
+        op = LM_KERNELS[name]["op"]
         run = phase_serve(torch, np, cfg, args.seed, card, placement)
-        check(run["kernel"] == name, f"{cfg.name} ran {run['kernel']}")
+        check(run["kernel"] == op, f"{cfg.name} ran {run['kernel']}")
         phase_parity_4_layers(torch, cfg, args.seed)
-        run["times"] = time_lm_kernel(torch, name, run["shapes"], lm_errs,
-                                      args.seed)
+        r = time_lm_kernel(torch, op, run["shapes"], lm_errs, args.seed,
+                           name=name, scalar_entry=name == "flash_attention")
+        run["times"] = r
+        if run["waves"] is not None:
+            # the kernel's share of a prefill wave, with each kernel
+            w = run["waves"]
+            r.update(wave_ms=w["tc"] * 1e3, wave_earlier_ms=w["scalar"] * 1e3)
+            log(f"[serve] {cfg.name}: attention {run['layers']} x "
+                f"{r['ms']:.4f} ms = {run['layers'] * r['ms'] / r['wave_ms']:.1%} "
+                f"of a {r['wave_ms']:.3f} ms prefill wave (scalar kernel: "
+                f"{run['layers']} x {r['earlier_ms']:.4f} ms = "
+                f"{run['layers'] * r['earlier_ms'] / r['wave_earlier_ms']:.1%}"
+                f" of {r['wave_earlier_ms']:.3f} ms)")
         lm_runs[name] = run
         done(f"serve {cfg.name}")
     # the profiled phases come last: a profiler session may slow the
@@ -1306,9 +1384,8 @@ def main() -> int:
     phase_busy(torch, args.seed, service, store, table)
     done("busy")
     del service, store, table
-    for name in SERVED:
-        phase_lm_profile(torch, np, configs.get(LM_KERNELS[name]["arch"]),
-                         args.seed)
+    for arch, _ in SERVED:
+        phase_lm_profile(torch, np, configs.get(arch), args.seed)
     done("profile")
 
     def entry(name, source, replaces, n_launches, err, r):
@@ -1321,6 +1398,8 @@ def main() -> int:
         if "device_ms" in r:
             e.update(device_ms=r["device_ms"],
                      library_device_ms=r["library_device_ms"])
+        if "wave_ms" in r:
+            e.update(wave_ms=r["wave_ms"], wave_earlier_ms=r["wave_earlier_ms"])
         return e
 
     kernels = []
@@ -1335,8 +1414,12 @@ def main() -> int:
                          errs["select"], heads_times["select"]))
     kernels[-1]["fleet_launches"] = fleet_heads_launches
     qwen, rwkv = lm_runs["flash_attention"], lm_runs["wkv6"]
+    stablelm = lm_runs["flash_attention_d80"]
     runs = {"flash_attention": (qwen["launches"]["flash_attention_tc"],
                                 qwen["times"]),
+            "flash_attention_d80": (
+                stablelm["launches"]["flash_attention_tc"],
+                stablelm["times"]),
             "flash_attention_scalar": (
                 qwen["launches"]["flash_attention_scalar"],
                 qwen["times"]["scalar"]),

@@ -3,7 +3,7 @@
 Counterpart of ``repro/configs/__init__.py``.  ``get(name)`` returns the
 published config; ``reduced(cfg)`` a same-family shrunken variant for CPU
 tests, by the reference's shrink rules.  The port serves the dense and
-RWKV families so far: ``qwen3-1.7b`` and ``rwkv6-3b``.  For the other
+RWKV families so far: ``qwen3-1.7b``, ``stablelm-3b`` and ``rwkv6-3b``.  For the other
 names ``get`` raises :class:`NotPortedError` (ROADMAP.md §A lists what is
 left).
 """
@@ -28,6 +28,7 @@ ARCH_NAMES: List[str] = [
 
 _MODULES = {
     "rwkv6-3b": "rwkv6_3b",
+    "stablelm-3b": "stablelm_3b",
     "qwen3-1.7b": "qwen3_1_7b",
 }
 

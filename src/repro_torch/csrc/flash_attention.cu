@@ -7,12 +7,15 @@
 // (:28), called by flash_attention_pallas (:85).  Two kernels, chosen by
 // the wrapper from the dtype and the head size alone:
 //
-// flash_fwd_sm90 (bf16, D in {16, 32, 64, 128}): the tensor-core kernel.
+// flash_fwd_sm90 (bf16, D in {16, 32, 64, 80, 128}): the tensor-core kernel.
 //   What bounds it: operations.  A causal call does 4 B H D Tq (Tq + 1) / 2
 //   flops on B Tq H D + 2 B Tk G D inputs, far above the card's ridge; at
 //   989 TFLOP/s bf16 the qwen3-1.7b prefill (B = 4, T = 1024, H = 16,
-//   D = 128) has a 0.0174 ms floor a layer.  Only wgmma reaches that rate,
-//   so the design feeds it:
+//   D = 128) has a 0.0174 ms floor a layer.  With as many KV heads as
+//   query heads the bytes come close: the stablelm-3b prefill (H = G = 32,
+//   D = 80) moves 83.9 MB, a 0.0250 ms floor at 3.35 TB/s against 0.0217
+//   for its flops.  Only wgmma reaches the flop rate, so the design feeds
+//   it:
 //   - Persistent: one block an SM.  A work item is one (b, query head,
 //     128-row q tile); causal masking gives the last q tiles up to 16
 //     times the work of the first, so the items are ordered heaviest
@@ -27,13 +30,23 @@
 //     mbarriers, from 4-d tensor maps over the tensors' own (B, T, heads,
 //     D) layouts: GQA is a coordinate (KV head h / R), no copy is made,
 //     and the out-of-bounds fill gives the zero keys and queries past Tk
-//     and Tq.  Rows are swizzled by their
-//     byte width (32, 64 or 128 B; D = 128 is two 64-column blocks), and
-//     the wgmma descriptors match it.
+//     and Tq.  A tile's rows are cut into 64-column blocks (128-byte
+//     rows, 128-byte swizzle) and a tail of the 16 or 32 columns left
+//     (32- or 64-byte rows and swizzle), one TMA box and one tensor map
+//     each, all completing on one mbarrier; the wgmma descriptors match
+//     each block's swizzle.  D = 128 is two full blocks, D = 16 and 32 a
+//     tail alone, and D = 80 (160-byte rows, which no one swizzle width
+//     divides) one full block and a 16-column tail.
 //   - S = Q K^T is wgmma m64n128k16 from shared memory (both operands
 //     K-major).  O += P V is wgmma with P in registers, rounded to bf16,
 //     taken straight from S's accumulator layout, and V the MN-major
 //     (transposed) B operand, so neither P nor a transposed V is staged.
+//     A descriptor has one swizzle, so at D = 80 P V is two wgmma a k16
+//     step, n64 on the full block and n16 on the tail, into disjoint
+//     ranges of one accumulator (Q K^T takes 4 + 1 k16 steps).  One n80
+//     wgmma instead needs every block at one swizzle: five 16-column
+//     blocks of 32 bytes, five TMA boxes a tile; that layout measured 7%
+//     slower on an H100.
 //   - The softmax stays in registers: a thread holds two rows of S, and
 //     row statistics reduce over the four threads of a quad.  Tiles that
 //     need no mask fold the scale into one FFMA a score, and a warp
@@ -46,11 +59,12 @@
 //     of a 384-thread block (setmaxnreg's 240 does not raise its
 //     allocation here), too few to keep one tile's S while the last
 //     tile's P V is in flight.
-//   D = 80 (160-byte rows) fits no swizzle width and takes the scalar
-//   kernel, as fp32 does: wgmma has no fp32 operands, and TF32 would break
-//   the fp32 tolerance.
+//   fp32 takes the scalar kernel: wgmma has no fp32 operands, and TF32
+//   would break the fp32 tolerance.
 //
-// flash_fwd_kernel (fp32 at every D, bf16 at D = 80): the scalar kernel.
+// flash_fwd_kernel (fp32 at every D): the scalar kernel.  It takes bf16
+//   too, reached only by name (the wrapper's yardstick for the
+//   tensor-core kernel).
 //   One block owns one (b, query head, 64-row q tile); Q, K and V are
 //   staged in shared memory as fp32 and both products run as scalar FMAs
 //   (4 x 4 scores and 4 x D/16 outputs per thread), no tensor cores.
@@ -290,30 +304,6 @@ constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory geometry of a 128-row tile of Q, K or V at head size D:
-// rows of 2D bytes, cut into column blocks of one swizzle width (32, 64
-// or 128 bytes), each block 128 rows deep.  D = 128 is two 64-column
-// blocks of 128-byte rows.
-template <int D>
-struct Geo {
-  static constexpr int kRowBytes = 2 * D;
-  static constexpr int kSwBytes = kRowBytes < 128 ? kRowBytes : 128;
-  static constexpr int kBlockCols = kSwBytes / 2;
-  static constexpr int kColBlocks = D / kBlockCols;
-  static constexpr int kBlockBytes = 128 * kSwBytes;
-  static constexpr int kTileBytes = kColBlocks * kBlockBytes;
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
-  static constexpr int kLayout = kSwBytes == 128 ? 1 : kSwBytes == 64 ? 2 : 3;
-  static constexpr int kKSteps = D / 16;                 // k16 steps of Q K^T
-  static constexpr int kStepsPerBlock = kSwBytes / 32;   // 32 B per k16 step
-  // Q, the K and V rings, the mbarriers (full and empty for Q, full K,
-  // full V and empty for each stage), and slack to align to 1024 bytes:
-  // 164,928 bytes at D = 128
-  static constexpr size_t kSmemBytes =
-      (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (2 + 3 * kStages) + 1024;
-  static_assert(kColBlocks * kBlockCols == D, "head size");
-};
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -372,6 +362,55 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) |
          ((uint64_t)layout << 62);
 }
+
+// Shared-memory geometry of a 128-row tile of Q, K or V at head size D:
+// kFull blocks of 64 columns (128-byte rows, 128-byte swizzle) and, where
+// 64 does not divide D, one tail block of the kTail columns left (16 or
+// 32: rows and swizzle of 32 or 64 bytes).  Each block holds all 128 rows
+// of its columns, so one TMA box fills it and one descriptor layout reads
+// it.
+template <int D>
+struct Geo {
+  static constexpr int kFull = D / 64;
+  static constexpr int kTail = D % 64;
+  static constexpr int kFullBytes = 128 * 128;
+  static constexpr int kTailSw = 2 * kTail;           // its row bytes
+  static constexpr int kTailOffset = kFull * kFullBytes;
+  static constexpr int kTileBytes = kTailOffset + 128 * kTailSw;
+  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr int kTailLayout = kTailSw == 64 ? 2 : 3;
+  static constexpr int kKSteps = D / 16;              // k16 steps of Q K^T
+  // Q, the K and V rings, the mbarriers (full and empty for Q, full K,
+  // full V and empty for each stage), and slack to align to 1024 bytes:
+  // 164,928 bytes at D = 128, 103,488 at D = 80
+  static constexpr size_t kSmemBytes =
+      (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (2 + 3 * kStages) + 1024;
+  static_assert(kTail == 0 || kTail == 16 || kTail == 32, "head size");
+
+  // The K-major descriptor of k16 step ks (16 columns, 32 bytes) of rows
+  // [row, row + 64) of a tile: steps 4 c to 4 c + 3 lie in full block c,
+  // the rest in the tail.
+  static __device__ __forceinline__ uint64_t k_desc(uint32_t tile, int row,
+                                                    int ks) {
+    if (ks < 4 * kFull)
+      return make_desc(tile + (ks / 4) * kFullBytes + row * 128 +
+                           (ks % 4) * 32, 16, 8 * 128, 1);
+    return make_desc(tile + kTailOffset + row * kTailSw +
+                         (ks - 4 * kFull) * 32, 16, 8 * kTailSw, kTailLayout);
+  }
+  // The MN-major descriptors of keys [16 ks, 16 ks + 16) of a V tile: one
+  // spans every full block (the leading offset steps along N from block
+  // to block), the other the tail.
+  static __device__ __forceinline__ uint64_t v_full_desc(uint32_t tile,
+                                                         int ks) {
+    return make_desc(tile + ks * 16 * 128, kFullBytes, 8 * 128, 1);
+  }
+  static __device__ __forceinline__ uint64_t v_tail_desc(uint32_t tile,
+                                                         int ks) {
+    return make_desc(tile + kTailOffset + ks * 16 * kTailSw, 128 * kTailSw,
+                     8 * kTailSw, kTailLayout);
+  }
+};
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -603,15 +642,47 @@ struct Items {
   }
 };
 
+// The tensor maps of one call: for each of Q, K and V one over the full
+// 64-column blocks and one over the tail (left zeroed where D has none).
+struct Maps {
+  CUtensorMap q, k, v, q_tail, k_tail, v_tail;
+};
+
+// One tile, 128 rows of one head from ``row``, into shared memory at
+// ``dst``: a box for each full block and one for the tail, all completing
+// on ``bar``.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const CUtensorMap* full,
+                                          const CUtensorMap* tail,
+                                          uint32_t bar, int head, int row,
+                                          int b) {
+  using Gm = Geo<D>;
+#pragma unroll
+  for (int c = 0; c < Gm::kFull; ++c)
+    tma_load_4d(dst + c * Gm::kFullBytes, full, bar, 64 * c, head, row, b);
+  if (Gm::kTail > 0)
+    tma_load_4d(dst + Gm::kTailOffset, tail, bar, 64 * Gm::kFull, head, row,
+                b);
+}
+
+// The accumulator registers of output columns [2 At, 2 At + 2 N): wgmma
+// m64nNk16 keeps N / 2 a thread in column order, so the n64 product of a
+// full block and the n16 one of the tail write disjoint ranges of one
+// array laid out as a single m64nDk16 accumulator.
+template <int At, int N, int M>
+__device__ __forceinline__ float (&acc_part(float (&a)[M]))[N] {
+  static_assert(At + N <= M, "accumulator range");
+  return *reinterpret_cast<float(*)[N]>(a + At);
+}
+
 // Accumulator layout of wgmma m64nNk16 (fp32), per consumer thread: with
 // warp w of the group, lane l, r = 16 w + l / 4 and q = l % 4, element
 // 4 j + e sits at row r + 8 (e / 2), column 8 j + 2 q + e % 2.  A thread
 // holds two rows; the four threads of a quad share them.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
-               const __grid_constant__ CUtensorMap k_map,
-               const __grid_constant__ CUtensorMap v_map,
+flash_fwd_sm90(const __grid_constant__ Maps maps,
                __nv_bfloat16* __restrict__ o, int B, int Tq, int Tk, int H,
                int G, int causal, int window, float scale) {
   using Gm = Geo<D>;
@@ -655,23 +726,17 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         const Work w = items.work(j);
         mbar_wait(q_empty, (r & 1) ^ 1);     // the last item's Q is read
         mbar_expect_tx(full_q, Gm::kTileBytes);
-        for (int cb = 0; cb < Gm::kColBlocks; ++cb)
-          tma_load_4d(q_s + cb * Gm::kBlockBytes, &q_map, full_q,
-                      cb * Gm::kBlockCols, w.h, w.q0, w.b);
+        load_tile<D>(q_s, &maps.q, &maps.q_tail, full_q, w.h, w.q0, w.b);
         for (int n = 0; n < w.ntiles; ++n, ++tiles) {
           const int st = tiles % kStages;
           mbar_wait(empty + 8 * st, ((tiles / kStages) & 1) ^ 1);
           const int k0 = (w.lo + n) * kBN;
           mbar_expect_tx(full_k + 8 * st, Gm::kTileBytes);
-          for (int cb = 0; cb < Gm::kColBlocks; ++cb)
-            tma_load_4d(k_s + st * Gm::kTileBytes + cb * Gm::kBlockBytes,
-                        &k_map, full_k + 8 * st, cb * Gm::kBlockCols, w.g,
-                        k0, w.b);
+          load_tile<D>(k_s + st * Gm::kTileBytes, &maps.k, &maps.k_tail,
+                       full_k + 8 * st, w.g, k0, w.b);
           mbar_expect_tx(full_v + 8 * st, Gm::kTileBytes);
-          for (int cb = 0; cb < Gm::kColBlocks; ++cb)
-            tma_load_4d(v_s + st * Gm::kTileBytes + cb * Gm::kBlockBytes,
-                        &v_map, full_v + 8 * st, cb * Gm::kBlockCols, w.g,
-                        k0, w.b);
+          load_tile<D>(v_s + st * Gm::kTileBytes, &maps.v, &maps.v_tail,
+                       full_v + 8 * st, w.g, k0, w.b);
         }
       }
     }
@@ -701,8 +766,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-      // Q K^T operand A: this group's 64 rows of the Q tile
-      const uint32_t qa = q_s + wg * 64 * Gm::kSwBytes;
       mbar_wait(full_q, r & 1);
       if (w.ntiles == 0) {
         __syncwarp();
@@ -721,13 +784,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         if (wg == 1 || tiles > 0) named_sync(1 + wg);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < Gm::kKSteps; ++ks) {
-          const uint32_t off = (ks / Gm::kStepsPerBlock) * Gm::kBlockBytes +
-                               (ks % Gm::kStepsPerBlock) * 32;
-          wgmma_ss_n128(
-              s, make_desc(qa + off, 16, 8 * Gm::kSwBytes, Gm::kLayout),
-              make_desc(kb + off, 16, 8 * Gm::kSwBytes, Gm::kLayout), ks > 0);
-        }
+        for (int ks = 0; ks < Gm::kKSteps; ++ks)   // A: this group's rows
+          wgmma_ss_n128(s, Gm::k_desc(q_s, 64 * wg, ks),
+                        Gm::k_desc(kb, 0, ks), ks > 0);
         wgmma_commit();
         if (wg == 0 || tiles + 1 < total_s) named_arrive(2 - wg);
         wgmma_wait_all();
@@ -804,10 +863,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         fence_frags(pa);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kBN / 16; ++ks)
-          PV<D>::mma(acc, pa[ks],
-                     make_desc(vb + ks * 16 * Gm::kSwBytes, Gm::kBlockBytes,
-                               8 * Gm::kSwBytes, Gm::kLayout));
+        for (int ks = 0; ks < kBN / 16; ++ks) {
+          if constexpr (Gm::kFull > 0)
+            PV<64 * Gm::kFull>::mma(acc_part<0, 32 * Gm::kFull>(acc), pa[ks],
+                                    Gm::v_full_desc(vb, ks));
+          if constexpr (Gm::kTail > 0)
+            PV<Gm::kTail>::mma(acc_part<32 * Gm::kFull, Gm::kTail / 2>(acc),
+                               pa[ks], Gm::v_tail_desc(vb, ks));
+        }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
@@ -864,11 +927,11 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-d map over a contiguous bf16 (B, T, heads, D) tensor, one box a
-// column block of 128 rows of one head.
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads) {
-  using Gm = Geo<D>;
+// A 4-d map over a contiguous bf16 (B, T, heads, D) tensor whose box is
+// ``cols`` columns (one block, ``cols`` x 2 bytes wide and swizzled by
+// that width) of 128 rows of one head.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads,
+              int D, int cols) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -876,12 +939,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads) {
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)T * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Gm::kBlockCols, 1, 128, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, 128, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      Gm::kSwBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : Gm::kSwBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
@@ -893,7 +955,8 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int G, int causal, int window, float scale,
            cudaStream_t stream) {
-  constexpr size_t bytes = Geo<D>::kSmemBytes;
+  using Gm = Geo<D>;
+  constexpr size_t bytes = Gm::kSmemBytes;
   static bool configured = false;   // once per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -902,10 +965,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  CUtensorMap q_map, k_map, v_map;
-  if (!make_map<D>(&q_map, q, B, Tq, H) || !make_map<D>(&k_map, k, B, Tk, G) ||
-      !make_map<D>(&v_map, v, B, Tk, G))
-    return (int)cudaErrorInvalidValue;
+  Maps maps = {};
+  bool ok = true;
+  if (Gm::kFull > 0)
+    ok = make_map(&maps.q, q, B, Tq, H, D, 64) &&
+         make_map(&maps.k, k, B, Tk, G, D, 64) &&
+         make_map(&maps.v, v, B, Tk, G, D, 64);
+  if (ok && Gm::kTail > 0)
+    ok = make_map(&maps.q_tail, q, B, Tq, H, D, Gm::kTail) &&
+         make_map(&maps.k_tail, k, B, Tk, G, D, Gm::kTail) &&
+         make_map(&maps.v_tail, v, B, Tk, G, D, Gm::kTail);
+  if (!ok) return (int)cudaErrorInvalidValue;
   // persistent: one block an SM, each walking its share of the q tiles
   static int sms = 0;
   if (sms == 0) {
@@ -917,7 +987,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const int items = B * H * ((Tq + kBM - 1) / kBM);
   flash_fwd_sm90<D><<<min(items, sms), kThreads, bytes, stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)o, B, Tq, Tk, H, G, causal,
+      maps, (__nv_bfloat16*)o, B, Tq, Tk, H, G, causal,
       window, scale);
   return (int)cudaGetLastError();
 }
@@ -947,8 +1017,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same call for bf16 tensors at D in {16, 32, 64, 128} on the tensor
-// cores.  Base pointers must be 16-byte aligned (the tensor maps' rule;
+// The same call for bf16 tensors at D in {16, 32, 64, 80, 128} on the
+// tensor cores.  Base pointers must be 16-byte aligned (the tensor maps' rule;
 // the wrapper checks).  Returns a cudaError_t.
 int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                              void* o, int B, int Tq, int Tk, int H, int G,
@@ -966,6 +1036,9 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                             scale, s);
     case 64:
       return tc::launch<64>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
+                            scale, s);
+    case 80:
+      return tc::launch<80>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
                             scale, s);
     case 128:
       return tc::launch<128>(q, k, v, o, B, Tq, Tk, H, G, causal, window,

@@ -10,9 +10,11 @@ split, the masking and what bounds them on the card).  Two variants, chosen
 by :func:`variant` from the dtype and the head size alone:
 
 * ``tc`` — ``flash_fwd_sm90``, on the tensor cores (wgmma fed by TMA), for
-  bf16 at ``D`` in :data:`TC_HEAD_DIMS`;
+  bf16 at every ``D`` in :data:`TC_HEAD_DIMS` (``D = 80``'s 160-byte rows
+  as a 64-column block and a 16-column tail, each with its own swizzle);
 * ``scalar`` — ``flash_fwd_kernel``, scalar fp32 FMAs, for fp32 at every
-  ``D`` and for bf16 at ``D = 80`` (160-byte rows fit no swizzle width).
+  ``D``.  It takes bf16 too, but only when named (``_launch(..., kind=
+  "scalar")``): the yardstick the tensor-core kernel is timed against.
 
 :func:`attention_ref` is the plain PyTorch version, the counterpart of the
 reference's oracle ``repro.kernels.ref.attention_ref``.
@@ -41,9 +43,9 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
 #: repository up to 128 (the reduced configs' 16, stablelm's 80) and the
 #: reference kernel tests' 32 and 64
 HEAD_DIMS = (16, 32, 64, 80, 128)
-#: the bf16 head sizes the tensor-core kernel takes: rows of 32, 64, 128
-#: or 2 x 128 bytes, one swizzle width each
-TC_HEAD_DIMS = (16, 32, 64, 128)
+#: the bf16 head sizes the tensor-core kernel takes: rows cut into 128-byte
+#: blocks and a 32- or 64-byte tail, each swizzled by its width
+TC_HEAD_DIMS = (16, 32, 64, 80, 128)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"

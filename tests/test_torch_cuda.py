@@ -8,6 +8,8 @@ card alone:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -246,8 +248,10 @@ def test_cuda_service_serves_through_the_kernels(cuda_device):
 
 #: (B, T, H, G, D, causal, window): GQA, MQA, bidirectional, windowed,
 #: ragged T (12, 100, 130, 1000: no multiple of the 128-row tile), every
-#: head size the kernels are built for, and the qwen3-1.7b prefill's
-#: shape
+#: head size the kernels are built for, the qwen3-1.7b prefill's shape,
+#: and at D = 80 (a 64-column block and a 16-column tail) the stablelm-3b
+#: prefill's shape, GQA, ragged T = 100, a window over T = 1000, T = 1
+#: and T = 129 (one past a tile)
 ATTN_CASES = [
     (2, 128, 4, 2, 64, True, None),
     (2, 64, 8, 1, 32, True, None),
@@ -259,6 +263,12 @@ ATTN_CASES = [
     (1, 100, 4, 1, 64, True, None),
     (1, 1000, 4, 2, 128, True, 300),
     (4, 1024, 16, 8, 128, True, None),
+    (4, 1024, 32, 32, 80, True, None),
+    (2, 256, 8, 2, 80, True, None),
+    (1, 100, 4, 4, 80, True, None),
+    (1, 1000, 4, 2, 80, True, 300),
+    (2, 1, 4, 4, 80, True, None),
+    (1, 129, 4, 2, 80, False, None),
 ]
 
 
@@ -268,16 +278,15 @@ ATTN_CASES = [
 def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     """The kernel :func:`fa.variant` names against the plain version on
     the same card tensors (fp32 atol 2e-5, bf16 atol 2e-2, rtol 1e-2):
-    the tensor-core kernel for bf16 at D != 80, the scalar one otherwise;
-    one launch per call, counted in the total and its variant."""
+    the tensor-core kernel for bf16 at every head size, the scalar one for
+    fp32; one launch per call, counted in the total and its variant."""
     B, T, H, G, D, causal, window = case
     gen = torch.Generator(device=cuda_device).manual_seed(sum(case[:5]))
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
                            ).to(dtype)
                for shape in ((B, T, H, D), (B, T, G, D), (B, T, G, D)))
     kind = fa.variant(dtype, D)
-    assert kind == ("tc" if dtype == torch.bfloat16 and D != 80
-                    else "scalar")
+    assert kind == ("tc" if dtype == torch.bfloat16 else "scalar")
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -292,15 +301,18 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
                                rtol=1e-2)
 
 
-def test_cuda_flash_attention_scalar_kernel_on_bf16(cuda_device):
-    """The scalar kernel still takes bf16 at every head size (the path
-    D = 80 runs on): at the qwen3-1.7b prefill shape it agrees with the
-    plain version and with the tensor-core kernel."""
+@pytest.mark.parametrize("D,H,G", [(128, 16, 8), (80, 32, 32)],
+                         ids=["D128", "D80"])
+def test_cuda_flash_attention_scalar_kernel_on_bf16(cuda_device, D, H, G):
+    """The scalar kernel still takes bf16 when named (the yardstick the
+    tensor-core kernel is timed against): at the qwen3-1.7b (D = 128) and
+    stablelm-3b (D = 80) head layouts it agrees with the plain version and
+    with the tensor-core kernel."""
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
                            ).to(torch.bfloat16)
-               for shape in ((2, 300, 16, 128), (2, 300, 8, 128),
-                             (2, 300, 8, 128)))
+               for shape in ((2, 300, H, D), (2, 300, G, D),
+                             (2, 300, G, D)))
     scalar = fa._launch(q, k, v, True, None, "scalar")
     tc = fa._launch(q, k, v, True, None, "tc")
     want = fa.attention_ref(q, k, v, causal=True)
@@ -418,13 +430,30 @@ def _params_of(lm):
                        for block in lm.blocks]}
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "rwkv6-3b"])
-def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name):
-    """A reduced (fp32) model served on the card: each layer's kernel
-    launches once per prefill (flash attention) or once per model call
-    (WKV6), and the prefill logits equal the same weights' on the CPU
-    within the decode-parity tolerance (2e-3)."""
+#: (model, head size, dtype): the reduced configs in fp32, and stablelm-3b
+#: at its real head size 80 in bf16 (2 layers of 2 heads, d_model 160),
+#: which runs the tensor-core kernel
+ENGINE_CASES = [("qwen3-1.7b", None, "float32"), ("rwkv6-3b", None, "float32"),
+                ("stablelm-3b", 80, "bfloat16")]
+
+
+@pytest.mark.parametrize("name,head_dim,dtype", ENGINE_CASES,
+                         ids=["qwen3-1.7b", "rwkv6-3b", "stablelm-3b-d80"])
+def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
+                                                      head_dim, dtype):
+    """A reduced model served on the card: each layer's kernel launches
+    once per prefill (flash attention: the scalar kernel in fp32, the
+    tensor-core one in bf16) or once per model call (WKV6), and the
+    prefill logits equal the same weights' on the CPU within the
+    decode-parity tolerance (2e-3) in fp32, and within the LM path's bf16
+    bound (relative L2 0.1, ``chip_smoke.REL_L2_TOL``) in bf16."""
     cfg = configs.reduced(configs.get(name))
+    if head_dim is not None:
+        cfg = dataclasses.replace(configs.reduced(configs.get(name),
+                                                  d_model=2 * head_dim),
+                                  num_heads=2, num_kv_heads=2,
+                                  head_dim=head_dim)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
     cpu = LM(cfg, device="cpu", seed=1)
     gpu = LM(cfg, device=cuda_device, params=_params_of(cpu))
     eng = Engine(gpu, slots=2, max_len=24, device=cuda_device)
@@ -435,16 +464,23 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name):
                        for i, p in enumerate(prompts)])
     assert sorted(c.uid for c in comps) == [0, 1, 2]
     assert eng.prefills == 2 and eng.decode_steps == 6
-    if name == "qwen3-1.7b":       # fp32: the scalar kernel
-        assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * 2
-        assert fa.LAUNCHES["flash_attention_scalar"] == cfg.num_layers * 2
-        assert wk.LAUNCHES["wkv6"] == 0
-    else:
+    if name == "rwkv6-3b":
         assert wk.LAUNCHES["wkv6"] == cfg.num_layers * (2 + 6)
         assert wk.LAUNCHES["wkv6_seq"] == 0
         assert fa.LAUNCHES["flash_attention"] == 0
+    else:
+        kind = "tc" if dtype == "bfloat16" else "scalar"
+        other = "scalar" if kind == "tc" else "tc"
+        assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * 2
+        assert fa.LAUNCHES[f"flash_attention_{kind}"] == cfg.num_layers * 2
+        assert fa.LAUNCHES[f"flash_attention_{other}"] == 0
+        assert wk.LAUNCHES["wkv6"] == 0
     tokens = torch.as_tensor(prompts[:2])
     want, _ = cpu.prefill({"tokens": tokens}, cpu.init_state(2, 24))
     got, _ = gpu.prefill({"tokens": tokens.to(cuda_device)},
                          gpu.init_state(2, 24))
-    assert float((got.cpu() - want).abs().max()) < 2e-3
+    got, want = got.float().cpu(), want.float()
+    if dtype == "float32":
+        assert float((got - want).abs().max()) < 2e-3
+    else:
+        assert float((got - want).norm() / want.norm()) < 0.1

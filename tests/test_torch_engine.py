@@ -37,7 +37,7 @@ from repro_torch.serve import (Engine, Request, make_serve_step,
                                plan_decode_placement)
 from repro_torch.serve.__main__ import main as serve_main
 
-ARCHS = ["qwen3-1.7b", "rwkv6-3b"]
+ARCHS = ["qwen3-1.7b", "stablelm-3b", "rwkv6-3b"]
 SLOTS, MAX_LEN = 2, 32
 
 

@@ -133,16 +133,16 @@ def test_kernel_head_sizes_cover_the_repository():
 
 
 def test_variant_is_chosen_by_dtype_and_head_size_alone():
-    """bf16 at 16, 32, 64 and 128 goes to the tensor-core kernel; fp32 at
-    every head size and bf16 at 80 to the scalar one; qwen3-1.7b's
-    prefill (bf16, D = 128) is a tensor-core call."""
+    """bf16 at every head size (80 included) goes to the tensor-core
+    kernel, fp32 at every head size to the scalar one; the qwen3-1.7b
+    (D = 128) and stablelm-3b (D = 80) prefills are tensor-core calls."""
     from repro_torch import configs
     for D in fa.HEAD_DIMS:
         assert fa.variant(torch.float32, D) == "scalar"
-        assert fa.variant(torch.bfloat16, D) == (
-            "scalar" if D == 80 else "tc")
-    assert set(fa.TC_HEAD_DIMS) == set(fa.HEAD_DIMS) - {80}
-    cfg = configs.get("qwen3-1.7b")
-    assert fa.variant(cfg.compute_dtype, cfg.head_dim) == "tc"
+        assert fa.variant(torch.bfloat16, D) == "tc"
+    assert set(fa.TC_HEAD_DIMS) == set(fa.HEAD_DIMS)
+    for name in ("qwen3-1.7b", "stablelm-3b"):
+        cfg = configs.get(name)
+        assert fa.variant(cfg.compute_dtype, cfg.head_dim) == "tc", name
     assert set(fa.LAUNCHES) == {"flash_attention", "flash_attention_tc",
                                 "flash_attention_scalar"}

@@ -105,7 +105,8 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.models.layers", "repro_torch.models.recurrent",
                 "repro_torch.models.lm", "repro_torch.models.registry",
                 "repro_torch.configs", "repro_torch.configs.qwen3_1_7b",
-                "repro_torch.configs.rwkv6_3b", "repro_torch.core.tpu_flora",
+                "repro_torch.configs.rwkv6_3b",
+                "repro_torch.configs.stablelm_3b", "repro_torch.core.tpu_flora",
                 "repro_torch.market.migration", "repro_torch.serve.engine",
                 "repro_torch.serve.__main__"}
     assert expected <= set(res["modules"])

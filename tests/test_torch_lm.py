@@ -1,8 +1,9 @@
 """The port's LM against the reference LM, on the same weights.
 
 For ``reduced(qwen3-1.7b)`` (dense attention, GQA, qk-norm, tied
-embeddings) and ``reduced(rwkv6-3b)`` (RWKV-6 time and channel mixes),
-in float32: the reference's ``LM.init(PRNGKey(0))`` parameters go to the
+embeddings), ``reduced(stablelm-3b)`` (layernorm with bias, 25% rotary,
+untied embeddings; also at its real head size 80) and
+``reduced(rwkv6-3b)`` (RWKV-6 time and channel mixes), in float32: the reference's ``LM.init(PRNGKey(0))`` parameters go to the
 port through ``repro_torch.convert``, the same seeded tokens go to both,
 and ``forward``, ``prefill`` (logits and state) and six ``decode_step``
 logits must agree within the reference's decode-parity tolerance
@@ -25,16 +26,14 @@ from repro_torch import configs, convert
 from repro_torch.models import LM, NotPortedError, build_model, count_params
 from repro_torch.models.lm import param_specs
 
-ARCHS = ["qwen3-1.7b", "rwkv6-3b"]
+ARCHS = ["qwen3-1.7b", "stablelm-3b", "rwkv6-3b"]
 ATOL = 2e-3
 B, T_TOTAL, T_PROMPT = 2, 12, 6
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def pair(request):
-    """(reference model, its params, port LM on the same weights, tokens)"""
-    name = request.param
-    rcfg = RC.reduced(RC.get(name))
+def _pair(name, rcfg):
+    """(name, reference model, its params, port LM on the same weights,
+    tokens) for the reference config ``rcfg``."""
     ref = ref_build_model(rcfg)
     params = ref.init(jax.random.PRNGKey(0))
     cfg = convert.model_config_from_reference(dataclasses.asdict(rcfg))
@@ -43,6 +42,11 @@ def pair(request):
     tokens = np.random.default_rng(len(name)).integers(
         0, cfg.vocab_size, (B, T_TOTAL)).astype(np.int32)
     return name, ref, params, lm, tokens
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return _pair(request.param, RC.reduced(RC.get(request.param)))
 
 
 def _t(tokens):
@@ -59,16 +63,21 @@ def test_config_conversion_matches_ports_own_registry(pair):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_full_width_parameter_count_matches_reference(name):
-    """Specs only, nothing allocated: 1.72 B for qwen3-1.7b, 3.08 B for
-    rwkv6-3b, the same as the reference's."""
+    """Specs only, nothing allocated: 1.72 B for qwen3-1.7b, 2.80 B for
+    stablelm-3b, 3.08 B for rwkv6-3b, the same as the reference's."""
     ours = count_params(param_specs(configs.get(name)))
     theirs = ref_count_params(ref_build_model(RC.get(name)).param_specs())
     assert ours == theirs
     assert ours == pytest.approx({"qwen3-1.7b": 1.72e9,
+                                  "stablelm-3b": 2.795e9,
                                   "rwkv6-3b": 3.08e9}[name], rel=0.01)
 
 
 def test_forward_matches_reference(pair):
+    _check_forward(pair)
+
+
+def _check_forward(pair):
     _, ref, params, lm, tokens = pair
     want, _ = ref.forward(params, {"tokens": jnp.asarray(tokens)},
                           remat=False)
@@ -79,6 +88,10 @@ def test_forward_matches_reference(pair):
 
 
 def test_prefill_and_decode_match_reference(pair):
+    _check_prefill_and_decode(pair)
+
+
+def _check_prefill_and_decode(pair):
     _, ref, params, lm, tokens = pair
     cfg = lm.cfg
     rstate = ref.init_state(B, T_TOTAL)
@@ -104,6 +117,22 @@ def test_prefill_and_decode_match_reference(pair):
         log, state = lm.decode_step(_t(tokens[:, t]), t, state)
         np.testing.assert_allclose(log.numpy(), np.asarray(rlog), atol=ATOL,
                                    rtol=0, err_msg=f"decode step {t}")
+
+
+def test_stablelm_at_head_size_80_matches_reference():
+    """stablelm-3b's real head size (2560 / 32 = 80) at a small width: 2
+    layers of 2 heads, d_model 160, rotary over 20 of the 80 dims.  The
+    forward and prefill + decode match the reference's through the port's
+    plain attention (the CPU path of the kernel that serves D = 80)."""
+    rcfg = dataclasses.replace(
+        RC.reduced(RC.get("stablelm-3b"), d_model=160), num_heads=2,
+        num_kv_heads=2, head_dim=80)
+    pair = _pair("stablelm-3b", rcfg)
+    cfg = pair[3].cfg
+    assert (cfg.num_layers, cfg.num_heads, cfg.head_dim) == (2, 2, 80)
+    assert int(cfg.head_dim * cfg.rope_fraction) == 20
+    _check_forward(pair)
+    _check_prefill_and_decode(pair)
 
 
 def test_own_prefill_and_decode_match_own_forward(pair):
