@@ -12,10 +12,14 @@ Phases:
 2. hold every ``rank_delta`` kernel against its plain PyTorch version on
    the card: ragged shapes, fully masked rows, a member with fewer
    profiled configs than k, an identity tick (bitwise), 1% and 30%
-   changed columns, k past the two-stage ``select``'s cap (the k-round
-   kernel), and the fleet's own shapes — then time each kernel, its
-   plain version, the kernel it replaced (the k-round ``select``) and,
-   where one exists, the one PyTorch call that computes the same thing;
+   changed columns, the fold twice on the same inputs (bitwise) and
+   against the column-per-thread ``fold_col`` it replaced, the
+   two-stage ``select`` at its cap (256), ``select_sort`` one past it
+   and at k = C on one row, the k-round ``select_rounds`` (the
+   yardstick) past its old cap, and the fleet's own shapes — then time
+   each kernel, its plain version, the kernel it replaced (``fold_col``,
+   ``select_rounds``) and, where one exists, the one PyTorch call that
+   computes the same thing;
 3. run :class:`TorchFusedRankState` at 64 jobs x 10,000 configs x 16
    members for 100 ticks (1% of prices per tick) and at 64 x 100,000 for
    10 (cut from 20 to leave room for the LM phases), holding every member
@@ -24,8 +28,13 @@ Phases:
 4. serve a ``SelectionService(backend="torch_fused")`` over a 64 x 10,000
    store through a ``SelectionDaemon`` for 1,000 events and audit its
    journal with ``JournalReplayer`` — the selection path, read through
-   the kernels' launch counters — then hold each kernel against its
-   plain version at the shapes that path gave it and time it there;
+   the kernels' launch counters: one ``rowmin`` and one ``fold`` a tick,
+   ``select`` for the k-heads, no ``select_sort``, ``fold_col`` or
+   ``select_rounds`` — then hold each kernel against its plain version
+   at the shapes that path gave it and time it there, and time the
+   k-head at k = 65 to 10,000 on one member row and at k = 1,000 on the
+   64 x 100,000 fleet's 16 rows (``HEAD_SHAPES``) beside ``torch.topk``
+   and, up to k = 1,000 on one row, the k-round kernel;
 5. hold both flash-attention kernels and the WKV6 kernel against their
    plain versions: the tensor-core kernel (bf16) and the scalar one
    (fp32); causal, windowed and bidirectional; GQA and MQA; ragged T;
@@ -63,10 +72,14 @@ The last three lines are the ``{"kernels": [...]}`` record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  In the
 record, ``earlier_ms`` is the time, on the same inputs in the same run,
 of the kernel the entry's function ran on before this kernel (the k-round
-``select``, the scalar attention kernel in bf16, the sequential WKV6
-kernel); null where the kernel is the one that was there.  ``select``'s
-entries add ``device_ms`` and ``library_device_ms``: the same calls
-replayed from a CUDA graph, the card's time without the host's.
+``select``, the column-per-thread fold, the scalar attention kernel in
+bf16, the sequential WKV6 kernel); null where the kernel is the one that
+was there.  The k-head and ``fold`` entries add ``device_ms`` (and the
+k-heads ``library_device_ms``): the same calls replayed from a CUDA
+graph, the card's time without the host's.  ``rank_delta_fold_64x*``
+are the fold at 16 members on the two fleet shapes;
+``rank_delta_khead_<rows>x<columns>_k<k>`` the k-head at each timed
+shape, with the ``kernel`` that k takes.
 ``wkv6`` adds the decode step's times (``decode_ms`` back to back,
 ``decode_graph_ms`` from a CUDA graph, ``decode_earlier_ms`` and
 ``decode_earlier_graph_ms`` the sequential kernel) and its bound.
@@ -105,16 +118,26 @@ SOURCE = "src/repro_torch/csrc/rank_delta.cu"
 #: (the service calls ``top_k``, never ``reprice_with_heads``)
 REPLACES = {"rowmin": "src/repro/kernels/rank_delta.py:69",
             "fold": "src/repro/kernels/rank_delta.py:69",
+            "fold_col": "src/repro/kernels/rank_delta.py:69",
             "select": "src/repro/selector/rank.py:1218",
+            "select_sort": "src/repro/selector/rank.py:1218",
             "select_rounds": "src/repro/selector/rank.py:1218"}
-#: ``select`` also ports the Pallas kernel's in-kernel top-k tail, which
+#: the k-heads also port the Pallas kernel's in-kernel top-k tail, which
 #: only ``fused_reprice_heads`` runs (phases 2 and 3, not the service)
 ALSO_REPLACES = {"select": "src/repro/kernels/rank_delta.py:157",
+                 "select_sort": "src/repro/kernels/rank_delta.py:157",
                  "select_rounds": "src/repro/kernels/rank_delta.py:157"}
-KERNELS = ("rowmin", "fold", "select", "select_rounds")
-#: the kernels the selection path launches (``select_rounds`` serves only
-#: k above ``rank_delta.SELECT_CAP``; the path's k is 10)
+KERNELS = ("rowmin", "fold", "fold_col", "select", "select_sort",
+           "select_rounds")
+#: the kernels the selection path launches (its k is 10: ``select_sort``
+#: serves only k above ``rank_delta.SELECT_CAP``)
 PATH_KERNELS = ("rowmin", "fold", "select")
+#: the k-head's timed (rows, columns, k): one member row of the service's
+#: 64 x 10,000 fleet and the 64 x 100,000 fleet's 16 member rows
+HEAD_SHAPES = ((1, 10_000, 65), (1, 10_000, 256), (1, 10_000, 257),
+               (1, 10_000, 1_000), (1, 10_000, 10_000), (16, 100_000, 1_000))
+#: the largest k at which the k-round kernel is timed beside a k-head
+ROUNDS_MAX_K = 1_000
 SOURCES = ("rank_delta", "flash_attention", "wkv6_scan")
 
 
@@ -274,20 +297,22 @@ def max_err(torch, a, b) -> float:
 
 def check_select(torch, scores, finite, k, label, errs,
                  kernel="select") -> None:
-    """The ``select`` kernel (``select_rounds`` past the cap) against the
-    plain stable sort: the same indices and values, and every head k
-    distinct configs."""
+    """The k-head kernel ``k`` takes (``select``; ``select_sort`` past the
+    cap) against the plain stable sort: the same indices and values, bit
+    for bit, and every head k distinct configs."""
     from repro_torch.kernels import rank_delta as rd
-    check((kernel == "select_rounds") == (k > rd.SELECT_CAP),
+    check(rd._select_plan(*scores.shape, k).kernel == kernel,
           f"{label}: k={k} is not {kernel}'s")
-    before = rd.LAUNCHES[kernel]
+    before = dict(rd.LAUNCHES)
     ti_k, tv_k = rd._launch_select(scores, finite, k)
-    check(rd.LAUNCHES[kernel] == before + 1, f"{label}: {kernel} did not "
-          f"launch")
+    check({n: rd.LAUNCHES[n] - before[n] for n in before}
+          == {n: int(n == kernel) for n in before},
+          f"{label}: {kernel} did not launch alone")
     ti_p, tv_p = rd.select_heads_plain(scores, finite, k)
-    check(torch.equal(ti_k, ti_p), f"{label}: select indices differ from "
+    check(torch.equal(ti_k, ti_p), f"{label}: {kernel} indices differ from "
           f"the stable sort")
-    check(torch.equal(tv_k, tv_p), f"{label}: select values differ")
+    check(torch.equal(tv_k.view(torch.int32), tv_p.view(torch.int32)),
+          f"{label}: {kernel} values differ")
     rows = ti_k.cpu().numpy()
     check(all(len(set(r)) == len(r) for r in rows),
           f"{label}: a head repeats a config")
@@ -316,15 +341,34 @@ def check_kernels(torch, t, label, k, errs, identity=False) -> None:
     s_p = rd.fold_plain(*fold_args)
     check(within(torch, s_k, s_p), f"{label}: fold outside rel "
           f"{REL_TOL}/abs {ABS_TOL}")
+    again = rd._launch_fold(*fold_args)
+    check(torch.equal(again.view(torch.int32), s_k.view(torch.int32)),
+          f"{label}: two folds of the same inputs differ")
+    s_col = rd._launch_fold(*fold_args, variant="fold_col")
+    check(within(torch, s_k, s_col), f"{label}: fold and fold_col differ "
+          f"beyond rel {REL_TOL}/abs {ABS_TOL}")
     if identity:
         check(torch.equal(s_k, t["scores"]) and torch.equal(rb_k, t["rb"])
               and int(moved_k) == 0,
               f"{label}: identity tick not bitwise unchanged")
     kk = min(k, C)
-    check_select(torch, s_k, t["finite"], kk, label, errs)
-    if C > rd.SELECT_CAP:       # the k-round kernel, past the cap
+    check_select(torch, s_k, t["finite"], kk, label, errs,
+                 rd._select_plan(S, C, kk).kernel)
+    if C > rd.SELECT_CAP:       # the cap, one past it, and k = C on a row
+        check_select(torch, s_k, t["finite"], rd.SELECT_CAP,
+                     label + " k = cap", errs)
         check_select(torch, s_k, t["finite"], rd.SELECT_CAP + 1,
-                     label + " k > cap", errs, "select_rounds")
+                     label + " k = cap + 1", errs, "select_sort")
+        check_select(torch, s_k[:1], t["finite"][:1], C, label + " k = C",
+                     errs, "select_sort")
+        # the yardstick the timings compare with, past the old cap of 64
+        kr = rd.SELECT_CAP + 1
+        ti_r, tv_r = rd._launch_select_rounds(s_k, t["finite"], kr)
+        ti_p, tv_p = rd.select_heads_plain(s_k, t["finite"], kr)
+        check(torch.equal(ti_r, ti_p) and torch.equal(tv_r, tv_p),
+              f"{label}: select_rounds differs from the stable sort")
+        errs["select_rounds"] = max(errs["select_rounds"],
+                                    max_err(torch, tv_r, tv_p))
     out, rb, moved, ti, _ = rd.fused_reprice_heads(*args, t["finite"], k=kk)
     ti_k, _ = rd.select_heads_plain(s_k, t["finite"], kk)
     check(torch.equal(out, s_k) and torch.equal(rb, rb_k)
@@ -332,6 +376,7 @@ def check_kernels(torch, t, label, k, errs, identity=False) -> None:
     torch.cuda.synchronize()
     errs["rowmin"] = max(errs["rowmin"], max_err(torch, rb_k, rb_p))
     errs["fold"] = max(errs["fold"], max_err(torch, s_k, s_p))
+    errs["fold_col"] = max(errs["fold_col"], max_err(torch, s_col, s_p))
     log(f"[parity] {label}: J={J} C={C} S={S} moved={int(moved_k)} "
         f"fold max|err|={max_err(torch, s_k, s_p):.3g} ok")
 
@@ -366,11 +411,63 @@ def phase_parity(torch, np, seed):
     return errs, main, big
 
 
+def head_bound(R, C, k):
+    """The k-head's bound: each score and flag read once, each head entry
+    written once; one compare a cell."""
+    return bound_ms(R * C * 5 + R * k * 8, R * C)
+
+
+def time_head(torch, scores, finite, k, rounds=True):
+    """The k-head ``k`` takes on ``(scores, finite)``, timed back to back
+    and replayed from a CUDA graph, beside the plain stable sort,
+    ``torch.topk`` (both ways) and, where ``rounds``, the k-round kernel
+    it replaced (``earlier_ms``)."""
+    from repro_torch.kernels import rank_delta as rd
+    R, C = scores.shape
+    inf = torch.tensor(float("inf"), device=scores.device)
+    masked = torch.where(finite, scores, inf)
+    r = dict(
+        kernel=rd._select_plan(R, C, k).kernel,
+        ms=time_ms(torch, lambda: rd._launch_select(scores, finite, k)),
+        device_ms=graph_ms(torch, lambda: rd._launch_select(scores, finite,
+                                                            k)),
+        plain_ms=time_ms(torch, lambda: rd.select_heads_plain(
+            scores, finite, k), iters=20),
+        library_ms=time_ms(torch, lambda: torch.topk(
+            masked, k, dim=1, largest=False)),
+        library_device_ms=graph_ms(torch, lambda: torch.topk(
+            masked, k, dim=1, largest=False)),
+        bound=head_bound(R, C, k))
+    if rounds:
+        r["earlier_ms"] = time_ms(torch, lambda: rd._launch_select_rounds(
+            scores, finite, k), iters=10, warmup=2)
+    return r
+
+
+def log_time(name, r, shape) -> None:
+    """One ``[time]`` line; "graph" is the same call replayed from a CUDA
+    graph (the card's time without the host's)."""
+    def ms(key):
+        return f"{r[key]:.4f}" if r.get(key) is not None else "null"
+
+    kernel = ms("ms") + (f" (graph {ms('device_ms')})"
+                         if "device_ms" in r else "")
+    earlier = f", earlier kernel {ms('earlier_ms')} ms" \
+        if "earlier_ms" in r else ""
+    lib = ms("library_ms") + (f" (graph {ms('library_device_ms')})"
+                              if "library_device_ms" in r else "")
+    log(f"[time] {name}: kernel {kernel} ms{earlier}, plain "
+        f"{ms('plain_ms')} ms, library {lib} ms, bound "
+        f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) at {shape}")
+
+
 def time_kernels(torch, t, k=10, heads=None):
-    """Each kernel, its plain version and the library call on the tick
-    ``t``.  ``select`` runs on ``heads`` (``(scores, finite)``) when
-    given — the one member row the service's ``top_k`` serves — else on
-    every member row of ``t`` (the fused heads tick)."""
+    """Each kernel, its plain version, the kernel it replaced and the
+    library call on the tick ``t``.  The k-heads run on ``heads``
+    (``(scores, finite)``) when given — the one member row the service's
+    ``top_k`` serves — else on every member row of ``t`` (the fused heads
+    tick): ``select`` at ``k`` and the k-round kernel at 65, one past its
+    old cap (``select_sort`` is timed by :func:`time_heads`)."""
     from repro_torch.kernels import rank_delta as rd
     J, C = t["hours"].shape
     S = t["rm"].shape[0]
@@ -379,19 +476,12 @@ def time_kernels(torch, t, k=10, heads=None):
     rb_new, _ = rd.rowmin_plain(t["hours"], t["mask"], t["newp"], t["rb"])
     fold_args = (t["hours"], t["mask"], t["oldp"], t["newp"], t["changed"],
                  t["rb"], rb_new, t["rm"], t["scores"])
-    inf = torch.tensor(float("inf"), device=t["scores"].device)
+    inf = torch.tensor(float("inf"), device=sel_scores.device)
     masked = torch.where(sel_finite, sel_scores, inf)
-    kr = min(rd.SELECT_CAP + 1, C)
-    out_i = torch.empty((R, kr), dtype=torch.int32, device=masked.device)
-    out_v = torch.empty((R, kr), dtype=torch.float32, device=masked.device)
+    kr = min(65, C)
 
-    def rounds(kk):
-        """The k-round ``select`` kernel, the one the two-stage kernel
-        replaced, at any k."""
-        rd._build.check(rd._lib().rank_delta_select_rounds(
-            sel_scores.data_ptr(), sel_finite.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), R, C, kk, rd._stream(sel_scores)),
-            "rank_delta_select_rounds")
+    def fold(variant):
+        return lambda: rd._launch_fold(*fold_args, variant=variant)
 
     res = {
         "rowmin": dict(
@@ -401,54 +491,58 @@ def time_kernels(torch, t, k=10, heads=None):
                 t["hours"], t["mask"], t["newp"], t["rb"])),
             library_ms=None),
         "fold": dict(
-            ms=time_ms(torch, lambda: rd._launch_fold(*fold_args)),
+            ms=time_ms(torch, fold("fold")),
+            earlier_ms=time_ms(torch, fold("fold_col")),
+            device_ms=graph_ms(torch, fold("fold")),
+            earlier_device_ms=graph_ms(torch, fold("fold_col")),
             plain_ms=time_ms(torch, lambda: rd.fold_plain(*fold_args)),
             library_ms=None),
-        "select": dict(
-            ms=time_ms(torch, lambda: rd._launch_select(
-                sel_scores, sel_finite, k)),
-            earlier_ms=time_ms(torch, lambda: rounds(k)),
-            plain_ms=time_ms(torch, lambda: rd.select_heads_plain(
-                sel_scores, sel_finite, k)),
-            library_ms=time_ms(torch, lambda: torch.topk(
-                masked, k, dim=1, largest=False)),
-            device_ms=graph_ms(torch, lambda: rd._launch_select(
-                sel_scores, sel_finite, k)),
-            library_device_ms=graph_ms(torch, lambda: torch.topk(
-                masked, k, dim=1, largest=False))),
-        # the k-round kernel where it serves now: k past the cap
+        "select": time_head(torch, sel_scores, sel_finite, k),
+        # the k-round kernel where it served: k one past its old cap of 64
         "select_rounds": dict(
-            ms=time_ms(torch, lambda: rounds(kr)),
+            ms=time_ms(torch, lambda: rd._launch_select_rounds(
+                sel_scores, sel_finite, kr), iters=20),
             plain_ms=time_ms(torch, lambda: rd.select_heads_plain(
-                sel_scores, sel_finite, kr)),
+                sel_scores, sel_finite, kr), iters=20),
             library_ms=time_ms(torch, lambda: torch.topk(
                 masked, kr, dim=1, largest=False))),
     }
+    res["fold_col"] = dict(ms=res["fold"]["earlier_ms"],
+                           device_ms=res["fold"]["earlier_device_ms"],
+                           plain_ms=res["fold"]["plain_ms"], library_ms=None)
     mask = t["mask"]
     nnz = float(mask.sum())
     member_cells = float((t["rm"] @ mask.float().sum(dim=1,
                                                      keepdim=True)).sum())
     res["rowmin"]["bound"] = bound_ms(J * C * 5 + C * 4 + J * 8 + 4,
                                       2 * nnz)
-    res["fold"]["bound"] = bound_ms(
+    res["fold"]["bound"] = res["fold_col"]["bound"] = bound_ms(
         J * C * 5 + 3 * C * 4 + 2 * J * 4 + S * J * 4 + 2 * S * C * 4,
         5 * nnz + 4 * member_cells)
-    res["select"]["bound"] = bound_ms(R * C * 5 + R * k * 8, R * C)
-    res["select_rounds"]["bound"] = bound_ms(R * C * 5 + R * kr * 8, R * C)
-    for name, r in res.items():
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        earlier = f", k-round kernel {r['earlier_ms']:.4f} ms" \
-            if "earlier_ms" in r else ""
-        if "device_ms" in r:
-            earlier += (f"; replayed from a CUDA graph, kernel "
-                        f"{r['device_ms']:.4f} ms, library "
-                        f"{r['library_device_ms']:.4f} ms")
-        log(f"[time] {name}: kernel {r['ms']:.4f} ms{earlier}, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) at J={J} C={C} "
-            f"S={R if name.startswith('select') else S} "
-            f"k={kr if name == 'select_rounds' else k}")
+    res["select_rounds"]["bound"] = head_bound(R, C, kr)
+    tick = f"J={J} C={C} S={S}"
+    for name in ("rowmin", "fold", "fold_col"):
+        log_time(name, res[name], tick)
+    for name, kk in (("select", k), ("select_rounds", kr)):
+        log_time(name, res[name], f"{R} x {C}, k={kk}")
     return res
+
+
+def time_heads(torch, row, big):
+    """The k-head at every (rows, columns, k) of :data:`HEAD_SHAPES`: the
+    service's member row (1 x 10,000) and the 64 x 100,000 fleet's rows;
+    the k-round kernel beside it on one row up to :data:`ROUNDS_MAX_K`."""
+    rows = {1: row, 16: big}
+    out = {}
+    for R, C, k in HEAD_SHAPES:
+        scores, finite = rows[R]
+        check(tuple(scores.shape) == (R, C), f"k-head rows {scores.shape} "
+              f"are not {R} x {C}")
+        r = time_head(torch, scores, finite, k,
+                      rounds=R == 1 and k <= ROUNDS_MAX_K)
+        log_time(f"k-head ({r['kernel']})", r, f"{R} x {C}, k={k}")
+        out[(R, C, k)] = r
+    return out
 
 
 # --- phase 3 --------------------------------------------------------------------
@@ -680,7 +774,7 @@ def phase_main_path_kernels(torch, np, seed, fleet, errs, k=10):
     slot = min(fleet._slots.values())
     row = (fleet.d_scores[slot:slot + 1], fleet._d_finite[slot:slot + 1])
     check_select(torch, *row, k, "main path top_k row", errs)
-    return time_kernels(torch, t, k, heads=row)
+    return time_kernels(torch, t, k, heads=row), row
 
 
 # --- phase 5: the LM kernels against their plain versions ---------------------
@@ -1329,9 +1423,10 @@ def main() -> int:
     phase_build(torch)
     done("build")
     errs, main_shape, big_shape = phase_parity(torch, np, args.seed)
-    # the fleet heads tick's k-head: every member row of 64 x 100k x 16
+    # the fleet heads tick's k-head: every member row of 64 x 100k x 16;
+    # the fold at 16 members on both fleet shapes
     heads_times = time_kernels(torch, big_shape)
-    time_kernels(torch, main_shape)
+    fleet_times = time_kernels(torch, main_shape)
     done("parity")
     phase_fleet(torch, np, args.seed, 64, 10_000, 16, 100, 10,
                 "64x10000x16", card)
@@ -1347,8 +1442,18 @@ def main() -> int:
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on "
               f"the main path")
-    times = phase_main_path_kernels(torch, np, args.seed, service._batched,
-                                    errs)
+    for name in set(KERNELS) - set(PATH_KERNELS):
+        check(launches[name] == 0, f"kernel {name} was launched "
+              f"{launches[name]} times on the main path")
+    check(launches["rowmin"] == launches["fold"]
+          == service.reprice_dispatches, f"main path: {launches} for "
+          f"{service.reprice_dispatches} fleet ticks")
+    times, row = phase_main_path_kernels(torch, np, args.seed,
+                                         service._batched, errs)
+    head_times = time_heads(torch, row, (big_shape["scores"],
+                                         big_shape["finite"]))
+    # select_sort's record: its first k, on the service's member row
+    times["select_sort"] = head_times[(1, 10_000, rd.SELECT_CAP + 1)]
     done("main-path kernels")
     phase_lm_parity(torch)
     done("lm-parity")
@@ -1395,9 +1500,9 @@ def main() -> int:
              "earlier_ms": r.get("earlier_ms"), "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
-        if "device_ms" in r:
-            e.update(device_ms=r["device_ms"],
-                     library_device_ms=r["library_device_ms"])
+        for key in ("device_ms", "library_device_ms", "kernel"):
+            if key in r:
+                e[key] = r[key]
         if "wave_ms" in r:
             e.update(wave_ms=r["wave_ms"], wave_earlier_ms=r["wave_earlier_ms"])
         return e
@@ -1413,6 +1518,17 @@ def main() -> int:
                          ALSO_REPLACES["select"], launches["select"],
                          errs["select"], heads_times["select"]))
     kernels[-1]["fleet_launches"] = fleet_heads_launches
+    # the fold at 16 members on the two fleet shapes (fold_col: earlier_ms)
+    for shape, r in (("64x10000x16", fleet_times["fold"]),
+                     ("64x100000x16", heads_times["fold"])):
+        kernels.append(entry(f"rank_delta_fold_{shape}", SOURCE,
+                             REPLACES["fold"], launches["fold"],
+                             errs["fold"], r))
+    # the k-head at each timed (rows, columns, k), by the kernel k takes
+    for (R, C, k), r in head_times.items():
+        kernels.append(entry(f"rank_delta_khead_{R}x{C}_k{k}", SOURCE,
+                             REPLACES[r["kernel"]], launches[r["kernel"]],
+                             errs[r["kernel"]], r))
     qwen, rwkv = lm_runs["flash_attention"], lm_runs["wkv6"]
     stablelm = lm_runs["flash_attention_d80"]
     runs = {"flash_attention": (qwen["launches"]["flash_attention_tc"],

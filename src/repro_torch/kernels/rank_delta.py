@@ -10,13 +10,19 @@ shared (J x C) universe:
 * **fold** — both norm matrices recomputed from the residents,
   ``P = row_masks @ norm_new`` and ``D = row_masks @ (norm_new -
   norm_old)``; changed columns take ``P``, the others ``scores + D``
-  (kernel ``fold``);
+  (kernel ``fold``: the rows split across a block's 8 warps, 32 columns
+  a block, the warps' partials added in fixed order — one launch,
+  bit-repeatable; ``fold_col``, one thread a column, is the yardstick
+  it replaced and no wrapper path reaches it);
 * **heads** — optionally every member's k best ``(index, value)`` in
-  (score, catalog order), always k *distinct* configs: for k up to
+  (score, catalog order), always k *distinct* configs.  For k up to
   :data:`SELECT_CAP` one pass over the row in two stages (kernel
-  ``select``: per-chunk heads of :data:`SELECT_CHUNK` columns, then a
-  merge; two launches on the stream, one count), above it k rounds of a
-  block-wide argmin (kernel ``select_rounds``), chosen by k alone.
+  ``select``: per-chunk heads of :data:`SELECT_CHUNK` columns held in
+  ``R`` registers a lane, then a merge; two launches, one count); above
+  it each chunk sorted whole and a tree of merge-path merges cut to k
+  (kernel ``select_sort``: 1 + ceil(log2(chunks)) launches, one count).
+  :func:`_select_plan` maps ``(S, C, k)`` to the kernel, ``R`` and the
+  scratch.  The k-round kernel (``select_rounds``) is a yardstick only.
 
 The kernels live in ``csrc/rank_delta.cu`` (see its header for what
 bounds them on the card and why the arithmetic is exact).  Each public
@@ -32,7 +38,8 @@ instead, so its heads equal ``ranking()[:k]`` in every case.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -44,12 +51,15 @@ __all__ = ["LAUNCHES", "SELECT_CAP", "SELECT_CHUNK", "fold_plain",
            "select_heads_plain"]
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
-LAUNCHES: Dict[str, int] = {"rowmin": 0, "fold": 0, "select": 0,
+#: (``fold_col`` and ``select_rounds`` are the yardsticks: no wrapper
+#: path launches them)
+LAUNCHES: Dict[str, int] = {"rowmin": 0, "fold": 0, "fold_col": 0,
+                             "select": 0, "select_sort": 0,
                              "select_rounds": 0}
 #: the largest k the two-stage ``select`` serves (``kSelectCap`` in
-#: ``csrc/rank_delta.cu``); larger k take ``select_rounds``
-SELECT_CAP = 64
-#: columns a stage-1 block of ``select`` reads (``kSelectChunk``)
+#: ``csrc/rank_delta.cu``); larger k take ``select_sort``
+SELECT_CAP = 256
+#: columns a stage-1 block of either k-head reads (``kSelectChunk``)
 SELECT_CHUNK = 2048
 
 _SOURCE = "rank_delta"
@@ -58,7 +68,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "rank_delta_rowmin": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "rank_delta_fold": [_P] * 10 + [_I, _I, _I, _P],
-    "rank_delta_select": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rank_delta_fold_col": [_P] * 10 + [_I, _I, _I, _P],
+    "rank_delta_select": [_P] * 5 + [_I] * 6 + [_P],
+    "rank_delta_select_sort": [_P] * 5 + [_I] * 5 + [_P],
     "rank_delta_select_rounds": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -191,16 +203,20 @@ def _launch_rowmin(hours, mask, new_prices, row_best):
 
 
 def _launch_fold(hours, mask, old_prices, new_prices, changed, row_best,
-                 rb_new, row_masks, scores):
+                 rb_new, row_masks, scores, variant="fold"):
+    """The fold on the card: the row-split ``fold``, or by name the
+    column-per-thread ``fold_col`` it replaced."""
+    if variant not in ("fold", "fold_col"):
+        raise ValueError(f"unknown fold kernel {variant!r}")
     J, C = hours.shape
     out = torch.empty_like(scores)
-    _build.check(_lib().rank_delta_fold(
+    _build.check(getattr(_lib(), f"rank_delta_{variant}")(
         hours.data_ptr(), mask.data_ptr(), old_prices.data_ptr(),
         new_prices.data_ptr(), changed.data_ptr(), row_best.data_ptr(),
         rb_new.data_ptr(), row_masks.data_ptr(), scores.data_ptr(),
         out.data_ptr(), J, C, scores.shape[0], _stream(hours)),
-        "rank_delta_fold")
-    LAUNCHES["fold"] += 1
+        f"rank_delta_{variant}")
+    LAUNCHES[variant] += 1
     return out
 
 
@@ -214,35 +230,71 @@ def _launch_tick(hours, mask, old_prices, new_prices, changed, row_best,
     return out, rb_new, moved
 
 
-def _launch_select(scores, finite, k):
-    """The k-head on the card: the two-stage ``select`` for k up to
-    :data:`SELECT_CAP`, else ``select_rounds``."""
-    S, C = scores.shape
-    dev = scores.device
-    if k > SELECT_CAP:
-        top_i = torch.empty((S, k), dtype=torch.int32, device=dev)
-        top_v = torch.empty((S, k), dtype=torch.float32, device=dev)
-        _build.check(_lib().rank_delta_select_rounds(
-            scores.data_ptr(), finite.data_ptr(), top_v.data_ptr(),
-            top_i.data_ptr(), S, C, k, _stream(scores)),
-            "rank_delta_select_rounds")
-        LAUNCHES["select_rounds"] += 1
-        return top_i, top_v
-    # one allocation (at one row the call is bound by the host's work):
-    # top_i, top_v, then the stage-1 keys, 8-byte aligned
+class SelectPlan(NamedTuple):
+    """How the card computes an (S, C) k-head."""
+    #: ``"select"`` (two stages, k <= :data:`SELECT_CAP`) or
+    #: ``"select_sort"`` (chunk sorts and a merge tree)
+    kernel: str
+    #: ``select``: 32-key register lists a lane (1, 2, 4 or 8); else 0
+    R: int
+    #: the scratch's shape in 64-bit keys, ``chunks`` being the row's
+    #: blocks of :data:`SELECT_CHUNK` columns: ``(S, chunks, k)`` for
+    #: ``select``, two ping-pong buffers ``(2, S, chunks, min(k,
+    #: SELECT_CHUNK))`` for ``select_sort`` (1 + ceil(log2(chunks))
+    #: launches, counted as one in :data:`LAUNCHES`)
+    scratch: Tuple[int, ...]
+
+
+def _select_plan(S: int, C: int, k: int) -> SelectPlan:
+    """The kernel, ``R`` and scratch the card's k-head takes for an
+    ``(S, C)`` score matrix and ``k`` in ``[1, C]`` — by k alone."""
     chunks = -(-C // SELECT_CHUNK)
-    buf = torch.empty((2 + 2 * chunks, S, k), dtype=torch.int32, device=dev)
-    top_i, top_v = buf[0], buf[1].view(torch.float32)
+    if k <= SELECT_CAP:
+        R = 1 << ((k - 1) // 32).bit_length()
+        return SelectPlan("select", R, (S, chunks, k))
+    return SelectPlan("select_sort", 0, (2, S, chunks, min(k, SELECT_CHUNK)))
+
+
+def _launch_select(scores, finite, k):
+    """The k-head on the card, through the kernel :func:`_select_plan`
+    names."""
+    S, C = scores.shape
+    plan = _select_plan(S, C, k)
+    keys = math.prod(plan.scratch)
+    # one allocation (at one row the call is bound by the host's work):
+    # top_i, top_v, then the scratch keys, 8-byte aligned
+    buf = torch.empty(2 * S * k + 2 * keys, dtype=torch.int32,
+                      device=scores.device)
+    top_i = buf[:S * k].view(S, k)
+    top_v = buf[S * k:2 * S * k].view(torch.float32).view(S, k)
     # vector loads where every row starts 16 (scores) and 4 (flags) bytes
     # aligned: a shape and address rule, decided before the launch
     vec = C % 4 == 0 and scores.data_ptr() % 16 == 0 \
         and finite.data_ptr() % 4 == 0
     base = buf.data_ptr()
-    _build.check(_lib().rank_delta_select(
-        scores.data_ptr(), finite.data_ptr(), base + 4 * S * k, base,
-        base + 8 * S * k, S, C, k, SELECT_CHUNK, int(vec), _stream(scores)),
-        "rank_delta_select")
-    LAUNCHES["select"] += 1
+    lib = _lib()
+    head = (scores.data_ptr(), finite.data_ptr(), base + 4 * S * k, base,
+            base + 8 * S * k, S, C, k, SELECT_CHUNK)
+    if plan.kernel == "select":
+        err = lib.rank_delta_select(*head, plan.R, int(vec), _stream(scores))
+    else:
+        err = lib.rank_delta_select_sort(*head, int(vec), _stream(scores))
+    _build.check(err, f"rank_delta_{plan.kernel}")
+    LAUNCHES[plan.kernel] += 1
+    return top_i, top_v
+
+
+def _launch_select_rounds(scores, finite, k):
+    """The k-round kernel the two k-heads replaced, at any k in [1, C]:
+    the yardstick, reached by name only."""
+    S, C = scores.shape
+    top_i = torch.empty((S, k), dtype=torch.int32, device=scores.device)
+    top_v = torch.empty((S, k), dtype=torch.float32, device=scores.device)
+    _build.check(_lib().rank_delta_select_rounds(
+        scores.data_ptr(), finite.data_ptr(), top_v.data_ptr(),
+        top_i.data_ptr(), S, C, k, _stream(scores)),
+        "rank_delta_select_rounds")
+    LAUNCHES["select_rounds"] += 1
     return top_i, top_v
 
 
@@ -264,8 +316,8 @@ def fused_reprice(hours, mask, old_prices, new_prices, changed, row_best,
 def select_heads(scores, finite, k: int):
     """Every row's k-head ``(indices (S, k) int32, values (S, k))`` in
     (score, catalog order) over the ``inf``-masked scores.  CUDA tensors
-    run the ``select`` kernels (``select_rounds`` above
-    :data:`SELECT_CAP`); CPU tensors the plain stable sort."""
+    run ``select`` (``select_sort`` above :data:`SELECT_CAP`); CPU
+    tensors the plain stable sort."""
     if not isinstance(scores, torch.Tensor) or scores.dim() != 2:
         raise ValueError("scores must be an (S, C) tensor")
     S, C = scores.shape

@@ -74,7 +74,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
     before = dict(rd.LAUNCHES)
     s, rb, mv, ti, tv = rd.fused_reprice_heads(*t, fin, k=10)
     assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
-        {"rowmin": 1, "fold": 1, "select": 1, "select_rounds": 0}
+        {"rowmin": 1, "fold": 1, "fold_col": 0, "select": 1,
+         "select_sort": 0, "select_rounds": 0}
     rb_p, mv_p = rd.rowmin_plain(t[0], t[1], t[3], t[5])
     assert torch.equal(rb, rb_p) and int(mv) == int(mv_p)
     s_p = rd.fold_plain(*t[:6], rb, t[6], t[7])
@@ -111,14 +112,14 @@ def _select_inputs(device, S, C, seed, p_finite=0.8):
 
 def _assert_select_exact(scores, finite, k, kernel="select"):
     """The card's k-head equals the plain stable sort in indices and
-    values (bit for bit), through the kernel that ``k`` names."""
+    values (bit for bit), through the kernel that ``k`` names: one
+    launch count of it and none of any other kernel."""
+    assert rd._select_plan(*scores.shape, k).kernel == kernel
     before = dict(rd.LAUNCHES)
     ti, tv = rd.select_heads(scores, finite, k)
     torch.cuda.synchronize()
-    assert {n: rd.LAUNCHES[n] - before[n] for n in ("select",
-                                                   "select_rounds")} == \
-        {"select": int(kernel == "select"),
-         "select_rounds": int(kernel == "select_rounds")}
+    assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
+        {n: int(n == kernel) for n in before}
     pi, pv = rd.select_heads_plain(scores, finite, k)
     assert torch.equal(ti, pi)
     assert torch.equal(tv.view(torch.int32), pv.view(torch.int32))
@@ -135,10 +136,37 @@ def test_cuda_select_matches_stable_sort(cuda_device, S, C, k):
     _assert_select_exact(*_select_inputs(cuda_device, S, C, seed=C + k), k)
 
 
+@pytest.mark.parametrize("S, C, k", [(1, 10_000, 65), (1, 10_000, 256),
+                                     (1, 10_000, 257), (3, 4_097, 1_000),
+                                     (2, 777, 777), (16, 100_000, 1_000),
+                                     (1, 10_000, 10_000)],
+                         ids=str)
+def test_cuda_khead_above_64_matches_stable_sort(cuda_device, S, C, k):
+    """The k-head past the old cap of 64: the two-stage ``select`` with 4
+    and 8 register lists up to its cap of 256, ``select_sort`` from 257
+    (one chunk a row, a ragged 3 chunks, 5 and 49 chunks; k = C)."""
+    kernel = "select" if k <= rd.SELECT_CAP else "select_sort"
+    _assert_select_exact(*_select_inputs(cuda_device, S, C, seed=C + k), k,
+                         kernel)
+
+
+def test_cuda_select_rounds_is_kept_as_the_yardstick(cuda_device):
+    """The k-round kernel, reached by name only, still equals the plain
+    stable sort past the old cap."""
+    scores, finite = _select_inputs(cuda_device, 2, 3_000, seed=4)
+    before = dict(rd.LAUNCHES)
+    ti, tv = rd._launch_select_rounds(scores, finite, 65)
+    torch.cuda.synchronize()
+    assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
+        {n: int(n == "select_rounds") for n in before}
+    pi, pv = rd.select_heads_plain(scores, finite, 65)
+    assert torch.equal(ti, pi) and torch.equal(tv, pv)
+
+
 def test_cuda_select_edge_rows(cuda_device):
     """A wholly unprofiled row (catalog order), k above a row's finite
     count, ties in catalog order, -0.0 against +0.0 (one score), and k at
-    the two-stage cap and one above it (the k-round kernel)."""
+    the two-stage cap and one above it (``select_sort``)."""
     scores, finite = _select_inputs(cuda_device, 4, 9_000, seed=1)
     finite[1] = False                       # wholly unprofiled
     finite[2] = False
@@ -151,7 +179,57 @@ def test_cuda_select_edge_rows(cuda_device):
     ties, fin = _select_inputs(cuda_device, 3, 30_000, seed=2)
     ties = torch.floor(ties / 4)            # three distinct scores
     _assert_select_exact(ties, fin, rd.SELECT_CAP)
-    _assert_select_exact(ties, fin, rd.SELECT_CAP + 1, "select_rounds")
+    _assert_select_exact(ties, fin, rd.SELECT_CAP + 1, "select_sort")
+    _assert_select_exact(scores, finite, rd.SELECT_CAP + 1, "select_sort")
+    _assert_select_exact(scores, finite, 9_000, "select_sort")
+
+
+def _fold_args(seed, J, C, S, device, identity=False):
+    """One tick's fold arguments with a fully masked row (row 0) and the
+    new row minima from the plain ``rowmin``."""
+    *t, _ = _tick_inputs(seed, J, C, S, 0 if identity else max(1, C // 50),
+                         masked_rows=(0,), device=device)
+    if identity:
+        t[3] = t[2]
+    rb_new, _ = rd.rowmin_plain(t[0], t[1], t[3], t[5])
+    return t[:6] + [rb_new, t[6], t[7]]
+
+
+@pytest.mark.parametrize("C", [300, 10_001])
+@pytest.mark.parametrize("J", [1, 13, 64, 65])
+@pytest.mark.parametrize("S", [1, 8, 16, 17, 33])
+def test_cuda_fold_matches_plain_and_fold_col(cuda_device, S, J, C):
+    """The row-split ``fold`` against the plain version and against the
+    column-per-thread ``fold_col`` it replaced, within the envelope (the
+    member sums re-associated), at 8 and 16 member accumulators and past
+    them, J past a staged chunk of 64 rows, C past a 32-column tile; a
+    fully masked row never yields NaN.  Each launch counts under its own
+    name."""
+    args = _fold_args(S * 1000 + J, J, C, S, cuda_device)
+    before = dict(rd.LAUNCHES)
+    got = rd._launch_fold(*args)
+    col = rd._launch_fold(*args, variant="fold_col")
+    torch.cuda.synchronize()
+    assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
+        {n: int(n in ("fold", "fold_col")) for n in before}
+    want = rd.fold_plain(*args)
+    assert torch.isfinite(got).all()
+    for other in (want, col):
+        np.testing.assert_allclose(got.cpu().numpy(), other.cpu().numpy(),
+                                   rtol=REL, atol=ABS)
+
+
+@pytest.mark.parametrize("S", [8, 16])
+def test_cuda_fold_is_repeatable_and_identity_is_bitwise(cuda_device, S):
+    """Two launches on the same inputs give the same bits (the warps'
+    partials add in a fixed order), and an identity tick leaves every
+    score bit for bit, at the fleet's 64 x 10,000."""
+    args = _fold_args(3, 64, 10_000, S, cuda_device)
+    a, b = rd._launch_fold(*args), rd._launch_fold(*args)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    same = _fold_args(3, 64, 10_000, S, cuda_device, identity=True)
+    out = rd._launch_fold(*same)
+    assert torch.equal(out.view(torch.int32), same[8].view(torch.int32))
 
 
 def _fleet(device, seed=5, J=21, C=700, n_members=6):
@@ -238,9 +316,12 @@ def test_cuda_service_serves_through_the_kernels(cuda_device):
                   rng.choice(300, 9, replace=False)}
         gpu.reprice(deltas)
         ref.reprice(deltas)
-    # every kernel of the path; the k-round select serves only k > 64
+    # every kernel of the path, one rowmin and one fold a tick; the sort
+    # serves only k > 256 and the yardsticks no path at all
     assert all(rd.LAUNCHES[n] > 0 for n in ("rowmin", "fold", "select")) \
-        and rd.LAUNCHES["select_rounds"] == 0, rd.LAUNCHES
+        and rd.LAUNCHES["rowmin"] == rd.LAUNCHES["fold"] == 3 \
+        and all(rd.LAUNCHES[n] == 0 for n in ("select_sort", "fold_col",
+                                              "select_rounds")), rd.LAUNCHES
     assert gpu.reprice_dispatches == 3
 
 

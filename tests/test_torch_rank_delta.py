@@ -248,6 +248,20 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     fin = torch.ones_like(u[7], dtype=torch.bool)
     rd.fused_reprice(*u)
     rd.fused_reprice_heads(*u, fin, k=3)
+    C = u[7].shape[1]
+    rd.fused_reprice_heads(*u, fin, k=C)
     rd.select_heads(u[7], fin, 3)
-    assert rd.LAUNCHES == {"rowmin": 0, "fold": 0, "select": 0,
+    rd.select_heads(u[7], fin, C)
+    assert rd.LAUNCHES == {"rowmin": 0, "fold": 0, "fold_col": 0,
+                           "select": 0, "select_sort": 0,
                            "select_rounds": 0}
+
+
+def test_launch_fold_names_only_its_two_kernels():
+    """The card's fold is reached as ``fold`` or, by name, ``fold_col``;
+    any other name raises before a library is built or a launch counted."""
+    rd.reset_launches()
+    t = _torch(*_universe(6))
+    with pytest.raises(ValueError, match="unknown fold kernel"):
+        rd._launch_fold(*t[:6], t[5], t[6], t[7], variant="fold_rows")
+    assert sum(rd.LAUNCHES.values()) == 0
