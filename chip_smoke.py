@@ -10,31 +10,41 @@ Phases:
    process per source, all started together (``-Xptxas -v`` registers,
    shared memory and spills printed, and each source's build time);
 2. hold every ``rank_delta`` kernel against its plain PyTorch version on
-   the card: ragged shapes, fully masked rows, a member with fewer
-   profiled configs than k, an identity tick (bitwise), 1% and 30%
-   changed columns, the fold twice on the same inputs (bitwise) and
+   the card: the tick's price ``scatter`` (bitwise, C = 1 to 100,000, n =
+   0 to C, each case scattered twice back to back); ``rowmin`` and the
+   one-block-a-row ``rowmin_row`` it replaced, bitwise, at C = 1 to
+   10,001 around its 4,096-column chunk (``ROWMIN_EDGES``) and 100 times
+   in a row on one scratch; ragged shapes, fully masked rows, a member
+   with fewer profiled configs than k, an identity tick (bitwise), 1%
+   and 30% changed columns, the fold twice on the same inputs (bitwise) and
    against the column-per-thread ``fold_col`` it replaced, the
    two-stage ``select`` at its cap (256), ``select_sort`` one past it
    and at k = C on one row, the k-round ``select_rounds`` (the
    yardstick) past its old cap, and the fleet's own shapes — then time
-   each kernel, its plain version, the kernel it replaced (``fold_col``,
-   ``select_rounds``) and, where one exists, the one PyTorch call that
-   computes the same thing;
+   each kernel, its plain version, the kernel it replaced
+   (``rowmin_row``, ``fold_col``, ``select_rounds``) and, where one
+   exists, the one PyTorch call that computes the same thing; and
+   ``scatter`` at 10,000 and 100,000 columns and a 1% tick beside its
+   plain version, the PyTorch scatter;
 3. run :class:`TorchFusedRankState` at 64 jobs x 10,000 configs x 16
    members for 100 ticks (1% of prices per tick) and at 64 x 100,000 for
    10 (cut from 20 to leave room for the LM phases), holding every member
    against the float64 ``rank_dense`` under the score contract, the fused
-   heads against ``ranking()[:10]``, and timing the tick;
+   heads against ``ranking()[:10]``, a tick bit for bit against the
+   dense path it replaced (the whole (1, C) price and changed vectors
+   built on the host and uploaded), and timing the tick and its host
+   step through both paths in turns;
 4. serve a ``SelectionService(backend="torch_fused")`` over a 64 x 10,000
    store through a ``SelectionDaemon`` for 1,000 events and audit its
    journal with ``JournalReplayer`` — the selection path, read through
-   the kernels' launch counters: one ``rowmin`` and one ``fold`` a tick,
-   ``select`` for the k-heads, no ``select_sort``, ``fold_col`` or
-   ``select_rounds`` — then hold each kernel against its plain version
-   at the shapes that path gave it and time it there, and time the
-   k-head at k = 65 to 10,000 on one member row and at k = 1,000 on the
-   64 x 100,000 fleet's 16 rows (``HEAD_SHAPES``) beside ``torch.topk``
-   and, up to k = 1,000 on one row, the k-round kernel;
+   the kernels' launch counters: one ``scatter``, one ``rowmin`` and one
+   ``fold`` a tick, ``select`` for the k-heads, no ``rowmin_row``,
+   ``select_sort``, ``fold_col`` or ``select_rounds`` — then hold each
+   kernel against its plain version at the shapes that path gave it and
+   time it there, and time the k-head at k = 65 to 10,000 on one member
+   row and at k = 1,000 on the 64 x 100,000 fleet's 16 rows
+   (``HEAD_SHAPES``) beside ``torch.topk`` and, up to k = 1,000 on one
+   row, the k-round kernel;
 5. hold both flash-attention kernels and the WKV6 kernel against their
    plain versions: the tensor-core kernel (bf16) and the scalar one
    (fp32); causal, windowed and bidirectional; GQA and MQA; ragged T;
@@ -71,13 +81,17 @@ Every phase runs on every call.  Every check that fails exits non-zero.
 The last three lines are the ``{"kernels": [...]}`` record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  In the
 record, ``earlier_ms`` is the time, on the same inputs in the same run,
-of the kernel the entry's function ran on before this kernel (the k-round
-``select``, the column-per-thread fold, the scalar attention kernel in
-bf16, the sequential WKV6 kernel); null where the kernel is the one that
-was there.  The k-head and ``fold`` entries add ``device_ms`` (and the
-k-heads ``library_device_ms``): the same calls replayed from a CUDA
-graph, the card's time without the host's.  ``rank_delta_fold_64x*``
-are the fold at 16 members on the two fleet shapes;
+of the kernel the entry's function ran on before this kernel (the
+one-block-a-row ``rowmin``, the k-round ``select``, the column-per-thread
+fold, the scalar attention kernel in bf16, the sequential WKV6 kernel);
+null where the kernel is the one that was there.  The k-head, ``rowmin``
+and ``fold`` entries add ``device_ms`` (and the k-heads
+``library_device_ms``): the same calls replayed from a CUDA graph, the
+card's time without the host's (``earlier_device_ms`` the earlier
+kernel's).  ``rank_delta_scatter`` is the price scatter at the
+service's C = 10,000 (``rank_delta_scatter_100000`` at 100,000), a 1%
+tick; ``rank_delta_rowmin_64x*`` and ``rank_delta_fold_64x*`` are
+``rowmin`` and the fold at 16 members on the two fleet shapes;
 ``rank_delta_khead_<rows>x<columns>_k<k>`` the k-head at each timed
 shape, with the ``kernel`` that k takes.
 ``wkv6`` adds the decode step's times (``decode_ms`` back to back,
@@ -112,11 +126,15 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 REL_TOL, ABS_TOL = 1e-4, 1e-6
 SOURCE = "src/repro_torch/csrc/rank_delta.cu"
-#: what each CUDA kernel replaces on the main path: the fused Pallas body
-#: (``_make_kernel``) for ``rowmin`` and ``fold``; for ``select``, the
+#: what each CUDA kernel replaces on the main path: the reference's host
+#: densify of a tick's prices (``_dense_tick``, numpy, no Pallas kernel)
+#: for ``scatter``; the fused Pallas body (``_make_kernel``) for ``rowmin``
+#: and ``fold``; for ``select``, the
 #: ``jax.lax.top_k`` that the reference fleet's ``top_k`` serves from
 #: (the service calls ``top_k``, never ``reprice_with_heads``)
-REPLACES = {"rowmin": "src/repro/kernels/rank_delta.py:69",
+REPLACES = {"scatter": "src/repro/selector/pallas_rank.py:248",
+            "rowmin": "src/repro/kernels/rank_delta.py:69",
+            "rowmin_row": "src/repro/kernels/rank_delta.py:69",
             "fold": "src/repro/kernels/rank_delta.py:69",
             "fold_col": "src/repro/kernels/rank_delta.py:69",
             "select": "src/repro/selector/rank.py:1218",
@@ -127,11 +145,11 @@ REPLACES = {"rowmin": "src/repro/kernels/rank_delta.py:69",
 ALSO_REPLACES = {"select": "src/repro/kernels/rank_delta.py:157",
                  "select_sort": "src/repro/kernels/rank_delta.py:157",
                  "select_rounds": "src/repro/kernels/rank_delta.py:157"}
-KERNELS = ("rowmin", "fold", "fold_col", "select", "select_sort",
-           "select_rounds")
+KERNELS = ("scatter", "rowmin", "rowmin_row", "fold", "fold_col", "select",
+           "select_sort", "select_rounds")
 #: the kernels the selection path launches (its k is 10: ``select_sort``
 #: serves only k above ``rank_delta.SELECT_CAP``)
-PATH_KERNELS = ("rowmin", "fold", "select")
+PATH_KERNELS = ("scatter", "rowmin", "fold", "select")
 #: the k-head's timed (rows, columns, k): one member row of the service's
 #: 64 x 10,000 fleet and the 64 x 100,000 fleet's 16 member rows
 HEAD_SHAPES = ((1, 10_000, 65), (1, 10_000, 256), (1, 10_000, 257),
@@ -139,6 +157,13 @@ HEAD_SHAPES = ((1, 10_000, 65), (1, 10_000, 256), (1, 10_000, 257),
 #: the largest k at which the k-round kernel is timed beside a k-head
 ROUNDS_MAX_K = 1_000
 SOURCES = ("rank_delta", "flash_attention", "wkv6_scan")
+#: rowmin's edge shapes (J, C): one column, C not a multiple of 4 (scalar
+#: loads), one short of, at and one past 2,048 and 4,096 columns (the
+#: kernel's chunk, ``rank_delta.ROWMIN_CHUNK``), the fleet's C (vector
+#: loads) and one past it (scalar loads)
+ROWMIN_EDGES = tuple((J, C) for J in (1, 64)
+                     for C in (1, 3, 2_047, 2_048, 2_049, 4_095, 4_096,
+                               4_097, 10_000, 10_001))
 
 
 class CheckFailed(AssertionError):
@@ -198,7 +223,8 @@ def graph_ms(torch, fn, calls: int = 50, replays: int = 20) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up stream, where rowmin's scratch already exists
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -289,6 +315,11 @@ def within(torch, a, b) -> bool:
     return bool(((err <= tol) | both_inf).all())
 
 
+def bitwise(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
 def max_err(torch, a, b) -> float:
     same = (a == b)
     diff = torch.where(same, torch.zeros_like(a), (a - b).abs())
@@ -331,11 +362,14 @@ def check_kernels(torch, t, label, k, errs, identity=False) -> None:
             t["rb"], t["rm"], t["scores"])
     rb_k, moved_k = rd._launch_rowmin(t["hours"], t["mask"], t["newp"],
                                       t["rb"])
+    rb_r, moved_r = rd._launch_rowmin(t["hours"], t["mask"], t["newp"],
+                                      t["rb"], variant="rowmin_row")
     rb_p, moved_p = rd.rowmin_plain(t["hours"], t["mask"], t["newp"],
                                     t["rb"])
-    check(torch.equal(rb_k, rb_p), f"{label}: row minima not bitwise equal")
-    check(int(moved_k) == int(moved_p), f"{label}: moved {int(moved_k)} != "
-          f"{int(moved_p)}")
+    check(bitwise(torch, rb_k, rb_p) and bitwise(torch, rb_r, rb_p),
+          f"{label}: row minima not bitwise equal")
+    check(int(moved_k) == int(moved_p) == int(moved_r), f"{label}: moved "
+          f"{int(moved_k)} (rowmin_row {int(moved_r)}) != {int(moved_p)}")
     fold_args = args[:6] + (rb_k, t["rm"], t["scores"])
     s_k = rd._launch_fold(*fold_args)
     s_p = rd.fold_plain(*fold_args)
@@ -375,6 +409,7 @@ def check_kernels(torch, t, label, k, errs, identity=False) -> None:
           and torch.equal(ti, ti_k), f"{label}: fused wrapper differs")
     torch.cuda.synchronize()
     errs["rowmin"] = max(errs["rowmin"], max_err(torch, rb_k, rb_p))
+    errs["rowmin_row"] = max(errs["rowmin_row"], max_err(torch, rb_r, rb_p))
     errs["fold"] = max(errs["fold"], max_err(torch, s_k, s_p))
     errs["fold_col"] = max(errs["fold_col"], max_err(torch, s_col, s_p))
     log(f"[parity] {label}: J={J} C={C} S={S} moved={int(moved_k)} "
@@ -389,9 +424,124 @@ def parity_case(torch, np, rng, label, J, C, S, frac, k, errs, **kw):
     return t
 
 
+def rowmin_case(torch, np, rng, J, C, dev):
+    """Hours, mask, old and new prices and the settled row minima at (J,
+    C); from J = 3 a fully masked row (0), a row whose one profiled cell
+    is the last column (1: the last chunk) and a row of zero hours (2)."""
+    from repro_torch.kernels import rank_delta as rd
+    hours = rng.uniform(0.5, 4.0, (J, C)).astype(np.float32)
+    mask = rng.random((J, C)) > 0.2
+    if J >= 3:
+        mask[0] = False
+        mask[1] = False
+        mask[1, C - 1] = True
+        hours[2] = 0.0
+    oldp = rng.uniform(0.1, 2.0, (1, C)).astype(np.float32)
+    newp = (oldp * rng.uniform(0.5, 1.5, (1, C))).astype(np.float32)
+    h, m, po, pn = (torch.from_numpy(a).to(dev)
+                    for a in (hours, mask, oldp, newp))
+    rb, _ = rd.rowmin_plain(h, m, po, torch.zeros((J, 1), device=dev))
+    return h, m, po, pn, rb
+
+
+def check_rowmin_edges(torch, np, rng, errs) -> None:
+    """``rowmin`` at :data:`ROWMIN_EDGES` against the plain version and the
+    yardstick ``rowmin_row``, minima and moved bit for bit: twice in a
+    row, and an identity tick (moved 0); then 100 launches in a row on the
+    same scratch at the fleet's 64 x 10,000, over three price vectors,
+    each held against the plain version (the arrival counters reset)."""
+    from repro_torch.kernels import rank_delta as rd
+    dev = torch.device("cuda")
+    for J, C in ROWMIN_EDGES:
+        h, m, po, pn, rb = rowmin_case(torch, np, rng, J, C, dev)
+        want = rd.rowmin_plain(h, m, pn, rb)
+        runs = [rd._launch_rowmin(h, m, pn, rb),
+                rd._launch_rowmin(h, m, pn, rb),
+                rd._launch_rowmin(h, m, pn, rb, variant="rowmin_row")]
+        ident = rd._launch_rowmin(h, m, po, rb)
+        for rb_k, mv_k in runs:
+            check(bitwise(torch, rb_k, want[0])
+                  and int(mv_k) == int(want[1]),
+                  f"rowmin {J} x {C}: differs from the plain version")
+            errs["rowmin"] = max(errs["rowmin"],
+                                 max_err(torch, rb_k, want[0]))
+        check(bitwise(torch, ident[0], rb) and int(ident[1]) == 0,
+              f"rowmin {J} x {C}: identity tick moved")
+    h, m, po, pn, rb = rowmin_case(torch, np, rng, 64, 10_000, dev)
+    prices = [pn, po, (pn * 0.75).contiguous()]
+    got = [rd._launch_rowmin(h, m, prices[i % 3], rb) for i in range(100)]
+    wants = [rd.rowmin_plain(h, m, p, rb) for p in prices]
+    bad = [i for i, (rb_k, mv_k) in enumerate(got)
+           if not (bitwise(torch, rb_k, wants[i % 3][0])
+                   and int(mv_k) == int(wants[i % 3][1]))]
+    check(not bad, f"rowmin: launches {bad[:5]} of 100 on one scratch "
+          f"differ from the plain version")
+    log(f"[parity] rowmin: {len(ROWMIN_EDGES)} edge shapes (C = 1 to "
+        f"10,001, J = 1 and 64), twice, identity, rowmin_row, and 100 "
+        f"launches in a row: bitwise ok")
+
+
+def make_pairs(np, rng, C, n):
+    """n distinct (int32 column, float32 price) pairs over C columns."""
+    return (rng.choice(C, n, replace=False).astype(np.int32),
+            rng.uniform(0.5, 20.0, n).astype(np.float32))
+
+
+def check_scatter(torch, np, rng, errs) -> None:
+    """``scatter`` against its plain version (the pairs uploaded,
+    ``index_copy`` and ``index_fill_``), new prices and flags bit for
+    bit: C = 1, 3, 10,000 and 100,000; n = 0, 1, 1% and every column; two
+    scatters back to back."""
+    from repro_torch.kernels import rank_delta as rd
+    dev = torch.device("cuda")
+    cases = 0
+    for C in (1, 3, 10_000, 100_000):
+        prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, C)).astype(
+            np.float32)).to(dev)
+        for n in sorted({0, 1, max(1, C // 100), C}):
+            pairs = [make_pairs(np, rng, C, n) for _ in range(2)]
+            got = [rd.scatter_prices(*p, prices) for p in pairs]
+            for p, out in zip(pairs, got):
+                want = rd.scatter_prices_plain(*p, prices)
+                check(all(bitwise(torch, a, b) for a, b in zip(out, want)),
+                      f"scatter C={C} n={n}: differs from the plain "
+                      f"version")
+                errs["scatter"] = max(errs["scatter"],
+                                      max_err(torch, out[0], want[0]))
+            cases += 1
+    log(f"[parity] scatter: {cases} cases (C = 1 to 100,000, n = 0 to C, "
+        f"twice back to back): bitwise ok")
+
+
+def time_scatter(torch, np, rng, C, frac=0.01):
+    """``scatter`` at C columns and a tick of ``frac`` of them, back to back,
+    beside its plain version (the PyTorch scatter it replaced on the card:
+    upload, ``index_copy``, ``zeros_like``, ``index_fill_``).  It reads its
+    pairs from host memory, so it refuses a CUDA graph and has no graph
+    time."""
+    from repro_torch.kernels import rank_delta as rd
+    n = max(1, int(round(frac * C)))
+    prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, C)).astype(
+        np.float32)).to(torch.device("cuda"))
+    cols, new = make_pairs(np, rng, C, n)
+
+    def kernel():
+        return rd._launch_scatter(cols, new, prices)
+
+    def plain():
+        return rd.scatter_prices_plain(cols, new, prices)
+
+    r = dict(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
+             library_ms=None, bound=bound_ms(12 * C + 8 * n, n))
+    log_time("scatter", r, f"C={C}, n={n}")
+    return r
+
+
 def phase_parity(torch, np, seed):
     rng = np.random.default_rng(seed)
     errs = {name: 0.0 for name in KERNELS}
+    check_scatter(torch, np, rng, errs)
+    check_rowmin_edges(torch, np, rng, errs)
     parity_case(torch, np, rng, "ragged 1%", 61, 1000, 5, 0.01, 10, errs,
                 masked_rows=(3, 40), sparse_member=True)
     parity_case(torch, np, rng, "ragged 30%", 37, 777, 19, 0.30, 25, errs,
@@ -452,7 +602,9 @@ def log_time(name, r, shape) -> None:
 
     kernel = ms("ms") + (f" (graph {ms('device_ms')})"
                          if "device_ms" in r else "")
-    earlier = f", earlier kernel {ms('earlier_ms')} ms" \
+    earlier = f", earlier kernel {ms('earlier_ms')}" + (
+        f" (graph {ms('earlier_device_ms')})"
+        if "earlier_device_ms" in r else "") + " ms" \
         if "earlier_ms" in r else ""
     lib = ms("library_ms") + (f" (graph {ms('library_device_ms')})"
                               if "library_device_ms" in r else "")
@@ -483,10 +635,16 @@ def time_kernels(torch, t, k=10, heads=None):
     def fold(variant):
         return lambda: rd._launch_fold(*fold_args, variant=variant)
 
+    def rowmin(variant="rowmin"):
+        return lambda: rd._launch_rowmin(t["hours"], t["mask"], t["newp"],
+                                         t["rb"], variant=variant)
+
     res = {
         "rowmin": dict(
-            ms=time_ms(torch, lambda: rd._launch_rowmin(
-                t["hours"], t["mask"], t["newp"], t["rb"])),
+            ms=time_ms(torch, rowmin()),
+            earlier_ms=time_ms(torch, rowmin("rowmin_row")),
+            device_ms=graph_ms(torch, rowmin()),
+            earlier_device_ms=graph_ms(torch, rowmin("rowmin_row")),
             plain_ms=time_ms(torch, lambda: rd.rowmin_plain(
                 t["hours"], t["mask"], t["newp"], t["rb"])),
             library_ms=None),
@@ -507,6 +665,10 @@ def time_kernels(torch, t, k=10, heads=None):
             library_ms=time_ms(torch, lambda: torch.topk(
                 masked, kr, dim=1, largest=False))),
     }
+    res["rowmin_row"] = dict(ms=res["rowmin"]["earlier_ms"],
+                             device_ms=res["rowmin"]["earlier_device_ms"],
+                             plain_ms=res["rowmin"]["plain_ms"],
+                             library_ms=None)
     res["fold_col"] = dict(ms=res["fold"]["earlier_ms"],
                            device_ms=res["fold"]["earlier_device_ms"],
                            plain_ms=res["fold"]["plain_ms"], library_ms=None)
@@ -514,14 +676,14 @@ def time_kernels(torch, t, k=10, heads=None):
     nnz = float(mask.sum())
     member_cells = float((t["rm"] @ mask.float().sum(dim=1,
                                                      keepdim=True)).sum())
-    res["rowmin"]["bound"] = bound_ms(J * C * 5 + C * 4 + J * 8 + 4,
-                                      2 * nnz)
+    res["rowmin"]["bound"] = res["rowmin_row"]["bound"] = bound_ms(
+        J * C * 5 + C * 4 + J * 8 + 4, 2 * nnz)
     res["fold"]["bound"] = res["fold_col"]["bound"] = bound_ms(
         J * C * 5 + 3 * C * 4 + 2 * J * 4 + S * J * 4 + 2 * S * C * 4,
         5 * nnz + 4 * member_cells)
     res["select_rounds"]["bound"] = head_bound(R, C, kr)
     tick = f"J={J} C={C} S={S}"
-    for name in ("rowmin", "fold", "fold_col"):
+    for name in ("rowmin", "rowmin_row", "fold", "fold_col"):
         log_time(name, res[name], tick)
     for name, kk in (("select", k), ("select_rounds", kr)):
         log_time(name, res[name], f"{R} x {C}, k={kk}")
@@ -558,6 +720,44 @@ def assert_member(state, key, hours, mask, rows, live, ids, contract,
                                                        ref[r.config_id])]
     check(not bad, f"member {key}: {len(bad)} scores outside the contract, "
           f"first {bad[:1]} vs {ref[bad[0].config_id] if bad else None}")
+
+
+def dense_densify(np, state, deltas):
+    """The host step of the tick the pair path replaced: ids resolved and
+    prices checked with a Python step per delta, then the whole (1, C)
+    price vector and a dense changed vector built on the host."""
+    table = dict(deltas)
+    cols = np.asarray([state._pos[c] for c in table], dtype=np.int32)
+    prices = np.asarray(list(table.values()), dtype=np.float64)
+    check(bool((np.isfinite(prices) & (prices > 0)).all()),
+          "dense tick: a price is not positive and finite")
+    newp = state._host_prices.copy()
+    newp[0, cols] = prices.astype(np.float32)
+    changed = np.zeros_like(newp)
+    changed[0, cols] = 1.0
+    return newp, changed
+
+
+def pairs_host_step(state, deltas) -> None:
+    """The host step of the pair path: the deltas validated into pairs,
+    and the checks ``scatter_prices`` makes of them before its launch."""
+    from repro_torch.kernels import rank_delta as rd
+    rd._check_pairs(*state._pairs(deltas), len(state.config_ids))
+
+
+def dense_tick(torch, np, state, deltas) -> int:
+    """One tick of ``state`` through the dense path (the yardstick): the
+    densify, both (1, C) vectors uploaded from pageable memory, the two
+    kernels and the handoff count read back."""
+    from repro_torch.kernels import rank_delta as rd
+    newp, changed = dense_densify(np, state, deltas)
+    d_newp = torch.tensor(newp, device=state.device)
+    state.d_scores, state.d_row_best, moved = rd.fused_reprice(
+        state.d_hours, state.d_mask, state.d_prices, d_newp,
+        torch.tensor(changed, device=state.device), state.d_row_best,
+        state.d_row_masks, state.d_scores)
+    state.d_prices, state._host_prices = d_newp, newp
+    return int(moved.item())
 
 
 def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
@@ -620,42 +820,74 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
     check(torch.equal(out, state.d_scores)
           and torch.equal(rb, state.d_row_best) and int(moved) == 0,
           f"{label}: identity tick changed the fleet")
-    # the tick's time, after warm-up: host delta densify + uploads + the
-    # two kernels + the handoff count read back
-    batches = [next_deltas()[0] for _ in range(60)]
+    # the pair path against the dense path it replaced, on the same deltas
+    # from the same state: scores, row minima, prices and moved bit for bit
+    before = (state.d_scores, state.d_row_best, state.d_prices,
+              state._host_prices.copy())
+    d = next_deltas()[0]
+    m_pairs = state.reprice(d)
+    pairs = (state.d_scores, state.d_row_best, state.d_prices)
+    (state.d_scores, state.d_row_best, state.d_prices,
+     state._host_prices) = before
+    m_dense = dense_tick(torch, np, state, d)
+    check(m_pairs == m_dense and all(
+        bitwise(torch, a, b) for a, b in zip(pairs, (
+            state.d_scores, state.d_row_best, state.d_prices))),
+        f"{label}: the pair tick differs from the dense tick")
+    # the tick's time, after warm-up, through each path in turns (dense,
+    # pairs, pairs, dense; 25 ticks a turn): the host step + the upload and
+    # scatter + the two kernels + the handoff count read back
+    batches = [next_deltas()[0] for _ in range(120)]
     for d in batches[:10]:
         state.reprice(d)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for d in batches[10:]:
-        state.reprice(d)
-    stop.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / 50
-    dev_ms = start.elapsed_time(stop) / 50
+        dense_tick(torch, np, state, d)
+    ticks_by = {"pairs": state.reprice,
+                "dense": lambda d: dense_tick(torch, np, state, d)}
+    host_ms, dev_ms = {"pairs": 0.0, "dense": 0.0}, {"pairs": 0.0,
+                                                      "dense": 0.0}
+    for turn, path in enumerate(("dense", "pairs", "pairs", "dense")):
+        part = batches[10 + 25 * turn:35 + 25 * turn]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for d in part:
+            ticks_by[path](d)
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms[path] += (time.perf_counter() - t0) * 1e3 / 50
+        dev_ms[path] += start.elapsed_time(stop) / 50
     tick_bytes = (J * C * 5 + C * 4 + J * 8) + (
         J * C * 5 + 3 * C * 4 + 2 * J * 4 + S * J * 4 + 2 * S * C * 4)
     log(f"[fleet] {label}: {ticks} ticks, one dispatch each; per tick "
-        f"{dev_ms:.4f} ms (CUDA events) / {host_ms:.4f} ms (host), bound "
-        f"{tick_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({tick_bytes} bytes "
-        f"at 3.35 TB/s) on {card}")
-    # where the tick's time goes: the host densify alone, and the two
-    # kernels alone on the fleet's own tensors (CUDA events); the rest is
-    # the two uploads, the launches and the handoff count read back
-    t0 = time.perf_counter()
-    for d in batches[10:]:
-        state._dense_tick(d)
-    densify_ms = (time.perf_counter() - t0) * 1e3 / 50
-    kernels_ms = time_ms(torch, lambda: rd.fused_reprice(
+        f"{dev_ms['pairs']:.4f} ms (CUDA events) / {host_ms['pairs']:.4f} "
+        f"ms (host), bound {tick_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"({tick_bytes} bytes at 3.35 TB/s) on {card}")
+    # where the tick's time goes: the host step alone (validation and
+    # checks; for the dense path the densify), and the two kernels alone
+    # on the fleet's own tensors, replayed from a CUDA graph (the card's
+    # time); the rest is the upload and scatter, the launches' host work
+    # and the handoff count read back
+    host_step = {"pairs": lambda d: pairs_host_step(state, d),
+                 "dense": lambda d: dense_densify(np, state, d)}
+    step_ms = {"pairs": 0.0, "dense": 0.0}
+    for path in ("dense", "pairs", "pairs", "dense"):
+        t0 = time.perf_counter()
+        for d in batches[10:60]:
+            host_step[path](d)
+        step_ms[path] += (time.perf_counter() - t0) * 1e3 / 100
+    kernels_ms = graph_ms(torch, lambda: rd.fused_reprice(
         state.d_hours, state.d_mask, state.d_prices, state.d_prices, zeros,
-        state.d_row_best, state.d_row_masks, state.d_scores), iters=50)
-    log(f"[fleet] {label}: per tick densify {densify_ms:.4f} ms (host), "
-        f"rowmin+fold {kernels_ms:.4f} ms (device), rest "
-        f"{host_ms - densify_ms - kernels_ms:.4f} ms; kernels are "
-        f"{kernels_ms / host_ms:.1%} of the tick")
+        state.d_row_best, state.d_row_masks, state.d_scores))
+    for path in ("pairs", "dense"):
+        log(f"[fleet] {label}: {path} path, per tick {host_ms[path]:.4f} ms "
+            f"(host; {dev_ms[path]:.4f} by CUDA events): densify "
+            f"{step_ms[path]:.4f} ms (host), rowmin+fold {kernels_ms:.4f} "
+            f"ms (card, CUDA graph), rest "
+            f"{host_ms[path] - step_ms[path] - kernels_ms:.4f} ms; the "
+            f"kernels' card time is {kernels_ms / host_ms[path]:.1%} of the "
+            f"tick")
 
 
 # --- phase 4 --------------------------------------------------------------------
@@ -1427,6 +1659,9 @@ def main() -> int:
     # the fold at 16 members on both fleet shapes
     heads_times = time_kernels(torch, big_shape)
     fleet_times = time_kernels(torch, main_shape)
+    scatter_rng = np.random.default_rng(args.seed + 3)
+    scatter_times = {C: time_scatter(torch, np, scatter_rng, C)
+                     for C in (10_000, 100_000)}
     done("parity")
     phase_fleet(torch, np, args.seed, 64, 10_000, 16, 100, 10,
                 "64x10000x16", card)
@@ -1445,15 +1680,17 @@ def main() -> int:
     for name in set(KERNELS) - set(PATH_KERNELS):
         check(launches[name] == 0, f"kernel {name} was launched "
               f"{launches[name]} times on the main path")
-    check(launches["rowmin"] == launches["fold"]
+    check(launches["scatter"] == launches["rowmin"] == launches["fold"]
           == service.reprice_dispatches, f"main path: {launches} for "
           f"{service.reprice_dispatches} fleet ticks")
     times, row = phase_main_path_kernels(torch, np, args.seed,
                                          service._batched, errs)
     head_times = time_heads(torch, row, (big_shape["scores"],
                                          big_shape["finite"]))
-    # select_sort's record: its first k, on the service's member row
+    # select_sort's record: its first k, on the service's member row;
+    # scatter's: the service's C and a 1% tick
     times["select_sort"] = head_times[(1, 10_000, rd.SELECT_CAP + 1)]
+    times["scatter"] = scatter_times[10_000]
     done("main-path kernels")
     phase_lm_parity(torch)
     done("lm-parity")
@@ -1500,7 +1737,8 @@ def main() -> int:
              "earlier_ms": r.get("earlier_ms"), "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
-        for key in ("device_ms", "library_device_ms", "kernel"):
+        for key in ("device_ms", "earlier_device_ms", "library_device_ms",
+                    "kernel"):
             if key in r:
                 e[key] = r[key]
         if "wave_ms" in r:
@@ -1518,7 +1756,16 @@ def main() -> int:
                          ALSO_REPLACES["select"], launches["select"],
                          errs["select"], heads_times["select"]))
     kernels[-1]["fleet_launches"] = fleet_heads_launches
-    # the fold at 16 members on the two fleet shapes (fold_col: earlier_ms)
+    kernels.append(entry("rank_delta_scatter_100000", SOURCE,
+                         REPLACES["scatter"], launches["scatter"],
+                         errs["scatter"], scatter_times[100_000]))
+    # rowmin and the fold at 16 members on the two fleet shapes
+    # (rowmin_row and fold_col: earlier_ms)
+    for shape, r in (("64x10000", fleet_times["rowmin"]),
+                     ("64x100000", heads_times["rowmin"])):
+        kernels.append(entry(f"rank_delta_rowmin_{shape}", SOURCE,
+                             REPLACES["rowmin"], launches["rowmin"],
+                             errs["rowmin"], r))
     for shape, r in (("64x10000x16", fleet_times["fold"]),
                      ("64x100000x16", heads_times["fold"])):
         kernels.append(entry(f"rank_delta_fold_{shape}", SOURCE,

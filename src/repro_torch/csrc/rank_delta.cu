@@ -1,7 +1,9 @@
 // Fused delta-rank reprice for Hopper (sm_90a): one fleet tick in two
-// launches, plus the k-head selection.  A plain C interface, loaded with
-// ctypes by repro_torch/kernels/rank_delta.py; every entry point returns
-// cudaGetLastError() after its launch and never synchronizes.
+// launches after the tick's price scatter, plus the k-head selection.  A
+// plain C interface, loaded with ctypes by
+// repro_torch/kernels/rank_delta.py; every entry point returns
+// cudaGetLastError() after its launch and never synchronizes (but for
+// what CUDA may do to stage rank_delta_scatter's pageable upload).
 //
 // Replaces the Pallas kernel repro/kernels/rank_delta.py::_make_kernel
 // (fused_reprice, and fused_reprice_heads with heads=k).  The TPU grid ran
@@ -15,6 +17,44 @@
 // 1.3 us at 3.35 TB/s.  The design keeps no cost or norm matrix in device
 // memory: both are recomputed from hours, mask and the price vectors in
 // every pass.
+//
+// The row minima (rowmin_split_kernel).  Phase 0 reads hours and mask once
+// (5 bytes a cell) and new_p once: at 64 x 10,000 that is 0.97 us at 3.35
+// TB/s.  One 256-thread block a job row (rowmin_row_kernel, kept as the
+// yardstick) gives 64 blocks on 132 SMs, and each thread walks C / 256
+// columns in a chain where the mask load decides whether the hours load
+// happens: two dependent round trips a step, so latency sets its time.
+// The split kernel's grid is (J, column chunks of kRowminCols = 4,096,
+// the fastest or tied of 1,024 to 8,192 in a sweep recorded in PERF.md):
+// 192 blocks at 64 x 10,000, 1,600 at 64 x 100,000.  A thread issues
+// all its loads (hours, mask, new_p: float4 and uchar4 where C is a
+// multiple of 4 and the bases are aligned, else scalars) before it uses
+// any, and applies the mask as a select.  The
+// blocks of a row combine in the same launch, exactly: each writes its
+// partial minimum to scratch, fences, and bumps the row's arrival counter;
+// the row's last block reduces the partials with fminf and writes
+// row_best_out[j], then bumps a grid counter; the grid's last block counts
+// moved from the J minima and writes it.  The counters wrap to 0 on their
+// last arrival (atomicInc), so the scratch needs no memset between
+// launches and the wrapper launches no fill kernel: moved is written, not
+// accumulated.  atomicMin on float bits was the alternative: it needs an
+// output preset to +inf before every launch and still a last block to
+// count moved, so it saves nothing.  Launches that share a scratch must be
+// ordered: the wrapper keeps one scratch a (device, stream).
+//
+// The tick's prices (rank_delta_scatter).  The reference densifies each
+// tick on the host (repro/selector/pallas_rank.py::_dense_tick: a (1, C)
+// price vector and a (1, C) changed vector, both uploaded).  Here the
+// tick's n (int32 column, float32 price) pairs go up in one copy, the
+// old prices are copied, the flags cleared, and one small kernel writes
+// each pair's price and flag: four operations queued by one call.  The
+// copy is from pageable memory, which CUDA has read when the call
+// returns, so the caller holds no buffer past it and no event guards one;
+// a graph capture is refused, since a replay would re-read host memory.
+// What bounds it is the host: the card moves 12 C + 8 n bytes, well
+// under a microsecond, while each PyTorch operation of the same
+// scatter (upload, index_copy, zeros_like, index_fill_) costs the host
+// 8-16 us.  The columns are distinct, so the writes never race.
 //
 // The fold (fold_rows_kernel).  With one thread a column walking all J
 // rows (fold_col_kernel, kept as the yardstick), 10,000 columns are 2.4
@@ -79,10 +119,15 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <vector>
 
 namespace {
 
 constexpr int kRowminThreads = 256;
+constexpr int kRowminGroups = 4;    // rowmin: float4 groups a thread
+constexpr int kRowminCols = kRowminThreads * 4 * kRowminGroups;  // a block
 constexpr int kFoldThreads = 128;   // fold_col: one thread per column
 constexpr int kFoldRows = 64;       // job rows staged in shared memory
 constexpr int kFoldMembers = 16;    // member accumulators in registers
@@ -92,15 +137,16 @@ constexpr int kSelectThreads = 512;
 constexpr int kWarp = 32;
 constexpr int kNoIndex = 0x7fffffff;  // sorts after every column
 
-// Phase 0: one block per job row.  row_best_out[j] is the masked minimum
-// of hours[j, :] * new_p; moved counts the rows whose minimum changed.
-// row_best_in is only read: the fold still needs the old minima.
-__global__ void rowmin_kernel(const float* __restrict__ hours,
-                              const uint8_t* __restrict__ mask,
-                              const float* __restrict__ new_p,
-                              const float* __restrict__ row_best_in,
-                              float* __restrict__ row_best_out,
-                              int* __restrict__ moved, int C) {
+// Phase 0, the yardstick: one block per job row.  row_best_out[j] is the
+// masked minimum of hours[j, :] * new_p; moved (zeroed by the caller)
+// counts the rows whose minimum changed.  row_best_in is only read: the
+// fold still needs the old minima.
+__global__ void rowmin_row_kernel(const float* __restrict__ hours,
+                                  const uint8_t* __restrict__ mask,
+                                  const float* __restrict__ new_p,
+                                  const float* __restrict__ row_best_in,
+                                  float* __restrict__ row_best_out,
+                                  int* __restrict__ moved, int C) {
   const int j = blockIdx.x;
   const size_t base = (size_t)j * C;
   float best = CUDART_INF_F;
@@ -121,6 +167,129 @@ __global__ void rowmin_kernel(const float* __restrict__ hours,
     // a fully masked row stays inf == inf and never counts as a handoff
     if (best != row_best_in[j]) atomicAdd(moved, 1);
   }
+}
+
+// The minimum of v over the block, valid in thread 0.  red holds a float
+// a warp; a second call must follow a barrier after thread 0's reads.
+__device__ __forceinline__ float block_min(float v, float* red) {
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kRowminThreads / kWarp; ++w) v = fminf(v, red[w]);
+  return v;
+}
+
+// Phase 0, split: block (j, chunk) takes columns [chunk * kRowminCols,
+// + kRowminCols) of row j, 16 a thread, all loaded before any is used.
+// counters[0] counts the rows finished in this launch, counters[1 + j]
+// row j's finished chunks (both 0 between launches); partials holds J x
+// chunks minima.  row_best_out[j] and moved are written once, by the row's and
+// the grid's last block.
+template <bool kVec>
+__global__ void __launch_bounds__(kRowminThreads)
+rowmin_split_kernel(const float* __restrict__ hours,
+                    const uint8_t* __restrict__ mask,
+                    const float* __restrict__ new_p,
+                    const float* __restrict__ row_best_in,
+                    float* row_best_out, int* __restrict__ moved,
+                    unsigned* counters, float* partials, int J, int C) {
+  constexpr int Q = kRowminGroups;
+  constexpr int kItems = 4 * Q;                    // columns a thread
+  __shared__ float red[kRowminThreads / kWarp];
+  __shared__ int last;
+  const int j = blockIdx.x, chunk = blockIdx.y, chunks = gridDim.y;
+  const size_t row = (size_t)j * C;
+  const int c0 = chunk * kRowminCols;
+  float v[kItems];
+  if (kVec) {
+    // thread t's group q is columns c0 + 4 (256 q + t) .. + 3, so a warp
+    // reads 512 contiguous bytes of hours; C % 4 == 0, so a group is
+    // whole or past the row's end
+    const float4* h4 = reinterpret_cast<const float4*>(hours + row);
+    const uchar4* m4 = reinterpret_cast<const uchar4*>(mask + row);
+    const float4* p4 = reinterpret_cast<const float4*>(new_p);
+    float4 h[Q], p[Q];
+    uchar4 m[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int g = (c0 >> 2) + q * kRowminThreads + threadIdx.x;
+      const bool live = 4 * g < C;
+      h[q] = live ? h4[g] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      m[q] = live ? m4[g] : make_uchar4(0, 0, 0, 0);
+      p[q] = live ? p4[g] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      v[4 * q] = m[q].x ? __fmul_rn(h[q].x, p[q].x) : CUDART_INF_F;
+      v[4 * q + 1] = m[q].y ? __fmul_rn(h[q].y, p[q].y) : CUDART_INF_F;
+      v[4 * q + 2] = m[q].z ? __fmul_rn(h[q].z, p[q].z) : CUDART_INF_F;
+      v[4 * q + 3] = m[q].w ? __fmul_rn(h[q].w, p[q].w) : CUDART_INF_F;
+    }
+  } else {
+    float h[kItems], p[kItems];
+    uint8_t m[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int c = c0 + i * kRowminThreads + threadIdx.x;
+      const bool live = c < C;
+      h[i] = live ? hours[row + c] : 0.0f;
+      m[i] = live ? mask[row + c] : 0;
+      p[i] = live ? new_p[c] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kItems; ++i)
+      v[i] = m[i] ? __fmul_rn(h[i], p[i]) : CUDART_INF_F;
+  }
+  float best = v[0];
+#pragma unroll
+  for (int i = 1; i < kItems; ++i) best = fminf(best, v[i]);
+  best = block_min(best, red);
+  if (threadIdx.x == 0) {
+    partials[(size_t)j * chunks + chunk] = best;
+    __threadfence();                  // the partial lands before the count
+    last = atomicInc(&counters[1 + j], chunks - 1) == (unsigned)(chunks - 1);
+  }
+  __syncthreads();
+  if (!last) return;                  // block-uniform
+  // the row's last block: every partial of row j has landed (read past L1)
+  __threadfence();
+  best = CUDART_INF_F;
+  for (int t = threadIdx.x; t < chunks; t += kRowminThreads)
+    best = fminf(best, __ldcg(partials + (size_t)j * chunks + t));
+  best = block_min(best, red);
+  if (threadIdx.x == 0) {
+    row_best_out[j] = best;
+    __threadfence();
+    last = atomicInc(&counters[0], J - 1) == (unsigned)(J - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  // the grid's last block: every row's minimum has landed
+  __threadfence();
+  int n = 0;
+  for (int r0 = 0; r0 < J; r0 += kRowminThreads) {
+    const int r = r0 + threadIdx.x;
+    // a fully masked row stays inf == inf and never counts as a handoff
+    n += __syncthreads_count(r < J &&
+                             __ldcg(row_best_out + r) != row_best_in[r]);
+  }
+  if (threadIdx.x == 0) *moved = n;
+}
+
+// The pairs' prices and flags: thread i writes pair i (the wrapper has
+// checked that the columns are distinct and in [0, C)).
+__global__ void scatter_kernel(const int* __restrict__ cols,
+                               const float* __restrict__ prices, int n,
+                               float* __restrict__ new_p,
+                               float* __restrict__ changed) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = cols[i];
+  new_p[c] = prices[i];
+  changed[c] = 1.0f;
 }
 
 // Both norms of cell (j, c) from its hours h, and their difference:
@@ -740,12 +909,82 @@ select_sort_merge_kernel(const float* __restrict__ scores,
 
 extern "C" {
 
+// The split row minima: counters hold J + 1 words, 0 on entry and on
+// return, and no other launch uses them meanwhile; partials J x ceil(C /
+// kRowminCols) floats; vec != 0 only where C % 4 == 0, hours and new_p
+// start 16-byte and mask 4-byte aligned.  moved is written, never
+// accumulated: the caller need not zero it.
 int rank_delta_rowmin(const float* hours, const uint8_t* mask,
                       const float* new_p, const float* row_best_in,
-                      float* row_best_out, int* moved, int J, int C,
-                      void* stream) {
+                      float* row_best_out, int* moved, unsigned* counters,
+                      float* partials, int J, int C, int vec, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (J <= 0) return (int)cudaMemsetAsync(moved, 0, sizeof(int), st);
+  const int chunks = (C + kRowminCols - 1) / kRowminCols;
+  if (C < 0 || chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(J, chunks > 0 ? chunks : 1);   // C = 0: rows of +inf
+  if (vec)
+    rowmin_split_kernel<true><<<grid, kRowminThreads, 0, st>>>(
+        hours, mask, new_p, row_best_in, row_best_out, moved, counters,
+        partials, J, C);
+  else
+    rowmin_split_kernel<false><<<grid, kRowminThreads, 0, st>>>(
+        hours, mask, new_p, row_best_in, row_best_out, moved, counters,
+        partials, J, C);
+  return (int)cudaGetLastError();
+}
+
+// The tick's new prices and changed flags from n (column, price) pairs:
+// cols holds n int32 columns (distinct, in [0, C)) and prices n float32
+// prices, both in host memory; dev_pairs is 8 n bytes on the card.  new_p
+// = old_p with the pairs' prices; changed = 1.0 at their columns and 0
+// elsewhere.  The pairs are packed into one pageable buffer and sent in
+// one copy; cudaMemcpyAsync returns once CUDA has read it (it stages
+// pageable memory), so nothing on the host is held past the call.  A
+// stream being captured into a graph is refused with
+// cudaErrorStreamCaptureUnsupported.
+int rank_delta_scatter(const int* cols, const float* prices, void* dev_pairs,
+                       const float* old_p, float* new_p, float* changed,
+                       int n, int C, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n < 0 || C < 0) return (int)cudaErrorInvalidValue;
+  cudaStreamCaptureStatus capture;
+  cudaError_t err = cudaStreamIsCapturing(st, &capture);
+  if (err != cudaSuccess) return (int)err;
+  if (capture != cudaStreamCaptureStatusNone)
+    return (int)cudaErrorStreamCaptureUnsupported;
+  // the upload first: if CUDA waits on the stream to stage it, it
+  // waits for the caller's work only
+  if (n > 0) {
+    std::vector<int> packed(2 * (size_t)n);
+    memcpy(packed.data(), cols, sizeof(int) * (size_t)n);
+    memcpy(packed.data() + n, prices, sizeof(float) * (size_t)n);
+    err = cudaMemcpyAsync(dev_pairs, packed.data(), 8 * (size_t)n,
+                          cudaMemcpyHostToDevice, st);
+  }
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(new_p, old_p, sizeof(float) * (size_t)C,
+                          cudaMemcpyDeviceToDevice, st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(changed, 0, sizeof(float) * (size_t)C, st);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int* d_cols = static_cast<const int*>(dev_pairs);
+    const float* d_prices = reinterpret_cast<const float*>(d_cols + n);
+    scatter_kernel<<<(n + 255) / 256, 256, 0, st>>>(d_cols, d_prices, n,
+                                                     new_p, changed);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The one-block-a-row kernel the split one replaced (the yardstick);
+// moved must be zeroed first.
+int rank_delta_rowmin_row(const float* hours, const uint8_t* mask,
+                          const float* new_p, const float* row_best_in,
+                          float* row_best_out, int* moved, int J, int C,
+                          void* stream) {
   if (J > 0)
-    rowmin_kernel<<<J, kRowminThreads, 0, (cudaStream_t)stream>>>(
+    rowmin_row_kernel<<<J, kRowminThreads, 0, (cudaStream_t)stream>>>(
         hours, mask, new_p, row_best_in, row_best_out, moved, C);
   return (int)cudaGetLastError();
 }

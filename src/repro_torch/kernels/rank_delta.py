@@ -5,8 +5,18 @@ Counterpart of the reference's Pallas kernel
 ``fused_reprice_heads``).  One tick of a fleet of member rankings over a
 shared (J x C) universe:
 
+* **prices** — the tick's ``(1, C)`` new prices and changed-column flags
+  from its (column, price) pairs, which the reference builds on the host
+  (:func:`scatter_prices`, kernel ``scatter``: the pairs checked and
+  sent up in one copy, the old prices copied, the flags cleared and the
+  pairs written, queued by one call);
 * **row minima** — the masked row minima of ``hours * new_prices`` and
-  the count of rows whose minimum moved (kernel ``rowmin``);
+  the count of rows whose minimum moved (kernel ``rowmin``: each row split
+  into chunks of :data:`ROWMIN_CHUNK` columns across blocks, combined in
+  the same launch by the row's last block through scratch, one a (device,
+  stream), whose arrival counters reset themselves; ``rowmin_row``, one
+  block a row, is the yardstick it replaced and no wrapper path reaches
+  it);
 * **fold** — both norm matrices recomputed from the residents,
   ``P = row_masks @ norm_new`` and ``D = row_masks @ (norm_new -
   norm_old)``; changed columns take ``P``, the others ``scores + D``
@@ -41,21 +51,26 @@ import ctypes
 import math
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "SELECT_CAP", "SELECT_CHUNK", "fold_plain",
+__all__ = ["LAUNCHES", "ROWMIN_CHUNK", "SELECT_CAP", "SELECT_CHUNK",
+           "fold_plain", "scatter_prices", "scatter_prices_plain",
            "fused_reprice", "fused_reprice_heads", "fused_reprice_plain",
            "reset_launches", "rowmin_plain", "select_heads",
            "select_heads_plain"]
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
-#: (``fold_col`` and ``select_rounds`` are the yardsticks: no wrapper
-#: path launches them)
-LAUNCHES: Dict[str, int] = {"rowmin": 0, "fold": 0, "fold_col": 0,
-                             "select": 0, "select_sort": 0,
-                             "select_rounds": 0}
+#: (``rowmin_row``, ``fold_col`` and ``select_rounds`` are the
+#: yardsticks: no wrapper path launches them)
+LAUNCHES: Dict[str, int] = {"scatter": 0, "rowmin": 0, "rowmin_row": 0,
+                             "fold": 0, "fold_col": 0, "select": 0,
+                             "select_sort": 0, "select_rounds": 0}
+#: columns a ``rowmin`` block reads (``kRowminCols`` in
+#: ``csrc/rank_delta.cu``)
+ROWMIN_CHUNK = 4096
 #: the largest k the two-stage ``select`` serves (``kSelectCap`` in
 #: ``csrc/rank_delta.cu``); larger k take ``select_sort``
 SELECT_CAP = 256
@@ -66,7 +81,9 @@ _SOURCE = "rank_delta"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "rank_delta_rowmin": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "rank_delta_scatter": [_P] * 6 + [_I, _I, _P],
+    "rank_delta_rowmin": [_P] * 8 + [_I] * 3 + [_P],
+    "rank_delta_rowmin_row": [_P] * 6 + [_I, _I, _P],
     "rank_delta_fold": [_P] * 10 + [_I, _I, _I, _P],
     "rank_delta_fold_col": [_P] * 10 + [_I, _I, _I, _P],
     "rank_delta_select": [_P] * 5 + [_I] * 6 + [_P],
@@ -84,6 +101,17 @@ def _lib() -> ctypes.CDLL:
     return _build.load(_SOURCE, _SIGNATURES)
 
 
+#: ``rowmin``'s scratch by (device, stream handle): arrival counters
+#: (int32, all 0 between launches: each launch resets what it bumps) and
+#: the rows' partial minima (float32).  Launches on one stream are ordered,
+#: so they share it; launches on two streams may overlap, so they never do.
+_ROWMIN_SCRATCH: Dict[Tuple[torch.device, int],
+                      Tuple[torch.Tensor, torch.Tensor]] = {}
+#: what ``rank_delta_scatter`` returns on a stream being captured into a
+#: CUDA graph (``cudaErrorStreamCaptureUnsupported``)
+_CAPTURE_REFUSED = 900
+
+
 # --- plain versions ---------------------------------------------------------
 
 def _inf(t: torch.Tensor) -> torch.Tensor:
@@ -99,6 +127,19 @@ def rowmin_plain(hours, mask, new_prices, row_best):
         dim=1, keepdim=True)
     moved = (rb_new != row_best).sum().to(torch.int32).reshape(1, 1)
     return rb_new, moved
+
+
+def scatter_prices_plain(cols, prices, old_prices):
+    """Kernel ``scatter`` in plain PyTorch: ``(new_prices, changed)``, both
+    ``(1, C)`` on ``old_prices``' device — ``old_prices`` with the pairs'
+    prices written in, and 1.0 at their columns (0 elsewhere).  ``cols``
+    and ``prices`` are 1-D numpy arrays of one length, int32 columns
+    (distinct, in ``[0, C)``) and float32 prices."""
+    dev = old_prices.device
+    idx = torch.from_numpy(cols).to(dev, torch.int64)
+    new_prices = old_prices.index_copy(
+        1, idx, torch.from_numpy(prices).to(dev).view(1, -1))
+    return new_prices, torch.zeros_like(old_prices).index_fill_(1, idx, 1.0)
 
 
 def fold_plain(hours, mask, old_prices, new_prices, changed, row_best,
@@ -170,6 +211,28 @@ def _check_tick(hours, mask, old_prices, new_prices, changed, row_best,
     return J, C, S
 
 
+def _check_pairs(cols, prices, C: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A tick's pairs as ``(int32 columns, float32 prices)``; raises unless
+    the columns are integers, distinct and in ``[0, C)`` and the prices
+    floats of the same length."""
+    cols, prices = np.asarray(cols), np.asarray(prices)
+    if cols.ndim != 1 or cols.dtype.kind not in "iu":
+        raise TypeError(f"cols must be a 1-D integer array, got "
+                        f"{cols.dtype} of shape {cols.shape}")
+    if prices.shape != cols.shape or prices.dtype.kind != "f":
+        raise TypeError(f"prices must be a 1-D float array of {cols.size} "
+                        f"entries, got {prices.dtype} of shape "
+                        f"{prices.shape}")
+    if cols.size:
+        order = np.sort(cols)
+        if order[0] < 0 or order[-1] >= C:
+            raise ValueError(f"columns must lie in [0, {C})")
+        if (order[1:] == order[:-1]).any():
+            raise ValueError("columns must be distinct")
+    return (np.ascontiguousarray(cols, np.int32),
+            np.ascontiguousarray(prices, np.float32))
+
+
 def _check_k(k: int, C: int) -> int:
     if not isinstance(k, int) or isinstance(k, bool) or not 1 <= k <= C:
         raise ValueError(f"k must be an int in [1, {C}], got {k!r}")
@@ -190,15 +253,82 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 # --- kernel launches ----------------------------------------------------------
 
-def _launch_rowmin(hours, mask, new_prices, row_best):
+def _rowmin_scratch(device: torch.device, stream: int, J: int,
+                    partials: int):
+    """``rowmin``'s scratch for launches on ``stream``, grown to ``J + 1``
+    counters and ``partials`` minima (a new counter buffer is zeroed once;
+    the old one's launches finish first on the stream).  It must not grow
+    while the stream is captured into a CUDA graph: the zeroing would only
+    be recorded, and the buffers would come from the graph's pool."""
+    counters, part = _ROWMIN_SCRATCH.get((device, stream), (None, None))
+    grow = counters is None or counters.numel() < J + 1
+    if grow or part.numel() < partials:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "rowmin's scratch for this stream must exist before a CUDA "
+                "graph is captured: launch rowmin once at this shape on the "
+                "capture stream first")
+        if grow:
+            counters = torch.zeros(max(J + 1, 64), dtype=torch.int32,
+                                   device=device)
+        if part is None or part.numel() < partials:
+            part = torch.empty(max(partials, 1024), dtype=torch.float32,
+                               device=device)
+        _ROWMIN_SCRATCH[device, stream] = counters, part
+    return counters, part
+
+
+def _launch_scatter(cols, prices, old_prices):
+    """The scatter on the card from checked pairs (``cols`` int32 and
+    ``prices`` float32 numpy arrays), sent up in one copy."""
+    C = old_prices.shape[1]
+    n = cols.size
+    new_prices = torch.empty_like(old_prices)
+    changed = torch.empty_like(old_prices)
+    d_pairs = torch.empty(2 * n, dtype=torch.int32, device=old_prices.device)
+    err = _lib().rank_delta_scatter(
+        cols.ctypes.data, prices.ctypes.data, d_pairs.data_ptr(),
+        old_prices.data_ptr(), new_prices.data_ptr(), changed.data_ptr(), n,
+        C, _stream(old_prices))
+    if err == _CAPTURE_REFUSED:
+        raise RuntimeError("scatter_prices cannot be captured into a CUDA "
+                           "graph: a replay would read its pairs from host "
+                           "memory again")
+    _build.check(err, "rank_delta_scatter")
+    LAUNCHES["scatter"] += 1
+    return new_prices, changed
+
+
+def _launch_rowmin(hours, mask, new_prices, row_best, variant="rowmin"):
+    """The row minima on the card: the split ``rowmin``, or by name the
+    one-block-a-row ``rowmin_row`` it replaced."""
+    if variant not in ("rowmin", "rowmin_row"):
+        raise ValueError(f"unknown rowmin kernel {variant!r}")
     J, C = hours.shape
+    lib = _lib()
     rb_new = torch.empty_like(row_best)
-    moved = torch.zeros((1, 1), dtype=torch.int32, device=hours.device)
-    _build.check(_lib().rank_delta_rowmin(
-        hours.data_ptr(), mask.data_ptr(), new_prices.data_ptr(),
-        row_best.data_ptr(), rb_new.data_ptr(), moved.data_ptr(), J, C,
-        _stream(hours)), "rank_delta_rowmin")
-    LAUNCHES["rowmin"] += 1
+    if variant == "rowmin_row":
+        moved = torch.zeros((1, 1), dtype=torch.int32, device=hours.device)
+        err = lib.rank_delta_rowmin_row(
+            hours.data_ptr(), mask.data_ptr(), new_prices.data_ptr(),
+            row_best.data_ptr(), rb_new.data_ptr(), moved.data_ptr(), J, C,
+            _stream(hours))
+    else:
+        # written by the kernel, never accumulated: no fill launch
+        moved = torch.empty((1, 1), dtype=torch.int32, device=hours.device)
+        stream = _stream(hours)
+        counters, partials = _rowmin_scratch(
+            hours.device, stream, J, J * max(1, -(-C // ROWMIN_CHUNK)))
+        # vector loads where C % 4 == 0 and the bases are aligned: the
+        # shape and address rule of the k-head's ``vec``
+        vec = C % 4 == 0 and hours.data_ptr() % 16 == 0 \
+            and new_prices.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0
+        err = lib.rank_delta_rowmin(
+            hours.data_ptr(), mask.data_ptr(), new_prices.data_ptr(),
+            row_best.data_ptr(), rb_new.data_ptr(), moved.data_ptr(),
+            counters.data_ptr(), partials.data_ptr(), J, C, int(vec), stream)
+    _build.check(err, f"rank_delta_{variant}")
+    LAUNCHES[variant] += 1
     return rb_new, moved
 
 
@@ -299,6 +429,27 @@ def _launch_select_rounds(scores, finite, k):
 
 
 # --- public wrappers ------------------------------------------------------------
+
+def scatter_prices(cols, prices, old_prices):
+    """A tick's ``(new_prices, changed)``, both ``(1, C)`` float32 on
+    ``old_prices``' device: ``old_prices`` with each column of ``cols``
+    set to its entry of ``prices`` (rounded to float32), and 1.0 at those
+    columns (0 elsewhere).  ``cols`` is a 1-D integer array of distinct
+    columns in ``[0, C)``, ``prices`` a float array of its length (numpy
+    arrays or anything ``np.asarray`` takes).  For prices on the card,
+    kernel ``scatter``: the pairs go up in one copy, read before the call
+    returns, so the arrays are free again at once; it refuses a CUDA graph
+    capture.  CPU prices take the plain version."""
+    if not isinstance(old_prices, torch.Tensor) or old_prices.dim() != 2:
+        raise ValueError("old_prices must be a (1, C) tensor")
+    C = old_prices.shape[1]
+    _check("old_prices", old_prices, torch.float32, (1, C),
+           old_prices.device)
+    cols, prices = _check_pairs(cols, prices, C)
+    if not _on_cuda(old_prices):
+        return scatter_prices_plain(cols, prices, old_prices)
+    return _launch_scatter(cols, prices, old_prices)
+
 
 def fused_reprice(hours, mask, old_prices, new_prices, changed, row_best,
                   row_masks, scores):

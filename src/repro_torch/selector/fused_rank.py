@@ -15,9 +15,13 @@ elementwise arithmetic makes bit-identical to what a stored matrix would
 hold (DESIGN.md §14).  Per-tick state is the price vector, the masked
 row minima and the member accumulators.
 
-Deltas arrive as a dense ``(1, C)`` price vector plus a changed-column
-mask, so duplicate deltas are idempotent by construction.  The job axis
-needs no padding (the reference padded it to its TPU tile).
+A tick's deltas go to the card as (int32 column, float32 price) pairs in
+one copy (:func:`~repro_torch.kernels.rank_delta.scatter_prices`) and are
+scattered there into the tick's ``(1, C)`` price vector and
+changed-column flags.  Duplicates
+collapse on the host (the last wins), so the columns are distinct and the
+scatter deterministic.  The job axis needs no padding (the reference
+padded it to its TPU tile).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.kernels.rank_delta import (fused_reprice,
                                             fused_reprice_heads,
-                                            select_heads)
+                                            scatter_prices, select_heads)
 from repro_torch.obs import MetricsRegistry, maybe_span
 from repro_torch.selector.rank import (
     BackendUnavailableError,
@@ -110,9 +114,9 @@ class TorchFusedRankState:
         hours, mask, prices = _canonicalize_universe(hours, mask, prices,
                                                      self.job_ids)
         self._pos = _position_index(self.config_ids)
-        # the host float32 price mirror builds each tick's dense price
-        # vector without a device readback; float32 so host and device
-        # quotes can never disagree by a rounding
+        # the host float32 price mirror serves ``prices`` without a device
+        # readback; float32 so host and device quotes can never disagree
+        # by a rounding
         host_prices = np.asarray(prices, dtype=np.float32).reshape(1, -1)
         self._init_universe(hours, mask, host_prices, metrics)
         self.d_row_best = _cold_row_best(self.d_hours, self.d_mask,
@@ -284,24 +288,22 @@ class TorchFusedRankState:
         """A member's per-config contributing-cell counts."""
         return self._counts[self._slot_of(key)].copy()
 
-    def _dense_tick(self, deltas: Deltas
-                    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        """Validate a delta batch and densify it into the full ``(1, C)``
-        new-price vector plus a changed-column mask (duplicates are
-        idempotent by construction)."""
+    def _pairs(self, deltas: Deltas
+               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The tick's host step: validate a delta batch (duplicates
+        collapse, the last wins, so the columns are distinct).  Returns
+        ``(cols int32, prices float32)``, or ``None`` for an empty batch;
+        raises before anything is uploaded or changed."""
         validated = _validated_deltas(self._pos, deltas)
         if validated is None:
             return None
-        cols, new_prices = validated
-        newp = self._host_prices.copy()
-        newp[0, cols] = new_prices.astype(np.float32)
-        changed = np.zeros_like(newp)
-        changed[0, cols] = 1.0
-        return newp, changed
+        cols, prices = validated
+        return cols, prices.astype(np.float32)
 
-    def _commit(self, newp: np.ndarray, d_newp: torch.Tensor) -> None:
+    def _commit(self, d_newp: torch.Tensor, cols: np.ndarray,
+                prices: np.ndarray) -> None:
         self.d_prices = d_newp
-        self._host_prices = newp
+        self._host_prices[0, cols] = prices
         self.reprices += 1
         self.dispatches += 1
 
@@ -310,16 +312,17 @@ class TorchFusedRankState:
         refreshing every member; returns #rows whose masked row-minimum
         handed off (read back to the host, so a return means the tick's
         kernels have completed)."""
-        dense = self._dense_tick(deltas)
-        if dense is None:
+        pairs = self._pairs(deltas)
+        if pairs is None:
             return 0
-        newp, changed = dense
-        d_newp = self._upload(newp)
+        # the pairs to the card in one copy, scattered there into the
+        # tick's (1, C) new prices and changed flags (1 at every pair's
+        # column, moved or not)
+        d_newp, changed = scatter_prices(*pairs, self.d_prices)
         self.d_scores, self.d_row_best, moved = fused_reprice(
-            self.d_hours, self.d_mask, self.d_prices, d_newp,
-            self._upload(changed), self.d_row_best, self.d_row_masks,
-            self.d_scores)
-        self._commit(newp, d_newp)
+            self.d_hours, self.d_mask, self.d_prices, d_newp, changed,
+            self.d_row_best, self.d_row_masks, self.d_scores)
+        self._commit(d_newp, *pairs)
         return int(moved.item())
 
     def reprice_with_heads(self, deltas: Deltas, k: int
@@ -330,17 +333,16 @@ class TorchFusedRankState:
         distinct configs equal to ``ranking(key)[:k]``.  An empty delta
         batch degrades to plain :meth:`top_k` serving with no dispatch."""
         k = _check_k(k, len(self.config_ids))
-        dense = self._dense_tick(deltas)
-        if dense is None:
+        pairs = self._pairs(deltas)
+        if pairs is None:
             return 0, {key: self.top_k(key, k) for key in self._slots}
-        newp, changed = dense
-        d_newp = self._upload(newp)
+        d_newp, changed = scatter_prices(*pairs, self.d_prices)
         (self.d_scores, self.d_row_best, moved,
          top_i, top_v) = fused_reprice_heads(
-            self.d_hours, self.d_mask, self.d_prices, d_newp,
-            self._upload(changed), self.d_row_best, self.d_row_masks,
-            self.d_scores, self._d_finite, k=k)
-        self._commit(newp, d_newp)
+            self.d_hours, self.d_mask, self.d_prices, d_newp, changed,
+            self.d_row_best, self.d_row_masks, self.d_scores,
+            self._d_finite, k=k)
+        self._commit(d_newp, *pairs)
         top_i = top_i.cpu().numpy()
         top_v = top_v.cpu().numpy().astype(np.float64)
         heads = {key: self._head(slot, top_i[slot], top_v[slot])

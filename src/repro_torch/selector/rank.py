@@ -381,17 +381,19 @@ def _validated_deltas(pos: Mapping[Hashable, int],
                                     Sequence[Tuple[Hashable, float]]]
                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """Validate a delta batch: resolve config ids to column positions and
-    reject non-positive / non-finite prices.  Returns ``(cols,
-    new_prices)`` (duplicates collapsed, last wins) or ``None`` for an
-    empty batch."""
+    reject non-positive / non-finite prices.  Returns ``(cols int32,
+    new_prices float64)`` (duplicates collapsed, last wins, so the columns
+    are distinct) or ``None`` for an empty batch.  Ids resolve and prices
+    convert inside ``np.fromiter``, with no Python step per delta."""
     table = deltas if isinstance(deltas, Mapping) else dict(deltas)
     if not table:
         return None
+    n = len(table)
     try:
-        cols = np.asarray([pos[c] for c in table], dtype=np.int32)
+        cols = np.fromiter(map(pos.__getitem__, table), np.int32, n)
     except KeyError as e:
         raise ValueError(f"unknown config id in deltas: {e.args[0]!r}")
-    new_prices = np.asarray(list(table.values()), dtype=np.float64)
+    new_prices = np.fromiter(table.values(), np.float64, n)
     bad = ~(np.isfinite(new_prices) & (new_prices > 0))
     if bad.any():
         offender = list(table)[int(np.flatnonzero(bad)[0])]

@@ -74,8 +74,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
     before = dict(rd.LAUNCHES)
     s, rb, mv, ti, tv = rd.fused_reprice_heads(*t, fin, k=10)
     assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
-        {"rowmin": 1, "fold": 1, "fold_col": 0, "select": 1,
-         "select_sort": 0, "select_rounds": 0}
+        {"scatter": 0, "rowmin": 1, "rowmin_row": 0, "fold": 1,
+         "fold_col": 0, "select": 1, "select_sort": 0, "select_rounds": 0}
     rb_p, mv_p = rd.rowmin_plain(t[0], t[1], t[3], t[5])
     assert torch.equal(rb, rb_p) and int(mv) == int(mv_p)
     s_p = rd.fold_plain(*t[:6], rb, t[6], t[7])
@@ -182,6 +182,198 @@ def test_cuda_select_edge_rows(cuda_device):
     _assert_select_exact(ties, fin, rd.SELECT_CAP + 1, "select_sort")
     _assert_select_exact(scores, finite, rd.SELECT_CAP + 1, "select_sort")
     _assert_select_exact(scores, finite, 9_000, "select_sort")
+
+
+def _rowmin_args(seed, J, C, device):
+    """Hours, mask, old and new prices and the settled row minima; from J
+    = 3 a fully masked row (0), a row whose one profiled cell is the last
+    column, in the last chunk (1), and a row of zero hours (2)."""
+    rng = np.random.default_rng(seed)
+    hours = rng.uniform(0.5, 4.0, (J, C)).astype(np.float32)
+    mask = rng.random((J, C)) > 0.2
+    if J >= 3:
+        mask[0] = False
+        mask[1] = False
+        mask[1, C - 1] = True
+        hours[2] = 0.0
+    oldp = rng.uniform(0.1, 2.0, (1, C)).astype(np.float32)
+    newp = (oldp * rng.uniform(0.5, 1.5, (1, C))).astype(np.float32)
+    h, m, po, pn = (torch.from_numpy(a).to(device)
+                    for a in (hours, mask, oldp, newp))
+    rb, _ = rd.rowmin_plain(h, m, po, torch.zeros((J, 1), device=device))
+    return h, m, po, pn, rb
+
+
+def _assert_rowmin_bitwise(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert int(got[1]) == int(want[1])
+
+
+@pytest.mark.parametrize("C", [1, 3, 2_047, 2_048, 2_049, 4_095, 4_096,
+                               4_097, 10_000, 10_001])
+@pytest.mark.parametrize("J", [1, 64])
+def test_cuda_rowmin_matches_plain_bitwise(cuda_device, J, C):
+    """The split ``rowmin`` (vector loads at C = 10,000, scalar at C = 3
+    and 10,001; short of, at and one past 2,048 and the kernel's 4,096
+    columns a block) and the one-block-a-row ``rowmin_row`` it replaced
+    equal the plain version bit for bit, minima and moved, each under its
+    own launch count; two launches agree, and an identity tick moves
+    nothing."""
+    h, m, po, pn, rb = _rowmin_args(J * 100_000 + C, J, C, cuda_device)
+    want = rd.rowmin_plain(h, m, pn, rb)
+    before = dict(rd.LAUNCHES)
+    a = rd._launch_rowmin(h, m, pn, rb)
+    b = rd._launch_rowmin(h, m, pn, rb)
+    row = rd._launch_rowmin(h, m, pn, rb, variant="rowmin_row")
+    torch.cuda.synchronize()
+    assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
+        {n: {"rowmin": 2, "rowmin_row": 1}.get(n, 0) for n in before}
+    for got in (a, b, row):
+        _assert_rowmin_bitwise(got, want)
+    ident = rd._launch_rowmin(h, m, po, rb)
+    _assert_rowmin_bitwise(ident, (rb, 0))
+
+
+def test_cuda_rowmin_counters_reset_over_100_launches(cuda_device):
+    """100 launches in a row on one stream's scratch, over three price
+    vectors and with every output kept alive: each equals the plain
+    version (the arrival counters return to 0 after every launch)."""
+    h, m, po, pn, rb = _rowmin_args(7, 64, 10_000, cuda_device)
+    prices = [pn, po, (pn * 0.75).contiguous()]
+    got = [rd._launch_rowmin(h, m, prices[i % 3], rb) for i in range(100)]
+    torch.cuda.synchronize()
+    wants = [rd.rowmin_plain(h, m, p, rb) for p in prices]
+    for i, g in enumerate(got):
+        _assert_rowmin_bitwise(g, wants[i % 3])
+
+
+def test_cuda_rowmin_two_streams_in_turn(cuda_device):
+    """Launches on two streams, in turn and never waiting on each other,
+    each on its own inputs: every result equals the plain version (each
+    stream has its own scratch, so their arrival counters never mix)."""
+    cases = [_rowmin_args(11 + i, 64, 100_000, cuda_device)
+             for i in range(2)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    got = [[], []]
+    for _ in range(20):
+        for i, (h, m, _, pn, rb) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                got[i].append(rd._launch_rowmin(h, m, pn, rb))
+    torch.cuda.synchronize()
+    for (h, m, _, pn, rb), outs in zip(cases, got):
+        want = rd.rowmin_plain(h, m, pn, rb)
+        for g in outs:
+            _assert_rowmin_bitwise(g, want)
+
+
+def test_cuda_rowmin_in_a_cuda_graph(cuda_device):
+    """Captured into a CUDA graph after one launch on the capture stream,
+    ``rowmin`` replays bitwise equal to the plain version, replay after
+    replay; a capture on a stream whose scratch does not exist yet raises
+    instead of recording a zeroing that would run only on replay."""
+    h, m, _, pn, rb = _rowmin_args(13, 64, 10_000, cuda_device)
+    want = rd.rowmin_plain(h, m, pn, rb)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        rd._launch_rowmin(h, m, pn, rb)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = rd._launch_rowmin(h, m, pn, rb)
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_rowmin_bitwise(out, want)
+    wide = _rowmin_args(14, 300, 10_000, cuda_device)   # more counters
+    with pytest.raises(RuntimeError, match="before a CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            rd._launch_rowmin(wide[0], wide[1], wide[3], wide[4])
+
+
+@pytest.mark.parametrize("calls", [1, 3])
+@pytest.mark.parametrize("C, n", [(1, 0), (1, 1), (3, 2), (10_000, 100),
+                                  (10_000, 10_000), (100_000, 1_000)],
+                         ids=str)
+def test_cuda_scatter_matches_plain_bitwise(cuda_device, C, n, calls):
+    """The tick's price scatter on the card equals its plain version
+    (``index_copy``, ``index_fill_``) bit for bit and leaves the old prices
+    as they were — also for ``calls`` scatters back to back with no wait
+    between them, each with its own pairs through the one staging
+    buffer."""
+    rng = np.random.default_rng(C + n)
+    prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, C)).astype(
+        np.float32)).to(cuda_device)
+    keep = prices.clone()
+    pairs = [(rng.choice(C, n, replace=False).astype(np.int32),
+              rng.uniform(0.5, 20.0, n).astype(np.float32))
+             for _ in range(calls)]
+    before = dict(rd.LAUNCHES)
+    got = [rd.scatter_prices(cols, new, prices) for cols, new in pairs]
+    torch.cuda.synchronize()
+    assert {k: rd.LAUNCHES[k] - before[k] for k in before} == \
+        {k: calls * int(k == "scatter") for k in before}
+    for out, (cols, new) in zip(got, pairs):
+        want = rd.scatter_prices_plain(cols, new, prices)
+        for a, b in zip(out, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(prices, keep)
+
+
+def test_cuda_scatter_refuses_bad_columns(cuda_device):
+    """On the card too, a column out of range or repeated raises before
+    anything is launched."""
+    prices = torch.ones((1, 8), device=cuda_device)
+    before = dict(rd.LAUNCHES)
+    for cols in ([8], [-1], [2, 2]):
+        with pytest.raises(ValueError, match="columns must"):
+            rd.scatter_prices(np.array(cols), np.ones(len(cols)), prices)
+    assert rd.LAUNCHES == before
+
+
+def _pair_and_dense_ticks(state, deltas):
+    """One tick of ``state`` through the pair path, then from the same
+    state through dense (1, C) vectors built by hand: both results."""
+    before = (state.d_scores, state.d_row_best, state.d_prices)
+    moved = state.reprice(deltas)
+    pairs = (state.d_scores, state.d_row_best, state.d_prices, moved)
+    C = len(state.config_ids)
+    newp = before[2].cpu().numpy().copy()
+    changed = np.zeros((1, C), np.float32)
+    for cid, p in dict(deltas).items():
+        c = state.config_ids.index(cid)
+        newp[0, c] = np.float32(p)
+        changed[0, c] = 1.0
+    d_newp = torch.from_numpy(newp).to(state.device)
+    scores, rb, mv = rd.fused_reprice(
+        state.d_hours, state.d_mask, before[2], d_newp,
+        torch.from_numpy(changed).to(state.device), before[1],
+        state.d_row_masks, before[0])
+    return pairs, (scores, rb, d_newp, int(mv.item()))
+
+
+def test_cuda_pair_tick_equals_dense_tick_bitwise(cuda_device):
+    """The pair tick (columns and prices uploaded, scattered on the card)
+    gives the scores, row minima, prices and moved of the dense tick
+    bit for bit — with duplicates (the last wins), a price set to its
+    current value (still a changed column) and 1% and 30% of the
+    columns."""
+    state, hours, mask, ids, members = _fleet(cuda_device, C=2_003)
+    rng = np.random.default_rng(9)
+    live = state.prices
+    for n in (20, 600, 1):
+        cols = rng.choice(len(ids), n, replace=False)
+        deltas = [(ids[c], float(live[c] * rng.uniform(0.6, 1.4)))
+                  for c in cols]
+        deltas += [(ids[cols[0]], 99.0), (ids[cols[0]], float(live[cols[0]]))]
+        pairs, dense = _pair_and_dense_ticks(state, deltas)
+        for a, b in zip(pairs[:3], dense[:3]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert pairs[3] == dense[3]
+        live = state.prices
+        assert np.array_equal(live.astype(np.float32),
+                              state.d_prices.cpu().numpy()[0])
 
 
 def _fold_args(seed, J, C, S, device, identity=False):
@@ -316,12 +508,14 @@ def test_cuda_service_serves_through_the_kernels(cuda_device):
                   rng.choice(300, 9, replace=False)}
         gpu.reprice(deltas)
         ref.reprice(deltas)
-    # every kernel of the path, one rowmin and one fold a tick; the sort
-    # serves only k > 256 and the yardsticks no path at all
+    # every kernel of the path, one scatter, rowmin and fold a tick; the
+    # sort serves only k > 256 and the yardsticks no path at all
     assert all(rd.LAUNCHES[n] > 0 for n in ("rowmin", "fold", "select")) \
-        and rd.LAUNCHES["rowmin"] == rd.LAUNCHES["fold"] == 3 \
-        and all(rd.LAUNCHES[n] == 0 for n in ("select_sort", "fold_col",
-                                              "select_rounds")), rd.LAUNCHES
+        and rd.LAUNCHES["scatter"] == rd.LAUNCHES["rowmin"] \
+        == rd.LAUNCHES["fold"] == 3 \
+        and all(rd.LAUNCHES[n] == 0 for n in (
+            "rowmin_row", "select_sort", "fold_col", "select_rounds")), \
+        rd.LAUNCHES
     assert gpu.reprice_dispatches == 3
 
 

@@ -252,9 +252,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     rd.fused_reprice_heads(*u, fin, k=C)
     rd.select_heads(u[7], fin, 3)
     rd.select_heads(u[7], fin, C)
-    assert rd.LAUNCHES == {"rowmin": 0, "fold": 0, "fold_col": 0,
-                           "select": 0, "select_sort": 0,
-                           "select_rounds": 0}
+    rd.scatter_prices([3, 0], [1.5, 2.5], u[2])
+    assert rd.LAUNCHES == {"scatter": 0, "rowmin": 0, "rowmin_row": 0,
+                           "fold": 0, "fold_col": 0, "select": 0,
+                           "select_sort": 0, "select_rounds": 0}
 
 
 def test_launch_fold_names_only_its_two_kernels():
@@ -264,4 +265,72 @@ def test_launch_fold_names_only_its_two_kernels():
     t = _torch(*_universe(6))
     with pytest.raises(ValueError, match="unknown fold kernel"):
         rd._launch_fold(*t[:6], t[5], t[6], t[7], variant="fold_rows")
+    assert sum(rd.LAUNCHES.values()) == 0
+
+
+def test_launch_rowmin_names_only_its_two_kernels():
+    """The card's row minima are reached as ``rowmin`` or, by name,
+    ``rowmin_row``; anything else raises before a library is built or a
+    launch counted."""
+    rd.reset_launches()
+    t = _torch(*_universe(6))
+    with pytest.raises(ValueError, match="unknown rowmin kernel"):
+        rd._launch_rowmin(t[0], t[1], t[3], t[5], variant="rowmin_split")
+    assert sum(rd.LAUNCHES.values()) == 0
+
+
+def test_rowmin_chunk_is_the_sources():
+    """The chunk the wrapper sizes ``rowmin``'s scratch by is the CUDA
+    source's: 256 threads x 4 float4 groups."""
+    src = (rd._build.CSRC / "rank_delta.cu").read_text()
+    assert "constexpr int kRowminThreads = 256;" in src
+    assert "constexpr int kRowminGroups = 4;" in src
+    assert "kRowminCols = kRowminThreads * 4 * kRowminGroups;" in src
+    assert rd.ROWMIN_CHUNK == 256 * 4 * 4
+
+
+def test_scatter_prices_plain_writes_the_pairs():
+    """The plain scatter: the old prices with the pairs' written in (as
+    float32), 1.0 at the pairs' columns and 0 elsewhere; no pairs copy
+    the prices and flag nothing; the old vector is not touched."""
+    old = torch.tensor([[1.0, 2.0, 3.0, 4.0, 5.0]])
+    keep = old.clone()
+    new, changed = rd.scatter_prices(np.array([4, 1, 2], np.int32),
+                                     np.array([0.5, 9.0, 3.0]), old)
+    assert new.tolist() == [[1.0, 9.0, 3.0, 4.0, 0.5]]
+    assert changed.tolist() == [[0.0, 1.0, 1.0, 0.0, 1.0]]
+    assert torch.equal(old, keep)
+    new, changed = rd.scatter_prices(np.array([], np.int64),
+                                     np.array([], np.float32), old)
+    assert torch.equal(new, old) and not changed.any()
+    new, _ = rd.scatter_prices(np.array([0], np.uint8),
+                               np.array([1 / 3]), old)
+    assert new[0, 0].item() == float(np.float32(1 / 3))
+
+
+@pytest.mark.parametrize("cols, prices, err, match", [
+    ([5], [2.0], ValueError, r"columns must lie in \[0, 5\)"),
+    ([-1], [2.0], ValueError, r"columns must lie in \[0, 5\)"),
+    ([2, 1 << 40], [2.0, 3.0], ValueError, "columns must lie in"),
+    ([1, 3, 1], [2.0, 3.0, 4.0], ValueError, "columns must be distinct"),
+    ([1.0], [2.0], TypeError, "cols must be a 1-D integer array"),
+    ([[1, 2]], [[2.0, 3.0]], TypeError, "cols must be a 1-D integer array"),
+    ([1, 2], [2.0], TypeError, "prices must be a 1-D float array"),
+    ([1], [2], TypeError, "prices must be a 1-D float array"),
+])
+def test_scatter_prices_refuses_what_it_does_not_take(cols, prices, err,
+                                                      match):
+    """A column out of range, a repeated column or arrays of the wrong kind
+    raise before a library is built or a launch counted, and the old
+    prices stay as they were; so do prices that are not a (1, C) float32
+    row."""
+    rd.reset_launches()
+    old = torch.ones((1, 5))
+    with pytest.raises(err, match=match):
+        rd.scatter_prices(np.array(cols), np.array(prices), old)
+    assert torch.equal(old, torch.ones((1, 5)))
+    with pytest.raises(ValueError):
+        rd.scatter_prices([1], [2.0], torch.ones((2, 5)))
+    with pytest.raises(TypeError):
+        rd.scatter_prices([1], [2.0], torch.ones((1, 5), dtype=torch.float64))
     assert sum(rd.LAUNCHES.values()) == 0
