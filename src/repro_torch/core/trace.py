@@ -3,9 +3,8 @@
 A *trace* is the output of the infrastructure-profiling step (Step 0 in the
 paper): for every (test job, cluster configuration) pair, the measured
 runtime.  The paper's own trace — 18 Spark jobs x 10 GCP configurations =
-180 executions — is regenerated offline by the reference package's
-``repro.core.spark_sim`` with
-the exact job list (Table I) and configuration list (Table II).
+180 executions — is regenerated offline by
+:mod:`repro_torch.core.spark_sim` with the exact job list (Table I) and configuration list (Table II).
 """
 from __future__ import annotations
 

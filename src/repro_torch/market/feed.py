@@ -6,8 +6,7 @@ and a dropped batch cannot silently skew later prices.
 
 :class:`SimulatedSpotFeed` is the deterministic reference market used by
 the benchmarks, tests and examples.  It follows the repo's hash-seeding
-discipline (``repro.core.spark_sim`` in the reference package): every
-random draw is a pure function of ``(seed, purpose, config, tick)``
+discipline (:mod:`repro_torch.core.spark_sim`): every random draw is a pure function of ``(seed, purpose, config, tick)``
 through md5.  The walk
 itself is stateful (each quote reverts from the *current* price), so
 determinism means: two independently constructed feeds with the same
@@ -40,8 +39,8 @@ from typing import (Dict, Hashable, Iterator, Mapping, Protocol, Sequence,
 
 def hash_digest(seed: int, *key: object) -> int:
     """64-bit digest of ``seed|key`` — the repo's hash-seeding discipline
-    (``repro.core.spark_sim`` in the reference package): every draw is a
-    pure function of its key, shared by the feed and the daemon's
+    (:mod:`repro_torch.core.spark_sim`): every draw is a pure function of
+    its key, shared by the feed and the daemon's
     synthetic stream so their determinism contracts can never drift
     apart."""
     raw = "|".join(str(k) for k in (seed,) + key).encode()

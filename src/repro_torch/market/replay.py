@@ -24,8 +24,9 @@ This module closes the loop of the live market
     surfaced in :attr:`ReplayAudit.drift`) for float32 journals
     (DESIGN.md §9) — an end-to-end consistency check of the whole
     feed → ticker → incremental-reprice → cache → decision path.
-    (The reference's ``JournalReplayer.evaluate``, which scores a
-    history against price oracles, is not ported yet.)
+    :meth:`~JournalReplayer.evaluate` then scores the history against
+    per-epoch and static-price oracles
+    (:func:`repro_torch.core.evaluate.dynamic_evaluation`).
 
 The CSV format (version 1):
 
@@ -573,3 +574,19 @@ class JournalReplayer:
                            drift=tuple(drift), contract=contract,
                            feed_errors=n_feed, metrics_records=n_met,
                            tick_latency=tick_latency)
+
+    # -- dynamic-price evaluation -------------------------------------------
+    def evaluate(self, base_prices: Optional[Mapping[Hashable, float]]
+                 = None):
+        """Score the journaled history against per-epoch and static-price
+        oracles; see :func:`repro_torch.core.evaluate.dynamic_evaluation`.
+
+        ``base_prices`` defaults to the header snapshot (the static
+        oracle then models a selector that never saw a price move).
+        """
+        from repro_torch.core.evaluate import dynamic_evaluation
+        if base_prices is None:
+            base_prices = {c: float(p) for c, p in self.header["prices"]}
+        return dynamic_evaluation(self.store, self.decisions(),
+                                  self.catalog_ids, base_prices,
+                                  backend=self.backend)

@@ -376,12 +376,31 @@ class TorchFusedRankState:
         """The head of a member's ranking: the ``select`` kernel on the
         member's score row plus an O(k) readback — element-wise equal to
         ``ranking(key)[:k]``, ties in catalog order."""
-        slot = self._slot_of(key)
+        return self.heads([key], k)[0]
+
+    def heads(self, keys: Sequence[Hashable], k: int
+              ) -> List[List[RankedConfig]]:
+        """Several members' heads from ONE ``select`` launch over the
+        requested members' rows alone: a view where their slots are
+        contiguous, else one gather of those rows.  Element ``i`` is
+        ``top_k(keys[i], k)``."""
+        slots = [self._slot_of(key) for key in keys]
         k = _check_k(k, len(self.config_ids))
-        top_i, top_v = select_heads(self.d_scores[slot:slot + 1],
-                                    self._d_finite[slot:slot + 1], k)
-        return self._head(slot, top_i[0].cpu().numpy(),
-                          top_v[0].cpu().numpy().astype(np.float64))
+        if not slots:
+            return []
+        rows = sorted(set(slots))
+        lo, hi = rows[0], rows[-1] + 1
+        if hi - lo == len(rows):
+            scores, finite = self.d_scores[lo:hi], self._d_finite[lo:hi]
+        else:
+            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+            scores = self.d_scores.index_select(0, idx)
+            finite = self._d_finite.index_select(0, idx)
+        top_i, top_v = select_heads(scores, finite, k)
+        top_i = top_i.cpu().numpy()
+        top_v = top_v.cpu().numpy().astype(np.float64)
+        at = {s: r for r, s in enumerate(rows)}
+        return [self._head(s, top_i[at[s]], top_v[at[s]]) for s in slots]
 
     def winner(self, key: Hashable) -> RankedConfig:
         """The member's top pick — ``top_k(key, 1)``."""

@@ -25,8 +25,8 @@ math itself:
 from __future__ import annotations
 
 import dataclasses
-from typing import (Any, Callable, Dict, Hashable, Mapping, Optional,
-                    Sequence, Tuple, Union)
+from typing import (Any, Callable, Dict, Hashable, List, Mapping,
+                    NamedTuple, Optional, Sequence, Tuple, Union)
 
 import torch
 
@@ -39,6 +39,18 @@ from repro_torch.selector.rank import (BACKENDS, FLEET_BACKENDS,
                                        NothingRankableError, RankedConfig,
                                        RankState)
 from repro_torch.selector.store import ProfilingStore
+
+
+class _Deferred(NamedTuple):
+    """A head a live fleet member serves, left for one batched launch:
+    its head-cache key and the member's key in the fleet."""
+    head_key: Tuple
+    member: Tuple
+
+
+def _check_head_k(k, name: str) -> None:
+    if not isinstance(k, int) or isinstance(k, bool) or k < 1:
+        raise ValueError(f"{name} needs a positive integer k, got {k!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,12 +459,58 @@ class SelectionService:
         live state's score buffer (the ``select`` kernel on the fleet
         backend, a partial selection on numpy) and is cached per
         ``(tag, selection, k)``."""
-        if not isinstance(k, int) or isinstance(k, bool) or k < 1:
-            raise ValueError(f"rank_head needs a positive integer k, "
-                             f"got {k!r}")
+        _check_head_k(k, "rank_head")
+        return self._walk_head(job_class, exclude_groups, k,
+                               self._price_tag())
+
+    def rank_heads(self, routes: Sequence[Tuple[Optional[JobClass],
+                                                Sequence[str]]], *, k: int
+                   ) -> List[Union[Tuple[Tuple[RankedConfig, ...], bool],
+                                   NothingRankableError]]:
+        """Many selections' top-``k`` heads at once: element ``i`` is what
+        ``rank_head(*routes[i], k=k)`` would return, called in order, or
+        the :class:`NothingRankableError` it would raise (returned, not
+        raised).  The caches and hit/miss counts end as those calls would
+        leave them.  On the fleet backend every head a cache does not hold
+        and a live member can serve comes from ONE ``select`` launch over
+        the requested members' rows (:meth:`TorchFusedRankState.heads`);
+        a selection not live yet is built as ``rank_head`` builds it.  On
+        numpy it is ``rank_head`` route by route."""
+        _check_head_k(k, "rank_heads")
+        tag = self._price_tag()
+        defer = self.backend in FLEET_BACKENDS
+        served: List = []
+        pending: List[Tuple[int, _Deferred]] = []
+        for i, (klass, excl) in enumerate(routes):
+            try:
+                got = self._walk_head(klass, excl, k, tag, defer)
+            except NothingRankableError as exc:
+                got = exc
+            if isinstance(got, _Deferred):
+                pending.append((i, got))
+            served.append(got)
+        # a cold build above reuses the universe the live members sit in
+        # (same tag and store version), so their slots still hold
+        if pending:
+            heads = self._batched.heads([d.member for _, d in pending], k)
+            for (i, d), head in zip(pending, heads):
+                # a route listed twice is served once, then from the cache
+                self._c_hits.inc()
+                served[i] = (self._head_cache.setdefault(d.head_key,
+                                                         tuple(head)), True)
+        return served
+
+    def _walk_head(self, job_class, exclude_groups, k: int, tag: Tuple,
+                   defer: bool = False):
+        """One selection's head as ``rank_head`` serves it: a cached full
+        ranking's head, else the head cache, else a live state's head
+        (hits), else a cold build (a miss; raises
+        :class:`NothingRankableError` where nothing is rankable).  With
+        ``defer``, a head a live fleet member would serve is not computed:
+        a :class:`_Deferred` comes back for :meth:`rank_heads`, which
+        serves it, caches it and counts its hit."""
         base_key = (self.store.version, job_class,
                     tuple(sorted(exclude_groups)))
-        tag = self._price_tag()
         key = tag + base_key
         full = self._cache.get(key)
         if full is not None:
@@ -465,6 +523,8 @@ class SelectionService:
             return hit, True
         live = self._live_serving(base_key, tag)
         if live is not None:
+            if defer:
+                return _Deferred(head_key, base_key)
             head = tuple(live[1](k))
             self._head_cache[head_key] = head
             self._c_hits.inc()

@@ -519,6 +519,91 @@ def test_cuda_service_serves_through_the_kernels(cuda_device):
     assert gpu.reprice_dispatches == 3
 
 
+def test_cuda_threaded_frontend_serves_from_one_select_a_snapshot(
+        cuda_device):
+    """The front-end on the card with its tick thread and 3 workers: zero
+    shed, an audit-clean merged journal, one ``scatter``, ``rowmin`` and
+    ``fold`` a fleet tick, and at most one ``select`` a published
+    snapshot plus one a forwarded submission (never one a route)."""
+    from repro_torch.market import (JournalReplayer, RecordedPriceFeed,
+                                    ServeFrontend, SimulatedSpotFeed,
+                                    Submission, record_feed)
+    rng = np.random.default_rng(5)
+    ids = [f"c{i}" for i in range(2_000)]
+    store = ProfilingStore(config_ids=ids)
+    for j in range(24):
+        for c in ids:
+            if rng.random() < 0.8:
+                store.add(f"j{j}", c, float(rng.uniform(0.1, 5.0)),
+                          group=f"g{j % 6}")
+    base = {c: float(p) for c, p in zip(ids, rng.uniform(1, 20, 2_000))}
+    market = record_feed(SimulatedSpotFeed(base, seed=5,
+                                           change_fraction=0.02), 40)
+    svc = SelectionService(IdentityCatalog(ids), store, PriceTable(base),
+                           backend="torch_fused", device="cuda",
+                           serve_top_k=10)
+    fe = ServeFrontend(svc, RecordedPriceFeed.loads(market), workers=3,
+                       queue_capacity=1_000)
+    subs = [Submission(f"j{i % 24}") for i in range(400)]
+    fe.warm(subs[:5])            # groups g0-g4: g5's route is forwarded
+    snaps = fe.stats().snapshots
+    rd.reset_launches()
+    with fe:
+        for sub in subs:
+            assert fe.submit(sub)
+        fe.drain(timeout=120.0)
+        fe.await_ticks(timeout=120.0)
+    launches, stats = dict(rd.LAUNCHES), fe.stats()
+    assert stats.shed == 0 and stats.accounted and stats.decisions == 400
+    audit = JournalReplayer(store, fe.journal_dump()).audit()
+    assert audit.ok, audit.mismatches[:3]
+    assert launches["scatter"] == launches["rowmin"] == launches["fold"] \
+        == svc.reprice_dispatches > 0
+    assert 0 < launches["select"] <= stats.snapshots - snaps \
+        + stats.forwarded
+    assert all(launches[n] == 0 for n in ("rowmin_row", "fold_col",
+                                          "select_rounds", "select_sort"))
+    assert stats.forwarded >= 1 and len(fe.snapshot.entries) == 6
+
+
+def test_cuda_turbulence_point_matches_cpu_point(cuda_device):
+    """One ``torch_fused`` turbulence point at the paper's universe (18
+    jobs x 10 configs: C is no multiple of 4) on the card and on the CPU:
+    both audit clean, the same decisions and epochs, the mean deviation
+    within rel 1e-4, and one ``scatter``, ``rowmin`` and ``fold`` a fleet
+    tick."""
+    from repro_torch.core import costmodel, spark_sim
+    from repro_torch.market import (RecordedPriceFeed, make_market,
+                                    record_feed, run_point,
+                                    synthetic_stream)
+    from repro_torch.selector import GcpVmCatalog
+    trace = spark_sim.generate_trace(seed=0)
+    store = ProfilingStore.from_trace(trace)
+    catalog = GcpVmCatalog(trace.configs, costmodel.LinearPriceModel())
+    base = dict(PriceTable.from_catalog(catalog).items())
+    events = list(synthetic_stream([j.name for j in trace.jobs], 400,
+                                   seed=3, tick_fraction=0.15))
+    text = record_feed(make_market("flash_crash", base, seed=11,
+                                   ticks=60).raw, 60)
+    points = {}
+    for device in ("cuda", "cpu"):
+        svc = SelectionService(catalog, store,
+                               PriceTable.from_catalog(catalog),
+                               backend="torch_fused", device=device)
+        rd.reset_launches()
+        points[device] = run_point(svc, RecordedPriceFeed.loads(text),
+                                   events, preset_name="flash_crash",
+                                   truth=RecordedPriceFeed.loads(text))
+        if device == "cuda":
+            assert rd.LAUNCHES["scatter"] == rd.LAUNCHES["rowmin"] == \
+                rd.LAUNCHES["fold"] == svc.reprice_dispatches > 0
+    gpu, cpu = points["cuda"], points["cpu"]
+    assert gpu.audit_ok and cpu.audit_ok
+    assert (gpu.decisions, gpu.epochs) == (cpu.decisions, cpu.epochs)
+    assert gpu.mean_deviation == pytest.approx(cpu.mean_deviation,
+                                               rel=1e-4, abs=1e-12)
+
+
 # --- the LM kernels -----------------------------------------------------------
 
 #: (B, T, H, G, D, causal, window): GQA, MQA, bidirectional, windowed,
