@@ -34,6 +34,23 @@ Phases:
    dense path it replaced (the whole (1, C) price and changed vectors
    built on the host and uploaded), and timing the tick and its host
    step through both paths in turns;
+3b. the sharded fleet (``torch_sharded``) with every shard on the one
+   card: a 1% tick at 64 x 100,000 x 16 and at 64 x 100,003 split by
+   columns 2, 3 and 4 ways (``row_minima`` a block, the min across
+   blocks, ``fold_scores`` a block), bitwise against one
+   ``fused_reprice``; :class:`TorchShardedRankState` at 1, 2 and 4 shards
+   beside a :class:`TorchFusedRankState` for 10 ticks of 1% at 64 x
+   100,000 x 16 — the same handoff counts, scores within the contract,
+   the 10-heads naming the fused fleet's configs, one ``scatter``,
+   ``rowmin`` and ``fold`` a shard a tick and one ``select`` a shard a
+   ``heads`` call, every member within the contract of ``rank_dense``'s
+   float64 scores on two ticks, the 1,000-head ``ranking()[:1000]`` —
+   the tick timed in turns with the fused fleet's (host clock) with the
+   combine's share (where the machine has several cards, a fleet with one
+   shard a card joins every check and the turns); then phase 4's
+   service and daemon on ``torch_sharded`` at 2 shards (1,000 events,
+   audit-clean) read through the launch counters, and the kernels held
+   against their plain versions on a shard of its fleet;
 4. serve a ``SelectionService(backend="torch_fused")`` over a 64 x 10,000
    store through a ``SelectionDaemon`` for 1,000 events and audit its
    journal with ``JournalReplayer`` — the selection path, read through
@@ -44,7 +61,9 @@ Phases:
    time it there, and time the k-head at k = 65 to 10,000 on one member
    row and at k = 1,000 on the 64 x 100,000 fleet's 16 rows
    (``HEAD_SHAPES``) beside ``torch.topk`` and, up to k = 1,000 on one
-   row, the k-round kernel;
+   row, the k-round kernel; and the kernels' device guard: its host cost
+   around a no-op beside ``torch.cuda.device``'s, and ``select`` on the
+   member row in turns with the guard and without it;
 5. serve phase 4's store and catalog through the front-end
    (``ServeFrontend``, ``torch_fused``, ``serve_top_k=10``) at 1 and 4
    workers and through the daemon, on one recorded 100-tick market (1% of
@@ -61,9 +80,11 @@ Phases:
 6. the reference turbulence benchmark's universe (the paper's trace at
    seed 0, 18 jobs x 10 configs), 400 events: the calm preset regenerates
    ``examples/data/gcp_spot_prices.csv`` byte for byte, the calm fixture's
-   mean deviation stays <= 0.0645 on numpy and on ``torch_fused``, every
-   preset's point on both backends audits clean (``scatter``, ``rowmin``
-   and ``fold`` once a fleet tick, at C = 10), a stubbed
+   mean deviation stays <= 0.0645 on numpy, on ``torch_fused`` and on
+   ``torch_sharded`` at 2 shards (there equal to numpy's), every preset's
+   point on the three backends audits clean (``scatter``, ``rowmin`` and
+   ``fold`` once a fleet tick, once a shard on ``torch_sharded``, at
+   C = 10), a stubbed
    ``PollingPriceFeed`` evaluates as the recorded feed on ``torch_fused``,
    and the quickstart's picks through the port's Flora (class A -> #9,
    class B -> #1, Flora the best row of Table IV);
@@ -111,11 +132,12 @@ and ``fold`` entries add ``device_ms`` (and the k-heads
 ``library_device_ms``): the same calls replayed from a CUDA graph, the
 card's time without the host's (``earlier_device_ms`` the earlier
 kernel's).  The ``scatter``, ``rowmin``, ``fold`` and ``select`` entries add
-``frontend_launches`` (phase 5's 4-worker front-end run) and
-``turbulence_launches`` (phase 6's sweep).  ``rank_delta_scatter`` is the
-price scatter at the
-service's C = 10,000 (``rank_delta_scatter_100000`` at 100,000), a 1%
-tick; ``rank_delta_rowmin_64x*`` and ``rank_delta_fold_64x*`` are
+``frontend_launches`` (phase 5's 4-worker front-end run),
+``turbulence_launches`` (phase 6's sweep, its ``torch_sharded`` fleets'
+shards included) and ``sharded_launches`` (phase 3b's 2-shard service).
+``rank_delta_scatter`` is the price scatter at the service's C = 10,000
+(``rank_delta_scatter_100000`` at 100,000), a 1% tick;
+``rank_delta_rowmin_64x*`` and ``rank_delta_fold_64x*`` are
 ``rowmin`` and the fold at 16 members on the two fleet shapes;
 ``rank_delta_khead_<rows>x<columns>_k<k>`` the k-head at each timed
 shape, with the ``kernel`` that k takes.
@@ -785,11 +807,9 @@ def dense_tick(torch, np, state, deltas) -> int:
     return int(moved.item())
 
 
-def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
-                card="", device="cuda"):
-    from repro_torch.kernels import rank_delta as rd
-    from repro_torch.selector import (TorchFusedRankState, rank_dense,
-                                      score_contract)
+def fleet_universe(np, seed, J, C, S):
+    """A fleet's universe from the seed: ``(rng, hours, mask, prices, ids,
+    members)`` with S members ("all" and S - 1 random row subsets)."""
     rng = np.random.default_rng(seed)
     hours = rng.uniform(0.05, 10.0, (J, C))
     mask = rng.random((J, C)) > 0.15
@@ -801,6 +821,16 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
         size = int(rng.integers(1, J))
         members[f"m{m}"] = sorted(int(i) for i in
                                   rng.choice(J, size, replace=False))
+    return rng, hours, mask, prices, ids, members
+
+
+def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
+                card="", device="cuda"):
+    from repro_torch.kernels import rank_delta as rd
+    from repro_torch.selector import (TorchFusedRankState, rank_dense,
+                                      score_contract)
+    rng, hours, mask, prices, ids, members = fleet_universe(np, seed, J, C,
+                                                            S)
     contract = score_contract("torch_fused")
     state = TorchFusedRankState(hours, mask, prices, ids, capacity=S,
                                 device=device)
@@ -915,10 +945,300 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
             f"tick")
 
 
+# --- phase 3b: the sharded fleet -----------------------------------------------
+
+#: the state-level check's shard counts, every shard on the one card
+SHARD_COUNTS = (1, 2, 4)
+#: the kernels a sharded tick launches, once a shard
+TICK_KERNELS = ("scatter", "rowmin", "fold")
+
+
+def split_tick(torch, rd, t, D):
+    """``t``'s tick split by columns into D blocks as the sharded fleet
+    runs it: ``row_minima`` on each block, the elementwise min of the
+    blocks' minima, ``fold_scores`` on each block against it.  Returns
+    ``(scores, row minima, moved)``."""
+    C = t["hours"].shape[1]
+    width = -(-C // D)
+    blocks = [slice(lo, min(lo + width, C)) for lo in range(0, C, width)]
+
+    def part(name, b):
+        return t[name][:, b].contiguous()
+
+    partial = [rd.row_minima(part("hours", b), part("mask", b),
+                             part("newp", b), t["rb"])[0] for b in blocks]
+    rb = partial[0]
+    for p in partial[1:]:
+        rb = torch.minimum(rb, p)
+    out = torch.cat([rd.fold_scores(
+        part("hours", b), part("mask", b), part("oldp", b), part("newp", b),
+        part("changed", b), t["rb"], rb, t["rm"], part("scores", b))
+        for b in blocks], dim=1)
+    return out, rb, int((rb != t["rb"]).sum())
+
+
+def check_against_cold(np, fleet, key, cold, contract, label) -> None:
+    """A member against ``rank_dense``'s float64 scores (``cold``, ``inf``
+    where unprofiled), vectorized: every score within the contract, the
+    winner the cold winner or tied with it, and the 10-head the
+    (score, catalog position) order of the member's own scores, which is
+    ``ranking()[:10]``."""
+    got = np.where(fleet.counts(key) > 0, fleet.scores(key), np.inf)
+    with np.errstate(invalid="ignore"):
+        tol = contract.abs_tol + contract.rel_tol * np.maximum(
+            np.abs(got), np.abs(cold))
+        ok = (got == cold) | (np.abs(got - cold) <= tol)
+    check(bool(ok.all()), f"{label}: member {key}: {int((~ok).sum())} "
+          f"scores outside the contract of rank_dense")
+    head = fleet.top_k(key, 10)
+    order = np.lexsort((np.arange(got.size), got))[:10]
+    check([r.config_id for r in head] == [fleet.config_ids[i]
+                                          for i in order]
+          and [r.score for r in head] == [float(got[i]) for i in order],
+          f"{label}: member {key}: head is not ranking()[:10]")
+    win = fleet._pos[head[0].config_id]
+    check(contract.scores_match(cold[win], cold.min()),
+          f"{label}: member {key}: winner {head[0]} is not the cold winner "
+          f"or tied with it")
+
+
+def same_heads(contract, got, want) -> bool:
+    """Two lists of heads name the same configs in the same order, each
+    score within the contract of the other's (a member's first
+    accumulators, a matmul at the shard's width, may round apart)."""
+    return all([r.config_id for r in a] == [r.config_id for r in b]
+               and all(contract.scores_match(x.score, y.score)
+                       for x, y in zip(a, b))
+               for a, b in zip(got, want)) and len(got) == len(want)
+
+
+def shard_scores(torch, fleet, device):
+    """A sharded fleet's (S, C) member scores on ``device``, its shards'
+    blocks side by side."""
+    return torch.cat([sh.scores.to(device) for sh in fleet._shards], dim=1)
+
+
+def shard_tick(torch, np, rng, fleet, shard=0):
+    """A 1% tick on one shard's own tensors: what :func:`check_kernels`
+    takes, at the shapes the sharded path gives the kernels."""
+    sh = fleet._shards[shard]
+    C = sh.width
+    newp = fleet._host_prices[:, sh.lo:sh.hi].copy()
+    cols = rng.choice(C, max(1, C // 100), replace=False)
+    newp[0, cols] = (newp[0, cols] * rng.uniform(0.7, 1.3, cols.size)
+                     ).astype(np.float32)
+    changed = np.zeros_like(newp)
+    changed[0, cols] = 1.0
+    return dict(hours=sh.hours, mask=sh.mask, oldp=sh.prices,
+                newp=torch.from_numpy(newp).to(sh.device),
+                changed=torch.from_numpy(changed).to(sh.device),
+                rb=sh.row_best, rm=sh.row_masks, scores=sh.scores,
+                finite=sh.finite)
+
+
+def sync_cards(torch) -> None:
+    """Wait for every local card (a sharded tick reads back the moved count
+    on its first shard's card alone)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_sharded(torch, np, rd, seed, card, J=64, C=100_000, S=16,
+                  ticks=10, turn_ticks=20, device="cuda:0"):
+    """The sharded fleet: the split tick bitwise against the whole one;
+    ``TorchShardedRankState`` at 1, 2 and 4 shards on one card (and, where
+    there are several cards, one shard a card) against the fused fleet and
+    the float64 cold rank, tick by tick; the tick timed in turns with the
+    fused fleet's, and the combine's share of it."""
+    from repro_torch.selector import (TorchFusedRankState,
+                                      TorchShardedRankState, score_contract)
+    from repro_torch.selector.rank import _scores_numpy
+    contract = score_contract("torch_sharded")
+    dev = torch.device(device)
+    # the split tick against the whole tick on the same inputs, bit for bit
+    rng = np.random.default_rng(seed + 7)
+    for width in (C, C + 3):
+        t = make_universe(torch, np, rng, J, width, S, 0.01, dev=dev,
+                          masked_rows=(5,))
+        whole, rb, moved = rd.fused_reprice(
+            t["hours"], t["mask"], t["oldp"], t["newp"], t["changed"],
+            t["rb"], t["rm"], t["scores"])
+        for D in (2, 3, 4):
+            out, rb_s, moved_s = split_tick(torch, rd, t, D)
+            check(bitwise(torch, out, whole) and bitwise(torch, rb_s, rb)
+                  and moved_s == int(moved), f"sharded: the tick split {D} "
+                  f"ways at {J}x{width}x{S} differs from the whole tick")
+        log(f"[sharded] the tick split 2, 3 and 4 ways by columns at "
+            f"{J}x{width}x{S}: scores, row minima and moved ({int(moved)}) "
+            f"bitwise the whole tick's")
+        del t, whole
+    # the state at 1, 2 and 4 shards on the card (one shard a card where
+    # there are several) against the fused fleet, tick by tick
+    layouts = {f"D={D}": [dev] * D for D in SHARD_COUNTS}
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_cards > 1:
+        layouts[f"{n_cards} cards"] = [torch.device("cuda", i)
+                                       for i in range(n_cards)]
+    rng, hours, mask, prices, ids, members = fleet_universe(np, seed + 8, J,
+                                                            C, S)
+    fused = TorchFusedRankState(hours, mask, prices, ids, capacity=S,
+                                device=dev)
+    fleets = {name: TorchShardedRankState(hours, mask, prices, ids,
+                                          capacity=S, devices=devices)
+              for name, devices in layouts.items()}
+    for fleet in (fused, *fleets.values()):
+        for key, rows in members.items():
+            fleet.add_state(key, rows=rows)
+    keys = list(members)
+
+    def not_bitwise(fleet):
+        """Cells of the fleet's scores that are not the fused fleet's."""
+        scores = shard_scores(torch, fleet, dev)
+        return int((scores.view(torch.int32) !=
+                    fused.d_scores.view(torch.int32)).sum())
+
+    # a member's first accumulators are a matmul at the shard's width: the
+    # cells where it rounds apart from the fused fleet's, before any tick
+    seeded_cells = {name: not_bitwise(f) for name, f in fleets.items()}
+    live = fused.prices.copy()
+    n_chg = max(1, C // 100)
+
+    def next_deltas():
+        cols = rng.choice(C, n_chg, replace=False)
+        new = (live[cols] * rng.uniform(0.7, 1.3, n_chg)).astype(np.float32)
+        return {ids[c]: float(p) for c, p in zip(cols, new)}, cols, new
+
+    for tick in range(1, ticks + 1):
+        deltas, cols, new = next_deltas()
+        want = fused.reprice(deltas)
+        want_heads = fused.heads(keys, 10)
+        for name, fleet in fleets.items():
+            D = len(fleet._shards)
+            rd.reset_launches()
+            got = fleet.reprice(deltas)
+            counts = dict(rd.LAUNCHES)
+            check(got == want, f"sharded {name} tick {tick}: moved {got} != "
+                  f"the fused fleet's {want}")
+            check(counts == {n: D * (n in TICK_KERNELS) for n in counts},
+                  f"sharded {name} tick {tick}: launches {counts}")
+            check(within(torch, shard_scores(torch, fleet, dev),
+                         fused.d_scores),
+                  f"sharded {name} tick {tick}: scores outside the contract "
+                  f"of the fused fleet's")
+            rd.reset_launches()
+            heads = fleet.heads(keys, 10)
+            check(dict(rd.LAUNCHES) == {n: D * (n == "select")
+                                        for n in rd.LAUNCHES},
+                  f"sharded {name}: heads launched {dict(rd.LAUNCHES)}")
+            check(same_heads(contract, heads, want_heads),
+                  f"sharded {name} tick {tick}: heads differ from the fused "
+                  f"fleet's")
+        live[cols] = new
+        if tick in (ticks // 2, ticks):       # the float64 cold rank
+            for key, rows in members.items():
+                cold, counts = _scores_numpy(hours[rows], mask[rows], live)
+                cold = np.where(counts > 0, cold, np.inf)
+                for name, fleet in fleets.items():
+                    check_against_cold(np, fleet, key, cold, contract,
+                                       f"sharded {name} tick {tick}")
+            log(f"[sharded] tick {tick}: every member of every fleet within "
+                f"the contract of rank_dense, heads = ranking()[:10]")
+    for name, fleet in fleets.items():
+        full = fleet.ranking("all")
+        for k in (10, 1_000):
+            head = fleet.top_k("all", k)
+            check(head == full[:k] and same_heads(
+                contract, [head], [fused.top_k("all", k)]),
+                f"sharded {name}: the {k}-head is not ranking()[:{k}] or "
+                f"the fused fleet's")
+        check(fleet.dispatches == fleet.reprices == ticks,
+              f"sharded {name}: {fleet.dispatches} dispatches")
+    log(f"[sharded] {J}x{C}x{S} at {', '.join(layouts)}: {ticks} ticks of "
+        f"{n_chg} prices, moved and 10-heads' configs equal to the fused "
+        f"fleet's every tick, scores within the contract (of {S * C} "
+        f"cells, not bitwise the fused fleet's after seeding / after the "
+        f"last tick: " + ", ".join(
+            f"{name} {seeded_cells[name]} / {not_bitwise(f)}"
+            for name, f in fleets.items())
+        + "), one scatter, rowmin and fold a shard a tick, one select a "
+        "shard a heads call; the 1,000-head = ranking()[:1000] and the "
+        "fused fleet's configs")
+    # the tick in turns with the fused fleet's (host clock: the pairs'
+    # validation, D scatters, rowmins and folds, the combine and the moved
+    # count read back; every card waited for at the end of a turn)
+    paths = {"fused": fused.reprice}
+    paths.update({name: fleet.reprice for name, fleet in fleets.items()})
+    order = list(paths) + list(paths)[::-1]
+    batches = [next_deltas()[0] for _ in range(len(order) * turn_ticks)]
+    for d in batches[:turn_ticks]:                   # warm-up
+        for tick_fn in paths.values():
+            tick_fn(d)
+    tick_ms = dict.fromkeys(paths, 0.0)
+    for turn, name in enumerate(order):
+        part = batches[turn * turn_ticks:(turn + 1) * turn_ticks]
+        sync_cards(torch)
+        t0 = time.perf_counter()
+        for d in part:
+            paths[name](d)
+        sync_cards(torch)
+        tick_ms[name] += (time.perf_counter() - t0) * 1e3 / (2 * turn_ticks)
+    # the combine alone on each fleet's own minima (host clock; the moved
+    # count's readback belongs to every fleet's tick and is left out)
+    combine_ms = {}
+    for name, fleet in fleets.items():
+        partial = [sh.row_best for sh in fleet._shards]
+        base = fleet._shards[0].row_best
+        sync_cards(torch)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            rb = fleet._combine(partial)
+            (rb != base).sum()
+            fleet._replicas(rb)
+        sync_cards(torch)
+        combine_ms[name] = (time.perf_counter() - t0) * 1e3 / 200
+    log(f"[sharded] tick at {J}x{C}x{S}, 1% of prices, in turns (host "
+        f"clock, ms): " + ", ".join(f"{n} {v:.4f}" for n, v in
+                                    tick_ms.items())
+        + "; the combine (min of the shards' minima, the moved count, the "
+        "copies back): " + ", ".join(
+            f"{name} {combine_ms[name]:.4f} ms = "
+            f"{combine_ms[name] / tick_ms[name]:.1%}" for name in fleets)
+        + f" of the tick; on {card}")
+    return {"tick_ms": tick_ms, "combine_ms": combine_ms}
+
+
+def phase_sharded_service(torch, np, rd, seed, errs, n_events=1_000,
+                          device="cuda:0"):
+    """The sharded main path: phase 4's service and daemon on
+    ``torch_sharded`` at 2 shards on one card, read through the launch
+    counters, then the kernels held against their plain versions at the
+    shapes it gave them (a shard of its fleet, a 1% tick)."""
+    dev = torch.device(device)
+    rd.reset_launches()
+    service, _, _ = phase_service(np, seed, n_events=n_events,
+                                  device=[dev] * 2, backend="torch_sharded",
+                                  label="sharded service")
+    launches = dict(rd.LAUNCHES)
+    ticks_run = service.reprice_dispatches
+    check(all(launches[n] == 2 * ticks_run > 0 for n in TICK_KERNELS),
+          f"sharded service: {launches} for {ticks_run} fleet ticks at 2 "
+          f"shards")
+    check(launches["select"] > 0 and launches["select"] % 2 == 0,
+          f"sharded service: {launches['select']} select launches")
+    for name in set(KERNELS) - set(PATH_KERNELS):
+        check(launches[name] == 0, f"sharded service: {name} launched")
+    log(f"[sharded service] launches: " + ", ".join(
+        f"{n} {launches[n]}" for n in PATH_KERNELS)
+        + f" for {ticks_run} fleet ticks at 2 shards")
+    check_kernels(torch, shard_tick(torch, np, np.random.default_rng(
+        seed + 9), service._batched), "sharded service shard 0 1%", 10, errs)
+    return launches
+
+
 # --- phase 4 --------------------------------------------------------------------
 
 def phase_service(np, seed, n_jobs=64, n_cfgs=10_000, n_events=1_000,
-                  device="cuda"):
+                  device="cuda", backend="torch_fused", label="service"):
     from repro_torch.core.trace import JobClass
     from repro_torch.market import (JournalReplayer, SelectionDaemon,
                                     SimulatedSpotFeed, synthetic_stream)
@@ -937,7 +1257,7 @@ def phase_service(np, seed, n_jobs=64, n_cfgs=10_000, n_events=1_000,
     table = PriceTable({c: float(p) for c, p in
                         zip(ids, rng.uniform(1.0, 30.0, n_cfgs))})
     service = SelectionService(IdentityCatalog(ids), store, table,
-                               backend="torch_fused", device=device,
+                               backend=backend, device=device,
                                serve_top_k=10)
     feed = SimulatedSpotFeed(dict(table.items()), seed=seed,
                              change_fraction=0.01)
@@ -947,23 +1267,24 @@ def phase_service(np, seed, n_jobs=64, n_cfgs=10_000, n_events=1_000,
     secs = time.perf_counter() - t0
     fleet = service._batched
     check(fleet is not None and 0 < fleet.dispatches <= stats.epochs,
-          f"service: fleet dispatches {getattr(fleet, 'dispatches', None)} "
+          f"{label}: fleet dispatches {getattr(fleet, 'dispatches', None)} "
           f"for {stats.epochs} price epochs")
     check(service.reprice_dispatches == fleet.dispatches,
-          "service: more than one dispatch per tick")
+          f"{label}: more than one dispatch per tick")
     t0 = time.perf_counter()
     audit = JournalReplayer(store, daemon.journal_dump()).audit()
     audit_secs = time.perf_counter() - t0
-    check(audit.ok, f"journal audit failed: {audit.mismatches[:3]}")
-    check(audit.decisions == stats.decisions > 0, "audit saw no decisions")
-    log(f"[service] {n_events} events in {secs:.3f} s "
+    check(audit.ok, f"{label}: journal audit failed: {audit.mismatches[:3]}")
+    check(audit.decisions == stats.decisions > 0,
+          f"{label}: audit saw no decisions")
+    log(f"[{label}] {n_events} events in {secs:.3f} s "
         f"({n_events / secs:.1f} events/s): {stats.decisions} decisions, "
         f"{stats.ticks} ticks, {stats.epochs} epochs, {fleet.n_active} "
         f"members; audit ok in {audit_secs:.3f} s ({audit.decisions} "
         f"decisions, {len(audit.drift)} within-contract drift records)")
     # the service's own spans (host clock): where the daemon's time went
     spans = service.metrics.snapshot()["histograms"]
-    log("[service] spans (count x mean ms): " + ", ".join(
+    log(f"[{label}] spans (count x mean ms): " + ", ".join(
         f"{name} {h['count']} x {h['sum'] * 1e3 / h['count']:.4f}"
         for name, h in spans.items() if h["count"]))
     return service, store, table
@@ -1037,6 +1358,74 @@ def phase_main_path_kernels(torch, np, seed, fleet, errs, k=10):
     row = (fleet.d_scores[slot:slot + 1], fleet._d_finite[slot:slot + 1])
     check_select(torch, *row, k, "main path top_k row", errs)
     return time_kernels(torch, t, k, heads=row), row
+
+
+def phase_guard(torch, rd, row, k=10, n=100_000):
+    """What the kernels' device guard (``_build.launch_on``) costs the
+    host: around a no-op (on this machine's card count), beside the two
+    device exchanges it makes where there are several cards and
+    ``torch.cuda.device``'s context manager (microseconds a call beyond
+    the bare call, host clock), and on the service's one-row ``select``
+    (CUDA events, back to back) in turns with the guard and with a bare
+    call in its place."""
+    from repro_torch.kernels import _build
+    t = row[0]
+
+    def noop(*args):
+        return 0
+
+    def bare():
+        for _ in range(n):
+            noop(1, 2, 3)
+
+    def guard():
+        for _ in range(n):
+            _build.launch_on(t, noop, 1, 2, 3)
+
+    def exchange():
+        for _ in range(n):
+            prev = torch.cuda._exchange_device(t.device.index)
+            try:
+                noop(1, 2, 3)
+            finally:
+                torch.cuda._maybe_exchange_device(prev)
+
+    def context():
+        for _ in range(n):
+            with torch.cuda.device(t.device):
+                noop(1, 2, 3)
+
+    us = {}
+    turns = (("bare", bare), ("guard", guard), ("exchange", exchange),
+             ("context", context))
+    for name, fn in turns + turns[::-1]:
+        t0 = time.perf_counter()
+        fn()
+        us[name] = us.get(name, 0.0) + (time.perf_counter() - t0) * 1e6 / (
+            2 * n)
+    guarded = _build.launch_on
+
+    def unguarded(t, entry, *args):
+        return entry(*args)
+
+    select_ms = {"guarded": [], "bare": []}
+    for name in ("guarded", "bare", "bare", "guarded") * 2:
+        _build.launch_on = guarded if name == "guarded" else unguarded
+        try:
+            select_ms[name].append(time_ms(
+                torch, lambda: rd.select_heads(*row, k)))
+        finally:
+            _build.launch_on = guarded
+    log(f"[guard] the device guard around a call, {torch.cuda.device_count()}"
+        f" card(s): {us['guard'] - us['bare']:.3f} us (its two exchanges, "
+        f"as with several cards: {us['exchange'] - us['bare']:.3f} us; "
+        f"torch.cuda.device's context manager: "
+        f"{us['context'] - us['bare']:.3f} us), host clock; select "
+        f"on the service's member row ({row[0].shape[0]} x "
+        f"{row[0].shape[1]}, k = {k}) back to back, 8 turns: " + "; ".join(
+            f"{name} median {sorted(v)[len(v) // 2]:.4f} ms ("
+            + ", ".join(f"{x:.4f}" for x in v) + ")"
+            for name, v in select_ms.items()))
 
 
 # --- phase 5: the serving front-end --------------------------------------------
@@ -1232,18 +1621,22 @@ CALM_MAX_DEVIATION = 0.0645
 FIXTURE = ROOT / "examples" / "data" / "gcp_spot_prices.csv"
 
 
-#: how far a ``torch_fused`` point's deviations may sit from numpy's: the
-#: CPU tests' bound (``tests/test_torch_turbulence.py``)
+#: how far a ``torch_fused`` or ``torch_sharded`` point's deviations may sit
+#: from numpy's: the CPU tests' bound (``tests/test_torch_turbulence.py``)
 SWEEP_REL, SWEEP_ABS = 1e-4, 1e-12
+#: the sweep's backends, and the shards ``torch_sharded`` takes on the card
+SWEEP_BACKENDS = ("numpy", "torch_fused", "torch_sharded")
+SWEEP_SHARDS = 2
 
 
 def phase_turbulence(torch, np, rd, seed, errs, device="cuda",
                      n_events=400, stream_seed=3, market_seed=11):
     """The turbulence benchmark's universe (the paper's trace at seed 0,
-    18 jobs x 10 configs), every preset on numpy and on ``torch_fused``,
-    the B1 kernels and ``select`` held against their plain versions on
-    each ``torch_fused`` fleet of the sweep, and the quickstart's outcome
-    through the port's core."""
+    18 jobs x 10 configs), every preset on numpy, on ``torch_fused`` and
+    on ``torch_sharded`` at 2 shards on the card, the B1 kernels and
+    ``select`` held against their plain versions on each ``torch_fused``
+    fleet of the sweep, and the quickstart's outcome through the port's
+    core."""
     from repro_torch.core import Flora, JobClass, costmodel, evaluate, \
         spark_sim
     from repro_torch.core.evaluate import turbulence_curves
@@ -1262,9 +1655,11 @@ def phase_turbulence(torch, np, rd, seed, errs, device="cuda",
     services = []
 
     def factory(backend):
+        on = [device] * SWEEP_SHARDS if backend == "torch_sharded" \
+            else device
         svc = SelectionService(catalog, store,
                                PriceTable.from_catalog(catalog),
-                               backend=backend, device=device)
+                               backend=backend, device=on)
         services.append(svc)
         return svc
 
@@ -1274,26 +1669,34 @@ def phase_turbulence(torch, np, rd, seed, errs, device="cuda",
           "calm preset does not regenerate gcp_spot_prices.csv")
     log(f"[turbulence] calm preset regenerates {FIXTURE.name} byte for "
         f"byte ({len(regen)} bytes)")
-    for backend in ("numpy", "torch_fused"):
+    calm = {}
+    for backend in SWEEP_BACKENDS:
         point = run_point(factory(backend), RecordedPriceFeed.load(FIXTURE),
                           events, preset_name="calm",
                           truth=RecordedPriceFeed.load(FIXTURE))
+        calm[backend] = point.mean_deviation
         check(point.audit_ok, f"calm fixture on {backend}: audit failed")
         check(point.mean_deviation <= CALM_MAX_DEVIATION,
               f"calm fixture on {backend}: mean deviation "
               f"{point.mean_deviation} > {CALM_MAX_DEVIATION}")
+        check(backend != "torch_sharded" or calm[backend] == calm["numpy"],
+              f"calm fixture on torch_sharded: mean deviation "
+              f"{calm[backend]!r} != numpy's {calm['numpy']!r}")
         log(f"[turbulence] calm fixture on {backend}: mean deviation "
             f"{point.mean_deviation!r} (<= {CALM_MAX_DEVIATION}), "
             f"{point.decisions} decisions, {point.epochs} epochs, audit ok")
     del services[:]
     rd.reset_launches()
     t0 = time.perf_counter()
-    points = run_sweep(factory, base, events,
-                       backends=("numpy", "torch_fused"), seed=market_seed)
+    points = run_sweep(factory, base, events, backends=SWEEP_BACKENDS,
+                       seed=market_seed)
     secs = time.perf_counter() - t0
     counts = dict(rd.LAUNCHES)
     fused = [s for s in services if s.backend == "torch_fused"]
-    ticks = sum(s.reprice_dispatches for s in fused)
+    sharded = [s for s in services if s.backend == "torch_sharded"]
+    # one scatter, rowmin and fold a fleet tick, a shard on torch_sharded
+    ticks = sum(s.reprice_dispatches for s in fused) + SWEEP_SHARDS * sum(
+        s.reprice_dispatches for s in sharded)
     for p in points:
         check(p.audit_ok, f"turbulence {p.preset} on {p.backend}: audit "
               f"failed ({p.audit_mismatches} mismatches)")
@@ -1307,12 +1710,12 @@ def phase_turbulence(torch, np, rd, seed, errs, device="cuda",
             f"{p.truth_mean_deviation!r})" for p in curve))
     by = {(p.preset, p.backend): p for p in points}
     worst = 0.0
-    for name in {n for n, _ in by}:
+    for name, backend in {(n, b) for n, b in by if b != "numpy"}:
         for attr in ("mean_deviation", "truth_mean_deviation"):
-            got = getattr(by[name, "torch_fused"], attr)
+            got = getattr(by[name, backend], attr)
             want = getattr(by[name, "numpy"], attr)
             check(abs(got - want) <= max(SWEEP_REL * abs(want), SWEEP_ABS),
-                  f"turbulence {name}: torch_fused {attr} {got!r} vs numpy "
+                  f"turbulence {name}: {backend} {attr} {got!r} vs numpy "
                   f"{want!r} beyond rel {SWEEP_REL}")
             worst = max(worst, abs(got - want) / max(abs(want), 1e-300))
     # the kernels at the sweep's own shape, on each fleet it ticked
@@ -1324,12 +1727,13 @@ def phase_turbulence(torch, np, rd, seed, errs, device="cuda",
         check_kernels(torch, fleet_tick(torch, np, rng, fleet),
                       f"turbulence {J}x{C} fleet {i}", 10, errs)
     log(f"[turbulence] {len(points)} points in {secs:.3f} s, every audit "
-        f"ok; torch_fused vs numpy mean deviation: worst relative "
-        f"difference {worst:.3g} (<= {SWEEP_REL}); {len(fleets)} fleets' "
-        f"kernels against their plain versions ok; B1 on the card: scatter "
-        f"{counts['scatter']}, rowmin {counts['rowmin']}, fold "
-        f"{counts['fold']} launches for {ticks} fleet ticks (1 each a "
-        f"tick) over {sum(s.price_epoch for s in fused)} price epochs; "
+        f"ok; torch_fused and torch_sharded vs numpy mean deviation: worst "
+        f"relative difference {worst:.3g} (<= {SWEEP_REL}); {len(fleets)} "
+        f"fleets' kernels against their plain versions ok; B1 on the card: "
+        f"scatter {counts['scatter']}, rowmin {counts['rowmin']}, fold "
+        f"{counts['fold']} launches for {ticks} fleet ticks and shard ticks "
+        f"(1 each; torch_sharded {SWEEP_SHARDS} shards) over "
+        f"{sum(s.price_epoch for s in fused + sharded)} price epochs; "
         f"select {counts['select']}")
     # one quote stream, two transports, on the card's backend
     market = make_market("eviction_storm", base, seed=market_seed,
@@ -2031,6 +2435,9 @@ def main() -> int:
                 "64x100000x16", card)
     fleet_heads_launches = rd.LAUNCHES["select"]
     done("fleet")
+    phase_sharded(torch, np, rd, args.seed, card)
+    sharded_launches = phase_sharded_service(torch, np, rd, args.seed, errs)
+    done("sharded")
     rd.reset_launches()
     service, store, table = phase_service(np, args.seed)
     launches = dict(rd.LAUNCHES)
@@ -2052,6 +2459,7 @@ def main() -> int:
     # scatter's: the service's C and a 1% tick
     times["select_sort"] = head_times[(1, 10_000, rd.SELECT_CAP + 1)]
     times["scatter"] = scatter_times[10_000]
+    phase_guard(torch, rd, row)
     done("main-path kernels")
     frontend = phase_frontend(torch, np, args.seed, service, store, card,
                               errs)
@@ -2117,11 +2525,13 @@ def main() -> int:
                              launches[name], errs[name], times[name]))
         if name in ALSO_REPLACES:
             kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
-        # the 4-worker front-end's run and the turbulence sweep's
+        # the 4-worker front-end's run, the turbulence sweep's and the
+        # sharded service's (2 shards)
         if name in ("scatter", "rowmin", "fold", "select"):
             kernels[-1]["frontend_launches"] = \
                 frontend["launches"][name]
             kernels[-1]["turbulence_launches"] = turbulence[name]
+            kernels[-1]["sharded_launches"] = sharded_launches[name]
     # the same select kernel at the fleet heads tick's shape (B2)
     kernels.append(entry("rank_delta_select_heads_64x100000x16", SOURCE,
                          ALSO_REPLACES["select"], launches["select"],

@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 // --- the scalar kernel -----------------------------------------------------
@@ -98,6 +100,25 @@ constexpr int kBKV = 64;         // keys per tile
 constexpr int kThreads = 256;    // 16 x 16: ty owns rows, tx owns columns
 constexpr int kPS = kBKV + 1;    // padded row stride of the P tile
 constexpr float kNegInf = -1e30f;
+
+// Let kern take `bytes` of dynamic shared memory on the current device,
+// once a device (`done`: the kernel's own flags, one a device).  The
+// attribute belongs to the device's context, so a flag for the whole
+// process would leave every card but the first unset.
+constexpr int kDevices = 64;
+template <typename K>
+cudaError_t allow_smem(K kern, int bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < kDevices)
+    done[dev].store(true, std::memory_order_release);
+  return e;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -261,14 +282,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int G, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  static bool configured = false;   // once per instantiation
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static std::atomic<bool> done[kDevices];   // per instantiation and device
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, (int)bytes, done);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Tq, Tk, H, G, causal,
@@ -957,14 +973,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            cudaStream_t stream) {
   using Gm = Geo<D>;
   constexpr size_t bytes = Gm::kSmemBytes;
-  static bool configured = false;   // once per instantiation
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static std::atomic<bool> done[kDevices];   // per instantiation and device
+  cudaError_t err = allow_smem(flash_fwd_sm90<D>, (int)bytes, done);
+  if (err != cudaSuccess) return (int)err;
   Maps maps = {};
   bool ok = true;
   if (Gm::kFull > 0)
@@ -976,15 +987,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
          make_map(&maps.k_tail, k, B, Tk, G, D, Gm::kTail) &&
          make_map(&maps.v_tail, v, B, Tk, G, D, Gm::kTail);
   if (!ok) return (int)cudaErrorInvalidValue;
-  // persistent: one block an SM, each walking its share of the q tiles
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  // persistent: one block an SM of the current device, each walking its
+  // share of the q tiles
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const int items = B * H * ((Tq + kBM - 1) / kBM);
   flash_fwd_sm90<D><<<min(items, sms), kThreads, bytes, stream>>>(
       maps, (__nv_bfloat16*)o, B, Tq, Tk, H, G, causal,

@@ -19,6 +19,7 @@ the package on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -100,6 +101,29 @@ def current_stream(t) -> int:
     ``torch.cuda.current_stream(device).cuda_stream``, which matters to
     the launches whose time is the host's."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_card() -> bool:
+    return torch.cuda.device_count() == 1
+
+
+def launch_on(t, entry, *args) -> int:
+    """``entry(*args)`` with ``t``'s device current, then the caller's
+    again; returns what ``entry`` returns.  The C entry points launch on
+    the calling thread's current device, so a tensor on another card
+    would otherwise get a stream of its own device and a launch in the
+    wrong context.  A process that sees one card has every CUDA tensor on
+    the current device, so it calls ``entry`` directly; with several, two
+    raw device exchanges (a fraction of ``torch.cuda.device``'s context
+    manager) surround the call."""
+    if _one_card():
+        return entry(*args)
+    prev = torch.cuda._exchange_device(t.device.index)
+    try:
+        return entry(*args)
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
 
 
 def check(err: int, what: str) -> None:

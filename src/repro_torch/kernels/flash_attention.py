@@ -149,11 +149,13 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary")
-        _build.check(lib.flash_attention_fwd_sm90(*args, stream),
+        _build.check(_build.launch_on(q, lib.flash_attention_fwd_sm90,
+                                      *args, stream),
                      "flash_attention_fwd_sm90")
     elif kind == "scalar":
-        _build.check(lib.flash_attention_fwd(*args, _DTYPE_CODES[q.dtype],
-                                             stream), "flash_attention_fwd")
+        _build.check(_build.launch_on(q, lib.flash_attention_fwd, *args,
+                                      _DTYPE_CODES[q.dtype], stream),
+                     "flash_attention_fwd")
     else:
         raise ValueError(f"unknown kernel variant {kind!r}")
     LAUNCHES["flash_attention"] += 1

@@ -34,6 +34,10 @@ shared (J x C) universe:
   :func:`_select_plan` maps ``(S, C, k)`` to the kernel, ``R`` and the
   scratch.  The k-round kernel (``select_rounds``) is a yardstick only.
 
+:func:`fused_reprice` is the two halves in turn, and each half is public
+too (:func:`row_minima`, :func:`fold_scores`): the sharded fleet runs
+them shard by shard and combines the shards' row minima in between.
+
 The kernels live in ``csrc/rank_delta.cu`` (see its header for what
 bounds them on the card and why the arithmetic is exact).  Each public
 wrapper takes the kernel's plain PyTorch version for tensors on the CPU;
@@ -57,9 +61,9 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "ROWMIN_CHUNK", "SELECT_CAP", "SELECT_CHUNK",
-           "fold_plain", "scatter_prices", "scatter_prices_plain",
-           "fused_reprice", "fused_reprice_heads", "fused_reprice_plain",
-           "reset_launches", "rowmin_plain", "select_heads",
+           "fold_plain", "fold_scores", "scatter_prices",
+           "scatter_prices_plain", "fused_reprice", "fused_reprice_heads",
+           "reset_launches", "row_minima", "rowmin_plain", "select_heads",
            "select_heads_plain"]
 
 #: kernel launches since the last :func:`reset_launches`, by kernel
@@ -157,15 +161,6 @@ def fold_plain(hours, mask, old_prices, new_prices, changed, row_best,
     return torch.where(changed > 0, re_reduce, scores + delta)
 
 
-def fused_reprice_plain(hours, mask, old_prices, new_prices, changed,
-                        row_best, row_masks, scores):
-    """The whole tick in plain PyTorch: ``(scores, row_best, moved)``."""
-    rb_new, moved = rowmin_plain(hours, mask, new_prices, row_best)
-    out = fold_plain(hours, mask, old_prices, new_prices, changed,
-                     row_best, rb_new, row_masks, scores)
-    return out, rb_new, moved
-
-
 def select_heads_plain(scores, finite, k: int):
     """Every row's k best ``(indices, values)`` of the ``inf``-masked
     scores by a stable sort: distinct columns, ties in catalog order,
@@ -192,20 +187,26 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_tick(hours, mask, old_prices, new_prices, changed, row_best,
-                row_masks, scores) -> Tuple[int, int, int]:
+def _check_rowmin(hours, mask, new_prices, row_best) -> Tuple[int, int]:
     if not isinstance(hours, torch.Tensor) or hours.dim() != 2:
         raise ValueError("hours must be a (J, C) tensor")
     J, C = hours.shape
+    dev = hours.device
+    _check("hours", hours, torch.float32, (J, C), dev)
+    _check("mask", mask, torch.bool, (J, C), dev)
+    _check("new_prices", new_prices, torch.float32, (1, C), dev)
+    _check("row_best", row_best, torch.float32, (J, 1), dev)
+    return J, C
+
+
+def _check_tick(hours, mask, old_prices, new_prices, changed, row_best,
+                row_masks, scores) -> Tuple[int, int, int]:
+    J, C = _check_rowmin(hours, mask, new_prices, row_best)
     S = row_masks.shape[0] if isinstance(row_masks, torch.Tensor) else -1
     dev = hours.device
     f32 = torch.float32
-    _check("hours", hours, f32, (J, C), dev)
-    _check("mask", mask, torch.bool, (J, C), dev)
-    for name, vec in (("old_prices", old_prices),
-                      ("new_prices", new_prices), ("changed", changed)):
-        _check(name, vec, f32, (1, C), dev)
-    _check("row_best", row_best, f32, (J, 1), dev)
+    _check("old_prices", old_prices, f32, (1, C), dev)
+    _check("changed", changed, f32, (1, C), dev)
     _check("row_masks", row_masks, f32, (S, J), dev)
     _check("scores", scores, f32, (S, C), dev)
     return J, C, S
@@ -286,10 +287,11 @@ def _launch_scatter(cols, prices, old_prices):
     new_prices = torch.empty_like(old_prices)
     changed = torch.empty_like(old_prices)
     d_pairs = torch.empty(2 * n, dtype=torch.int32, device=old_prices.device)
-    err = _lib().rank_delta_scatter(
-        cols.ctypes.data, prices.ctypes.data, d_pairs.data_ptr(),
-        old_prices.data_ptr(), new_prices.data_ptr(), changed.data_ptr(), n,
-        C, _stream(old_prices))
+    err = _build.launch_on(
+        old_prices, _lib().rank_delta_scatter, cols.ctypes.data,
+        prices.ctypes.data, d_pairs.data_ptr(), old_prices.data_ptr(),
+        new_prices.data_ptr(), changed.data_ptr(), n, C,
+        _stream(old_prices))
     if err == _CAPTURE_REFUSED:
         raise RuntimeError("scatter_prices cannot be captured into a CUDA "
                            "graph: a replay would read its pairs from host "
@@ -309,10 +311,10 @@ def _launch_rowmin(hours, mask, new_prices, row_best, variant="rowmin"):
     rb_new = torch.empty_like(row_best)
     if variant == "rowmin_row":
         moved = torch.zeros((1, 1), dtype=torch.int32, device=hours.device)
-        err = lib.rank_delta_rowmin_row(
-            hours.data_ptr(), mask.data_ptr(), new_prices.data_ptr(),
-            row_best.data_ptr(), rb_new.data_ptr(), moved.data_ptr(), J, C,
-            _stream(hours))
+        err = _build.launch_on(
+            hours, lib.rank_delta_rowmin_row, hours.data_ptr(),
+            mask.data_ptr(), new_prices.data_ptr(), row_best.data_ptr(),
+            rb_new.data_ptr(), moved.data_ptr(), J, C, _stream(hours))
     else:
         # written by the kernel, never accumulated: no fill launch
         moved = torch.empty((1, 1), dtype=torch.int32, device=hours.device)
@@ -323,10 +325,11 @@ def _launch_rowmin(hours, mask, new_prices, row_best, variant="rowmin"):
         # shape and address rule of the k-head's ``vec``
         vec = C % 4 == 0 and hours.data_ptr() % 16 == 0 \
             and new_prices.data_ptr() % 16 == 0 and mask.data_ptr() % 4 == 0
-        err = lib.rank_delta_rowmin(
-            hours.data_ptr(), mask.data_ptr(), new_prices.data_ptr(),
-            row_best.data_ptr(), rb_new.data_ptr(), moved.data_ptr(),
-            counters.data_ptr(), partials.data_ptr(), J, C, int(vec), stream)
+        err = _build.launch_on(
+            hours, lib.rank_delta_rowmin, hours.data_ptr(), mask.data_ptr(),
+            new_prices.data_ptr(), row_best.data_ptr(), rb_new.data_ptr(),
+            moved.data_ptr(), counters.data_ptr(), partials.data_ptr(), J, C,
+            int(vec), stream)
     _build.check(err, f"rank_delta_{variant}")
     LAUNCHES[variant] += 1
     return rb_new, moved
@@ -340,23 +343,38 @@ def _launch_fold(hours, mask, old_prices, new_prices, changed, row_best,
         raise ValueError(f"unknown fold kernel {variant!r}")
     J, C = hours.shape
     out = torch.empty_like(scores)
-    _build.check(getattr(_lib(), f"rank_delta_{variant}")(
-        hours.data_ptr(), mask.data_ptr(), old_prices.data_ptr(),
-        new_prices.data_ptr(), changed.data_ptr(), row_best.data_ptr(),
-        rb_new.data_ptr(), row_masks.data_ptr(), scores.data_ptr(),
-        out.data_ptr(), J, C, scores.shape[0], _stream(hours)),
+    _build.check(_build.launch_on(
+        hours, getattr(_lib(), f"rank_delta_{variant}"), hours.data_ptr(),
+        mask.data_ptr(), old_prices.data_ptr(), new_prices.data_ptr(),
+        changed.data_ptr(), row_best.data_ptr(), rb_new.data_ptr(),
+        row_masks.data_ptr(), scores.data_ptr(), out.data_ptr(), J, C,
+        scores.shape[0], _stream(hours)),
         f"rank_delta_{variant}")
     LAUNCHES[variant] += 1
     return out
 
 
-def _launch_tick(hours, mask, old_prices, new_prices, changed, row_best,
-                 row_masks, scores):
+def _rowmin(hours, mask, new_prices, row_best):
+    """Kernel ``rowmin`` on CUDA tensors, its plain version on the CPU."""
+    rowmin = _launch_rowmin if _on_cuda(hours) else rowmin_plain
+    return rowmin(hours, mask, new_prices, row_best)
+
+
+def _fold(hours, mask, old_prices, new_prices, changed, row_best, rb_new,
+          row_masks, scores):
+    """Kernel ``fold`` on CUDA tensors, its plain version on the CPU."""
+    fold = _launch_fold if _on_cuda(hours) else fold_plain
+    return fold(hours, mask, old_prices, new_prices, changed, row_best,
+                rb_new, row_masks, scores)
+
+
+def _tick(hours, mask, old_prices, new_prices, changed, row_best, row_masks,
+          scores):
     # the TPU grid's phase order (row minima before the fold) becomes
     # launch order on one stream
-    rb_new, moved = _launch_rowmin(hours, mask, new_prices, row_best)
-    out = _launch_fold(hours, mask, old_prices, new_prices, changed,
-                       row_best, rb_new, row_masks, scores)
+    rb_new, moved = _rowmin(hours, mask, new_prices, row_best)
+    out = _fold(hours, mask, old_prices, new_prices, changed, row_best,
+                rb_new, row_masks, scores)
     return out, rb_new, moved
 
 
@@ -406,9 +424,11 @@ def _launch_select(scores, finite, k):
     head = (scores.data_ptr(), finite.data_ptr(), base + 4 * S * k, base,
             base + 8 * S * k, S, C, k, SELECT_CHUNK)
     if plan.kernel == "select":
-        err = lib.rank_delta_select(*head, plan.R, int(vec), _stream(scores))
+        err = _build.launch_on(scores, lib.rank_delta_select, *head, plan.R,
+                               int(vec), _stream(scores))
     else:
-        err = lib.rank_delta_select_sort(*head, int(vec), _stream(scores))
+        err = _build.launch_on(scores, lib.rank_delta_select_sort, *head,
+                               int(vec), _stream(scores))
     _build.check(err, f"rank_delta_{plan.kernel}")
     LAUNCHES[plan.kernel] += 1
     return top_i, top_v
@@ -420,9 +440,10 @@ def _launch_select_rounds(scores, finite, k):
     S, C = scores.shape
     top_i = torch.empty((S, k), dtype=torch.int32, device=scores.device)
     top_v = torch.empty((S, k), dtype=torch.float32, device=scores.device)
-    _build.check(_lib().rank_delta_select_rounds(
-        scores.data_ptr(), finite.data_ptr(), top_v.data_ptr(),
-        top_i.data_ptr(), S, C, k, _stream(scores)),
+    _build.check(_build.launch_on(
+        scores, _lib().rank_delta_select_rounds, scores.data_ptr(),
+        finite.data_ptr(), top_v.data_ptr(), top_i.data_ptr(), S, C, k,
+        _stream(scores)),
         "rank_delta_select_rounds")
     LAUNCHES["select_rounds"] += 1
     return top_i, top_v
@@ -451,17 +472,43 @@ def scatter_prices(cols, prices, old_prices):
     return _launch_scatter(cols, prices, old_prices)
 
 
+def row_minima(hours, mask, new_prices, row_best):
+    """The tick's first half: ``(rb_new (J, 1), moved (1, 1) int32)``, the
+    masked row minima of ``hours * new_prices`` and the count of rows
+    whose minimum differs from ``row_best``.  CUDA tensors run ``rowmin``;
+    CPU tensors its plain version.  On a shard of the config axis the
+    minima are the shard's own, and ``moved`` compares them with the
+    whole row's minima, so it means nothing there: the sharded fleet
+    counts the moved rows after it has combined the shards' minima."""
+    _check_rowmin(hours, mask, new_prices, row_best)
+    return _rowmin(hours, mask, new_prices, row_best)
+
+
+def fold_scores(hours, mask, old_prices, new_prices, changed, row_best,
+                rb_new, row_masks, scores):
+    """The tick's second half: the members' new ``scores (S, C)``, both
+    norms recomputed from ``(old_prices, row_best)`` and ``(new_prices,
+    rb_new)``; changed columns re-reduced, the others delta-folded.  CUDA
+    tensors run ``fold``; CPU tensors its plain version.  Each column's
+    sums run over the rows in an order fixed by J alone, so a tick split
+    by columns gives the bits of the whole tick."""
+    J, _, _ = _check_tick(hours, mask, old_prices, new_prices, changed,
+                          row_best, row_masks, scores)
+    _check("rb_new", rb_new, torch.float32, (J, 1), hours.device)
+    return _fold(hours, mask, old_prices, new_prices, changed, row_best,
+                 rb_new, row_masks, scores)
+
+
 def fused_reprice(hours, mask, old_prices, new_prices, changed, row_best,
                   row_masks, scores):
     """One tick: ``(scores (S, C), row_best (J, 1), moved (1, 1) int32)``
-    — the reference's argument order, without its TPU tiling arguments.
-    CUDA tensors run the ``rowmin`` and ``fold`` kernels; CPU tensors the
-    plain version."""
+    — the reference's argument order, without its TPU tiling arguments:
+    :func:`row_minima`, then :func:`fold_scores` (one ``rowmin`` and one
+    ``fold`` launch on CUDA tensors; the plain versions on the CPU)."""
     _check_tick(hours, mask, old_prices, new_prices, changed, row_best,
                 row_masks, scores)
-    tick = _launch_tick if _on_cuda(hours) else fused_reprice_plain
-    return tick(hours, mask, old_prices, new_prices, changed, row_best,
-                row_masks, scores)
+    return _tick(hours, mask, old_prices, new_prices, changed, row_best,
+                 row_masks, scores)
 
 
 def select_heads(scores, finite, k: int):
@@ -488,10 +535,7 @@ def fused_reprice_heads(hours, mask, old_prices, new_prices, changed,
                           row_best, row_masks, scores)
     _check("finite", finite, torch.bool, (S, C), hours.device)
     k = _check_k(k, C)
-    if _on_cuda(hours):
-        tick, select = _launch_tick, _launch_select
-    else:
-        tick, select = fused_reprice_plain, select_heads_plain
-    out, rb, moved = tick(hours, mask, old_prices, new_prices, changed,
-                          row_best, row_masks, scores)
+    out, rb, moved = _tick(hours, mask, old_prices, new_prices, changed,
+                           row_best, row_masks, scores)
+    select = _launch_select if _on_cuda(hours) else select_heads_plain
     return (out, rb, moved) + select(out, finite, k)

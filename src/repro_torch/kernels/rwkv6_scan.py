@@ -116,11 +116,12 @@ def _launch(r, k, v, w, u, s0, variant: str = "split"):
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     lib = _build.load(_SOURCE, _SIGNATURES)
-    _build.check(lib.wkv6_fwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), s0.data_ptr(), y.data_ptr(), sT.data_ptr(), B, T, H,
-        N, _DTYPE_CODES[r.dtype], VARIANTS.index(variant),
-        _build.current_stream(r)), f"wkv6_{variant}")
+    _build.check(_build.launch_on(
+        r, lib.wkv6_fwd, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        w.data_ptr(), u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+        sT.data_ptr(), B, T, H, N, _DTYPE_CODES[r.dtype],
+        VARIANTS.index(variant), _build.current_stream(r)),
+        f"wkv6_{variant}")
     LAUNCHES["wkv6"] += 1
     if variant == "seq":
         LAUNCHES["wkv6_seq"] += 1

@@ -8,6 +8,8 @@
                 :class:`RankState`) and the :class:`ScoreContract` table;
   fused_rank -- :class:`TorchFusedRankState`: the fleet of live rankings
                 whose tick runs the fused CUDA reprice kernels;
+  sharded    -- :class:`TorchShardedRankState`: that fleet with its
+                config axis split across devices, one shard each;
   service    -- :class:`SelectionService`: ``submit(job) -> Decision``
                 with ranking caches and ``reprice(deltas)``.
 """
@@ -21,6 +23,7 @@ from repro_torch.selector.rank import (BACKENDS, FLEET_BACKENDS,
                                        ScoreContract, rank_dense, rank_pairs,
                                        score_contract)
 from repro_torch.selector.fused_rank import TorchFusedRankState
+from repro_torch.selector.sharded import TorchShardedRankState
 from repro_torch.selector.store import ProfilingStore
 from repro_torch.selector.service import Decision, SelectionService
 
@@ -29,6 +32,7 @@ __all__ = [
     "FLEET_BACKENDS", "GcpVmCatalog", "IdentityCatalog",
     "NothingRankableError", "PriceTable", "ProfilingStore", "RankState",
     "RankedConfig", "ResourceCatalog", "SCORE_CONTRACTS", "ScoreContract",
-    "SelectionService", "TorchFusedRankState", "TpuSliceCatalog",
+    "SelectionService", "TorchFusedRankState", "TorchShardedRankState",
+    "TpuSliceCatalog",
     "rank_dense", "rank_pairs", "score_contract",
 ]

@@ -22,6 +22,10 @@ changed-column flags.  Duplicates
 collapse on the host (the last wins), so the columns are distinct and the
 scatter deterministic.  The job axis needs no padding (the reference
 padded it to its TPU tile).
+
+:class:`FleetMembers` is the host half this state shares with the
+sharded fleet (:mod:`repro_torch.selector.sharded`): member slots,
+counts, the price mirror, delta validation and serving from the scores.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ from repro_torch.selector.rank import (
     _validated_deltas,
 )
 
-__all__ = ["TorchFusedRankState", "resolve_device"]
+__all__ = ["FleetMembers", "TorchFusedRankState", "resolve_device"]
 
 Deltas = Union[Mapping[Hashable, float], Sequence[Tuple[Hashable, float]]]
 
@@ -79,54 +83,45 @@ def _member_scores(hours, mask, prices, row_best, row_mask):
     return row_mask @ norm
 
 
-class TorchFusedRankState:
-    """One fused-kernel dispatch per tick for a whole fleet of rankings.
+def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A contiguous device copy (never a view of the host array)."""
+    return torch.tensor(np.ascontiguousarray(array), device=device)
 
-    Members are added (:meth:`add_state`) and retired
-    (:meth:`retire_state`) mid-stream; slot capacity grows by doubling
-    (``realloc_count``), and retired slots are zeroed and reused.
-    Serving is per member: :meth:`ranking` (memoized on the tick count),
-    :meth:`top_k` (the ``select`` kernel on the member's row — an
-    explicit catalog-order tie-break, which ``torch.topk`` does not
-    promise) and :meth:`winner`.
 
-    **Contract** (:data:`SCORE_CONTRACTS` ``["torch_fused"]``): the
-    float32 tolerance envelope of the reference's fused backend.
+def _grown(t: torch.Tensor, old: int, cap: int) -> torch.Tensor:
+    """``t``'s first ``old`` slots in a zeroed tensor of ``cap`` slots."""
+    out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    out[:old] = t[:old]
+    return out
 
-    ``device`` defaults to ``"cuda"``; with no CUDA device the constructor
-    raises :class:`BackendUnavailableError`.  Pass ``device="cpu"`` to run
-    the kernels' plain PyTorch versions.
-    """
 
-    backend = "torch_fused"
-    contract = SCORE_CONTRACTS["torch_fused"]
+def _member_rows(scores: torch.Tensor, finite: torch.Tensor,
+                 rows: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The score and finite-flag rows of the (sorted, distinct) slots
+    ``rows``: a view where they are contiguous, else one gather each."""
+    lo, hi = rows[0], rows[-1] + 1
+    if hi - lo == len(rows):
+        return scores[lo:hi], finite[lo:hi]
+    idx = torch.tensor(rows, dtype=torch.long, device=scores.device)
+    return scores.index_select(0, idx), finite.index_select(0, idx)
+
+
+class FleetMembers:
+    """The host half of a fleet state, which every fleet backend shares:
+    the member slots (doubling capacity, retired slots reused), each
+    member's per-config counts, the float32 host price mirror, the delta
+    validation and the serving of rankings and heads from the scores.
+    A subclass keeps the device tensors: it sets ``config_ids``,
+    ``job_ids`` and ``_pos``, calls :meth:`_init_host` and
+    :meth:`_init_slots`, and defines ``_grow_tensors``, ``scores`` and
+    ``heads``."""
+
     _CAPACITY_BASE = 8
 
-    def __init__(self, hours: np.ndarray, mask: np.ndarray,
-                 prices: np.ndarray, config_ids: Sequence[Hashable],
-                 job_ids: Optional[Sequence[Hashable]] = None,
-                 capacity: Optional[int] = None,
-                 metrics: Optional[MetricsRegistry] = None, *,
-                 device: Union[str, torch.device] = "cuda"):
-        self.device = resolve_device(device)
-        self.config_ids = list(config_ids)
-        self.job_ids = list(job_ids) if job_ids is not None else None
-        hours, mask, prices = _canonicalize_universe(hours, mask, prices,
-                                                     self.job_ids)
-        self._pos = _position_index(self.config_ids)
-        # the host float32 price mirror serves ``prices`` without a device
-        # readback; float32 so host and device quotes can never disagree
-        # by a rounding
-        host_prices = np.asarray(prices, dtype=np.float32).reshape(1, -1)
-        self._init_universe(hours, mask, host_prices, metrics)
-        self.d_row_best = _cold_row_best(self.d_hours, self.d_mask,
-                                         self.d_prices)
-        self._init_members(self._CAPACITY_BASE if capacity is None
-                           else max(1, capacity))
-
-    def _init_universe(self, hours: np.ndarray, mask: np.ndarray,
-                       host_prices: np.ndarray,
-                       metrics: Optional[MetricsRegistry]) -> None:
+    def _init_host(self, hours: np.ndarray, mask: np.ndarray,
+                   host_prices: np.ndarray,
+                   metrics: Optional[MetricsRegistry]) -> None:
         self._metrics = metrics
         self._c_mat = (None if metrics is None
                        else metrics.counter("rank.materializations"))
@@ -134,11 +129,10 @@ class TorchFusedRankState:
                          {j: i for i, j in enumerate(self.job_ids)})
         self._mask = mask                     # host copy: member counts
         self._n_jobs = hours.shape[0]
-        # read-only residents (uploaded once)
-        self.d_hours = self._upload(hours.astype(np.float32))
-        self.d_mask = self._upload(mask)
+        # the host float32 price mirror serves ``prices`` without a device
+        # readback; float32 so host and device quotes can never disagree
+        # by a rounding
         self._host_prices = host_prices
-        self.d_prices = self._upload(host_prices)
         self.reprices = 0
         #: one tick == one fleet dispatch, whatever the member count
         self.dispatches = 0
@@ -146,8 +140,7 @@ class TorchFusedRankState:
         self._ranking_memo: Dict[Hashable,
                                  Tuple[int, List[RankedConfig]]] = {}
 
-    def _init_members(self, cap: int) -> None:
-        n_cfgs = len(self.config_ids)
+    def _init_slots(self, cap: int) -> None:
         self._capacity = cap
         self._slots: Dict[Hashable, int] = {}
         #: keys retired via :meth:`retire_state`; serving one raises
@@ -155,21 +148,10 @@ class TorchFusedRankState:
         #: plain ``ValueError``).
         self._retired: set = set()
         self._free: List[int] = list(range(cap - 1, -1, -1))
-        self.d_row_masks = torch.zeros((cap, self._n_jobs),
-                                       dtype=torch.float32,
-                                       device=self.device)
-        self.d_scores = torch.zeros((cap, n_cfgs), dtype=torch.float32,
-                                    device=self.device)
-        self._counts = np.zeros((cap, n_cfgs), dtype=np.int64)
-        self._d_finite = torch.zeros((cap, n_cfgs), dtype=torch.bool,
-                                     device=self.device)
+        self._counts = np.zeros((cap, len(self.config_ids)), dtype=np.int64)
         #: capacity doublings; a retire-all / re-add cycle reuses slots
         #: and leaves this untouched
         self.realloc_count = 0
-
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """A contiguous device copy (never a view of the host array)."""
-        return torch.tensor(np.ascontiguousarray(array), device=self.device)
 
     # -- member management ----------------------------------------------------
     def __contains__(self, key: Hashable) -> bool:
@@ -194,16 +176,7 @@ class TorchFusedRankState:
 
     def _grow(self) -> None:
         old, cap = self._capacity, self._capacity * 2
-
-        def grown(t: torch.Tensor) -> torch.Tensor:
-            out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
-                              device=t.device)
-            out[:old] = t
-            return out
-
-        self.d_row_masks = grown(self.d_row_masks)
-        self.d_scores = grown(self.d_scores)
-        self._d_finite = grown(self._d_finite)
+        self._grow_tensors(old, cap)
         counts = np.zeros((cap, len(self.config_ids)), dtype=np.int64)
         counts[:old] = self._counts
         self._counts = counts
@@ -231,13 +204,12 @@ class TorchFusedRankState:
             raise ValueError("duplicate rows in member selection")
         return idx
 
-    def add_state(self, key: Hashable, *,
-                  rows: Optional[Sequence[int]] = None,
-                  jobs: Optional[Sequence[Hashable]] = None) -> None:
-        """Register a member ranking over a subset of the job axis
-        (``rows`` indices, or ``jobs`` ids when the state was built with
-        ``job_ids``).  Its accumulators come from the implied current norm
-        matrix, so a member added mid-stream is immediately in sync."""
+    def _new_member(self, key: Hashable, rows: Optional[Sequence[int]],
+                    jobs: Optional[Sequence[Hashable]]
+                    ) -> Tuple[int, np.ndarray, np.ndarray]:
+        """Validate a new member and give it a slot (growing the capacity
+        if none is free): ``(slot, row mask (J,) float32, counts (C,))``.
+        The subclass fills the slot's tensors, then registers the key."""
         if key in self._slots:
             raise ValueError(f"duplicate member state {key!r}")
         self._retired.discard(key)      # re-registering revives the key
@@ -249,40 +221,26 @@ class TorchFusedRankState:
         row_mask[idx] = 1.0
         counts = self._mask[idx].sum(axis=0) if idx.size else \
             np.zeros(len(self.config_ids), dtype=np.int64)
-        d_row = self._upload(row_mask)
-        self.d_row_masks[slot] = d_row
-        self.d_scores[slot] = _member_scores(
-            self.d_hours, self.d_mask, self.d_prices, self.d_row_best,
-            d_row)
         self._counts[slot] = counts
-        self._d_finite[slot] = self._upload(counts > 0)
-        self._slots[key] = slot
+        return slot, row_mask, counts
 
-    def retire_state(self, key: Hashable) -> None:
-        """Drop a member: its slot is zeroed (contributes nothing to later
-        ticks) and reused by the next :meth:`add_state`.  Serving a
-        retired key afterwards raises :class:`NothingRankableError`."""
+    def _drop_member(self, key: Hashable) -> int:
+        """Unregister a member; returns its slot, whose tensors the
+        subclass zeroes (it is reused by the next :meth:`add_state`)."""
         slot = self._slots.pop(key, None)
         if slot is None:
             raise ValueError(f"unknown member state {key!r}")
-        self.d_row_masks[slot] = 0.0
-        self.d_scores[slot] = 0.0
         self._counts[slot] = 0
-        self._d_finite[slot] = False
         self._ranking_memo.pop(key, None)
         self._retired.add(key)
         self._free.append(slot)
+        return slot
 
-    # -- the fused tick ----------------------------------------------------------
+    # -- prices and the tick's host step -----------------------------------------
     @property
     def prices(self) -> np.ndarray:
         """Current per-config $/h (float32 quotes lifted to float64)."""
         return self._host_prices[0].astype(np.float64)
-
-    def scores(self, key: Hashable) -> np.ndarray:
-        """A member's score accumulators on the host (float64 lift)."""
-        row = self.d_scores[self._slot_of(key)]
-        return row.cpu().numpy().astype(np.float64)
 
     def counts(self, key: Hashable) -> np.ndarray:
         """A member's per-config contributing-cell counts."""
@@ -300,12 +258,142 @@ class TorchFusedRankState:
         cols, prices = validated
         return cols, prices.astype(np.float32)
 
-    def _commit(self, d_newp: torch.Tensor, cols: np.ndarray,
-                prices: np.ndarray) -> None:
-        self.d_prices = d_newp
+    def _commit(self, cols: np.ndarray, prices: np.ndarray) -> None:
         self._host_prices[0, cols] = prices
         self.reprices += 1
         self.dispatches += 1
+
+    # -- per-member serving ----------------------------------------------------
+    def _head(self, slot: int, idx: np.ndarray, vals: np.ndarray
+              ) -> List[RankedConfig]:
+        counts = self._counts[slot]
+        return [_ranked(self.config_ids[int(i)], v, counts[int(i)])
+                for i, v in zip(idx, vals)]
+
+    def ranking(self, key: Hashable) -> List[RankedConfig]:
+        """A member's full sorted ranking under the tolerance contract
+        (memoized on the tick count; a fresh list copy each call)."""
+        memo = self._ranking_memo.get(key)
+        if memo is None or memo[0] != self.reprices:
+            slot = self._slot_of(key)
+            self.materializations += 1
+            if self._c_mat is not None:
+                self._c_mat.inc()
+            with maybe_span(self._metrics, "rank.materialize"):
+                memo = (self.reprices,
+                        _materialize(self.scores(key), self._counts[slot],
+                                     self.config_ids))
+            self._ranking_memo[key] = memo
+        return list(memo[1])
+
+    def top_k(self, key: Hashable, k: int) -> List[RankedConfig]:
+        """The head of a member's ranking — element-wise equal to
+        ``ranking(key)[:k]``, ties in catalog order (:meth:`heads` of the
+        one key)."""
+        return self.heads([key], k)[0]
+
+    def winner(self, key: Hashable) -> RankedConfig:
+        """The member's top pick — ``top_k(key, 1)``."""
+        return self.top_k(key, 1)[0]
+
+
+class TorchFusedRankState(FleetMembers):
+    """One fused-kernel dispatch per tick for a whole fleet of rankings.
+
+    Members are added (:meth:`add_state`) and retired
+    (:meth:`retire_state`) mid-stream; slot capacity grows by doubling
+    (``realloc_count``), and retired slots are zeroed and reused.
+    Serving is per member: :meth:`ranking` (memoized on the tick count),
+    :meth:`top_k` (the ``select`` kernel on the member's row — an
+    explicit catalog-order tie-break, which ``torch.topk`` does not
+    promise) and :meth:`winner`.
+
+    **Contract** (:data:`SCORE_CONTRACTS` ``["torch_fused"]``): the
+    float32 tolerance envelope of the reference's fused backend.
+
+    ``device`` defaults to ``"cuda"``; with no CUDA device the constructor
+    raises :class:`BackendUnavailableError`.  Pass ``device="cpu"`` to run
+    the kernels' plain PyTorch versions.
+    """
+
+    backend = "torch_fused"
+    contract = SCORE_CONTRACTS["torch_fused"]
+
+    def __init__(self, hours: np.ndarray, mask: np.ndarray,
+                 prices: np.ndarray, config_ids: Sequence[Hashable],
+                 job_ids: Optional[Sequence[Hashable]] = None,
+                 capacity: Optional[int] = None,
+                 metrics: Optional[MetricsRegistry] = None, *,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.config_ids = list(config_ids)
+        self.job_ids = list(job_ids) if job_ids is not None else None
+        hours, mask, prices = _canonicalize_universe(hours, mask, prices,
+                                                     self.job_ids)
+        self._pos = _position_index(self.config_ids)
+        host_prices = np.asarray(prices, dtype=np.float32).reshape(1, -1)
+        self._init_universe(hours, mask, host_prices, metrics)
+        self.d_row_best = _cold_row_best(self.d_hours, self.d_mask,
+                                         self.d_prices)
+        self._init_members(self._CAPACITY_BASE if capacity is None
+                           else max(1, capacity))
+
+    def _init_universe(self, hours: np.ndarray, mask: np.ndarray,
+                       host_prices: np.ndarray,
+                       metrics: Optional[MetricsRegistry]) -> None:
+        self._init_host(hours, mask, host_prices, metrics)
+        # read-only residents (uploaded once)
+        self.d_hours = _upload(hours.astype(np.float32), self.device)
+        self.d_mask = _upload(mask, self.device)
+        self.d_prices = _upload(host_prices, self.device)
+
+    def _init_members(self, cap: int) -> None:
+        self._init_slots(cap)
+        n_cfgs = len(self.config_ids)
+        self.d_row_masks = torch.zeros((cap, self._n_jobs),
+                                       dtype=torch.float32,
+                                       device=self.device)
+        self.d_scores = torch.zeros((cap, n_cfgs), dtype=torch.float32,
+                                    device=self.device)
+        self._d_finite = torch.zeros((cap, n_cfgs), dtype=torch.bool,
+                                     device=self.device)
+
+    def _grow_tensors(self, old: int, cap: int) -> None:
+        self.d_row_masks = _grown(self.d_row_masks, old, cap)
+        self.d_scores = _grown(self.d_scores, old, cap)
+        self._d_finite = _grown(self._d_finite, old, cap)
+
+    # -- member management ----------------------------------------------------
+    def add_state(self, key: Hashable, *,
+                  rows: Optional[Sequence[int]] = None,
+                  jobs: Optional[Sequence[Hashable]] = None) -> None:
+        """Register a member ranking over a subset of the job axis
+        (``rows`` indices, or ``jobs`` ids when the state was built with
+        ``job_ids``).  Its accumulators come from the implied current norm
+        matrix, so a member added mid-stream is immediately in sync."""
+        slot, row_mask, counts = self._new_member(key, rows, jobs)
+        d_row = _upload(row_mask, self.device)
+        self.d_row_masks[slot] = d_row
+        self.d_scores[slot] = _member_scores(
+            self.d_hours, self.d_mask, self.d_prices, self.d_row_best,
+            d_row)
+        self._d_finite[slot] = _upload(counts > 0, self.device)
+        self._slots[key] = slot
+
+    def retire_state(self, key: Hashable) -> None:
+        """Drop a member: its slot is zeroed (contributes nothing to later
+        ticks) and reused by the next :meth:`add_state`.  Serving a
+        retired key afterwards raises :class:`NothingRankableError`."""
+        slot = self._drop_member(key)
+        self.d_row_masks[slot] = 0.0
+        self.d_scores[slot] = 0.0
+        self._d_finite[slot] = False
+
+    # -- the fused tick ----------------------------------------------------------
+    def scores(self, key: Hashable) -> np.ndarray:
+        """A member's score accumulators on the host (float64 lift)."""
+        row = self.d_scores[self._slot_of(key)]
+        return row.cpu().numpy().astype(np.float64)
 
     def reprice(self, deltas: Deltas) -> int:
         """Apply ``{config_id: new $/h}`` deltas with ONE fused dispatch
@@ -322,7 +410,8 @@ class TorchFusedRankState:
         self.d_scores, self.d_row_best, moved = fused_reprice(
             self.d_hours, self.d_mask, self.d_prices, d_newp, changed,
             self.d_row_best, self.d_row_masks, self.d_scores)
-        self._commit(d_newp, *pairs)
+        self.d_prices = d_newp
+        self._commit(*pairs)
         return int(moved.item())
 
     def reprice_with_heads(self, deltas: Deltas, k: int
@@ -342,42 +431,15 @@ class TorchFusedRankState:
             self.d_hours, self.d_mask, self.d_prices, d_newp, changed,
             self.d_row_best, self.d_row_masks, self.d_scores,
             self._d_finite, k=k)
-        self._commit(d_newp, *pairs)
+        self.d_prices = d_newp
+        self._commit(*pairs)
         top_i = top_i.cpu().numpy()
         top_v = top_v.cpu().numpy().astype(np.float64)
         heads = {key: self._head(slot, top_i[slot], top_v[slot])
                  for key, slot in self._slots.items()}
         return int(moved.item()), heads
 
-    def _head(self, slot: int, idx: np.ndarray, vals: np.ndarray
-              ) -> List[RankedConfig]:
-        counts = self._counts[slot]
-        return [_ranked(self.config_ids[int(i)], v, counts[int(i)])
-                for i, v in zip(idx, vals)]
-
     # -- per-member serving ----------------------------------------------------
-    def ranking(self, key: Hashable) -> List[RankedConfig]:
-        """A member's full sorted ranking under the tolerance contract
-        (memoized on the tick count; a fresh list copy each call)."""
-        memo = self._ranking_memo.get(key)
-        if memo is None or memo[0] != self.reprices:
-            slot = self._slot_of(key)
-            self.materializations += 1
-            if self._c_mat is not None:
-                self._c_mat.inc()
-            with maybe_span(self._metrics, "rank.materialize"):
-                memo = (self.reprices,
-                        _materialize(self.scores(key), self._counts[slot],
-                                     self.config_ids))
-            self._ranking_memo[key] = memo
-        return list(memo[1])
-
-    def top_k(self, key: Hashable, k: int) -> List[RankedConfig]:
-        """The head of a member's ranking: the ``select`` kernel on the
-        member's score row plus an O(k) readback — element-wise equal to
-        ``ranking(key)[:k]``, ties in catalog order."""
-        return self.heads([key], k)[0]
-
     def heads(self, keys: Sequence[Hashable], k: int
               ) -> List[List[RankedConfig]]:
         """Several members' heads from ONE ``select`` launch over the
@@ -389,19 +451,9 @@ class TorchFusedRankState:
         if not slots:
             return []
         rows = sorted(set(slots))
-        lo, hi = rows[0], rows[-1] + 1
-        if hi - lo == len(rows):
-            scores, finite = self.d_scores[lo:hi], self._d_finite[lo:hi]
-        else:
-            idx = torch.tensor(rows, dtype=torch.long, device=self.device)
-            scores = self.d_scores.index_select(0, idx)
-            finite = self._d_finite.index_select(0, idx)
+        scores, finite = _member_rows(self.d_scores, self._d_finite, rows)
         top_i, top_v = select_heads(scores, finite, k)
         top_i = top_i.cpu().numpy()
         top_v = top_v.cpu().numpy().astype(np.float64)
         at = {s: r for r, s in enumerate(rows)}
         return [self._head(s, top_i[at[s]], top_v[at[s]]) for s in slots]
-
-    def winner(self, key: Hashable) -> RankedConfig:
-        """The member's top pick — ``top_k(key, 1)``."""
-        return self.top_k(key, 1)[0]

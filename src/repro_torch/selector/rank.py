@@ -12,8 +12,9 @@ This module is the counterpart of the reference's ``repro.selector.rank``
 without its JAX states: the float64 numpy path (:func:`rank_dense`,
 :func:`rank_pairs`, the incremental :class:`RankState`), the shared
 validation and materialization helpers, and the :class:`ScoreContract`
-table.  The port's float32 fleet backend, ``"torch_fused"``, lives in
-:mod:`repro_torch.selector.fused_rank`.
+table.  The port's float32 fleet backends live in
+:mod:`repro_torch.selector.fused_rank` (``"torch_fused"``) and
+:mod:`repro_torch.selector.sharded` (``"torch_sharded"``).
 """
 from __future__ import annotations
 
@@ -28,12 +29,14 @@ from repro_torch.obs import MetricsRegistry, maybe_span
 #: ``"numpy"``: float64, bit-stable, one :class:`RankState` per live
 #: selection.  ``"torch_fused"``: float32, every live selection stacked
 #: into one :class:`~repro_torch.selector.fused_rank.TorchFusedRankState`
-#: whose tick runs the fused CUDA reprice kernels.
-BACKENDS = ("numpy", "torch_fused")
+#: whose tick runs the fused CUDA reprice kernels.  ``"torch_sharded"``:
+#: the same fleet with its config axis split across shards, one a device
+#: (:class:`~repro_torch.selector.sharded.TorchShardedRankState`).
+BACKENDS = ("numpy", "torch_fused", "torch_sharded")
 #: the fleet backends: a SelectionService on one of these stacks every
 #: live (class, exclusion) ranking into a single shared state, so a price
 #: tick is one dispatch fleet-wide.
-FLEET_BACKENDS = ("torch_fused",)
+FLEET_BACKENDS = ("torch_fused", "torch_sharded")
 
 
 class BackendUnavailableError(RuntimeError):
@@ -100,6 +103,13 @@ SCORE_CONTRACTS: Mapping[str, ScoreContract] = {
     "numpy": ScoreContract("numpy", bit_identical=True),
     "torch_fused": ScoreContract("torch_fused", bit_identical=False,
                                  rel_tol=1e-4, abs_tol=1e-6),
+    # sharding the C axis changes *where* each column's arithmetic runs,
+    # not the arithmetic: the shards' row minima combine through an
+    # elementwise min (exact on floats), and every norm and score term is
+    # the same float32 expression as "torch_fused", so the envelope is
+    # again identical (the reference's "jax_sharded", DESIGN.md §13).
+    "torch_sharded": ScoreContract("torch_sharded", bit_identical=False,
+                                   rel_tol=1e-4, abs_tol=1e-6),
 }
 
 

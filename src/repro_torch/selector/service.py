@@ -12,8 +12,9 @@ math itself:
     :class:`~repro_torch.selector.rank.RankState` of every cached ranking
     (numpy) or to the one shared
     :class:`~repro_torch.selector.fused_rank.TorchFusedRankState` fleet
-    (``torch_fused``, one dispatch per tick) instead of recomputing from
-    scratch (DESIGN.md §6);
+    (``torch_fused``, one dispatch per tick; ``torch_sharded`` splits its
+    config axis across devices) instead of recomputing from scratch
+    (DESIGN.md §6);
   * **ranking caches** — rankings depend only on (job class, exclusion
     set, price epoch), so repeat submissions of same-class jobs are O(1)
     dictionary hits (the serving-scale path: one ranking amortized over
@@ -38,6 +39,8 @@ from repro_torch.selector.fused_rank import (TorchFusedRankState,
 from repro_torch.selector.rank import (BACKENDS, FLEET_BACKENDS,
                                        NothingRankableError, RankedConfig,
                                        RankState)
+from repro_torch.selector.sharded import (Devices, TorchShardedRankState,
+                                          resolve_devices)
 from repro_torch.selector.store import ProfilingStore
 
 
@@ -88,7 +91,7 @@ class SelectionService:
                  backend: Optional[str] = None,
                  serve_top_k: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None, *,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device, Devices] = "cuda"):
         self.catalog = catalog
         self.store = store
         self.classifier = classifier
@@ -102,18 +105,26 @@ class SelectionService:
         #: exclusion) ranking into one :class:`TorchFusedRankState` on
         #: ``device`` — a tick is one fused kernel dispatch for the whole
         #: fleet, under the float32 tolerance contract (DESIGN.md §9-§10,
-        #: §14); "numpy" serves one bit-identical float64
-        #: :class:`RankState` per selection and ignores ``device``.
+        #: §14); "torch_sharded" splits that fleet's config axis across
+        #: the devices ``device`` names (:func:`resolve_devices`:
+        #: ``"cuda"`` every local card, a list or tuple one shard each);
+        #: "numpy" serves one bit-identical float64 :class:`RankState` per
+        #: selection and ignores ``device``.
         self.backend = backend if backend is not None else "torch_fused"
         # fail at construction, not first submit: a service that can
         # never rank is misconfiguration the caller should see now
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(expected one of {BACKENDS})")
-        #: where the fleet state lives; a CUDA device with no CUDA
-        #: present raises the typed BackendUnavailableError here
-        self.device = (resolve_device(device)
-                       if self.backend in FLEET_BACKENDS else None)
+        #: where the fleet state lives (a tuple of devices, one a shard,
+        #: on "torch_sharded"); a CUDA device with no CUDA present raises
+        #: the typed BackendUnavailableError here
+        if self.backend == "torch_sharded":
+            self.device = resolve_devices(device)
+        elif self.backend in FLEET_BACKENDS:
+            self.device = resolve_device(device)
+        else:
+            self.device = None
         #: default serving depth: ``None`` serves full rankings
         #: (``Decision.served_via == "ranking"``); a positive int makes
         #: ``submit`` serve only the top-k head of the ranking — the
@@ -142,7 +153,8 @@ class SelectionService:
         # the fleet backend's universe: one TorchFusedRankState over the
         # full store, members keyed by base_key, plus the tag/store
         # version it is in sync with
-        self._batched: Optional[TorchFusedRankState] = None
+        self._batched: Optional[Union[TorchFusedRankState,
+                                      TorchShardedRankState]] = None
         self._batched_tag: Optional[Tuple] = None
         self._batched_store_version: Optional[int] = None
         # counters live on the registry; the attribute names below are
@@ -361,8 +373,9 @@ class SelectionService:
         ``(ranking_fn, top_k_fn)``.  The numpy backend builds one
         RankState over the selection's rows; the fleet backend registers
         the selection as a member of the one shared
-        :class:`TorchFusedRankState` over the full store (building that
-        universe first if the trace or price tag moved on)."""
+        :class:`TorchFusedRankState` (or :class:`TorchShardedRankState`)
+        over the full store (building that universe first if the trace or
+        price tag moved on)."""
         jobs = self.store.select_jobs(job_class=job_class,
                                       exclude_groups=exclude_groups)
         if not jobs:
@@ -377,10 +390,16 @@ class SelectionService:
                 all_jobs = self.store.job_ids
                 hours, mask = self.store.matrix(job_ids=all_jobs,
                                                 config_ids=config_ids)
-                b = TorchFusedRankState(hours, mask, prices, config_ids,
-                                        job_ids=all_jobs,
-                                        metrics=self.metrics,
-                                        device=self.device)
+                if self.backend == "torch_sharded":
+                    b = TorchShardedRankState(hours, mask, prices,
+                                              config_ids, job_ids=all_jobs,
+                                              devices=self.device,
+                                              metrics=self.metrics)
+                else:
+                    b = TorchFusedRankState(hours, mask, prices, config_ids,
+                                            job_ids=all_jobs,
+                                            metrics=self.metrics,
+                                            device=self.device)
                 self._batched = b
                 self._batched_tag = tag
                 self._batched_store_version = self.store.version
@@ -471,10 +490,10 @@ class SelectionService:
         ``rank_head(*routes[i], k=k)`` would return, called in order, or
         the :class:`NothingRankableError` it would raise (returned, not
         raised).  The caches and hit/miss counts end as those calls would
-        leave them.  On the fleet backend every head a cache does not hold
+        leave them.  On a fleet backend every head a cache does not hold
         and a live member can serve comes from ONE ``select`` launch over
-        the requested members' rows (:meth:`TorchFusedRankState.heads`);
-        a selection not live yet is built as ``rank_head`` builds it.  On
+        the requested members' rows (:meth:`TorchFusedRankState.heads`;
+        one a shard on ``torch_sharded``); a selection not live yet is built as ``rank_head`` builds it.  On
         numpy it is ``rank_head`` route by route."""
         _check_head_k(k, "rank_heads")
         tag = self._price_tag()

@@ -22,8 +22,8 @@ from repro_torch.models import LM
 from repro_torch.serve import Engine, Request
 from repro_torch.selector import (IdentityCatalog, PriceTable,
                                   ProfilingStore, SelectionService,
-                                  TorchFusedRankState, rank_dense,
-                                  score_contract)
+                                  TorchFusedRankState, TorchShardedRankState,
+                                  rank_dense, score_contract)
 
 CONTRACT = score_contract("torch_fused")
 REL, ABS = CONTRACT.rel_tol, CONTRACT.abs_tol
@@ -844,3 +844,164 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
         assert float((got - want).abs().max()) < 2e-3
     else:
         assert float((got - want).norm() / want.norm()) < 0.1
+
+
+# --- the sharded fleet and the device guard ------------------------------------
+
+@pytest.mark.parametrize("C", [10_000, 10_003])
+@pytest.mark.parametrize("D", [2, 3, 4])
+def test_cuda_split_tick_is_bitwise_the_whole_tick(cuda_device, D, C):
+    """``row_minima`` on each column block, the min across blocks and
+    ``fold_scores`` on each block, against one ``fused_reprice`` over all
+    C on the same inputs: scores, row minima and ``moved`` bit for bit
+    (the fold's sums run in an order fixed by J alone).  C = 10,003 gives
+    blocks whose width is no multiple of 4 (``rowmin``'s scalar loads)."""
+    hours, mask, oldp, newp, changed, rb, rm, scores, _ = _tick_inputs(
+        40 + D, J=64, C=C, S=16, n_changed=C // 100, masked_rows=(7,),
+        device=cuda_device)
+    whole, rb_whole, moved_whole = rd.fused_reprice(
+        hours, mask, oldp, newp, changed, rb, rm, scores)
+    width = -(-C // D)
+    blocks = [slice(lo, min(lo + width, C)) for lo in range(0, C, width)]
+
+    def part(t, b):
+        return t[:, b].contiguous()
+
+    before = dict(rd.LAUNCHES)
+    partial = [rd.row_minima(part(hours, b), part(mask, b), part(newp, b),
+                             rb)[0] for b in blocks]
+    got_rb = partial[0]
+    for p in partial[1:]:
+        got_rb = torch.minimum(got_rb, p)
+    out = torch.cat([rd.fold_scores(
+        part(hours, b), part(mask, b), part(oldp, b), part(newp, b),
+        part(changed, b), rb, got_rb, rm, part(scores, b))
+        for b in blocks], dim=1)
+    assert rd.LAUNCHES["rowmin"] - before["rowmin"] == len(blocks)
+    assert rd.LAUNCHES["fold"] - before["fold"] == len(blocks)
+    assert torch.equal(got_rb.view(torch.int32), rb_whole.view(torch.int32))
+    assert int((got_rb != rb).sum()) == int(moved_whole)
+    assert torch.equal(out.view(torch.int32), whole.view(torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["two_on_one_card", "one_a_card"])
+def test_cuda_sharded_fleet_matches_fused_fleet(cuda_device, layout):
+    """Two shards on one card, or one shard a card (every local card;
+    needs two), against the fused fleet, tick by tick: the same handoff
+    counts, every member within the contract of the fused fleet's scores
+    and of the cold rank, heads naming the fused fleet's configs and equal
+    to ``ranking()[:k]``; one ``scatter``, ``rowmin`` and ``fold`` a shard
+    a tick and one ``select`` a shard a ``heads`` call."""
+    if layout == "two_on_one_card":
+        devices = [cuda_device] * 2
+    elif torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (one shard a card)")
+    else:
+        devices = None
+    rng = np.random.default_rng(8)
+    J, C = 24, 3_001
+    hours = rng.uniform(0.05, 10.0, (J, C))
+    mask = rng.random((J, C)) > 0.15
+    mask[np.arange(J), rng.integers(0, C, J)] = True
+    prices = rng.uniform(0.5, 20.0, C)
+    ids = [f"c{i}" for i in range(C)]
+    members = {"all": list(range(J))}
+    for m in range(7):
+        members[f"m{m}"] = sorted(int(i) for i in rng.choice(
+            J, int(rng.integers(1, J)), replace=False))
+    sharded = TorchShardedRankState(hours, mask, prices, ids,
+                                    devices=devices)
+    D = sharded.n_devices
+    fused = TorchFusedRankState(hours, mask, prices, ids,
+                                device=cuda_device)
+    for key, rows in members.items():
+        sharded.add_state(key, rows=rows)
+        fused.add_state(key, rows=rows)
+    live = sharded.prices.copy()
+    keys = list(members)
+    for tick in range(6):
+        cols = rng.choice(C, 30, replace=False)
+        new = (live[cols] * rng.uniform(0.7, 1.3, 30)).astype(np.float32)
+        deltas = {ids[c]: float(p) for c, p in zip(cols, new)}
+        rd.reset_launches()
+        moved = sharded.reprice(deltas)
+        assert {n: rd.LAUNCHES[n] for n in ("scatter", "rowmin", "fold")} \
+            == dict.fromkeys(("scatter", "rowmin", "fold"), D)
+        assert moved == fused.reprice(deltas)
+        rd.reset_launches()
+        live[cols] = new
+        heads = sharded.heads(keys, 10)
+        assert rd.LAUNCHES["select"] == D
+        # the same configs in the same order; a member's first
+        # accumulators, a matmul at the shard's width, may round apart
+        for got, want in zip(heads, fused.heads(keys, 10)):
+            assert [r.config_id for r in got] == [r.config_id for r in want]
+            assert all(CONTRACT.scores_match(g.score, w.score)
+                       for g, w in zip(got, want))
+        for key, rows in members.items():
+            got = sharded.ranking(key)
+            assert heads[keys.index(key)] == got[:10]
+            for want in (fused.ranking(key),
+                         rank_dense(hours[rows], mask[rows], live, ids)):
+                assert CONTRACT.winner_matches(got[0].config_id, want)
+                ref = {r.config_id: r.score for r in want}
+                assert all(CONTRACT.scores_match(r.score, ref[r.config_id])
+                           for r in got)
+    assert sharded.top_k("all", 1_000) == sharded.ranking("all")[:1_000]
+    assert sharded.dispatches == 6
+
+
+def test_cuda_sharded_devices_above_the_card_count_raise(cuda_device):
+    n = torch.cuda.device_count()
+    hours, mask = np.ones((2, 3)), np.ones((2, 3), bool)
+    for bad in (n + 1, [f"cuda:{n}"], 0):
+        with pytest.raises(ValueError, match="devices"):
+            TorchShardedRankState(hours, mask, np.ones(3), ["a", "b", "c"],
+                                  devices=bad)
+    s = TorchShardedRankState(hours, mask, np.ones(3), ["a", "b", "c"])
+    assert s.n_devices == n
+
+
+def test_cuda_kernels_launch_on_their_tensors_device(cuda_device):
+    """With card 0 current, every kernel on tensors of the last card runs
+    there and agrees with its plain version, and card 0 stays current.
+    Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a tensor off the current "
+                    "card)")
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    hours, mask, oldp, newp, changed, rb, rm, scores, fin = _tick_inputs(
+        9, J=13, C=5_000, S=8, n_changed=50, device=last)
+    cols = np.arange(0, 5_000, 97, dtype=np.int32)
+    pr = np.linspace(0.5, 2.0, cols.size).astype(np.float32)
+    got_p = rd.scatter_prices(cols, pr, oldp)
+    want_p = rd.scatter_prices_plain(cols, pr, oldp)
+    assert all(torch.equal(a, b) for a, b in zip(got_p, want_p))
+    got_rb, got_mv = rd.row_minima(hours, mask, newp, rb)
+    want_rb, want_mv = rd.rowmin_plain(hours, mask, newp, rb)
+    assert torch.equal(got_rb, want_rb) and torch.equal(got_mv, want_mv)
+    out = rd.fold_scores(hours, mask, oldp, newp, changed, rb, got_rb, rm,
+                         scores)
+    want = rd.fold_plain(hours, mask, oldp, newp, changed, rb, got_rb, rm,
+                         scores)
+    tol = ABS + REL * torch.maximum(out.abs(), want.abs())
+    assert bool(((out - want).abs() <= tol).all())
+    for k in (10, 300):
+        ti, tv = rd.select_heads(out, fin, k)
+        pi, pv = rd.select_heads_plain(out, fin, k)
+        assert torch.equal(ti, pi) and torch.equal(tv, pv)
+    gen = torch.Generator(device=last).manual_seed(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k_, v = (torch.randn((1, 100, 4, 64), generator=gen,
+                                device=last).to(dtype) for _ in range(3))
+        got = fa.flash_attention(q, k_, v, causal=True)
+        want = fa.attention_ref(q, k_, v, causal=True)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   atol=2e-2 if dtype == torch.bfloat16
+                                   else 2e-5, rtol=1e-2)
+    args = _wkv_inputs(last, 1, 37, 2, 64, torch.float32)
+    _wkv_close(wk.wkv6(*args), wk.wkv6_scan_ref(*args))
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0

@@ -3,8 +3,8 @@ quiet fall-back to the CPU.
 
 A subprocess blocks ``jax`` and ``repro`` (the exact name or a ``repro.``
 prefix) on ``sys.meta_path``, imports every module of ``repro_torch``, and
-then builds the entry points without ``device=`` (the fleet state, the
-selection service, the LM and the serving engine); with CUDA hidden each
+then builds the entry points without ``device=`` (the fleet states, the
+selection services, the LM and the serving engine); with CUDA hidden each
 must raise ``BackendUnavailableError``.  The sources of the package
 and of ``chip_smoke.py`` are also scanned for such imports, including the
 ones inside functions that an import does not execute.
@@ -44,23 +44,33 @@ leaked = sorted(m for m in sys.modules
 
 from repro_torch.selector import (BackendUnavailableError, IdentityCatalog,
                                   PriceTable, ProfilingStore,
-                                  SelectionService, TorchFusedRankState)
+                                  SelectionService, TorchFusedRankState,
+                                  TorchShardedRankState)
 raised = {}
 hours = np.ones((2, 3))
 mask = np.ones((2, 3), bool)
-try:
-    TorchFusedRankState(hours, mask, np.ones(3), ["a", "b", "c"])
-    raised["state"] = None
-except BackendUnavailableError as e:
-    raised["state"] = type(e).__name__
+for name, make in (
+        ("state", lambda: TorchFusedRankState(hours, mask, np.ones(3),
+                                              ["a", "b", "c"])),
+        ("sharded", lambda: TorchShardedRankState(hours, mask, np.ones(3),
+                                                  ["a", "b", "c"])),
+        ("sharded_2", lambda: TorchShardedRankState(
+            hours, mask, np.ones(3), ["a", "b", "c"], devices=2))):
+    try:
+        make()
+        raised[name] = None
+    except BackendUnavailableError as e:
+        raised[name] = type(e).__name__
 store = ProfilingStore(config_ids=["a", "b"])
 store.add("j0", "a", 1.0)
-try:
-    SelectionService(IdentityCatalog(["a", "b"]), store,
-                     PriceTable({"a": 1.0, "b": 2.0}), backend="torch_fused")
-    raised["service"] = None
-except BackendUnavailableError as e:
-    raised["service"] = type(e).__name__
+for name, backend in (("service", "torch_fused"),
+                      ("sharded_service", "torch_sharded")):
+    try:
+        SelectionService(IdentityCatalog(["a", "b"]), store,
+                         PriceTable({"a": 1.0, "b": 2.0}), backend=backend)
+        raised[name] = None
+    except BackendUnavailableError as e:
+        raised[name] = type(e).__name__
 from repro_torch import configs
 from repro_torch.models import LM, build_model
 from repro_torch.serve import Engine
@@ -96,6 +106,7 @@ def test_every_module_imports_without_jax_or_reference():
     expected = {"repro_torch.convert", "repro_torch.kernels.rank_delta",
                 "repro_torch.kernels._build",
                 "repro_torch.selector.fused_rank",
+                "repro_torch.selector.sharded",
                 "repro_torch.selector.service", "repro_torch.market.replay",
                 "repro_torch.market.daemon", "repro_torch.obs.registry",
                 "repro_torch.core.trace", "repro_torch.selector.store",
@@ -113,8 +124,8 @@ def test_every_module_imports_without_jax_or_reference():
     assert res["leaked"] == []
     assert res["cuda"] is False
     assert res["raised"] == dict.fromkeys(
-        ("state", "service", "lm", "build_model", "engine"),
-        "BackendUnavailableError")
+        ("state", "sharded", "sharded_2", "service", "sharded_service", "lm",
+         "build_model", "engine"), "BackendUnavailableError")
 
 
 def _imported_modules(path: Path):
