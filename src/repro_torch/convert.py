@@ -20,7 +20,8 @@ The port reads what the reference writes, without importing it:
   leaves along a leading ``(n_cycles,)`` axis (``{"cycles": {"b{i}":
   ...}, "rem": {"r{j}": ...}}``); both are unstacked into the port's one
   dict per layer.  Leaf layouts stay the reference's (``wq`` (d, H, D),
-  ``wo`` (H, D, d), ...).  The reference stores float32 weights and casts
+  ``wo`` (H, D, d), ...), a MoE layer's ``moe`` group with its nested
+  ``shared`` expert included.  The reference stores float32 weights and casts
   each use to the compute dtype; the port stores each weight in the dtype
   its uses read, which gives the same values.
 

@@ -1,5 +1,6 @@
-"""Core neural layers of the dense family: norms, embedding and head, RoPE,
-attention, MLP (counterpart of ``repro/models/layers.py``).
+"""Core neural layers of the dense and MoE families: norms, embedding and
+head, RoPE, attention, MLP, the sort-based MoE dispatch (counterpart of
+``repro/models/layers.py``).
 
 Functions over explicit parameter dicts, as in the reference, with the
 reference's layouts (``wq`` (d, H, D), ``wo`` (H, D, d), ...).  Weights
@@ -10,8 +11,11 @@ prefill attention goes to the hand-written flash-attention kernel through
 attention (:func:`sdpa_decode`) stays plain PyTorch, as it is an XLA op
 and not a Pallas kernel in the reference.
 
-Not ported yet: MoE (``moe_apply``) and the ``full``, ``cross`` and
-``cross_decode`` attention modes (ROADMAP.md §A).  The reference's
+The MoE layer (:func:`moe_apply`) computes the reference's dispatch step
+by step in plain PyTorch, on whatever device its input lies: the
+reference runs it as XLA code, not as a Pallas kernel, and its expert
+products are batched matrix products.  Not ported yet: the ``full``,
+``cross`` and ``cross_decode`` attention modes (ROADMAP.md §A).  The reference's
 ``sharding.ctx.constrain`` calls have no counterpart on one card and are
 dropped.  Caches are written in place (the reference returns new
 arrays); the functions still return the cache they wrote.
@@ -261,13 +265,15 @@ def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int
 # MLP (gated / classic)
 # ---------------------------------------------------------------------------
 
-def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ModelConfig, *, d_ff: Optional[int] = None,
+              gated: bool = True) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    f = d_ff if d_ff is not None else cfg.d_ff
     specs = {
         "w_up": ParamSpec((d, f), ("embed", "mlp")),
         "w_down": ParamSpec((f, d), ("mlp", "embed")),
     }
-    if cfg.gated_mlp:
+    if gated:
         specs["w_gate"] = ParamSpec((d, f), ("embed", "mlp"))
     return specs
 
@@ -284,3 +290,116 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(h, cfg.act)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (sort-based dispatch with capacity)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    f = cfg.moe_d_ff if cfg.moe_d_ff is not None else cfg.d_ff
+    E = cfg.num_experts
+    specs = {
+        "router": ParamSpec((d, E), ("embed", None), scale=0.02),
+        "w_gate": ParamSpec((E, d, f), ("experts", "embed", "mlp")),
+        "w_up": ParamSpec((E, d, f), ("experts", "embed", "mlp")),
+        "w_down": ParamSpec((E, f, d), ("experts", "mlp", "embed")),
+    }
+    if cfg.shared_expert:
+        specs["shared"] = mlp_specs(cfg, d_ff=f, gated=True)
+    return specs
+
+
+def _positions_in_expert(expert_flat: torch.Tensor) -> torch.Tensor:
+    """Rank of each (token, k) slot within its expert's arrival order.
+
+    expert_flat: (..., N) integer expert ids, one row per sequence.
+    Returns (..., N) int32 positions: a stable argsort by expert, each
+    run's start carried forward by a running max, and the offsets from it
+    scattered back (the reference's argsort + segmented iota, batched
+    over the leading axes in place of its ``vmap``)."""
+    n = expert_flat.shape[-1]
+    order = torch.argsort(expert_flat, dim=-1, stable=True)
+    sorted_e = torch.gather(expert_flat, -1, order)
+    iota = torch.arange(n, dtype=torch.int64, device=expert_flat.device
+                        ).expand_as(order)
+    seg_start = torch.ones_like(order, dtype=torch.bool)
+    seg_start[..., 1:] = sorted_e[..., 1:] != sorted_e[..., :-1]
+    run_start = torch.cummax(torch.where(seg_start, iota, 0), dim=-1).values
+    pos = torch.empty_like(order)
+    pos.scatter_(-1, order, iota - run_start)
+    return pos.to(torch.int32)
+
+
+def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router: (float32 logits (B, T, E), gates (B, T, K), expert ids
+    (B, T, K)).
+
+    The logits are taken in the compute dtype, then cast to float32;
+    gates are sigmoids for K = 1, otherwise softmax probabilities
+    renormalised over the top K.  The top K break ties to the lower
+    expert index, as ``lax.top_k`` does: a stable descending sort, since
+    ``torch.topk`` promises no order for ties, and the order decides each
+    slot's arrival and so which tokens a full expert drops."""
+    K = cfg.experts_per_token
+    logits = (x @ p["router"]).float()
+    probs = torch.sigmoid(logits) if K == 1 else torch.softmax(logits, -1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :K], idx[..., :K]
+    if K > 1:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, gates, idx
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with per-sequence capacity.  Returns (y, aux_loss).
+
+    The reference's steps in its order: the router (:func:`moe_route`);
+    each (token, k) slot's arrival position in its expert, kept below the
+    capacity ``C = max(1, ceil(T K / E * capacity_factor))`` of the call's
+    own T (a decode step gets C = 1) and otherwise sent to an overflow
+    row; dispatch by adding the tokens into (B, E C + 1, d) zeros (each
+    kept slot receives exactly one token, so the sum is that token); the
+    expert products batched over experts; the gather back, weighted by
+    the kept gates; the shared expert; the Switch load-balance loss.  No
+    step reads a value back to the host."""
+    B, T, d = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+
+    logits, gates, idx = moe_route(p, cfg, x)               # (B, T, K)
+    idx_flat = idx.reshape(B, T * K)
+    pos = _positions_in_expert(idx_flat)                    # (B, T*K)
+    keep = pos < C
+    slot = torch.where(keep, idx_flat * C + pos, E * C)     # overflow bucket
+    rows = (slot + torch.arange(B, device=x.device)[:, None]
+            * (E * C + 1)).reshape(-1)                      # (B*T*K,)
+
+    x_tk = x.repeat_interleave(K, dim=1).reshape(B * T * K, d)
+    xe = x.new_zeros(B * (E * C + 1), d).index_add_(0, rows, x_tk)
+    xe = xe.view(B, E * C + 1, d)[:, :E * C]                # drop overflow
+    xe = xe.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+
+    h = _act(torch.bmm(xe, p["w_gate"]), cfg.act) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"])                          # (E, B*C, d)
+    ye = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+
+    ye_flat = torch.cat([ye, ye.new_zeros(B, 1, d)], dim=1)  # (B, E*C+1, d)
+    y_tk = ye_flat.reshape(B * (E * C + 1), d).index_select(0, rows)
+    w = (gates.reshape(B, T * K) * keep).to(x.dtype)
+    y = (y_tk.view(B, T * K, d) * w[..., None]).reshape(B, T, K, d).sum(2)
+
+    if cfg.shared_expert:
+        y = y + mlp_apply(p["shared"], cfg, x)
+
+    # Switch-style load-balance auxiliary loss
+    me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))     # (E,)
+    n = B * T * K
+    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, idx_flat.reshape(-1),
+        torch.full((n,), 1.0 / n, dtype=torch.float32, device=x.device))
+    aux = E * torch.sum(me * ce)
+    return y, aux

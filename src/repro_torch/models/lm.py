@@ -1,5 +1,5 @@
-"""Decoder-only language model, dense and RWKV-6 families (counterpart of
-``repro/models/lm.py``).
+"""Decoder-only language model, dense, MoE and RWKV-6 families
+(counterpart of ``repro/models/lm.py``).
 
 * **A loop over layers.**  The reference stacks each layer cycle's
   parameters and runs one ``lax.scan``; here :class:`LM` is an
@@ -14,8 +14,10 @@
 * **Parameters** are stored in the dtype their uses read (see
   :mod:`repro_torch.models.types`) and never require gradients.
 
-Not ported yet: MoE layers, the RG-LRU block, cross-attention and the
-frontend embeddings (ROADMAP.md §A).
+A MoE layer (``cfg.is_moe_layer``) holds ``moe`` in place of ``mlp``, as
+in the reference.  Its load-balance term is not summed: serving does not
+read it, and it comes back with ``loss``.  Not ported yet: the RG-LRU
+block, cross-attention and the frontend embeddings (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -59,8 +61,6 @@ def layer_plans(cfg: ModelConfig) -> List[LayerPlan]:
 def _check_plan(plan: LayerPlan) -> None:
     if plan.kind == "rec":
         raise NotPortedError("the RG-LRU block is not ported yet")
-    if plan.moe:
-        raise NotPortedError("MoE layers are not ported yet")
     if plan.kind not in ("attn", "rwkv"):
         raise ValueError(plan.kind)
 
@@ -74,7 +74,10 @@ def block_specs(cfg: ModelConfig, plan: LayerPlan) -> Dict[str, Any]:
     s: Dict[str, Any] = {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg)}
     if plan.kind == "attn":
         s["attn"] = L.attn_specs(cfg)
-        s["mlp"] = L.mlp_specs(cfg)
+        if plan.moe:
+            s["moe"] = L.moe_specs(cfg)
+        else:
+            s["mlp"] = L.mlp_specs(cfg, gated=cfg.gated_mlp)
     else:
         s["tm"] = R.rwkv_time_mix_specs(cfg)
         s["cm"] = R.rwkv_channel_mix_specs(cfg)
@@ -119,7 +122,11 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
             new_cache.update(nc)
         x = x + y
         h = L.norm_apply(p["ln2"], x, cfg.norm)
-        return x + L.mlp_apply(p["mlp"], cfg, h), new_cache
+        if plan.moe:
+            y, _ = L.moe_apply(p["moe"], cfg, h)
+        else:
+            y = L.mlp_apply(p["mlp"], cfg, h)
+        return x + y, new_cache
     # rwkv
     h = L.norm_apply(p["ln1"], x, "layernorm")
     st = {"shift": cache["tm_shift"], "wkv": cache["wkv"]} \
@@ -149,15 +156,18 @@ def param_specs(cfg: ModelConfig) -> SpecTree:
             "layers": [block_specs(cfg, plan) for plan in layer_plans(cfg)]}
 
 
-def _parameter_dict(leaves: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in leaves.items()})
+def _parameter_dict(leaves: Mapping[str, Any]) -> nn.ParameterDict:
+    """A group's leaves as frozen parameters; a nested group (the MoE
+    layer's ``shared`` expert) becomes a sub-dict under its key."""
+    return nn.ParameterDict({
+        k: _parameter_dict(v) if isinstance(v, Mapping)
+        else nn.Parameter(v, requires_grad=False) for k, v in leaves.items()})
 
 
 class Block(nn.Module):
     """One layer's parameters: a :class:`torch.nn.ParameterDict` per group
-    (``ln1``, ``attn``, ``mlp``, ``ln2`` or ``ln1``, ``tm``, ``ln2``,
-    ``cm``), indexable like the reference's parameter dicts."""
+    (``ln1``, ``attn``, ``mlp`` or ``moe``, ``ln2`` or ``ln1``, ``tm``,
+    ``ln2``, ``cm``), indexable like the reference's parameter dicts."""
 
     def __init__(self, groups: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
@@ -198,7 +208,7 @@ def _load_tree(specs, values, compute_dtype, device, where=""):
 
 
 class LM(nn.Module):
-    """Decoder-only LM (dense and RWKV-6 families) on one device.
+    """Decoder-only LM (dense, MoE and RWKV-6 families) on one device.
 
     ``device`` defaults to the card; with no CUDA device that raises
     :class:`~repro_torch.selector.BackendUnavailableError`.  ``params``

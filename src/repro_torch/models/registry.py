@@ -13,7 +13,8 @@ from repro_torch.models.types import ModelConfig, NotPortedError
 def build_model(cfg: ModelConfig, *,
                 device: Union[str, torch.device] = "cuda",
                 seed: int = 0) -> LM:
-    """An :class:`LM` for the decoder-only families, with weights drawn
+    """An :class:`LM` for the decoder-only families (dense, MoE, RWKV-6),
+    with weights drawn
     from ``seed`` on ``device`` (the card unless the caller asks for the
     CPU).  Encoder-decoder configs are not ported yet."""
     if cfg.is_encdec:

@@ -69,8 +69,10 @@ class ParamSpec:
         fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
         scale = self.scale if self.scale is not None else \
             1.0 / math.sqrt(fan_in)
+        # scaled in place: the float32 draw is the only temporary (5.4e9
+        # values for one of llama4's (128, 5120, 8192) expert leaves)
         x = torch.randn(self.shape, generator=gen, device=device)
-        return (x * scale).to(dtype)
+        return x.mul_(scale).to(dtype)
 
 
 SpecTree = Any   # nested dicts / lists with ParamSpec leaves
@@ -107,7 +109,7 @@ def count_params(specs: SpecTree) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One configuration covering all assigned architecture families (the
-    reference's fields; only the dense and RWKV families are ported)."""
+    reference's fields; the dense, MoE and RWKV families are ported)."""
 
     name: str
     family: str                 # dense | moe | hybrid | ssm | encdec | vlm

@@ -629,6 +629,12 @@ ATTN_CASES = [
     (1, 1000, 4, 2, 80, True, 300),
     (2, 1, 4, 4, 80, True, None),
     (1, 129, 4, 2, 80, False, None),
+    # the prefill shapes of deepseek-7b (MHA), granite-20b (48 query heads
+    # on one KV head), qwen3-moe-30b-a3b (D = 64) and llama4's 2-layer check
+    (4, 1024, 32, 32, 128, True, None),
+    (4, 1024, 48, 1, 128, True, None),
+    (4, 1024, 32, 4, 64, True, None),
+    (2, 1024, 40, 8, 128, True, None),
 ]
 
 
@@ -794,11 +800,13 @@ def _params_of(lm):
 #: at its real head size 80 in bf16 (2 layers of 2 heads, d_model 160),
 #: which runs the tensor-core kernel
 ENGINE_CASES = [("qwen3-1.7b", None, "float32"), ("rwkv6-3b", None, "float32"),
-                ("stablelm-3b", 80, "bfloat16")]
+                ("stablelm-3b", 80, "bfloat16"),
+                ("qwen3-moe-30b-a3b", None, "float32")]
 
 
 @pytest.mark.parametrize("name,head_dim,dtype", ENGINE_CASES,
-                         ids=["qwen3-1.7b", "rwkv6-3b", "stablelm-3b-d80"])
+                         ids=["qwen3-1.7b", "rwkv6-3b", "stablelm-3b-d80",
+                              "qwen3-moe-30b-a3b"])
 def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
                                                       head_dim, dtype):
     """A reduced model served on the card: each layer's kernel launches
@@ -844,6 +852,49 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
         assert float((got - want).abs().max()) < 2e-3
     else:
         assert float((got - want).norm() / want.norm()) < 0.1
+
+
+def _moe_weights(specs, rng):
+    """A numpy leaf per spec, at 1/sqrt(the contraction width) (the router
+    at its own 0.02), so the MoE output is of order 1."""
+    if isinstance(specs, dict):
+        return {k: _moe_weights(v, rng) for k, v in specs.items()}
+    scale = specs.scale or 1.0 / np.sqrt(specs.shape[-2])
+    return (rng.standard_normal(specs.shape) * scale).astype(np.float32)
+
+
+def _tensors(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(device)
+
+
+@pytest.mark.parametrize("T", [1, 64], ids=["decode", "prefill"])
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+def test_cuda_moe_apply_matches_cpu(cuda_device, name, T):
+    """The MoE layer on the card against the same call on the CPU, fp32,
+    reduced (8 experts; qwen3-moe top-2, llama4 top-1 with its shared
+    expert), at the default capacity factor: the same routes (expert ids
+    and kept slots), ``y`` and the load-balance term within 1e-5 (the
+    card's fp32 products are full fp32, only their sums' order differs)."""
+    from repro_torch.models import layers as L
+    cfg = configs.reduced(configs.get(name))
+    rng = np.random.default_rng(T)
+    weights = _moe_weights(L.moe_specs(cfg), rng)
+    x = rng.standard_normal((4, T, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p, xt = _tensors(weights, dev), torch.from_numpy(x).to(dev)
+        _, gates, idx = L.moe_route(p, cfg, xt)
+        y, aux = L.moe_apply(p, cfg, xt)
+        pos = L._positions_in_expert(idx.reshape(4, -1))
+        out[str(dev)] = [t.cpu() for t in (gates, idx, pos, y, aux)]
+    (g0, i0, p0, y0, a0), (g1, i1, p1, y1, a1) = out["cpu"], out["cuda"]
+    assert torch.equal(i0, i1) and torch.equal(p0, p1)
+    assert float(y0.abs().max()) > 0.5
+    for a, b in ((g0, g1), (y0, y1), (a0, a1)):
+        assert float((a - b).abs().max()) < 1e-5
 
 
 # --- the sharded fleet and the device guard ------------------------------------

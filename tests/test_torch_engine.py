@@ -37,7 +37,10 @@ from repro_torch.serve import (Engine, Request, make_serve_step,
                                plan_decode_placement)
 from repro_torch.serve.__main__ import main as serve_main
 
-ARCHS = ["qwen3-1.7b", "stablelm-3b", "rwkv6-3b"]
+#: the MoE configs at their default capacity factor: the engine's prefill
+#: waves and decode steps drop the tokens the reference's drop
+ARCHS = ["qwen3-1.7b", "stablelm-3b", "qwen3-moe-30b-a3b",
+         "llama4-maverick-400b-a17b", "rwkv6-3b"]
 SLOTS, MAX_LEN = 2, 32
 
 
@@ -239,3 +242,12 @@ def test_serve_cli_runs_the_reduced_example(tmp_path, capsys):
     assert "placement: mesh dp8xtp32" in out
     assert out.count("  req ") == 3
     assert "2 prefills, 2 decode steps" in out
+
+
+def test_serve_cli_serves_a_moe_model_on_the_cpu(capsys):
+    serve_main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device",
+                "cpu", "--requests", "3", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "qwen3-moe-30b-a3b (reduced, float32) on cpu" in out
+    assert out.count("  req ") == 3
+    assert "2 prefills, 4 decode steps" in out

@@ -2,14 +2,22 @@
 
 For ``reduced(qwen3-1.7b)`` (dense attention, GQA, qk-norm, tied
 embeddings), ``reduced(stablelm-3b)`` (layernorm with bias, 25% rotary,
-untied embeddings; also at its real head size 80) and
-``reduced(rwkv6-3b)`` (RWKV-6 time and channel mixes), in float32: the reference's ``LM.init(PRNGKey(0))`` parameters go to the
-port through ``repro_torch.convert``, the same seeded tokens go to both,
+untied embeddings; also at its real head size 80), ``reduced(deepseek-7b)``
+(MHA), ``reduced(granite-20b)`` (MQA, layernorm, the ungated gelu MLP),
+``reduced(qwen3-moe-30b-a3b)`` (MoE on every layer, top-2 of 8),
+``reduced(llama4-maverick-400b-a17b)`` (dense and MoE layers in turns,
+top-1 sigmoid routing, a shared expert) and ``reduced(rwkv6-3b)``
+(RWKV-6 time and channel mixes), in float32: the reference's
+``LM.init(PRNGKey(0))`` parameters go to the port through
+``repro_torch.convert``, the same seeded tokens go to both,
 and ``forward``, ``prefill`` (logits and state) and six ``decode_step``
 logits must agree within the reference's decode-parity tolerance
 (atol 2e-3, ``tests/test_decode_parity.py``).  The port's own prefill +
 decode must also reproduce its own forward, the reference's strongest
-serving invariant.
+serving invariant.  MoE configs run at capacity factor 64, as the
+reference's decode-parity test runs them: at the default 1.25 the
+forward's longer sequences drop tokens that prefill and decode keep, so
+the two differ by design (``tests/test_torch_moe.py`` holds the drops).
 """
 import dataclasses
 
@@ -26,7 +34,11 @@ from repro_torch import configs, convert
 from repro_torch.models import LM, NotPortedError, build_model, count_params
 from repro_torch.models.lm import param_specs
 
-ARCHS = ["qwen3-1.7b", "stablelm-3b", "rwkv6-3b"]
+ARCHS = ["qwen3-1.7b", "stablelm-3b", "deepseek-7b", "granite-20b",
+         "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-3b"]
+#: the capacity factor MoE configs run at here (the reference's
+#: decode-parity test's)
+PARITY_CAPACITY = 64.0
 ATOL = 2e-3
 B, T_TOTAL, T_PROMPT = 2, 12, 6
 
@@ -44,9 +56,17 @@ def _pair(name, rcfg):
     return name, ref, params, lm, tokens
 
 
+def _parity_case(cfg):
+    """``cfg`` with MoE capacity to spare (either package's config)."""
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=PARITY_CAPACITY)
+    return cfg
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
-    return _pair(request.param, RC.reduced(RC.get(request.param)))
+    return _pair(request.param,
+                 _parity_case(RC.reduced(RC.get(request.param))))
 
 
 def _t(tokens):
@@ -55,7 +75,7 @@ def _t(tokens):
 
 def test_config_conversion_matches_ports_own_registry(pair):
     name, ref, _, lm, _ = pair
-    assert lm.cfg == configs.reduced(configs.get(name))
+    assert lm.cfg == _parity_case(configs.reduced(configs.get(name)))
     assert lm.cfg.compute_dtype == torch.float32
     assert count_params(lm.param_specs()) == \
         ref_count_params(ref.param_specs())
@@ -64,12 +84,18 @@ def test_config_conversion_matches_ports_own_registry(pair):
 @pytest.mark.parametrize("name", ARCHS)
 def test_full_width_parameter_count_matches_reference(name):
     """Specs only, nothing allocated: 1.72 B for qwen3-1.7b, 2.80 B for
-    stablelm-3b, 3.08 B for rwkv6-3b, the same as the reference's."""
+    stablelm-3b, 6.91 B for deepseek-7b, 20.3 B for granite-20b, 30.1 B
+    for qwen3-moe-30b-a3b, 398 B for llama4-maverick-400b-a17b, 3.10 B
+    for rwkv6-3b, the same as the reference's."""
     ours = count_params(param_specs(configs.get(name)))
     theirs = ref_count_params(ref_build_model(RC.get(name)).param_specs())
     assert ours == theirs
     assert ours == pytest.approx({"qwen3-1.7b": 1.72e9,
                                   "stablelm-3b": 2.795e9,
+                                  "deepseek-7b": 6.910e9,
+                                  "granite-20b": 20.316e9,
+                                  "qwen3-moe-30b-a3b": 30.079e9,
+                                  "llama4-maverick-400b-a17b": 397.69e9,
                                   "rwkv6-3b": 3.08e9}[name], rel=0.01)
 
 
@@ -193,14 +219,22 @@ def test_unported_architectures_say_so(name):
         configs.get(name)
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "qwen3-moe-30b-a3b",
+@pytest.mark.parametrize("name", ["recurrentgemma-9b",
                                   "seamless-m4t-large-v2"])
 def test_unported_layers_say_so(name):
-    """``build_model`` refuses RG-LRU, MoE and encoder-decoder models."""
+    """``build_model`` refuses RG-LRU and encoder-decoder models."""
     rcfg = RC.reduced(RC.get(name))
     cfg = convert.model_config_from_reference(dataclasses.asdict(rcfg))
     with pytest.raises(NotPortedError):
         build_model(cfg, device="cpu")
+
+
+def test_configs_star_import_gives_every_listed_name():
+    """``repro_torch.configs.__all__`` names only what the module defines,
+    so ``from repro_torch.configs import *`` works."""
+    namespace = {}
+    exec("from repro_torch.configs import *", namespace)
+    assert set(configs.__all__) <= set(namespace)
 
 
 def test_unknown_architecture_is_a_key_error():
