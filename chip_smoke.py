@@ -91,29 +91,36 @@ Phases:
 7. hold both flash-attention kernels and the WKV6 kernel against their
    plain versions: the tensor-core kernel (bf16) and the scalar one
    (fp32); causal, windowed and bidirectional; GQA and MQA; ragged T;
-   head sizes 16 to 128, with D = 80 (a 64-column block and a 16-column
+   head sizes 16 to 256, with D = 80 (a 64-column block and a 16-column
    tail) also at stablelm-3b's prefill shape, GQA, T = 1, 100, 129 and a
-   windowed T = 1,000; for WKV6 a decode step,
+   windowed T = 1,000, and D = 256 (its own block shape) at
+   recurrentgemma-9b's prefill shape (MQA), its 4,096-token prompt past
+   the 2,048 window, GQA, T = 1, 100, 129 and a windowed T = 1,000; for
+   WKV6 a decode step,
    ragged T, one step past the split kernel's chunk, RWKV-6's strong
    decays (w = exp(-exp(x)), x in [-8, 2]) and a two-call state carry;
 8. plan the decode fleet's mesh through the port's selection service from
    a hand-made dry-run report;
 9. serve ``qwen3-1.7b``, ``stablelm-3b``, ``rwkv6-3b``, ``deepseek-7b``,
-   ``granite-20b`` and ``qwen3-moe-30b-a3b`` at full width and depth
-   (random bf16 weights from the seed; each model freed before the next
-   is drawn): 8 requests of 1,024-token prompts over 4 slots, 32 new
-   tokens each — the LM path, read through the kernels' launch counters
-   (28, 32, 30, 52 and 48 flash-attention launches per prefill, every
-   one the tensor-core kernel; 32 WKV6 launches per prefill and per
-   decode step) — after a warm-up at the traffic's shapes, and once more
-   for the spread.  Then: all logits finite; the first wave's prefill
+   ``granite-20b``, ``qwen3-moe-30b-a3b`` and ``recurrentgemma-9b`` at
+   full width and depth (random bf16 weights from the seed; each model
+   freed before the next is drawn): 8 requests of 1,024-token prompts
+   over 4 slots, 32 new tokens each — the LM path, read through the
+   kernels' launch counters (28, 32, 30, 52, 48 and 12 flash-attention
+   launches per prefill, one an attention layer, every one the
+   tensor-core kernel; 32 WKV6 launches per prefill and per decode
+   step) — after a warm-up at the traffic's shapes, and once more for
+   the spread.  Then: all logits finite; the first wave's prefill
    logits against a pass whose kernel is swapped for its plain version
    (for the MoE model also the share of (token, k) routes the two passes
    agree on, layer by layer); for attention, the first wave's prefill
    timed in turns with the tensor-core kernel and with the scalar one it
    replaced; prefill + decode against ``forward`` at full width, 4
    layers, fp32 (the scalar attention kernel; MoE at capacity factor
-   64); and the kernels at the shapes the path gave them, against their
+   64; recurrentgemma-9b's rec, rec, attn, rec with a 2,100-token
+   prompt and 8 steps past its window); for recurrentgemma-9b a 1 x
+   4,096-token prefill past its window and 8 decode steps, through the
+   kernel and the plain version (``[window]``); and the kernels at the shapes the path gave them, against their
    plain versions and timed beside their bounds, the kernel they
    replaced (the scalar attention kernel, bf16; the sequential WKV6
    kernel) and, for attention, ``scaled_dot_product_attention``; for
@@ -126,7 +133,8 @@ Phases:
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
-    kernel, busy share).
+    kernel, busy share), and for recurrentgemma-9b the RG-LRU scan's and
+    its fp32 gate products' share of a prefill wave.
 
 Every phase runs on every call.  Every check that fails exits non-zero.
 The last three lines are the ``{"kernels": [...]}`` record, the card's
@@ -154,9 +162,12 @@ shape, with the ``kernel`` that k takes.
 ``decode_earlier_graph_ms`` the sequential kernel) and its bound.
 ``flash_attention`` (qwen3-1.7b, D = 128), ``flash_attention_d80``
 (stablelm-3b, D = 80), ``flash_attention_mha128`` (deepseek-7b),
-``flash_attention_mqa`` (granite-20b) and ``flash_attention_d64``
-(qwen3-moe-30b-a3b) add ``wave_ms`` and ``wave_earlier_ms``: the first
-wave's prefill with the tensor-core kernel and with the scalar one.
+``flash_attention_mqa`` (granite-20b), ``flash_attention_d64``
+(qwen3-moe-30b-a3b) and ``flash_attention_d256`` (recurrentgemma-9b)
+add ``wave_ms`` and ``wave_earlier_ms``: the first wave's prefill with
+the tensor-core kernel and with the scalar one.
+``flash_attention_scalar`` and ``flash_attention_scalar_d256`` are the
+scalar kernel in fp32 at qwen3-1.7b's and recurrentgemma-9b's shapes.
 ``flash_attention_llama4`` is the kernel at the llama4 check's shape,
 its launches that check's one prefill.
 Without a CUDA device the script exits non-zero before printing any
@@ -1811,6 +1822,16 @@ ATTN_CASES = [
     (1, 1000, 4, 2, 80, True, 300),
     (2, 1, 4, 4, 80, True, None),
     (1, 129, 4, 2, 80, False, None),
+    # D = 256 (its own block shape: 64-row tiles): recurrentgemma-9b's
+    # prefill (MQA), its 4,096-token prompt past the 2,048 window, GQA,
+    # T = 1, 100, 129 (bidirectional) and a window over T = 1,000
+    (4, 1024, 16, 1, 256, True, None),
+    (1, 4096, 16, 1, 256, True, 2048),
+    (2, 256, 8, 2, 256, True, None),
+    (2, 1, 4, 1, 256, True, None),
+    (1, 100, 4, 1, 256, True, None),
+    (1, 129, 4, 2, 256, False, None),
+    (1, 1000, 4, 1, 256, True, 300),
 ]
 #: (B, T, H, N): a decode step, ragged T, both model head sizes, and one
 #: step past the split kernel's 16-step chunk
@@ -1831,8 +1852,10 @@ WKV_TOL = (1e-4, 1e-3)
 #: D = 128), ``flash_attention_mqa`` at granite-20b's (48 query heads on
 #: one KV head), ``flash_attention_d64`` at qwen3-moe-30b-a3b's (D = 64),
 #: ``flash_attention_llama4`` at the llama4 check's (2 x 1,024, 40 heads
-#: over 8), ``flash_attention_scalar`` the scalar kernel (fp32) at
-#: qwen3-1.7b's shape
+#: over 8), ``flash_attention_d256`` at recurrentgemma-9b's (D = 256, 16
+#: query heads on one KV head), ``flash_attention_scalar`` the scalar
+#: kernel (fp32) at qwen3-1.7b's shape and ``flash_attention_scalar_d256``
+#: at recurrentgemma-9b's
 _ATTN = dict(op="flash_attention",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:28")
@@ -1843,7 +1866,9 @@ LM_KERNELS = {
     "flash_attention_mqa": _ATTN,
     "flash_attention_d64": _ATTN,
     "flash_attention_llama4": _ATTN,
+    "flash_attention_d256": _ATTN,
     "flash_attention_scalar": _ATTN,
+    "flash_attention_scalar_d256": _ATTN,
     "wkv6": dict(op="wkv6", source="src/repro_torch/csrc/wkv6_scan.cu",
                  replaces="src/repro/kernels/rwkv6_scan.py:25"),
 }
@@ -1853,7 +1878,17 @@ SERVED = [("qwen3-1.7b", "flash_attention"),
           ("rwkv6-3b", "wkv6"),
           ("deepseek-7b", "flash_attention_mha128"),
           ("granite-20b", "flash_attention_mqa"),
-          ("qwen3-moe-30b-a3b", "flash_attention_d64")]
+          ("qwen3-moe-30b-a3b", "flash_attention_d64"),
+          ("recurrentgemma-9b", "flash_attention_d256")]
+#: the record entries whose ``time_lm_kernel`` also times the scalar
+#: kernel in fp32 at their path's shape (its entry's name)
+SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
+                  "flash_attention_d256": "flash_attention_scalar_d256"}
+#: the windowed model's long-prompt check: a prompt past its window (the
+#: ring write with T > S), then decode steps (the ring wraps); and the
+#: fp32 4-layer check's prompt and steps there
+WINDOW_PROMPT, WINDOW_STEPS = 4096, 8
+WINDOW_PARITY_PROMPT, WINDOW_PARITY_STEPS = 2100, 8
 #: the llama4 check: full width, this many layers (one dense, one MoE)
 LLAMA4 = "llama4-maverick-400b-a17b"
 LLAMA4_LAYERS = 2
@@ -2095,9 +2130,12 @@ def profile_window(torch, fn, dev="cuda"):
     return wall, busy_us, by_name
 
 
-def phase_parity_4_layers(torch, cfg, seed, dev="cuda"):
-    """``cfg``'s width, 4 layers, fp32: prefill + 6 decode steps against
-    ``forward`` within the reference's decode-parity tolerance 2e-3."""
+def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6):
+    """``cfg``'s width, 4 layers, fp32: a ``prompt``-token prefill and
+    ``steps`` decode steps against ``forward`` over all ``prompt + steps``
+    tokens, within the reference's decode-parity tolerance 2e-3.  A
+    windowed model takes a prompt past its window, so that the prefill
+    writes its ring with T > S and decode wraps it."""
     from repro_torch.models import build_model
     name = cfg.name
     cfg = dataclasses.replace(cfg, num_layers=4, dtype="float32")
@@ -2112,21 +2150,26 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda"):
             f"{MOE_PARITY_CAPACITY:g}, no drops (at 1.25 the forward's longer "
             f"call drops tokens that prefill and decode keep)")
     model = build_model(cfg, device=dev, seed=seed)
+    kinds = ", ".join(plan.kind for plan in model.plans)
+    total = prompt + steps
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+    tokens = torch.randint(0, cfg.vocab_size, (2, total), generator=gen,
                            device=dev)
     with torch.inference_mode():
         full = model({"tokens": tokens})
-        state = model.init_state(2, 12)
-        logits, state = model.prefill({"tokens": tokens[:, :6]}, state)
-        errs = [float((logits - full[:, 5]).abs().max())]
-        for t in range(6, 12):
+        state = model.init_state(2, total)
+        slots = sorted({st["k"].shape[1] for st in state if "k" in st})
+        logits, state = model.prefill({"tokens": tokens[:, :prompt]}, state)
+        errs = [float((logits - full[:, prompt - 1]).abs().max())]
+        for t in range(prompt, total):
             logits, state = model.decode_step(tokens[:, t], t, state)
             errs.append(float((logits - full[:, t]).abs().max()))
     check(max(errs) < 2e-3, f"{name} 4-layer fp32: prefill/decode vs "
           f"forward max |err| {max(errs):.3g} >= 2e-3")
-    log(f"[serve] {name} 4 layers fp32 at d_model {cfg.d_model}: prefill + "
-        f"6 decode steps vs forward max |err| {max(errs):.3g} (< 2e-3) ok")
+    log(f"[serve] {name} 4 layers fp32 at d_model {cfg.d_model} ({kinds}; "
+        f"KV cache slots {slots}): {prompt}-token prefill + {steps} decode "
+        f"steps vs forward over {total} max |err| {max(errs):.3g} (< 2e-3) "
+        f"ok")
     del model, full, state
     free_card(torch, dev)
 
@@ -2191,9 +2234,13 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
           * (max_new - 1), f"{name}: {eng.prefills} prefills, "
           f"{eng.decode_steps} decode steps")
     L = cfg.num_layers
+    # the layers that run the path's kernel: the attention layers (12 of
+    # recurrentgemma-9b's 38), or every RWKV-6 layer
+    n_kernel = sum(plan.kind == ("attn" if kernel == "flash_attention"
+                                 else "rwkv") for plan in model.plans)
     if kernel == "flash_attention":
-        # every prefill launch the tensor-core kernel
-        n = L * eng.prefills
+        # every prefill launch the tensor-core kernel, one an attention layer
+        n = n_kernel * eng.prefills
         expect = {"flash_attention": n, "flash_attention_tc": n,
                   "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
     else:
@@ -2201,17 +2248,17 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         # sequential one
         expect = {"flash_attention": 0, "flash_attention_tc": 0,
                   "flash_attention_scalar": 0,
-                  "wkv6": L * (eng.prefills + eng.decode_steps),
+                  "wkv6": n_kernel * (eng.prefills + eng.decode_steps),
                   "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
-          f"expected {expect} for {L} layers")
+          f"expected {expect} for {n_kernel} of {L} layers")
     hist = metrics.snapshot()["histograms"]
     pre_s, dec_s = hist["serve.prefill"]["sum"], hist["serve.decode"]["sum"]
     pre_tok = n_requests * prompt_len
     dec_tok = eng.decode_steps * slots
     log(f"[serve] {name}: {n_requests} requests x {prompt_len}-token "
         f"prompts over {slots} slots, {max_new} new tokens each, in "
-        f"{wall:.3f} s; launches {launches} (= {L} layers x "
+        f"{wall:.3f} s; launches {launches} (= {n_kernel} of {L} layers x "
         f"{'prefills' if kernel == 'flash_attention' else 'model calls'})")
     log(f"[serve] {name}: prefill {pre_tok} tokens in {pre_s:.4f} s = "
         f"{pre_tok / pre_s:.1f} tokens/s; decode {eng.decode_steps} steps "
@@ -2300,13 +2347,81 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             f"ms = {slots * prompt_len / waves['tc']:.1f} tokens/s, scalar "
             f"kernel (the one it replaced) {waves['scalar'] * 1e3:.3f} ms = "
             f"{slots * prompt_len / waves['scalar']:.1f} tokens/s")
+    if cfg.window:
+        phase_window(torch, np, model, seed, card, dev=dev)
     shapes = dict(B=slots, T=prompt_len, d=cfg.d_model, H=cfg.num_heads,
                   G=cfg.num_kv_heads, D=cfg.head_dim,
                   N=cfg.rwkv_head_dim, dtype=cfg.compute_dtype)
     del model, eng, logits, logits_p, first
     free_card(torch, dev)
     return dict(kernel=kernel, launches=launches, shapes=shapes,
-                waves=waves, layers=L)
+                waves=waves, layers=n_kernel)
+
+
+def phase_window(torch, np, model, seed, card, prompt_len=WINDOW_PROMPT,
+                 steps=WINDOW_STEPS, dev="cuda"):
+    """A windowed model past its window, at full width in bf16: one
+    ``prompt_len``-token prefill (longer than the window: each attention
+    layer's ring cache of ``window`` slots is written with T > S) and
+    ``steps`` decode steps (the ring wraps), once through the kernel and
+    once with the plain version; the prefill's and every step's logits
+    finite and within ``REL_L2_TOL`` relative L2 of the plain pass's, and
+    one tensor-core launch an attention layer in the kernel pass."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    name = cfg.name
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, prompt_len + steps)),
+                             device=dev)
+    n_attn = sum(plan.kind == "attn" for plan in model.plans)
+
+    def run():
+        out = []
+        with torch.inference_mode():
+            state = model.init_state(1, prompt_len + steps)
+            logits, state = model.prefill(
+                {"tokens": tokens[:, :prompt_len]}, state)
+            out.append(logits)
+            for t in range(prompt_len, prompt_len + steps):
+                logits, state = model.decode_step(tokens[:, t], t, state)
+                out.append(logits)
+        slots = sorted({st["k"].shape[1] for st in state if "k" in st})
+        return out, slots
+
+    sync(torch, dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got, slots = run()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    check(launches["flash_attention_tc"] == launches["flash_attention"]
+          == n_attn, f"{name} long prompt: launches {launches}, expected "
+          f"{n_attn} tensor-core launches (one prefill)")
+    check(slots == [cfg.window] and prompt_len > cfg.window,
+          f"{name} long prompt: KV cache slots {slots}, window {cfg.window}")
+    original = ops.flash_attention
+    ops.flash_attention = fa.attention_ref
+    try:
+        want, _ = run()
+    finally:
+        ops.flash_attention = original
+    rels = [rel_l2(a, b) for a, b in zip(got, want)]
+    check(all(bool(torch.isfinite(a.float()).all()) for a in got),
+          f"{name} long prompt: non-finite logits")
+    check(max(rels) < REL_L2_TOL, f"{name} long prompt: kernel vs plain "
+          f"logits relative error {max(rels):.3g} >= {REL_L2_TOL}")
+    log(f"[window] {name}: 1 x {prompt_len}-token prefill past the window "
+        f"{cfg.window} (ring caches of {slots[0]} slots written with T > S) "
+        f"+ {steps} decode steps (the ring wraps) in {wall:.3f} s, "
+        f"launches {launches}; kernel vs plain attention logits relative "
+        f"L2 prefill {rels[0]:.3g}, decode steps "
+        f"{' '.join(f'{r:.3g}' for r in rels[1:])} (< {REL_L2_TOL}); all "
+        f"finite; on {card}")
+    del got, want, tokens
+    free_card(torch, dev)
 
 
 def phase_llama4(torch, np, seed, card, batch=2, prompt_len=1024, steps=4,
@@ -2523,19 +2638,65 @@ def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
     for t_us, key, count in by_name[:8]:
         log(f"[profile]   {t_us / 1e3:9.3f} ms {t_us / total:6.1%} "
             f"x{count} {key[:90]}")
+    if "rec" in cfg.block_pattern:
+        rec_shares(torch, model, first, dev)
     del model, first
     free_card(torch, dev)
 
 
+def rec_shares(torch, model, batch, dev="cuda"):
+    """The RG-LRU scan's and the float32 gate products' share of a prefill
+    wave of ``batch``: each timed alone (CUDA events) at the wave's shapes
+    on the first RG-LRU layer's weights, times the RG-LRU layers, over
+    the wave's time (host clock around a synchronized prefill, the mean
+    of three).  The scan's and the products' kernels are PyTorch's own
+    (elementwise and fp32 GEMM), which the profile's names do not tell
+    apart from the rest of the model's."""
+    from repro_torch.models import recurrent as R
+    cfg = model.cfg
+    B, T = batch["tokens"].shape
+    rec = [i for i, plan in enumerate(model.plans) if plan.kind == "rec"]
+    p = model.blocks[rec[0]]["rec"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((B, T, cfg.lru_width), generator=gen, device=dev)
+    with torch.inference_mode():
+        log_a, gated = R._rglru_gates(p, x)
+        scan_ms = time_ms(torch, lambda: R.rglru_scan(log_a, gated, None),
+                          iters=10, warmup=2)
+        gate_ms = time_ms(torch, lambda: (x @ p["w_a"], x @ p["w_x"]),
+                          iters=10, warmup=2)
+        secs = []
+        for _ in range(3):
+            state = model.init_state(B, T)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            model.prefill(batch, state)
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t0)
+            del state
+    wave_ms = sum(secs) / len(secs) * 1e3
+    flops = 2 * 2 * B * T * cfg.lru_width ** 2
+    log(f"[profile] {cfg.name}: prefill wave {B} x {T} {wave_ms:.3f} ms; "
+        f"RG-LRU scan {scan_ms:.4f} ms a layer x {len(rec)} layers = "
+        f"{len(rec) * scan_ms / wave_ms:.1%} of it; fp32 gate products "
+        f"(x @ w_a, x @ w_x; {flops:.3g} flops, "
+        f"{flops / gate_ms / 1e9:.1f} TFLOP/s) {gate_ms:.4f} ms a layer x "
+        f"{len(rec)} = {len(rec) * gate_ms / wave_ms:.1%} of it")
+    del x, log_a, gated
+    return dict(wave_ms=wave_ms, scan_ms=scan_ms, gate_ms=gate_ms,
+                layers=len(rec))
+
+
 def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
-                   name=None, scalar_entry=False):
+                   name=None, scalar_entry=None):
     """The kernel at the shapes its path gave it: held against its plain
     version, then timed beside the plain version, the library call (SDPA
     for attention, none for WKV6) and its bound; ``name`` is its record
     entry (default ``kernel``).  For attention, also the scalar kernel on
     the same bf16 inputs (the kernel this path ran before the tensor-core
-    one: ``earlier_ms``) and, with ``scalar_entry``, as its own entry
-    under ``"scalar"``, on fp32 inputs of the same shape, its dtype."""
+    one: ``earlier_ms``) and, with ``scalar_entry`` (the name of its
+    record entry), as its own entry under ``"scalar"``, on fp32 inputs of
+    the same shape, its dtype."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
     name = name or kernel
@@ -2575,14 +2736,15 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
     if kernel == "flash_attention" and scalar_entry:
         q32, k32, v32 = (x.float() for x in (q, k, v))
         err = check_attention(torch, q32, k32, v32, True, None,
-                              f"path shape {(B, T, H, G, D)} fp32", errs)
+                              f"path shape {(B, T, H, G, D)} fp32", errs,
+                              scalar_entry)
         log(f"[lm-parity] flash attention float32 (scalar) at the path "
             f"shape: max |err| {err:.3g} ok")
         # the scalar kernel's fp32 FMAs: the fp32 peak off the tensor cores
         r["scalar"] = timed(q32, k32, v32, "scalar", FP32_FLOPS_PER_S)
         del q32, k32, v32
         sc = r["scalar"]
-        log(f"[time] flash_attention_scalar: kernel {sc['ms']:.4f} ms, "
+        log(f"[time] {scalar_entry}: kernel {sc['ms']:.4f} ms, "
             f"plain {sc['plain_ms']:.4f} ms, library "
             f"{sc['library_ms']:.4f} ms, bound {sc['bound'][0]:.5f} ms "
             f"({sc['bound'][1]}) at B={B} T={T} H={H} G={G} D={D} causal "
@@ -2725,9 +2887,14 @@ def main() -> int:
         op = LM_KERNELS[name]["op"]
         run = phase_serve(torch, np, cfg, args.seed, card, placement)
         check(run["kernel"] == op, f"{cfg.name} ran {run['kernel']}")
-        phase_parity_4_layers(torch, cfg, args.seed)
+        if cfg.window:
+            phase_parity_4_layers(torch, cfg, args.seed,
+                                  prompt=WINDOW_PARITY_PROMPT,
+                                  steps=WINDOW_PARITY_STEPS)
+        else:
+            phase_parity_4_layers(torch, cfg, args.seed)
         r = time_lm_kernel(torch, op, run["shapes"], lm_errs, args.seed,
-                           name=name, scalar_entry=name == "flash_attention")
+                           name=name, scalar_entry=SCALAR_ENTRIES.get(name))
         run["times"] = r
         if run["waves"] is not None:
             # the kernel's share of a prefill wave, with each kernel
@@ -2819,14 +2986,16 @@ def main() -> int:
                              REPLACES[r["kernel"]], launches[r["kernel"]],
                              errs[r["kernel"]], r))
     # each entry's launches: its own path's (the llama4 check's one
-    # prefill for its entry); the scalar kernel's on qwen3-1.7b's path
+    # prefill for its entry); the scalar kernel's on the path of the
+    # entry it was timed beside
     runs = {name: (run["launches"]["flash_attention_tc" if
                                    run["kernel"] == "flash_attention"
                                    else "wkv6"], run["times"])
             for name, run in lm_runs.items()}
-    qwen = lm_runs["flash_attention"]
-    runs["flash_attention_scalar"] = (
-        qwen["launches"]["flash_attention_scalar"], qwen["times"]["scalar"])
+    for name, scalar_name in SCALAR_ENTRIES.items():
+        run = lm_runs[name]
+        runs[scalar_name] = (run["launches"]["flash_attention_scalar"],
+                             run["times"]["scalar"])
     for name, spec in LM_KERNELS.items():
         n_launches, r = runs[name]
         kernels.append(entry(name, spec["source"], spec["replaces"],

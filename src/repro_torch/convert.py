@@ -38,7 +38,7 @@ from typing import (Any, Dict, Hashable, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, block_cache_specs, layer_plans
 from repro_torch.models.types import ModelConfig
 from repro_torch.selector.fused_rank import TorchFusedRankState, \
     resolve_device
@@ -178,13 +178,15 @@ def lm_state_from_reference(cfg: ModelConfig, state: Mapping[str, Any], *,
                             ) -> List[Dict[str, torch.Tensor]]:
     """A reference decode state (``LM.init_state`` / ``prefill``'s
     stacked tree, leaves as numpy arrays) as the port's per-layer list.
-    The reference's bf16 leaves arrive as float32 numpy (numpy has no
-    bf16) and are cast back to the compute dtype; the WKV state stays
+    Each leaf takes the dtype of the port's state spec: the reference's
+    bf16 leaves arrive as float32 numpy (numpy has no bf16) and are cast
+    back to the compute dtype; the WKV state and RG-LRU's ``h`` stay
     float32."""
     dev = resolve_device(device)
     out = []
-    for layer in _unstack_layers(cfg, state):
+    for plan, layer in zip(layer_plans(cfg), _unstack_layers(cfg, state)):
+        specs = block_cache_specs(cfg, plan, 1, 1)
         out.append({k: torch.tensor(np.asarray(v)).to(
-            device=dev, dtype=torch.float32 if k == "wkv"
-            else cfg.compute_dtype) for k, v in layer.items()})
+            device=dev, dtype=specs[k].storage_dtype(cfg.compute_dtype))
+            for k, v in layer.items()})
     return out

@@ -7,7 +7,8 @@
 // (:28), called by flash_attention_pallas (:85).  Two kernels, chosen by
 // the wrapper from the dtype and the head size alone:
 //
-// flash_fwd_sm90 (bf16, D in {16, 32, 64, 80, 128}): the tensor-core kernel.
+// flash_fwd_sm90 (bf16, D in {16, 32, 64, 80, 128, 256}): the tensor-core
+//   kernel.
 //   What bounds it: operations.  A causal call does 4 B H D Tq (Tq + 1) / 2
 //   flops on B Tq H D + 2 B Tk G D inputs, far above the card's ridge; at
 //   989 TFLOP/s bf16 the qwen3-1.7b prefill (B = 4, T = 1024, H = 16,
@@ -59,6 +60,15 @@
 //     of a 384-thread block (setmaxnreg's 240 does not raise its
 //     allocation here), too few to keep one tile's S while the last
 //     tile's P V is in flight.
+//   - D = 256 (recurrentgemma-9b's local attention) has a block shape of
+//     its own (Shape<D>): its O accumulator alone is 128 fp32 a consumer
+//     thread, so one consumer warpgroup of 64 query rows beside the
+//     producer in a 256-thread block (255 registers a thread), 64-key
+//     tiles (S is m64n64k16, 16 k16 steps a tile), four 64-column blocks
+//     a row and no tail, and P V as two m64n128k16 halves a k16 step into
+//     the two halves of one accumulator.  Q and two stages of K and V
+//     take 5 x 32 KB of shared memory.  With one group there is no
+//     ping-pong: the softmax and the products of a tile take turns.
 //   fp32 takes the scalar kernel: wgmma has no fp32 operands, and TF32
 //   would break the fp32 tolerance.
 //
@@ -144,8 +154,14 @@ constexpr size_t smem_bytes() {
 // columns tx + 16 j (j < 4) of each key tile and output columns
 // tx + 16 c (c < D / 16).  The 16 threads of a row group share one half
 // of a warp, so row statistics reduce with xor shuffles over 16 lanes.
+// Two blocks an SM up to D = 128; at D = 256 the 213,760 bytes of shared
+// memory allow one, and a hint of two would cap each thread's registers
+// below its 4 x 16 accumulators (spills).
+template <int D>
+constexpr int scalar_min_blocks() { return D > 128 ? 1 : 2; }
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, scalar_min_blocks<D>())
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Tq, int Tk,
                  int H, int G, int causal, int window, float scale) {
@@ -302,6 +318,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
     case 64: return launch<T, 64>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     case 80: return launch<T, 80>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -311,14 +328,30 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 namespace tc {
 
-constexpr int kBM = 128;         // query rows per block: 2 consumer groups
-constexpr int kBN = 128;         // keys per tile
 constexpr int kStages = 2;       // K/V ring depth
-constexpr int kThreads = 384;    // producer warpgroup + 2 consumer groups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The block's shape at head size D.  Up to D = 128: a producer warpgroup
+// and two consumer warpgroups of 64 query rows each (384 threads), a
+// work item 128 query rows, K/V tiles of 128 keys, and the two groups in
+// ping-pong.  D = 256 ("wide"): the m64n256 O accumulator is 128 fp32 a
+// consumer thread, which with S and P overflows the 168 registers a
+// thread of a 384-thread block may hold, so one consumer warpgroup beside
+// the producer (256 threads: up to 255 registers a thread, no setmaxnreg,
+// no ping-pong), items of 64 query rows and K/V tiles of 64 keys, which
+// keeps Q and two stages of K and V to 5 x 32 KB of shared memory.
+template <int D>
+struct Shape {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kConsumers = kWide ? 1 : 2;
+  static constexpr int kBM = 64 * kConsumers;     // query rows an item
+  static constexpr int kBN = kWide ? 64 : 128;    // keys a tile
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static_assert(kBM == kBN, "Q and K/V tiles share one geometry");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -379,26 +412,27 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)layout << 62);
 }
 
-// Shared-memory geometry of a 128-row tile of Q, K or V at head size D:
-// kFull blocks of 64 columns (128-byte rows, 128-byte swizzle) and, where
-// 64 does not divide D, one tail block of the kTail columns left (16 or
-// 32: rows and swizzle of 32 or 64 bytes).  Each block holds all 128 rows
-// of its columns, so one TMA box fills it and one descriptor layout reads
-// it.
+// Shared-memory geometry of a kRows-row tile of Q, K or V at head size D
+// (kRows = Shape<D>::kBM, 128 or 64): kFull blocks of 64 columns
+// (128-byte rows, 128-byte swizzle) and, where 64 does not divide D, one
+// tail block of the kTail columns left (16 or 32: rows and swizzle of 32
+// or 64 bytes).  Each block holds all kRows rows of its columns, so one
+// TMA box fills it and one descriptor layout reads it.
 template <int D>
 struct Geo {
+  static constexpr int kRows = Shape<D>::kBM;
   static constexpr int kFull = D / 64;
   static constexpr int kTail = D % 64;
-  static constexpr int kFullBytes = 128 * 128;
+  static constexpr int kFullBytes = kRows * 128;
   static constexpr int kTailSw = 2 * kTail;           // its row bytes
   static constexpr int kTailOffset = kFull * kFullBytes;
-  static constexpr int kTileBytes = kTailOffset + 128 * kTailSw;
+  static constexpr int kTileBytes = kTailOffset + kRows * kTailSw;
   // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
   static constexpr int kTailLayout = kTailSw == 64 ? 2 : 3;
   static constexpr int kKSteps = D / 16;              // k16 steps of Q K^T
   // Q, the K and V rings, the mbarriers (full and empty for Q, full K,
   // full V and empty for each stage), and slack to align to 1024 bytes:
-  // 164,928 bytes at D = 128, 103,488 at D = 80
+  // 164,928 bytes at D = 128 and at D = 256, 103,488 at D = 80
   static constexpr size_t kSmemBytes =
       (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (2 + 3 * kStages) + 1024;
   static_assert(kTail == 0 || kTail == 16 || kTail == 32, "head size");
@@ -415,16 +449,18 @@ struct Geo {
                          (ks - 4 * kFull) * 32, 16, 8 * kTailSw, kTailLayout);
   }
   // The MN-major descriptors of keys [16 ks, 16 ks + 16) of a V tile: one
-  // spans every full block (the leading offset steps along N from block
-  // to block), the other the tail.
+  // spans the full blocks from ``block`` on (the leading offset steps
+  // along N from block to block), the other the tail.
   static __device__ __forceinline__ uint64_t v_full_desc(uint32_t tile,
-                                                         int ks) {
-    return make_desc(tile + ks * 16 * 128, kFullBytes, 8 * 128, 1);
+                                                         int ks,
+                                                         int block = 0) {
+    return make_desc(tile + block * kFullBytes + ks * 16 * 128, kFullBytes,
+                     8 * 128, 1);
   }
   static __device__ __forceinline__ uint64_t v_tail_desc(uint32_t tile,
                                                          int ks) {
-    return make_desc(tile + kTailOffset + ks * 16 * kTailSw, 128 * kTailSw,
-                     8 * kTailSw, kTailLayout);
+    return make_desc(tile + kTailOffset + ks * 16 * kTailSw,
+                     kRows * kTailSw, 8 * kTailSw, kTailLayout);
   }
 };
 
@@ -506,6 +542,42 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S += Q K^T over one k16 step at N = the key tile's width.
+template <int N> struct SS;
+template <> struct SS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    wgmma_ss_n64(d, a, b, accumulate);
+  }
+};
+template <> struct SS<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    wgmma_ss_n128(d, a, b, accumulate);
+  }
+};
 
 // O (64 x N) += P (64 x 16, registers, bf16) * V (16 x N, shared memory,
 // MN-major: the transposed B operand).
@@ -633,7 +705,9 @@ struct Work {
   int b, h, g, q0, lo, ntiles;
 };
 
+template <int D>
 struct Items {
+  static constexpr int kBM = Shape<D>::kBM, kBN = Shape<D>::kBN;
   int total, nmt, BH, H, G, Tk, causal, window;
 
   __device__ __forceinline__ int at(int r) const {   // round r's item, or -1
@@ -664,7 +738,7 @@ struct Maps {
   CUtensorMap q, k, v, q_tail, k_tail, v_tail;
 };
 
-// One tile, 128 rows of one head from ``row``, into shared memory at
+// One tile, kRows rows of one head from ``row``, into shared memory at
 // ``dst``: a box for each full block and one for the tail, all completing
 // on ``bar``.
 template <int D>
@@ -697,11 +771,14 @@ __device__ __forceinline__ float (&acc_part(float (&a)[M]))[N] {
 // 4 j + e sits at row r + 8 (e / 2), column 8 j + 2 q + e % 2.  A thread
 // holds two rows; the four threads of a quad share them.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Shape<D>::kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ Maps maps,
                __nv_bfloat16* __restrict__ o, int B, int Tq, int Tk, int H,
                int G, int causal, int window, float scale) {
   using Gm = Geo<D>;
+  using Sh = Shape<D>;
+  constexpr int kBM = Sh::kBM, kBN = Sh::kBN;
+  constexpr int kConsumerWarps = 4 * Sh::kConsumers;
   extern __shared__ uint8_t smem_raw[];
   // TMA's swizzle and the wgmma descriptors assume 1024-byte aligned tiles
   const uint32_t raw = smem_u32(smem_raw);
@@ -717,15 +794,15 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
   const uint32_t empty = full_v + 8 * kStages;                // [kStages]
 
   const int nmt = (Tq + kBM - 1) / kBM;
-  const Items items{nmt * B * H, nmt, B * H, H, G, Tk, causal, window};
+  const Items<D> items{nmt * B * H, nmt, B * H, H, G, Tk, causal, window};
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
-    mbar_init(q_empty, 8);              // one arrival per consumer warp
+    mbar_init(q_empty, kConsumerWarps);   // one arrival per consumer warp
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty + 8 * s, 8);
+      mbar_init(empty + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -734,8 +811,9 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread issues every TMA load, running
     // ahead into the block's next item while the consumers finish one
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(kProducerRegs));
+    if constexpr (!Sh::kWide)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(kProducerRegs));
     if (threadIdx.x == 0) {
       int tiles = 0;                  // K/V tiles loaded: the ring's clock
       for (int r = 0, j; (j = items.at(r)) >= 0; ++r) {
@@ -757,21 +835,25 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
       }
     }
   } else {
-    // ---- two consumer warpgroups, 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(kConsumerRegs));
+    // ---- the consumer warpgroups, 64 query rows each ----
+    if constexpr (!Sh::kWide)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   :: "n"(kConsumerRegs));
     const int wg = threadIdx.x / 128 - 1;
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
     const int col0 = 2 * (lane % 4);
     const float scale2 = scale * kLog2e;
-    // ping-pong: group 0 issues the block's k-th Q K^T only after group 1
-    // issued its (k - 1)-th (named barrier 1), and group 1 its k-th only
-    // after group 0's k-th (barrier 2), so one group's softmax runs while
-    // the other's products do.  Both groups issue the same count.
+    // ping-pong (two consumer groups): group 0 issues the block's k-th
+    // Q K^T only after group 1 issued its (k - 1)-th (named barrier 1), and
+    // group 1 its k-th only after group 0's k-th (barrier 2), so one
+    // group's softmax runs while the other's products do.  Both groups
+    // issue the same count.
+    constexpr bool kPingPong = Sh::kConsumers == 2;
     int total_s = 0;
-    for (int r = 0, j; (j = items.at(r)) >= 0; ++r)
-      total_s += items.work(j).ntiles;
+    if constexpr (kPingPong)
+      for (int r = 0, j; (j = items.at(r)) >= 0; ++r)
+        total_s += items.work(j).ntiles;
     int tiles = 0;                    // K/V tiles consumed: the ring's clock
 
     for (int r = 0, j; (j = items.at(r)) >= 0; ++r) {
@@ -797,14 +879,16 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
 
         float s[kBN / 2];
         mbar_wait(full_k + 8 * st, ph);
-        if (wg == 1 || tiles > 0) named_sync(1 + wg);
+        if constexpr (kPingPong)
+          if (wg == 1 || tiles > 0) named_sync(1 + wg);
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < Gm::kKSteps; ++ks)   // A: this group's rows
-          wgmma_ss_n128(s, Gm::k_desc(q_s, 64 * wg, ks),
-                        Gm::k_desc(kb, 0, ks), ks > 0);
+          SS<kBN>::mma(s, Gm::k_desc(q_s, 64 * wg, ks),
+                       Gm::k_desc(kb, 0, ks), ks > 0);
         wgmma_commit();
-        if (wg == 0 || tiles + 1 < total_s) named_arrive(2 - wg);
+        if constexpr (kPingPong)
+          if (wg == 0 || tiles + 1 < total_s) named_arrive(2 - wg);
         wgmma_wait_all();
         fence_regs(s);
         if (n + 1 == w.ntiles) {        // this item's Q is read
@@ -880,9 +964,15 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kBN / 16; ++ks) {
-          if constexpr (Gm::kFull > 0)
+          if constexpr (Gm::kFull == 4) {       // D = 256: two n128 halves
+            PV<128>::mma(acc_part<0, 64>(acc), pa[ks],
+                         Gm::v_full_desc(vb, ks, 0));
+            PV<128>::mma(acc_part<64, 64>(acc), pa[ks],
+                         Gm::v_full_desc(vb, ks, 2));
+          } else if constexpr (Gm::kFull > 0) {
             PV<64 * Gm::kFull>::mma(acc_part<0, 32 * Gm::kFull>(acc), pa[ks],
                                     Gm::v_full_desc(vb, ks));
+          }
           if constexpr (Gm::kTail > 0)
             PV<Gm::kTail>::mma(acc_part<32 * Gm::kFull, Gm::kTail / 2>(acc),
                                pa[ks], Gm::v_tail_desc(vb, ks));
@@ -945,9 +1035,9 @@ EncodeTiledFn encode_tiled() {
 
 // A 4-d map over a contiguous bf16 (B, T, heads, D) tensor whose box is
 // ``cols`` columns (one block, ``cols`` x 2 bytes wide and swizzled by
-// that width) of 128 rows of one head.
+// that width) of ``rows`` rows of one head.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads,
-              int D, int cols) {
+              int D, int cols, int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -955,7 +1045,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads,
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)T * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, 128, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -972,20 +1062,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int G, int causal, int window, float scale,
            cudaStream_t stream) {
   using Gm = Geo<D>;
+  using Sh = Shape<D>;
   constexpr size_t bytes = Gm::kSmemBytes;
+  constexpr int rows = Gm::kRows;
   static std::atomic<bool> done[kDevices];   // per instantiation and device
   cudaError_t err = allow_smem(flash_fwd_sm90<D>, (int)bytes, done);
   if (err != cudaSuccess) return (int)err;
   Maps maps = {};
   bool ok = true;
   if (Gm::kFull > 0)
-    ok = make_map(&maps.q, q, B, Tq, H, D, 64) &&
-         make_map(&maps.k, k, B, Tk, G, D, 64) &&
-         make_map(&maps.v, v, B, Tk, G, D, 64);
+    ok = make_map(&maps.q, q, B, Tq, H, D, 64, rows) &&
+         make_map(&maps.k, k, B, Tk, G, D, 64, rows) &&
+         make_map(&maps.v, v, B, Tk, G, D, 64, rows);
   if (ok && Gm::kTail > 0)
-    ok = make_map(&maps.q_tail, q, B, Tq, H, D, Gm::kTail) &&
-         make_map(&maps.k_tail, k, B, Tk, G, D, Gm::kTail) &&
-         make_map(&maps.v_tail, v, B, Tk, G, D, Gm::kTail);
+    ok = make_map(&maps.q_tail, q, B, Tq, H, D, Gm::kTail, rows) &&
+         make_map(&maps.k_tail, k, B, Tk, G, D, Gm::kTail, rows) &&
+         make_map(&maps.v_tail, v, B, Tk, G, D, Gm::kTail, rows);
   if (!ok) return (int)cudaErrorInvalidValue;
   // persistent: one block an SM of the current device, each walking its
   // share of the q tiles
@@ -994,8 +1086,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int items = B * H * ((Tq + kBM - 1) / kBM);
-  flash_fwd_sm90<D><<<min(items, sms), kThreads, bytes, stream>>>(
+  const int items = B * H * ((Tq + Sh::kBM - 1) / Sh::kBM);
+  flash_fwd_sm90<D><<<min(items, sms), Sh::kThreads, bytes, stream>>>(
       maps, (__nv_bfloat16*)o, B, Tq, Tk, H, G, causal,
       window, scale);
   return (int)cudaGetLastError();
@@ -1026,7 +1118,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same call for bf16 tensors at D in {16, 32, 64, 80, 128} on the
+// The same call for bf16 tensors at D in {16, 32, 64, 80, 128, 256} on the
 // tensor cores.  Base pointers must be 16-byte aligned (the tensor maps' rule;
 // the wrapper checks).  Returns a cudaError_t.
 int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
@@ -1051,6 +1143,9 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                             scale, s);
     case 128:
       return tc::launch<128>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
+                             scale, s);
+    case 256:
+      return tc::launch<256>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
                              scale, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 """The LM substrate on the port: configs' types, layers (the MoE dispatch
-among them), the RWKV-6 time and channel mixes, and the decoder-only
-:class:`LM` (dense, MoE and RWKV-6 families), with prefill attention and
-the WKV recurrence on hand-written CUDA kernels."""
+among them), the RG-LRU block and the RWKV-6 time and channel mixes, and
+the decoder-only :class:`LM` (dense, MoE, RWKV-6 and RG-LRU hybrid
+families), with prefill attention and the WKV recurrence on hand-written
+CUDA kernels."""
 from repro_torch.models.types import (ModelConfig, NotPortedError, ParamSpec,
                                       ShapeSpec, count_params)
 from repro_torch.models.registry import build_model

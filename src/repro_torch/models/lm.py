@@ -1,4 +1,4 @@
-"""Decoder-only language model, dense, MoE and RWKV-6 families
+"""Decoder-only language model: dense, MoE, RWKV-6 and the RG-LRU hybrid
 (counterpart of ``repro/models/lm.py``).
 
 * **A loop over layers.**  The reference stacks each layer cycle's
@@ -16,8 +16,11 @@
 
 A MoE layer (``cfg.is_moe_layer``) holds ``moe`` in place of ``mlp``, as
 in the reference.  Its load-balance term is not summed: serving does not
-read it, and it comes back with ``loss``.  Not ported yet: the RG-LRU
-block, cross-attention and the frontend embeddings (ROADMAP.md §A).
+read it, and it comes back with ``loss``.  A ``rec`` layer (the RG-LRU
+block of RecurrentGemma) holds ``rec`` and an MLP; its attention layers
+are local (``cfg.window``), with ring caches of ``min(max_len, window)``
+slots.  Not ported yet: cross-attention and the frontend embeddings
+(ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -59,9 +62,7 @@ def layer_plans(cfg: ModelConfig) -> List[LayerPlan]:
 
 
 def _check_plan(plan: LayerPlan) -> None:
-    if plan.kind == "rec":
-        raise NotPortedError("the RG-LRU block is not ported yet")
-    if plan.kind not in ("attn", "rwkv"):
+    if plan.kind not in ("attn", "rec", "rwkv"):
         raise ValueError(plan.kind)
 
 
@@ -72,15 +73,18 @@ def _check_plan(plan: LayerPlan) -> None:
 def block_specs(cfg: ModelConfig, plan: LayerPlan) -> Dict[str, Any]:
     _check_plan(plan)
     s: Dict[str, Any] = {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg)}
-    if plan.kind == "attn":
-        s["attn"] = L.attn_specs(cfg)
-        if plan.moe:
-            s["moe"] = L.moe_specs(cfg)
-        else:
-            s["mlp"] = L.mlp_specs(cfg, gated=cfg.gated_mlp)
-    else:
+    if plan.kind == "rwkv":
         s["tm"] = R.rwkv_time_mix_specs(cfg)
         s["cm"] = R.rwkv_channel_mix_specs(cfg)
+        return s
+    if plan.kind == "attn":
+        s["attn"] = L.attn_specs(cfg)
+    else:
+        s["rec"] = R.rglru_block_specs(cfg)
+    if plan.moe:
+        s["moe"] = L.moe_specs(cfg)
+    else:
+        s["mlp"] = L.mlp_specs(cfg, gated=cfg.gated_mlp)
     return s
 
 
@@ -92,9 +96,10 @@ def block_cache_specs(cfg: ModelConfig, plan: LayerPlan, batch: int,
         shape, axes = L.kv_cache_shape(cfg, batch, max_len)
         return {"k": ParamSpec(shape, axes, init="zeros"),
                 "v": ParamSpec(shape, axes, init="zeros")}
+    shapes = R.rglru_state_shapes if plan.kind == "rec" \
+        else R.rwkv_state_shapes
     return {name: ParamSpec(shape, axes, init="zeros", dtype=dtype)
-            for name, (shape, axes, dtype) in
-            R.rwkv_state_shapes(cfg, batch).items()}
+            for name, (shape, axes, dtype) in shapes(cfg, batch).items()}
 
 
 def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
@@ -103,21 +108,25 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
     (x, new_cache); ``new_cache`` is ``{}`` without a cache."""
     new_cache: Dict[str, torch.Tensor] = {}
     cache = cache or {}
-    if plan.kind == "attn":
+    if mode not in ("train", "prefill", "decode"):
+        raise NotPortedError(f"mode {mode!r} is not ported yet")
+    if plan.kind != "rwkv":
         h = L.norm_apply(p["ln1"], x, cfg.norm)
-        if mode in ("train", "prefill"):
-            attn_cache = {"k": cache["k"], "v": cache["v"]} \
-                if "k" in cache else None
-            y, nc = L.attn_apply(p["attn"], cfg, h, mode="causal",
-                                 positions=positions, window=plan.window,
-                                 cache=attn_cache)
+        if plan.kind == "rec":
+            state = {"h": cache["h"], "conv": cache["conv"]} \
+                if "h" in cache else None
+            y, nc = R.rglru_block_apply(p["rec"], cfg, h, state=state)
         elif mode == "decode":
             y, nc = L.attn_apply(p["attn"], cfg, h, mode="decode",
                                  positions=positions, window=plan.window,
                                  cache={"k": cache["k"], "v": cache["v"]},
                                  pos=pos)
         else:
-            raise NotPortedError(f"mode {mode!r} is not ported yet")
+            attn_cache = {"k": cache["k"], "v": cache["v"]} \
+                if "k" in cache else None
+            y, nc = L.attn_apply(p["attn"], cfg, h, mode="causal",
+                                 positions=positions, window=plan.window,
+                                 cache=attn_cache)
         if nc is not None:
             new_cache.update(nc)
         x = x + y
@@ -166,8 +175,9 @@ def _parameter_dict(leaves: Mapping[str, Any]) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One layer's parameters: a :class:`torch.nn.ParameterDict` per group
-    (``ln1``, ``attn``, ``mlp`` or ``moe``, ``ln2`` or ``ln1``, ``tm``,
-    ``ln2``, ``cm``), indexable like the reference's parameter dicts."""
+    (``ln1``, ``attn`` or ``rec``, ``ln2``, ``mlp`` or ``moe``; or ``ln1``,
+    ``tm``, ``ln2``, ``cm``), indexable like the reference's parameter
+    dicts."""
 
     def __init__(self, groups: Mapping[str, Mapping[str, torch.Tensor]]):
         super().__init__()
@@ -208,7 +218,8 @@ def _load_tree(specs, values, compute_dtype, device, where=""):
 
 
 class LM(nn.Module):
-    """Decoder-only LM (dense, MoE and RWKV-6 families) on one device.
+    """Decoder-only LM (dense, MoE, RWKV-6 and RG-LRU hybrid families) on
+    one device.
 
     ``device`` defaults to the card; with no CUDA device that raises
     :class:`~repro_torch.selector.BackendUnavailableError`.  ``params``

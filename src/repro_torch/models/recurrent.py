@@ -1,13 +1,22 @@
-"""RWKV-6 ("Finch") sequence mixing (counterpart of the RWKV-6 half of
-``repro/models/recurrent.py``).
+"""Recurrent sequence mixing: the RG-LRU block of RecurrentGemma and
+RWKV-6 ("Finch") (counterpart of ``repro/models/recurrent.py``).
 
-The time mix's WKV recurrence goes to the hand-written CUDA kernel through
-:func:`repro_torch.kernels.ops.wkv6` for every T, prefill and decode alike
-(the reference uses ``wkv6_scan_chunked`` for T > 1 and ``wkv6_scan_ref``
-for T = 1, both the same function).  :func:`wkv6_scan_chunked` stays here
-as the plain chunked form the tests hold the kernel's plain version to.
+RG-LRU.  The reference runs the whole block as XLA code, with no Pallas
+kernel, so here it is plain PyTorch on whatever device its input lies.
+Its gate products ``x @ w_a`` and ``x @ w_x`` are float32, as the
+reference takes them (the gate weights and biases, the conv taps and
+``lam`` are stored in float32, the dtype their uses read; a float32
+product on the card is full float32, TF32 is off).  The linear recurrence
+``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) g_t`` runs as a log-depth scan over
+T with the reference's ``combine`` (:func:`rglru_scan`): ceil(log2 T)
+rounds of a few elementwise ops, and no Python step per token.
 
-Not ported yet: the RG-LRU block of RecurrentGemma (ROADMAP.md §A).
+RWKV-6.  The time mix's WKV recurrence goes to the hand-written CUDA
+kernel through :func:`repro_torch.kernels.ops.wkv6` for every T, prefill
+and decode alike (the reference uses ``wkv6_scan_chunked`` for T > 1 and
+``wkv6_scan_ref`` for T = 1, both the same function).
+:func:`wkv6_scan_chunked` stays here as the plain chunked form the tests
+hold the kernel's plain version to.
 """
 from __future__ import annotations
 
@@ -18,16 +27,147 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_scan import wkv6_scan_ref
+from repro_torch.models.layers import _act
 from repro_torch.models.types import ModelConfig, ParamSpec
 
-__all__ = ["rwkv_channel_mix_apply", "rwkv_channel_mix_specs",
-           "rwkv_state_shapes", "rwkv_time_mix_apply", "rwkv_time_mix_specs",
-           "wkv6_scan_chunked", "wkv6_scan_ref"]
+__all__ = ["RGLRU_C", "rglru_block_apply", "rglru_block_specs", "rglru_scan",
+           "rglru_state_shapes", "rwkv_channel_mix_apply",
+           "rwkv_channel_mix_specs", "rwkv_state_shapes",
+           "rwkv_time_mix_apply", "rwkv_time_mix_specs", "wkv6_scan_chunked",
+           "wkv6_scan_ref"]
 
 #: the reference's default chunk (``models.settings.Settings.wkv_chunk``)
 WKV_CHUNK = 128
 
 Params = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+
+RGLRU_C = 8.0
+
+
+def rglru_block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, w = cfg.d_model, cfg.lru_width
+    f32 = torch.float32
+    return {
+        # two input branches: gate (gelu) and recurrent
+        "w_in_gate": ParamSpec((d, w), ("embed", "mlp")),
+        "w_in_rec": ParamSpec((d, w), ("embed", "mlp")),
+        # temporal conv over the recurrent branch (depthwise; read in
+        # float32)
+        "conv_w": ParamSpec((cfg.conv_width, w), (None, "mlp"), scale=0.1,
+                            dtype=f32),
+        "conv_b": ParamSpec((w,), ("mlp",), init="zeros", dtype=f32),
+        # RG-LRU gates (read in float32)
+        "w_a": ParamSpec((w, w), ("mlp", None), dtype=f32),
+        "b_a": ParamSpec((w,), (None,), init="zeros", dtype=f32),
+        "w_x": ParamSpec((w, w), ("mlp", None), dtype=f32),
+        "b_x": ParamSpec((w,), (None,), init="zeros", dtype=f32),
+        "lam": ParamSpec((w,), (None,), init="uniform", dtype=f32),
+        "w_out": ParamSpec((w, d), ("mlp", "embed")),
+    }
+
+
+def _rglru_gates(p: Params, xc: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """log a_t (per channel) and the gated input, both float32."""
+    x32 = xc.float()
+    r = torch.sigmoid(x32 @ p["w_a"] + p["b_a"])
+    i = torch.sigmoid(x32 @ p["w_x"] + p["b_x"])
+    log_a = -RGLRU_C * F.softplus(p["lam"]) * r
+    return log_a, i * x32
+
+
+def _depthwise_conv(p: Params, x: torch.Tensor,
+                    state: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal depthwise temporal conv of width W over x (B, T, w).
+
+    ``state``: (B, W-1, w) past inputs (decode), or None (zero history).
+    Returns (y, new state: the last W-1 inputs)."""
+    W = p["conv_w"].shape[0]
+    B, T, w = x.shape
+    if state is None:
+        state = x.new_zeros((B, W - 1, w))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)      # (B, T+W-1, w)
+    y = torch.zeros((B, T, w), dtype=torch.float32, device=x.device)
+    for i in range(W):
+        y = y + xp[:, i:i + T].float() * p["conv_w"][i]
+    y = (y + p["conv_b"]).to(x.dtype)
+    # a copy: a view would keep the whole (B, T+W-1, w) input alive
+    return y, xp[:, T:].clone()
+
+
+def rglru_scan(log_a: torch.Tensor, gated: torch.Tensor,
+               h0: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) gated_t over T.
+
+    log_a, gated: (B, T, w) float32; h0: (B, w) initial state or None,
+    folded into the first step as the reference folds it.  Returns (h (B,
+    T, w), final state (B, w)).
+
+    The reference's ``lax.associative_scan`` with its ``combine((a1, b1),
+    (a2, b2)) = (a1 a2, a2 b1 + b2)``, as a Hillis-Steele scan: in the
+    round of stride s each step t >= s takes in the prefix ending at
+    t - s, so ceil(log2 T) rounds leave every step's whole prefix.  Each
+    round's right-hand side is computed before it is written, so the
+    in-place updates read the last round's values.  No cumulative product
+    or sum in log space: ``log_a`` reaches -8 softplus(lam) a step, and a
+    running sum of it underflows."""
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * gated
+    if h0 is not None:
+        b[:, 0] += a[:, 0] * h0
+    T = a.shape[1]
+    s = 1
+    while s < T:
+        b[:, s:] += a[:, s:] * b[:, :-s]
+        if 2 * s < T:                   # the last round needs no a
+            a[:, s:] = a[:, s:] * a[:, :-s]
+        s *= 2
+    # a copy: a view would keep the whole (B, T, w) scan alive in the state
+    return b, b[:, -1].clone()
+
+
+def rglru_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                      state: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor,
+                                 Optional[Dict[str, torch.Tensor]]]:
+    """The RecurrentGemma recurrent block.  x: (B, T, d).
+
+    state = {"h": (B, w) float32, "conv": (B, conv_width-1, w)} for
+    prefill and decode, else None."""
+    gate = _act(x @ p["w_in_gate"], "gelu")
+    rec = x @ p["w_in_rec"]
+    rec, new_conv = _depthwise_conv(
+        p, rec, state["conv"] if state is not None else None)
+    log_a, gated = _rglru_gates(p, rec)
+    h, h_last = rglru_scan(log_a, gated,
+                           state["h"] if state is not None else None)
+    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    new_state = {"h": h_last, "conv": new_conv} if state is not None \
+        else None
+    return y, new_state
+
+
+def rglru_state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple]:
+    """Shape, logical axes and dtype (None: the compute dtype) of each
+    piece of an RG-LRU layer's decode state."""
+    w = cfg.lru_width
+    return {
+        "h": ((batch, w), ("batch", "mlp"), torch.float32),
+        "conv": ((batch, cfg.conv_width - 1, w), ("batch", None, "mlp"),
+                 None),
+    }
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 ("Finch"): data-dependent decay linear attention
+# ---------------------------------------------------------------------------
 
 
 def rwkv_time_mix_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:

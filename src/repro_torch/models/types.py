@@ -109,7 +109,8 @@ def count_params(specs: SpecTree) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One configuration covering all assigned architecture families (the
-    reference's fields; the dense, MoE and RWKV families are ported)."""
+    reference's fields; the dense, MoE, RWKV and RG-LRU hybrid families
+    are ported)."""
 
     name: str
     family: str                 # dense | moe | hybrid | ssm | encdec | vlm

@@ -3,9 +3,10 @@
     python -m repro_torch.serve --arch qwen3-1.7b            # full width, card
     python -m repro_torch.serve --arch rwkv6-3b --reduced --device cpu
     python -m repro_torch.serve --arch qwen3-moe-30b-a3b --reduced --device cpu
+    python -m repro_torch.serve --arch recurrentgemma-9b --reduced --device cpu
 
 ``--arch`` takes every architecture the port serves (``configs.PORTED``):
-the dense, MoE and RWKV-6 families.  At full width
+the dense, MoE, RWKV-6 and RG-LRU hybrid families.  At full width
 ``llama4-maverick-400b-a17b`` (398 B parameters) does not fit one card.
 
 The counterpart of the reference's ``examples/serve_lm.py``.  Without

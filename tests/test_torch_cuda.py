@@ -611,7 +611,10 @@ def test_cuda_turbulence_point_matches_cpu_point(cuda_device):
 #: head size the kernels are built for, the qwen3-1.7b prefill's shape,
 #: and at D = 80 (a 64-column block and a 16-column tail) the stablelm-3b
 #: prefill's shape, GQA, ragged T = 100, a window over T = 1000, T = 1
-#: and T = 129 (one past a tile)
+#: and T = 129 (one past a tile); at D = 256 (the kernels' own block
+#: shape: 64-row tiles) the recurrentgemma-9b prefill's shape, its
+#: 4,096-token prompt past the 2,048 window, GQA, ragged T = 1, 100, 129
+#: and 1,000, windowed and bidirectional
 ATTN_CASES = [
     (2, 128, 4, 2, 64, True, None),
     (2, 64, 8, 1, 32, True, None),
@@ -635,6 +638,13 @@ ATTN_CASES = [
     (4, 1024, 48, 1, 128, True, None),
     (4, 1024, 32, 4, 64, True, None),
     (2, 1024, 40, 8, 128, True, None),
+    (4, 1024, 16, 1, 256, True, None),
+    (1, 4096, 16, 1, 256, True, 2048),
+    (2, 256, 8, 2, 256, True, None),
+    (2, 1, 4, 1, 256, True, None),
+    (1, 100, 4, 1, 256, True, None),
+    (1, 129, 4, 2, 256, False, None),
+    (1, 1000, 4, 1, 256, True, 300),
 ]
 
 
@@ -667,13 +677,15 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
                                rtol=1e-2)
 
 
-@pytest.mark.parametrize("D,H,G", [(128, 16, 8), (80, 32, 32)],
-                         ids=["D128", "D80"])
+@pytest.mark.parametrize("D,H,G", [(128, 16, 8), (80, 32, 32), (256, 16, 1)],
+                         ids=["D128", "D80", "D256"])
 def test_cuda_flash_attention_scalar_kernel_on_bf16(cuda_device, D, H, G):
     """The scalar kernel still takes bf16 when named (the yardstick the
-    tensor-core kernel is timed against): at the qwen3-1.7b (D = 128) and
-    stablelm-3b (D = 80) head layouts it agrees with the plain version and
-    with the tensor-core kernel."""
+    tensor-core kernel is timed against): at the qwen3-1.7b (D = 128),
+    stablelm-3b (D = 80) and recurrentgemma-9b (D = 256, MQA) head
+    layouts it agrees with the plain version and with the tensor-core
+    kernel, which bf16 at each of them takes by default."""
+    assert fa.variant(torch.bfloat16, D) == "tc"
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
                            ).to(torch.bfloat16)
@@ -797,24 +809,28 @@ def _params_of(lm):
 
 
 #: (model, head size, dtype): the reduced configs in fp32, and stablelm-3b
-#: at its real head size 80 in bf16 (2 layers of 2 heads, d_model 160),
-#: which runs the tensor-core kernel
+#: at its real head size 80 and recurrentgemma-9b at its 256 in bf16 (2
+#: heads, d_model twice the head size), which run the tensor-core kernel
 ENGINE_CASES = [("qwen3-1.7b", None, "float32"), ("rwkv6-3b", None, "float32"),
                 ("stablelm-3b", 80, "bfloat16"),
-                ("qwen3-moe-30b-a3b", None, "float32")]
+                ("qwen3-moe-30b-a3b", None, "float32"),
+                ("recurrentgemma-9b", None, "float32"),
+                ("recurrentgemma-9b", 256, "bfloat16")]
 
 
 @pytest.mark.parametrize("name,head_dim,dtype", ENGINE_CASES,
                          ids=["qwen3-1.7b", "rwkv6-3b", "stablelm-3b-d80",
-                              "qwen3-moe-30b-a3b"])
+                              "qwen3-moe-30b-a3b", "recurrentgemma-9b",
+                              "recurrentgemma-9b-d256"])
 def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
                                                       head_dim, dtype):
     """A reduced model served on the card: each layer's kernel launches
-    once per prefill (flash attention: the scalar kernel in fp32, the
-    tensor-core one in bf16) or once per model call (WKV6), and the
-    prefill logits equal the same weights' on the CPU within the
-    decode-parity tolerance (2e-3) in fp32, and within the LM path's bf16
-    bound (relative L2 0.1, ``chip_smoke.REL_L2_TOL``) in bf16."""
+    once per prefill (flash attention, on attention layers: the scalar
+    kernel in fp32, the tensor-core one in bf16) or once per model call
+    (WKV6), and the prefill logits equal the same weights' on the CPU
+    within the decode-parity tolerance (2e-3) in fp32, and within the LM
+    path's bf16 bound (relative L2 0.1, ``chip_smoke.REL_L2_TOL``) in
+    bf16."""
     cfg = configs.reduced(configs.get(name))
     if head_dim is not None:
         cfg = dataclasses.replace(configs.reduced(configs.get(name),
@@ -839,8 +855,10 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
     else:
         kind = "tc" if dtype == "bfloat16" else "scalar"
         other = "scalar" if kind == "tc" else "tc"
-        assert fa.LAUNCHES["flash_attention"] == cfg.num_layers * 2
-        assert fa.LAUNCHES[f"flash_attention_{kind}"] == cfg.num_layers * 2
+        n_attn = sum(cfg.block_kind(i) == "attn"
+                     for i in range(cfg.num_layers))
+        assert fa.LAUNCHES["flash_attention"] == n_attn * 2
+        assert fa.LAUNCHES[f"flash_attention_{kind}"] == n_attn * 2
         assert fa.LAUNCHES[f"flash_attention_{other}"] == 0
         assert wk.LAUNCHES["wkv6"] == 0
     tokens = torch.as_tensor(prompts[:2])

@@ -40,7 +40,7 @@ from repro_torch.serve.__main__ import main as serve_main
 #: the MoE configs at their default capacity factor: the engine's prefill
 #: waves and decode steps drop the tokens the reference's drop
 ARCHS = ["qwen3-1.7b", "stablelm-3b", "qwen3-moe-30b-a3b",
-         "llama4-maverick-400b-a17b", "rwkv6-3b"]
+         "llama4-maverick-400b-a17b", "rwkv6-3b", "recurrentgemma-9b"]
 SLOTS, MAX_LEN = 2, 32
 
 

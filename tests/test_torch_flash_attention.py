@@ -34,6 +34,8 @@ ATTN_CASES = [
     (1, 100, 4, 2, 64, True, None),      # ragged GQA
     (1, 100, 4, 4, 32, True, 16),        # ragged window
     (1, 77, 2, 1, 80, False, None),      # ragged bidirectional MQA
+    (1, 64, 2, 2, 256, True, None),      # recurrentgemma's head size
+    (1, 100, 4, 1, 256, True, 32),       # ragged MQA, T past the window
 ]
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -6,8 +6,10 @@ untied embeddings; also at its real head size 80), ``reduced(deepseek-7b)``
 (MHA), ``reduced(granite-20b)`` (MQA, layernorm, the ungated gelu MLP),
 ``reduced(qwen3-moe-30b-a3b)`` (MoE on every layer, top-2 of 8),
 ``reduced(llama4-maverick-400b-a17b)`` (dense and MoE layers in turns,
-top-1 sigmoid routing, a shared expert) and ``reduced(rwkv6-3b)``
-(RWKV-6 time and channel mixes), in float32: the reference's
+top-1 sigmoid routing, a shared expert), ``reduced(rwkv6-3b)``
+(RWKV-6 time and channel mixes) and ``reduced(recurrentgemma-9b)`` (two
+RG-LRU layers to one local-attention layer of window 16, MQA, head size
+16, tied embeddings; 7 layers, the last a remainder), in float32: the reference's
 ``LM.init(PRNGKey(0))`` parameters go to the port through
 ``repro_torch.convert``, the same seeded tokens go to both,
 and ``forward``, ``prefill`` (logits and state) and six ``decode_step``
@@ -35,7 +37,8 @@ from repro_torch.models import LM, NotPortedError, build_model, count_params
 from repro_torch.models.lm import param_specs
 
 ARCHS = ["qwen3-1.7b", "stablelm-3b", "deepseek-7b", "granite-20b",
-         "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-3b"]
+         "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-3b",
+         "recurrentgemma-9b"]
 #: the capacity factor MoE configs run at here (the reference's
 #: decode-parity test's)
 PARITY_CAPACITY = 64.0
@@ -86,7 +89,8 @@ def test_full_width_parameter_count_matches_reference(name):
     """Specs only, nothing allocated: 1.72 B for qwen3-1.7b, 2.80 B for
     stablelm-3b, 6.91 B for deepseek-7b, 20.3 B for granite-20b, 30.1 B
     for qwen3-moe-30b-a3b, 398 B for llama4-maverick-400b-a17b, 3.10 B
-    for rwkv6-3b, the same as the reference's."""
+    for rwkv6-3b, 9.40 B for recurrentgemma-9b, the same as the
+    reference's."""
     ours = count_params(param_specs(configs.get(name)))
     theirs = ref_count_params(ref_build_model(RC.get(name)).param_specs())
     assert ours == theirs
@@ -96,7 +100,11 @@ def test_full_width_parameter_count_matches_reference(name):
                                   "granite-20b": 20.316e9,
                                   "qwen3-moe-30b-a3b": 30.079e9,
                                   "llama4-maverick-400b-a17b": 397.69e9,
-                                  "rwkv6-3b": 3.08e9}[name], rel=0.01)
+                                  "rwkv6-3b": 3.08e9,
+                                  "recurrentgemma-9b": 9.396e9}[name],
+                                 rel=0.01)
+    if name == "recurrentgemma-9b":
+        assert ours == 9_396_408_320
 
 
 def test_forward_matches_reference(pair):
@@ -219,10 +227,9 @@ def test_unported_architectures_say_so(name):
         configs.get(name)
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
 def test_unported_layers_say_so(name):
-    """``build_model`` refuses RG-LRU and encoder-decoder models."""
+    """``build_model`` refuses encoder-decoder models."""
     rcfg = RC.reduced(RC.get(name))
     cfg = convert.model_config_from_reference(dataclasses.asdict(rcfg))
     with pytest.raises(NotPortedError):
