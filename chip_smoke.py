@@ -95,20 +95,28 @@ Phases:
    tail) also at stablelm-3b's prefill shape, GQA, T = 1, 100, 129 and a
    windowed T = 1,000, and D = 256 (its own block shape) at
    recurrentgemma-9b's prefill shape (MQA), its 4,096-token prompt past
-   the 2,048 window, GQA, T = 1, 100, 129 and a windowed T = 1,000; for
+   the 2,048 window, GQA, T = 1, 100, 129 and a windowed T = 1,000, and
+   bidirectional calls with Tq != Tk at seamless-m4t-large-v2's encoder
+   (4 x 4,096 over 4,096), cross prefill (1,024 over 4,096) and cross
+   decode (1 over 4,096) shapes, a ragged source (7 over 1,000), Tk < Tq
+   (100 over 37), one token at D = 256 and 129 over 300 at D = 80; for
    WKV6 a decode step,
    ragged T, one step past the split kernel's chunk, RWKV-6's strong
    decays (w = exp(-exp(x)), x in [-8, 2]) and a two-call state carry;
 8. plan the decode fleet's mesh through the port's selection service from
    a hand-made dry-run report;
 9. serve ``qwen3-1.7b``, ``stablelm-3b``, ``rwkv6-3b``, ``deepseek-7b``,
-   ``granite-20b``, ``qwen3-moe-30b-a3b`` and ``recurrentgemma-9b`` at
-   full width and depth (random bf16 weights from the seed; each model
-   freed before the next is drawn): 8 requests of 1,024-token prompts
-   over 4 slots, 32 new tokens each — the LM path, read through the
-   kernels' launch counters (28, 32, 30, 52, 48 and 12 flash-attention
-   launches per prefill, one an attention layer, every one the
-   tensor-core kernel; 32 WKV6 launches per prefill and per decode
+   ``granite-20b``, ``qwen3-moe-30b-a3b``, ``recurrentgemma-9b`` and
+   ``seamless-m4t-large-v2`` at full width and depth (random bf16
+   weights, and for seamless random bf16 source frames, from the seed;
+   each model freed before the next is drawn): 8 requests of 1,024-token
+   prompts over 4 slots, 32 new tokens each, seamless's each with 4,096
+   source frames — the LM path, read through the kernels' launch
+   counters (28, 32, 30, 52, 48 and 12 flash-attention launches per
+   prefill, one an attention layer, every one the tensor-core kernel;
+   for seamless 72 a prefill, 24 bidirectional over the frames, 24
+   causal and 24 cross, and 24 a decode step, cross decode, counted by
+   (Tq, Tk, causal) too; 32 WKV6 launches per prefill and per decode
    step) — after a warm-up at the traffic's shapes, and once more for
    the spread.  Then: all logits finite; the first wave's prefill
    logits against a pass whose kernel is swapped for its plain version
@@ -118,7 +126,8 @@ Phases:
    replaced; prefill + decode against ``forward`` at full width, 4
    layers, fp32 (the scalar attention kernel; MoE at capacity factor
    64; recurrentgemma-9b's rec, rec, attn, rec with a 2,100-token
-   prompt and 8 steps past its window); for recurrentgemma-9b a 1 x
+   prompt and 8 steps past its window; seamless at 2 encoder and 2
+   decoder layers, 100 source frames, a 6-token prompt and 8 steps); for recurrentgemma-9b a 1 x
    4,096-token prefill past its window and 8 decode steps, through the
    kernel and the plain version (``[window]``); and the kernels at the shapes the path gave them, against their
    plain versions and timed beside their bounds, the kernel they
@@ -168,6 +177,13 @@ add ``wave_ms`` and ``wave_earlier_ms``: the first wave's prefill with
 the tensor-core kernel and with the scalar one.
 ``flash_attention_scalar`` and ``flash_attention_scalar_d256`` are the
 scalar kernel in fp32 at qwen3-1.7b's and recurrentgemma-9b's shapes.
+``flash_attention_enc``, ``flash_attention_dec``, ``flash_attention_cross``
+and ``flash_attention_xdec`` are the tensor-core kernel at
+seamless-m4t-large-v2's encoder (bidirectional, 4 x 4,096 over 4,096),
+decoder self-attention (causal, 4 x 1,024), cross prefill (1,024 over
+4,096) and cross decode (1 over 4,096) shapes, each with its own
+launches on the path (``library_ms`` SDPA with ``is_causal`` as the
+call's); ``flash_attention_enc`` adds the first wave's ``wave_ms``.
 ``flash_attention_llama4`` is the kernel at the llama4 check's shape,
 its launches that check's one prefill.
 Without a CUDA device the script exits non-zero before printing any
@@ -1800,38 +1816,49 @@ def phase_turbulence(torch, np, rd, seed, errs, device="cuda",
 
 # --- phase 7: the LM kernels against their plain versions ---------------------
 
-#: (B, T, H, G, D, causal, window): GQA, MQA, bidirectional, windowed,
-#: ragged T (the engine's 12-token prompts, 100, 130) and every head size
-#: the kernel is built for
+#: (B, Tq, Tk, H, G, D, causal, window): GQA, MQA, bidirectional,
+#: windowed, ragged T (the engine's 12-token prompts, 100, 130), every head
+#: size the kernel is built for, and bidirectional calls with Tq != Tk
 ATTN_CASES = [
-    (2, 128, 4, 2, 64, True, None),
-    (2, 64, 8, 1, 32, True, None),
-    (1, 96, 2, 2, 16, False, None),
-    (1, 256, 4, 4, 32, True, 64),
-    (2, 12, 16, 8, 128, True, None),
-    (1, 100, 4, 2, 80, True, 16),
-    (1, 130, 2, 1, 128, False, None),
-    (1, 200, 4, 4, 64, True, 48),
-    (1, 100, 4, 1, 64, True, None),
-    (1, 1000, 4, 2, 128, True, 300),
+    (2, 128, 128, 4, 2, 64, True, None),
+    (2, 64, 64, 8, 1, 32, True, None),
+    (1, 96, 96, 2, 2, 16, False, None),
+    (1, 256, 256, 4, 4, 32, True, 64),
+    (2, 12, 12, 16, 8, 128, True, None),
+    (1, 100, 100, 4, 2, 80, True, 16),
+    (1, 130, 130, 2, 1, 128, False, None),
+    (1, 200, 200, 4, 4, 64, True, 48),
+    (1, 100, 100, 4, 1, 64, True, None),
+    (1, 1000, 1000, 4, 2, 128, True, 300),
     # D = 80: stablelm-3b's prefill (MHA), GQA, ragged T = 100, a window
     # over T = 1,000, T = 1 and T = 129 (one past a 128-row tile)
-    (4, 1024, 32, 32, 80, True, None),
-    (2, 256, 8, 2, 80, True, None),
-    (1, 100, 4, 4, 80, True, None),
-    (1, 1000, 4, 2, 80, True, 300),
-    (2, 1, 4, 4, 80, True, None),
-    (1, 129, 4, 2, 80, False, None),
+    (4, 1024, 1024, 32, 32, 80, True, None),
+    (2, 256, 256, 8, 2, 80, True, None),
+    (1, 100, 100, 4, 4, 80, True, None),
+    (1, 1000, 1000, 4, 2, 80, True, 300),
+    (2, 1, 1, 4, 4, 80, True, None),
+    (1, 129, 129, 4, 2, 80, False, None),
     # D = 256 (its own block shape: 64-row tiles): recurrentgemma-9b's
     # prefill (MQA), its 4,096-token prompt past the 2,048 window, GQA,
     # T = 1, 100, 129 (bidirectional) and a window over T = 1,000
-    (4, 1024, 16, 1, 256, True, None),
-    (1, 4096, 16, 1, 256, True, 2048),
-    (2, 256, 8, 2, 256, True, None),
-    (2, 1, 4, 1, 256, True, None),
-    (1, 100, 4, 1, 256, True, None),
-    (1, 129, 4, 2, 256, False, None),
-    (1, 1000, 4, 1, 256, True, 300),
+    (4, 1024, 1024, 16, 1, 256, True, None),
+    (1, 4096, 4096, 16, 1, 256, True, 2048),
+    (2, 256, 256, 8, 2, 256, True, None),
+    (2, 1, 1, 4, 1, 256, True, None),
+    (1, 100, 100, 4, 1, 256, True, None),
+    (1, 129, 129, 4, 2, 256, False, None),
+    (1, 1000, 1000, 4, 1, 256, True, 300),
+    # bidirectional with Tq != Tk: seamless-m4t-large-v2's encoder over
+    # 4,096 frames, its decoder's 1,024-token prompt over them (cross
+    # prefill) and one decode token over them (cross decode); a ragged
+    # source, Tk < Tq, one token at D = 256 and one past a tile at D = 80
+    (4, 4096, 4096, 16, 16, 64, False, None),
+    (4, 1024, 4096, 16, 16, 64, False, None),
+    (4, 1, 4096, 16, 16, 64, False, None),
+    (2, 7, 1000, 16, 16, 64, False, None),
+    (1, 100, 37, 4, 2, 128, False, None),
+    (2, 1, 130, 4, 1, 256, False, None),
+    (1, 129, 300, 4, 4, 80, False, None),
 ]
 #: (B, T, H, N): a decode step, ragged T, both model head sizes, and one
 #: step past the split kernel's 16-step chunk
@@ -1845,6 +1872,17 @@ WKV_STRONG_CASES = [(2, 17, 3, 64), (1, 1025, 2, 64), (2, 50, 2, 16)]
 REL_L2_TOL = 0.1
 #: the reference kernel tests' tolerances
 ATTN_TOL = {"float32": (2e-5, 1e-2), "bfloat16": (2e-2, 1e-2)}
+#: a bidirectional bf16 case is also held to this relative L2 error over
+#: its whole output.  With random q, k and v an output row averages about
+#: Tk values of v, so |o| is about sqrt(e / Tk): at Tk = 4,096 near
+#: 0.026, on the scale of ATTN_TOL's bf16 atol, which alone would pass a
+#: kernel that skipped a key tile.  bf16 rounding of the output costs
+#: about 2^-9 of it; a skipped tile of n keys about sqrt(n / Tk)
+ATTN_REL_L2 = {"bfloat16": 1e-2}
+#: the planted fault that shows ``ATTN_REL_L2`` has the power to fail a
+#: kernel: the plain version with its last this many keys dropped (the
+#: smallest key tile of any head size, D = 256's) must fail it
+DROPPED_KEYS = 64
 WKV_TOL = (1e-4, 1e-3)
 #: the record's LM entries: ``flash_attention`` is the tensor-core kernel
 #: at qwen3-1.7b's D = 128, ``flash_attention_d80`` the same kernel at
@@ -1855,7 +1893,9 @@ WKV_TOL = (1e-4, 1e-3)
 #: over 8), ``flash_attention_d256`` at recurrentgemma-9b's (D = 256, 16
 #: query heads on one KV head), ``flash_attention_scalar`` the scalar
 #: kernel (fp32) at qwen3-1.7b's shape and ``flash_attention_scalar_d256``
-#: at recurrentgemma-9b's
+#: at recurrentgemma-9b's; ``flash_attention_enc``, ``_dec``, ``_cross``
+#: and ``_xdec`` the tensor-core kernel at seamless-m4t-large-v2's four
+#: shapes (``ENCDEC_MODES``)
 _ATTN = dict(op="flash_attention",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:28")
@@ -1869,6 +1909,10 @@ LM_KERNELS = {
     "flash_attention_d256": _ATTN,
     "flash_attention_scalar": _ATTN,
     "flash_attention_scalar_d256": _ATTN,
+    "flash_attention_enc": _ATTN,
+    "flash_attention_dec": _ATTN,
+    "flash_attention_cross": _ATTN,
+    "flash_attention_xdec": _ATTN,
     "wkv6": dict(op="wkv6", source="src/repro_torch/csrc/wkv6_scan.cu",
                  replaces="src/repro/kernels/rwkv6_scan.py:25"),
 }
@@ -1879,7 +1923,23 @@ SERVED = [("qwen3-1.7b", "flash_attention"),
           ("deepseek-7b", "flash_attention_mha128"),
           ("granite-20b", "flash_attention_mqa"),
           ("qwen3-moe-30b-a3b", "flash_attention_d64"),
-          ("recurrentgemma-9b", "flash_attention_d256")]
+          ("recurrentgemma-9b", "flash_attention_d256"),
+          ("seamless-m4t-large-v2", "flash_attention_enc")]
+#: the encoder-decoder's attention calls, one record entry each: (Tq, Tk,
+#: causal) as functions of the prompt length T and the source length F,
+#: and the calls a prefill ("prefill") or a decode step ("decode") makes
+#: of each, one a layer of its stack
+ENCDEC_MODES = {
+    "flash_attention_enc": (lambda T, F: (F, F, False), "prefill"),
+    "flash_attention_dec": (lambda T, F: (T, T, True), "prefill"),
+    "flash_attention_cross": (lambda T, F: (T, F, False), "prefill"),
+    "flash_attention_xdec": (lambda T, F: (1, F, False), "decode"),
+}
+#: the encoder-decoder's fp32 check: 2 encoder and 2 decoder layers at
+#: full width, a source ragged against every tile, 6 prompt tokens and 8
+#: decode steps
+ENCDEC_PARITY_LAYERS, ENCDEC_PARITY_FRAMES = 2, 100
+ENCDEC_PARITY_STEPS = 8
 #: the record entries whose ``time_lm_kernel`` also times the scalar
 #: kernel in fp32 at their path's shape (its entry's name)
 SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
@@ -1912,10 +1972,12 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def attn_inputs(torch, B, T, H, G, D, dtype, seed, dev="cuda"):
+def attn_inputs(torch, B, T, H, G, D, dtype, seed, dev="cuda", Tk=None):
+    """q (B, T, H, D) and k, v (B, Tk, G, D), Tk = T unless given."""
+    Tk = T if Tk is None else Tk
     gen = torch.Generator(device=dev).manual_seed(seed)
     return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
-                 for shape in ((B, T, H, D), (B, T, G, D), (B, T, G, D)))
+                 for shape in ((B, T, H, D), (B, Tk, G, D), (B, Tk, G, D)))
 
 
 def wkv_inputs(torch, B, T, H, N, dtype, seed, random_state=True,
@@ -1955,11 +2017,42 @@ def check_attention(torch, q, k, v, causal, window, label, errs=None,
     check(allclose(torch, got, want, atol, rtol),
           f"{label}: flash attention outside atol {atol} rtol {rtol} "
           f"(max |err| {err:.3g})")
+    limit = ATTN_REL_L2.get(str(q.dtype).split(".")[-1])
+    if limit is not None and not causal:
+        check_rel_l2(torch, q, k, v, got, want, limit, label)
     if errs is not None:
         name = name or ("flash_attention" if kind == "tc"
                         else "flash_attention_scalar")
         errs[name] = max(errs[name], err)
     return err
+
+
+def check_rel_l2(torch, q, k, v, got, want, limit, label) -> None:
+    """A bidirectional call's output within ``limit`` relative L2 of the
+    plain version's; where there are more than :data:`DROPPED_KEYS` keys,
+    also the plain version with its last :data:`DROPPED_KEYS` keys dropped,
+    which must fail the limit (and the log says whether it would pass
+    ``ATTN_TOL`` alone)."""
+    from repro_torch.kernels import flash_attention as fa
+    rel = rel_l2(got, want)
+    check(rel < limit, f"{label}: flash attention relative L2 {rel:.3g} "
+          f">= {limit}")
+    Tk = k.shape[1]
+    if Tk <= DROPPED_KEYS:
+        log(f"[lm-parity] {label}: relative L2 {rel:.3g} < {limit} ok")
+        return
+    cut = Tk - DROPPED_KEYS
+    fault = fa.attention_ref(q, k[:, :cut], v[:, :cut], causal=False)
+    rel_fault = rel_l2(fault, want)
+    check(rel_fault >= limit, f"{label}: {DROPPED_KEYS} dropped keys move "
+          f"the output by {rel_fault:.3g} relative L2, under {limit}")
+    atol, rtol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    log(f"[lm-parity] {label}: relative L2 {rel:.3g} < {limit} ok; the last "
+        f"{DROPPED_KEYS} of {Tk} keys dropped: {rel_fault:.3g} (fails it; "
+        f"max |err| {max_err(torch, fault.float(), want.float()):.3g}, "
+        f"within atol {atol} rtol {rtol}: "
+        f"{allclose(torch, fault, want, atol, rtol)})")
+    del fault
 
 
 def check_wkv(torch, args, label, errs=None):
@@ -2030,14 +2123,16 @@ def phase_lm_parity(torch, dev="cuda"):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for case in ATTN_CASES:
-            B, T, H, G, D, causal, window = case
-            q, k, v = attn_inputs(torch, B, T, H, G, D, dtype,
-                                  sum(case[:5]), dev)
+            B, Tq, Tk, H, G, D, causal, window = case
+            q, k, v = attn_inputs(torch, B, Tq, H, G, D, dtype,
+                                  B + Tq + H + G + D, dev, Tk=Tk)
             err = check_attention(torch, q, k, v, causal, window,
                                   f"attn {case} {name}")
             log(f"[lm-parity] flash attention {name} "
-                f"({fa.variant(dtype, D)}) B={B} T={T} H={H} G={G} D={D} "
-                f"causal={causal} window={window}: max |err| {err:.3g} ok")
+                f"({fa.variant(dtype, D)}) B={B} Tq={Tq} Tk={Tk} H={H} G={G} "
+                f"D={D} causal={causal} window={window}: max |err| "
+                f"{err:.3g} ok")
+            del q, k, v
         for case in WKV_CASES:
             args = wkv_inputs(torch, *case, dtype, sum(case), dev=dev)
             err = check_wkv(torch, args, f"wkv {case} {name}")
@@ -2130,15 +2225,23 @@ def profile_window(torch, fn, dev="cuda"):
     return wall, busy_us, by_name
 
 
-def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6):
+def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
+                          frames=0):
     """``cfg``'s width, 4 layers, fp32: a ``prompt``-token prefill and
     ``steps`` decode steps against ``forward`` over all ``prompt + steps``
     tokens, within the reference's decode-parity tolerance 2e-3.  A
     windowed model takes a prompt past its window, so that the prefill
-    writes its ring with T > S and decode wraps it."""
+    writes its ring with T > S and decode wraps it.  An encoder-decoder
+    model takes ``ENCDEC_PARITY_LAYERS`` encoder and decoder layers and a
+    source of ``frames`` frames."""
     from repro_torch.models import build_model
     name = cfg.name
-    cfg = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, num_layers=ENCDEC_PARITY_LAYERS,
+                                  encoder_layers=ENCDEC_PARITY_LAYERS,
+                                  dtype="float32")
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=4, dtype="float32")
     if cfg.num_experts:
         # capacity is per call: the forward's 12 tokens get C = ceil(12 K /
         # E * 1.25) slots an expert, the prefill's 6 and each decode step's
@@ -2150,28 +2253,47 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6):
             f"{MOE_PARITY_CAPACITY:g}, no drops (at 1.25 the forward's longer "
             f"call drops tokens that prefill and decode keep)")
     model = build_model(cfg, device=dev, seed=seed)
-    kinds = ", ".join(plan.kind for plan in model.plans)
+    plans = model.dec_plans if cfg.is_encdec else model.plans
+    kinds = ", ".join(plan.kind for plan in plans)
     total = prompt + steps
     gen = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (2, total), generator=gen,
                            device=dev)
+    extra = {}
+    if cfg.is_encdec:
+        extra["frontend_embeds"] = torch.randn(
+            (2, frames, cfg.d_model), generator=gen, device=dev)
+        kinds = f"{cfg.encoder_layers} encoder + {kinds} with cross"
     with torch.inference_mode():
-        full = model({"tokens": tokens})
-        state = model.init_state(2, total)
+        full = model({"tokens": tokens, **extra})
+        state = new_state(model, 2, total, extra)
         slots = sorted({st["k"].shape[1] for st in state if "k" in st})
-        logits, state = model.prefill({"tokens": tokens[:, :prompt]}, state)
+        logits, state = model.prefill({"tokens": tokens[:, :prompt],
+                                       **extra}, state)
         errs = [float((logits - full[:, prompt - 1]).abs().max())]
         for t in range(prompt, total):
             logits, state = model.decode_step(tokens[:, t], t, state)
             errs.append(float((logits - full[:, t]).abs().max()))
-    check(max(errs) < 2e-3, f"{name} 4-layer fp32: prefill/decode vs "
+    label = f"{cfg.num_layers} layers" if not cfg.is_encdec else \
+        f"{cfg.encoder_layers} + {cfg.num_layers} layers"
+    check(max(errs) < 2e-3, f"{name} {label} fp32: prefill/decode vs "
           f"forward max |err| {max(errs):.3g} >= 2e-3")
-    log(f"[serve] {name} 4 layers fp32 at d_model {cfg.d_model} ({kinds}; "
-        f"KV cache slots {slots}): {prompt}-token prefill + {steps} decode "
-        f"steps vs forward over {total} max |err| {max(errs):.3g} (< 2e-3) "
-        f"ok")
+    source = f", {frames} source frames" if cfg.is_encdec else ""
+    log(f"[serve] {name} {label} fp32 at d_model {cfg.d_model} ({kinds}; "
+        f"KV cache slots {slots}{source}): {prompt}-token prefill + {steps} "
+        f"decode steps vs forward over {total} max |err| {max(errs):.3g} "
+        f"(< 2e-3) ok")
     del model, full, state
     free_card(torch, dev)
+
+
+def new_state(model, B, max_len, batch):
+    """A zeroed decode state for ``batch``; an encoder-decoder model's also
+    holds the cross caches of the batch's frames."""
+    if "frontend_embeds" in batch:
+        return model.init_state(B, max_len,
+                                batch["frontend_embeds"].shape[1])
+    return model.init_state(B, max_len)
 
 
 def free_card(torch, dev) -> None:
@@ -2192,12 +2314,14 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
                 prompt_len=1024, slots=4, max_new=32, dev="cuda"):
     """Serve ``cfg`` (the published width on the card); returns what the
     kernel phase needs (the path's launches and shapes)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import build_model, count_params
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serve import Engine, Request
     name = cfg.name
     kernel = "wkv6" if "rwkv" in cfg.block_pattern else "flash_attention"
+    encdec = cfg.is_encdec
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2209,16 +2333,25 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         f"{card_gib(torch, dev):.2f} GiB")
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (n_requests, prompt_len))
-    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=max_new)
+    # an encoder-decoder model's requests carry their source: random
+    # frames in the compute dtype, the config's frontend_len each
+    F = cfg.frontend_len if encdec else 0
+    frames = [None] * n_requests
+    if encdec:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        frames = torch.randn((n_requests, F, cfg.d_model), generator=gen,
+                             device=dev).to(cfg.compute_dtype)
+    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=max_new,
+                    frames=frames[i])
             for i in range(n_requests)]
     # warm-up at the traffic's shapes (library loads, cuBLAS handles and
     # heuristics, the allocator's blocks), outside the counted run
-    Engine(model, slots=slots, max_len=prompt_len + max_new, device=dev
-           ).generate_batch([dataclasses.replace(reqs[0],
-                                                 max_new_tokens=2)])
+    Engine(model, slots=slots, max_len=prompt_len + max_new, enc_len=F,
+           device=dev).generate_batch([dataclasses.replace(
+               reqs[0], max_new_tokens=2)])
     metrics = MetricsRegistry()
     eng = Engine(model, slots=slots, max_len=prompt_len + max_new,
-                 placement=placement, metrics=metrics, device=dev)
+                 enc_len=F, placement=placement, metrics=metrics, device=dev)
     sync(torch, dev)
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2226,6 +2359,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
     sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = ops.launches()
+    by_shape = dict(fa.SHAPE_LAUNCHES)
     check(sorted(c.uid for c in comps) == list(range(n_requests))
           and all(len(c.tokens) == max_new for c in comps),
           f"{name}: served {len(comps)} completions")
@@ -2234,40 +2368,83 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
           * (max_new - 1), f"{name}: {eng.prefills} prefills, "
           f"{eng.decode_steps} decode steps")
     L = cfg.num_layers
-    # the layers that run the path's kernel: the attention layers (12 of
-    # recurrentgemma-9b's 38), or every RWKV-6 layer
-    n_kernel = sum(plan.kind == ("attn" if kernel == "flash_attention"
-                                 else "rwkv") for plan in model.plans)
-    if kernel == "flash_attention":
-        # every prefill launch the tensor-core kernel, one an attention layer
-        n = n_kernel * eng.prefills
+    modes = None
+    if encdec:
+        # a prefill: one launch an encoder layer (bidirectional over the
+        # frames), and two a decoder layer (causal over the prompt, then
+        # cross over the frames); a decode step: one a decoder layer
+        # (cross decode); every one the tensor-core kernel
+        L = cfg.encoder_layers + cfg.num_layers
+        n_kernel = cfg.encoder_layers + 2 * cfg.num_layers
+        n = n_kernel * eng.prefills + cfg.num_layers * eng.decode_steps
         expect = {"flash_attention": n, "flash_attention_tc": n,
                   "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
+        # each entry's launches are its shape's, as the wrapper counted
+        # them where it launched
+        modes, want_shapes = {}, {}
+        for entry, (shape_of, per) in ENCDEC_MODES.items():
+            Tq, Tk, causal = shape_of(prompt_len, F)
+            layers = cfg.encoder_layers if entry == "flash_attention_enc" \
+                else cfg.num_layers
+            want_shapes[("tc", Tq, Tk, causal)] = layers * (
+                eng.prefills if per == "prefill" else eng.decode_steps)
+            modes[entry] = (dict(B=slots, T=Tq, Tk=Tk, causal=causal,
+                                 d=cfg.d_model, H=cfg.num_heads,
+                                 G=cfg.num_kv_heads, D=cfg.head_dim,
+                                 N=cfg.rwkv_head_dim,
+                                 dtype=cfg.compute_dtype),
+                            by_shape.get(("tc", Tq, Tk, causal), 0))
+        check(by_shape == want_shapes, f"{name}: launches by (variant, Tq, "
+              f"Tk, causal) {by_shape}, expected {want_shapes}")
+        log(f"[serve] {name}: launches by (variant, Tq, Tk, causal): "
+            f"{by_shape}")
     else:
-        # every model call launches the split kernel, never the
-        # sequential one
-        expect = {"flash_attention": 0, "flash_attention_tc": 0,
-                  "flash_attention_scalar": 0,
-                  "wkv6": n_kernel * (eng.prefills + eng.decode_steps),
-                  "wkv6_seq": 0}
+        # the layers that run the path's kernel: the attention layers (12
+        # of recurrentgemma-9b's 38), or every RWKV-6 layer
+        n_kernel = sum(plan.kind == ("attn" if kernel == "flash_attention"
+                                     else "rwkv") for plan in model.plans)
+        if kernel == "flash_attention":
+            # every prefill launch the tensor-core kernel, one an
+            # attention layer
+            n = n_kernel * eng.prefills
+            expect = {"flash_attention": n, "flash_attention_tc": n,
+                      "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
+        else:
+            # every model call launches the split kernel, never the
+            # sequential one
+            expect = {"flash_attention": 0, "flash_attention_tc": 0,
+                      "flash_attention_scalar": 0,
+                      "wkv6": n_kernel * (eng.prefills + eng.decode_steps),
+                      "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
           f"expected {expect} for {n_kernel} of {L} layers")
     hist = metrics.snapshot()["histograms"]
     pre_s, dec_s = hist["serve.prefill"]["sum"], hist["serve.decode"]["sum"]
     pre_tok = n_requests * prompt_len
     dec_tok = eng.decode_steps * slots
+    if encdec:
+        per = (f"{cfg.encoder_layers} encoder + 2 x {cfg.num_layers} decoder "
+               f"launches a prefill, {cfg.num_layers} a decode step")
+        source = (f"; source {n_requests * F} frames in {pre_s:.4f} s = "
+                  f"{n_requests * F / pre_s:.1f} frames/s")
+    else:
+        calls_of = "prefills" if kernel == "flash_attention" \
+            else "model calls"
+        per = f"{n_kernel} of {L} layers x {calls_of}"
+        source = ""
     log(f"[serve] {name}: {n_requests} requests x {prompt_len}-token "
-        f"prompts over {slots} slots, {max_new} new tokens each, in "
-        f"{wall:.3f} s; launches {launches} (= {n_kernel} of {L} layers x "
-        f"{'prefills' if kernel == 'flash_attention' else 'model calls'})")
+        f"prompts{f' and {F}-frame sources' if encdec else ''} over {slots} "
+        f"slots, {max_new} new tokens each, in {wall:.3f} s; launches "
+        f"{launches} (= {per})")
     log(f"[serve] {name}: prefill {pre_tok} tokens in {pre_s:.4f} s = "
-        f"{pre_tok / pre_s:.1f} tokens/s; decode {eng.decode_steps} steps "
-        f"x {slots} slots in {dec_s:.4f} s = {dec_tok / dec_s:.1f} "
-        f"tokens/s ({dec_s / eng.decode_steps * 1e3:.3f} ms a step); peak "
-        f"{card_gib(torch, dev, peak=True):.2f} GiB on {card}")
+        f"{pre_tok / pre_s:.1f} tokens/s{source}; decode "
+        f"{eng.decode_steps} steps x {slots} slots in {dec_s:.4f} s = "
+        f"{dec_tok / dec_s:.1f} tokens/s ({dec_s / eng.decode_steps * 1e3:.3f}"
+        f" ms a step); peak {card_gib(torch, dev, peak=True):.2f} GiB on "
+        f"{card}")
     # the same traffic again on the warm engine: the spread within a call
     again = MetricsRegistry()
-    Engine(model, slots=slots, max_len=prompt_len + max_new,
+    Engine(model, slots=slots, max_len=prompt_len + max_new, enc_len=F,
            metrics=again, device=dev).serve(reqs)
     sync(torch, dev)
     hist = again.snapshot()["histograms"]
@@ -2283,6 +2460,8 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
 
     # the first wave again: finite logits, and against the plain version
     first = {"tokens": torch.as_tensor(prompts[:slots], device=dev)}
+    if encdec:
+        first["frontend_embeds"] = frames[:slots]
     logits, logits_p, routes = kernel_vs_plain(
         torch, model, first, kernel, prompt_len + max_new)
     check(bool(torch.isfinite(logits.float()).all()),
@@ -2352,10 +2531,12 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
     shapes = dict(B=slots, T=prompt_len, d=cfg.d_model, H=cfg.num_heads,
                   G=cfg.num_kv_heads, D=cfg.head_dim,
                   N=cfg.rwkv_head_dim, dtype=cfg.compute_dtype)
-    del model, eng, logits, logits_p, first
+    prefills = eng.prefills
+    del model, eng, logits, logits_p, first, frames, reqs
     free_card(torch, dev)
     return dict(kernel=kernel, launches=launches, shapes=shapes,
-                waves=waves, layers=n_kernel)
+                waves=waves, layers=n_kernel, modes=modes,
+                prefills=prefills)
 
 
 def phase_window(torch, np, model, seed, card, prompt_len=WINDOW_PROMPT,
@@ -2524,13 +2705,13 @@ def kernel_vs_plain(torch, model, batch, kernel, max_len, pin=False):
         else wk.wkv6_scan_ref
     with torch.inference_mode():
         (logits, _), ids = with_routes(torch, lambda: model.prefill(
-            batch, model.init_state(B, max_len)))
+            batch, new_state(model, B, max_len, batch)))
         original = getattr(ops, kernel)
         setattr(ops, kernel, plain)
         try:
             (logits_p, _), ids_p = with_routes(
                 torch, lambda: model.prefill(
-                    batch, model.init_state(B, max_len)),
+                    batch, new_state(model, B, max_len, batch)),
                 replay=ids if pin else None)
         finally:
             setattr(ops, kernel, original)
@@ -2587,7 +2768,7 @@ def prefill_turns(torch, model, batch, slots, max_len, dev="cuda"):
         for which in ("tc", "scalar", "scalar", "tc"):
             ops.flash_attention = path if which == "tc" else scalar
             with torch.inference_mode():
-                state = model.init_state(slots, max_len)
+                state = new_state(model, slots, max_len, batch)
                 sync(torch, dev)
                 t0 = time.perf_counter()
                 model.prefill(batch, state)
@@ -2612,10 +2793,15 @@ def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (slots, prompt_len))
     first = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.is_encdec:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        first["frontend_embeds"] = torch.randn(
+            (slots, cfg.frontend_len, cfg.d_model), generator=gen,
+            device=dev).to(cfg.compute_dtype)
 
     def window():
         with torch.inference_mode():
-            st = model.init_state(slots, prompt_len + steps)
+            st = new_state(model, slots, prompt_len + steps, first)
             lg, st = model.prefill(first, st)
             tok = lg.argmax(-1)
             sync(torch, dev)
@@ -2703,26 +2889,32 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
     sh = shapes
     B, T, dt = sh["B"], sh["T"], sh["dtype"]
     if kernel == "flash_attention":
+        # a causal call covers one sequence (Tk = T); a bidirectional one
+        # may read another (the encoder-decoder's cross attention)
         H, G, D = sh["H"], sh["G"], sh["D"]
-        q, k, v = attn_inputs(torch, B, T, H, G, D, dt, seed, dev)
-        err = check_attention(torch, q, k, v, True, None,
-                              f"path shape {(B, T, H, G, D)}", errs, name)
+        Tk, causal = sh.get("Tk", T), sh.get("causal", True)
+        shape = (B, T, Tk, H, G, D)
+        q, k, v = attn_inputs(torch, B, T, H, G, D, dt, seed, dev, Tk=Tk)
+        err = check_attention(torch, q, k, v, causal, None,
+                              f"path shape {shape}", errs, name)
         log(f"[lm-parity] flash attention bfloat16 (tc) at the path shape "
-            f"B={B} T={T} H={H} G={G} D={D}: max |err| {err:.3g} ok")
+            f"B={B} Tq={T} Tk={Tk} H={H} G={G} D={D} causal={causal}: "
+            f"max |err| {err:.3g} ok")
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        pairs = B * H * T * (T + 1) // 2
-        n_elems = 2 * B * T * H * D + 2 * B * T * G * D
+        # the (query, key) pairs the mask lets through
+        pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * Tk
+        n_elems = 2 * B * T * H * D + 2 * B * Tk * G * D
 
         def timed(q, k, v, kind, ops_per_s):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             out = dict(
-                ms=time_ms(torch, lambda: fa._launch(q, k, v, True, None,
+                ms=time_ms(torch, lambda: fa._launch(q, k, v, causal, None,
                                                      kind),
                            iters=50 if kind == "tc" else 10, warmup=3),
                 plain_ms=time_ms(torch, lambda: fa.attention_ref(
-                    q, k, v, causal=True), iters=5, warmup=1),
+                    q, k, v, causal=causal), iters=5, warmup=1),
                 library_ms=time_ms(torch, lambda: sdpa(
-                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                    qt, kt, vt, is_causal=causal, enable_gqa=True),
                     iters=50, warmup=3),
                 bound=bound_ms(q.element_size() * n_elems, 4 * D * pairs,
                                ops_per_s))
@@ -2731,12 +2923,13 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
 
         r = timed(q, k, v, "tc", BF16_FLOPS_PER_S)
         r["earlier_ms"] = time_ms(torch, lambda: fa._launch(
-            q, k, v, True, None, "scalar"), iters=10, warmup=2)
-        what = f"B={B} T={T} H={H} G={G} D={D} causal bf16"
+            q, k, v, causal, None, "scalar"), iters=10, warmup=2)
+        what = (f"B={B} Tq={T} Tk={Tk} H={H} G={G} D={D} "
+                f"{'causal' if causal else 'bidirectional'} bf16")
     if kernel == "flash_attention" and scalar_entry:
         q32, k32, v32 = (x.float() for x in (q, k, v))
-        err = check_attention(torch, q32, k32, v32, True, None,
-                              f"path shape {(B, T, H, G, D)} fp32", errs,
+        err = check_attention(torch, q32, k32, v32, causal, None,
+                              f"path shape {shape} fp32", errs,
                               scalar_entry)
         log(f"[lm-parity] flash attention float32 (scalar) at the path "
             f"shape: max |err| {err:.3g} ok")
@@ -2747,8 +2940,7 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
         log(f"[time] {scalar_entry}: kernel {sc['ms']:.4f} ms, "
             f"plain {sc['plain_ms']:.4f} ms, library "
             f"{sc['library_ms']:.4f} ms, bound {sc['bound'][0]:.5f} ms "
-            f"({sc['bound'][1]}) at B={B} T={T} H={H} G={G} D={D} causal "
-            f"fp32")
+            f"({sc['bound'][1]}) at {what.replace('bf16', 'fp32')}")
     if kernel == "wkv6":
         H, N = sh["d"] // sh["N"], sh["N"]
         args = wkv_inputs(torch, B, T, H, N, dt, seed, random_state=False,
@@ -2805,6 +2997,34 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
             f"{r['decode_earlier_graph_ms']:.5f} ms from a CUDA graph; "
             f"bound {r['decode_bound'][0]:.6f} ms ({r['decode_bound'][1]})")
     return r
+
+
+def time_encdec_kernels(torch, cfg, run, errs, seed, dev="cuda"):
+    """The encoder-decoder's kernel at each of its four shapes
+    (``ENCDEC_MODES``), timed by ``time_lm_kernel``; each entry keeps its
+    shape's launches on the served path, the encoder's entry the first
+    wave's prefill in turns, and the log the kernel's share of that wave.
+    Returns {record entry: run}."""
+    out = {}
+    for entry, (shapes, n) in run["modes"].items():
+        out[entry] = dict(run, entry_launches=n, times=time_lm_kernel(
+            torch, run["kernel"], shapes, errs, seed, dev=dev, name=entry))
+    w = run["waves"]
+    out["flash_attention_enc"]["times"].update(
+        wave_ms=w["tc"] * 1e3, wave_earlier_ms=w["scalar"] * 1e3)
+    per_wave = {e: n // run["prefills"] for e, (_, n) in run["modes"].items()
+                if ENCDEC_MODES[e][1] == "prefill"}
+    ms = sum(k * out[e]["times"]["ms"] for e, k in per_wave.items())
+    ms_earlier = sum(k * out[e]["times"]["earlier_ms"]
+                     for e, k in per_wave.items())
+    log(f"[serve] {cfg.name}: attention " + " + ".join(
+        f"{k} x {out[e]['times']['ms']:.4f} ms ({e})"
+        for e, k in per_wave.items())
+        + f" = {ms / (w['tc'] * 1e3):.1%} of a {w['tc'] * 1e3:.3f} ms "
+        f"prefill wave (scalar kernel: "
+        f"{ms_earlier / (w['scalar'] * 1e3):.1%} of "
+        f"{w['scalar'] * 1e3:.3f} ms)")
+    return out
 
 
 def main() -> int:
@@ -2891,8 +3111,17 @@ def main() -> int:
             phase_parity_4_layers(torch, cfg, args.seed,
                                   prompt=WINDOW_PARITY_PROMPT,
                                   steps=WINDOW_PARITY_STEPS)
+        elif cfg.is_encdec:
+            phase_parity_4_layers(torch, cfg, args.seed,
+                                  steps=ENCDEC_PARITY_STEPS,
+                                  frames=ENCDEC_PARITY_FRAMES)
         else:
             phase_parity_4_layers(torch, cfg, args.seed)
+        if run["modes"] is not None:
+            lm_runs.update(time_encdec_kernels(torch, cfg, run, lm_errs,
+                                               args.seed))
+            done(f"serve {cfg.name}")
+            continue
         r = time_lm_kernel(torch, op, run["shapes"], lm_errs, args.seed,
                            name=name, scalar_entry=SCALAR_ENTRIES.get(name))
         run["times"] = r
@@ -2988,9 +3217,10 @@ def main() -> int:
     # each entry's launches: its own path's (the llama4 check's one
     # prefill for its entry); the scalar kernel's on the path of the
     # entry it was timed beside
-    runs = {name: (run["launches"]["flash_attention_tc" if
-                                   run["kernel"] == "flash_attention"
-                                   else "wkv6"], run["times"])
+    runs = {name: (run["entry_launches"] if "entry_launches" in run
+                   else run["launches"]["flash_attention_tc" if
+                                        run["kernel"] == "flash_attention"
+                                        else "wkv6"], run["times"])
             for name, run in lm_runs.items()}
     for name, scalar_name in SCALAR_ENTRIES.items():
         run = lm_runs[name]

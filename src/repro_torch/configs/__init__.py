@@ -3,11 +3,11 @@
 Counterpart of ``repro/configs/__init__.py``.  ``get(name)`` returns the
 published config; ``reduced(cfg)`` a same-family shrunken variant for CPU
 tests, by the reference's shrink rules.  The port serves the dense, MoE,
-RWKV and RG-LRU hybrid families: ``qwen3-1.7b``, ``stablelm-3b``,
-``deepseek-7b``, ``granite-20b``, ``qwen3-moe-30b-a3b``,
-``llama4-maverick-400b-a17b``, ``rwkv6-3b`` and ``recurrentgemma-9b``.
-For the other names ``get`` raises :class:`NotPortedError` (ROADMAP.md
-§A lists what is left).
+RWKV, RG-LRU hybrid and encoder-decoder families: ``qwen3-1.7b``,
+``stablelm-3b``, ``deepseek-7b``, ``granite-20b``, ``qwen3-moe-30b-a3b``,
+``llama4-maverick-400b-a17b``, ``rwkv6-3b``, ``recurrentgemma-9b`` and
+``seamless-m4t-large-v2``.  For the other name (``pixtral-12b``) ``get``
+raises :class:`NotPortedError` (ROADMAP.md §A lists what is left).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ ARCH_NAMES: List[str] = [
 ]
 
 _MODULES = {
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "recurrentgemma-9b": "recurrentgemma_9b",

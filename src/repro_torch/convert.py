@@ -23,7 +23,11 @@ The port reads what the reference writes, without importing it:
   ``wo`` (H, D, d), ...), a MoE layer's ``moe`` group with its nested
   ``shared`` expert included.  The reference stores float32 weights and casts
   each use to the compute dtype; the port stores each weight in the dtype
-  its uses read, which gives the same values.
+  its uses read, which gives the same values;
+* :func:`encdec_params_from_reference` and
+  :func:`encdec_state_from_reference` — the same for the reference's
+  ``EncDec`` (its ``enc_stack`` and ``dec_stack`` unstacked into the
+  port's ``enc_layers`` and ``dec_layers``).
 
 Decision journals need no converter: both packages write and read the
 same ``repro.market.decision-journal`` v2 format.
@@ -38,6 +42,7 @@ from typing import (Any, Dict, Hashable, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.models.encdec import EncDec, encoder_config
 from repro_torch.models.lm import LM, block_cache_specs, layer_plans
 from repro_torch.models.types import ModelConfig
 from repro_torch.selector.fused_rank import TorchFusedRankState, \
@@ -45,7 +50,8 @@ from repro_torch.selector.fused_rank import TorchFusedRankState, \
 from repro_torch.selector.rank import _position_index
 from repro_torch.selector.store import ProfilingStore
 
-__all__ = ["FLEET_ARRAYS", "fleet_state_from_reference",
+__all__ = ["FLEET_ARRAYS", "encdec_params_from_reference",
+           "encdec_state_from_reference", "fleet_state_from_reference",
            "lm_params_from_reference", "lm_state_from_reference",
            "model_config_from_reference", "store_from_reference"]
 
@@ -182,10 +188,44 @@ def lm_state_from_reference(cfg: ModelConfig, state: Mapping[str, Any], *,
     bf16 leaves arrive as float32 numpy (numpy has no bf16) and are cast
     back to the compute dtype; the WKV state and RG-LRU's ``h`` stay
     float32."""
+    return _state_from_reference(cfg, layer_plans(cfg), state, device)
+
+
+def encdec_params_from_reference(cfg: ModelConfig,
+                                 params: Mapping[str, Any], *,
+                                 device: Union[str, torch.device] = "cuda"
+                                 ) -> EncDec:
+    """The reference ``EncDec.init`` tree (``{"embed", "enc_stack",
+    "enc_norm", "dec_stack", "final_norm"}``, leaves as numpy arrays)
+    loaded into a port :class:`EncDec` on ``device``.  The encoder stack
+    is unstacked under the encoder's config (``num_layers`` the encoder's
+    depth), as the reference builds it, and the decoder stack under
+    ``cfg``."""
+    tree = {"embed": _map_leaves(np.asarray, params["embed"]),
+            "enc_layers": _unstack_layers(encoder_config(cfg),
+                                          params["enc_stack"]),
+            "enc_norm": _map_leaves(np.asarray, params["enc_norm"]),
+            "dec_layers": _unstack_layers(cfg, params["dec_stack"]),
+            "final_norm": _map_leaves(np.asarray, params["final_norm"])}
+    return EncDec(cfg, device=device, params=tree)
+
+
+def encdec_state_from_reference(cfg: ModelConfig, state: Mapping[str, Any],
+                                *, device: Union[str, torch.device] = "cuda"
+                                ) -> List[Dict[str, torch.Tensor]]:
+    """A reference ``EncDec`` decode state (``init_state`` / ``prefill``'s
+    stacked tree, leaves as numpy arrays) as the port's per-layer list:
+    each decoder layer's ``k``, ``v`` and cross cache ``xk``, ``xv``, each
+    leaf in the dtype of the port's state spec (the compute dtype)."""
+    return _state_from_reference(cfg, layer_plans(cfg, cross=True), state,
+                                 device)
+
+
+def _state_from_reference(cfg, plans, state, device):
     dev = resolve_device(device)
     out = []
-    for plan, layer in zip(layer_plans(cfg), _unstack_layers(cfg, state)):
-        specs = block_cache_specs(cfg, plan, 1, 1)
+    for plan, layer in zip(plans, _unstack_layers(cfg, state)):
+        specs = block_cache_specs(cfg, plan, 1, 1, 1)
         out.append({k: torch.tensor(np.asarray(v)).to(
             device=dev, dtype=specs[k].storage_dtype(cfg.compute_dtype))
             for k, v in layer.items()})

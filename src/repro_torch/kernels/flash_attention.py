@@ -23,24 +23,27 @@ reference's oracle ``repro.kernels.ref.attention_ref``.
 :func:`flash_attention` takes it for tensors on the CPU; for CUDA tensors
 it launches a kernel or raises, and never falls back.  :data:`LAUNCHES`
 counts kernel launches and nothing else: ``flash_attention`` is the total,
-``flash_attention_tc`` and ``flash_attention_scalar`` each variant.
+``flash_attention_tc`` and ``flash_attention_scalar`` each variant;
+:data:`SHAPE_LAUNCHES` counts the same launches by variant and shape.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "TC_HEAD_DIMS", "attention_ref",
-           "flash_attention", "reset_launches", "variant"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES", "TC_HEAD_DIMS",
+           "attention_ref", "flash_attention", "reset_launches", "variant"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
                              "flash_attention_scalar": 0}
+#: the same launches by (variant, Tq, Tk, causal)
+SHAPE_LAUNCHES: Dict[Tuple[str, int, int, bool], int] = {}
 #: the head sizes the kernel is built for: every attention config the port
 #: serves (the reduced configs' 16, stablelm's 80, recurrentgemma's 256)
 #: and the reference kernel tests' 32 and 64
@@ -65,6 +68,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 def variant(dtype: torch.dtype, D: int) -> str:
@@ -97,7 +101,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Tq, H, D).to(v.dtype)
 
 
-def _check(q, k, v, window) -> None:
+def _check_causal(Tq: int, Tk: int, causal: bool) -> None:
+    # the reference's rule: causal masking assumes q and k cover the same
+    # positions, so Tq != Tk has no meaning there
+    if causal and Tq != Tk:
+        raise ValueError(f"a causal call needs as many keys as queries, "
+                         f"got Tq={Tq} and Tk={Tk}")
+
+
+def _check(q, k, v, causal, window) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-d tensor")
@@ -136,6 +148,7 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
             raise ValueError(f"{name} must be contiguous")
     if min(B, Tq, Tk) < 1:
         raise ValueError("empty batch or sequence")
+    _check_causal(Tq, Tk, causal)
     kind = kind or variant(q.dtype, D)
     o = torch.empty_like(q)
     lib = _build.load(_SOURCE, _SIGNATURES)
@@ -162,6 +175,8 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
         raise ValueError(f"unknown kernel variant {kind!r}")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention_{kind}"] += 1
+    key = (kind, Tq, Tk, bool(causal))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     return o
 
 
@@ -170,11 +185,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` (the reference's argument order,
     without its TPU block sizes): ``(B, Tq, H, D)`` in ``q``'s dtype.
+    A bidirectional call takes any ``Tq`` and ``Tk`` (an encoder, cross
+    attention over it, one decode token over a cross cache); a causal one
+    needs ``Tq == Tk`` and raises otherwise.
     CUDA tensors run a kernel (bf16 or fp32, contiguous, ``D`` in
     :data:`HEAD_DIMS`; the variant :func:`variant` names); CPU tensors the
     plain version."""
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
+        _check_causal(q.shape[1], k.shape[1], causal)
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

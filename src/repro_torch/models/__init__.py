@@ -1,12 +1,13 @@
 """The LM substrate on the port: configs' types, layers (the MoE dispatch
-among them), the RG-LRU block and the RWKV-6 time and channel mixes, and
-the decoder-only :class:`LM` (dense, MoE, RWKV-6 and RG-LRU hybrid
-families), with prefill attention and the WKV recurrence on hand-written
-CUDA kernels."""
+among them), the RG-LRU block and the RWKV-6 time and channel mixes, the
+decoder-only :class:`LM` (dense, MoE, RWKV-6 and RG-LRU hybrid families)
+and the encoder-decoder :class:`EncDec`, with every prefill-side
+attention and the WKV recurrence on hand-written CUDA kernels."""
 from repro_torch.models.types import (ModelConfig, NotPortedError, ParamSpec,
                                       ShapeSpec, count_params)
 from repro_torch.models.registry import build_model
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
-__all__ = ["LM", "ModelConfig", "NotPortedError", "ParamSpec", "ShapeSpec",
-           "build_model", "count_params"]
+__all__ = ["EncDec", "LM", "ModelConfig", "NotPortedError", "ParamSpec",
+           "ShapeSpec", "build_model", "count_params"]

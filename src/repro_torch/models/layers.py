@@ -5,17 +5,19 @@ head, RoPE, attention, MLP, the sort-based MoE dispatch (counterpart of
 Functions over explicit parameter dicts, as in the reference, with the
 reference's layouts (``wq`` (d, H, D), ``wo`` (H, D, d), ...).  Weights
 arrive in the dtype their uses read (:mod:`repro_torch.models.types`), so
-the reference's per-use casts to the compute dtype have no counterpart.  Causal
-prefill attention goes to the hand-written flash-attention kernel through
-:func:`repro_torch.kernels.ops.flash_attention`; single-token decode
-attention (:func:`sdpa_decode`) stays plain PyTorch, as it is an XLA op
-and not a Pallas kernel in the reference.
+the reference's per-use casts to the compute dtype have no counterpart.
+Every attention mode that calls the reference's ``sdpa`` goes to the
+hand-written flash-attention kernel through
+:func:`repro_torch.kernels.ops.flash_attention`: causal prefill, the
+encoder's bidirectional ``full``, the decoder's ``cross`` over the
+encoder output and its one-token ``cross_decode`` over the cross cache.
+Single-token self-attention decode (:func:`sdpa_decode`) stays plain
+PyTorch, as it is an XLA op and not a Pallas kernel in the reference.
 
 The MoE layer (:func:`moe_apply`) computes the reference's dispatch step
 by step in plain PyTorch, on whatever device its input lies: the
 reference runs it as XLA code, not as a Pallas kernel, and its expert
-products are batched matrix products.  Not ported yet: the ``full``,
-``cross`` and ``cross_decode`` attention modes (ROADMAP.md §A).  The reference's
+products are batched matrix products.  The reference's
 ``sharding.ctx.constrain`` calls have no counterpart on one card and are
 dropped.  Caches are written in place (the reference returns new
 arrays); the functions still return the cache they wrote.
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.types import ModelConfig, NotPortedError, ParamSpec
+from repro_torch.models.types import ModelConfig, ParamSpec
 
 Params = Mapping[str, torch.Tensor]
 
@@ -169,7 +171,10 @@ def _cache_write_prefill(cache: torch.Tensor, k: torch.Tensor
 # attention layer (projections + rope + qk-norm + cache plumbing)
 # ---------------------------------------------------------------------------
 
-def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+def attn_specs(cfg: ModelConfig, *, cross: bool = False
+               ) -> Dict[str, ParamSpec]:
+    """A layer's attention weights; a cross-attention layer (``cross``)
+    has no q/k norm, as in the reference."""
     d, H, G, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
         "wq": ParamSpec((d, H, D), ("embed", "heads", "head_dim")),
@@ -178,7 +183,7 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "wo": ParamSpec((H, D, d), ("heads", "head_dim", "embed"),
                         scale=1.0 / math.sqrt(H * D)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["q_norm"] = ParamSpec((D,), (None,), init="ones",
                                     dtype=torch.float32)
         specs["k_norm"] = ParamSpec((D,), (None,), init="ones",
@@ -192,21 +197,25 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_q(p, cfg, x, positions):
+def _project_q(p, cfg, x, positions, *, use_rope=True):
     q = _proj_heads(x, p["wq"])
-    if cfg.qk_norm:
+    if cfg.qk_norm and "q_norm" in p:
         q = rms_norm_1d(q, p["q_norm"])
-    return rope(q, positions, theta=cfg.rope_theta,
-                fraction=cfg.rope_fraction)
+    if use_rope and positions is not None:
+        q = rope(q, positions, theta=cfg.rope_theta,
+                 fraction=cfg.rope_fraction)
+    return q
 
 
-def _project_kv(p, cfg, x, positions):
+def _project_kv(p, cfg, x, positions, *, use_rope=True):
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
-    if cfg.qk_norm:
+    if cfg.qk_norm and "k_norm" in p:
         k = rms_norm_1d(k, p["k_norm"])
-    return rope(k, positions, theta=cfg.rope_theta,
-                fraction=cfg.rope_fraction), v
+    if use_rope and positions is not None:
+        k = rope(k, positions, theta=cfg.rope_theta,
+                 fraction=cfg.rope_fraction)
+    return k, v
 
 
 def attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
@@ -214,22 +223,47 @@ def attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                window: Optional[int] = None,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                pos: Optional[int] = None,
+               kv_x: Optional[torch.Tensor] = None,
+               use_rope: bool = True,
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Attention layer in mode ``"causal"`` (train/prefill; with a cache,
-    the prefill writes it) or ``"decode"`` (one token against the cache,
-    written at index ``pos``).  Returns (output, cache)."""
+    """Attention layer.
+
+    mode: ``"causal"`` (train/prefill; with a cache, the prefill writes
+    it), ``"full"`` (the encoder: bidirectional), ``"cross"`` (decoder to
+    encoder: K and V projected from ``kv_x``, without RoPE, and returned
+    as the cache ``{"k", "v"}``), ``"decode"`` (one token against the
+    cache, written at index ``pos``) or ``"cross_decode"`` (one token
+    against the cross cache, read only).  Returns (output, cache)."""
     if mode == "causal":
-        q = _project_q(p, cfg, x, positions)
-        k, v = _project_kv(p, cfg, x, positions)
+        q = _project_q(p, cfg, x, positions, use_rope=use_rope)
+        k, v = _project_kv(p, cfg, x, positions, use_rope=use_rope)
         o = sdpa(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                  window=window)
         new_cache = None
         if cache is not None:
             new_cache = {"k": _cache_write_prefill(cache["k"], k),
                          "v": _cache_write_prefill(cache["v"], v)}
+    elif mode == "full":
+        q = _project_q(p, cfg, x, positions, use_rope=use_rope)
+        k, v = _project_kv(p, cfg, x, positions, use_rope=use_rope)
+        o = sdpa(q.contiguous(), k.contiguous(), v.contiguous(),
+                 causal=False)
+        new_cache = None
+    elif mode == "cross":
+        q = _project_q(p, cfg, x, None, use_rope=False)
+        k, v = _project_kv(p, cfg, kv_x, None, use_rope=False)
+        k, v = k.contiguous(), v.contiguous()
+        o = sdpa(q.contiguous(), k, v, causal=False)
+        new_cache = {"k": k, "v": v}
+    elif mode == "cross_decode":
+        # one query against the whole cross cache (Tq = 1), through the
+        # kernel as the reference's goes through its sdpa
+        q = _project_q(p, cfg, x, None, use_rope=False)
+        o = sdpa(q.contiguous(), cache["k"], cache["v"], causal=False)
+        new_cache = cache
     elif mode == "decode":
-        q = _project_q(p, cfg, x, positions)
-        k, v = _project_kv(p, cfg, x, positions)
+        q = _project_q(p, cfg, x, positions, use_rope=use_rope)
+        k, v = _project_kv(p, cfg, x, positions, use_rope=use_rope)
         # one token at slot pos % S (window caches are rings of S slots)
         k_cache, v_cache = cache["k"], cache["v"]
         S = k_cache.shape[1]
@@ -244,8 +278,6 @@ def attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
             valid &= (pos - kpos) % S < window
         o = sdpa_decode(q, k_cache, v_cache, valid)
         new_cache = {"k": k_cache, "v": v_cache}
-    elif mode in ("full", "cross", "cross_decode"):
-        raise NotPortedError(f"attention mode {mode!r} is not ported yet")
     else:
         raise ValueError(mode)
     H, D, d = p["wo"].shape

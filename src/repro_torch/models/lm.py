@@ -19,8 +19,11 @@ in the reference.  Its load-balance term is not summed: serving does not
 read it, and it comes back with ``loss``.  A ``rec`` layer (the RG-LRU
 block of RecurrentGemma) holds ``rec`` and an MLP; its attention layers
 are local (``cfg.window``), with ring caches of ``min(max_len, window)``
-slots.  Not ported yet: cross-attention and the frontend embeddings
-(ROADMAP.md §A).
+slots.  The encoder-decoder model (:class:`repro_torch.models.encdec.
+EncDec`) runs its stacks through the same :func:`block_apply` (mode
+``encode``, and decoder layers with cross-attention) and
+:func:`run_stack`.  Not ported yet: the frontend embeddings of the
+vision-language family (ROADMAP.md §A).
 """
 from __future__ import annotations
 
@@ -49,15 +52,16 @@ class LayerPlan:
     kind: str                   # "attn" | "rec" | "rwkv"
     moe: bool = False
     window: Optional[int] = None
+    cross: bool = False         # decoder layer with cross-attention
 
 
-def layer_plans(cfg: ModelConfig) -> List[LayerPlan]:
+def layer_plans(cfg: ModelConfig, *, cross: bool = False) -> List[LayerPlan]:
     plans = []
     for i in range(cfg.num_layers):
         kind = cfg.block_kind(i)
         window = cfg.window if (kind == "attn" and cfg.window) else None
         plans.append(LayerPlan(kind=kind, moe=cfg.is_moe_layer(i),
-                               window=window))
+                               window=window, cross=cross))
     return plans
 
 
@@ -81,6 +85,9 @@ def block_specs(cfg: ModelConfig, plan: LayerPlan) -> Dict[str, Any]:
         s["attn"] = L.attn_specs(cfg)
     else:
         s["rec"] = R.rglru_block_specs(cfg)
+    if plan.cross:
+        s["ln_cross"] = L.norm_specs(cfg)
+        s["cross"] = L.attn_specs(cfg, cross=True)
     if plan.moe:
         s["moe"] = L.moe_specs(cfg)
     else:
@@ -89,33 +96,51 @@ def block_specs(cfg: ModelConfig, plan: LayerPlan) -> Dict[str, Any]:
 
 
 def block_cache_specs(cfg: ModelConfig, plan: LayerPlan, batch: int,
-                      max_len: int) -> Dict[str, ParamSpec]:
-    """ParamSpec tree for this layer's decode state."""
+                      max_len: int, enc_len: int = 0
+                      ) -> Dict[str, ParamSpec]:
+    """ParamSpec tree for this layer's decode state; a cross-attention
+    layer adds its cross cache ``xk``, ``xv`` of ``enc_len`` positions
+    in the compute dtype."""
     _check_plan(plan)
     if plan.kind == "attn":
         shape, axes = L.kv_cache_shape(cfg, batch, max_len)
-        return {"k": ParamSpec(shape, axes, init="zeros"),
-                "v": ParamSpec(shape, axes, init="zeros")}
-    shapes = R.rglru_state_shapes if plan.kind == "rec" \
-        else R.rwkv_state_shapes
-    return {name: ParamSpec(shape, axes, init="zeros", dtype=dtype)
-            for name, (shape, axes, dtype) in shapes(cfg, batch).items()}
+        s = {"k": ParamSpec(shape, axes, init="zeros"),
+             "v": ParamSpec(shape, axes, init="zeros")}
+    else:
+        shapes = R.rglru_state_shapes if plan.kind == "rec" \
+            else R.rwkv_state_shapes
+        s = {name: ParamSpec(shape, axes, init="zeros", dtype=dtype)
+             for name, (shape, axes, dtype) in shapes(cfg, batch).items()}
+    if plan.cross:
+        xshape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        xaxes = ("batch", None, "kv_heads", "head_dim")
+        s["xk"] = ParamSpec(xshape, xaxes, init="zeros")
+        s["xv"] = ParamSpec(xshape, xaxes, init="zeros")
+    return s
 
 
 def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
-                mode: str, positions=None, cache=None, pos=None):
-    """One layer in mode ``train``, ``prefill`` or ``decode``.  Returns
+                mode: str, positions=None, cache=None, pos=None,
+                enc_out=None):
+    """One layer in mode ``train``, ``prefill``, ``decode`` or ``encode``
+    (an encoder layer: bidirectional attention, no cache).  A layer with
+    cross-attention (``plan.cross``) attends to ``enc_out`` after its
+    self-attention in ``train`` and ``prefill`` (the prefill writes the
+    cross cache ``xk``, ``xv``) and to that cache in ``decode``.  Returns
     (x, new_cache); ``new_cache`` is ``{}`` without a cache."""
     new_cache: Dict[str, torch.Tensor] = {}
     cache = cache or {}
-    if mode not in ("train", "prefill", "decode"):
-        raise NotPortedError(f"mode {mode!r} is not ported yet")
+    if mode not in ("train", "prefill", "decode", "encode"):
+        raise ValueError(f"unknown mode {mode!r}")
     if plan.kind != "rwkv":
         h = L.norm_apply(p["ln1"], x, cfg.norm)
         if plan.kind == "rec":
             state = {"h": cache["h"], "conv": cache["conv"]} \
                 if "h" in cache else None
             y, nc = R.rglru_block_apply(p["rec"], cfg, h, state=state)
+        elif mode == "encode":
+            y, nc = L.attn_apply(p["attn"], cfg, h, mode="full",
+                                 positions=positions)
         elif mode == "decode":
             y, nc = L.attn_apply(p["attn"], cfg, h, mode="decode",
                                  positions=positions, window=plan.window,
@@ -130,6 +155,8 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
         if nc is not None:
             new_cache.update(nc)
         x = x + y
+        if plan.cross:
+            x = x + _cross_apply(cfg, p, x, mode, cache, new_cache, enc_out)
         h = L.norm_apply(p["ln2"], x, cfg.norm)
         if plan.moe:
             y, _ = L.moe_apply(p["moe"], cfg, h)
@@ -151,6 +178,22 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
     if ns is not None:
         new_cache["cm_shift"] = ns["shift"]
     return x + y, new_cache
+
+
+def _cross_apply(cfg, p, x, mode, cache, new_cache, enc_out):
+    """The cross-attention sub-block's output: over ``enc_out`` in
+    ``train`` and ``prefill`` (the prefill keeps the projected K and V as
+    the cross cache), over the cross cache in ``decode``."""
+    h = L.norm_apply(p["ln_cross"], x, cfg.norm)
+    if mode == "decode":
+        y, _ = L.attn_apply(p["cross"], cfg, h, mode="cross_decode",
+                            cache={"k": cache["xk"], "v": cache["xv"]})
+        new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
+        return y
+    y, nc = L.attn_apply(p["cross"], cfg, h, mode="cross", kv_x=enc_out)
+    if mode == "prefill":
+        new_cache["xk"], new_cache["xv"] = nc["k"], nc["v"]
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +260,48 @@ def _load_tree(specs, values, compute_dtype, device, where=""):
             for i, (s, v) in enumerate(zip(specs, values))]
 
 
+def load_values(specs: SpecTree, cfg: ModelConfig, device: torch.device,
+                seed: int, params: Optional[Mapping[str, Any]]) -> Any:
+    """A model's parameter tree on ``device``: ``params`` (tensors or numpy
+    arrays) checked against ``specs`` and cast to each leaf's storage
+    dtype, or without it drawn from a generator seeded with ``seed``."""
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return init_params(specs, gen, cfg.compute_dtype, device)
+    return _load_tree(specs, params, cfg.compute_dtype, device)
+
+
+def zeros_state(cfg: ModelConfig, specs, device: torch.device) -> State:
+    """A zeroed decode state for a list of per-layer cache specs."""
+    return map_specs(
+        lambda s: torch.zeros(s.shape, device=device,
+                              dtype=s.storage_dtype(cfg.compute_dtype)),
+        specs)
+
+
+def run_stack(cfg: ModelConfig, plans: List[LayerPlan], blocks, x, *,
+              mode: str, positions, state: Optional[State],
+              pos: Optional[int] = None, enc_out=None
+              ) -> Tuple[torch.Tensor, Optional[State]]:
+    """``x`` through ``blocks`` in depth order (the reference's
+    ``_stack_apply``); returns (x, the new state, or None without one)."""
+    new_state: Optional[State] = [] if state is not None else None
+    for i, (plan, block) in enumerate(zip(plans, blocks)):
+        x, nc = block_apply(cfg, plan, block, x, mode=mode,
+                            positions=positions,
+                            cache=state[i] if state is not None else None,
+                            pos=pos, enc_out=enc_out)
+        if new_state is not None:
+            new_state.append(nc)
+    return x, new_state
+
+
+def seq_positions(B: int, T: int, start: int, device) -> torch.Tensor:
+    """Positions ``start .. start + T - 1`` for each of ``B`` rows."""
+    return torch.arange(start, start + T, dtype=torch.int32,
+                        device=device).expand(B, T)
+
+
 class LM(nn.Module):
     """Decoder-only LM (dense, MoE, RWKV-6 and RG-LRU hybrid families) on
     one device.
@@ -233,19 +318,16 @@ class LM(nn.Module):
                  params: Optional[Mapping[str, Any]] = None):
         super().__init__()
         if cfg.is_encdec:
-            raise NotPortedError("encoder-decoder models are not ported yet")
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             f"build it as an EncDec "
+                             f"(repro_torch.models.encdec), not an LM")
         if cfg.frontend:
             raise NotPortedError("frontend embeddings are not ported yet")
         self.cfg = cfg
         self.plans = layer_plans(cfg)
         self.device = resolve_device(device)
-        specs = self.param_specs()
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            values = init_params(specs, gen, cfg.compute_dtype, self.device)
-        else:
-            values = _load_tree(specs, params, cfg.compute_dtype,
-                                self.device)
+        values = load_values(self.param_specs(), cfg, self.device, seed,
+                             params)
         self.embed = _parameter_dict(values["embed"])
         self.final_norm = _parameter_dict(values["final_norm"])
         self.blocks = nn.ModuleList(Block(v) for v in values["layers"])
@@ -259,11 +341,8 @@ class LM(nn.Module):
                 for plan in self.plans]
 
     def init_state(self, batch: int, max_len: int) -> State:
-        return map_specs(
-            lambda s: torch.zeros(s.shape, device=self.device,
-                                  dtype=s.storage_dtype(
-                                      self.cfg.compute_dtype)),
-            self.state_specs(batch, max_len))
+        return zeros_state(self.cfg, self.state_specs(batch, max_len),
+                           self.device)
 
     # -- the stack -------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -273,20 +352,8 @@ class LM(nn.Module):
     def _stack(self, x, *, mode: str, positions, state: Optional[State],
                pos: Optional[int] = None) -> Tuple[torch.Tensor,
                                                    Optional[State]]:
-        new_state: Optional[State] = [] if state is not None else None
-        for i, (plan, block) in enumerate(zip(self.plans, self.blocks)):
-            x, nc = block_apply(self.cfg, plan, block, x, mode=mode,
-                                positions=positions,
-                                cache=state[i] if state is not None else None,
-                                pos=pos)
-            if new_state is not None:
-                new_state.append(nc)
-        return x, new_state
-
-    @staticmethod
-    def _positions(B: int, T: int, start: int, device) -> torch.Tensor:
-        return torch.arange(start, start + T, dtype=torch.int32,
-                            device=device).expand(B, T)
+        return run_stack(self.cfg, self.plans, self.blocks, x, mode=mode,
+                         positions=positions, state=state, pos=pos)
 
     # -- forward ----------------------------------------------------------------
     def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -294,7 +361,7 @@ class LM(nn.Module):
         x = self._embed(batch["tokens"])
         B, T = x.shape[:2]
         x, _ = self._stack(x, mode="train",
-                           positions=self._positions(B, T, 0, x.device),
+                           positions=seq_positions(B, T, 0, x.device),
                            state=None)
         x = L.norm_apply(self.final_norm, x, self.cfg.norm)
         return L.head_apply(self.embed, self.cfg, x)
@@ -307,7 +374,7 @@ class LM(nn.Module):
         x = self._embed(batch["tokens"])
         B, T = x.shape[:2]
         x, new_state = self._stack(
-            x, mode="prefill", positions=self._positions(B, T, 0, x.device),
+            x, mode="prefill", positions=seq_positions(B, T, 0, x.device),
             state=state)
         x = L.norm_apply(self.final_norm, x[:, -1:], self.cfg.norm)
         return L.head_apply(self.embed, self.cfg, x)[:, 0], new_state
@@ -320,7 +387,7 @@ class LM(nn.Module):
         x = self._embed(token[:, None])
         x, new_state = self._stack(
             x, mode="decode",
-            positions=self._positions(x.shape[0], 1, pos, x.device),
+            positions=seq_positions(x.shape[0], 1, pos, x.device),
             state=state, pos=pos)
         x = L.norm_apply(self.final_norm, x, self.cfg.norm)
         return L.head_apply(self.embed, self.cfg, x)[:, 0], new_state

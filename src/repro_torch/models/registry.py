@@ -6,18 +6,17 @@ from typing import Union
 
 import torch
 
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
-from repro_torch.models.types import ModelConfig, NotPortedError
+from repro_torch.models.types import ModelConfig
 
 
 def build_model(cfg: ModelConfig, *,
                 device: Union[str, torch.device] = "cuda",
-                seed: int = 0) -> LM:
-    """An :class:`LM` for the decoder-only families (dense, MoE, RWKV-6),
-    with weights drawn
+                seed: int = 0) -> Union[LM, EncDec]:
+    """An :class:`EncDec` when ``cfg.encoder_layers > 0``, else an
+    :class:`LM` (dense, MoE, RWKV-6, RG-LRU hybrid), with weights drawn
     from ``seed`` on ``device`` (the card unless the caller asks for the
-    CPU).  Encoder-decoder configs are not ported yet."""
-    if cfg.is_encdec:
-        raise NotPortedError(f"{cfg.name}: encoder-decoder models (EncDec) "
-                             f"are not ported yet")
-    return LM(cfg, device=device, seed=seed)
+    CPU)."""
+    cls = EncDec if cfg.is_encdec else LM
+    return cls(cfg, device=device, seed=seed)

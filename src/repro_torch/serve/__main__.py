@@ -4,10 +4,14 @@
     python -m repro_torch.serve --arch rwkv6-3b --reduced --device cpu
     python -m repro_torch.serve --arch qwen3-moe-30b-a3b --reduced --device cpu
     python -m repro_torch.serve --arch recurrentgemma-9b --reduced --device cpu
+    python -m repro_torch.serve --arch seamless-m4t-large-v2 --reduced --device cpu
 
 ``--arch`` takes every architecture the port serves (``configs.PORTED``):
-the dense, MoE, RWKV-6 and RG-LRU hybrid families.  At full width
-``llama4-maverick-400b-a17b`` (398 B parameters) does not fit one card.
+the dense, MoE, RWKV-6, RG-LRU hybrid and encoder-decoder families.  At
+full width ``llama4-maverick-400b-a17b`` (398 B parameters) does not fit
+one card.  An encoder-decoder model's requests each carry ``--frames``
+source frame embeddings (default: the config's ``frontend_len``), drawn
+from ``--seed`` like the prompts.
 
 The counterpart of the reference's ``examples/serve_lm.py``.  Without
 ``--reduced`` the model runs at the published width with random bf16
@@ -46,6 +50,9 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="source frames a request of an encoder-decoder "
+                         "model (default: the config's frontend_len)")
     ap.add_argument("--max-len", type=int, default=None,
                     help="cache length (default: max(64, prompt + new))")
     ap.add_argument("--report", default=None,
@@ -76,13 +83,19 @@ def main(argv=None) -> None:
           f"{args.slots} decode slots")
 
     max_len = args.max_len or max(64, args.prompt_len + args.max_new)
-    eng = Engine(model, slots=args.slots, max_len=max_len,
+    n_frames = 0
+    if cfg.is_encdec:
+        n_frames = args.frames or cfg.frontend_len
+    eng = Engine(model, slots=args.slots, max_len=max_len, enc_len=n_frames,
                  placement=placement, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               args.prompt_len),
-                    max_new_tokens=args.max_new)
-            for i in range(args.requests)]
+    reqs = []
+    for i in range(args.requests):
+        frames = rng.standard_normal((n_frames, cfg.d_model)).astype(
+            np.float32) if cfg.is_encdec else None
+        reqs.append(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                       args.prompt_len),
+                            max_new_tokens=args.max_new, frames=frames))
     ops.reset_launches()
     t0 = time.perf_counter()
     comps = eng.serve(reqs)

@@ -4,10 +4,19 @@
 The engine keeps a decode batch of ``slots``; requests are served in
 waves of up to ``slots`` equal-length prompts, and every sequence of a
 wave shares the position counter (the reference's static-batching
-contract).  It runs the port's :class:`~repro_torch.models.LM` eagerly
-under :func:`torch.inference_mode` (the reference jits prefill and
-decode): prefill attention goes through the flash-attention kernel and
-every RWKV-6 time mix through the WKV6 kernel.
+contract).  It runs the port's :class:`~repro_torch.models.LM` or
+:class:`~repro_torch.models.EncDec` eagerly under
+:func:`torch.inference_mode` (the reference jits prefill and decode):
+prefill attention (and an encoder-decoder model's every attention but
+self-attention decode) goes through the flash-attention kernel and every
+RWKV-6 time mix through the WKV6 kernel.
+
+An encoder-decoder model (``enc_len > 0``) serves requests that carry
+their source ``frames`` (``(enc_len, d_model)`` frame embeddings): a
+wave stacks them into ``frontend_embeds`` beside the target prompts.
+The reference's engine accepts ``enc_len`` but never passes the frames
+to ``EncDec.prefill``, which reads them, so it cannot serve such a
+model; the port's ``Request`` carries them (ROADMAP.md §C).
 
 Fleet placement: :func:`plan_decode_placement` asks the port's
 :class:`~repro_torch.selector.SelectionService` which profiled mesh the
@@ -20,11 +29,12 @@ from __future__ import annotations
 import dataclasses
 import queue
 import time
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.market.migration import should_migrate
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 from repro_torch.models.types import ModelConfig
 from repro_torch.obs import MetricsRegistry
@@ -83,6 +93,9 @@ class Request:
     prompt: Any                    # (T,) ints: a tensor, array or list
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
+    #: the source's (F, d_model) frame embeddings, a tensor or array: an
+    #: encoder-decoder model's requests carry them, others none
+    frames: Any = None
 
 
 @dataclasses.dataclass
@@ -98,11 +111,17 @@ class Engine:
 
     ``device`` defaults to the card; with no CUDA device that raises
     :class:`~repro_torch.selector.BackendUnavailableError`.  The model
-    must live on the same device.  :attr:`prefills` and
-    :attr:`decode_steps` count the model calls the engine made.
+    must live on the same device.  ``enc_len`` is an encoder-decoder
+    model's source length, as in the reference: it sizes the cross
+    caches, and is otherwise only a check on the frames the requests
+    carry (every request's must have that many); a decoder-only model
+    ignores it.
+    :attr:`prefills` and :attr:`decode_steps` count the model calls the
+    engine made.
     """
 
-    def __init__(self, model: LM, *, slots: int, max_len: int,
+    def __init__(self, model: Union[LM, EncDec], *, slots: int,
+                 max_len: int, enc_len: int = 0,
                  placement: Optional[Decision] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  device: Union[str, torch.device] = "cuda"):
@@ -116,6 +135,7 @@ class Engine:
         self.cfg: ModelConfig = model.cfg
         self.slots = slots
         self.max_len = max_len
+        self.enc_len = enc_len
         #: where this fleet is meant to run (selector decision), if planned
         self.placement = placement
         #: telemetry: per-wave ``serve.prefill`` / ``serve.decode``
@@ -142,6 +162,35 @@ class Engine:
             raise ValueError("a wave's prompts must be of equal length")
         return torch.stack(rows).to(self.device)
 
+    def _batch(self, reqs: List[Request]) -> Dict[str, torch.Tensor]:
+        """A wave's model batch: the prompts, and for an encoder-decoder
+        model the requests' frames as ``frontend_embeds``."""
+        batch = {"tokens": self._prompts(reqs)}
+        if not self.cfg.is_encdec:
+            if any(r.frames is not None for r in reqs):
+                raise ValueError(f"{self.cfg.name} has no encoder: its "
+                                 f"requests carry no frames")
+            return batch
+        rows = []
+        for r in reqs:
+            if r.frames is None:
+                raise ValueError(f"request {r.uid} carries no frames: "
+                                 f"{self.cfg.name} needs its source")
+            f = torch.as_tensor(r.frames)
+            if tuple(f.shape) != (self.enc_len, self.cfg.d_model):
+                raise ValueError(f"request {r.uid}: frames of shape "
+                                 f"{tuple(f.shape)}, the engine takes "
+                                 f"({self.enc_len}, {self.cfg.d_model})")
+            rows.append(f)
+        batch["frontend_embeds"] = torch.stack(rows).to(self.device)
+        return batch
+
+    def _init_state(self):
+        if self.cfg.is_encdec:
+            return self.model.init_state(self.slots, self.max_len,
+                                         self.enc_len)
+        return self.model.init_state(self.slots, self.max_len)
+
     @torch.inference_mode()
     def generate_batch(self, requests: List[Request]) -> List[Completion]:
         """Serve a wave of requests of equal prompt length (greedy)."""
@@ -151,10 +200,11 @@ class Engine:
         reqs = list(requests)
         while len(reqs) < self.slots:       # pad with a copy; discarded later
             reqs.append(dataclasses.replace(reqs[-1], uid=-1))
-        prompts = self._prompts(reqs)
+        batch = self._batch(reqs)
+        prompts = batch["tokens"]
         t0 = self._clock()
-        state = self.model.init_state(self.slots, self.max_len)
-        logits, state = self.model.prefill({"tokens": prompts}, state)
+        state = self._init_state()
+        logits, state = self.model.prefill(batch, state)
         self.prefills += 1
         self._sync()
         t1 = self._clock()
@@ -204,7 +254,7 @@ class Engine:
         return out
 
 
-def make_serve_step(model: LM) -> Callable:
+def make_serve_step(model: Union[LM, EncDec]) -> Callable:
     """One token for the whole batch against the state (the unit the
     reference's dry-run lowers for decode cells)."""
     def serve_step(token, pos, state):

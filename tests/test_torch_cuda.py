@@ -872,6 +872,107 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
         assert float((got - want).norm() / want.norm()) < 0.1
 
 
+#: (B, Tq, Tk, H, G, D): bidirectional calls with Tq != Tk, the
+#: encoder-decoder's: seamless-m4t-large-v2's cross prefill (its 1,024-token
+#: prompt over 4,096 frames) and cross decode (one token over them), a
+#: ragged source, Tk < Tq, one token at D = 256, one past a tile at D = 80
+BIDIR_CASES = [(4, 1024, 4096, 16, 16, 64), (4, 1, 4096, 16, 16, 64),
+               (2, 7, 1000, 16, 16, 64), (1, 100, 37, 4, 2, 128),
+               (2, 1, 130, 4, 1, 256), (1, 129, 300, 4, 4, 80)]
+
+
+@pytest.mark.parametrize("case", BIDIR_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_bidirectional_tq_ne_tk(cuda_device, case,
+                                                     dtype):
+    """Both kernels with as many keys as the source has and as many
+    queries as the call brings, against the plain version (fp32 atol
+    2e-5, bf16 atol 2e-2, rtol 1e-2), one launch of the variant each.
+    bf16 is also held to relative L2 1e-2: over 4,096 random keys the
+    output is about 0.026, on the scale of its atol."""
+    B, Tq, Tk, H, G, D = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(case))
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
+                           ).to(dtype)
+               for shape in ((B, Tq, H, D), (B, Tk, G, D), (B, Tk, G, D)))
+    kind = fa.variant(dtype, D)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[f"flash_attention_{kind}"] == \
+        before[f"flash_attention_{kind}"] + 1
+    want = fa.attention_ref(q, k, v, causal=False)
+    assert got.shape == (B, Tq, H, D) and got.dtype == dtype
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=1e-2)
+    if dtype == torch.bfloat16:
+        got, want = got.float(), want.float()
+        assert float((got - want).norm() / want.norm()) < 1e-2
+
+
+def test_cuda_flash_attention_refuses_causal_tq_ne_tk(cuda_device):
+    q = torch.zeros((1, 4, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros((1, 9, 2, 64), device=cuda_device, dtype=torch.bfloat16)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, k, causal=True)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_encdec_engine_serves_through_the_kernels(cuda_device, dtype):
+    """The reduced encoder-decoder served on the card with its requests'
+    frames (20 a request, ragged against every tile): a prefill launches
+    the kernel once an encoder layer and twice a decoder layer, a decode
+    step once a decoder layer (cross decode), every launch the variant
+    the dtype names; the prefill logits equal the same weights' on the
+    CPU (fp32 within 2e-3, bf16 within relative L2 0.1)."""
+    from repro_torch.models import EncDec
+    cfg = dataclasses.replace(
+        configs.reduced(configs.get("seamless-m4t-large-v2")), dtype=dtype)
+    cpu = EncDec(cfg, device="cpu", seed=1)
+    params = {"embed": dict(cpu.embed.items()),
+              "enc_layers": [{g: dict(b[g].items()) for g in b.groups}
+                             for b in cpu.enc_blocks],
+              "enc_norm": dict(cpu.enc_norm.items()),
+              "dec_layers": [{g: dict(b[g].items()) for g in b.groups}
+                             for b in cpu.dec_blocks],
+              "final_norm": dict(cpu.final_norm.items())}
+    gpu = EncDec(cfg, device=cuda_device, params=params)
+    F = 20
+    eng = Engine(gpu, slots=2, max_len=24, enc_len=F, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 12))
+    frames = rng.standard_normal((3, F, cfg.d_model)).astype(np.float32)
+    fa.reset_launches()
+    comps = eng.serve([Request(uid=i, prompt=prompts[i], max_new_tokens=4,
+                               frames=frames[i]) for i in range(3)])
+    assert sorted(c.uid for c in comps) == [0, 1, 2]
+    assert eng.prefills == 2 and eng.decode_steps == 6
+    kind = "tc" if dtype == "bfloat16" else "scalar"
+    n = (cfg.encoder_layers + 2 * cfg.num_layers) * 2 + cfg.num_layers * 6
+    assert fa.LAUNCHES["flash_attention"] == \
+        fa.LAUNCHES[f"flash_attention_{kind}"] == n
+    E, L = cfg.encoder_layers, cfg.num_layers
+    assert fa.SHAPE_LAUNCHES == {(kind, F, F, False): E * 2,
+                                 (kind, 12, 12, True): L * 2,
+                                 (kind, 12, F, False): L * 2,
+                                 (kind, 1, F, False): L * 6}
+    batch = {"tokens": torch.as_tensor(prompts[:2]),
+             "frontend_embeds": torch.as_tensor(frames[:2])}
+    want, _ = cpu.prefill(batch, cpu.init_state(2, 24, F))
+    got, _ = gpu.prefill({k: v.to(cuda_device) for k, v in batch.items()},
+                         gpu.init_state(2, 24, F))
+    got, want = got.float().cpu(), want.float()
+    if dtype == "float32":
+        assert float((got - want).abs().max()) < 2e-3
+    else:
+        assert float((got - want).norm() / want.norm()) < 0.1
+
+
 def _moe_weights(specs, rng):
     """A numpy leaf per spec, at 1/sqrt(the contraction width) (the router
     at its own 0.02), so the MoE output is of order 1."""

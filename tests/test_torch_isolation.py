@@ -4,8 +4,8 @@ quiet fall-back to the CPU.
 A subprocess blocks ``jax`` and ``repro`` (the exact name or a ``repro.``
 prefix) on ``sys.meta_path``, imports every module of ``repro_torch``, and
 then builds the entry points without ``device=`` (the fleet states, the
-selection services, the LM and the serving engine); with CUDA hidden each
-must raise ``BackendUnavailableError``.  The sources of the package
+selection services, the LM, the EncDec and the serving engine); with CUDA
+hidden each must raise ``BackendUnavailableError``.  The sources of the package
 and of ``chip_smoke.py`` are also scanned for such imports, including the
 ones inside functions that an import does not execute.
 """
@@ -72,11 +72,14 @@ for name, backend in (("service", "torch_fused"),
     except BackendUnavailableError as e:
         raised[name] = type(e).__name__
 from repro_torch import configs
-from repro_torch.models import LM, build_model
+from repro_torch.models import EncDec, LM, build_model
 from repro_torch.serve import Engine
 cfg = configs.reduced(configs.get("qwen3-1.7b"))
+enc_cfg = configs.reduced(configs.get("seamless-m4t-large-v2"))
 for name, make in (("lm", lambda: LM(cfg)),
                    ("build_model", lambda: build_model(cfg)),
+                   ("encdec", lambda: EncDec(enc_cfg)),
+                   ("build_encdec", lambda: build_model(enc_cfg)),
                    ("engine", lambda: Engine(LM(cfg, device="cpu"), slots=1,
                                              max_len=8))):
     try:
@@ -115,6 +118,8 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.kernels.ref", "repro_torch.models.types",
                 "repro_torch.models.layers", "repro_torch.models.recurrent",
                 "repro_torch.models.lm", "repro_torch.models.registry",
+                "repro_torch.models.encdec",
+                "repro_torch.configs.seamless_m4t_large_v2",
                 "repro_torch.configs", "repro_torch.configs.qwen3_1_7b",
                 "repro_torch.configs.rwkv6_3b",
                 "repro_torch.configs.stablelm_3b", "repro_torch.core.tpu_flora",
@@ -125,7 +130,8 @@ def test_every_module_imports_without_jax_or_reference():
     assert res["cuda"] is False
     assert res["raised"] == dict.fromkeys(
         ("state", "sharded", "sharded_2", "service", "sharded_service", "lm",
-         "build_model", "engine"), "BackendUnavailableError")
+         "build_model", "encdec", "build_encdec", "engine"),
+        "BackendUnavailableError")
 
 
 def _imported_modules(path: Path):

@@ -34,11 +34,14 @@ from repro.models import build_model as ref_build_model
 from repro.models.types import count_params as ref_count_params
 from repro_torch import configs, convert
 from repro_torch.models import LM, NotPortedError, build_model, count_params
+from repro_torch.models.encdec import param_specs as encdec_param_specs
 from repro_torch.models.lm import param_specs
 
 ARCHS = ["qwen3-1.7b", "stablelm-3b", "deepseek-7b", "granite-20b",
          "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-3b",
          "recurrentgemma-9b"]
+#: the encoder-decoder architecture (``tests/test_torch_encdec.py``)
+ENCDEC = "seamless-m4t-large-v2"
 #: the capacity factor MoE configs run at here (the reference's
 #: decode-parity test's)
 PARITY_CAPACITY = 64.0
@@ -84,14 +87,17 @@ def test_config_conversion_matches_ports_own_registry(pair):
         ref_count_params(ref.param_specs())
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + [ENCDEC])
 def test_full_width_parameter_count_matches_reference(name):
     """Specs only, nothing allocated: 1.72 B for qwen3-1.7b, 2.80 B for
     stablelm-3b, 6.91 B for deepseek-7b, 20.3 B for granite-20b, 30.1 B
     for qwen3-moe-30b-a3b, 398 B for llama4-maverick-400b-a17b, 3.10 B
-    for rwkv6-3b, 9.40 B for recurrentgemma-9b, the same as the
+    for rwkv6-3b, 9.40 B for recurrentgemma-9b, 1.37 B for
+    seamless-m4t-large-v2 (the encoder-decoder), the same as the
     reference's."""
-    ours = count_params(param_specs(configs.get(name)))
+    cfg = configs.get(name)
+    specs = encdec_param_specs(cfg) if cfg.is_encdec else param_specs(cfg)
+    ours = count_params(specs)
     theirs = ref_count_params(ref_build_model(RC.get(name)).param_specs())
     assert ours == theirs
     assert ours == pytest.approx({"qwen3-1.7b": 1.72e9,
@@ -101,10 +107,13 @@ def test_full_width_parameter_count_matches_reference(name):
                                   "qwen3-moe-30b-a3b": 30.079e9,
                                   "llama4-maverick-400b-a17b": 397.69e9,
                                   "rwkv6-3b": 3.08e9,
-                                  "recurrentgemma-9b": 9.396e9}[name],
+                                  "recurrentgemma-9b": 9.396e9,
+                                  ENCDEC: 1.370e9}[name],
                                  rel=0.01)
     if name == "recurrentgemma-9b":
         assert ours == 9_396_408_320
+    if name == ENCDEC:
+        assert ours == 1_369_901_056
 
 
 def test_forward_matches_reference(pair):
@@ -221,19 +230,21 @@ def test_bf16_config_stores_weights_as_its_uses_read_them():
 
 
 @pytest.mark.parametrize("name", [n for n in RC.ARCH_NAMES
-                                  if n not in ARCHS])
+                                  if n not in ARCHS + [ENCDEC]])
 def test_unported_architectures_say_so(name):
     with pytest.raises(NotPortedError, match="ROADMAP"):
         configs.get(name)
 
 
-@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
-def test_unported_layers_say_so(name):
-    """``build_model`` refuses encoder-decoder models."""
-    rcfg = RC.reduced(RC.get(name))
+def test_lm_refuses_an_encoder_decoder_config():
+    """``LM`` is the decoder-only model: an encoder-decoder config goes to
+    ``EncDec``, which ``build_model`` picks
+    (``tests/test_torch_encdec.py`` holds it to the reference)."""
+    rcfg = RC.reduced(RC.get(ENCDEC))
     cfg = convert.model_config_from_reference(dataclasses.asdict(rcfg))
-    with pytest.raises(NotPortedError):
-        build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="EncDec"):
+        LM(cfg, device="cpu")
+    assert type(build_model(cfg, device="cpu")).__name__ == "EncDec"
 
 
 def test_configs_star_import_gives_every_listed_name():
