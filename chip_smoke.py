@@ -99,21 +99,27 @@ Phases:
    bidirectional calls with Tq != Tk at seamless-m4t-large-v2's encoder
    (4 x 4,096 over 4,096), cross prefill (1,024 over 4,096) and cross
    decode (1 over 4,096) shapes, a ragged source (7 over 1,000), Tk < Tq
-   (100 over 37), one token at D = 256 and 129 over 300 at D = 80; for
+   (100 over 37), one token at D = 256 and 129 over 300 at D = 80, and
+   D = 160 (the 64-row block, two 64-column blocks and a 32-column tail)
+   at pixtral-12b's prefill shape (4 x 2,048, 32 over 8), GQA, T = 1,
+   65, 100, a windowed T = 1,000 and 129 over 300 bidirectional; for
    WKV6 a decode step,
    ragged T, one step past the split kernel's chunk, RWKV-6's strong
    decays (w = exp(-exp(x)), x in [-8, 2]) and a two-call state carry;
 8. plan the decode fleet's mesh through the port's selection service from
    a hand-made dry-run report;
 9. serve ``qwen3-1.7b``, ``stablelm-3b``, ``rwkv6-3b``, ``deepseek-7b``,
-   ``granite-20b``, ``qwen3-moe-30b-a3b``, ``recurrentgemma-9b`` and
-   ``seamless-m4t-large-v2`` at full width and depth (random bf16
-   weights, and for seamless random bf16 source frames, from the seed;
-   each model freed before the next is drawn): 8 requests of 1,024-token
-   prompts over 4 slots, 32 new tokens each, seamless's each with 4,096
-   source frames — the LM path, read through the kernels' launch
-   counters (28, 32, 30, 52, 48 and 12 flash-attention launches per
-   prefill, one an attention layer, every one the tensor-core kernel;
+   ``granite-20b``, ``qwen3-moe-30b-a3b``, ``recurrentgemma-9b``,
+   ``seamless-m4t-large-v2`` and ``pixtral-12b`` at full width and depth
+   (random bf16 weights, and for seamless random bf16 source frames, for
+   pixtral random bf16 patch embeddings, from the seed; each model freed
+   before the next is drawn): 8 requests of 1,024-token prompts over 4
+   slots, 32 new tokens each, seamless's each with 4,096 source frames,
+   pixtral's each after 1,024 patches — the LM path, read through the
+   kernels' launch counters (28, 32, 30, 52, 48, 12 and 40
+   flash-attention launches per prefill, one an attention layer, every
+   one the tensor-core kernel, also counted by (Tq, Tk, causal): pixtral's
+   causal over 2,048 positions;
    for seamless 72 a prefill, 24 bidirectional over the frames, 24
    causal and 24 cross, and 24 a decode step, cross decode, counted by
    (Tq, Tk, causal) too; 32 WKV6 launches per prefill and per decode
@@ -127,7 +133,9 @@ Phases:
    layers, fp32 (the scalar attention kernel; MoE at capacity factor
    64; recurrentgemma-9b's rec, rec, attn, rec with a 2,100-token
    prompt and 8 steps past its window; seamless at 2 encoder and 2
-   decoder layers, 100 source frames, a 6-token prompt and 8 steps); for recurrentgemma-9b a 1 x
+   decoder layers, 100 source frames, a 6-token prompt and 8 steps;
+   pixtral with 100 patches ahead of a 6-token prompt, decoding at 100 +
+   t); for recurrentgemma-9b a 1 x
    4,096-token prefill past its window and 8 decode steps, through the
    kernel and the plain version (``[window]``); and the kernels at the shapes the path gave them, against their
    plain versions and timed beside their bounds, the kernel they
@@ -172,11 +180,13 @@ shape, with the ``kernel`` that k takes.
 ``flash_attention`` (qwen3-1.7b, D = 128), ``flash_attention_d80``
 (stablelm-3b, D = 80), ``flash_attention_mha128`` (deepseek-7b),
 ``flash_attention_mqa`` (granite-20b), ``flash_attention_d64``
-(qwen3-moe-30b-a3b) and ``flash_attention_d256`` (recurrentgemma-9b)
-add ``wave_ms`` and ``wave_earlier_ms``: the first wave's prefill with
-the tensor-core kernel and with the scalar one.
-``flash_attention_scalar`` and ``flash_attention_scalar_d256`` are the
-scalar kernel in fp32 at qwen3-1.7b's and recurrentgemma-9b's shapes.
+(qwen3-moe-30b-a3b), ``flash_attention_d256`` (recurrentgemma-9b) and
+``flash_attention_d160`` (pixtral-12b, D = 160, 2,048 positions a
+sequence) add ``wave_ms`` and ``wave_earlier_ms``: the first wave's
+prefill with the tensor-core kernel and with the scalar one.
+``flash_attention_scalar``, ``flash_attention_scalar_d256`` and
+``flash_attention_scalar_d160`` are the scalar kernel in fp32 at
+qwen3-1.7b's, recurrentgemma-9b's and pixtral-12b's shapes.
 ``flash_attention_enc``, ``flash_attention_dec``, ``flash_attention_cross``
 and ``flash_attention_xdec`` are the tensor-core kernel at
 seamless-m4t-large-v2's encoder (bidirectional, 4 x 4,096 over 4,096),
@@ -1859,6 +1869,18 @@ ATTN_CASES = [
     (1, 100, 37, 4, 2, 128, False, None),
     (2, 1, 130, 4, 1, 256, False, None),
     (1, 129, 300, 4, 4, 80, False, None),
+    # D = 160 (the wide block's 64-row tiles; two 64-column blocks and a
+    # 32-column tail): pixtral-12b's prefill (1,024 patches and 1,024
+    # tokens, GQA 32 over 8), GQA at T = 256, ragged T = 100, a window
+    # over T = 1,000, T = 1, T = 65 (one past a 64-row tile) and a
+    # bidirectional call with Tq != Tk
+    (4, 2048, 2048, 32, 8, 160, True, None),
+    (2, 256, 256, 8, 2, 160, True, None),
+    (1, 100, 100, 4, 4, 160, True, None),
+    (1, 1000, 1000, 4, 2, 160, True, 300),
+    (2, 1, 1, 4, 4, 160, True, None),
+    (1, 65, 65, 4, 2, 160, True, None),
+    (1, 129, 300, 4, 4, 160, False, None),
 ]
 #: (B, T, H, N): a decode step, ragged T, both model head sizes, and one
 #: step past the split kernel's 16-step chunk
@@ -1895,7 +1917,10 @@ WKV_TOL = (1e-4, 1e-3)
 #: kernel (fp32) at qwen3-1.7b's shape and ``flash_attention_scalar_d256``
 #: at recurrentgemma-9b's; ``flash_attention_enc``, ``_dec``, ``_cross``
 #: and ``_xdec`` the tensor-core kernel at seamless-m4t-large-v2's four
-#: shapes (``ENCDEC_MODES``)
+#: shapes (``ENCDEC_MODES``); ``flash_attention_d160`` the tensor-core
+#: kernel and ``flash_attention_scalar_d160`` the scalar one (fp32) at
+#: pixtral-12b's (D = 160, 32 query heads on 8 KV heads, 1,024 patches
+#: and 1,024 tokens a sequence)
 _ATTN = dict(op="flash_attention",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:28")
@@ -1913,6 +1938,8 @@ LM_KERNELS = {
     "flash_attention_dec": _ATTN,
     "flash_attention_cross": _ATTN,
     "flash_attention_xdec": _ATTN,
+    "flash_attention_d160": _ATTN,
+    "flash_attention_scalar_d160": _ATTN,
     "wkv6": dict(op="wkv6", source="src/repro_torch/csrc/wkv6_scan.cu",
                  replaces="src/repro/kernels/rwkv6_scan.py:25"),
 }
@@ -1924,7 +1951,8 @@ SERVED = [("qwen3-1.7b", "flash_attention"),
           ("granite-20b", "flash_attention_mqa"),
           ("qwen3-moe-30b-a3b", "flash_attention_d64"),
           ("recurrentgemma-9b", "flash_attention_d256"),
-          ("seamless-m4t-large-v2", "flash_attention_enc")]
+          ("seamless-m4t-large-v2", "flash_attention_enc"),
+          ("pixtral-12b", "flash_attention_d160")]
 #: the encoder-decoder's attention calls, one record entry each: (Tq, Tk,
 #: causal) as functions of the prompt length T and the source length F,
 #: and the calls a prefill ("prefill") or a decode step ("decode") makes
@@ -1943,7 +1971,11 @@ ENCDEC_PARITY_STEPS = 8
 #: the record entries whose ``time_lm_kernel`` also times the scalar
 #: kernel in fp32 at their path's shape (its entry's name)
 SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
-                  "flash_attention_d256": "flash_attention_scalar_d256"}
+                  "flash_attention_d256": "flash_attention_scalar_d256",
+                  "flash_attention_d160": "flash_attention_scalar_d160"}
+#: the vision-language model's fp32 check: patches a sequence ahead of
+#: its prompt, ragged against the 64-row tile
+VLM_PARITY_PATCHES = 100
 #: the windowed model's long-prompt check: a prompt past its window (the
 #: ring write with T > S), then decode steps (the ring wraps); and the
 #: fp32 4-layer check's prompt and steps there
@@ -2233,9 +2265,11 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
     windowed model takes a prompt past its window, so that the prefill
     writes its ring with T > S and decode wraps it.  An encoder-decoder
     model takes ``ENCDEC_PARITY_LAYERS`` encoder and decoder layers and a
-    source of ``frames`` frames."""
+    source of ``frames`` frames; a vision-language model ``frames``
+    patches ahead of its prompt (decode at ``frames + t``)."""
     from repro_torch.models import build_model
     name = cfg.name
+    vlm = cfg.frontend == "vision"
     if cfg.is_encdec:
         cfg = dataclasses.replace(cfg, num_layers=ENCDEC_PARITY_LAYERS,
                                   encoder_layers=ENCDEC_PARITY_LAYERS,
@@ -2260,25 +2294,28 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
     tokens = torch.randint(0, cfg.vocab_size, (2, total), generator=gen,
                            device=dev)
     extra = {}
-    if cfg.is_encdec:
+    if cfg.is_encdec or vlm:
         extra["frontend_embeds"] = torch.randn(
             (2, frames, cfg.d_model), generator=gen, device=dev)
+    if cfg.is_encdec:
         kinds = f"{cfg.encoder_layers} encoder + {kinds} with cross"
+    F = frames if vlm else 0      # patches ahead of the prompt
     with torch.inference_mode():
         full = model({"tokens": tokens, **extra})
-        state = new_state(model, 2, total, extra)
+        state = new_state(model, 2, F + total, extra)
         slots = sorted({st["k"].shape[1] for st in state if "k" in st})
         logits, state = model.prefill({"tokens": tokens[:, :prompt],
                                        **extra}, state)
-        errs = [float((logits - full[:, prompt - 1]).abs().max())]
+        errs = [float((logits - full[:, F + prompt - 1]).abs().max())]
         for t in range(prompt, total):
-            logits, state = model.decode_step(tokens[:, t], t, state)
-            errs.append(float((logits - full[:, t]).abs().max()))
+            logits, state = model.decode_step(tokens[:, t], F + t, state)
+            errs.append(float((logits - full[:, F + t]).abs().max()))
     label = f"{cfg.num_layers} layers" if not cfg.is_encdec else \
         f"{cfg.encoder_layers} + {cfg.num_layers} layers"
     check(max(errs) < 2e-3, f"{name} {label} fp32: prefill/decode vs "
           f"forward max |err| {max(errs):.3g} >= 2e-3")
-    source = f", {frames} source frames" if cfg.is_encdec else ""
+    source = f", {frames} source frames" if cfg.is_encdec else \
+        f", {frames} patches ahead of the prompt" if vlm else ""
     log(f"[serve] {name} {label} fp32 at d_model {cfg.d_model} ({kinds}; "
         f"KV cache slots {slots}{source}): {prompt}-token prefill + {steps} "
         f"decode steps vs forward over {total} max |err| {max(errs):.3g} "
@@ -2289,8 +2326,10 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
 
 def new_state(model, B, max_len, batch):
     """A zeroed decode state for ``batch``; an encoder-decoder model's also
-    holds the cross caches of the batch's frames."""
-    if "frontend_embeds" in batch:
+    holds the cross caches of the batch's frames.  A vision-language
+    model's patches take slots of the self caches: ``max_len`` counts
+    them."""
+    if model.cfg.is_encdec:
         return model.init_state(B, max_len,
                                 batch["frontend_embeds"].shape[1])
     return model.init_state(B, max_len)
@@ -2322,6 +2361,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
     name = cfg.name
     kernel = "wkv6" if "rwkv" in cfg.block_pattern else "flash_attention"
     encdec = cfg.is_encdec
+    vlm = cfg.frontend == "vision"
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2333,25 +2373,30 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         f"{card_gib(torch, dev):.2f} GiB")
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (n_requests, prompt_len))
-    # an encoder-decoder model's requests carry their source: random
-    # frames in the compute dtype, the config's frontend_len each
-    F = cfg.frontend_len if encdec else 0
+    # an encoder-decoder model's requests carry their source, a
+    # vision-language model's its image's patch embeddings: random, in
+    # the compute dtype, the config's frontend_len each
+    F = cfg.frontend_len if encdec or vlm else 0
     frames = [None] * n_requests
-    if encdec:
+    if F:
         gen = torch.Generator(device=dev).manual_seed(seed)
         frames = torch.randn((n_requests, F, cfg.d_model), generator=gen,
                              device=dev).to(cfg.compute_dtype)
     reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=max_new,
                     frames=frames[i])
             for i in range(n_requests)]
+    # the patches come first in the self caches; a source has its own
+    P = F if vlm else 0
+    max_len = P + prompt_len + max_new
+    enc_len = F if encdec else 0
     # warm-up at the traffic's shapes (library loads, cuBLAS handles and
     # heuristics, the allocator's blocks), outside the counted run
-    Engine(model, slots=slots, max_len=prompt_len + max_new, enc_len=F,
+    Engine(model, slots=slots, max_len=max_len, enc_len=enc_len,
            device=dev).generate_batch([dataclasses.replace(
                reqs[0], max_new_tokens=2)])
     metrics = MetricsRegistry()
-    eng = Engine(model, slots=slots, max_len=prompt_len + max_new,
-                 enc_len=F, placement=placement, metrics=metrics, device=dev)
+    eng = Engine(model, slots=slots, max_len=max_len, enc_len=enc_len,
+                 placement=placement, metrics=metrics, device=dev)
     sync(torch, dev)
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2405,10 +2450,14 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
                                      else "rwkv") for plan in model.plans)
         if kernel == "flash_attention":
             # every prefill launch the tensor-core kernel, one an
-            # attention layer
+            # attention layer, causal over the patches and the prompt
             n = n_kernel * eng.prefills
             expect = {"flash_attention": n, "flash_attention_tc": n,
                       "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
+            T = P + prompt_len
+            want_shapes = {("tc", T, T, True): n}
+            check(by_shape == want_shapes, f"{name}: launches by (variant, "
+                  f"Tq, Tk, causal) {by_shape}, expected {want_shapes}")
         else:
             # every model call launches the split kernel, never the
             # sequential one
@@ -2427,16 +2476,24 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
                f"launches a prefill, {cfg.num_layers} a decode step")
         source = (f"; source {n_requests * F} frames in {pre_s:.4f} s = "
                   f"{n_requests * F / pre_s:.1f} frames/s")
+    elif vlm:
+        per = (f"{n_kernel} of {L} layers x prefills, each over {P} "
+               f"patches and {prompt_len} tokens; by shape {by_shape}")
+        source = (f"; patches {n_requests * P} in {pre_s:.4f} s = "
+                  f"{n_requests * P / pre_s:.1f} patches/s")
     else:
         calls_of = "prefills" if kernel == "flash_attention" \
             else "model calls"
         per = f"{n_kernel} of {L} layers x {calls_of}"
         source = ""
+    ahead = f" and {F}-frame sources" if encdec else \
+        f" after {F} patches each" if vlm else ""
     log(f"[serve] {name}: {n_requests} requests x {prompt_len}-token "
-        f"prompts{f' and {F}-frame sources' if encdec else ''} over {slots} "
+        f"prompts{ahead} over {slots} "
         f"slots, {max_new} new tokens each, in {wall:.3f} s; launches "
         f"{launches} (= {per})")
-    log(f"[serve] {name}: prefill {pre_tok} tokens in {pre_s:.4f} s = "
+    log(f"[serve] {name}: prefill {pre_tok} {'text ' if vlm else ''}"
+        f"tokens in {pre_s:.4f} s = "
         f"{pre_tok / pre_s:.1f} tokens/s{source}; decode "
         f"{eng.decode_steps} steps x {slots} slots in {dec_s:.4f} s = "
         f"{dec_tok / dec_s:.1f} tokens/s ({dec_s / eng.decode_steps * 1e3:.3f}"
@@ -2444,7 +2501,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         f"{card}")
     # the same traffic again on the warm engine: the spread within a call
     again = MetricsRegistry()
-    Engine(model, slots=slots, max_len=prompt_len + max_new, enc_len=F,
+    Engine(model, slots=slots, max_len=max_len, enc_len=enc_len,
            metrics=again, device=dev).serve(reqs)
     sync(torch, dev)
     hist = again.snapshot()["histograms"]
@@ -2460,15 +2517,24 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
 
     # the first wave again: finite logits, and against the plain version
     first = {"tokens": torch.as_tensor(prompts[:slots], device=dev)}
-    if encdec:
+    if F:
         first["frontend_embeds"] = frames[:slots]
     logits, logits_p, routes = kernel_vs_plain(
-        torch, model, first, kernel, prompt_len + max_new)
+        torch, model, first, kernel, max_len)
     check(bool(torch.isfinite(logits.float()).all()),
           f"{name}: non-finite prefill logits")
     a, b = logits.float(), logits_p.float()
     rel = rel_l2(a, b)
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    if agree < 1:
+        # where the passes pick different tokens: how close the plain
+        # pass's top two logits lie, against the logits' max |err|
+        flips = a.argmax(-1) != b.argmax(-1)
+        top2 = b.topk(2, dim=-1).values[flips]
+        log(f"[serve] {name}: argmax differs on {int(flips.sum())} of "
+            f"{flips.numel()} rows, where the plain pass's top two logits "
+            f"lie {[round(float(g), 4) for g in top2[:, 0] - top2[:, 1]]} "
+            f"apart")
     # bf16 over the depth: the kernel and the plain version take their
     # fp32 sums in another order, so each layer's bf16 activations round
     # the other way wherever a sum sits near a rounding boundary (a step
@@ -2500,7 +2566,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         # and the account shows the rest: with the plain pass on the
         # kernel pass's experts the gap is the bf16 drift alone.
         log_routes(name, routes)
-        acct = moe_account(torch, model, first, kernel, prompt_len + max_new)
+        acct = moe_account(torch, model, first, kernel, max_len)
         log(f"[serve] {name}: kernel vs plain prefill logits over the first "
             f"n layers, relative L2 with the routes free / on the kernel "
             f"pass's experts: " + ", ".join(
@@ -2519,16 +2585,16 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
 
     waves = None
     if kernel == "flash_attention":
-        waves = prefill_turns(torch, model, first, slots,
-                              prompt_len + max_new, dev)
+        waves = prefill_turns(torch, model, first, slots, max_len, dev)
         log(f"[serve] {name}: first-wave prefill ({slots} x {prompt_len} "
-            f"tokens) in turns: tensor-core kernel {waves['tc'] * 1e3:.3f} "
+            f"tokens{f' after {P} patches' if P else ''}) in turns: "
+            f"tensor-core kernel {waves['tc'] * 1e3:.3f} "
             f"ms = {slots * prompt_len / waves['tc']:.1f} tokens/s, scalar "
             f"kernel (the one it replaced) {waves['scalar'] * 1e3:.3f} ms = "
             f"{slots * prompt_len / waves['scalar']:.1f} tokens/s")
     if cfg.window:
         phase_window(torch, np, model, seed, card, dev=dev)
-    shapes = dict(B=slots, T=prompt_len, d=cfg.d_model, H=cfg.num_heads,
+    shapes = dict(B=slots, T=P + prompt_len, d=cfg.d_model, H=cfg.num_heads,
                   G=cfg.num_kv_heads, D=cfg.head_dim,
                   N=cfg.rwkv_head_dim, dtype=cfg.compute_dtype)
     prefills = eng.prefills
@@ -2793,21 +2859,24 @@ def phase_lm_profile(torch, np, cfg, seed, prompt_len=1024, slots=4,
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (slots, prompt_len))
     first = {"tokens": torch.as_tensor(prompts, device=dev)}
-    if cfg.is_encdec:
+    if cfg.frontend:
         gen = torch.Generator(device=dev).manual_seed(seed)
         first["frontend_embeds"] = torch.randn(
             (slots, cfg.frontend_len, cfg.d_model), generator=gen,
             device=dev).to(cfg.compute_dtype)
+    # a vision-language model's patches come first in the self caches
+    start = prompt_len + (cfg.frontend_len if cfg.frontend == "vision"
+                          else 0)
 
     def window():
         with torch.inference_mode():
-            st = new_state(model, slots, prompt_len + steps, first)
+            st = new_state(model, slots, start + steps, first)
             lg, st = model.prefill(first, st)
             tok = lg.argmax(-1)
             sync(torch, dev)
             t0 = time.perf_counter()
             for step in range(steps):
-                lg, st = model.decode_step(tok, prompt_len + step, st)
+                lg, st = model.decode_step(tok, start + step, st)
                 tok = lg.argmax(-1)
             sync(torch, dev)
             return time.perf_counter() - t0
@@ -3115,6 +3184,9 @@ def main() -> int:
             phase_parity_4_layers(torch, cfg, args.seed,
                                   steps=ENCDEC_PARITY_STEPS,
                                   frames=ENCDEC_PARITY_FRAMES)
+        elif cfg.frontend == "vision":
+            phase_parity_4_layers(torch, cfg, args.seed,
+                                  frames=VLM_PARITY_PATCHES)
         else:
             phase_parity_4_layers(torch, cfg, args.seed)
         if run["modes"] is not None:

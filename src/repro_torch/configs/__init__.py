@@ -2,12 +2,14 @@
 
 Counterpart of ``repro/configs/__init__.py``.  ``get(name)`` returns the
 published config; ``reduced(cfg)`` a same-family shrunken variant for CPU
-tests, by the reference's shrink rules.  The port serves the dense, MoE,
-RWKV, RG-LRU hybrid and encoder-decoder families: ``qwen3-1.7b``,
-``stablelm-3b``, ``deepseek-7b``, ``granite-20b``, ``qwen3-moe-30b-a3b``,
-``llama4-maverick-400b-a17b``, ``rwkv6-3b``, ``recurrentgemma-9b`` and
-``seamless-m4t-large-v2``.  For the other name (``pixtral-12b``) ``get``
-raises :class:`NotPortedError` (ROADMAP.md §A lists what is left).
+tests, by the reference's shrink rules.  The port serves every
+architecture the reference knows (``PORTED == ARCH_NAMES``): the dense,
+MoE, RWKV, RG-LRU hybrid, encoder-decoder and vision-language families,
+``qwen3-1.7b``, ``stablelm-3b``, ``deepseek-7b``, ``granite-20b``,
+``qwen3-moe-30b-a3b``, ``llama4-maverick-400b-a17b``, ``rwkv6-3b``,
+``recurrentgemma-9b``, ``seamless-m4t-large-v2`` and ``pixtral-12b``.
+``get`` still raises :class:`NotPortedError` for a name listed in
+``ARCH_NAMES`` without a module here.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "granite-20b": "granite_20b",
     "deepseek-7b": "deepseek_7b",
+    "pixtral-12b": "pixtral_12b",
 }
 
 #: the architectures the port serves

@@ -7,8 +7,8 @@
 // (:28), called by flash_attention_pallas (:85).  Two kernels, chosen by
 // the wrapper from the dtype and the head size alone:
 //
-// flash_fwd_sm90 (bf16, D in {16, 32, 64, 80, 128, 256}): the tensor-core
-//   kernel.
+// flash_fwd_sm90 (bf16, D in {16, 32, 64, 80, 128, 160, 256}): the
+//   tensor-core kernel.
 //   What bounds it: operations.  A causal call does 4 B H D Tq (Tq + 1) / 2
 //   flops on B Tq H D + 2 B Tk G D inputs, far above the card's ridge; at
 //   989 TFLOP/s bf16 the qwen3-1.7b prefill (B = 4, T = 1024, H = 16,
@@ -69,6 +69,16 @@
 //     the two halves of one accumulator.  Q and two stages of K and V
 //     take 5 x 32 KB of shared memory.  With one group there is no
 //     ping-pong: the softmax and the products of a tile take turns.
+//   - D = 160 (pixtral-12b: 5,120 over 32 heads) takes the same wide
+//     block.  In the two-consumer block its 80 fp32 O accumulators, 64
+//     of S and 32 of packed P a thread come to 176 registers, over that
+//     block's 168.  A row is two 64-column blocks and a 32-column tail
+//     (64-byte rows and swizzle), 20,480 bytes a 64-row tile, 103,488
+//     bytes of shared memory in all; Q K^T takes 8 + 2 k16 steps, and
+//     P V a k16 step is one m64n128k16 over both full blocks (the
+//     leading offset steps from block to block, as D = 256's halves) and
+//     one m64n32k16 on the tail, into disjoint ranges of one
+//     accumulator.
 //   fp32 takes the scalar kernel: wgmma has no fp32 operands, and TF32
 //   would break the fp32 tolerance.
 //
@@ -154,9 +164,10 @@ constexpr size_t smem_bytes() {
 // columns tx + 16 j (j < 4) of each key tile and output columns
 // tx + 16 c (c < D / 16).  The 16 threads of a row group share one half
 // of a warp, so row statistics reduce with xor shuffles over 16 lanes.
-// Two blocks an SM up to D = 128; at D = 256 the 213,760 bytes of shared
-// memory allow one, and a hint of two would cap each thread's registers
-// below its 4 x 16 accumulators (spills).
+// Two blocks an SM up to D = 128; at D = 160 the 140,032 bytes of shared
+// memory and at D = 256 the 213,760 allow one, and a hint of two would
+// cap each thread's registers below its 4 x 16 accumulators at D = 256
+// (spills).
 template <int D>
 constexpr int scalar_min_blocks() { return D > 128 ? 1 : 2; }
 
@@ -318,6 +329,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
     case 64: return launch<T, 64>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     case 80: return launch<T, 80>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 160: return launch<T, 160>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -337,12 +349,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 // The block's shape at head size D.  Up to D = 128: a producer warpgroup
 // and two consumer warpgroups of 64 query rows each (384 threads), a
 // work item 128 query rows, K/V tiles of 128 keys, and the two groups in
-// ping-pong.  D = 256 ("wide"): the m64n256 O accumulator is 128 fp32 a
-// consumer thread, which with S and P overflows the 168 registers a
-// thread of a 384-thread block may hold, so one consumer warpgroup beside
-// the producer (256 threads: up to 255 registers a thread, no setmaxnreg,
-// no ping-pong), items of 64 query rows and K/V tiles of 64 keys, which
-// keeps Q and two stages of K and V to 5 x 32 KB of shared memory.
+// ping-pong.  D = 160 and 256 ("wide"): the O accumulator is D / 2 fp32 a
+// consumer thread (80 or 128), which with S and P overflows the 168
+// registers a thread of a 384-thread block may hold, so one consumer
+// warpgroup beside the producer (256 threads: up to 255 registers a
+// thread, no setmaxnreg, no ping-pong), items of 64 query rows and K/V
+// tiles of 64 keys, which keeps Q and two stages of K and V to 5 x 20 KB
+// (D = 160) or 5 x 32 KB (D = 256) of shared memory.
 template <int D>
 struct Shape {
   static constexpr bool kWide = D > 128;
@@ -432,7 +445,8 @@ struct Geo {
   static constexpr int kKSteps = D / 16;              // k16 steps of Q K^T
   // Q, the K and V rings, the mbarriers (full and empty for Q, full K,
   // full V and empty for each stage), and slack to align to 1024 bytes:
-  // 164,928 bytes at D = 128 and at D = 256, 103,488 at D = 80
+  // 164,928 bytes at D = 128 and at D = 256, 103,488 at D = 80 and at
+  // D = 160
   static constexpr size_t kSmemBytes =
       (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (2 + 3 * kStages) + 1024;
   static_assert(kTail == 0 || kTail == 16 || kTail == 32, "head size");
@@ -1118,8 +1132,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same call for bf16 tensors at D in {16, 32, 64, 80, 128, 256} on the
-// tensor cores.  Base pointers must be 16-byte aligned (the tensor maps' rule;
+// The same call for bf16 tensors at D in {16, 32, 64, 80, 128, 160, 256}
+// on the tensor cores.  Base pointers must be 16-byte aligned (the tensor maps' rule;
 // the wrapper checks).  Returns a cudaError_t.
 int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                              void* o, int B, int Tq, int Tk, int H, int G,
@@ -1143,6 +1157,9 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                             scale, s);
     case 128:
       return tc::launch<128>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
+                             scale, s);
+    case 160:
+      return tc::launch<160>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
                              scale, s);
     case 256:
       return tc::launch<256>(q, k, v, o, B, Tq, Tk, H, G, causal, window,

@@ -12,8 +12,9 @@ by :func:`variant` from the dtype and the head size alone:
 * ``tc`` — ``flash_fwd_sm90``, on the tensor cores (wgmma fed by TMA), for
   bf16 at every ``D`` in :data:`TC_HEAD_DIMS` (``D = 80``'s 160-byte rows
   as a 64-column block and a 16-column tail, each with its own swizzle;
-  ``D = 256`` in a block shape of its own: one consumer warpgroup, 64-row
-  query tiles and 64-key tiles);
+  ``D = 160`` and ``D = 256`` in a block shape of their own: one consumer
+  warpgroup, 64-row query tiles and 64-key tiles; ``D = 160``'s rows are
+  two 64-column blocks and a 32-column tail);
 * ``scalar`` — ``flash_fwd_kernel``, scalar fp32 FMAs, for fp32 at every
   ``D``.  It takes bf16 too, but only when named (``_launch(..., kind=
   "scalar")``): the yardstick the tensor-core kernel is timed against.
@@ -45,12 +46,12 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
 #: the same launches by (variant, Tq, Tk, causal)
 SHAPE_LAUNCHES: Dict[Tuple[str, int, int, bool], int] = {}
 #: the head sizes the kernel is built for: every attention config the port
-#: serves (the reduced configs' 16, stablelm's 80, recurrentgemma's 256)
-#: and the reference kernel tests' 32 and 64
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: serves (the reduced configs' 16, stablelm's 80, pixtral's 160,
+#: recurrentgemma's 256) and the reference kernel tests' 32 and 64
+HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 #: the bf16 head sizes the tensor-core kernel takes: rows cut into 128-byte
 #: blocks and a 32- or 64-byte tail, each swizzled by its width
-TC_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+TC_HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"

@@ -1,7 +1,7 @@
 """The LM substrate on the port: configs' types, layers (the MoE dispatch
 among them), the RG-LRU block and the RWKV-6 time and channel mixes, the
-decoder-only :class:`LM` (dense, MoE, RWKV-6 and RG-LRU hybrid families)
-and the encoder-decoder :class:`EncDec`, with every prefill-side
+decoder-only :class:`LM` (dense, MoE, RWKV-6, RG-LRU hybrid and
+vision-language families) and the encoder-decoder :class:`EncDec`, with every prefill-side
 attention and the WKV recurrence on hand-written CUDA kernels."""
 from repro_torch.models.types import (ModelConfig, NotPortedError, ParamSpec,
                                       ShapeSpec, count_params)

@@ -1,5 +1,5 @@
-"""Decoder-only language model: dense, MoE, RWKV-6 and the RG-LRU hybrid
-(counterpart of ``repro/models/lm.py``).
+"""Decoder-only language model: dense, MoE, RWKV-6, the RG-LRU hybrid and
+the vision-language backbone (counterpart of ``repro/models/lm.py``).
 
 * **A loop over layers.**  The reference stacks each layer cycle's
   parameters and runs one ``lax.scan``; here :class:`LM` is an
@@ -22,8 +22,15 @@ are local (``cfg.window``), with ring caches of ``min(max_len, window)``
 slots.  The encoder-decoder model (:class:`repro_torch.models.encdec.
 EncDec`) runs its stacks through the same :func:`block_apply` (mode
 ``encode``, and decoder layers with cross-attention) and
-:func:`run_stack`.  Not ported yet: the frontend embeddings of the
-vision-language family (ROADMAP.md §A).
+:func:`run_stack`.
+
+A vision-language config (``cfg.frontend``, pixtral-12b) has a stub
+vision tower, as in the reference: a batch may carry precomputed patch
+embeddings ``frontend_embeds`` (B, F, d_model), which are cast to the
+compute dtype and prepended, unscaled, to the scaled token embeddings.
+The stack then runs causally over all F + T positions (RoPE positions
+0 .. F + T - 1), so a prefill fills F + T cache entries and decoding
+continues at ``pos = F + t``.  A batch without them is text only.
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
-from repro_torch.models.types import (ModelConfig, NotPortedError, ParamSpec,
-                                      SpecTree, init_params, map_specs)
+from repro_torch.models.types import (ModelConfig, ParamSpec, SpecTree,
+                                      init_params, map_specs)
 from repro_torch.selector.fused_rank import resolve_device
 
 __all__ = ["Block", "LM", "LayerPlan", "block_apply", "block_cache_specs",
@@ -303,8 +310,8 @@ def seq_positions(B: int, T: int, start: int, device) -> torch.Tensor:
 
 
 class LM(nn.Module):
-    """Decoder-only LM (dense, MoE, RWKV-6 and RG-LRU hybrid families) on
-    one device.
+    """Decoder-only LM (dense, MoE, RWKV-6, RG-LRU hybrid and VLM
+    families) on one device.
 
     ``device`` defaults to the card; with no CUDA device that raises
     :class:`~repro_torch.selector.BackendUnavailableError`.  ``params``
@@ -321,8 +328,6 @@ class LM(nn.Module):
             raise ValueError(f"{cfg.name} is an encoder-decoder model: "
                              f"build it as an EncDec "
                              f"(repro_torch.models.encdec), not an LM")
-        if cfg.frontend:
-            raise NotPortedError("frontend embeddings are not ported yet")
         self.cfg = cfg
         self.plans = layer_plans(cfg)
         self.device = resolve_device(device)
@@ -345,9 +350,24 @@ class LM(nn.Module):
                            self.device)
 
     # -- the stack -------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         x = L.embed_apply(self.embed, tokens)
         return x * math.sqrt(self.cfg.d_model)
+
+    def _embed(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The token embeddings scaled by sqrt(d_model), with a VLM
+        batch's ``frontend_embeds`` (B, F, d_model) prepended in the
+        compute dtype, unscaled."""
+        x = self._embed_tokens(batch["tokens"])
+        if self.cfg.frontend and "frontend_embeds" in batch:
+            fe = batch["frontend_embeds"].to(device=x.device, dtype=x.dtype)
+            if fe.dim() != 3 or fe.shape[0] != x.shape[0] \
+                    or fe.shape[2] != x.shape[2]:
+                raise ValueError(f"frontend_embeds of shape "
+                                 f"{tuple(fe.shape)} do not fit a batch of "
+                                 f"{x.shape[0]} at d_model {x.shape[2]}")
+            x = torch.cat([fe, x], dim=1)
+        return x
 
     def _stack(self, x, *, mode: str, positions, state: Optional[State],
                pos: Optional[int] = None) -> Tuple[torch.Tensor,
@@ -357,8 +377,9 @@ class LM(nn.Module):
 
     # -- forward ----------------------------------------------------------------
     def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Training-mode logits (B, T, V) of ``batch["tokens"]``."""
-        x = self._embed(batch["tokens"])
+        """Training-mode logits (B, F + T, V) of ``batch["tokens"]`` after
+        a VLM batch's F patch embeddings (F = 0 without them)."""
+        x = self._embed(batch)
         B, T = x.shape[:2]
         x, _ = self._stack(x, mode="train",
                            positions=seq_positions(B, T, 0, x.device),
@@ -369,9 +390,10 @@ class LM(nn.Module):
     # -- serving ------------------------------------------------------------------
     def prefill(self, batch: Mapping[str, torch.Tensor], state: State
                 ) -> Tuple[torch.Tensor, State]:
-        """Run the prompt through the stack, filling the state.  Returns
+        """Run the prompt (after a VLM batch's patches) through the
+        stack, filling F + T entries of the state.  Returns
         (last-position logits (B, V), new state)."""
-        x = self._embed(batch["tokens"])
+        x = self._embed(batch)
         B, T = x.shape[:2]
         x, new_state = self._stack(
             x, mode="prefill", positions=seq_positions(B, T, 0, x.device),
@@ -382,9 +404,10 @@ class LM(nn.Module):
     def decode_step(self, token: torch.Tensor, pos: int, state: State
                     ) -> Tuple[torch.Tensor, State]:
         """One decode step.  token: (B,) ints; pos: the index at which the
-        new token is written (cache entries [0, pos] valid)."""
+        new token is written (cache entries [0, pos] valid; F + t after
+        F patches and t text tokens)."""
         pos = int(pos)
-        x = self._embed(token[:, None])
+        x = self._embed_tokens(token[:, None])
         x, new_state = self._stack(
             x, mode="decode",
             positions=seq_positions(x.shape[0], 1, pos, x.device),

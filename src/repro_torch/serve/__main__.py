@@ -5,13 +5,16 @@
     python -m repro_torch.serve --arch qwen3-moe-30b-a3b --reduced --device cpu
     python -m repro_torch.serve --arch recurrentgemma-9b --reduced --device cpu
     python -m repro_torch.serve --arch seamless-m4t-large-v2 --reduced --device cpu
+    python -m repro_torch.serve --arch pixtral-12b --reduced --device cpu
 
 ``--arch`` takes every architecture the port serves (``configs.PORTED``):
-the dense, MoE, RWKV-6, RG-LRU hybrid and encoder-decoder families.  At
-full width ``llama4-maverick-400b-a17b`` (398 B parameters) does not fit
-one card.  An encoder-decoder model's requests each carry ``--frames``
-source frame embeddings (default: the config's ``frontend_len``), drawn
-from ``--seed`` like the prompts.
+the dense, MoE, RWKV-6, RG-LRU hybrid, encoder-decoder and
+vision-language families.  At full width ``llama4-maverick-400b-a17b``
+(398 B parameters) does not fit one card.  An encoder-decoder model's
+requests each carry ``--frames`` source frame embeddings, a
+vision-language model's ``--frames`` image patch embeddings ahead of the
+prompt (default: the config's ``frontend_len``, 1,024 patches for
+pixtral-12b, 8 reduced), drawn from ``--seed`` like the prompts.
 
 The counterpart of the reference's ``examples/serve_lm.py``.  Without
 ``--reduced`` the model runs at the published width with random bf16
@@ -51,10 +54,12 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--frames", type=int, default=None,
-                    help="source frames a request of an encoder-decoder "
-                         "model (default: the config's frontend_len)")
+                    help="source frames (encoder-decoder) or image patches "
+                         "(vision-language) a request (default: the "
+                         "config's frontend_len)")
     ap.add_argument("--max-len", type=int, default=None,
-                    help="cache length (default: max(64, prompt + new))")
+                    help="cache length (default: max(64, prompt + new), "
+                         "plus the patches of a vision-language model)")
     ap.add_argument("--report", default=None,
                     help="dry-run report: plan the decode mesh via the "
                          "selection service before serving")
@@ -82,17 +87,21 @@ def main(argv=None) -> None:
           f"{count_params(model.param_specs()) / 1e6:.1f}M params, "
           f"{args.slots} decode slots")
 
-    max_len = args.max_len or max(64, args.prompt_len + args.max_new)
     n_frames = 0
-    if cfg.is_encdec:
+    if cfg.frontend:
         n_frames = args.frames or cfg.frontend_len
-    eng = Engine(model, slots=args.slots, max_len=max_len, enc_len=n_frames,
+    # a vision-language model's patches share the self caches
+    patches = n_frames if cfg.frontend == "vision" else 0
+    max_len = args.max_len or patches + max(64, args.prompt_len
+                                            + args.max_new)
+    eng = Engine(model, slots=args.slots, max_len=max_len,
+                 enc_len=n_frames if cfg.is_encdec else 0,
                  placement=placement, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
     reqs = []
     for i in range(args.requests):
         frames = rng.standard_normal((n_frames, cfg.d_model)).astype(
-            np.float32) if cfg.is_encdec else None
+            np.float32) if n_frames else None
         reqs.append(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                        args.prompt_len),
                             max_new_tokens=args.max_new, frames=frames))

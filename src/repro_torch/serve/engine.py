@@ -16,7 +16,15 @@ their source ``frames`` (``(enc_len, d_model)`` frame embeddings): a
 wave stacks them into ``frontend_embeds`` beside the target prompts.
 The reference's engine accepts ``enc_len`` but never passes the frames
 to ``EncDec.prefill``, which reads them, so it cannot serve such a
-model; the port's ``Request`` carries them (ROADMAP.md §C).
+model; the port's ``Request`` carries them (ROADMAP.md §C, entry 6).
+
+A vision-language model (``cfg.frontend == "vision"``) serves requests
+whose ``frames`` are their image's ``(F, d_model)`` patch embeddings:
+a wave stacks them into ``frontend_embeds``, which the model prepends
+to the prompts, and decoding continues at ``F + T_p``.  A wave is all
+with patches of one length or all text only.  The reference's engine
+has no field for patches and decodes from ``T_p``, so it serves only
+the text (ROADMAP.md §C, entry 7).
 
 Fleet placement: :func:`plan_decode_placement` asks the port's
 :class:`~repro_torch.selector.SelectionService` which profiled mesh the
@@ -93,8 +101,10 @@ class Request:
     prompt: Any                    # (T,) ints: a tensor, array or list
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
-    #: the source's (F, d_model) frame embeddings, a tensor or array: an
-    #: encoder-decoder model's requests carry them, others none
+    #: (F, d_model) embeddings, a tensor or array: an encoder-decoder
+    #: model's source frames (every request carries them), or a
+    #: vision-language model's image patches (prepended to the prompt;
+    #: None serves the text alone); other models' requests carry none
     frames: Any = None
 
 
@@ -115,7 +125,9 @@ class Engine:
     model's source length, as in the reference: it sizes the cross
     caches, and is otherwise only a check on the frames the requests
     carry (every request's must have that many); a decoder-only model
-    ignores it.
+    ignores it.  A vision-language model's patches share the self
+    caches with the prompt, so ``max_len`` must hold F + prompt + new
+    tokens.
     :attr:`prefills` and :attr:`decode_steps` count the model calls the
     engine made.
     """
@@ -162,10 +174,36 @@ class Engine:
             raise ValueError("a wave's prompts must be of equal length")
         return torch.stack(rows).to(self.device)
 
+    def _patches(self, reqs: List[Request]) -> Optional[torch.Tensor]:
+        """A vision-language wave's patch embeddings (B, F, d_model), or
+        None for a text-only wave."""
+        with_patches = [r.frames is not None for r in reqs]
+        if not any(with_patches):
+            return None
+        if not all(with_patches):
+            raise ValueError("a wave's requests must all carry patches or "
+                             "none (frames)")
+        rows = [torch.as_tensor(r.frames) for r in reqs]
+        for r, f in zip(reqs, rows):
+            if f.dim() != 2 or f.shape[1] != self.cfg.d_model:
+                raise ValueError(f"request {r.uid}: frames of shape "
+                                 f"{tuple(f.shape)}, expected (F, "
+                                 f"{self.cfg.d_model}) patch embeddings")
+        if len({f.shape[0] for f in rows}) != 1:
+            raise ValueError("a wave's patches (frames) must be of equal "
+                             "length")
+        return torch.stack(rows).to(self.device)
+
     def _batch(self, reqs: List[Request]) -> Dict[str, torch.Tensor]:
-        """A wave's model batch: the prompts, and for an encoder-decoder
-        model the requests' frames as ``frontend_embeds``."""
+        """A wave's model batch: the prompts, and the requests' frames as
+        ``frontend_embeds`` (an encoder-decoder model's sources, a
+        vision-language model's patches)."""
         batch = {"tokens": self._prompts(reqs)}
+        if self.cfg.frontend == "vision":
+            patches = self._patches(reqs)
+            if patches is not None:
+                batch["frontend_embeds"] = patches
+            return batch
         if not self.cfg.is_encdec:
             if any(r.frames is not None for r in reqs):
                 raise ValueError(f"{self.cfg.name} has no encoder: its "
@@ -202,6 +240,13 @@ class Engine:
             reqs.append(dataclasses.replace(reqs[-1], uid=-1))
         batch = self._batch(reqs)
         prompts = batch["tokens"]
+        # a vision-language wave's patches come first in the self caches
+        F = batch["frontend_embeds"].shape[1] \
+            if self.cfg.frontend == "vision" and "frontend_embeds" in batch \
+            else 0
+        if F and F + prompts.shape[1] > self.max_len:
+            raise ValueError(f"{F} patches and a {prompts.shape[1]}-token "
+                             f"prompt exceed max_len {self.max_len}")
         t0 = self._clock()
         state = self._init_state()
         logits, state = self.model.prefill(batch, state)
@@ -211,7 +256,7 @@ class Engine:
         if self._h_prefill is not None:
             self._h_prefill.observe(t1 - t0)
 
-        T_p = prompts.shape[1]
+        start = F + prompts.shape[1]     # the first decode position
         max_new = max(r.max_new_tokens for r in reqs)
         out_tokens: List[List[int]] = [[] for _ in reqs]
         done = [False] * len(reqs)
@@ -225,7 +270,7 @@ class Engine:
                         done[i] = True
             if all(done):
                 break
-            pos = T_p + step
+            pos = start + step
             if pos >= self.max_len:
                 break
             logits, state = self.model.decode_step(tok, pos, state)

@@ -614,7 +614,11 @@ def test_cuda_turbulence_point_matches_cpu_point(cuda_device):
 #: and T = 129 (one past a tile); at D = 256 (the kernels' own block
 #: shape: 64-row tiles) the recurrentgemma-9b prefill's shape, its
 #: 4,096-token prompt past the 2,048 window, GQA, ragged T = 1, 100, 129
-#: and 1,000, windowed and bidirectional
+#: and 1,000, windowed and bidirectional; at D = 160 (the same 64-row
+#: block, two 64-column blocks and a 32-column tail) the pixtral-12b
+#: prefill's shape (1,024 patches and 1,024 tokens), GQA at T = 256,
+#: ragged T = 100, a window over T = 1,000, T = 1 and T = 65 (one past a
+#: 64-row tile)
 ATTN_CASES = [
     (2, 128, 4, 2, 64, True, None),
     (2, 64, 8, 1, 32, True, None),
@@ -645,6 +649,12 @@ ATTN_CASES = [
     (1, 100, 4, 1, 256, True, None),
     (1, 129, 4, 2, 256, False, None),
     (1, 1000, 4, 1, 256, True, 300),
+    (4, 2048, 32, 8, 160, True, None),
+    (2, 256, 8, 2, 160, True, None),
+    (1, 100, 4, 4, 160, True, None),
+    (1, 1000, 4, 2, 160, True, 300),
+    (2, 1, 4, 4, 160, True, None),
+    (1, 65, 4, 2, 160, True, None),
 ]
 
 
@@ -677,13 +687,14 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
                                rtol=1e-2)
 
 
-@pytest.mark.parametrize("D,H,G", [(128, 16, 8), (80, 32, 32), (256, 16, 1)],
-                         ids=["D128", "D80", "D256"])
+@pytest.mark.parametrize("D,H,G", [(128, 16, 8), (80, 32, 32), (256, 16, 1),
+                                   (160, 32, 8)],
+                         ids=["D128", "D80", "D256", "D160"])
 def test_cuda_flash_attention_scalar_kernel_on_bf16(cuda_device, D, H, G):
     """The scalar kernel still takes bf16 when named (the yardstick the
     tensor-core kernel is timed against): at the qwen3-1.7b (D = 128),
-    stablelm-3b (D = 80) and recurrentgemma-9b (D = 256, MQA) head
-    layouts it agrees with the plain version and with the tensor-core
+    stablelm-3b (D = 80), recurrentgemma-9b (D = 256, MQA) and
+    pixtral-12b (D = 160, 32 over 8) head layouts it agrees with the plain version and with the tensor-core
     kernel, which bf16 at each of them takes by default."""
     assert fa.variant(torch.bfloat16, D) == "tc"
     gen = torch.Generator(device=cuda_device).manual_seed(7)
@@ -876,9 +887,11 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
 #: encoder-decoder's: seamless-m4t-large-v2's cross prefill (its 1,024-token
 #: prompt over 4,096 frames) and cross decode (one token over them), a
 #: ragged source, Tk < Tq, one token at D = 256, one past a tile at D = 80
+#: and at D = 160
 BIDIR_CASES = [(4, 1024, 4096, 16, 16, 64), (4, 1, 4096, 16, 16, 64),
                (2, 7, 1000, 16, 16, 64), (1, 100, 37, 4, 2, 128),
-               (2, 1, 130, 4, 1, 256), (1, 129, 300, 4, 4, 80)]
+               (2, 1, 130, 4, 1, 256), (1, 129, 300, 4, 4, 80),
+               (1, 129, 300, 4, 4, 160)]
 
 
 @pytest.mark.parametrize("case", BIDIR_CASES, ids=str)
@@ -971,6 +984,83 @@ def test_cuda_encdec_engine_serves_through_the_kernels(cuda_device, dtype):
         assert float((got - want).abs().max()) < 2e-3
     else:
         assert float((got - want).norm() / want.norm()) < 0.1
+
+
+def _vlm_config(dtype):
+    """Reduced pixtral-12b at its real head size 160 (d_model 320, 2 query
+    heads on one KV head), in ``dtype``."""
+    cfg = configs.reduced(configs.get("pixtral-12b"), d_model=320)
+    return dataclasses.replace(cfg, num_heads=2, num_kv_heads=1,
+                               head_dim=160, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_vlm_engine_serves_patches_through_the_kernel(cuda_device,
+                                                           dtype):
+    """Reduced pixtral-12b at D = 160 served on the card with its
+    requests' patches (20 a request, ragged against the 64-row tile): a
+    prefill launches the variant the dtype names once a layer, causal
+    over the patches and the prompt; the prefill logits equal the same
+    weights' on the CPU (fp32 within 2e-3, bf16 within relative L2
+    0.1)."""
+    cfg = _vlm_config(dtype)
+    cpu = LM(cfg, device="cpu", seed=1)
+    gpu = LM(cfg, device=cuda_device, params=_params_of(cpu))
+    F, T = 20, 12
+    eng = Engine(gpu, slots=2, max_len=F + T + 4, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (3, T))
+    patches = rng.standard_normal((3, F, cfg.d_model)).astype(np.float32)
+    fa.reset_launches()
+    comps = eng.serve([Request(uid=i, prompt=prompts[i], max_new_tokens=4,
+                               frames=patches[i]) for i in range(3)])
+    assert sorted(c.uid for c in comps) == [0, 1, 2]
+    assert eng.prefills == 2 and eng.decode_steps == 6
+    kind = "tc" if dtype == "bfloat16" else "scalar"
+    n = cfg.num_layers * 2
+    assert fa.LAUNCHES["flash_attention"] == \
+        fa.LAUNCHES[f"flash_attention_{kind}"] == n
+    assert fa.SHAPE_LAUNCHES == {(kind, F + T, F + T, True): n}
+    batch = {"tokens": torch.as_tensor(prompts[:2]),
+             "frontend_embeds": torch.as_tensor(patches[:2])}
+    want, _ = cpu.prefill(batch, cpu.init_state(2, F + T))
+    got, _ = gpu.prefill({k: v.to(cuda_device) for k, v in batch.items()},
+                         gpu.init_state(2, F + T))
+    got, want = got.float().cpu(), want.float()
+    if dtype == "float32":
+        assert float((got - want).abs().max()) < 2e-3
+    else:
+        assert float((got - want).norm() / want.norm()) < 0.1
+
+
+def test_cuda_pixtral_prefill_kernel_against_plain(cuda_device):
+    """pixtral-12b at full width cut to 2 layers, bf16: a prefill of 2 x
+    (256 patches + 256 tokens) through the tensor-core kernel at D = 160
+    and with the plain attention in its place, within the LM path's bf16
+    bound (relative L2 0.1, ``chip_smoke.REL_L2_TOL``); one launch a
+    layer, all logits finite."""
+    from repro_torch.kernels import ops
+    cfg = dataclasses.replace(configs.get("pixtral-12b"), num_layers=2)
+    lm = LM(cfg, device=cuda_device, seed=3)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     generator=gen, device=cuda_device),
+             "frontend_embeds": torch.randn((2, 256, cfg.d_model),
+                                            generator=gen,
+                                            device=cuda_device)}
+    fa.reset_launches()
+    with torch.inference_mode():
+        got, _ = lm.prefill(batch, lm.init_state(2, 512))
+        assert fa.SHAPE_LAUNCHES == {("tc", 512, 512, True): 2}
+        path = ops.flash_attention
+        ops.flash_attention = fa.attention_ref
+        try:
+            want, _ = lm.prefill(batch, lm.init_state(2, 512))
+        finally:
+            ops.flash_attention = path
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).norm() / want.norm()) < 0.1
 
 
 def _moe_weights(specs, rng):

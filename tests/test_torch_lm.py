@@ -9,7 +9,10 @@ untied embeddings; also at its real head size 80), ``reduced(deepseek-7b)``
 top-1 sigmoid routing, a shared expert), ``reduced(rwkv6-3b)``
 (RWKV-6 time and channel mixes) and ``reduced(recurrentgemma-9b)`` (two
 RG-LRU layers to one local-attention layer of window 16, MQA, head size
-16, tied embeddings; 7 layers, the last a remainder), in float32: the reference's
+16, tied embeddings; 7 layers, the last a remainder) and
+``reduced(pixtral-12b)`` (the vision-language backbone, here text only:
+MQA, untied embeddings, rope_theta 1e6; ``tests/test_torch_vlm.py``
+holds its patches), in float32: the reference's
 ``LM.init(PRNGKey(0))`` parameters go to the port through
 ``repro_torch.convert``, the same seeded tokens go to both,
 and ``forward``, ``prefill`` (logits and state) and six ``decode_step``
@@ -39,7 +42,7 @@ from repro_torch.models.lm import param_specs
 
 ARCHS = ["qwen3-1.7b", "stablelm-3b", "deepseek-7b", "granite-20b",
          "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "rwkv6-3b",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "pixtral-12b"]
 #: the encoder-decoder architecture (``tests/test_torch_encdec.py``)
 ENCDEC = "seamless-m4t-large-v2"
 #: the capacity factor MoE configs run at here (the reference's
@@ -92,9 +95,9 @@ def test_full_width_parameter_count_matches_reference(name):
     """Specs only, nothing allocated: 1.72 B for qwen3-1.7b, 2.80 B for
     stablelm-3b, 6.91 B for deepseek-7b, 20.3 B for granite-20b, 30.1 B
     for qwen3-moe-30b-a3b, 398 B for llama4-maverick-400b-a17b, 3.10 B
-    for rwkv6-3b, 9.40 B for recurrentgemma-9b, 1.37 B for
-    seamless-m4t-large-v2 (the encoder-decoder), the same as the
-    reference's."""
+    for rwkv6-3b, 9.40 B for recurrentgemma-9b, 12.77 B for pixtral-12b,
+    1.37 B for seamless-m4t-large-v2 (the encoder-decoder), the same as
+    the reference's."""
     cfg = configs.get(name)
     specs = encdec_param_specs(cfg) if cfg.is_encdec else param_specs(cfg)
     ours = count_params(specs)
@@ -108,12 +111,15 @@ def test_full_width_parameter_count_matches_reference(name):
                                   "llama4-maverick-400b-a17b": 397.69e9,
                                   "rwkv6-3b": 3.08e9,
                                   "recurrentgemma-9b": 9.396e9,
+                                  "pixtral-12b": 12.772e9,
                                   ENCDEC: 1.370e9}[name],
                                  rel=0.01)
     if name == "recurrentgemma-9b":
         assert ours == 9_396_408_320
     if name == ENCDEC:
         assert ours == 1_369_901_056
+    if name == "pixtral-12b":
+        assert ours == 12_772_070_400
 
 
 def test_forward_matches_reference(pair):
@@ -229,11 +235,21 @@ def test_bf16_config_stores_weights_as_its_uses_read_them():
         logits.float()).all()
 
 
-@pytest.mark.parametrize("name", [n for n in RC.ARCH_NAMES
-                                  if n not in ARCHS + [ENCDEC]])
-def test_unported_architectures_say_so(name):
+def test_every_reference_architecture_is_ported(monkeypatch):
+    """The port serves every architecture the reference knows, and the
+    tests here hold each (``ARCHS``, ``ENCDEC``); ``get`` returns each
+    one's published config.  A name without a module would still raise
+    ``NotPortedError``."""
+    assert configs.PORTED == configs.ARCH_NAMES == RC.ARCH_NAMES
+    assert sorted(ARCHS + [ENCDEC]) == sorted(configs.ARCH_NAMES)
+    for name in configs.ARCH_NAMES:
+        cfg = configs.get(name)
+        assert cfg.name == name
+        assert cfg == convert.model_config_from_reference(
+            dataclasses.asdict(RC.get(name)))
+    monkeypatch.delitem(configs._MODULES, "pixtral-12b")
     with pytest.raises(NotPortedError, match="ROADMAP"):
-        configs.get(name)
+        configs.get("pixtral-12b")
 
 
 def test_lm_refuses_an_encoder_decoder_config():
