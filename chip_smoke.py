@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the port's live-market selection path and its LM serving path on
-one CUDA card and check them.
+"""Run the port's live-market selection path, its LM serving path and its
+LM training path on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -147,11 +147,41 @@ Phases:
    prefill through the kernel and the plain version (relative L2 < 0.1,
    finite, one tensor-core launch a layer, the routes' agreement), 4
    decode steps, finite, and the kernel at its prefill shape;
+9b. train (before the profiled phases): the attention backward kernel
+   (``flash_attention_bwd.cu``) against ``attention_bwd_ref`` at every
+   head size in bf16 and fp32 (``BWD_CASES``: causal, a window,
+   bidirectional with Tq != Tk and fully masked rows, GQA R = 1, 2, 4,
+   48, ragged T, Tq = 1; each of dq, dk, dv within relative L2 1e-5 in
+   fp32 and 1e-2 in bf16), with a planted fault (the last 64 keys'
+   contribution dropped) that the check must refuse; held the same way
+   at the path's shapes (seamless-m4t-large-v2's three in bf16 and fp32,
+   qwen3-1.7b's in fp32, and in bf16 where it is timed beside its plain
+   version, SDPA's backward and its bound); qwen3-1.7b at full width and depth for 10 steps of
+   4 x 1,024 tokens through ``make_train_step`` and ``train_loop``
+   (AdamW, the reference's ``TrainConfig`` defaults, remat, vocab chunks
+   of 16,384; batches from the port's ``TokenStream``): finite losses,
+   the last below the first, 56 forward and 28 backward launches every
+   step (none in the serving phases), step time, tokens/s, TFLOP/s, peak
+   memory and the backward's share of a step; a checkpoint after step 5
+   restored into a new model and optimizer, whose steps 6 and 7 equal
+   the uninterrupted run within relative 1e-5; one step's gradients with
+   the kernels against plain attention, bf16 over all 28 layers within
+   relative L2 0.1 over the whole gradient and 0.05 on each leaf, and
+   with the planted fault in the last layer, which the leaf limit must
+   refuse; fp32 over 4 layers within 1e-3 and 1e-4; seamless-m4t-large-v2
+   at 2 + 2 layers, full width, one bf16 step over 2 x 4,096 frames and
+   2 x 512 tokens (the backward bidirectional, causal and in cross mode,
+   counted by shape), its gradients held the same way; and rwkv6-3b's
+   loss with gradients on the card raising ``NotPortedError`` (WKV6 has
+   no backward yet);
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
     kernel, busy share), and for recurrentgemma-9b the RG-LRU scan's and
-    its fp32 gate products' share of a prefill wave.
+    its fp32 gate products' share of a prefill wave; then one qwen3-1.7b
+    training step (device time by kernel and by group: the backward
+    kernel, the forward attention kernel, matrix products, the rest) and
+    its AdamW update alone.
 
 Every phase runs on every call.  Every check that fails exits non-zero.
 The last three lines are the ``{"kernels": [...]}`` record, the card's
@@ -195,7 +225,11 @@ decoder self-attention (causal, 4 x 1,024), cross prefill (1,024 over
 launches on the path (``library_ms`` SDPA with ``is_causal`` as the
 call's); ``flash_attention_enc`` adds the first wave's ``wave_ms``.
 ``flash_attention_llama4`` is the kernel at the llama4 check's shape,
-its launches that check's one prefill.
+its launches that check's one prefill.  ``flash_attention_bwd`` is the
+attention backward at qwen3-1.7b's training shape (bf16, 4 x 1,024, 16
+heads over 8, D = 128, causal), its launches the 10-step run's, its
+``library_ms`` SDPA's backward alone; it adds the run's median
+``step_ms`` and the kernel's ``step_share``.
 Without a CUDA device the script exits non-zero before printing any
 result.  It
 imports ``torch``, ``numpy``, the standard library and the port
@@ -208,6 +242,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -253,7 +288,8 @@ HEAD_SHAPES = ((1, 10_000, 65), (1, 10_000, 256), (1, 10_000, 257),
                (1, 10_000, 1_000), (1, 10_000, 10_000), (16, 100_000, 1_000))
 #: the largest k at which the k-round kernel is timed beside a k-head
 ROUNDS_MAX_K = 1_000
-SOURCES = ("rank_delta", "flash_attention", "wkv6_scan")
+SOURCES = ("rank_delta", "flash_attention", "flash_attention_bwd",
+           "wkv6_scan")
 #: rowmin's edge shapes (J, C): one column, C not a multiple of 4 (scalar
 #: loads), one short of, at and one past 2,048 and 4,096 columns (the
 #: kernel's chunk, ``rank_delta.ROWMIN_CHUNK``), the fleet's C (vector
@@ -2423,7 +2459,8 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         n_kernel = cfg.encoder_layers + 2 * cfg.num_layers
         n = n_kernel * eng.prefills + cfg.num_layers * eng.decode_steps
         expect = {"flash_attention": n, "flash_attention_tc": n,
-                  "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
+                  "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+                  "wkv6": 0, "wkv6_seq": 0}
         # each entry's launches are its shape's, as the wrapper counted
         # them where it launched
         modes, want_shapes = {}, {}
@@ -2453,7 +2490,8 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             # attention layer, causal over the patches and the prompt
             n = n_kernel * eng.prefills
             expect = {"flash_attention": n, "flash_attention_tc": n,
-                      "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
+                      "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+                      "wkv6": 0, "wkv6_seq": 0}
             T = P + prompt_len
             want_shapes = {("tc", T, T, True): n}
             check(by_shape == want_shapes, f"{name}: launches by (variant, "
@@ -2462,7 +2500,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             # every model call launches the split kernel, never the
             # sequential one
             expect = {"flash_attention": 0, "flash_attention_tc": 0,
-                      "flash_attention_scalar": 0,
+                      "flash_attention_scalar": 0, "flash_attention_bwd": 0,
                       "wkv6": n_kernel * (eng.prefills + eng.decode_steps),
                       "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
@@ -2715,7 +2753,8 @@ def phase_llama4(torch, np, seed, card, batch=2, prompt_len=1024, steps=4,
     launches = ops.launches()
     L = cfg.num_layers
     expect = {"flash_attention": L, "flash_attention_tc": L,
-              "flash_attention_scalar": 0, "wkv6": 0, "wkv6_seq": 0}
+              "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+              "wkv6": 0, "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
           f"expected {expect} (one prefill through the kernel)")
     check(len(routes) == sum(cfg.is_moe_layer(i) for i in range(L)) >= 1,
@@ -2930,6 +2969,16 @@ def rec_shares(torch, model, batch, dev="cuda"):
             secs.append(time.perf_counter() - t0)
             del state
     wave_ms = sum(secs) / len(secs) * 1e3
+    # the scan as training runs it: inputs that want a gradient make its
+    # rounds write new tensors (torch.cat) in place of in-place updates
+    with torch.inference_mode(False), torch.enable_grad():
+        with torch.no_grad():
+            log_a_g, gated_g = (t.clone() for t in R._rglru_gates(p, x))
+        log_a_g.requires_grad_()
+        gated_g.requires_grad_()
+        grad_scan_ms = time_ms(torch, lambda: R.rglru_scan(
+            log_a_g, gated_g, None), iters=10, warmup=2)
+    del log_a_g, gated_g
     flops = 2 * 2 * B * T * cfg.lru_width ** 2
     log(f"[profile] {cfg.name}: prefill wave {B} x {T} {wave_ms:.3f} ms; "
         f"RG-LRU scan {scan_ms:.4f} ms a layer x {len(rec)} layers = "
@@ -2937,9 +2986,14 @@ def rec_shares(torch, model, batch, dev="cuda"):
         f"(x @ w_a, x @ w_x; {flops:.3g} flops, "
         f"{flops / gate_ms / 1e9:.1f} TFLOP/s) {gate_ms:.4f} ms a layer x "
         f"{len(rec)} = {len(rec) * gate_ms / wave_ms:.1%} of it")
+    log(f"[profile] {cfg.name}: the RG-LRU scan at the wave's shape, "
+        f"in-place rounds (serving) {scan_ms:.4f} ms, new tensors a round "
+        f"with autograd recording (training) {grad_scan_ms:.4f} ms: "
+        f"{len(rec) * (grad_scan_ms - scan_ms) / wave_ms:+.1%} of the wave "
+        f"if serving took the training rounds")
     del x, log_a, gated
     return dict(wave_ms=wave_ms, scan_ms=scan_ms, gate_ms=gate_ms,
-                layers=len(rec))
+                grad_scan_ms=grad_scan_ms, layers=len(rec))
 
 
 def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
@@ -3096,6 +3150,615 @@ def time_encdec_kernels(torch, cfg, run, errs, seed, dev="cuda"):
     return out
 
 
+# --- phase 9: training --------------------------------------------------------
+
+#: what the backward kernel replaces: XLA's autodiff of the reference's
+#: chunked jnp attention in the train step (no Pallas kernel)
+TRAIN_REPLACES = "src/repro/models/layers.py:132"
+#: the training run: qwen3-1.7b at full width and depth, the serving cells'
+#: batch of 4 x 1,024 tokens, the reference's TrainConfig defaults (AdamW,
+#: remat), the head over vocabulary chunks of 16,384 (151,936 is no
+#: multiple: the last chunk is padded), a checkpoint after step 5
+TRAIN_ARCH, TRAIN_B, TRAIN_T, TRAIN_STEPS = "qwen3-1.7b", 4, 1024, 10
+TRAIN_VOCAB_CHUNK, TRAIN_CKPT_STEP, TRAIN_RESUMED = 16_384, 5, 2
+#: the backward kernel's checks: (B, Tq, Tk, H, G, causal, window) at
+#: every head size, both dtypes: causal, a window, bidirectional with
+#: Tq != Tk (Tq > Tk with a window leaves rows fully masked), GQA R = 1,
+#: 2, 4 and 48, ragged T, Tq = 1 and Tq = Tk = 1
+BWD_CASES = [(2, 128, 128, 4, 4, True, None), (2, 130, 130, 4, 2, True, None),
+             (1, 100, 100, 8, 2, True, 16), (2, 37, 53, 4, 4, False, None),
+             (1, 100, 37, 4, 2, False, 8), (2, 1, 130, 4, 1, False, None),
+             (1, 70, 70, 48, 1, True, None), (1, 1, 1, 4, 4, True, None)]
+#: each of dq, dk and dv within this relative L2 of the plain version
+BWD_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
+#: the planted fault: the plain version with the last key block's
+#: contribution dropped (64 keys, the kernel's tile up to D = 160), which
+#: the check above must refuse
+BWD_FAULT_KEYS = 64
+#: full-width kernel-vs-plain gradients over the whole gradient: bf16 over
+#: every layer, fp32 over 4
+TRAIN_GRAD_L2 = {"bfloat16": 0.1, "float32": 1e-3}
+#: and each leaf's own relative L2 (a leaf whose plain gradient is zero
+#: is held to zero).  The whole gradient cannot see a fault in one layer
+#: of 28: with the last layer's last key tile dropped it moves by 0.0149
+#: against 0.0089 of bf16 rounding, while that layer's worst leaf moves
+#: by 0.11 against at most 0.023 (NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_LEAF_L2 = {"bfloat16": 0.05, "float32": 1e-4}
+#: the backward's shapes on seamless-m4t-large-v2's training step (B, Tq,
+#: Tk, H, G, D, causal): the encoder over the frames, the decoder's
+#: self-attention, its cross-attention over the frames
+ENCDEC_BWD_SHAPES = [(2, 4096, 4096, 16, 16, 64, False),
+                     (2, 512, 512, 16, 16, 64, True),
+                     (2, 512, 4096, 16, 16, 64, False)]
+#: the encoder-decoder's one training step: 2 + 2 layers at full width,
+#: 4,096 source frames, 512 target tokens a sequence
+ENCDEC_TRAIN = dict(layers=2, B=2, T=512, frames=4096)
+
+
+def bwd_rel(torch, got, want, floor):
+    """Relative L2 of a gradient; where the true gradient vanishes (dq
+    and dk at Tq = Tk = 1, where the softmax is constant) against
+    ``floor``, dv's norm."""
+    got, want = got.double(), want.double()
+    denom = float(want.norm())
+    if denom < 1e-6 * floor:
+        denom = floor
+    return float((got - want).norm()) / denom
+
+
+def planted_fault(torch, bwd, q, k, v, o, do, causal, window):
+    """``bwd`` (the plain version or the kernel's launch) with the last
+    :data:`BWD_FAULT_KEYS` keys' contribution dropped: dk and dv of those
+    keys left zero, and for a causal call the rows that see them too."""
+    cut = k.shape[1] - BWD_FAULT_KEYS
+    if causal:
+        f = list(bwd(*(t[:, :cut].contiguous() for t in (q, k, v, o, do)),
+                     causal, window))
+        f[0] = torch.cat([f[0], torch.zeros_like(q[:, cut:])], 1)
+    else:
+        f = list(bwd(q, k[:, :cut].contiguous(), v[:, :cut].contiguous(),
+                     o, do, causal, window))
+    for j in (1, 2):
+        f[j] = torch.cat([f[j], torch.zeros_like(k[:, cut:])], 1)
+    return f
+
+
+def plain_bwd(q, k, v, o, do, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+
+
+def hold_bwd(torch, got, want, dtype, label):
+    """(dq, dk, dv) against the plain version's, each within
+    :data:`BWD_LIMIT`: returns the largest relative L2 and max |err|."""
+    name = str(dtype).split(".")[-1]
+    limit, floor = BWD_LIMIT[name], float(want[2].double().norm())
+    worst = worst_abs = 0.0
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == dtype and g.shape == w.shape,
+              f"backward {name} {label}: {gname} {g.dtype} "
+              f"{tuple(g.shape)}")
+        rel = bwd_rel(torch, g, w, floor)
+        check(rel < limit, f"backward {name} {label}: {gname} relative L2 "
+              f"{rel:.3g} >= {limit}")
+        worst = max(worst, rel)
+        worst_abs = max(worst_abs, max_err(torch, g.float(), w.float()))
+    return worst, worst_abs
+
+
+def check_attention_bwd(torch, seed, dev="cuda"):
+    """The backward kernel against ``attention_bwd_ref`` at every head size
+    and case of :data:`BWD_CASES`, in fp32 and bf16, with a planted fault
+    the check must catch.  Returns the largest max |err|."""
+    from repro_torch.kernels import flash_attention as fa
+    worst_abs, worst = 0.0, {}
+    n_caught = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        limit = BWD_LIMIT[name]
+        for D in fa.HEAD_DIMS:
+            for i, (B, Tq, Tk, H, G, causal, window) in enumerate(BWD_CASES):
+                gen = torch.Generator(device=dev).manual_seed(seed + D + i)
+                q, do = (torch.randn((B, Tq, H, D), generator=gen,
+                                     device=dev).to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn((B, Tk, G, D), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                o = fa.attention_ref(q, k, v, causal=causal,
+                                     window=window).contiguous()
+                before = fa.LAUNCHES["flash_attention_bwd"]
+                got = fa._launch_bwd(q, k, v, o, do, causal, window)
+                check(fa.LAUNCHES["flash_attention_bwd"] == before + 1,
+                      "the backward kernel did not launch once")
+                want = plain_bwd(q, k, v, o, do, causal, window)
+                sync(torch, dev)
+                case = (B, Tq, Tk, H, G, D, causal, window)
+                rel, err = hold_bwd(torch, got, want, dtype, case)
+                worst[name] = max(worst.get(name, 0.0), rel)
+                worst_abs = max(worst_abs, err)
+                if Tk > 2 * BWD_FAULT_KEYS and D in (64, 128):
+                    floor = float(want[2].double().norm())
+                    f = planted_fault(torch, plain_bwd, q, k, v, o, do,
+                                      causal, window)
+                    rels = [bwd_rel(torch, a, w, floor)
+                            for a, w in zip(f, want)]
+                    check(max(rels) >= limit, f"backward {name} {case}: "
+                          f"the planted fault passes the check ({rels})")
+                    n_caught += 1
+                    log(f"[train] planted fault {name} {case}: the last "
+                        f"{BWD_FAULT_KEYS} keys dropped -> relative L2 "
+                        f"dq {rels[0]:.3g} dk {rels[1]:.3g} dv "
+                        f"{rels[2]:.3g} (caught: >= {limit})")
+        log(f"[train] backward kernel {name}: {len(BWD_CASES)} cases x "
+            f"{len(fa.HEAD_DIMS)} head sizes within relative L2 {limit} "
+            f"(worst {worst[name]:.3g})")
+    check(n_caught > 0, "no planted fault was checked")
+    return worst_abs
+
+
+def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
+    """The backward kernel against its plain version at the shapes the
+    training path gives it beyond :func:`time_attention_bwd`'s:
+    seamless-m4t-large-v2's three (:data:`ENCDEC_BWD_SHAPES`) in bf16 and
+    fp32, and qwen3-1.7b's in fp32.  Returns the largest max |err|."""
+    from repro_torch.kernels import flash_attention as fa
+    shapes = [(dt, s) for s in ENCDEC_BWD_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
+    shapes.append((torch.float32, (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
+                                   True)))
+    worst_abs = 0.0
+    for dtype, (B, Tq, Tk, H, G, D, causal) in shapes:
+        q, k, v = attn_inputs(torch, B, Tq, H, G, D, dtype, seed, dev, Tk=Tk)
+        o = fa._launch(q, k, v, causal, None)
+        do = torch.randn_like(q)
+        got = fa._launch_bwd(q, k, v, o, do, causal, None)
+        want = plain_bwd(q, k, v, o, do, causal, None)
+        sync(torch, dev)
+        label = (B, Tq, Tk, H, G, D, causal)
+        rel, err = hold_bwd(torch, got, want, dtype, label)
+        worst_abs = max(worst_abs, err)
+        log(f"[train] backward at the path's shape {label} "
+            f"{str(dtype).split('.')[-1]}: relative L2 {rel:.3g} (limit "
+            f"{BWD_LIMIT[str(dtype).split('.')[-1]]}), max |err| {err:.3g}")
+        del q, k, v, o, do, got, want
+    return worst_abs
+
+
+def time_attention_bwd(torch, seed, dev="cuda"):
+    """The backward kernel at qwen3-1.7b's training shape (bf16), held
+    against its plain version on the same inputs: its time, the plain
+    version's, SDPA's backward alone (``enable_gqa``, the forward outside
+    the timed region) and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg_B, T, H, G, D = TRAIN_B, TRAIN_T, 16, 8, 128
+    q, k, v = attn_inputs(torch, cfg_B, T, H, G, D, torch.bfloat16, seed,
+                          dev)
+    o = fa._launch(q, k, v, True, None)
+    do = torch.randn_like(q)
+    rel, err = hold_bwd(torch, fa._launch_bwd(q, k, v, o, do, True, None),
+                        plain_bwd(q, k, v, o, do, True, None),
+                        torch.bfloat16, (cfg_B, T, T, H, G, D, True))
+    ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, do, True, None),
+                 iters=50, warmup=3)
+    plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
+        q, k, v, o, do, causal=True), iters=10, warmup=2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True), iters=50, warmup=3)
+    del out
+    # five products of 2 B H T T D, halved by the causal mask; q, k, v, o
+    # and dO read once, dq, dk, dv written once
+    flops = 5 * 2 * cfg_B * H * T * T * D / 2
+    n_bytes = 2 * (4 * cfg_B * T * H * D + 4 * cfg_B * T * G * D)
+    bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+    log(f"[time] flash_attention_bwd (B={cfg_B} T={T} H={H} G={G} D={D} "
+        f"causal, bf16): {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"backward {library_ms:.4f} ms, bound {bound[0]:.5f} ms "
+        f"({bound[1]}); {ms / bound[0]:.1f} x the bound; against the "
+        f"plain version relative L2 {rel:.3g}, max |err| {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound": bound, "err": err}
+
+
+def train_flops(cfg, B, T) -> float:
+    """A training step's model FLOPs: 6 per weight of every matrix product
+    a token passes (the layers' projections and the head) and three
+    times the causal attention's forward products (remat's recompute not
+    counted)."""
+    d, H, G, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    per_layer = d * (H + 2 * G) * D + H * D * d + 3 * d * cfg.d_ff
+    n_mm = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attn = 3 * cfg.num_layers * 4 * B * H * T * T * D / 2
+    return 6 * n_mm * B * T + attn
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model-side attention swapped for its plain version (the package
+    has no switch for it): autograd then differentiates
+    ``attention_ref``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    original = ops.flash_attention
+    ops.flash_attention = fa.attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention = original
+
+
+@contextlib.contextmanager
+def faulty_backward(torch, layer_call=0):
+    """The backward kernel with :func:`planted_fault` in one layer: the
+    ``layer_call``-th launch of a backward pass (0: the last layer's)
+    drops its last key tile."""
+    from repro_torch.kernels import flash_attention as fa
+    original, calls = fa._launch_bwd, [0]
+
+    def launch(q, k, v, o, do, causal, window):
+        calls[0] += 1
+        if calls[0] - 1 != layer_call:
+            return original(q, k, v, o, do, causal, window)
+        return tuple(planted_fault(torch, original, q, k, v, o, do, causal,
+                                   window))
+    fa._launch_bwd = launch
+    try:
+        yield calls
+    finally:
+        fa._launch_bwd = original
+
+
+def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
+                          leaf_limit, fault=False):
+    """One step's gradients with the kernels and with plain attention on
+    the same weights and batch: relative L2 over the whole gradient
+    (checked against ``limit``) and each leaf's (against ``leaf_limit``).
+    With ``fault`` the kernels' gradients are taken once more with
+    :func:`faulty_backward`, and the check must refuse them.  Returns the
+    whole gradient's relative L2."""
+    names = list(params)
+
+    def grads():
+        loss, _ = model.loss(batch)
+        return torch.autograd.grad(loss, [params[n] for n in names])
+
+    def gaps(g_a, g_b):
+        num = sum(float((a.float() - b.float()).square().sum())
+                  for a, b in zip(g_a, g_b))
+        den = sum(float(b.float().square().sum()) for b in g_b)
+        leaf = max(((rel_l2(a, b) if float(b.float().norm()) > 0 else
+                     float(a.float().norm()), n)
+                    for n, a, b in zip(names, g_a, g_b)))
+        return (num / den) ** 0.5, leaf
+    with plain_attention():
+        g_plain = grads()
+    g_kernel = grads()
+    rel, leaf = gaps(g_kernel, g_plain)
+    del g_kernel
+    log(f"[train] {label}: kernel vs plain gradients relative L2 {rel:.4g} "
+        f"over the whole gradient (limit {limit}); worst leaf {leaf[1]} "
+        f"{leaf[0]:.4g} (limit {leaf_limit})")
+    check(rel < limit, f"{label}: gradients relative L2 {rel:.4g} >= "
+          f"{limit}")
+    check(leaf[0] < leaf_limit, f"{label}: leaf {leaf[1]} relative L2 "
+          f"{leaf[0]:.4g} >= {leaf_limit}")
+    if fault:
+        with faulty_backward(torch) as calls:
+            g_fault = grads()
+        check(calls[0] > 1, f"{label}: the backward launched {calls[0]} "
+              f"times under the planted fault")
+        f_rel, f_leaf = gaps(g_fault, g_plain)
+        del g_fault
+        caught = f_rel >= limit or f_leaf[0] >= leaf_limit
+        log(f"[train] {label}, planted fault (the last layer's last "
+            f"{BWD_FAULT_KEYS} keys dropped): relative L2 {f_rel:.4g} over "
+            f"the whole gradient ({'caught' if f_rel >= limit else 'passes'}"
+            f" at {limit}); worst leaf {f_leaf[1]} {f_leaf[0]:.4g} "
+            f"({'caught' if f_leaf[0] >= leaf_limit else 'passes'} at "
+            f"{leaf_limit})")
+        check(caught, f"{label}: the planted fault passes the gradient "
+              f"checks")
+    del g_plain
+    return rel
+
+
+def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
+                T=TRAIN_T, steps=TRAIN_STEPS, ckpt_step=TRAIN_CKPT_STEP,
+                vocab_chunk=TRAIN_VOCAB_CHUNK, encdec_cfg=None,
+                encdec=ENCDEC_TRAIN, rwkv_cfg=None):
+    """Training on the card: the backward kernel against its plain
+    version; qwen3-1.7b for ``steps`` steps through ``make_train_step``
+    and ``train_loop`` (falling loss, exact launch counts each step, step
+    time, tokens/s, TFLOP/s, peak memory, the backward's share), with a
+    checkpoint after ``ckpt_step`` that a new model and optimizer restore
+    and continue from; full-width kernel-vs-plain gradients in bf16 and
+    in fp32 over 4 layers; seamless-m4t-large-v2's step over its
+    bidirectional and cross attention; rwkv6-3b's refusal.  Returns the
+    record entry's numbers."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import NotPortedError, build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              to_device, train_loop,
+                                              trainable_params)
+    on_card = torch.device(dev).type == "cuda"
+    check(fa.LAUNCHES["flash_attention_bwd"] == 0,
+          "the backward kernel launched before the training phase")
+    err = check_attention_bwd(torch, seed, dev)
+    times = None
+    if on_card:
+        err = max(err, check_attention_bwd_path_shapes(torch, seed, dev))
+        times = time_attention_bwd(torch, seed, dev)
+        err = max(err, times.pop("err"))
+    cfg = cfg or configs.get(TRAIN_ARCH)
+    L = cfg.num_layers
+    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
+                                seed=seed)
+    tcfg = TrainConfig()
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = Checkpointer(str(ckpt_dir), keep=1)
+
+    def trainer(model):
+        params = trainable_params(model)
+        step_fn, opt = make_train_step(model, tcfg)
+        counted = []
+
+        def counting_step(p, s, batch):
+            fa.reset_launches()
+            out = step_fn(p, s, batch)
+            counted.append((fa.LAUNCHES["flash_attention"],
+                            fa.LAUNCHES["flash_attention_bwd"]))
+            return out
+        return params, opt.init(params), counting_step, counted
+
+    def loop(model, params, state, step_fn, start, stop, **kw):
+        batches = pipeline.PrefetchIterator(stream, start_step=start,
+                                            device=model.device)
+        try:
+            with msettings.use(vocab_chunk=vocab_chunk):
+                return train_loop(model, tcfg, params, state, batches,
+                                  steps=stop, log_every=0, start_step=start,
+                                  train_step=step_fn, **kw)
+        finally:
+            batches.close()
+
+    # the uninterrupted run: a checkpoint after step ckpt_step
+    free_card(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=seed)
+    sync(torch, dev)
+    t_init = time.perf_counter() - t0
+    params, state, step_fn, counted = trainer(model)
+    reg = MetricsRegistry()
+    params, state, hist_a = loop(model, params, state, step_fn, 0,
+                                 ckpt_step, checkpointer=ck,
+                                 checkpoint_every=ckpt_step, obs=reg)
+    t0 = time.perf_counter()
+    ck.wait()
+    t_save = time.perf_counter() - t0
+    params, state, hist_b = loop(model, params, state, step_fn, ckpt_step,
+                                 steps, obs=reg)
+    losses = hist_a["loss"] + hist_b["loss"]
+    step_s = hist_a["step_time"] + hist_b["step_time"]
+    peak = card_gib(torch, dev, peak=True)
+    check(len(losses) == steps and reg.histogram("train.step").count
+          == steps, f"{len(losses)} steps recorded of {steps}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    if on_card:
+        check(counted == [(2 * L, L)] * steps, f"launches (forward, "
+              f"backward) a step {counted}, expected {(2 * L, L)}: {L} "
+              f"layers and their recompute, {L} backward")
+    n_bwd = sum(c[1] for c in counted)
+    med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    flops = train_flops(cfg, B, T)
+    log(f"[train] {cfg.name} ({L} layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B params, "
+        f"{cfg.dtype}) on {card}: {steps} steps of {B} x {T} tokens, "
+        f"AdamW (TrainConfig defaults), remat, vocab_chunk {vocab_chunk}; "
+        f"init {t_init:.2f} s")
+    log(f"[train] loss by step {[round(x, 4) for x in losses]}")
+    log(f"[train] step ms {[round(s * 1e3, 2) for s in step_s]} (the "
+        f"first builds and warms up); median after the first "
+        f"{med_s * 1e3:.3f} ms, {B * T / med_s:,.1f} tokens/s, "
+        f"{flops / med_s / 1e12:.1f} TFLOP/s (6 N + attention: "
+        f"{flops / 1e12:.2f} TFLOP a step), peak {peak:.2f} GiB; "
+        f"launches a step: forward {counted[0][0]}, backward "
+        f"{counted[0][1]}; the checkpoint's write waited {t_save:.2f} s")
+    share = None
+    if times is not None:
+        share = L * times["ms"] / (med_s * 1e3)
+        log(f"[train] the backward kernel's share of a step: {L} x "
+            f"{times['ms']:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
+    # full-width gradients, kernel against plain, on the trained weights
+    batch = to_device(stream.batch_at(steps), model.device)
+    with msettings.use(vocab_chunk=vocab_chunk):
+        rel_bf16 = grads_kernel_vs_plain(
+            torch, model, params, batch, f"{cfg.name} {cfg.dtype} {L} "
+            f"layers", TRAIN_GRAD_L2[cfg.dtype], TRAIN_LEAF_L2[cfg.dtype],
+            fault=on_card)
+    del model, params, state, step_fn
+    free_card(torch, dev)
+
+    # a new model and optimizer from the checkpoint: the next steps
+    model = build_model(cfg, device=dev, seed=seed + 1)
+    params, state, step_fn, _ = trainer(model)
+    check(ck.restore_into(params, state) == ckpt_step,
+          "the checkpoint restored another step")
+    n_more = min(TRAIN_RESUMED, steps - ckpt_step)
+    _, _, hist_c = loop(model, params, state, step_fn, ckpt_step,
+                        ckpt_step + n_more)
+    resumed = hist_c["loss"]
+    want = losses[ckpt_step:ckpt_step + n_more]
+    rels = [abs(a - b) / abs(b) for a, b in zip(resumed, want)]
+    check(max(rels) <= 1e-5, f"resumed losses {resumed} against {want}")
+    log(f"[train] restored step {ckpt_step} into a new model and "
+        f"optimizer: losses {resumed} against {want} (relative "
+        f"{max(rels):.3g}; bitwise: {resumed == want})")
+    del model, params, state, step_fn
+    free_card(torch, dev)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # fp32 over 4 layers
+    cfg4 = dataclasses.replace(cfg, num_layers=min(4, L), dtype="float32")
+    model = build_model(cfg4, device=dev, seed=seed)
+    params = trainable_params(model)
+    batch = to_device(stream.batch_at(0), model.device)
+    with msettings.use(vocab_chunk=vocab_chunk):
+        rel_fp32 = grads_kernel_vs_plain(
+            torch, model, params, batch, f"{cfg.name} float32 "
+            f"{cfg4.num_layers} layers", TRAIN_GRAD_L2["float32"],
+            TRAIN_LEAF_L2["float32"])
+    del model, params
+    free_card(torch, dev)
+
+    # the encoder-decoder: bidirectional and cross backward on its path
+    ecfg = encdec_cfg or configs.get("seamless-m4t-large-v2")
+    ecfg = dataclasses.replace(ecfg, num_layers=encdec["layers"],
+                               encoder_layers=encdec["layers"])
+    eB, eT, eF = encdec["B"], encdec["T"], encdec["frames"]
+    rng = np.random.default_rng(seed + 9)
+    ebatch = {"tokens": rng.integers(0, ecfg.vocab_size, (eB, eT)).astype(
+                  np.int32),
+              "labels": rng.integers(0, ecfg.vocab_size, (eB, eT)).astype(
+                  np.int32),
+              "frontend_embeds": rng.standard_normal(
+                  (eB, eF, ecfg.d_model)).astype(np.float32)}
+    model = build_model(ecfg, device=dev, seed=seed)
+    params = trainable_params(model)
+    step_fn, opt = make_train_step(model, tcfg)
+    fa.reset_launches()
+    _, _, m = step_fn(params, opt.init(params), ebatch)
+    e_loss = float(m["loss"])
+    shapes = {key: n for key, n in fa.SHAPE_LAUNCHES.items()
+              if key[0] == "bwd"}
+    check(math.isfinite(e_loss), f"{ecfg.name}: loss {e_loss}")
+    if on_card:
+        n = encdec["layers"]
+        want_shapes = {("bwd", eF, eF, False): n, ("bwd", eT, eT, True): n,
+                       ("bwd", eT, eF, False): n}
+        check(shapes == want_shapes, f"{ecfg.name}: backward launches "
+              f"{shapes}, expected {want_shapes}")
+    log(f"[train] {ecfg.name} ({encdec['layers']} + {encdec['layers']} "
+        f"layers, full width, {ecfg.dtype}): one step over {eB} x {eF} "
+        f"frames and {eB} x {eT} tokens, loss {e_loss:.4f}; backward "
+        f"launches by (variant, Tq, Tk, causal) {shapes}")
+    ebatch = to_device(ebatch, model.device)
+    rel_encdec = grads_kernel_vs_plain(
+        torch, model, params, ebatch, f"{ecfg.name} {ecfg.dtype} "
+        f"{encdec['layers']} + {encdec['layers']} layers",
+        TRAIN_GRAD_L2[ecfg.dtype], TRAIN_LEAF_L2[ecfg.dtype])
+    del model, params, step_fn, opt
+    free_card(torch, dev)
+
+    # RWKV-6: no WKV6 backward yet
+    rcfg = dataclasses.replace(rwkv_cfg or configs.get("rwkv6-3b"),
+                               num_layers=1)
+    model = build_model(rcfg, device=dev, seed=seed)
+    params = trainable_params(model)
+    rbatch = to_device({k: v[:1, :64] for k, v in
+                        stream.batch_at(0).items()}, model.device)
+    rbatch = {k: v.clamp_max(rcfg.vocab_size - 1) for k, v in rbatch.items()}
+    try:
+        model.loss(rbatch)[0].backward()
+        refused = None
+    except NotPortedError as e:
+        refused = str(e)
+    if on_card:
+        check(refused is not None, f"{rcfg.name}: the loss's backward on "
+              f"the card did not raise NotPortedError")
+    log(f"[train] {rcfg.name} on {dev}: the loss with gradients raises "
+        f"NotPortedError: {refused!r}")
+    del model, params
+    free_card(torch, dev)
+    out = {"launches": n_bwd, "err": err, "losses": losses,
+           "step_ms": med_s * 1e3, "share": share,
+           "rel": (rel_bf16, rel_fp32, rel_encdec)}
+    if times is not None:
+        out.update(times)
+    return out
+
+
+def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
+                        T=TRAIN_T, vocab_chunk=TRAIN_VOCAB_CHUNK):
+    """Where a training step's time goes: qwen3-1.7b rebuilt from the seed
+    takes two warm-up steps, then one step under ``torch.profiler``
+    (device time by kernel, grouped as the backward kernel, the forward
+    attention kernel, matrix products and the rest, and the busy share);
+    then the optimizer's update alone on the same parameters, by the
+    host clock around a synchronised call.  Last of the profiled phases,
+    as the training phase's step times are taken without a profiler."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              to_device, trainable_params)
+    cfg = cfg or configs.get(TRAIN_ARCH)
+    model = build_model(cfg, device=dev, seed=seed)
+    params = trainable_params(model)
+    step_fn, opt = make_train_step(model, TrainConfig())
+    state = opt.init(params)
+    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
+                                seed=seed)
+    batches = [to_device(stream.batch_at(i), model.device) for i in range(3)]
+
+    def step(i):
+        with msettings.use(vocab_chunk=vocab_chunk):
+            step_fn(params, state, batches[i])
+        sync(torch, dev)
+    step(0)
+    step(1)
+    wall, busy_us, by_name = profile_window(torch, lambda: step(2), dev)
+    total = sum(t for t, _, _ in by_name) or 1.0
+    groups = {"backward attention": 0.0, "forward attention": 0.0,
+              "matrix products": 0.0, "the rest": 0.0}
+    for t_us, key, _ in by_name:
+        k = key.lower()
+        if "bwd_" in k:
+            groups["backward attention"] += t_us
+        elif "flash_fwd" in k:
+            groups["forward attention"] += t_us
+        elif any(w in k for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                  "sm90_")):
+            groups["matrix products"] += t_us
+        else:
+            groups["the rest"] += t_us
+    log(f"[profile] {cfg.name} train step ({B} x {T} tokens) under the "
+        f"profiler: {wall * 1e3:.3f} ms wall, card busy "
+        f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.1%}; device time "
+        + ", ".join(f"{name} {t / 1e3:.3f} ms ({t / total:.1%})"
+                    for name, t in groups.items()))
+    for t_us, key, count in by_name[:12]:
+        log(f"[profile]   {t_us / 1e3:9.3f} ms {t_us / total:6.1%} "
+            f"x{count} {key[:90]}")
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    opt.update(grads, state, params)
+    sync(torch, dev)
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] {cfg.name}: the AdamW update alone (clip, moments, "
+        f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B weights): "
+        f"{opt_ms:.3f} ms (host clock, synchronised)")
+    del model, params, state, step_fn, opt, grads, batches
+    free_card(torch, dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3169,6 +3832,7 @@ def main() -> int:
     placement = phase_placement()
     done("placement")
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     lm_errs = {name: 0.0 for name in LM_KERNELS}
     lm_runs = {}
     for arch, name in SERVED:
@@ -3176,6 +3840,8 @@ def main() -> int:
         op = LM_KERNELS[name]["op"]
         run = phase_serve(torch, np, cfg, args.seed, card, placement)
         check(run["kernel"] == op, f"{cfg.name} ran {run['kernel']}")
+        check(fa.LAUNCHES["flash_attention_bwd"] == 0,
+              f"serving {cfg.name} launched the backward kernel")
         if cfg.window:
             phase_parity_4_layers(torch, cfg, args.seed,
                                   prompt=WINDOW_PARITY_PROMPT,
@@ -3215,6 +3881,11 @@ def main() -> int:
                                   name="flash_attention_llama4")
     lm_runs["flash_attention_llama4"] = run
     done("llama4")
+    # serving runs under inference_mode: no backward launch anywhere yet
+    check(fa.LAUNCHES["flash_attention_bwd"] == 0,
+          "the serving phases launched the backward kernel")
+    train = phase_train(torch, np, args.seed, card)
+    done("train")
     # the profiled phases come last: a profiler session may slow the
     # host's launches for the rest of the process (phase_lm_profile reads
     # whether it did), and the serving phases time those launches
@@ -3223,6 +3894,7 @@ def main() -> int:
     del service, store, table
     for arch, _ in SERVED:
         phase_lm_profile(torch, np, configs.get(arch), args.seed)
+    phase_train_profile(torch, np, args.seed)
     done("profile")
 
     def entry(name, source, replaces, n_launches, err, r):
@@ -3302,6 +3974,13 @@ def main() -> int:
         n_launches, r = runs[name]
         kernels.append(entry(name, spec["source"], spec["replaces"],
                              n_launches, lm_errs[name], r))
+        if name == "flash_attention_llama4":
+            kernels.append(entry(
+                "flash_attention_bwd",
+                "src/repro_torch/csrc/flash_attention_bwd.cu",
+                TRAIN_REPLACES, train["launches"], train["err"], train))
+            kernels[-1].update(step_ms=train["step_ms"],
+                               step_share=train["share"])
         if "decode_ms" in r:
             kernels[-1].update(
                 decode_ms=r["decode_ms"],

@@ -27,7 +27,13 @@ The port reads what the reference writes, without importing it:
 * :func:`encdec_params_from_reference` and
   :func:`encdec_state_from_reference` — the same for the reference's
   ``EncDec`` (its ``enc_stack`` and ``dec_stack`` unstacked into the
-  port's ``enc_layers`` and ``dec_layers``).
+  port's ``enc_layers`` and ``dec_layers``);
+* :func:`adamw_state_from_reference` and
+  :func:`adafactor_state_from_reference` — a reference optimizer state
+  (``AdamW``'s moments unstacked per layer and keyed by the port's
+  parameter names; Adafactor's per-leaf statistics kept whole, in the
+  reference leaves that :meth:`LM.param_groups` reproduces), so that a
+  port step taken after a reference step continues the reference's run.
 
 Decision journals need no converter: both packages write and read the
 same ``repro.market.decision-journal`` v2 format.
@@ -43,14 +49,17 @@ import numpy as np
 import torch
 
 from repro_torch.models.encdec import EncDec, encoder_config
+from repro_torch.models.encdec import model_groups as encdec_groups
 from repro_torch.models.lm import LM, block_cache_specs, layer_plans
+from repro_torch.models.lm import model_groups as lm_groups
 from repro_torch.models.types import ModelConfig
 from repro_torch.selector.fused_rank import TorchFusedRankState, \
     resolve_device
 from repro_torch.selector.rank import _position_index
 from repro_torch.selector.store import ProfilingStore
 
-__all__ = ["FLEET_ARRAYS", "encdec_params_from_reference",
+__all__ = ["FLEET_ARRAYS", "adafactor_state_from_reference",
+           "adamw_state_from_reference", "encdec_params_from_reference",
            "encdec_state_from_reference", "fleet_state_from_reference",
            "lm_params_from_reference", "lm_state_from_reference",
            "model_config_from_reference", "store_from_reference"]
@@ -230,3 +239,59 @@ def _state_from_reference(cfg, plans, state, device):
             device=dev, dtype=specs[k].storage_dtype(cfg.compute_dtype))
             for k, v in layer.items()})
     return out
+
+
+# --- optimizer state ------------------------------------------------------------
+
+def _param_groups(cfg: ModelConfig):
+    """The port model's ``param_groups()`` for ``cfg``."""
+    return (encdec_groups if cfg.is_encdec else lm_groups)(cfg)
+
+
+def _leaf_at(tree: Mapping, path) -> np.ndarray:
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree, dtype=np.float32)
+
+
+def adamw_state_from_reference(cfg: ModelConfig, opt_state: Mapping, *,
+                               moment_dtype: torch.dtype = torch.float32,
+                               device: Union[str, torch.device] = "cuda"
+                               ) -> Dict[str, Any]:
+    """A reference ``AdamW`` state (``{"m", "v", "count"}``, the moments
+    shaped like the reference's parameter tree, leaves numpy) as the
+    port's: each moment unstacked per layer as
+    :func:`lm_params_from_reference` unstacks the weights and keyed by the
+    port's parameter name, in ``moment_dtype``, and the int32 count."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {"m": {}, "v": {}}
+    for path, members in _param_groups(cfg):
+        for key in ("m", "v"):
+            leaf = _leaf_at(opt_state[key], path)
+            for i, name in enumerate(members):
+                a = leaf[i] if path[1:2] == ("cycles",) else leaf
+                out[key][name] = torch.tensor(a).to(device=dev,
+                                                    dtype=moment_dtype)
+    out["count"] = torch.tensor(int(np.asarray(opt_state["count"])),
+                                dtype=torch.int32, device=dev)
+    return out
+
+
+def adafactor_state_from_reference(cfg: ModelConfig, opt_state: Mapping, *,
+                                   device: Union[str, torch.device] = "cuda"
+                                   ) -> Dict[str, Any]:
+    """A reference ``Adafactor`` state (``{"f": [per-leaf dicts], "count"}``
+    in the reference's flatten order, leaves numpy) as the port's: the
+    port's Adafactor keeps one statistics dict a reference leaf, in the
+    same order (the model's ``param_groups()``), so each is taken whole."""
+    dev = resolve_device(device)
+    groups = _param_groups(cfg)
+    f = opt_state["f"]
+    if len(f) != len(groups):
+        raise ValueError(f"{len(f)} reference leaves, the port groups "
+                         f"{len(groups)}")
+    return {"f": [{k: torch.tensor(np.asarray(v, dtype=np.float32),
+                                   device=dev) for k, v in leaf.items()}
+                  for leaf in f],
+            "count": torch.tensor(int(np.asarray(opt_state["count"])),
+                                  dtype=torch.int32, device=dev)}

@@ -23,9 +23,22 @@ by :func:`variant` from the dtype and the head size alone:
 reference's oracle ``repro.kernels.ref.attention_ref``.
 :func:`flash_attention` takes it for tensors on the CPU; for CUDA tensors
 it launches a kernel or raises, and never falls back.  :data:`LAUNCHES`
-counts kernel launches and nothing else: ``flash_attention`` is the total,
-``flash_attention_tc`` and ``flash_attention_scalar`` each variant;
+counts kernel launches and nothing else: ``flash_attention`` is the
+forward's total, ``flash_attention_tc`` and ``flash_attention_scalar``
+each variant;
 :data:`SHAPE_LAUNCHES` counts the same launches by variant and shape.
+
+The gradients.  :func:`flash_attention` on CUDA tensors goes through
+:class:`FlashAttentionFn` when grad mode is on and ``q``, ``k`` or ``v``
+requires grad: its forward is the same launch, and it saves q, k, v and
+o; its backward launches ``csrc/flash_attention_bwd.cu`` (see its header:
+the row statistics recomputed, then dQ and dK/dV, scalar fp32, no
+atomics), counted as ``flash_attention_bwd`` in :data:`LAUNCHES` and
+under variant ``"bwd"`` in :data:`SHAPE_LAUNCHES`.  Under
+``torch.inference_mode`` or ``no_grad`` (serving) nothing changes.
+:func:`attention_bwd_ref` is the backward's plain version, from the
+explicit formulas in float32; CPU tensors take :func:`attention_ref`,
+which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -37,12 +50,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES", "TC_HEAD_DIMS",
-           "attention_ref", "flash_attention", "reset_launches", "variant"]
+__all__ = ["FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES",
+           "TC_HEAD_DIMS", "attention_bwd_ref", "attention_ref",
+           "flash_attention", "reset_launches", "variant"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
-                             "flash_attention_scalar": 0}
+                             "flash_attention_scalar": 0,
+                             "flash_attention_bwd": 0}
 #: the same launches by (variant, Tq, Tk, causal)
 SHAPE_LAUNCHES: Dict[Tuple[str, int, int, bool], int] = {}
 #: the head sizes the kernel is built for: every attention config the port
@@ -55,6 +70,7 @@ TC_HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"
+_BWD_SOURCE = "flash_attention_bwd"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -63,6 +79,8 @@ _SIGNATURES = {
     "flash_attention_fwd_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, ctypes.c_float, _P],
 }
+_BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
+                   + [ctypes.c_float, _I, _P]}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,17 +107,57 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     R = H // G
     qg = q.reshape(B, Tq, G, R, D).float() / math.sqrt(D)
     s = torch.einsum("btgrd,bsgd->bgrts", qg, k.float())
-    qpos = torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= qpos - kpos < window
+    mask = _mask(Tq, Tk, causal, window, q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrts,bsgd->btgrd", p, v.float())
     return o.reshape(B, Tq, H, D).to(v.dtype)
+
+
+def _mask(Tq: int, Tk: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """The (Tq, Tk) bool mask of allowed scores."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`attention_ref`'s output ``o``
+    given its cotangent ``do``, from the explicit formulas in float32 (no
+    autograd): ``P`` the masked softmax, ``dV = P^T dO``, ``dP = dO V^T``,
+    ``dS = P * (dP - rowsum(dO * O))`` and 0 where masked, ``dQ = dS K /
+    sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, summed over each KV head's R
+    query heads.  A fully masked row's softmax is uniform, as the forward's;
+    its dS is 0.  The results in the inputs' dtype."""
+    B, Tq, H, D = q.shape
+    Tk, G = k.shape[1], k.shape[2]
+    R = H // G
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Tq, G, R, D).float()
+    dog = do.reshape(B, Tq, G, R, D).float()
+    kf, vf = k.float(), v.float()
+    mask = _mask(Tq, Tk, causal, window, q.device)
+    s = torch.einsum("btgrd,bsgd->bgrts", qg * scale, kf)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    delta = (dog * o.reshape(B, Tq, G, R, D).float()).sum(-1)  # (B,T,G,R)
+    dp = torch.einsum("btgrd,bsgd->bgrts", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = torch.where(mask, ds, torch.zeros((), device=q.device))
+    dv = torch.einsum("bgrts,btgrd->bsgd", p, dog)
+    dk = torch.einsum("bgrts,btgrd->bsgd", ds, qg) * scale
+    dq = torch.einsum("bgrts,bsgd->btgrd", ds, kf) * scale
+    return (dq.reshape(B, Tq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check_causal(Tq: int, Tk: int, causal: bool) -> None:
@@ -191,11 +249,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     needs ``Tq == Tk`` and raises otherwise.
     CUDA tensors run a kernel (bf16 or fp32, contiguous, ``D`` in
     :data:`HEAD_DIMS`; the variant :func:`variant` names); CPU tensors the
-    plain version."""
+    plain version.  On CUDA a bidirectional call with a window that leaves
+    a query row no key in reach (``Tq >= Tk + window``) raises: the
+    forward kernels average such a row over their tile's padded keys, not
+    over the Tk keys as the plain version and the backward do (ROADMAP.md
+    §C, entry 9)."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         _check_causal(q.shape[1], k.shape[1], causal)
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if not causal and window is not None \
+            and q.shape[1] >= k.shape[1] + window:
+        raise ValueError(f"a bidirectional call with window {window} over "
+                         f"Tq={q.shape[1]} and Tk={k.shape[1]} leaves rows "
+                         f"with no key in reach, which the kernels do not "
+                         f"take yet")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     return _launch(q, k, v, causal, window)
+
+
+def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward (``csrc/flash_attention_bwd.cu``, one count)
+    on CUDA tensors: (dq, dk, dv) in q's dtype."""
+    B, Tq, H, D = q.shape
+    Tk, G = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head sizes {HEAD_DIMS}, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {q.dtype}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if min(B, Tq, Tk) < 1:
+        raise ValueError("empty batch or sequence")
+    _check_causal(Tq, Tk, causal)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    # the row statistics: max, 1 / sum and rowsum(dO * O)
+    stats = torch.empty((3, B, H, Tq), dtype=torch.float32, device=q.device)
+    lib = _build.load(_BWD_SOURCE, _BWD_SIGNATURES)
+    _build.check(_build.launch_on(
+        q, lib.flash_attention_bwd, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+        stats[1].data_ptr(), stats[2].data_ptr(), B, Tq, Tk, H, G, D,
+        int(causal), window or 0, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+        _build.current_stream(q)), "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    key = ("bwd", Tq, Tk, bool(causal))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention on CUDA tensors with its gradient: the forward kernel
+    :func:`variant` names, and the backward kernel.  Reached through
+    :func:`flash_attention` when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        o = _launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, o, do.contiguous(), ctx.causal,
+                                 ctx.window)
+        return dq, dk, dv, None, None

@@ -1,9 +1,10 @@
 """The model-side entry points of the LM kernels.
 
 Counterpart of ``repro/kernels/ops.py``.  The port's layers call
-:func:`flash_attention` (prefill attention) and :func:`wkv6` (every RWKV-6
-time mix) through this module.  On CUDA tensors they launch the
-hand-written kernels; on CPU tensors they run the plain versions.
+:func:`flash_attention` (prefill and training attention) and :func:`wkv6`
+(every RWKV-6 time mix) through this module.  On CUDA tensors they launch
+the hand-written kernels (attention's gradient too, when one is wanted);
+on CPU tensors they run the plain versions.
 
 The reference's ``use_pallas`` toggle has no counterpart: on the card the
 kernels always run, and nothing switches them off.  Its ``interpret``
@@ -22,7 +23,8 @@ __all__ = ["flash_attention", "launches", "reset_launches", "wkv6"]
 
 
 def launches() -> Dict[str, int]:
-    """Both kernels' launch counts (a copy)."""
+    """Both kernels' launch counts, the attention backward's included (a
+    copy)."""
     return {**_fa.LAUNCHES, **_wkv.LAUNCHES}
 
 

@@ -16,7 +16,10 @@ its header for the work split and what bounds it on the card).
 T in float32, the counterpart of the reference's oracle
 ``repro.models.recurrent.wkv6_scan_ref``.  :func:`wkv6` takes it for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises,
-and never falls back.
+and never falls back.  The kernel has no backward yet: on CUDA tensors
+that require grad (with grad mode on) :func:`wkv6` raises
+:class:`~repro_torch.models.NotPortedError`, so RWKV-6 trains on the CPU
+only (autograd through the plain version there).
 
 Two kernels, both in ``csrc/wkv6_scan.cu``: ``wkv6_split`` (variant
 ``"split"``), which :func:`wkv6` launches, and the sequential
@@ -138,4 +141,9 @@ def wkv6(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
         return wkv6_scan_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u, s0)):
+        from repro_torch.models.types import NotPortedError
+        raise NotPortedError("the WKV6 kernel has no backward yet: RWKV-6 "
+                             "trains on the CPU only (ROADMAP.md §A)")
     return _launch(r, k, v, w, u, s0)

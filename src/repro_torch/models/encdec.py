@@ -17,8 +17,8 @@ flash-attention kernel; self-attention decode stays plain
 The parameter tree is ``{"embed", "enc_layers", "enc_norm",
 "dec_layers", "final_norm"}`` with one dict per layer;
 :func:`repro_torch.convert.encdec_params_from_reference` unstacks the
-reference's ``enc_stack`` and ``dec_stack`` into it.  ``loss`` waits
-for training, as ``LM.loss`` does (ROADMAP.md §A).
+reference's ``enc_stack`` and ``dec_stack`` into it.  ``loss`` is the
+reference's: the plain head, no aux term in the total.
 """
 from __future__ import annotations
 
@@ -30,14 +30,15 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.lm import (Block, LayerPlan, State, _parameter_dict,
-                                   block_cache_specs, block_specs,
-                                   layer_plans, load_values, run_stack,
-                                   seq_positions, zeros_state)
+from repro_torch.models.lm import (Block, Group, LayerPlan, State,
+                                   _parameter_dict, block_cache_specs,
+                                   block_specs, layer_plans, load_values,
+                                   param_groups, plain_xent, run_stack,
+                                   seq_positions, xent_loss, zeros_state)
 from repro_torch.models.types import ModelConfig, SpecTree
 from repro_torch.selector.fused_rank import resolve_device
 
-__all__ = ["EncDec", "param_specs"]
+__all__ = ["EncDec", "model_groups", "param_specs"]
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -58,6 +59,14 @@ def param_specs(cfg: ModelConfig) -> SpecTree:
                        for plan in layer_plans(cfg, cross=True)],
         "final_norm": L.norm_specs(cfg),
     }
+
+
+def model_groups(cfg: ModelConfig) -> List[Group]:
+    """:meth:`EncDec.param_groups` for ``cfg``, without building the
+    model."""
+    return param_groups(param_specs(cfg), {
+        "enc_layers": ("enc_blocks", "enc_stack", encoder_config(cfg)),
+        "dec_layers": ("dec_blocks", "dec_stack", cfg)})
 
 
 class EncDec(nn.Module):
@@ -110,13 +119,15 @@ class EncDec(nn.Module):
     # -- encoder --------------------------------------------------------------
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The encoder's output (B, F, d_model) for frame embeddings
-        (B, F, d_model): cast to the compute dtype, not scaled."""
+        (B, F, d_model): cast to the compute dtype, not scaled.  (The
+        encoder runs in mode ``encode``, which the reference never
+        rematerialises.)"""
         x = frames.to(device=self.device, dtype=self.cfg.compute_dtype)
         B, F = x.shape[:2]
-        x, _ = run_stack(self.cfg, self.enc_plans, self.enc_blocks, x,
-                         mode="encode",
-                         positions=seq_positions(B, F, 0, x.device),
-                         state=None)
+        x, _, _ = run_stack(self.cfg, self.enc_plans, self.enc_blocks, x,
+                            mode="encode",
+                            positions=seq_positions(B, F, 0, x.device),
+                            state=None)
         return L.norm_apply(self.enc_norm, x, self.cfg.norm)
 
     # -- decoder --------------------------------------------------------------
@@ -128,17 +139,38 @@ class EncDec(nn.Module):
         x = L.norm_apply(self.final_norm, x, self.cfg.norm)
         return L.head_apply(self.embed, self.cfg, x)
 
-    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """Training-mode logits (B, T, V) of ``batch["tokens"]`` given
-        ``batch["frontend_embeds"]``."""
+    def _train_hidden(self, batch: Mapping[str, torch.Tensor], remat: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         enc_out = self.encode(batch["frontend_embeds"])
         x = self._embed(batch["tokens"])
         B, T = x.shape[:2]
-        x, _ = run_stack(self.cfg, self.dec_plans, self.dec_blocks, x,
+        return run_stack(self.cfg, self.dec_plans, self.dec_blocks, x,
                          mode="train",
                          positions=seq_positions(B, T, 0, x.device),
-                         state=None, enc_out=enc_out)
-        return self._head(x)
+                         state=None, enc_out=enc_out, remat=remat)[:2]
+
+    def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """Training-mode logits (B, T, V) of ``batch["tokens"]`` given
+        ``batch["frontend_embeds"]``."""
+        return self._head(self._train_hidden(batch, remat=False)[0])
+
+    def loss(self, batch: Mapping[str, torch.Tensor], *, remat: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss (the reference's ``EncDec.loss``): the
+        encoder runs bidirectional over ``batch["frontend_embeds"]``, the
+        decoder causal over ``batch["tokens"]`` with cross-attention, and
+        the plain head's cross-entropy over ``batch["labels"]`` (-1
+        masked) with the z-loss.  The decoder's aux term is reported, not
+        added.  Returns (total, {xent, z_loss, aux, tokens})."""
+        x, aux = self._train_hidden(batch, remat=remat)
+        labels = batch["labels"].to(device=x.device, dtype=torch.long)
+        lse, ll = plain_xent(self._head(x), labels.clamp_min(0))
+        return xent_loss(lse, ll, labels, aux, 0.0)
+
+    def param_groups(self) -> List[Group]:
+        """The parameters as the reference's leaves hold them (each stack's
+        cycle-stacked layers), in its flatten order."""
+        return model_groups(self.cfg)
 
     # -- serving --------------------------------------------------------------
     def prefill(self, batch: Mapping[str, torch.Tensor], state: State
@@ -154,7 +186,7 @@ class EncDec(nn.Module):
         enc_out = self.encode(frames)
         x = self._embed(batch["tokens"])
         B, T = x.shape[:2]
-        x, new_state = run_stack(
+        x, _, new_state = run_stack(
             self.cfg, self.dec_plans, self.dec_blocks, x, mode="prefill",
             positions=seq_positions(B, T, 0, x.device), state=state,
             enc_out=enc_out)
@@ -166,7 +198,7 @@ class EncDec(nn.Module):
         new token is written (cache entries [0, pos] valid)."""
         pos = int(pos)
         x = self._embed(token[:, None])
-        x, new_state = run_stack(
+        x, _, new_state = run_stack(
             self.cfg, self.dec_plans, self.dec_blocks, x, mode="decode",
             positions=seq_positions(x.shape[0], 1, pos, x.device),
             state=state, pos=pos)

@@ -6,17 +6,23 @@ the vision-language backbone (counterpart of ``repro/models/lm.py``).
   :class:`torch.nn.Module` holding one :class:`Block` per layer, run by a
   Python loop.  :func:`repro_torch.convert.lm_params_from_reference`
   unstacks the reference's cycle-stacked leaves into it.
-* **Three entry modes**, as the reference: ``forward`` (causal, no cache;
-  the logits only — ``loss`` and ``fused_xent`` wait for training),
-  ``prefill`` (causal, writes the KV/recurrent state) and ``decode_step``
-  (one token, reads and writes the state).  A state is a list with one
-  dict per layer; KV caches are written in place.
+* **Entry modes**, as the reference: ``forward`` (causal, no cache; the
+  logits), ``loss`` (the training loss and its metrics, through the plain
+  head or :func:`fused_xent` over vocabulary chunks when
+  ``settings.vocab_chunk`` is set; with ``remat`` each layer runs under
+  ``torch.utils.checkpoint``), ``prefill`` (causal, writes the
+  KV/recurrent state) and ``decode_step`` (one token, reads and writes
+  the state).  A state is a list with one dict per layer; KV caches are
+  written in place.
 * **Parameters** are stored in the dtype their uses read (see
-  :mod:`repro_torch.models.types`) and never require gradients.
+  :mod:`repro_torch.models.types`) and are frozen (no gradients) for
+  serving; the trainer (:mod:`repro_torch.train.train_loop`) turns
+  gradients on for the model it trains.
 
 A MoE layer (``cfg.is_moe_layer``) holds ``moe`` in place of ``mlp``, as
-in the reference.  Its load-balance term is not summed: serving does not
-read it, and it comes back with ``loss``.  A ``rec`` layer (the RG-LRU
+in the reference; :func:`block_apply` returns its load-balance term and
+:func:`run_stack` sums it, which ``loss`` weighs and serving ignores.
+A ``rec`` layer (the RG-LRU
 block of RecurrentGemma) holds ``rec`` and an MLP; its attention layers
 are local (``cfg.window``), with ring caches of ``min(max_len, window)``
 slots.  The encoder-decoder model (:class:`repro_torch.models.encdec.
@@ -41,17 +47,27 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.models import settings as settings_lib
 from repro_torch.models.types import (ModelConfig, ParamSpec, SpecTree,
                                       init_params, map_specs)
 from repro_torch.selector.fused_rank import resolve_device
 
-__all__ = ["Block", "LM", "LayerPlan", "block_apply", "block_cache_specs",
-           "block_specs", "layer_plans", "param_specs"]
+__all__ = ["AUX_LOSS_WEIGHT", "Block", "LM", "LayerPlan", "Z_LOSS_WEIGHT",
+           "block_apply", "block_cache_specs", "block_specs", "fused_xent",
+           "layer_plans", "model_groups", "param_groups", "param_specs",
+           "xent_loss"]
 
 State = List[Dict[str, torch.Tensor]]
+#: a parameter group: the reference leaf's path in its tree and the port's
+#: parameter names it stacks, in cycle order
+Group = Tuple[Tuple[str, ...], List[str]]
+
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,7 +150,9 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
     cross-attention (``plan.cross``) attends to ``enc_out`` after its
     self-attention in ``train`` and ``prefill`` (the prefill writes the
     cross cache ``xk``, ``xv``) and to that cache in ``decode``.  Returns
-    (x, new_cache); ``new_cache`` is ``{}`` without a cache."""
+    (x, aux, new_cache): ``aux`` the MoE layer's load-balance term (0.0
+    elsewhere, no launch), ``new_cache`` ``{}`` without a cache."""
+    aux = 0.0
     new_cache: Dict[str, torch.Tensor] = {}
     cache = cache or {}
     if mode not in ("train", "prefill", "decode", "encode"):
@@ -166,10 +184,10 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
             x = x + _cross_apply(cfg, p, x, mode, cache, new_cache, enc_out)
         h = L.norm_apply(p["ln2"], x, cfg.norm)
         if plan.moe:
-            y, _ = L.moe_apply(p["moe"], cfg, h)
+            y, aux = L.moe_apply(p["moe"], cfg, h)
         else:
             y = L.mlp_apply(p["mlp"], cfg, h)
-        return x + y, new_cache
+        return x + y, aux, new_cache
     # rwkv
     h = L.norm_apply(p["ln1"], x, "layernorm")
     st = {"shift": cache["tm_shift"], "wkv": cache["wkv"]} \
@@ -184,7 +202,7 @@ def block_apply(cfg: ModelConfig, plan: LayerPlan, p: Mapping, x, *,
     y, ns = R.rwkv_channel_mix_apply(p["cm"], cfg, h, state=st)
     if ns is not None:
         new_cache["cm_shift"] = ns["shift"]
-    return x + y, new_cache
+    return x + y, aux, new_cache
 
 
 def _cross_apply(cfg, p, x, mode, cache, new_cache, enc_out):
@@ -288,19 +306,176 @@ def zeros_state(cfg: ModelConfig, specs, device: torch.device) -> State:
 
 def run_stack(cfg: ModelConfig, plans: List[LayerPlan], blocks, x, *,
               mode: str, positions, state: Optional[State],
-              pos: Optional[int] = None, enc_out=None
-              ) -> Tuple[torch.Tensor, Optional[State]]:
+              pos: Optional[int] = None, enc_out=None, remat: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[State]]:
     """``x`` through ``blocks`` in depth order (the reference's
-    ``_stack_apply``); returns (x, the new state, or None without one)."""
+    ``_stack_apply``); returns (x, the layers' summed aux term, the new
+    state or None without one).  With ``remat`` in mode ``train`` (the
+    reference wraps each layer cycle in ``jax.checkpoint``) each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
+    recomputes the layer from its input and keeps nothing else of it.
+    Nothing in a layer draws random numbers, so no RNG state is kept."""
     new_state: Optional[State] = [] if state is not None else None
+    aux = x.new_zeros((), dtype=torch.float32)
     for i, (plan, block) in enumerate(zip(plans, blocks)):
-        x, nc = block_apply(cfg, plan, block, x, mode=mode,
-                            positions=positions,
-                            cache=state[i] if state is not None else None,
-                            pos=pos, enc_out=enc_out)
+        cache = state[i] if state is not None else None
+        if remat and mode == "train" and cache is None:
+            x, aux_i = checkpoint(_train_layer, cfg, plan, block, x,
+                                  positions, enc_out, use_reentrant=False,
+                                  preserve_rng_state=False)
+            nc = {}
+        else:
+            x, aux_i, nc = block_apply(cfg, plan, block, x, mode=mode,
+                                       positions=positions, cache=cache,
+                                       pos=pos, enc_out=enc_out)
+        aux = aux + aux_i
         if new_state is not None:
             new_state.append(nc)
-    return x, new_state
+    return x, aux, new_state
+
+
+def _train_layer(cfg, plan, block, x, positions, enc_out):
+    x, aux, _ = block_apply(cfg, plan, block, x, mode="train",
+                            positions=positions, enc_out=enc_out)
+    return x, aux
+
+
+def _xent_chunk(x, w, labels, m, s, ll, c0: int, chunk: int, V: int,
+                tied: bool):
+    """One vocabulary chunk of :func:`fused_xent`: the chunk's logits (the
+    last chunk's padding scored -1e30), the running max and sum, and the
+    label's logit where the label falls in the chunk."""
+    pad = chunk - (w.shape[0] if tied else w.shape[1])
+    if pad:
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad) if tied else (0, pad))
+    logits = (x @ (w.t() if tied else w)).float()
+    vpos = c0 + torch.arange(chunk, device=x.device)
+    logits = torch.where(vpos < V, logits,
+                         torch.full((), L.NEG_INF, device=x.device))
+    m_new = torch.maximum(m, logits.amax(-1))
+    s = s * torch.exp(m - m_new) \
+        + torch.exp(logits - m_new[..., None]).sum(-1)
+    in_chunk = (labels >= c0) & (labels < c0 + chunk)
+    local = (labels - c0).clamp(0, chunk - 1)
+    picked = logits.gather(-1, local[..., None])[..., 0]
+    return m_new, s, torch.where(in_chunk, picked, ll)
+
+
+def fused_xent(embed, cfg: ModelConfig, x: torch.Tensor,
+               labels: torch.Tensor, chunk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused head matmul and cross-entropy over vocabulary chunks (the
+    reference's ``fused_xent``): per token (logsumexp, label logit), (B, T)
+    float32 each, without the (B, T, V) float32 logits.  Each chunk runs
+    under ``torch.utils.checkpoint``, so its logits live only inside its
+    step, forward and backward.  ``labels`` must be in [0, V)."""
+    tied = cfg.tie_embeddings
+    w = embed["embedding"] if tied else embed["head"]
+    V = w.shape[0] if tied else w.shape[1]
+    chunk = min(chunk, V)
+    # views of one split: the backward assembles w's gradient once
+    pieces = w.split(chunk, dim=0 if tied else 1)
+    B, T = labels.shape
+    m = torch.full((B, T), L.NEG_INF, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+    ll = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+    for i, w_c in enumerate(pieces):
+        m, s, ll = checkpoint(_xent_chunk, x, w_c, labels, m, s, ll,
+                              i * chunk, chunk, V, tied,
+                              use_reentrant=False, preserve_rng_state=False)
+    return m + torch.log(torch.clamp_min(s, 1e-30)), ll
+
+
+def plain_xent(logits: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, label logit) per token from whole logits, in float32;
+    ``labels`` must be in [0, V)."""
+    logits = logits.float()
+    ll = logits.gather(-1, labels[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1), ll
+
+
+def xent_loss(lse: torch.Tensor, ll: torch.Tensor, labels: torch.Tensor,
+              aux: torch.Tensor, aux_weight: float
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's loss from per-token (logsumexp, label logit):
+    the token mean of the cross-entropy over labels >= 0, the z-loss, and
+    ``aux_weight`` times ``aux``.  Returns (total, {xent, z_loss, aux,
+    tokens})."""
+    mask = (labels >= 0).float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    xent = ((lse - ll) * mask).sum() / denom
+    z_loss = Z_LOSS_WEIGHT * (lse.square() * mask).sum() / denom
+    total = xent + z_loss
+    if aux_weight:
+        total = total + aux_weight * aux
+    return total, {"xent": xent, "z_loss": z_loss, "aux": aux,
+                   "tokens": mask.sum()}
+
+
+def _stack_groups(cfg: ModelConfig, prefix: str, ref_stack: str,
+                  names: List[str]) -> Dict[Tuple[str, ...], List[str]]:
+    """The reference leaves of one layer stack, each with the port's
+    parameter names it stacks: layer ``c * cycle + i`` (``{prefix}.{layer}
+    .groups. ...``) is cycle ``c`` of ``(ref_stack, "cycles", "b{i}",
+    ...)``; a remainder layer's leaves are their own, ``(ref_stack,
+    "rem", "r{j}", ...)``."""
+    cyc = math.lcm(len(cfg.block_pattern),
+                   cfg.moe_period if cfg.num_experts else 1)
+    n_cyc = (cfg.num_layers // cyc) * cyc
+    out: Dict[Tuple[str, ...], List[str]] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] != prefix:
+            continue
+        i, leaf = int(parts[1]), tuple(parts[3:])     # after "groups"
+        if i < n_cyc:
+            path = (ref_stack, "cycles", f"b{i % cyc}") + leaf
+        else:
+            path = (ref_stack, "rem", f"r{i - n_cyc}") + leaf
+        out.setdefault(path, []).append(name)
+    for members in out.values():                     # cycle order
+        members.sort(key=lambda n: int(n.split(".")[1]))
+    return out
+
+
+def _spec_names(tree, prefix: str) -> List[str]:
+    """The parameter names a spec subtree gets in the module tree."""
+    if isinstance(tree, Mapping):
+        return [n for k, v in tree.items()
+                for n in _spec_names(v, f"{prefix}.{k}")]
+    return [prefix]
+
+
+def param_groups(specs: Mapping[str, Any], stacks) -> List[Group]:
+    """A model's parameters grouped as the reference's tree holds them, in
+    the reference's flatten order (its dict keys sorted at every level).
+    ``specs`` is the model's spec tree; ``stacks`` maps each of its layer
+    lists to (module prefix, reference stack name, config), whose layer
+    ``i`` is named ``{prefix}.{i}.groups. ...`` (:class:`Block`); every
+    other parameter is a leaf of its own."""
+    names: List[str] = []
+    for key, sub in specs.items():
+        if key in stacks:
+            prefix = stacks[key][0]
+            for i, layer in enumerate(sub):
+                names += _spec_names(layer, f"{prefix}.{i}.groups")
+        else:
+            names += _spec_names(sub, key)
+    groups: Dict[Tuple[str, ...], List[str]] = {}
+    for prefix, ref_stack, cfg in stacks.values():
+        groups.update(_stack_groups(cfg, prefix, ref_stack, names))
+    grouped = {n for members in groups.values() for n in members}
+    for name in names:
+        if name not in grouped:
+            groups[tuple(name.split("."))] = [name]
+    return sorted(groups.items())
+
+
+def model_groups(cfg: ModelConfig) -> List[Group]:
+    """:meth:`LM.param_groups` for ``cfg``, without building the model."""
+    return param_groups(param_specs(cfg),
+                        {"layers": ("blocks", "stack", cfg)})
 
 
 def seq_positions(B: int, T: int, start: int, device) -> torch.Tensor:
@@ -370,22 +545,57 @@ class LM(nn.Module):
         return x
 
     def _stack(self, x, *, mode: str, positions, state: Optional[State],
-               pos: Optional[int] = None) -> Tuple[torch.Tensor,
-                                                   Optional[State]]:
+               pos: Optional[int] = None, remat: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[State]]:
         return run_stack(self.cfg, self.plans, self.blocks, x, mode=mode,
-                         positions=positions, state=state, pos=pos)
+                         positions=positions, state=state, pos=pos,
+                         remat=remat)
 
-    # -- forward ----------------------------------------------------------------
+    def _hidden(self, batch: Mapping[str, torch.Tensor], remat: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed training-mode hidden states (B, F + T, d) and
+        the stack's aux term."""
+        x = self._embed(batch)
+        B, T = x.shape[:2]
+        x, aux, _ = self._stack(x, mode="train",
+                                positions=seq_positions(B, T, 0, x.device),
+                                state=None, remat=remat)
+        return L.norm_apply(self.final_norm, x, self.cfg.norm), aux
+
+    # -- forward and loss --------------------------------------------------------
     def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Training-mode logits (B, F + T, V) of ``batch["tokens"]`` after
         a VLM batch's F patch embeddings (F = 0 without them)."""
-        x = self._embed(batch)
-        B, T = x.shape[:2]
-        x, _ = self._stack(x, mode="train",
-                           positions=seq_positions(B, T, 0, x.device),
-                           state=None)
-        x = L.norm_apply(self.final_norm, x, self.cfg.norm)
+        x, _ = self._hidden(batch, remat=False)
         return L.head_apply(self.embed, self.cfg, x)
+
+    def loss(self, batch: Mapping[str, torch.Tensor], *, remat: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (the reference's ``LM.loss``):
+        ``batch["labels"]`` (B, F + T) ints, -1 at masked positions (a VLM
+        batch's F patches).  The cross-entropy is a token mean over the
+        unmasked labels; the z-loss is ``Z_LOSS_WEIGHT`` times the mean
+        square logsumexp; MoE layers add ``AUX_LOSS_WEIGHT`` times their
+        summed load-balance term.  With ``settings.vocab_chunk`` set the
+        head runs through :func:`fused_xent`.  Returns (total, {xent,
+        z_loss, aux, tokens}), float32 scalars."""
+        labels = batch["labels"]
+        x, aux = self._hidden(batch, remat=remat)
+        labels = labels.to(device=x.device, dtype=torch.long)
+        chunk = settings_lib.get().vocab_chunk
+        if chunk:
+            lse, ll = fused_xent(self.embed, self.cfg, x,
+                                 labels.clamp_min(0), chunk)
+        else:
+            lse, ll = plain_xent(L.head_apply(self.embed, self.cfg, x),
+                                 labels.clamp_min(0))
+        return xent_loss(lse, ll, labels, aux, AUX_LOSS_WEIGHT)
+
+    def param_groups(self) -> List[Group]:
+        """The parameters as the reference's leaves hold them (its
+        cycle-stacked layers), in its flatten order: what Adafactor's
+        factored statistics span (:mod:`repro_torch.train.optimizer`)."""
+        return model_groups(self.cfg)
 
     # -- serving ------------------------------------------------------------------
     def prefill(self, batch: Mapping[str, torch.Tensor], state: State
@@ -395,7 +605,7 @@ class LM(nn.Module):
         (last-position logits (B, V), new state)."""
         x = self._embed(batch)
         B, T = x.shape[:2]
-        x, new_state = self._stack(
+        x, _, new_state = self._stack(
             x, mode="prefill", positions=seq_positions(B, T, 0, x.device),
             state=state)
         x = L.norm_apply(self.final_norm, x[:, -1:], self.cfg.norm)
@@ -408,7 +618,7 @@ class LM(nn.Module):
         F patches and t text tokens)."""
         pos = int(pos)
         x = self._embed_tokens(token[:, None])
-        x, new_state = self._stack(
+        x, _, new_state = self._stack(
             x, mode="decode",
             positions=seq_positions(x.shape[0], 1, pos, x.device),
             state=state, pos=pos)

@@ -116,18 +116,33 @@ def rglru_scan(log_a: torch.Tensor, gated: torch.Tensor,
     round's right-hand side is computed before it is written, so the
     in-place updates read the last round's values.  No cumulative product
     or sum in log space: ``log_a`` reaches -8 softplus(lam) a step, and a
-    running sum of it underflows."""
+    running sum of it underflows.
+
+    When a gradient is wanted the rounds write new tensors instead: an
+    in-place round overwrites what the last round's products saved for
+    the backward, which plain autograd refuses and a non-reentrant
+    checkpoint's recompute would silently read back overwritten.  Serving
+    keeps the in-place rounds: at a prefill wave's shape they are
+    measurably faster (``chip_smoke.py``'s ``rec_shares``, PERF.md §5)."""
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * gated
     if h0 is not None:
         b[:, 0] += a[:, 0] * h0
     T = a.shape[1]
+    grad = torch.is_grad_enabled() and (log_a.requires_grad
+                                        or gated.requires_grad)
     s = 1
     while s < T:
-        b[:, s:] += a[:, s:] * b[:, :-s]
+        if grad:
+            b = torch.cat([b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]], 1)
+        else:
+            b[:, s:] += a[:, s:] * b[:, :-s]
         if 2 * s < T:                   # the last round needs no a
-            a[:, s:] = a[:, s:] * a[:, :-s]
+            if grad:
+                a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], 1)
+            else:
+                a[:, s:] = a[:, s:] * a[:, :-s]
         s *= 2
     # a copy: a view would keep the whole (B, T, w) scan alive in the state
     return b, b[:, -1].clone()

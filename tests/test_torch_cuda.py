@@ -678,7 +678,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention": 1, "flash_attention_tc": int(kind == "tc"),
-        "flash_attention_scalar": int(kind == "scalar")}
+        "flash_attention_scalar": int(kind == "scalar"),
+        "flash_attention_bwd": 0}
     want = fa.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     atol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -1265,3 +1266,161 @@ def test_cuda_kernels_launch_on_their_tensors_device(cuda_device):
     _wkv_close(wk.wkv6(*args), wk.wkv6_scan_ref(*args))
     torch.cuda.synchronize(last)
     assert torch.cuda.current_device() == 0
+
+
+# --- training: the attention backward kernel, the loss on the card -------------
+
+#: (B, Tq, Tk, H, G, causal, window): causal, a window, bidirectional with
+#: Tq != Tk (fully masked rows at Tq > Tk with a window), GQA R = 1, 2, 4
+#: and 48, ragged T, Tq = 1
+BWD_CASES = [(2, 128, 128, 4, 2, True, None), (1, 100, 100, 4, 1, True, 16),
+             (2, 37, 53, 4, 4, False, None), (1, 100, 37, 4, 2, False, 8),
+             (2, 1, 130, 4, 1, False, None), (1, 70, 70, 48, 1, True, None),
+             (1, 1, 1, 4, 4, True, None)]
+BWD_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_or_floor(got, want, floor):
+    """Relative L2, against ``floor`` where the true gradient vanishes
+    (dq and dk at Tq = Tk = 1, where the softmax is constant)."""
+    got, want = got.double(), want.double()
+    denom = want.norm()
+    if denom < 1e-6 * floor:
+        denom = floor
+    return float((got - want).norm() / denom)
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_cuda_attention_bwd_matches_plain(cuda_device, D, dtype):
+    for i, (B, Tq, Tk, H, G, causal, window) in enumerate(BWD_CASES):
+        gen = torch.Generator(device=cuda_device).manual_seed(D + i)
+        q, do = (torch.randn((B, Tq, H, D), generator=gen,
+                             device=cuda_device).to(dtype) for _ in range(2))
+        k, v = (torch.randn((B, Tk, G, D), generator=gen,
+                            device=cuda_device).to(dtype) for _ in range(2))
+        o = fa.attention_ref(q, k, v, causal=causal,
+                             window=window).contiguous()
+        before = fa.LAUNCHES["flash_attention_bwd"]
+        got = fa._launch_bwd(q, k, v, o, do, causal, window)
+        assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+        want = fa.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                    window=window)
+        torch.cuda.synchronize()
+        floor = float(want[2].double().norm())
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            err = _rel_or_floor(g, w, floor)
+            assert err < BWD_LIMIT[dtype], (name, (B, Tq, Tk, H, G, causal,
+                                                   window), err)
+
+
+def test_cuda_flash_attention_backward_routes_through_the_kernel(
+        cuda_device):
+    """With gradients wanted, ``flash_attention`` goes through the
+    autograd Function: one forward and one backward launch; without them
+    (``inference_mode``) the forward alone, as serving runs it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((2, 64, 4, 64), generator=gen, device=cuda_device)
+    k, v = (torch.randn((2, 64, 2, 64), generator=gen, device=cuda_device)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    o = fa.flash_attention(*leaves, causal=True)
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, leaves, do)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == 1
+    want = fa.attention_bwd_ref(q, k, v, o.detach(), do, causal=True)
+    for g, w in zip(got, want):
+        assert _rel_or_floor(g, w, 1.0) < 1e-5
+    fa.reset_launches()
+    with torch.inference_mode():
+        fa.flash_attention(*leaves, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == 0
+
+
+def test_cuda_wkv6_backward_is_not_ported(cuda_device):
+    from repro_torch.models import NotPortedError
+    args = _wkv_inputs(cuda_device, 1, 4, 2, 16, torch.float32)
+    r = args[0].clone().requires_grad_()
+    with pytest.raises(NotPortedError, match="WKV6"):
+        wk.wkv6(r, *args[1:])
+
+
+def test_cuda_reduced_training_step_matches_cpu(cuda_device):
+    """A reduced qwen3-1.7b train step in fp32 on the card (the forward
+    and backward kernels, 2 + 2 forward launches with remat, 2 backward)
+    against the same step on the CPU."""
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              trainable_params)
+    cfg = configs.reduced(configs.get("qwen3-1.7b"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 40)).astype(
+                 np.int32)}
+    out = []
+    for dev in ("cpu", cuda_device):
+        model = LM(cfg, device="cpu", seed=0).to(dev)
+        params = trainable_params(model)
+        # the defaults' first rate, 3e-6: an element whose gradient is at
+        # rounding level may step either way (see test_torch_train.py)
+        step, opt = make_train_step(model, TrainConfig())
+        fa.reset_launches()
+        _, _, m = step(params, opt.init(params), batch)
+        out.append((float(m["loss"]), {k: p.detach().cpu()
+                                       for k, p in params.items()},
+                    dict(fa.LAUNCHES)))
+    (l_cpu, p_cpu, _), (l_gpu, p_gpu, launches) = out
+    assert launches["flash_attention"] == 4
+    assert launches["flash_attention_bwd"] == 2
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_gpu[k].numpy(), p_cpu[k].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_forward_fully_masked_rows_open_fault(cuda_device):
+    """ROADMAP.md §C, entry 9 (open): a bidirectional call with a window
+    and Tq > Tk leaves rows with no key in reach.  ``attention_ref`` (the
+    reference's oracle) gives such a row the mean of v over the Tk keys;
+    the scalar forward kernel counts its tile's padded keys too, so over
+    Tk = 37 keys and a 64-key tile it gives their sum over 64 (as the
+    reference's chunked sdpa counts its chunk's).  Every other row
+    agrees.  Pinned here until the forward kernel changes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((1, 100, 4, 32), generator=gen, device=cuda_device)
+    k, v = (torch.randn((1, 37, 2, 32), generator=gen, device=cuda_device)
+            for _ in range(2))
+    got = fa._launch(q, k, v, False, 8, "scalar")
+    want = fa.attention_ref(q, k, v, causal=False, window=8)
+    torch.cuda.synchronize()
+    # row t sees key s when t - s < 8: rows from 37 - 1 + 8 = 44 see none
+    assert torch.allclose(got[:, :44], want[:, :44], atol=2e-5, rtol=1e-2)
+    padded = v.sum(1, keepdim=True).repeat_interleave(2, 2) / 64
+    assert torch.allclose(got[:, 44:], padded.expand_as(got[:, 44:]),
+                          atol=1e-5)
+    assert not torch.allclose(got[:, 44:], want[:, 44:], atol=1e-3)
+
+
+def test_cuda_flash_attention_refuses_rows_with_no_key(cuda_device):
+    """Until entry 9 is repaired, ``flash_attention`` refuses on the card
+    a bidirectional call whose window leaves a row no key (Tq >= Tk +
+    window), with or without a gradient, and takes one that leaves every
+    row a key."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((1, 45, 4, 32), generator=gen, device=cuda_device)
+    k, v = (torch.randn((1, 37, 2, 32), generator=gen, device=cuda_device)
+            for _ in range(2))
+    with pytest.raises(ValueError, match="no key in reach"):
+        fa.flash_attention(q, k, v, causal=False, window=8)
+    with pytest.raises(ValueError, match="no key in reach"):
+        fa.flash_attention(q.requires_grad_(), k, v, causal=False, window=8)
+    got = fa.flash_attention(q[:, :44].detach(), k, v, causal=False,
+                             window=8)
+    want = fa.attention_ref(q[:, :44].detach(), k, v, causal=False,
+                            window=8)
+    assert torch.allclose(got, want, atol=2e-5, rtol=1e-2)

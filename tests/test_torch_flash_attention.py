@@ -147,4 +147,5 @@ def test_variant_is_chosen_by_dtype_and_head_size_alone():
         cfg = configs.get(name)
         assert fa.variant(cfg.compute_dtype, cfg.head_dim) == "tc", name
     assert set(fa.LAUNCHES) == {"flash_attention", "flash_attention_tc",
-                                "flash_attention_scalar"}
+                                "flash_attention_scalar",
+                                "flash_attention_bwd"}

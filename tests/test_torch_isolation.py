@@ -4,8 +4,9 @@ quiet fall-back to the CPU.
 A subprocess blocks ``jax`` and ``repro`` (the exact name or a ``repro.``
 prefix) on ``sys.meta_path``, imports every module of ``repro_torch``, and
 then builds the entry points without ``device=`` (the fleet states, the
-selection services, the LM, the EncDec and the serving engine); with CUDA
-hidden each must raise ``BackendUnavailableError``.  The sources of the package
+selection services, the LM, the EncDec, the serving engine and the
+training launcher); with CUDA hidden each must raise
+``BackendUnavailableError``.  The sources of the package
 and of ``chip_smoke.py`` are also scanned for such imports, including the
 ones inside functions that an import does not execute.
 """
@@ -81,7 +82,10 @@ for name, make in (("lm", lambda: LM(cfg)),
                    ("encdec", lambda: EncDec(enc_cfg)),
                    ("build_encdec", lambda: build_model(enc_cfg)),
                    ("engine", lambda: Engine(LM(cfg, device="cpu"), slots=1,
-                                             max_len=8))):
+                                             max_len=8)),
+                   ("train_launcher", lambda: __import__(
+                       "repro_torch.launch.train", fromlist=["main"]).main(
+                       ["--reduced", "--steps", "1"]))):
     try:
         make()
         raised[name] = None
@@ -124,13 +128,19 @@ def test_every_module_imports_without_jax_or_reference():
                 "repro_torch.configs.rwkv6_3b",
                 "repro_torch.configs.stablelm_3b", "repro_torch.core.tpu_flora",
                 "repro_torch.market.migration", "repro_torch.serve.engine",
-                "repro_torch.serve.__main__"}
+                "repro_torch.serve.__main__", "repro_torch.models.settings",
+                "repro_torch.train.optimizer",
+                "repro_torch.train.train_loop",
+                "repro_torch.train.compression",
+                "repro_torch.train.checkpoint",
+                "repro_torch.data.pipeline", "repro_torch.launch.train"}
     assert expected <= set(res["modules"])
     assert res["leaked"] == []
     assert res["cuda"] is False
     assert res["raised"] == dict.fromkeys(
         ("state", "sharded", "sharded_2", "service", "sharded_service", "lm",
-         "build_model", "encdec", "build_encdec", "engine"),
+         "build_model", "encdec", "build_encdec", "engine",
+         "train_launcher"),
         "BackendUnavailableError")
 
 
@@ -149,6 +159,8 @@ def _imported_modules(path: Path):
 def test_sources_name_no_jax_or_reference_import():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 35
+    for sub in ("train", "data", "launch"):     # the training slice's
+        assert any(f.parent == PACKAGE / sub for f in files), sub
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
