@@ -8,7 +8,9 @@ Phases:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all started together (``-Xptxas -v`` registers,
-   shared memory and spills printed, and each source's build time);
+   shared memory and spills printed, and each source's build time), and
+   read the tensor-core backward's passes with ``cuobjdump -sass``: each
+   must issue wgmma (``HGMMA``) at every head size it is built for;
 2. hold every ``rank_delta`` kernel against its plain PyTorch version on
    the card: the tick's price ``scatter`` (bitwise, C = 1 to 100,000, n =
    0 to C, each case scattered twice back to back); ``rowmin`` and the
@@ -147,28 +149,34 @@ Phases:
    prefill through the kernel and the plain version (relative L2 < 0.1,
    finite, one tensor-core launch a layer, the routes' agreement), 4
    decode steps, finite, and the kernel at its prefill shape;
-9b. train (before the profiled phases): the attention backward kernel
+9b. train (before the profiled phases): the attention backward
    (``flash_attention_bwd.cu``) against ``attention_bwd_ref`` at every
    head size in bf16 and fp32 (``BWD_CASES``: causal, a window,
    bidirectional with Tq != Tk and fully masked rows, GQA R = 1, 2, 4,
    48, ragged T, Tq = 1; each of dq, dk, dv within relative L2 1e-5 in
-   fp32 and 1e-2 in bf16), with a planted fault (the last 64 keys'
-   contribution dropped) that the check must refuse; held the same way
-   at the path's shapes (seamless-m4t-large-v2's three in bf16 and fp32,
-   qwen3-1.7b's in fp32, and in bf16 where it is timed beside its plain
-   version, SDPA's backward and its bound); qwen3-1.7b at full width and depth for 10 steps of
+   fp32 and 1e-2 in bf16): the variant ``bwd_variant`` names (the
+   tensor-core kernel for bf16 at D <= 128, whose second call must give
+   the same bits) and, where that is the tensor-core kernel, the scalar
+   yardstick too; with a planted fault (the last 64 keys' contribution
+   dropped) that the check must refuse; held the same way at the path's
+   shapes (seamless-m4t-large-v2's three in bf16 and fp32, qwen3-1.7b's
+   in fp32, and in bf16 where each is timed, ``BWD_TIMED``: the
+   tensor-core kernel beside the scalar yardstick, the plain version,
+   SDPA's backward and its bound); qwen3-1.7b at full width and depth for 10 steps of
    4 x 1,024 tokens through ``make_train_step`` and ``train_loop``
    (AdamW, the reference's ``TrainConfig`` defaults, remat, vocab chunks
    of 16,384; batches from the port's ``TokenStream``): finite losses,
    the last below the first, 56 forward and 28 backward launches every
-   step (none in the serving phases), step time, tokens/s, TFLOP/s, peak
+   step, all 28 on the tensor cores (none in the serving phases), step
+   time, tokens/s, TFLOP/s, peak
    memory and the backward's share of a step; a checkpoint after step 5
    restored into a new model and optimizer, whose steps 6 and 7 equal
    the uninterrupted run within relative 1e-5; one step's gradients with
    the kernels against plain attention, bf16 over all 28 layers within
    relative L2 0.1 over the whole gradient and 0.05 on each leaf, and
    with the planted fault in the last layer, which the leaf limit must
-   refuse; fp32 over 4 layers within 1e-3 and 1e-4; seamless-m4t-large-v2
+   refuse; fp32 over 4 layers within 1e-3 and 1e-4 (the scalar backward,
+   one launch a layer); seamless-m4t-large-v2
    at 2 + 2 layers, full width, one bf16 step over 2 x 4,096 frames and
    2 x 512 tokens (the backward bidirectional, causal and in cross mode,
    counted by shape), its gradients held the same way; and rwkv6-3b's
@@ -181,7 +189,8 @@ Phases:
     its fp32 gate products' share of a prefill wave; then one qwen3-1.7b
     training step (device time by kernel and by group: the backward
     kernel, the forward attention kernel, matrix products, the rest) and
-    its AdamW update alone.
+    its AdamW update alone; then the tensor-core backward's and SDPA's
+    backward's device time a call at each timed shape.
 
 Every phase runs on every call.  Every check that fails exits non-zero.
 The last three lines are the ``{"kernels": [...]}`` record, the card's
@@ -226,10 +235,18 @@ launches on the path (``library_ms`` SDPA with ``is_causal`` as the
 call's); ``flash_attention_enc`` adds the first wave's ``wave_ms``.
 ``flash_attention_llama4`` is the kernel at the llama4 check's shape,
 its launches that check's one prefill.  ``flash_attention_bwd`` is the
-attention backward at qwen3-1.7b's training shape (bf16, 4 x 1,024, 16
-heads over 8, D = 128, causal), its launches the 10-step run's, its
-``library_ms`` SDPA's backward alone; it adds the run's median
-``step_ms`` and the kernel's ``step_share``.
+tensor-core attention backward at qwen3-1.7b's training shape (bf16, 4
+x 1,024, 16 heads over 8, D = 128, causal), its launches the 10-step
+run's, its ``earlier_ms`` the scalar backward's, its ``library_ms``
+SDPA's backward alone; it adds the run's median ``step_ms`` and the
+kernel's ``step_share``.  ``flash_attention_bwd_enc``, ``_dec`` and
+``_cross`` are the same kernel at seamless-m4t-large-v2's training
+shapes (bidirectional 2 x 4,096 over 4,096, causal 2 x 512, 512 over
+4,096; D = 64), their launches its one step's.  These four add
+``device_ms`` and ``library_device_ms``: the kernel's and SDPA's
+backward's device time a call from the profiler, without the host's.
+``flash_attention_bwd_scalar`` is the scalar backward, the yardstick, at
+qwen3-1.7b's shape in bf16, its launches the fp32 gradient check's.
 Without a CUDA device the script exits non-zero before printing any
 result.  It
 imports ``torch``, ``numpy``, the standard library and the port
@@ -395,10 +412,41 @@ def phase_build(torch) -> None:
                                          or "smem" in line) \
                     or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    sass_wgmma(built["flash_attention_bwd"][0])
     log(f"[build] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "float32 matmuls must not run in TF32")
+
+
+#: the tensor-core backward's passes, each of which must issue wgmma
+BWD_TC_PASSES = ("bwd_stats_tc", "bwd_dq_tc", "bwd_dkdv_tc")
+
+
+def sass_wgmma(lib) -> None:
+    """``cuobjdump -sass`` of the built backward library: the wgmma
+    instructions (``HGMMA``) in each tensor-core pass at each head size it
+    is built for, one quoted; a pass without one fails the check."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, quoted, fn = {}, None, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts.setdefault(fn, 0)
+        elif "HGMMA" in line and fn is not None:
+            counts[fn] += 1
+            if quoted is None and "bwd_dkdv_tc" in fn:
+                quoted = line.split("*/", 1)[-1].split(";")[0].strip()
+    for name in BWD_TC_PASSES:
+        by_d = {fn: n for fn, n in counts.items() if name in fn}
+        check(len(by_d) == 5 and all(n > 0 for n in by_d.values()),
+              f"{name}: HGMMA counts {by_d}")
+        log(f"[build] sass {name}: HGMMA instructions at each of "
+            f"{len(by_d)} head sizes: {sorted(by_d.values())}")
+    log(f"[build] sass bwd_dkdv_tc, first HGMMA: {quoted}")
 
 
 # --- phase 2 --------------------------------------------------------------------
@@ -2004,6 +2052,9 @@ ENCDEC_MODES = {
 #: decode steps
 ENCDEC_PARITY_LAYERS, ENCDEC_PARITY_FRAMES = 2, 100
 ENCDEC_PARITY_STEPS = 8
+#: the backward's counts, none of which a serving phase may move
+NO_BWD = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+          "flash_attention_bwd_scalar": 0}
 #: the record entries whose ``time_lm_kernel`` also times the scalar
 #: kernel in fp32 at their path's shape (its entry's name)
 SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
@@ -2459,7 +2510,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         n_kernel = cfg.encoder_layers + 2 * cfg.num_layers
         n = n_kernel * eng.prefills + cfg.num_layers * eng.decode_steps
         expect = {"flash_attention": n, "flash_attention_tc": n,
-                  "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+                  "flash_attention_scalar": 0, **NO_BWD,
                   "wkv6": 0, "wkv6_seq": 0}
         # each entry's launches are its shape's, as the wrapper counted
         # them where it launched
@@ -2490,7 +2541,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             # attention layer, causal over the patches and the prompt
             n = n_kernel * eng.prefills
             expect = {"flash_attention": n, "flash_attention_tc": n,
-                      "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+                      "flash_attention_scalar": 0, **NO_BWD,
                       "wkv6": 0, "wkv6_seq": 0}
             T = P + prompt_len
             want_shapes = {("tc", T, T, True): n}
@@ -2500,7 +2551,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             # every model call launches the split kernel, never the
             # sequential one
             expect = {"flash_attention": 0, "flash_attention_tc": 0,
-                      "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+                      "flash_attention_scalar": 0, **NO_BWD,
                       "wkv6": n_kernel * (eng.prefills + eng.decode_steps),
                       "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
@@ -2753,7 +2804,7 @@ def phase_llama4(torch, np, seed, card, batch=2, prompt_len=1024, steps=4,
     launches = ops.launches()
     L = cfg.num_layers
     expect = {"flash_attention": L, "flash_attention_tc": L,
-              "flash_attention_scalar": 0, "flash_attention_bwd": 0,
+              "flash_attention_scalar": 0, **NO_BWD,
               "wkv6": 0, "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
           f"expected {expect} (one prefill through the kernel)")
@@ -3247,16 +3298,21 @@ def hold_bwd(torch, got, want, dtype, label):
 
 
 def check_attention_bwd(torch, seed, dev="cuda"):
-    """The backward kernel against ``attention_bwd_ref`` at every head size
-    and case of :data:`BWD_CASES`, in fp32 and bf16, with a planted fault
-    the check must catch.  Returns the largest max |err|."""
+    """The backward kernels against ``attention_bwd_ref`` at every head
+    size and case of :data:`BWD_CASES`, in fp32 and bf16: the variant
+    ``bwd_variant`` names, and the scalar yardstick too where that is the
+    tensor-core kernel, whose second call on the same inputs must give
+    the same bits; with a planted fault the check must catch.  Returns
+    the largest max |err| by variant."""
     from repro_torch.kernels import flash_attention as fa
-    worst_abs, worst = 0.0, {}
+    worst_abs, worst = {"tc": 0.0, "scalar": 0.0}, {}
     n_caught = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         limit = BWD_LIMIT[name]
         for D in fa.HEAD_DIMS:
+            kinds = ["tc", "scalar"] if fa.bwd_variant(dtype, D) == "tc" \
+                else ["scalar"]
             for i, (B, Tq, Tk, H, G, causal, window) in enumerate(BWD_CASES):
                 gen = torch.Generator(device=dev).manual_seed(seed + D + i)
                 q, do = (torch.randn((B, Tq, H, D), generator=gen,
@@ -3266,16 +3322,31 @@ def check_attention_bwd(torch, seed, dev="cuda"):
                                     device=dev).to(dtype) for _ in range(2))
                 o = fa.attention_ref(q, k, v, causal=causal,
                                      window=window).contiguous()
-                before = fa.LAUNCHES["flash_attention_bwd"]
-                got = fa._launch_bwd(q, k, v, o, do, causal, window)
-                check(fa.LAUNCHES["flash_attention_bwd"] == before + 1,
-                      "the backward kernel did not launch once")
                 want = plain_bwd(q, k, v, o, do, causal, window)
-                sync(torch, dev)
                 case = (B, Tq, Tk, H, G, D, causal, window)
-                rel, err = hold_bwd(torch, got, want, dtype, case)
-                worst[name] = max(worst.get(name, 0.0), rel)
-                worst_abs = max(worst_abs, err)
+                for kind in kinds:
+                    before = dict(fa.LAUNCHES)
+                    got = fa._launch_bwd(q, k, v, o, do, causal, window,
+                                         kind=kind)
+                    check(fa.LAUNCHES["flash_attention_bwd"]
+                          == before["flash_attention_bwd"] + 1 and
+                          fa.LAUNCHES[f"flash_attention_bwd_{kind}"]
+                          == before[f"flash_attention_bwd_{kind}"] + 1,
+                          f"the {kind} backward did not launch once")
+                    sync(torch, dev)
+                    rel, err = hold_bwd(torch, got, want, dtype,
+                                        (kind,) + case)
+                    worst[name, kind] = max(worst.get((name, kind), 0.0),
+                                            rel)
+                    worst_abs[kind] = max(worst_abs[kind], err)
+                    if kind == "tc":
+                        again = fa._launch_bwd(q, k, v, o, do, causal,
+                                               window)
+                        sync(torch, dev)
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+                              f"backward {name} {case}: two tensor-core "
+                              f"calls differ")
                 if Tk > 2 * BWD_FAULT_KEYS and D in (64, 128):
                     floor = float(want[2].double().norm())
                     f = planted_fault(torch, plain_bwd, q, k, v, o, do,
@@ -3289,9 +3360,13 @@ def check_attention_bwd(torch, seed, dev="cuda"):
                         f"{BWD_FAULT_KEYS} keys dropped -> relative L2 "
                         f"dq {rels[0]:.3g} dk {rels[1]:.3g} dv "
                         f"{rels[2]:.3g} (caught: >= {limit})")
-        log(f"[train] backward kernel {name}: {len(BWD_CASES)} cases x "
-            f"{len(fa.HEAD_DIMS)} head sizes within relative L2 {limit} "
-            f"(worst {worst[name]:.3g})")
+        for kind in ("tc", "scalar"):
+            if (name, kind) in worst:
+                log(f"[train] backward kernel {kind} {name}: "
+                    f"{len(BWD_CASES)} cases x the head sizes it takes "
+                    f"within relative L2 {limit} (worst "
+                    f"{worst[name, kind]:.3g})"
+                    + ("; second calls bitwise" if kind == "tc" else ""))
     check(n_caught > 0, "no planted fault was checked")
     return worst_abs
 
@@ -3324,44 +3399,133 @@ def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
     return worst_abs
 
 
+#: the backward's timed shapes (B, Tq, Tk, H, G, D, causal), by record
+#: entry: qwen3-1.7b's training step, then seamless-m4t-large-v2's three
+BWD_TIMED = {"flash_attention_bwd": (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
+                                     True),
+             "flash_attention_bwd_enc": ENCDEC_BWD_SHAPES[0],
+             "flash_attention_bwd_dec": ENCDEC_BWD_SHAPES[1],
+             "flash_attention_bwd_cross": ENCDEC_BWD_SHAPES[2]}
+
+
 def time_attention_bwd(torch, seed, dev="cuda"):
-    """The backward kernel at qwen3-1.7b's training shape (bf16), held
-    against its plain version on the same inputs: its time, the plain
-    version's, SDPA's backward alone (``enable_gqa``, the forward outside
-    the timed region) and the bound."""
+    """The tensor-core backward at each shape of :data:`BWD_TIMED` (bf16),
+    held against its plain version on the same inputs: its time, the
+    scalar yardstick's (by name), the plain version's, SDPA's backward
+    alone (``enable_gqa``, the forward outside the timed region) and the
+    bound.  Returns {entry: numbers}; ``flash_attention_bwd_scalar`` is
+    the yardstick at qwen3-1.7b's shape."""
     from repro_torch.kernels import flash_attention as fa
-    cfg_B, T, H, G, D = TRAIN_B, TRAIN_T, 16, 8, 128
-    q, k, v = attn_inputs(torch, cfg_B, T, H, G, D, torch.bfloat16, seed,
-                          dev)
-    o = fa._launch(q, k, v, True, None)
-    do = torch.randn_like(q)
-    rel, err = hold_bwd(torch, fa._launch_bwd(q, k, v, o, do, True, None),
-                        plain_bwd(q, k, v, o, do, True, None),
-                        torch.bfloat16, (cfg_B, T, T, H, G, D, True))
-    ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, do, True, None),
-                 iters=50, warmup=3)
-    plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
-        q, k, v, o, do, causal=True), iters=10, warmup=2)
+    out = {}
+    for entry, (B, Tq, Tk, H, G, D, causal) in BWD_TIMED.items():
+        q, k, v = attn_inputs(torch, B, Tq, H, G, D, torch.bfloat16, seed,
+                              dev, Tk=Tk)
+        o = fa._launch(q, k, v, causal, None)
+        do = torch.randn_like(q)
+        label = (B, Tq, Tk, H, G, D, causal)
+        want = plain_bwd(q, k, v, o, do, causal, None)
+        rel, err = hold_bwd(torch, fa._launch_bwd(q, k, v, o, do, causal,
+                                                  None),
+                            want, torch.bfloat16, label)
+        s_rel, s_err = hold_bwd(torch, fa._launch_bwd(
+            q, k, v, o, do, causal, None, kind="scalar"), want,
+            torch.bfloat16, ("scalar",) + label)
+        del want
+        ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, do, causal,
+                                                   None), iters=50, warmup=3)
+        scalar_ms = time_ms(torch, lambda: fa._launch_bwd(
+            q, k, v, o, do, causal, None, kind="scalar"), iters=10,
+            warmup=2)
+        plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
+            q, k, v, o, do, causal=causal), iters=10, warmup=2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        y = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        dos = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            y, (qs, ks, vs), dos, retain_graph=True), iters=50, warmup=3)
+        del y, qs, ks, vs
+        # five products of 2 B H Tq Tk D, halved by a causal mask; q, k,
+        # v, o and dO read once, dq, dk, dv written once
+        flops = 5 * 2 * B * H * Tq * Tk * D / (2 if causal else 1)
+        n_bytes = 2 * (4 * B * Tq * H * D + 4 * B * Tk * G * D)
+        bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+        log(f"[time] {entry} (B={B} Tq={Tq} Tk={Tk} H={H} G={G} D={D} "
+            f"{'causal' if causal else 'bidirectional'}, bf16): tensor "
+            f"cores {ms:.4f} ms, scalar {scalar_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+            f"{bound[0]:.5f} ms ({bound[1]}); {ms / bound[0]:.1f} x the "
+            f"bound, {ms / library_ms:.2f} x SDPA; against the plain "
+            f"version relative L2 {rel:.3g} (scalar {s_rel:.3g}), max "
+            f"|err| {err:.3g} (scalar {s_err:.3g})")
+        out[entry] = {"ms": ms, "earlier_ms": scalar_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound": bound, "err": err, "shape": label}
+        if entry == "flash_attention_bwd":
+            out["flash_attention_bwd_scalar"] = {
+                "ms": scalar_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound": bound, "err": s_err,
+                "shape": label}
+        del q, k, v, o, do
+        free_card(torch, dev)
+    return out
+
+
+def bwd_device_times(torch, seed, times, dev="cuda", calls=10):
+    """Device time a call of the tensor-core backward and of SDPA's
+    backward at each shape of :data:`BWD_TIMED`, from ``torch.profiler``
+    over ``calls`` back-to-back calls: the device time of every kernel
+    recorded, over the calls recorded (the count of the kernel with the
+    most time, which runs once a call), which leaves out the
+    host's work (Python, autograd, the tensor maps) that the CUDA-event
+    times of :func:`time_attention_bwd` include wherever the host is
+    slower than the card.  Logged beside the profile's busy span and, for
+    the kernel, the time a call replayed from a CUDA graph; added to
+    ``times``' entries as ``device_ms`` and ``library_device_ms``.  A
+    profiled phase: it runs after the training phase's step times."""
+    from repro_torch.kernels import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
-    dos = do.transpose(1, 2)
-    library_ms = time_ms(torch, lambda: torch.autograd.grad(
-        out, (qs, ks, vs), dos, retain_graph=True), iters=50, warmup=3)
-    del out
-    # five products of 2 B H T T D, halved by the causal mask; q, k, v, o
-    # and dO read once, dq, dk, dv written once
-    flops = 5 * 2 * cfg_B * H * T * T * D / 2
-    n_bytes = 2 * (4 * cfg_B * T * H * D + 4 * cfg_B * T * G * D)
-    bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
-    log(f"[time] flash_attention_bwd (B={cfg_B} T={T} H={H} G={G} D={D} "
-        f"causal, bf16): {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"backward {library_ms:.4f} ms, bound {bound[0]:.5f} ms "
-        f"({bound[1]}); {ms / bound[0]:.1f} x the bound; against the "
-        f"plain version relative L2 {rel:.3g}, max |err| {err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound": bound, "err": err}
+    for entry, (B, Tq, Tk, H, G, D, causal) in BWD_TIMED.items():
+        q, k, v = attn_inputs(torch, B, Tq, H, G, D, torch.bfloat16, seed,
+                              dev, Tk=Tk)
+        o = fa._launch(q, k, v, causal, None)
+        do = torch.randn_like(q)
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        y = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        dos = do.transpose(1, 2)
+
+        def kernel():
+            fa._launch_bwd(q, k, v, o, do, causal, None)
+
+        def library():
+            torch.autograd.grad(y, (qs, ks, vs), dos, retain_graph=True)
+        out, notes = {}, []
+        for name, fn in (("device_ms", kernel), ("library_device_ms",
+                                                 library)):
+            fn()
+            sync(torch, dev)
+            _, busy_us, by_name = profile_window(
+                torch, lambda: [fn() for _ in range(calls)], dev)
+            seen = by_name[0][2]   # the main kernel's count
+            out[name] = sum(t for t, _, _ in by_name) / seen / 1e3
+            if torch.device(dev).type == "cuda":
+                check(out[name] > 0, f"{entry}: the profiler saw no device "
+                      f"time for {name}")
+            notes.append(f"{seen} calls recorded, busy span "
+                         f"{busy_us / calls / 1e3:.4f} ms a call")
+        graph = graph_ms(torch, kernel, calls=calls, replays=5)
+        times[entry].update(out)
+        log(f"[time] {entry}: device time a call (profiler) tensor cores "
+            f"{out['device_ms']:.4f} ms ({notes[0]}; from a CUDA graph "
+            f"{graph:.4f} ms), SDPA backward "
+            f"{out['library_device_ms']:.4f} ms ({notes[1]}): "
+            f"{out['device_ms'] / max(out['library_device_ms'], 1e-12):.2f}"
+            f" x; bound "
+            f"{times[entry]['bound'][0]:.5f} ms")
+        del q, k, v, o, do, qs, ks, vs, y, dos
+        free_card(torch, dev)
 
 
 def train_flops(cfg, B, T) -> float:
@@ -3494,12 +3658,16 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     on_card = torch.device(dev).type == "cuda"
     check(fa.LAUNCHES["flash_attention_bwd"] == 0,
           "the backward kernel launched before the training phase")
-    err = check_attention_bwd(torch, seed, dev)
+    errs = check_attention_bwd(torch, seed, dev)
+    err, scalar_err = errs["tc"], errs["scalar"]
     times = None
     if on_card:
         err = max(err, check_attention_bwd_path_shapes(torch, seed, dev))
         times = time_attention_bwd(torch, seed, dev)
-        err = max(err, times.pop("err"))
+        scalar_err = max(scalar_err,
+                         times["flash_attention_bwd_scalar"]["err"])
+        err = max([err] + [r["err"] for name, r in times.items()
+                           if name != "flash_attention_bwd_scalar"])
     cfg = cfg or configs.get(TRAIN_ARCH)
     L = cfg.num_layers
     stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
@@ -3518,7 +3686,8 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
             fa.reset_launches()
             out = step_fn(p, s, batch)
             counted.append((fa.LAUNCHES["flash_attention"],
-                            fa.LAUNCHES["flash_attention_bwd"]))
+                            fa.LAUNCHES["flash_attention_bwd"],
+                            fa.LAUNCHES["flash_attention_bwd_tc"]))
             return out
         return params, opt.init(params), counting_step, counted
 
@@ -3559,9 +3728,10 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     if on_card:
-        check(counted == [(2 * L, L)] * steps, f"launches (forward, "
-              f"backward) a step {counted}, expected {(2 * L, L)}: {L} "
-              f"layers and their recompute, {L} backward")
+        check(counted == [(2 * L, L, L)] * steps, f"launches (forward, "
+              f"backward, tensor-core backward) a step {counted}, "
+              f"expected {(2 * L, L, L)}: {L} layers and their recompute, "
+              f"{L} backward, every one on the tensor cores")
     n_bwd = sum(c[1] for c in counted)
     med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
     flops = train_flops(cfg, B, T)
@@ -3577,12 +3747,14 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
         f"{flops / med_s / 1e12:.1f} TFLOP/s (6 N + attention: "
         f"{flops / 1e12:.2f} TFLOP a step), peak {peak:.2f} GiB; "
         f"launches a step: forward {counted[0][0]}, backward "
-        f"{counted[0][1]}; the checkpoint's write waited {t_save:.2f} s")
+        f"{counted[0][1]} ({counted[0][2]} on the tensor cores); the "
+        f"checkpoint's write waited {t_save:.2f} s")
     share = None
     if times is not None:
-        share = L * times["ms"] / (med_s * 1e3)
+        bwd_ms = times["flash_attention_bwd"]["ms"]
+        share = L * bwd_ms / (med_s * 1e3)
         log(f"[train] the backward kernel's share of a step: {L} x "
-            f"{times['ms']:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
+            f"{bwd_ms:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
     # full-width gradients, kernel against plain, on the trained weights
     batch = to_device(stream.batch_at(steps), model.device)
     with msettings.use(vocab_chunk=vocab_chunk):
@@ -3617,11 +3789,18 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     model = build_model(cfg4, device=dev, seed=seed)
     params = trainable_params(model)
     batch = to_device(stream.batch_at(0), model.device)
+    before = fa.LAUNCHES["flash_attention_bwd_scalar"]
     with msettings.use(vocab_chunk=vocab_chunk):
         rel_fp32 = grads_kernel_vs_plain(
             torch, model, params, batch, f"{cfg.name} float32 "
             f"{cfg4.num_layers} layers", TRAIN_GRAD_L2["float32"],
             TRAIN_LEAF_L2["float32"])
+    # fp32 takes the scalar backward, one launch a layer
+    n_scalar = fa.LAUNCHES["flash_attention_bwd_scalar"] - before
+    if on_card:
+        check(n_scalar == cfg4.num_layers, f"the fp32 gradients launched "
+              f"the scalar backward {n_scalar} times, expected "
+              f"{cfg4.num_layers}")
     del model, params
     free_card(torch, dev)
 
@@ -3644,12 +3823,13 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     _, _, m = step_fn(params, opt.init(params), ebatch)
     e_loss = float(m["loss"])
     shapes = {key: n for key, n in fa.SHAPE_LAUNCHES.items()
-              if key[0] == "bwd"}
+              if key[0].startswith("bwd")}
     check(math.isfinite(e_loss), f"{ecfg.name}: loss {e_loss}")
     if on_card:
         n = encdec["layers"]
-        want_shapes = {("bwd", eF, eF, False): n, ("bwd", eT, eT, True): n,
-                       ("bwd", eT, eF, False): n}
+        want_shapes = {("bwd_tc", eF, eF, False): n,
+                       ("bwd_tc", eT, eT, True): n,
+                       ("bwd_tc", eT, eF, False): n}
         check(shapes == want_shapes, f"{ecfg.name}: backward launches "
               f"{shapes}, expected {want_shapes}")
     log(f"[train] {ecfg.name} ({encdec['layers']} + {encdec['layers']} "
@@ -3684,12 +3864,10 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
         f"NotPortedError: {refused!r}")
     del model, params
     free_card(torch, dev)
-    out = {"launches": n_bwd, "err": err, "losses": losses,
-           "step_ms": med_s * 1e3, "share": share,
-           "rel": (rel_bf16, rel_fp32, rel_encdec)}
-    if times is not None:
-        out.update(times)
-    return out
+    return {"launches": n_bwd, "scalar_launches": n_scalar,
+            "encdec_launches": shapes, "err": err, "scalar_err": scalar_err,
+            "losses": losses, "step_ms": med_s * 1e3, "share": share,
+            "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times}
 
 
 def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
@@ -3895,6 +4073,7 @@ def main() -> int:
     for arch, _ in SERVED:
         phase_lm_profile(torch, np, configs.get(arch), args.seed)
     phase_train_profile(torch, np, args.seed)
+    bwd_device_times(torch, args.seed, train["times"])
     done("profile")
 
     def entry(name, source, replaces, n_launches, err, r):
@@ -3975,12 +4154,27 @@ def main() -> int:
         kernels.append(entry(name, spec["source"], spec["replaces"],
                              n_launches, lm_errs[name], r))
         if name == "flash_attention_llama4":
-            kernels.append(entry(
-                "flash_attention_bwd",
-                "src/repro_torch/csrc/flash_attention_bwd.cu",
-                TRAIN_REPLACES, train["launches"], train["err"], train))
-            kernels[-1].update(step_ms=train["step_ms"],
-                               step_share=train["share"])
+            # the backward: the tensor-core kernel at each timed shape,
+            # its launches that shape's on the training path (seamless's
+            # one step: a call a layer); the scalar yardstick's the fp32
+            # gradient check's
+            for bwd_name, r in train["times"].items():
+                if bwd_name == "flash_attention_bwd_scalar":
+                    n_launches, err = train["scalar_launches"], \
+                        train["scalar_err"]
+                elif bwd_name == "flash_attention_bwd":
+                    n_launches, err = train["launches"], train["err"]
+                else:
+                    _, Tq, Tk, _, _, _, causal = r["shape"]
+                    n_launches = train["encdec_launches"].get(
+                        ("bwd_tc", Tq, Tk, causal), 0)
+                    err = train["err"]
+                kernels.append(entry(
+                    bwd_name, "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    TRAIN_REPLACES, n_launches, err, r))
+                if bwd_name == "flash_attention_bwd":
+                    kernels[-1].update(step_ms=train["step_ms"],
+                                       step_share=train["share"])
         if "decode_ms" in r:
             kernels[-1].update(
                 decode_ms=r["decode_ms"],

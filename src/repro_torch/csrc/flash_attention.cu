@@ -93,25 +93,25 @@
 //
 // Arithmetic, both kernels, as the reference: scores in fp32 scaled by
 // 1/sqrt(D) (the tensor-core kernel folds log2(e) in and uses exp2),
-// masked scores are -1e30 exactly (never -inf), the running max m, sum l
-// and accumulator stay in fp32, and the output is acc / max(l, 1e-30) in
-// q's dtype.  Each q tile walks the key tiles it can see in the
-// reference's order, from the window's lower tile (max(0, q0 - window) /
-// tile) up to the causal upper tile.  A row whose first visited tile is
-// wholly masked takes p = 1 on the masked keys until the first real score
-// rescales them by exp(-1e30 - m) = 0; every row sees its own diagonal key
-// in a later tile of the same walk, so the result equals the full softmax
-// of the reference oracle.  Ragged edges are masked here (any Tq and Tk):
-// keys past Tk score -1e30, and rows past Tq are never written.
+// masked scores are -1e30 exactly, the running max m, sum l and
+// accumulator stay in fp32, and the output is acc / max(l, 1e-30) in q's
+// dtype.  Each q tile walks the key tiles it can see in the reference's
+// order, from the window's lower tile (max(0, q0 - window) / tile) up to
+// the causal upper tile.  A row whose first visited tile is wholly masked
+// takes p = 1 on the masked keys until the first real score rescales them
+// by exp(-1e30 - m) = 0, so a row that sees a key gets the full softmax of
+// the reference oracle.  Keys past Tk (the tile's padding) score -inf, so
+// p = 0 on them whatever the row's max: a row with no key in reach (a
+// bidirectional window, Tq >= Tk + window) keeps m = -1e30 and p = 1 on
+// each of the Tk keys, the oracle's uniform softmax, the mean of v; a q
+// tile that holds such a row walks the key tiles from the first
+// (no_key_rows).  Rows past Tq are never written.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 // --- the scalar kernel -----------------------------------------------------
 
@@ -121,36 +121,14 @@ constexpr int kThreads = 256;    // 16 x 16: ty owns rows, tx owns columns
 constexpr int kPS = kBKV + 1;    // padded row stride of the P tile
 constexpr float kNegInf = -1e30f;
 
-// Let kern take `bytes` of dynamic shared memory on the current device,
-// once a device (`done`: the kernel's own flags, one a device).  The
-// attribute belongs to the device's context, so a flag for the whole
-// process would leave every card but the first unset.
-constexpr int kDevices = 64;
-template <typename K>
-cudaError_t allow_smem(K kern, int bytes, std::atomic<bool>* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kDevices && done[dev].load(std::memory_order_acquire))
-    return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess && dev < kDevices)
-    done[dev].store(true, std::memory_order_release);
-  return e;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Whether rows [q0, q0 + rows) hold one with no key in reach: a
+// bidirectional window over Tk keys leaves none to rows from Tk + window -
+// 1 on.  Such a row's softmax is uniform over the Tk keys (every score is
+// -1e30), so a tile that holds one walks the key tiles from the first.
+__device__ __forceinline__ bool no_key_rows(int q0, int rows, int Tq, int Tk,
+                                            int causal, int window) {
+  const int end = q0 + rows < Tq ? q0 + rows : Tq;
+  return !causal && window > 0 && end >= Tk + window;
 }
 
 template <int D>
@@ -207,7 +185,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int nkv = (Tk + kBKV - 1) / kBKV;
   const int hi = causal ? min((q0 + kBQ + kBKV - 1) / kBKV, nkv) : nkv;
-  const int lo = window > 0 ? max(0, q0 - window) / kBKV : 0;
+  const int lo = window > 0 && !no_key_rows(q0, kBQ, Tq, Tk, causal, window)
+                     ? max(0, q0 - window) / kBKV
+                     : 0;
 
   for (int jt = lo; jt < hi; ++jt) {
     const int k0 = jt * kBKV;
@@ -250,10 +230,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        bool ok = kp < Tk;
-        if (causal) ok = ok && qp >= kp;
+        bool ok = true;
+        if (causal) ok = qp >= kp;
         if (window > 0) ok = ok && (qp - kp) < window;
         if (!ok) s[i][j] = kNegInf;
+        if (kp >= Tk) s[i][j] = neg_inf();   // no part, even in a keyless row
         mb = fmaxf(mb, s[i][j]);
       }
 #pragma unroll
@@ -366,142 +347,18 @@ struct Shape {
   static_assert(kBM == kBN, "Q and K/V tiles share one geometry");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.  A
-// ring that never completes traps (an error the launch's stream reports)
-// after some 2^26 polls, seconds at least, instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// One 4-d TMA tile load (coordinates innermost first: column, head, row,
-// batch) into shared memory, completing on ``bar``'s transaction count.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units) and the swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) |
-         ((uint64_t)layout << 62);
-}
-
-// Shared-memory geometry of a kRows-row tile of Q, K or V at head size D
-// (kRows = Shape<D>::kBM, 128 or 64): kFull blocks of 64 columns
-// (128-byte rows, 128-byte swizzle) and, where 64 does not divide D, one
-// tail block of the kTail columns left (16 or 32: rows and swizzle of 32
-// or 64 bytes).  Each block holds all kRows rows of its columns, so one
-// TMA box fills it and one descriptor layout reads it.
+// Shared-memory geometry of a tile of Q, K or V at head size D: a
+// TileGeo (sm90.cuh) of Shape<D>::kBM rows, 128 or 64.
 template <int D>
-struct Geo {
-  static constexpr int kRows = Shape<D>::kBM;
-  static constexpr int kFull = D / 64;
-  static constexpr int kTail = D % 64;
-  static constexpr int kFullBytes = kRows * 128;
-  static constexpr int kTailSw = 2 * kTail;           // its row bytes
-  static constexpr int kTailOffset = kFull * kFullBytes;
-  static constexpr int kTileBytes = kTailOffset + kRows * kTailSw;
-  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
-  static constexpr int kTailLayout = kTailSw == 64 ? 2 : 3;
-  static constexpr int kKSteps = D / 16;              // k16 steps of Q K^T
+struct Geo : TileGeo<D, Shape<D>::kBM> {
   // Q, the K and V rings, the mbarriers (full and empty for Q, full K,
   // full V and empty for each stage), and slack to align to 1024 bytes:
   // 164,928 bytes at D = 128 and at D = 256, 103,488 at D = 80 and at
   // D = 160
   static constexpr size_t kSmemBytes =
-      (size_t)(1 + 2 * kStages) * kTileBytes + 8 * (2 + 3 * kStages) + 1024;
-  static_assert(kTail == 0 || kTail == 16 || kTail == 32, "head size");
-
-  // The K-major descriptor of k16 step ks (16 columns, 32 bytes) of rows
-  // [row, row + 64) of a tile: steps 4 c to 4 c + 3 lie in full block c,
-  // the rest in the tail.
-  static __device__ __forceinline__ uint64_t k_desc(uint32_t tile, int row,
-                                                    int ks) {
-    if (ks < 4 * kFull)
-      return make_desc(tile + (ks / 4) * kFullBytes + row * 128 +
-                           (ks % 4) * 32, 16, 8 * 128, 1);
-    return make_desc(tile + kTailOffset + row * kTailSw +
-                         (ks - 4 * kFull) * 32, 16, 8 * kTailSw, kTailLayout);
-  }
-  // The MN-major descriptors of keys [16 ks, 16 ks + 16) of a V tile: one
-  // spans the full blocks from ``block`` on (the leading offset steps
-  // along N from block to block), the other the tail.
-  static __device__ __forceinline__ uint64_t v_full_desc(uint32_t tile,
-                                                         int ks,
-                                                         int block = 0) {
-    return make_desc(tile + block * kFullBytes + ks * 16 * 128, kFullBytes,
-                     8 * 128, 1);
-  }
-  static __device__ __forceinline__ uint64_t v_tail_desc(uint32_t tile,
-                                                         int ks) {
-    return make_desc(tile + kTailOffset + ks * 16 * kTailSw,
-                     kRows * kTailSw, 8 * kTailSw, kTailLayout);
-  }
+      (size_t)(1 + 2 * kStages) * TileGeo<D, Shape<D>::kBM>::kTileBytes +
+      8 * (2 + 3 * kStages) + 1024;
 };
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
 
 // Named barriers 1 and 2 over the two consumer groups (256 threads).
 __device__ __forceinline__ void named_sync(int id) {
@@ -510,206 +367,6 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
 }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x = lo, low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S (64 x 128 keys) += A (64 x 16, shared memory) * B (16 x 128, shared
-// memory), both K-major; ``accumulate`` 0 overwrites S.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// S += Q K^T over one k16 step at N = the key tile's width.
-template <int N> struct SS;
-template <> struct SS<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    wgmma_ss_n64(d, a, b, accumulate);
-  }
-};
-template <> struct SS<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    wgmma_ss_n128(d, a, b, accumulate);
-  }
-};
-
-// O (64 x N) += P (64 x 16, registers, bf16) * V (16 x N, shared memory,
-// MN-major: the transposed B operand).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O += P V at N = D, by the instruction of that width.
-template <int N> struct PV;
-template <> struct PV<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    wgmma_rs_n16(d, a, b);
-  }
-};
-template <> struct PV<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    wgmma_rs_n32(d, a, b);
-  }
-};
-template <> struct PV<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    wgmma_rs_n64(d, a, b);
-  }
-};
-template <> struct PV<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    wgmma_rs_n128(d, a, b);
-  }
-};
 
 // A block's work: q tiles ordered heaviest first (item j is q tile
 // nmt - 1 - j / BH of head-batch j % BH), dealt to the G blocks in snake
@@ -722,7 +379,7 @@ struct Work {
 template <int D>
 struct Items {
   static constexpr int kBM = Shape<D>::kBM, kBN = Shape<D>::kBN;
-  int total, nmt, BH, H, G, Tk, causal, window;
+  int total, nmt, BH, H, G, Tq, Tk, causal, window;
 
   __device__ __forceinline__ int at(int r) const {   // round r's item, or -1
     const int j = r * (int)gridDim.x +
@@ -740,7 +397,9 @@ struct Items {
     w.q0 = (nmt - 1 - j / BH) * kBM;
     const int nkv = (Tk + kBN - 1) / kBN;
     const int hi = causal ? min((w.q0 + kBM + kBN - 1) / kBN, nkv) : nkv;
-    w.lo = window > 0 ? max(0, w.q0 - window) / kBN : 0;
+    w.lo = window > 0 && !no_key_rows(w.q0, kBM, Tq, Tk, causal, window)
+               ? max(0, w.q0 - window) / kBN
+               : 0;
     w.ntiles = max(hi - w.lo, 0);
     return w;
   }
@@ -751,34 +410,6 @@ struct Items {
 struct Maps {
   CUtensorMap q, k, v, q_tail, k_tail, v_tail;
 };
-
-// One tile, kRows rows of one head from ``row``, into shared memory at
-// ``dst``: a box for each full block and one for the tail, all completing
-// on ``bar``.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const CUtensorMap* full,
-                                          const CUtensorMap* tail,
-                                          uint32_t bar, int head, int row,
-                                          int b) {
-  using Gm = Geo<D>;
-#pragma unroll
-  for (int c = 0; c < Gm::kFull; ++c)
-    tma_load_4d(dst + c * Gm::kFullBytes, full, bar, 64 * c, head, row, b);
-  if (Gm::kTail > 0)
-    tma_load_4d(dst + Gm::kTailOffset, tail, bar, 64 * Gm::kFull, head, row,
-                b);
-}
-
-// The accumulator registers of output columns [2 At, 2 At + 2 N): wgmma
-// m64nNk16 keeps N / 2 a thread in column order, so the n64 product of a
-// full block and the n16 one of the tail write disjoint ranges of one
-// array laid out as a single m64nDk16 accumulator.
-template <int At, int N, int M>
-__device__ __forceinline__ float (&acc_part(float (&a)[M]))[N] {
-  static_assert(At + N <= M, "accumulator range");
-  return *reinterpret_cast<float(*)[N]>(a + At);
-}
 
 // Accumulator layout of wgmma m64nNk16 (fp32), per consumer thread: with
 // warp w of the group, lane l, r = 16 w + l / 4 and q = l % 4, element
@@ -808,7 +439,8 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
   const uint32_t empty = full_v + 8 * kStages;                // [kStages]
 
   const int nmt = (Tq + kBM - 1) / kBM;
-  const Items<D> items{nmt * B * H, nmt, B * H, H, G, Tk, causal, window};
+  const Items<D> items{nmt * B * H, nmt, B * H, H, G, Tq, Tk, causal,
+                       window};
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -834,16 +466,16 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
         const Work w = items.work(j);
         mbar_wait(q_empty, (r & 1) ^ 1);     // the last item's Q is read
         mbar_expect_tx(full_q, Gm::kTileBytes);
-        load_tile<D>(q_s, &maps.q, &maps.q_tail, full_q, w.h, w.q0, w.b);
+        load_tile<Gm>(q_s, &maps.q, &maps.q_tail, full_q, w.h, w.q0, w.b);
         for (int n = 0; n < w.ntiles; ++n, ++tiles) {
           const int st = tiles % kStages;
           mbar_wait(empty + 8 * st, ((tiles / kStages) & 1) ^ 1);
           const int k0 = (w.lo + n) * kBN;
           mbar_expect_tx(full_k + 8 * st, Gm::kTileBytes);
-          load_tile<D>(k_s + st * Gm::kTileBytes, &maps.k, &maps.k_tail,
+          load_tile<Gm>(k_s + st * Gm::kTileBytes, &maps.k, &maps.k_tail,
                        full_k + 8 * st, w.g, k0, w.b);
           mbar_expect_tx(full_v + 8 * st, Gm::kTileBytes);
-          load_tile<D>(v_s + st * Gm::kTileBytes, &maps.v, &maps.v_tail,
+          load_tile<Gm>(v_s + st * Gm::kTileBytes, &maps.v, &maps.v_tail,
                        full_v + 8 * st, w.g, k0, w.b);
         }
       }
@@ -924,10 +556,13 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
             float x = s[i] * scale2;
             const int r = row0 + 8 * ((i / 2) % 2);
             const int c = k0 + 8 * (i / 4) + col0 + (i % 2);
-            bool ok = c < Tk;
-            if (causal) ok = ok && r >= c;
+            bool ok = true;
+            if (causal) ok = r >= c;
             if (window > 0) ok = ok && (r - c) < window;
             if (!ok) x = kNegInf;
+            // keys past Tk take no part, not even in a row with no key in
+            // reach: p = 2^-inf = 0 whatever the row's max
+            if (c >= Tk) x = neg_inf();
             s[i] = x;
             mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
           }
@@ -965,32 +600,14 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
         // wgmma reads its register operands asynchronously, so every
         // fragment stays live until the wait.
         uint32_t pa[kBN / 16][4];
-#pragma unroll
-        for (int ks = 0; ks < kBN / 16; ++ks) {
-          pa[ks][0] = pack_bf16(s[8 * ks + 0], s[8 * ks + 1]);
-          pa[ks][1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
-          pa[ks][2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
-          pa[ks][3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
-        }
+        to_frags<kBN>(s, pa);
         mbar_wait(full_v + 8 * st, ph);
         fence_regs(acc);
         fence_frags(pa);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kBN / 16; ++ks) {
-          if constexpr (Gm::kFull == 4) {       // D = 256: two n128 halves
-            PV<128>::mma(acc_part<0, 64>(acc), pa[ks],
-                         Gm::v_full_desc(vb, ks, 0));
-            PV<128>::mma(acc_part<64, 64>(acc), pa[ks],
-                         Gm::v_full_desc(vb, ks, 2));
-          } else if constexpr (Gm::kFull > 0) {
-            PV<64 * Gm::kFull>::mma(acc_part<0, 32 * Gm::kFull>(acc), pa[ks],
-                                    Gm::v_full_desc(vb, ks));
-          }
-          if constexpr (Gm::kTail > 0)
-            PV<Gm::kTail>::mma(acc_part<32 * Gm::kFull, Gm::kTail / 2>(acc),
-                               pa[ks], Gm::v_tail_desc(vb, ks));
-        }
+        for (int ks = 0; ks < kBN / 16; ++ks)
+          mma_rows<Gm>(acc, pa[ks], vb, ks);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
@@ -1019,58 +636,6 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-d map over a contiguous bf16 (B, T, heads, D) tensor whose box is
-// ``cols`` columns (one block, ``cols`` x 2 bytes wide and swizzled by
-// that width) of ``rows`` rows of one head.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int heads,
-              int D, int cols, int rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)T * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int G, int causal, int window, float scale,
@@ -1083,22 +648,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   cudaError_t err = allow_smem(flash_fwd_sm90<D>, (int)bytes, done);
   if (err != cudaSuccess) return (int)err;
   Maps maps = {};
-  bool ok = true;
-  if (Gm::kFull > 0)
-    ok = make_map(&maps.q, q, B, Tq, H, D, 64, rows) &&
-         make_map(&maps.k, k, B, Tk, G, D, 64, rows) &&
-         make_map(&maps.v, v, B, Tk, G, D, 64, rows);
-  if (ok && Gm::kTail > 0)
-    ok = make_map(&maps.q_tail, q, B, Tq, H, D, Gm::kTail, rows) &&
-         make_map(&maps.k_tail, k, B, Tk, G, D, Gm::kTail, rows) &&
-         make_map(&maps.v_tail, v, B, Tk, G, D, Gm::kTail, rows);
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!make_maps<D>(&maps.q, &maps.q_tail, q, B, Tq, H, rows) ||
+      !make_maps<D>(&maps.k, &maps.k_tail, k, B, Tk, G, rows) ||
+      !make_maps<D>(&maps.v, &maps.v_tail, v, B, Tk, G, rows))
+    return (int)cudaErrorInvalidValue;
   // persistent: one block an SM of the current device, each walking its
   // share of the q tiles
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  err = (cudaError_t)sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const int items = B * H * ((Tq + Sh::kBM - 1) / Sh::kBM);
   flash_fwd_sm90<D><<<min(items, sms), Sh::kThreads, bytes, stream>>>(

@@ -8,7 +8,9 @@ git-ignored) with
          -Xcompiler -fPIC -Xptxas -v
 
 and is loaded with :mod:`ctypes`.  The file name carries a hash of the
-source and the flags, so an edited source never loads a stale library.
+source, the shared headers beside it (``csrc/*.cuh``, which the sources
+include) and the flags, so an edited source or header never loads a stale
+library.
 No fast math: the kernels' exactness depends on IEEE-rounded float32
 arithmetic.  :func:`build` returns the compiler's output (``-Xptxas
 -v``: registers and shared memory per kernel).
@@ -52,7 +54,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (``csrc/*.cuh``) are part of every source's hash
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

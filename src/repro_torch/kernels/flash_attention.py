@@ -32,10 +32,23 @@ The gradients.  :func:`flash_attention` on CUDA tensors goes through
 :class:`FlashAttentionFn` when grad mode is on and ``q``, ``k`` or ``v``
 requires grad: its forward is the same launch, and it saves q, k, v and
 o; its backward launches ``csrc/flash_attention_bwd.cu`` (see its header:
-the row statistics recomputed, then dQ and dK/dV, scalar fp32, no
-atomics), counted as ``flash_attention_bwd`` in :data:`LAUNCHES` and
-under variant ``"bwd"`` in :data:`SHAPE_LAUNCHES`.  Under
-``torch.inference_mode`` or ``no_grad`` (serving) nothing changes.
+the row statistics recomputed, then dQ, then dK/dV, no atomics), in one
+of two variants that :func:`bwd_variant` picks from the dtype and the
+head size alone:
+
+* ``tc`` — three passes on the tensor cores (wgmma fed by TMA), for bf16
+  at every ``D`` in :data:`BWD_TC_HEAD_DIMS`;
+* ``scalar`` — three scalar-fp32 kernels, for fp32 and for bf16 at
+  ``D = 160`` and ``256`` (their dK and dV accumulators do not fit a
+  thread's registers beside S and dP).  It takes the tensor-core variant's
+  calls too, but only when named (``_launch_bwd(..., kind="scalar")``):
+  the yardstick.
+
+:data:`LAUNCHES` counts ``flash_attention_bwd`` (every backward call) and
+``flash_attention_bwd_tc`` and ``flash_attention_bwd_scalar`` (each
+variant), and :data:`SHAPE_LAUNCHES` the same calls under ``"bwd_tc"`` or
+``"bwd_scalar"``.  Under ``torch.inference_mode`` or ``no_grad`` (serving)
+nothing changes.
 :func:`attention_bwd_ref` is the backward's plain version, from the
 explicit formulas in float32; CPU tensors take :func:`attention_ref`,
 which autograd differentiates.
@@ -50,14 +63,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES",
-           "TC_HEAD_DIMS", "attention_bwd_ref", "attention_ref",
-           "flash_attention", "reset_launches", "variant"]
+__all__ = ["BWD_TC_HEAD_DIMS", "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES",
+           "SHAPE_LAUNCHES", "TC_HEAD_DIMS", "attention_bwd_ref",
+           "attention_ref", "bwd_variant", "flash_attention",
+           "reset_launches", "variant"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
                              "flash_attention_scalar": 0,
-                             "flash_attention_bwd": 0}
+                             "flash_attention_bwd": 0,
+                             "flash_attention_bwd_tc": 0,
+                             "flash_attention_bwd_scalar": 0}
 #: the same launches by (variant, Tq, Tk, causal)
 SHAPE_LAUNCHES: Dict[Tuple[str, int, int, bool], int] = {}
 #: the head sizes the kernel is built for: every attention config the port
@@ -67,6 +83,10 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 #: the bf16 head sizes the tensor-core kernel takes: rows cut into 128-byte
 #: blocks and a 32- or 64-byte tail, each swizzled by its width
 TC_HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
+#: the bf16 head sizes the tensor-core backward takes: dK and dV, D / 2
+#: fp32 each a thread, fit beside S and dP up to D = 128 (the training
+#: paths' D = 128 and 64)
+BWD_TC_HEAD_DIMS = (16, 32, 64, 80, 128)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"
@@ -80,7 +100,11 @@ _SIGNATURES = {
                                  _I, ctypes.c_float, _P],
 }
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
-                   + [ctypes.c_float, _I, _P]}
+                   + [ctypes.c_float, _I, _P],
+                   "flash_attention_bwd_sm90": [_P] * 9 + [_I] * 8
+                   + [ctypes.c_float, _P]}
+#: the tensor-core backward's row statistics are padded to its 64-row tile
+_BWD_ROWS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -94,6 +118,13 @@ def variant(dtype: torch.dtype, D: int) -> str:
     """The kernel a CUDA call runs: ``"tc"`` for bf16 at ``D`` in
     :data:`TC_HEAD_DIMS`, else ``"scalar"``."""
     return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS \
+        else "scalar"
+
+
+def bwd_variant(dtype: torch.dtype, D: int) -> str:
+    """The backward kernel a CUDA call runs: ``"tc"`` for bf16 at ``D`` in
+    :data:`BWD_TC_HEAD_DIMS`, else ``"scalar"``."""
+    return "tc" if dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS \
         else "scalar"
 
 
@@ -249,33 +280,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     needs ``Tq == Tk`` and raises otherwise.
     CUDA tensors run a kernel (bf16 or fp32, contiguous, ``D`` in
     :data:`HEAD_DIMS`; the variant :func:`variant` names); CPU tensors the
-    plain version.  On CUDA a bidirectional call with a window that leaves
-    a query row no key in reach (``Tq >= Tk + window``) raises: the
-    forward kernels average such a row over their tile's padded keys, not
-    over the Tk keys as the plain version and the backward do (ROADMAP.md
-    §C, entry 9)."""
+    plain version.  A bidirectional call whose window leaves a query row
+    no key in reach (``Tq >= Tk + window``) gives that row the mean of v
+    over the Tk keys, as the plain version does, and its gradients are
+    those of that mean."""
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         _check_causal(q.shape[1], k.shape[1], causal)
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if not causal and window is not None \
-            and q.shape[1] >= k.shape[1] + window:
-        raise ValueError(f"a bidirectional call with window {window} over "
-                         f"Tq={q.shape[1]} and Tk={k.shape[1]} leaves rows "
-                         f"with no key in reach, which the kernels do not "
-                         f"take yet")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return _launch(q, k, v, causal, window)
 
 
-def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int]
+def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
+                kind: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward (``csrc/flash_attention_bwd.cu``, one count)
-    on CUDA tensors: (dq, dk, dv) in q's dtype."""
+    """Launch the backward ``kind`` (default: :func:`bwd_variant`'s
+    choice; ``csrc/flash_attention_bwd.cu``, counted in the total and the
+    variant's count) on CUDA tensors:
+    (dq, dk, dv) in q's dtype.  ``"scalar"`` takes every dtype and head
+    size it is built for, ``"tc"`` only what :func:`bwd_variant` routes to
+    it."""
     B, Tq, H, D = q.shape
     Tk, G = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODES:
@@ -294,28 +323,53 @@ def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int]
     if min(B, Tq, Tk) < 1:
         raise ValueError("empty batch or sequence")
     _check_causal(Tq, Tk, causal)
+    kind = kind or bwd_variant(q.dtype, D)
+    if kind not in ("tc", "scalar"):
+        raise ValueError(f"unknown kernel variant {kind!r}")
+    if kind == "tc":
+        if bwd_variant(q.dtype, D) != "tc":
+            raise ValueError(f"the tensor-core backward takes bf16 at head "
+                             f"sizes {BWD_TC_HEAD_DIMS}, got {q.dtype} at "
+                             f"{D}")
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    # the row statistics: max, 1 / sum and rowsum(dO * O)
-    stats = torch.empty((3, B, H, Tq), dtype=torch.float32, device=q.device)
     lib = _build.load(_BWD_SOURCE, _BWD_SIGNATURES)
-    _build.check(_build.launch_on(
-        q, lib.flash_attention_bwd, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), stats[2].data_ptr(), B, Tq, Tk, H, G, D,
-        int(causal), window or 0, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
-        _build.current_stream(q)), "flash_attention_bwd")
+    stream = _build.current_stream(q)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (B, Tq, Tk, H, G, D, int(causal), window or 0,
+             1.0 / math.sqrt(D))
+    if kind == "tc":
+        # the row statistics (max, 1 / sum, rowsum(dO * O)), rows padded
+        # to the kernel's tile
+        Tqp = -(-Tq // _BWD_ROWS) * _BWD_ROWS
+        stats = torch.empty((3, B * H, Tqp), dtype=torch.float32,
+                            device=q.device)
+        _build.check(_build.launch_on(
+            q, lib.flash_attention_bwd_sm90, *head, stats.data_ptr(), *shape,
+            stream), "flash_attention_bwd_sm90")
+    else:
+        stats = torch.empty((3, B, H, Tq), dtype=torch.float32,
+                            device=q.device)
+        _build.check(_build.launch_on(
+            q, lib.flash_attention_bwd, *head, stats[0].data_ptr(),
+            stats[1].data_ptr(), stats[2].data_ptr(), *shape,
+            _DTYPE_CODES[q.dtype], stream), "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
-    key = ("bwd", Tq, Tk, bool(causal))
+    LAUNCHES[f"flash_attention_bwd_{kind}"] += 1
+    key = (f"bwd_{kind}", Tq, Tk, bool(causal))
     SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention on CUDA tensors with its gradient: the forward kernel
-    :func:`variant` names, and the backward kernel.  Reached through
-    :func:`flash_attention` when a gradient is wanted."""
+    :func:`variant` names, and the backward kernel :func:`bwd_variant`
+    names.  Reached through :func:`flash_attention` when a gradient is
+    wanted."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):

@@ -107,7 +107,9 @@ def main(argv=None) -> None:
     finally:
         batches.close()
     if ckpt:
-        ckpt.save(args.steps, params, opt_state, block=True)
+        # the step the loop reached: a preempted run stops short of
+        # args.steps, and --resume must run the rest
+        ckpt.save(start + len(hist["loss"]), params, opt_state, block=True)
     if hist["loss"]:
         print(f"[train] done: loss {hist['loss'][0]:.3f} -> "
               f"{hist['loss'][-1]:.3f} over {len(hist['loss'])} steps; "

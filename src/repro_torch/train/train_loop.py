@@ -11,7 +11,11 @@ last microbatch's, as the reference's), an optional ``compress_fn`` over
 the gradients, and the optimizer's update.  ``params`` is the model's own
 ``named_parameters()`` dict (:func:`trainable_params`, which turns their
 gradients on: the port's models are frozen for serving); the update
-writes them in place, so the model holds the new weights.
+writes them in place, so the model holds the new weights.  The loss is
+the model's, so the step refuses a ``params`` holding any tensor that is
+not one of the model's parameters (a copy, such as a checkpoint restored
+into a fresh dict): autograd would give it no gradient, and the update
+would apply weight decay alone.
 
 ``train_loop`` adds the reference's fault tolerance: periodic asynchronous
 checkpoints, a checkpoint on SIGTERM (:class:`PreemptionHandler`) and a
@@ -110,7 +114,18 @@ def make_train_step(model: nn.Module, tcfg: TrainConfig,
         metrics["loss"] = loss.detach()
         return grads, metrics
 
+    def check_own(params: Tensors) -> None:
+        own = {id(p) for p in model.parameters()}
+        for k, p in params.items():
+            if id(p) not in own:
+                raise ValueError(
+                    f"params[{k!r}] is not a parameter of the model: the "
+                    f"step differentiates the model's own tensors, so a "
+                    f"copy gets no gradient (pass trainable_params(model), "
+                    f"and restore checkpoints into it)")
+
     def train_step(params: Tensors, opt_state, batch):
+        check_own(params)
         batch = to_device(batch, device)
         n = tcfg.microbatches
         if n > 1:

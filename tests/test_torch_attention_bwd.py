@@ -9,7 +9,11 @@ of dq, dk and dv: against PyTorch's autograd of the port's
 sdpa is exact).  The cases: causal, windowed, bidirectional with Tq !=
 Tk (fully masked rows included), GQA with R in {1, 2, 4}, and Tq = 1.
 On the CPU the port's ``flash_attention`` is the autograd of
-``attention_ref``, so it too is held here.
+``attention_ref``, so it too is held here.  The rows that a
+bidirectional window leaves no key (the card tests' ``(1, 100, 37, 4, 2,
+False, 8)``, rows 44 and up) are held against ``jax.vjp`` of the
+oracle on their own.  ``bwd_variant``'s routing and ``_launch_bwd``'s
+refusals, which come before any build, are checked here too.
 
 The reference's ragged-chunk fault (ROADMAP.md §C, entry 2) bears on
 training whenever T > ``kv_chunk`` and T is not a multiple of it: its
@@ -150,3 +154,95 @@ def test_reference_ragged_chunk_fault_reaches_the_gradients():
     with jsettings.use(kv_chunk=32, q_chunk=32):    # read when traced
         chunked = _reference_vjp(jax_sdpa, q, k, v, do, causal=True)
     assert max(_rel(c, o) for c, o in zip(chunked, oracle)) > 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_bwd_variant_routes_by_dtype_and_head_size(dtype, D):
+    """bf16 at D <= 128 takes the tensor-core backward, everything else
+    the scalar one; a fixed choice by dtype and head size."""
+    want = "tc" if dtype == torch.bfloat16 and D <= 128 else "scalar"
+    assert fa.bwd_variant(dtype, D) == want
+    assert (D in fa.BWD_TC_HEAD_DIMS) == (D <= 128)
+
+
+def test_training_paths_take_the_tensor_core_backward():
+    """qwen3-1.7b (D = 128) and seamless-m4t-large-v2 (D = 64) train on
+    the tensor-core backward; pixtral-12b (D = 160) and recurrentgemma-9b
+    (D = 256) would take the scalar one."""
+    from repro_torch import configs
+    for name, kind in (("qwen3-1.7b", "tc"), ("seamless-m4t-large-v2", "tc"),
+                       ("pixtral-12b", "scalar"),
+                       ("recurrentgemma-9b", "scalar")):
+        cfg = configs.get(name)
+        assert fa.bwd_variant(cfg.compute_dtype, cfg.head_dim) == kind, name
+
+
+@pytest.mark.parametrize("dtype,D,kind", [
+    (torch.float32, 128, "tc"), (torch.bfloat16, 160, "tc"),
+    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 128, "fast")],
+    ids=str)
+def test_launch_bwd_refuses_what_the_variant_does_not_take(dtype, D, kind):
+    """``_launch_bwd(kind="tc")`` raises where ``bwd_variant`` names the
+    scalar kernel, and an unknown variant raises, before anything is
+    built or launched (so on the CPU too)."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(
+        (1, 8, 8, 2, 1, D, True, None)))
+    o = torch.zeros_like(q)
+    before = dict(fa.LAUNCHES)
+    match = "takes bf16 at head sizes" if kind == "tc" else "unknown"
+    with pytest.raises(ValueError, match=match):
+        fa._launch_bwd(q, k, v, o, do, True, None, kind=kind)
+    assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_bwd_ref_on_rows_with_no_key_matches_reference_vjp(D):
+    """Bidirectional, Tq = 100 over Tk = 37 keys, window 8: rows 44 and up
+    see no key, and the oracle's softmax spreads them uniformly over the
+    Tk keys.  ``attention_bwd_ref`` gives them dq = 0 and their 1 / Tk
+    share of dv, as ``jax.vjp`` of the reference's oracle does; their
+    output is the mean of v."""
+    case = (1, 100, 37, 4, 2, D, False, 8)
+    q, k, v, do = _inputs(case, seed=5)
+    got = _port_bwd(q, k, v, do, False, 8)
+    want = _reference_vjp(jref.attention_ref, q, k, v, do, causal=False,
+                          window=8)
+    _close(got, want)
+    np.testing.assert_array_equal(got[0][:, 44:], 0.0)
+    np.testing.assert_allclose(want[0][:, 44:], 0.0, atol=1e-6)
+    # the keyless rows alone: each KV head's dv is its R heads' summed dO
+    # over those rows, 1 / Tk of it on every key; no dk
+    do2 = do.copy()
+    do2[:, :44] = 0.0
+    got2 = _port_bwd(q, k, v, do2, False, 8)
+    _close(got2, _reference_vjp(jref.attention_ref, q, k, v, do2,
+                                causal=False, window=8))
+    share = do2[:, 44:].reshape(1, 56, 2, 2, D).sum(axis=(1, 3)) / 37
+    np.testing.assert_allclose(got2[2], np.broadcast_to(
+        share[:, None], got2[2].shape), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got2[1], 0.0, atol=1e-6)
+    o = fa.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                         causal=False, window=8).numpy()
+    mean_v = v.mean(axis=1, keepdims=True).repeat(2, axis=2)
+    np.testing.assert_allclose(o[:, 44:], np.broadcast_to(
+        mean_v, o[:, 44:].shape), rtol=1e-5, atol=1e-6)
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """Both attention sources include ``csrc/sm90.cuh``: its contents are
+    part of every library's name, so an edited header never loads a
+    library built from the old one."""
+    from repro_torch.kernels import _build
+    assert (_build.CSRC / "sm90.cuh").exists()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert '#include "sm90.cuh"' in (_build.CSRC / f"{name}.cu"
+                                         ).read_text()
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert first == _build._target("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k") != first

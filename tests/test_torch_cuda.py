@@ -679,7 +679,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention": 1, "flash_attention_tc": int(kind == "tc"),
         "flash_attention_scalar": int(kind == "scalar"),
-        "flash_attention_bwd": 0}
+        "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+        "flash_attention_bwd_scalar": 0}
     want = fa.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     atol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -1290,30 +1291,71 @@ def _rel_or_floor(got, want, floor):
     return float((got - want).norm() / denom)
 
 
+def _bwd_inputs(device, dtype, D, case, seed):
+    B, Tq, Tk, H, G, causal, window = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((B, Tq, H, D), generator=gen,
+                         device=device).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Tk, G, D), generator=gen,
+                        device=device).to(dtype) for _ in range(2))
+    o = fa.attention_ref(q, k, v, causal=causal, window=window).contiguous()
+    return q, k, v, o, do
+
+
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
 def test_cuda_attention_bwd_matches_plain(cuda_device, D, dtype):
-    for i, (B, Tq, Tk, H, G, causal, window) in enumerate(BWD_CASES):
-        gen = torch.Generator(device=cuda_device).manual_seed(D + i)
-        q, do = (torch.randn((B, Tq, H, D), generator=gen,
-                             device=cuda_device).to(dtype) for _ in range(2))
-        k, v = (torch.randn((B, Tk, G, D), generator=gen,
-                            device=cuda_device).to(dtype) for _ in range(2))
-        o = fa.attention_ref(q, k, v, causal=causal,
-                             window=window).contiguous()
-        before = fa.LAUNCHES["flash_attention_bwd"]
-        got = fa._launch_bwd(q, k, v, o, do, causal, window)
-        assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    """Each backward variant that takes (dtype, D) against the plain
+    version on every case: the one ``bwd_variant`` names, and the scalar
+    yardstick too where that is the tensor-core kernel (bf16 at D <=
+    128); one launch a call, counted in the total and its variant."""
+    kinds = ["tc", "scalar"] if fa.bwd_variant(dtype, D) == "tc" \
+        else ["scalar"]
+    for i, case in enumerate(BWD_CASES):
+        q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, case, D + i)
+        causal, window = case[5], case[6]
         want = fa.attention_bwd_ref(q, k, v, o, do, causal=causal,
                                     window=window)
+        for kind in kinds:
+            before = dict(fa.LAUNCHES)
+            got = fa._launch_bwd(q, k, v, o, do, causal, window, kind=kind)
+            assert fa.LAUNCHES["flash_attention_bwd"] == \
+                before["flash_attention_bwd"] + 1
+            assert fa.LAUNCHES[f"flash_attention_bwd_{kind}"] == \
+                before[f"flash_attention_bwd_{kind}"] + 1
+            torch.cuda.synchronize()
+            floor = float(want[2].double().norm())
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                assert g.dtype == dtype and g.shape == w.shape
+                err = _rel_or_floor(g, w, floor)
+                assert err < BWD_LIMIT[dtype], (kind, name, case, err)
+
+
+@pytest.mark.parametrize("D", fa.BWD_TC_HEAD_DIMS)
+def test_cuda_attention_bwd_tc_is_deterministic(cuda_device, D):
+    """Two calls of the tensor-core backward on the same inputs give the
+    same bits: every block owns its output rows and sums in a fixed
+    order (no atomics)."""
+    for i, case in enumerate(BWD_CASES):
+        q, k, v, o, do = _bwd_inputs(cuda_device, torch.bfloat16, D, case,
+                                     7 * D + i)
+        first = fa._launch_bwd(q, k, v, o, do, case[5], case[6])
+        second = fa._launch_bwd(q, k, v, o, do, case[5], case[6])
         torch.cuda.synchronize()
-        floor = float(want[2].double().norm())
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            assert g.dtype == dtype and g.shape == w.shape
-            err = _rel_or_floor(g, w, floor)
-            assert err < BWD_LIMIT[dtype], (name, (B, Tq, Tk, H, G, causal,
-                                                   window), err)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), case
+
+
+def test_cuda_attention_bwd_refuses_tc_where_scalar(cuda_device):
+    """The tensor-core backward named where ``bwd_variant`` says scalar
+    (fp32; bf16 at D = 160) raises, and launches nothing."""
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 160)):
+        q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, BWD_CASES[0], 0)
+        before = dict(fa.LAUNCHES)
+        with pytest.raises(ValueError, match="takes bf16 at head sizes"):
+            fa._launch_bwd(q, k, v, o, do, True, None, kind="tc")
+        assert fa.LAUNCHES == before
 
 
 def test_cuda_flash_attention_backward_routes_through_the_kernel(
@@ -1383,44 +1425,62 @@ def test_cuda_reduced_training_step_matches_cpu(cuda_device):
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_cuda_forward_fully_masked_rows_open_fault(cuda_device):
-    """ROADMAP.md §C, entry 9 (open): a bidirectional call with a window
-    and Tq > Tk leaves rows with no key in reach.  ``attention_ref`` (the
-    reference's oracle) gives such a row the mean of v over the Tk keys;
-    the scalar forward kernel counts its tile's padded keys too, so over
-    Tk = 37 keys and a 64-key tile it gives their sum over 64 (as the
-    reference's chunked sdpa counts its chunk's).  Every other row
-    agrees.  Pinned here until the forward kernel changes."""
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
+def test_cuda_forward_rows_with_no_key_match_plain(cuda_device):
+    """ROADMAP.md §C, entry 9 (closed): a bidirectional call with a
+    window and Tq > Tk leaves rows with no key in reach (row t sees key s
+    when t - s < 8: rows from 37 - 1 + 8 = 44 see none).  Both forward
+    kernels give such a row ``attention_ref``'s mean of v over the Tk
+    keys, and every other row its own softmax: fp32 on the scalar kernel
+    (atol 2e-5), bf16 on both (atol 2e-2, as the other forward checks)."""
+    for Tq in (100, 45):
+        for dtype, kinds, atol in ((torch.float32, ("scalar",), 2e-5),
+                                   (torch.bfloat16, ("tc", "scalar"), 2e-2)):
+            gen = torch.Generator(device=cuda_device).manual_seed(3)
+            q = torch.randn((1, Tq, 4, 32), generator=gen,
+                            device=cuda_device).to(dtype)
+            k, v = (torch.randn((1, 37, 2, 32), generator=gen,
+                                device=cuda_device).to(dtype)
+                    for _ in range(2))
+            want = fa.attention_ref(q, k, v, causal=False, window=8).float()
+            mean_v = v.float().mean(1, keepdim=True).repeat_interleave(2, 2)
+            assert torch.allclose(want[:, 44:], mean_v.expand_as(
+                want[:, 44:]), atol=1e-2)
+            for kind in kinds:
+                got = fa._launch(q, k, v, False, 8, kind).float()
+                torch.cuda.synchronize()
+                assert torch.allclose(got, want, atol=atol, rtol=1e-2), \
+                    (Tq, dtype, kind, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_cuda_flash_attention_gradients_on_rows_with_no_key(cuda_device,
+                                                           dtype):
+    """``flash_attention`` takes a bidirectional windowed call whose rows
+    from 44 on have no key: its forward and its gradients through
+    ``FlashAttentionFn`` (one forward and one backward launch) against
+    the plain versions on the same call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
     q = torch.randn((1, 100, 4, 32), generator=gen, device=cuda_device)
     k, v = (torch.randn((1, 37, 2, 32), generator=gen, device=cuda_device)
             for _ in range(2))
-    got = fa._launch(q, k, v, False, 8, "scalar")
-    want = fa.attention_ref(q, k, v, causal=False, window=8)
-    torch.cuda.synchronize()
-    # row t sees key s when t - s < 8: rows from 37 - 1 + 8 = 44 see none
-    assert torch.allclose(got[:, :44], want[:, :44], atol=2e-5, rtol=1e-2)
-    padded = v.sum(1, keepdim=True).repeat_interleave(2, 2) / 64
-    assert torch.allclose(got[:, 44:], padded.expand_as(got[:, 44:]),
-                          atol=1e-5)
-    assert not torch.allclose(got[:, 44:], want[:, 44:], atol=1e-3)
-
-
-def test_cuda_flash_attention_refuses_rows_with_no_key(cuda_device):
-    """Until entry 9 is repaired, ``flash_attention`` refuses on the card
-    a bidirectional call whose window leaves a row no key (Tq >= Tk +
-    window), with or without a gradient, and takes one that leaves every
-    row a key."""
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
-    q = torch.randn((1, 45, 4, 32), generator=gen, device=cuda_device)
-    k, v = (torch.randn((1, 37, 2, 32), generator=gen, device=cuda_device)
-            for _ in range(2))
-    with pytest.raises(ValueError, match="no key in reach"):
-        fa.flash_attention(q, k, v, causal=False, window=8)
-    with pytest.raises(ValueError, match="no key in reach"):
-        fa.flash_attention(q.requires_grad_(), k, v, causal=False, window=8)
-    got = fa.flash_attention(q[:, :44].detach(), k, v, causal=False,
-                             window=8)
-    want = fa.attention_ref(q[:, :44].detach(), k, v, causal=False,
-                            window=8)
-    assert torch.allclose(got, want, atol=2e-5, rtol=1e-2)
+    do = torch.randn((1, 100, 4, 32), generator=gen, device=cuda_device)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launches()
+    o = fa.flash_attention(*leaves, causal=False, window=8)
+    got = torch.autograd.grad(o, leaves, do)
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == 1
+    assert fa.LAUNCHES[f"flash_attention_bwd_{fa.bwd_variant(dtype, 32)}"] \
+        == 1
+    want_o = fa.attention_ref(q, k, v, causal=False, window=8)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert torch.allclose(o.detach().float(), want_o.float(), atol=atol,
+                          rtol=1e-2)
+    want = fa.attention_bwd_ref(q, k, v, o.detach(), do, causal=False,
+                                window=8)
+    floor = float(want[2].double().norm())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_or_floor(g, w, floor) < BWD_LIMIT[dtype], name
+    assert float(got[0][:, 44:].float().abs().max()) == 0.0

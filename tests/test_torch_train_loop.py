@@ -16,10 +16,16 @@ straggler watchdog and the launcher.
 * The watchdog and the ``train.step`` / ``train.slow_steps`` metrics on a
   scripted clock, as the reference's ``tests/test_obs.py`` holds them.
 * The launcher, ``python -m repro_torch.launch.train --reduced --steps 3
-  --device cpu``, and ``--resume`` from its checkpoints.
+  --device cpu``, and ``--resume`` from its checkpoints; a preempted run
+  labels its last checkpoint with the step it reached, so ``--resume``
+  runs the rest (the reference's launcher labels it ``--steps``).
+* The train step refuses a ``params`` that is not the model's own
+  parameters (a copy would get zero gradients).
 """
 import dataclasses
 import os
+import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +46,7 @@ from repro_torch.models import settings
 from repro_torch.obs import MetricsRegistry
 from repro_torch.train import compression, optimizer
 from repro_torch.train.checkpoint import Checkpointer
+from repro_torch.train import train_loop as train_loop_mod
 from repro_torch.train.train_loop import (StragglerWatchdog, TrainConfig,
                                           make_train_step, train_loop,
                                           trainable_params)
@@ -248,6 +255,109 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and "over 2 steps" in out
     assert Checkpointer(ck).latest_step() == 5
+
+
+def _preempt_on_batch(monkeypatch, loop_mod, launcher_mod, n):
+    """Stop ``loop_mod.train_loop`` as SIGTERM would, when the launcher's
+    prefetch iterator hands over its ``n``-th batch: the loop's
+    :class:`PreemptionHandler` shares an event that the batch sets."""
+    stop = threading.Event()
+
+    class Handler:
+        def __init__(self):
+            self.requested = stop
+
+    base = launcher_mod.data_lib.PrefetchIterator
+
+    class Stopping(base):
+        drawn = 0
+
+        def __next__(self):
+            batch = super().__next__()
+            Stopping.drawn += 1
+            if Stopping.drawn == n:
+                stop.set()
+            return batch
+    monkeypatch.setattr(loop_mod, "PreemptionHandler", Handler)
+    monkeypatch.setattr(launcher_mod.data_lib, "PrefetchIterator", Stopping)
+
+
+def test_preempted_launcher_resumes_where_it_stopped(tmp_path, capsys,
+                                                     monkeypatch):
+    """ROADMAP.md §C, entry 10: preempted on its third batch of 8, the
+    port's launcher leaves step 3 as the latest checkpoint, and
+    ``--resume`` runs steps 3 to 8."""
+    ck = str(tmp_path / "ck")
+    with monkeypatch.context() as mp:
+        _preempt_on_batch(mp, train_loop_mod, launcher, 3)
+        launcher.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "8",
+                       "--device", "cpu", "--ckpt-dir", ck])
+    out = capsys.readouterr().out
+    assert "preemption checkpoint at step 3" in out and "over 3 steps" in out
+    assert Checkpointer(ck).latest_step() == 3
+    assert not os.path.exists(os.path.join(ck, "step_00000008"))
+    launcher.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "8",
+                   "--device", "cpu", "--ckpt-dir", ck, "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 3" in out and "over 5 steps" in out
+    assert Checkpointer(ck).latest_step() == 8
+
+
+def test_reference_launcher_labels_a_preempted_run_as_finished(
+        tmp_path, capsys, monkeypatch):
+    """The reference's launcher (``src/repro/launch/train.py``, run as it
+    is) preempted on its third batch of 8 saves step 3, then the same
+    weights again as ``step_00000008``, which ``LATEST`` names: its
+    ``--resume`` would run nothing."""
+    from repro.launch import train as ref_launcher
+    from repro.train import train_loop as ref_loop
+    from repro.train.checkpoint import Checkpointer as RefCheckpointer
+    ck = str(tmp_path / "ck")
+    _preempt_on_batch(monkeypatch, ref_loop, ref_launcher, 3)
+    monkeypatch.setattr(sys, "argv", [
+        "train", "--arch", "qwen3-1.7b", "--reduced", "--steps", "8",
+        "--ckpt-dir", ck])
+    ref_launcher.main()
+    out = capsys.readouterr().out
+    assert "preemption checkpoint at step 3" in out and "over 3 steps" in out
+    assert sorted(d for d in os.listdir(ck) if d.startswith("step_")) == [
+        "step_00000003", "step_00000008"]
+    assert RefCheckpointer(ck).latest_step() == 8
+
+
+def test_train_step_refuses_params_that_are_not_the_models():
+    """ROADMAP.md §C, entry 12: the step's loss is the model's, so a dict
+    of copies would get zero gradients and weight decay alone; the step
+    refuses it, naming the first foreign key.  The model's own
+    parameters step as before, with the model's loss."""
+    cfg = configs.reduced(configs.get("qwen3-1.7b"))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 16)).astype(
+                 np.int32)}
+    model = LM(cfg, device="cpu", seed=0)
+    params = trainable_params(model)
+    step, opt = make_train_step(model, TrainConfig())
+    copies = {k: p.detach().clone().requires_grad_() for k, p in
+              params.items()}
+    first = next(iter(copies))
+    with pytest.raises(ValueError, match=f"params\\['{first}'\\] is not a "
+                       f"parameter of the model"):
+        step(copies, opt.init(copies), batch)
+    mixed = dict(params)
+    last = list(mixed)[-1]
+    mixed[last] = copies[last]
+    with pytest.raises(ValueError, match=f"params\\['{last}'\\]"):
+        step(mixed, opt.init(mixed), batch)
+    with torch.no_grad():
+        want = float(model.loss({k: torch.from_numpy(v)
+                                 for k, v in batch.items()})[0])
+    before = {k: p.detach().clone() for k, p in params.items()}
+    _, _, m = step(params, opt.init(params), batch)
+    assert float(m["loss"]) == pytest.approx(want, rel=1e-6)
+    assert float(m["grad_norm"]) > 0
+    assert any(not torch.equal(before[k], p) for k, p in params.items())
 
 
 def test_launcher_auto_mesh_picks_the_reference_mesh(tmp_path, capsys):
