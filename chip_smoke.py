@@ -179,9 +179,29 @@ Phases:
    one launch a layer); seamless-m4t-large-v2
    at 2 + 2 layers, full width, one bf16 step over 2 x 4,096 frames and
    2 x 512 tokens (the backward bidirectional, causal and in cross mode,
-   counted by shape), its gradients held the same way; and rwkv6-3b's
-   loss with gradients on the card raising ``NotPortedError`` (WKV6 has
-   no backward yet);
+   counted by shape), its gradients held the same way; then rwkv6-3b:
+   WKV6's forward with its checkpoints against ``wkv6_fwd_ref`` and its
+   backward (``wkv6_bwd`` in ``wkv6_scan.cu``) against ``wkv6_bwd_ref``
+   over ``WKV_BWD_CASES`` and the training shape (4 x 1,024, 40 heads,
+   N = 64), strong decays, nonzero s0 and dsT, bf16 and fp32 (each of
+   dr, dk, dv, dw, du and ds0 within relative L2 1e-5 in fp32 and 1e-2 in
+   bf16), a second call bitwise, and a planted fault (dS not carried
+   across the middle chunk boundary) that the check must refuse; the
+   backward timed beside the forward with and without its checkpoints,
+   the plain version and the bound; rwkv6-3b at full width and depth
+   for 8 steps of 4 x 1,024 tokens as qwen3's (finite losses, the last
+   below the first, 64 forward and 32 backward WKV6 launches every step
+   and no attention launch, step time, tokens/s, peak memory, the
+   backward's share of a step); a full-depth bf16 step whose every WKV6
+   backward launch is held against the plain version on its own inputs
+   (``BWD_LIMIT``), and again with the planted fault (dS carried across
+   no chunk boundary) in the last layer's, which must fail it; one
+   step's gradients with the kernels against plain WKV6 (autograd of
+   ``wkv6_scan_ref``'s loop) at ``RWKV_GRAD_LAYERS`` (deeper, two plain
+   versions differ by more than the limits): bf16 over 2 layers within
+   0.1 and 0.05 a leaf, with the planted fault in the last layer, which
+   the limits must refuse, and fp32 over 1 layer within 1e-3 and 1e-4
+   (one backward launch);
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
@@ -189,7 +209,8 @@ Phases:
     its fp32 gate products' share of a prefill wave; then one qwen3-1.7b
     training step (device time by kernel and by group: the backward
     kernel, the forward attention kernel, matrix products, the rest) and
-    its AdamW update alone; then the tensor-core backward's and SDPA's
+    its AdamW update alone, and the same for rwkv6-3b (the backward
+    kernel there WKV6's); then the tensor-core backward's and SDPA's
     backward's device time a call at each timed shape.
 
 Every phase runs on every call.  Every check that fails exits non-zero.
@@ -247,8 +268,17 @@ shapes (bidirectional 2 x 4,096 over 4,096, causal 2 x 512, 512 over
 backward's device time a call from the profiler, without the host's.
 ``flash_attention_bwd_scalar`` is the scalar backward, the yardstick, at
 qwen3-1.7b's shape in bf16, its launches the fp32 gradient check's.
+``wkv6_bwd`` is WKV6's backward at rwkv6-3b's training shape (bf16 r,
+k, v; 4 x 1,024, 40 heads, N = 64; no dsT, no ds0), its launches the
+8-step run's, ``library_ms`` null (no one PyTorch call computes it); it
+adds ``forward_ckpt_ms`` and ``forward_ms`` (the split kernel with and
+without the checkpoints the backward reads), the run's median
+``step_ms`` and the kernel's ``step_share``.
 Without a CUDA device the script exits non-zero before printing any
-result.  It
+result.  Two functions are not run by it, each called alone on the
+card: ``rwkv_grad_witness`` (rwkv6-3b's gradients by depth against a
+float64 run) and ``train_steps`` (a model's training steps alone, for
+comparing the package of two trees in one call).  It
 imports ``torch``, ``numpy``, the standard library and the port
 (``src/repro_torch``), nothing else.
 """
@@ -2026,6 +2056,11 @@ LM_KERNELS = {
     "flash_attention_scalar_d160": _ATTN,
     "wkv6": dict(op="wkv6", source="src/repro_torch/csrc/wkv6_scan.cu",
                  replaces="src/repro/kernels/rwkv6_scan.py:25"),
+    # the backward of the training path (phase 9): XLA's autodiff of the
+    # reference's chunked recurrence, no Pallas kernel
+    "wkv6_bwd": dict(op="wkv6_bwd",
+                     source="src/repro_torch/csrc/wkv6_scan.cu",
+                     replaces="src/repro/models/recurrent.py:206"),
 }
 #: (model, record entry of the kernel its path runs), in serving order
 SERVED = [("qwen3-1.7b", "flash_attention"),
@@ -2052,9 +2087,9 @@ ENCDEC_MODES = {
 #: decode steps
 ENCDEC_PARITY_LAYERS, ENCDEC_PARITY_FRAMES = 2, 100
 ENCDEC_PARITY_STEPS = 8
-#: the backward's counts, none of which a serving phase may move
+#: the backwards' counts, none of which a serving phase may move
 NO_BWD = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-          "flash_attention_bwd_scalar": 0}
+          "flash_attention_bwd_scalar": 0, "wkv6_bwd": 0}
 #: the record entries whose ``time_lm_kernel`` also times the scalar
 #: kernel in fp32 at their path's shape (its entry's name)
 SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
@@ -2181,7 +2216,7 @@ def check_wkv(torch, args, label, errs=None):
     before = dict(wk.LAUNCHES)
     y, sT = wk.wkv6(*args)
     check({n: wk.LAUNCHES[n] - before[n] for n in before}
-          == {"wkv6": 1, "wkv6_seq": 0},
+          == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0},
           f"{label}: wkv6 did not launch the split kernel once")
     y_p, s_p = wk.wkv6_scan_ref(*args)
     sync(torch, y.device)
@@ -3246,6 +3281,139 @@ ENCDEC_BWD_SHAPES = [(2, 4096, 4096, 16, 16, 64, False),
 ENCDEC_TRAIN = dict(layers=2, B=2, T=512, frames=4096)
 
 
+#: WKV6's backward (phase 9): what it replaces, XLA's autodiff of the
+#: reference's chunk-rematerialised recurrence in the train step (no Pallas
+#: kernel); rwkv6-3b's training run at full width and depth, the qwen3
+#: run's batch, TrainConfig defaults and vocabulary chunks (65,536 is four
+#: of them)
+RWKV_ARCH, RWKV_STEPS = "rwkv6-3b", 8
+#: the depth at which rwkv6-3b's gradients are held kernel against plain
+#: (TRAIN_GRAD_L2, TRAIN_LEAF_L2), by dtype.  Deeper, the model's
+#: gradients at random weights hang on the rounding of its arithmetic:
+#: the kernel's and the plain version's are each as far from a float64
+#: run on the same weights as the leaf limit or farther, the leaf u
+#: first (:func:`rwkv_grad_witness`; on the CPU the reference's own
+#: float32 gradient is as far, ``tests/test_torch_wkv6_bwd.py``).  No
+#: kernel can be held to those limits there; the full depth is held layer
+#: by layer instead (``wkv6_layers_vs_plain``)
+RWKV_GRAD_LAYERS = {"bfloat16": 2, "float32": 1}
+#: the backward kernel's checks (B, T, H, N), each with strong decays and a
+#: nonzero s0 and dsT, in fp32 and bf16, beside rwkv6-3b's training shape:
+#: a step alone (T = 1), ragged T, one past the 16-step chunk and past a
+#: power of two, every head size
+WKV_BWD_CASES = [(2, 1, 3, 64), (1, 37, 2, 64), (2, 100, 2, 16),
+                 (1, 64, 4, 32), (2, 17, 3, 64), (1, 1025, 2, 64)]
+WKV_BWD_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
+    """The forward's checkpoints against ``wkv6_fwd_ref`` (``WKV_TOL``),
+    and the backward kernel against ``wkv6_bwd_ref``, each of its six
+    gradients within :data:`BWD_LIMIT` relative L2, one launch a call and
+    a second call bitwise, over :data:`WKV_BWD_CASES` and
+    ``train_shape``; the planted fault (dS not carried across the middle
+    chunk boundary) must fail the check at the shapes of more than 64
+    steps at N = 16 and at the training shape.  Returns the largest max
+    |err|."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    worst_abs, n_caught = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        limit, worst = BWD_LIMIT[name], 0.0
+        for i, shape in enumerate(WKV_BWD_CASES + [tuple(train_shape)]):
+            B, T, H, N = shape
+            r, k, v, w, u, s0 = wkv_inputs(torch, *shape, dtype, seed + i,
+                                           dev=dev, strong=True)
+            gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+            dy = torch.randn((B, T, H, N), generator=gen, device=dev)
+            dsT = torch.randn((B, H, N, N), generator=gen, device=dev)
+            y, sT, ckpt = wk._launch(r, k, v, w, u, s0, ckpt=True)
+            want_f = wk.wkv6_fwd_ref(r, k, v, w, u, s0)
+            sync(torch, dev)
+            check(all(allclose(torch, a, b, *WKV_TOL)
+                      for a, b in zip((y, sT, ckpt), want_f)),
+                  f"wkv6 {name} {shape}: the forward's y, s_T or "
+                  f"checkpoints outside atol {WKV_TOL[0]} rtol {WKV_TOL[1]}")
+            before = dict(wk.LAUNCHES)
+            got = wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT, True)
+            check({n: wk.LAUNCHES[n] - before[n] for n in before}
+                  == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1},
+                  f"wkv6 backward {name} {shape}: not one launch")
+            want = wk.wkv6_bwd_ref(r, k, v, w, u, s0, dy, dsT)
+            sync(torch, dev)
+            for gname, g, wg in zip(WKV_BWD_GRADS, got, want):
+                check(g.dtype == wg.dtype and g.shape == wg.shape,
+                      f"wkv6 backward {name} {shape}: {gname} {g.dtype} "
+                      f"{tuple(g.shape)}")
+                rel = bwd_rel(torch, g, wg, 1.0)
+                check(rel < limit, f"wkv6 backward {name} {shape}: {gname} "
+                      f"relative L2 {rel:.3g} >= {limit}")
+                worst = max(worst, rel)
+                worst_abs = max(worst_abs, max_err(torch, g.float(),
+                                                   wg.float()))
+            again = wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT, True)
+            sync(torch, dev)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"wkv6 backward {name} {shape}: two calls differ")
+            if T > 64 and (N == 16 or shape == tuple(train_shape)):
+                cut = wk.CKPT_STEPS * (-(-T // wk.CKPT_STEPS) // 2)
+                f = wkv6_cut_bwd(torch, wk._launch_bwd, r, k, v, w, u, ckpt,
+                                 dy, dsT, True, cuts=[cut])
+                rels = [bwd_rel(torch, a, b, 1.0) for a, b in zip(f, want)]
+                check(max(rels) >= limit, f"wkv6 backward {name} {shape}: "
+                      f"the planted fault passes the check ({rels})")
+                n_caught += 1
+                log(f"[train] planted fault wkv6 {name} {shape}: dS not "
+                    f"carried across step {cut} -> relative L2 "
+                    + " ".join(f"{g} {x:.3g}"
+                               for g, x in zip(WKV_BWD_GRADS, rels))
+                    + f" (caught: >= {limit})")
+            del r, k, v, w, u, s0, dy, dsT, y, sT, ckpt, want_f, got, want, \
+                again
+        log(f"[train] wkv6 backward {name}: {len(WKV_BWD_CASES) + 1} shapes "
+            f"(strong decays, nonzero s0 and dsT) within relative L2 {limit} "
+            f"for each of {', '.join(WKV_BWD_GRADS)} (worst {worst:.3g}); "
+            f"the forward's checkpoints within atol {WKV_TOL[0]}; second "
+            f"calls bitwise")
+    check(n_caught > 0, "no planted fault was checked")
+    return worst_abs
+
+
+def time_wkv6_bwd(torch, seed, shape, dev="cuda"):
+    """The WKV6 backward at rwkv6-3b's training ``shape`` as the train step
+    launches it (bf16 r, k and v, no dsT, no ds0): its time, the
+    forward's with and without its checkpoints, the plain version's and
+    the bound.  The bound counts 14 N^2 flops a step and stream (the
+    state recomputed from its checkpoint, 3; dr, dk, dv, dw, 2 each; dS,
+    3) and the bytes of r, k, v, w, u, dy and the checkpoints in, dr, dk,
+    dv, dw and du out.  No single PyTorch call computes this function:
+    ``library_ms`` is None."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    B, T, H, N = shape
+    r, k, v, w, u, s0 = wkv_inputs(torch, *shape, torch.bfloat16, seed,
+                                   random_state=False, dev=dev, strong=True)
+    dy = torch.randn((B, T, H, N), device=dev)
+    _, _, ckpt = wk._launch(r, k, v, w, u, s0, ckpt=True)
+    ms = time_ms(torch, lambda: wk._launch_bwd(r, k, v, w, u, ckpt, dy, None,
+                                               False), iters=50, warmup=5)
+    fwd_ckpt_ms = time_ms(torch, lambda: wk._launch(r, k, v, w, u, s0,
+                                                    ckpt=True))
+    fwd_ms = time_ms(torch, lambda: wk._launch(r, k, v, w, u, s0))
+    plain_ms = time_ms(torch, lambda: wk.wkv6_bwd_ref(r, k, v, w, u, s0, dy),
+                       iters=2, warmup=1)
+    n, es = B * T * H * N, r.element_size()
+    n_bytes = 6 * es * n + 3 * 4 * n + 4 * ckpt.numel() + 2 * 4 * H * N
+    bound = bound_ms(n_bytes, 14 * N * N * B * H * T)
+    log(f"[time] wkv6_bwd B,T,H,N={shape} bf16: {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms); bound {bound[0]:.5f} ms ({bound[1]}; "
+        f"{n_bytes / 1e6:.1f} MB, {14 * N * N * B * H * T / 1e9:.3f} "
+        f"GFLOP); the forward with its checkpoints {fwd_ckpt_ms:.4f} ms, "
+        f"without {fwd_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "library_ms": None, "forward_ckpt_ms": fwd_ckpt_ms,
+            "forward_ms": fwd_ms}
+
+
 def bwd_rel(torch, got, want, floor):
     """Relative L2 of a gradient; where the true gradient vanishes (dq
     and dk at Tq = Tk = 1, where the softmax is constant) against
@@ -3556,34 +3724,165 @@ def plain_attention():
 
 
 @contextlib.contextmanager
-def faulty_backward(torch, layer_call=0):
-    """The backward kernel with :func:`planted_fault` in one layer: the
-    ``layer_call``-th launch of a backward pass (0: the last layer's)
-    drops its last key tile."""
-    from repro_torch.kernels import flash_attention as fa
-    original, calls = fa._launch_bwd, [0]
+def plain_wkv6():
+    """The model-side WKV6 swapped for its plain version: autograd then
+    differentiates ``wkv6_scan_ref``'s loop."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as wk
+    original = ops.wkv6
+    ops.wkv6 = wk.wkv6_scan_ref
+    try:
+        yield
+    finally:
+        ops.wkv6 = original
 
-    def launch(q, k, v, o, do, causal, window):
+
+#: the planted fault of each backward kernel, as ``faulty_backward`` puts
+#: it in one layer: the attention's last key tile dropped, or WKV6's dS
+#: carried across no chunk boundary
+FAULTS = {"attention": f"the last {BWD_FAULT_KEYS} keys dropped",
+          "wkv6": "dS carried across no chunk boundary"}
+
+
+@contextlib.contextmanager
+def faulty_backward(torch, kind="attention", layer_call=0):
+    """A backward kernel with its planted fault (:data:`FAULTS`) in one
+    layer: the ``layer_call``-th launch of a backward pass (0: the last
+    layer's)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as wk
+    module = fa if kind == "attention" else wk
+    original, calls = module._launch_bwd, [0]
+
+    def launch(*args):
         calls[0] += 1
         if calls[0] - 1 != layer_call:
-            return original(q, k, v, o, do, causal, window)
-        return tuple(planted_fault(torch, original, q, k, v, o, do, causal,
-                                   window))
-    fa._launch_bwd = launch
+            return original(*args)
+        if kind == "attention":
+            return tuple(planted_fault(torch, original, *args))
+        T = args[0].shape[1]
+        return wkv6_cut_bwd(torch, original, *args,
+                            cuts=range(wk.CKPT_STEPS, T, wk.CKPT_STEPS))
+    module._launch_bwd = launch
     try:
         yield calls
     finally:
-        fa._launch_bwd = original
+        module._launch_bwd = original
+
+
+def wkv6_cut_bwd(torch, launch_bwd, r, k, v, w, u, ckpt, dy, dsT, want_ds0,
+                 cuts):
+    """WKV6's planted fault: ``launch_bwd`` (the kernel's launch) piece by
+    piece between the chunk boundaries ``cuts`` (steps, multiples of
+    ``CKPT_STEPS``), each piece walked back from a zero dS instead of the
+    one the next piece hands on (the last from ``dsT``)."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    T = r.shape[1]
+    edges = [0, *cuts, T]
+    pieces, carry = [], dsT
+    for lo, hi in reversed(list(zip(edges[:-1], edges[1:]))):
+        part = [t[:, lo:hi].contiguous() for t in (r, k, v, w)]
+        cp = ckpt[:, :, lo // wk.CKPT_STEPS:-(-hi // wk.CKPT_STEPS)]
+        pieces.insert(0, launch_bwd(*part, u, cp.contiguous(),
+                                    dy[:, lo:hi].contiguous(), carry,
+                                    want_ds0 and lo == 0))
+        carry = None
+    grads = [torch.cat([p[i] for p in pieces], 1) for i in range(4)]
+    return (*grads, sum(p[4] for p in pieces), pieces[0][5])
+
+
+def gradient_gaps(names, g_a, g_b):
+    """Relative L2 of the gradient ``g_a`` against ``g_b`` over the whole
+    gradient, and the worst leaf's as (relative L2, name); a leaf whose
+    ``g_b`` is zero is held to zero."""
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(g_a, g_b))
+    den = sum(float(b.float().square().sum()) for b in g_b)
+    leaf = max(((rel_l2(a, b) if float(b.float().norm()) > 0 else
+                 float(a.float().norm()), n)
+                for n, a, b in zip(names, g_a, g_b)))
+    return (num / den) ** 0.5, leaf
+
+
+class _Stop(Exception):
+    """Ends a backward pass once the planted fault's layer is checked."""
+
+
+def wkv6_layers_vs_plain(torch, model, params, batch, label, fault=False):
+    """One step's backward with each WKV6 backward launch held, on its own
+    inputs, against ``wkv6_bwd_ref``: every layer's dr, dk, dv, dw and du
+    within :data:`BWD_LIMIT` of its dtype.  The model's gradients
+    themselves are no measure past a few layers (``RWKV_GRAD_LAYERS``);
+    this holds the kernel at every layer of the full depth.  With
+    ``fault`` the backward runs once more with the planted fault in its
+    first launch (the last layer's: dS carried across no chunk boundary),
+    which must fail that layer's check, and stops there.  Returns the
+    worst relative L2 of each gradient over the layers."""
+    from repro_torch.kernels import rwkv6_scan as wk
+    original, rels, stopped = wk._launch_bwd, [], [False]
+
+    def held(faulty):
+        def launch(*args):
+            r, k, v, w, u, ckpt, dy, dsT, _ = args
+            if faulty:
+                out = wkv6_cut_bwd(torch, original, *args, cuts=range(
+                    wk.CKPT_STEPS, r.shape[1], wk.CKPT_STEPS))
+            else:
+                out = original(*args)
+            want = wk.wkv6_bwd_ref(r, k, v, w, u, ckpt[:, :, 0], dy, dsT)
+            rels.append([bwd_rel(torch, g, h, 1.0)
+                         for g, h in zip(out[:5], want[:5])])
+            if faulty:
+                stopped[0] = True
+                raise _Stop
+            return out
+        return launch
+
+    def backward(faulty):
+        wk._launch_bwd = held(faulty)
+        try:
+            loss, _ = model.loss(batch)
+            torch.autograd.grad(loss, list(params.values()))
+        except Exception:
+            if not stopped[0]:
+                raise
+        finally:
+            wk._launch_bwd = original
+    dtype = next(p for n, p in params.items() if n.endswith("wr")).dtype
+    limit = BWD_LIMIT[str(dtype).split(".")[-1]]
+    backward(False)
+    worst = [max(x[j] for x in rels) for j in range(5)]
+    log(f"[train] {label}: each of its {len(rels)} WKV6 backward launches "
+        f"against the plain version on the same inputs: worst relative L2 "
+        + ", ".join(f"{g} {x:.3g}" for g, x in zip(WKV_BWD_GRADS, worst))
+        + f" (limit {limit})")
+    check(max(worst) < limit, f"{label}: a layer's WKV6 backward off its "
+          f"plain version by {max(worst):.3g} >= {limit}")
+    if fault:
+        rels.clear()
+        backward(True)
+        check(stopped[0] and len(rels) == 1, f"{label}: the planted fault "
+              f"did not run")
+        log(f"[train] {label}, planted fault ({FAULTS['wkv6']}) in the last "
+            f"layer's backward: relative L2 "
+            + ", ".join(f"{g} {x:.3g}" for g, x in zip(WKV_BWD_GRADS,
+                                                       rels[0]))
+            + f" ({'caught' if max(rels[0]) >= limit else 'passes'} at "
+            f"{limit})")
+        check(max(rels[0]) >= limit, f"{label}: the planted fault passes "
+              f"the layer check")
+    return worst
 
 
 def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
-                          leaf_limit, fault=False):
-    """One step's gradients with the kernels and with plain attention on
-    the same weights and batch: relative L2 over the whole gradient
-    (checked against ``limit``) and each leaf's (against ``leaf_limit``).
-    With ``fault`` the kernels' gradients are taken once more with
-    :func:`faulty_backward`, and the check must refuse them.  Returns the
-    whole gradient's relative L2."""
+                          leaf_limit, fault=None):
+    """One step's gradients with the kernels and with plain attention and
+    WKV6 on the same weights and batch: relative L2 over the whole
+    gradient (checked against ``limit``) and each leaf's (against
+    ``leaf_limit``).  With ``fault`` (a key of :data:`FAULTS`) the
+    kernels' gradients are taken once more with :func:`faulty_backward`,
+    and the check must refuse them.  Returns the whole gradient's
+    relative L2."""
     names = list(params)
 
     def grads():
@@ -3591,14 +3890,8 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
         return torch.autograd.grad(loss, [params[n] for n in names])
 
     def gaps(g_a, g_b):
-        num = sum(float((a.float() - b.float()).square().sum())
-                  for a, b in zip(g_a, g_b))
-        den = sum(float(b.float().square().sum()) for b in g_b)
-        leaf = max(((rel_l2(a, b) if float(b.float().norm()) > 0 else
-                     float(a.float().norm()), n)
-                    for n, a, b in zip(names, g_a, g_b)))
-        return (num / den) ** 0.5, leaf
-    with plain_attention():
+        return gradient_gaps(names, g_a, g_b)
+    with plain_attention(), plain_wkv6():
         g_plain = grads()
     g_kernel = grads()
     rel, leaf = gaps(g_kernel, g_plain)
@@ -3611,15 +3904,15 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
     check(leaf[0] < leaf_limit, f"{label}: leaf {leaf[1]} relative L2 "
           f"{leaf[0]:.4g} >= {leaf_limit}")
     if fault:
-        with faulty_backward(torch) as calls:
+        with faulty_backward(torch, fault) as calls:
             g_fault = grads()
         check(calls[0] > 1, f"{label}: the backward launched {calls[0]} "
               f"times under the planted fault")
         f_rel, f_leaf = gaps(g_fault, g_plain)
         del g_fault
         caught = f_rel >= limit or f_leaf[0] >= leaf_limit
-        log(f"[train] {label}, planted fault (the last layer's last "
-            f"{BWD_FAULT_KEYS} keys dropped): relative L2 {f_rel:.4g} over "
+        log(f"[train] {label}, planted fault (the last layer's backward, "
+            f"{FAULTS[fault]}): relative L2 {f_rel:.4g} over "
             f"the whole gradient ({'caught' if f_rel >= limit else 'passes'}"
             f" at {limit}); worst leaf {f_leaf[1]} {f_leaf[0]:.4g} "
             f"({'caught' if f_leaf[0] >= leaf_limit else 'passes'} at "
@@ -3630,10 +3923,162 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
     return rel
 
 
+@contextlib.contextmanager
+def float64_math(torch, params):
+    """``params`` (a model's trainable parameters) in float64, and
+    ``torch.Tensor.float`` taken for ``torch.Tensor.double``, so that a
+    step through the port's model and ``wkv6_scan_ref`` (every cast to
+    float32 there is ``.float()``; every other cast follows its input)
+    computes in float64 end to end; the parameters are put back after."""
+    saved = {n: p.data for n, p in params.items()}
+    original = torch.Tensor.float
+    for p in params.values():
+        p.data = p.data.double()
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = original
+        for n, p in params.items():
+            p.data = saved[n]
+
+
+#: :func:`rwkv_grad_witness`'s depths, and the unit roundoff of each
+#: dtype: the relative size of the witness's perturbation of the weights
+WITNESS_DEPTHS = (2, 4, 8)
+ROUNDOFF = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24}
+
+
+def rwkv_grad_witness(torch, seed=0, depths=WITNESS_DEPTHS,
+                      dtypes=("bfloat16", "float32"), B=TRAIN_B, T=TRAIN_T,
+                      vocab_chunk=TRAIN_VOCAB_CHUNK, dev="cuda", cfg=None):
+    """Where rwkv6-3b's gradient gaps at depth come from.  Not run by
+    :func:`main`; on the card::
+
+        python -c "import torch, chip_smoke as cs; cs.rwkv_grad_witness(torch)"
+
+    At full width, for each dtype and depth, one step's gradients on the
+    same random weights and batch (phase 9's): with the WKV6 kernels, with
+    plain WKV6, and in float64 end to end (:func:`float64_math`, plain
+    WKV6) on those weights as they are, and again with each weight scaled
+    by 1 + e z (e the dtype's :data:`ROUNDOFF`, z standard normal).  Logs
+    the relative L2 over the whole gradient and on the worst leaf of the
+    kernel's, the plain version's and the perturbed float64 gradients
+    against the float64 one, and of the kernel's against the plain
+    version's.  The perturbed run moves the weights by a rounding and
+    rounds nothing after: it is the model's own sensitivity to its
+    weights.  Returns the rows."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.train.train_loop import to_device, trainable_params
+    on_card = torch.device(dev).type == "cuda"
+    log(f"[witness] {gpu_name_and_limit() if on_card else dev}")
+    rows = []
+    for dtype in dtypes:
+        for depth in depths:
+            t0 = time.perf_counter()
+            cfg_n = dataclasses.replace(cfg or configs.get(RWKV_ARCH),
+                                        num_layers=depth, dtype=dtype)
+            model = build_model(cfg_n, device=dev, seed=seed)
+            params = trainable_params(model)
+            names = list(params)
+            stream = pipeline.for_model(cfg_n, ShapeSpec("train", T, B,
+                                                         "train"), seed=seed)
+            batch = to_device(stream.batch_at(0), model.device)
+
+            def grads():
+                with msettings.use(vocab_chunk=vocab_chunk):
+                    loss, _ = model.loss(batch)
+                    return [g.double() for g in torch.autograd.grad(
+                        loss, [params[n] for n in names])]
+            kernel = grads()
+            with plain_wkv6():
+                plain = grads()
+                with float64_math(torch, params):
+                    exact = grads()
+                    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+                    with torch.no_grad():
+                        for p in params.values():
+                            p.mul_(1 + ROUNDOFF[dtype] * torch.randn(
+                                p.shape, generator=gen, device=dev,
+                                dtype=p.dtype))
+                    moved = grads()
+            row = {"dtype": dtype, "depth": depth,
+                   "kernel": gradient_gaps(names, kernel, exact),
+                   "plain": gradient_gaps(names, plain, exact),
+                   "moved": gradient_gaps(names, moved, exact),
+                   "kernel_vs_plain": gradient_gaps(names, kernel, plain)}
+            rows.append(row)
+            log(f"[witness] {cfg_n.name} {dtype} {depth} layers, {B} x {T} "
+                f"tokens, relative L2 whole, worst leaf: "
+                + "; ".join(f"{what} {row[key][0]:.4g}, {row[key][1][1]} "
+                            f"{row[key][1][0]:.4g}" for key, what in (
+                                ("kernel", "kernel vs float64"),
+                                ("plain", "plain vs float64"),
+                                ("moved", f"float64 with weights moved "
+                                          f"{ROUNDOFF[dtype]:.3g} vs "
+                                          f"float64"),
+                                ("kernel_vs_plain", "kernel vs plain")))
+                + f" ({time.perf_counter() - t0:.1f} s)")
+            del model, params, kernel, plain, exact, moved
+            free_card(torch, dev)
+    return rows
+
+
+def train_steps(torch, seed=0, arch=TRAIN_ARCH, steps=TRAIN_STEPS,
+                B=TRAIN_B, T=TRAIN_T, vocab_chunk=TRAIN_VOCAB_CHUNK,
+                dev="cuda", cfg=None):
+    """``arch``'s training steps alone, as phase 9 runs them (its batch,
+    ``TrainConfig`` defaults, remat, vocabulary chunks), without its
+    checkpoint and checks: logs the package it ran, the step ms and their
+    median after the first, and returns that median.  Not run by
+    :func:`main`: it compares the port of two trees in one call, the
+    other tree's ``src`` put first on ``sys.path`` once this module is
+    imported::
+
+        python -c "import sys, torch, chip_smoke as cs; sys.path.insert(
+            0, 'OTHER/src'); cs.train_steps(torch)"
+    """
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              train_loop, trainable_params)
+    cfg = cfg or configs.get(arch)
+    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
+                                seed=seed)
+    model = build_model(cfg, device=dev, seed=seed)
+    tcfg = TrainConfig()
+    params = trainable_params(model)
+    step_fn, opt = make_train_step(model, tcfg)
+    batches = pipeline.PrefetchIterator(stream, start_step=0,
+                                        device=model.device)
+    try:
+        with msettings.use(vocab_chunk=vocab_chunk):
+            _, _, hist = train_loop(model, tcfg, params, opt.init(params),
+                                    batches, steps=steps, log_every=0,
+                                    train_step=step_fn)
+    finally:
+        batches.close()
+    step_s = hist["step_time"]
+    med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    card = gpu_name_and_limit() if torch.device(dev).type == "cuda" else dev
+    log(f"[steps] {arch} from {Path(repro_torch.__file__).parent} on "
+        f"{card}: {steps} steps of {B} x {T} tokens, step "
+        f"ms {[round(x * 1e3, 2) for x in step_s]}, median after the "
+        f"first {med_s * 1e3:.3f} ms")
+    return med_s * 1e3
+
 def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
                 T=TRAIN_T, steps=TRAIN_STEPS, ckpt_step=TRAIN_CKPT_STEP,
                 vocab_chunk=TRAIN_VOCAB_CHUNK, encdec_cfg=None,
-                encdec=ENCDEC_TRAIN, rwkv_cfg=None):
+                encdec=ENCDEC_TRAIN, rwkv_cfg=None, rwkv_steps=RWKV_STEPS):
     """Training on the card: the backward kernel against its plain
     version; qwen3-1.7b for ``steps`` steps through ``make_train_step``
     and ``train_loop`` (falling loss, exact launch counts each step, step
@@ -3641,13 +4086,15 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     checkpoint after ``ckpt_step`` that a new model and optimizer restore
     and continue from; full-width kernel-vs-plain gradients in bf16 and
     in fp32 over 4 layers; seamless-m4t-large-v2's step over its
-    bidirectional and cross attention; rwkv6-3b's refusal.  Returns the
-    record entry's numbers."""
+    bidirectional and cross attention; rwkv6-3b's training
+    (:func:`phase_train_rwkv`, under ``"wkv6"``).  Returns the record
+    entries' numbers."""
     import shutil
     from repro_torch import configs
     from repro_torch.data import pipeline
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import NotPortedError, build_model
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
     from repro_torch.models import settings as msettings
     from repro_torch.models.types import ShapeSpec
     from repro_torch.obs import MetricsRegistry
@@ -3677,22 +4124,26 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ck = Checkpointer(str(ckpt_dir), keep=1)
 
-    def trainer(model):
+    def trainer(model, keys=("flash_attention", "flash_attention_bwd",
+                             "flash_attention_bwd_tc")):
+        """The model's parameters, optimizer state and a train step that
+        records each step's launches of ``keys``."""
         params = trainable_params(model)
         step_fn, opt = make_train_step(model, tcfg)
         counted = []
 
         def counting_step(p, s, batch):
-            fa.reset_launches()
+            ops.reset_launches()
             out = step_fn(p, s, batch)
-            counted.append((fa.LAUNCHES["flash_attention"],
-                            fa.LAUNCHES["flash_attention_bwd"],
-                            fa.LAUNCHES["flash_attention_bwd_tc"]))
+            launches = ops.launches()
+            counted.append(tuple(launches[key] for key in keys))
             return out
         return params, opt.init(params), counting_step, counted
 
-    def loop(model, params, state, step_fn, start, stop, **kw):
-        batches = pipeline.PrefetchIterator(stream, start_step=start,
+    def loop(model, params, state, step_fn, start, stop, batches_of=None,
+             **kw):
+        batches = pipeline.PrefetchIterator(batches_of or stream,
+                                            start_step=start,
                                             device=model.device)
         try:
             with msettings.use(vocab_chunk=vocab_chunk):
@@ -3761,7 +4212,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
         rel_bf16 = grads_kernel_vs_plain(
             torch, model, params, batch, f"{cfg.name} {cfg.dtype} {L} "
             f"layers", TRAIN_GRAD_L2[cfg.dtype], TRAIN_LEAF_L2[cfg.dtype],
-            fault=on_card)
+            fault="attention" if on_card else None)
     del model, params, state, step_fn
     free_card(torch, dev)
 
@@ -3844,38 +4295,127 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     del model, params, step_fn, opt
     free_card(torch, dev)
 
-    # RWKV-6: no WKV6 backward yet
-    rcfg = dataclasses.replace(rwkv_cfg or configs.get("rwkv6-3b"),
-                               num_layers=1)
-    model = build_model(rcfg, device=dev, seed=seed)
-    params = trainable_params(model)
-    rbatch = to_device({k: v[:1, :64] for k, v in
-                        stream.batch_at(0).items()}, model.device)
-    rbatch = {k: v.clamp_max(rcfg.vocab_size - 1) for k, v in rbatch.items()}
-    try:
-        model.loss(rbatch)[0].backward()
-        refused = None
-    except NotPortedError as e:
-        refused = str(e)
-    if on_card:
-        check(refused is not None, f"{rcfg.name}: the loss's backward on "
-              f"the card did not raise NotPortedError")
-    log(f"[train] {rcfg.name} on {dev}: the loss with gradients raises "
-        f"NotPortedError: {refused!r}")
-    del model, params
-    free_card(torch, dev)
+    wkv = phase_train_rwkv(torch, seed, card, trainer, loop, dev, rwkv_cfg,
+                           B, T, rwkv_steps, vocab_chunk)
     return {"launches": n_bwd, "scalar_launches": n_scalar,
             "encdec_launches": shapes, "err": err, "scalar_err": scalar_err,
             "losses": losses, "step_ms": med_s * 1e3, "share": share,
-            "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times}
+            "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
+            "wkv6": wkv}
+
+
+def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
+                     B=TRAIN_B, T=TRAIN_T, steps=RWKV_STEPS,
+                     vocab_chunk=TRAIN_VOCAB_CHUNK):
+    """rwkv6-3b's training on the card, through ``phase_train``'s
+    ``trainer`` and ``loop``: the WKV6 backward kernel against its plain
+    version (:func:`check_wkv6_bwd`) and timed (:func:`time_wkv6_bwd`);
+    ``steps`` steps at full width and depth (a finite loss that falls,
+    the launches of every step exact: each layer's forward and its
+    recompute, one backward a layer, no attention; step ms, tokens/s,
+    peak memory, the backward's share of a step); every layer's backward
+    on a full-depth bf16 step held against the plain version on its own
+    inputs, with the planted fault in the last layer's; one step's
+    gradients with the kernels against plain WKV6 at
+    :data:`RWKV_GRAD_LAYERS`, bf16 with the planted fault and fp32.
+    Returns the record entry's numbers."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import rwkv6_scan as wk
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.train.train_loop import to_device, trainable_params
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or configs.get(RWKV_ARCH)
+    L, H = cfg.num_layers, cfg.d_model // cfg.rwkv_head_dim
+    check(wk.LAUNCHES["wkv6_bwd"] == 0,
+          "the WKV6 backward launched before its training phase")
+    err = check_wkv6_bwd(torch, seed, (B, T, H, cfg.rwkv_head_dim), dev)
+    times = time_wkv6_bwd(torch, seed, (B, T, H, cfg.rwkv_head_dim), dev) \
+        if on_card else None
+    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
+                                seed=seed)
+    free_card(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=seed)
+    params, state, step_fn, counted = trainer(
+        model, ("wkv6", "wkv6_bwd", "flash_attention", "flash_attention_bwd"))
+    params, state, hist = loop(model, params, state, step_fn, 0, steps,
+                               batches_of=stream)
+    losses, step_s = hist["loss"], hist["step_time"]
+    peak = card_gib(torch, dev, peak=True)
+    check(len(losses) == steps, f"{len(losses)} steps recorded of {steps}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    if on_card:
+        check(counted == [(2 * L, L, 0, 0)] * steps, f"launches (wkv6, "
+              f"wkv6_bwd, attention forward and backward) a step "
+              f"{counted}, expected {(2 * L, L, 0, 0)}: {L} layers and "
+              f"their recompute, {L} backward")
+    med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    log(f"[train] {cfg.name} ({L} layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B params, "
+        f"{cfg.dtype}) on {card}: {steps} steps of {B} x {T} tokens, AdamW "
+        f"(TrainConfig defaults), remat, vocab_chunk {vocab_chunk}")
+    log(f"[train] {cfg.name} loss by step {[round(x, 4) for x in losses]}")
+    log(f"[train] {cfg.name} step ms {[round(x * 1e3, 2) for x in step_s]} "
+        f"(the first warms up); median after the first {med_s * 1e3:.3f} "
+        f"ms, {B * T / med_s:,.1f} tokens/s, peak {peak:.2f} GiB; launches "
+        f"a step: wkv6 {counted[0][0]}, wkv6_bwd {counted[0][1]}")
+    share = None
+    if times is not None:
+        share = L * times["ms"] / (med_s * 1e3)
+        log(f"[train] the WKV6 backward's share of a step: {L} x "
+            f"{times['ms']:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
+    del state
+    free_card(torch, dev)
+    # every layer's backward on the trained weights, full depth, against
+    # the plain version on its own inputs
+    batch = to_device(stream.batch_at(steps), model.device)
+    with msettings.use(vocab_chunk=vocab_chunk):
+        layer_rel = wkv6_layers_vs_plain(
+            torch, model, params, batch, f"{cfg.name} {cfg.dtype} {L} "
+            f"layers", fault=on_card)
+    del model, params, step_fn
+    free_card(torch, dev)
+
+    # the model's gradients, kernel against plain, at RWKV_GRAD_LAYERS:
+    # bf16 with the planted fault, then fp32
+    rels = []
+    for dtype in (cfg.dtype, "float32"):
+        n_layers = min(RWKV_GRAD_LAYERS[dtype], L)
+        cfg_n = dataclasses.replace(cfg, num_layers=n_layers, dtype=dtype)
+        model = build_model(cfg_n, device=dev, seed=seed)
+        params = trainable_params(model)
+        batch = to_device(stream.batch_at(0), model.device)
+        fault = "wkv6" if on_card and dtype == cfg.dtype else None
+        before = wk.LAUNCHES["wkv6_bwd"]
+        with msettings.use(vocab_chunk=vocab_chunk):
+            rels.append(grads_kernel_vs_plain(
+                torch, model, params, batch, f"{cfg.name} {dtype} "
+                f"{n_layers} layers", TRAIN_GRAD_L2[dtype],
+                TRAIN_LEAF_L2[dtype], fault=fault))
+        n = wk.LAUNCHES["wkv6_bwd"] - before
+        if on_card and not fault:
+            check(n == n_layers, f"the {dtype} gradients launched the WKV6 "
+                  f"backward {n} times, expected {n_layers}")
+        del model, params
+        free_card(torch, dev)
+    return {"launches": sum(c[1] for c in counted), "err": err,
+            "losses": losses, "step_ms": med_s * 1e3, "share": share,
+            "peak": peak, "rel": tuple(rels), "layer_rel": layer_rel,
+            "times": times}
 
 
 def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
                         T=TRAIN_T, vocab_chunk=TRAIN_VOCAB_CHUNK):
-    """Where a training step's time goes: qwen3-1.7b rebuilt from the seed
-    takes two warm-up steps, then one step under ``torch.profiler``
-    (device time by kernel, grouped as the backward kernel, the forward
-    attention kernel, matrix products and the rest, and the busy share);
+    """Where a training step's time goes: the model (qwen3-1.7b unless
+    ``cfg`` names another) rebuilt from the seed takes two warm-up steps,
+    then one step under ``torch.profiler`` (device time by kernel, grouped
+    as the backward kernel, its forward kernel, matrix products and the
+    rest, and the busy share);
     then the optimizer's update alone on the same parameters, by the
     host clock around a synchronised call.  Last of the profiled phases,
     as the training phase's step times are taken without a profiler."""
@@ -3903,14 +4443,14 @@ def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
     step(1)
     wall, busy_us, by_name = profile_window(torch, lambda: step(2), dev)
     total = sum(t for t, _, _ in by_name) or 1.0
-    groups = {"backward attention": 0.0, "forward attention": 0.0,
+    groups = {"backward kernel": 0.0, "forward kernel": 0.0,
               "matrix products": 0.0, "the rest": 0.0}
     for t_us, key, _ in by_name:
         k = key.lower()
-        if "bwd_" in k:
-            groups["backward attention"] += t_us
-        elif "flash_fwd" in k:
-            groups["forward attention"] += t_us
+        if "bwd_" in k or "wkv6_du_sum" in k:
+            groups["backward kernel"] += t_us
+        elif "flash_fwd" in k or "wkv6_split" in k:
+            groups["forward kernel"] += t_us
         elif any(w in k for w in ("gemm", "xmma", "cutlass", "nvjet",
                                   "sm90_")):
             groups["matrix products"] += t_us
@@ -4060,8 +4600,9 @@ def main() -> int:
     lm_runs["flash_attention_llama4"] = run
     done("llama4")
     # serving runs under inference_mode: no backward launch anywhere yet
-    check(fa.LAUNCHES["flash_attention_bwd"] == 0,
-          "the serving phases launched the backward kernel")
+    from repro_torch.kernels import ops
+    check(all(ops.launches()[name] == 0 for name in NO_BWD),
+          "the serving phases launched a backward kernel")
     train = phase_train(torch, np, args.seed, card)
     done("train")
     # the profiled phases come last: a profiler session may slow the
@@ -4073,6 +4614,7 @@ def main() -> int:
     for arch, _ in SERVED:
         phase_lm_profile(torch, np, configs.get(arch), args.seed)
     phase_train_profile(torch, np, args.seed)
+    phase_train_profile(torch, np, args.seed, cfg=configs.get(RWKV_ARCH))
     bwd_device_times(torch, args.seed, train["times"])
     done("profile")
 
@@ -4149,6 +4691,10 @@ def main() -> int:
         run = lm_runs[name]
         runs[scalar_name] = (run["launches"]["flash_attention_scalar"],
                              run["times"]["scalar"])
+    # WKV6's backward: its launches rwkv6-3b's training steps'
+    wkv = train["wkv6"]
+    runs["wkv6_bwd"] = (wkv["launches"], wkv["times"])
+    lm_errs["wkv6_bwd"] = wkv["err"]
     for name, spec in LM_KERNELS.items():
         n_launches, r = runs[name]
         kernels.append(entry(name, spec["source"], spec["replaces"],
@@ -4175,6 +4721,11 @@ def main() -> int:
                 if bwd_name == "flash_attention_bwd":
                     kernels[-1].update(step_ms=train["step_ms"],
                                        step_share=train["share"])
+        if name == "wkv6_bwd":
+            kernels[-1].update(forward_ckpt_ms=r["forward_ckpt_ms"],
+                               forward_ms=r["forward_ms"],
+                               step_ms=wkv["step_ms"],
+                               step_share=wkv["share"])
         if "decode_ms" in r:
             kernels[-1].update(
                 decode_ms=r["decode_ms"],

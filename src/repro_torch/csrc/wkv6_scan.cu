@@ -73,6 +73,54 @@
 // block of N threads a stream, thread j walks its whole column for every
 // step (a chain of N dependent FMAs), staged synchronously 32 steps at a
 // time.  The wrapper launches it only when asked for by name.
+//
+// The backward (entry wkv6_bwd; kernel wkv6_bwd_kernel).  It replaces no
+// Pallas kernel: the reference trains through XLA's autodiff of its
+// chunk-rematerialised scan (repro/models/recurrent.py:206,
+// wkv6_scan_chunked, each chunk under jax.checkpoint).  With dS the
+// gradient of the state after step t, walking back from dS = dsT:
+//
+//     a_t = v_t . dy_t,   c_t = sum_i r_t[i] u[i] k_t[i]
+//     dr_t[i] = sum_j s_{t-1}[i][j] dy_t[j] + u[i] k_t[i] a_t
+//     dk_t[i] = sum_j dS[i][j] v_t[j] + u[i] r_t[i] a_t
+//     dv_t[j] = sum_i dS[i][j] k_t[i] + c_t dy_t[j]
+//     dw_t[i] = sum_j s_{t-1}[i][j] dS[i][j]
+//     du[i] = sum over b and t of r_t[i] k_t[i] a_t
+//     dS[i][j] <- w_t[i] dS[i][j] + r_t[i] dy_t[j]     (then ds0 = dS)
+//
+// The states.  dw_t needs s_{t-1} beside dS at every step, walking back.
+// Stepping s back by (s_t - k v^T) / w_t would divide by a decay that
+// reaches 0 in fp32, so the forward saves the state before every C = 16th
+// step (the split kernel's own chunk: it writes its registers at each
+// chunk's start, no extra pass), and the backward recomputes each chunk's
+// states from that checkpoint.  C = 16 keeps the checkpoints at 168 MB
+// for rwkv6-3b's training shape (B = 4, T = 1,024, H = 40, N = 64) and a
+// chunk's operands at 20 KB of shared memory; under remat one layer's are
+// alive at a time.  A thread keeps HC = 8 of a chunk's states in
+// registers (8 x its 16 cells), so a chunk is walked in two halves, the
+// later first: the first half's 8 steps are recomputed twice, 1.5
+// recomputed steps a step.
+//
+// The reductions, deterministic and without atomics.  One block of
+// (N/4)^2 threads owns a stream's whole N x N state, a 4 x 4 tile a
+// thread, so every sum over i or j stays in the block: each step a thread
+// stores its partial sums (over its 4 columns for dr, dk and dw, over its
+// 4 rows for dv) to shared memory, and after the half's barrier the block
+// adds the N / 4 partials of each output in a fixed order, adds the u
+// and c_t terms and rounds once to the output's type.  du's part of each
+// stream is summed over t by one thread per i in a fixed order; a second
+// kernel (wkv6_du_sum) adds the B parts of each (h, i) in order of b.
+//
+// What bounds it.  14 N^2 flops a step and stream (the recompute 3; dr,
+// dk, dv and dw 2 each; dS 3): at rwkv6-3b's training shape 9.40e9, 0.140
+// ms at 67 TFLOP/s of fp32.  The bytes -- r, k, v in and dr, dk, dv out
+// (bf16), w and dy in and dw out (fp32), the checkpoints in -- are 419 MB,
+// 0.125 ms at 3.35 TB/s: the operations bound it.  This first design is
+// simple rather than fast: 160 blocks of 256 threads, one an SM (237
+// registers a thread, 158,080 bytes of shared memory at N = 64), so the
+// grid runs in two waves on 132 SMs; the partial sums cost shared-memory
+// traffic of the same order as the FFMA work, and the step loop has no
+// other block to hide its barriers behind.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -264,7 +312,8 @@ __global__ void __launch_bounds__(Split<T, N>::NT)
 wkv6_split(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, const float* __restrict__ s0,
-           float* __restrict__ y, float* __restrict__ sT, int T_len, int H) {
+           float* __restrict__ y, float* __restrict__ sT,
+           float* __restrict__ ckpt, int T_len, int H) {
   using S = Split<T, N>;
   constexpr int CJ = S::CJ, C = S::C, TR = S::TR;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -311,6 +360,14 @@ wkv6_split(const T* __restrict__ r, const T* __restrict__ k,
         issue_chunk<S>(stage(nx), r, k, v, w, row0 + (size_t)nx * C * stride,
                        stride, min(C, T_len - nx * C), j0, tid);
       cp_commit();
+    }
+    if (ckpt != nullptr) {   // the state before the chunk's first step
+      float* cp = ckpt + ((size_t)bh * chunks + ch) * N * N +
+                  (size_t)i0 * N + j0 + jl;
+#pragma unroll
+      for (int a = 0; a < TR; ++a)
+        *reinterpret_cast<float4*>(cp + a * N) =
+            make_float4(s[a][0], s[a][1], s[a][2], s[a][3]);
     }
     const unsigned char* st = stage(ch);
     const T* rs = reinterpret_cast<const T*>(st);
@@ -395,12 +452,262 @@ wkv6_split(const T* __restrict__ r, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// wkv6_bwd: the backward, one block a stream
+
+__device__ __forceinline__ void from_f32(float x, float* p) { *p = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(x);
+}
+
+constexpr int kHist = 8;   // steps of state history a thread keeps (HC)
+static_assert(kChunk % kHist == 0, "a checkpoint chunk is whole histories");
+
+// The backward's layout at head size N: the block holds the whole N x N
+// state of one stream, a TR x TC tile a thread (rows 4 g.., columns 4 q..),
+// so every sum over i or j stays inside the block.  Shared memory, in
+// floats: the chunk's operands as float (r, k, w, v, dy: C x N each), a_t
+// and c_t (C each), u (N), then one history's partial sums: over the
+// thread's columns for dr, dk and dw (rowp[HC][3][CG][N + 4]; the pad
+// spreads the float4 stores of the CG column groups over all banks) and
+// over its rows for dv (colp[HC][RG][N]).
+template <int N>
+struct Bwd {
+  static constexpr int TR = 4, TC = 4, C = kChunk, HC = kHist;
+  static constexpr int RG = N / TR, CG = N / TC, NT = RG * CG;
+  static constexpr int PR = N + 4;
+  static constexpr int OPS = 5 * C * N, AC = 2 * C;
+  static constexpr int ROWP = HC * 3 * CG * PR, COLP = HC * RG * N;
+  static constexpr int SMEM = (OPS + AC + N + ROWP + COLP) * 4;
+  static_assert((OPS + AC + N) % 4 == 0 && PR % 4 == 0 && ROWP % 4 == 0,
+                "16-byte aligned partials");
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(Bwd<N>::NT)
+wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, const float* __restrict__ dy,
+                const float* __restrict__ dsT,
+                const float* __restrict__ ckpt, T* __restrict__ dr,
+                T* __restrict__ dk, T* __restrict__ dv,
+                float* __restrict__ dw, float* __restrict__ du_part,
+                float* __restrict__ ds0, int T_len, int H) {
+  using S = Bwd<N>;
+  constexpr int TR = S::TR, TC = S::TC, C = S::C, HC = S::HC;
+  extern __shared__ __align__(16) float sm[];
+  float* r_s = sm;
+  float* k_s = r_s + C * N;
+  float* w_s = k_s + C * N;
+  float* v_s = w_s + C * N;
+  float* dy_s = v_s + C * N;
+  float* a_s = dy_s + C * N;    // a_t = v_t . dy_t
+  float* c_s = a_s + C;         // c_t = sum_i r_t[i] u[i] k_t[i]
+  float* u_s = c_s + C;
+  float* rowp = u_s + N;
+  float* colp = rowp + S::ROWP;
+
+  const int tid = threadIdx.x;
+  const int g = tid / S::CG, q = tid % S::CG;   // row group, column group
+  const int i0 = g * TR, j0 = q * TC;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const size_t stride = (size_t)H * N;
+  const size_t row0 = ((size_t)b * T_len * H + h) * N;
+  const int chunks = (T_len + C - 1) / C;
+  for (int i = tid; i < N; i += S::NT) u_s[i] = u[h * N + i];
+
+  // dS = dL/ds_t, walking back from t = T
+  float dS[TR][TC];
+  if (dsT != nullptr) {
+    const float* src = dsT + (size_t)bh * N * N + (size_t)i0 * N + j0;
+#pragma unroll
+    for (int a = 0; a < TR; ++a) ldk<TC>(src + a * N, dS[a]);
+  } else {
+#pragma unroll
+    for (int a = 0; a < TR; ++a)
+#pragma unroll
+      for (int bb = 0; bb < TC; ++bb) dS[a][bb] = 0.f;
+  }
+  float du_acc = 0.f;
+
+  for (int ch = chunks - 1; ch >= 0; --ch) {
+    const int n = min(C, T_len - ch * C);
+    const size_t base = row0 + (size_t)ch * C * stride;
+    __syncthreads();   // the last chunk's epilogue is done with the operands
+    for (int p = tid; p < n * N; p += S::NT) {
+      const int t = p / N, i = p % N;
+      const size_t off = base + t * stride + i;
+      r_s[p] = to_f32(r[off]);
+      k_s[p] = to_f32(k[off]);
+      w_s[p] = w[off];
+      v_s[p] = to_f32(v[off]);
+      dy_s[p] = dy[off];
+    }
+    __syncthreads();
+    // a_t and c_t, one dot product a thread in a fixed order (read in the
+    // epilogue, after the walk's barrier)
+    for (int p = tid; p < 2 * n; p += S::NT) {
+      const int t = p >> 1;
+      float acc = 0.f;
+      if (p & 1) {
+        for (int i = 0; i < N; ++i)
+          acc = fmaf(r_s[t * N + i] * u_s[i], k_s[t * N + i], acc);
+        c_s[t] = acc;
+      } else {
+        for (int j = 0; j < N; ++j)
+          acc = fmaf(v_s[t * N + j], dy_s[t * N + j], acc);
+        a_s[t] = acc;
+      }
+    }
+    const float* cp = ckpt + ((size_t)bh * chunks + ch) * N * N +
+                      (size_t)i0 * N + j0;
+
+    // the chunk's histories from the last to the first
+    for (int sub = (n - 1) / HC; sub >= 0; --sub) {
+      const int t_lo = sub * HC;
+      float s[TR][TC];
+#pragma unroll
+      for (int a = 0; a < TR; ++a) ldk<TC>(cp + a * N, s[a]);
+      // recompute from the checkpoint up to the history's first step
+      for (int t = 0; t < t_lo; ++t) {
+        float kk[TR], ww[TR], vv[TC];
+        ldk<TR>(k_s + t * N + i0, kk);
+        ldk<TR>(w_s + t * N + i0, ww);
+        ldk<TC>(v_s + t * N + j0, vv);
+#pragma unroll
+        for (int a = 0; a < TR; ++a)
+#pragma unroll
+          for (int bb = 0; bb < TC; ++bb)
+            s[a][bb] = fmaf(ww[a], s[a][bb], kk[a] * vv[bb]);
+      }
+      // hist[tt] = s_{t-1} of step t_lo + tt, in registers
+      float hist[HC][TR][TC];
+#pragma unroll
+      for (int tt = 0; tt < HC; ++tt) {
+#pragma unroll
+        for (int a = 0; a < TR; ++a)
+#pragma unroll
+          for (int bb = 0; bb < TC; ++bb) hist[tt][a][bb] = s[a][bb];
+        const int t = t_lo + tt;
+        if (tt + 1 < HC && t < n) {
+          float kk[TR], ww[TR], vv[TC];
+          ldk<TR>(k_s + t * N + i0, kk);
+          ldk<TR>(w_s + t * N + i0, ww);
+          ldk<TC>(v_s + t * N + j0, vv);
+#pragma unroll
+          for (int a = 0; a < TR; ++a)
+#pragma unroll
+            for (int bb = 0; bb < TC; ++bb)
+              s[a][bb] = fmaf(ww[a], s[a][bb], kk[a] * vv[bb]);
+        }
+      }
+      // walk the history back: this thread's partial sums of dr, dk, dw
+      // (over its columns) and dv (over its rows), then dS_{t-1}
+#pragma unroll
+      for (int tt = HC - 1; tt >= 0; --tt) {
+        const int t = t_lo + tt;
+        if (t < n) {
+          float rr[TR], kk[TR], ww[TR], vv[TC], gy[TC];
+          ldk<TR>(r_s + t * N + i0, rr);
+          ldk<TR>(k_s + t * N + i0, kk);
+          ldk<TR>(w_s + t * N + i0, ww);
+          ldk<TC>(v_s + t * N + j0, vv);
+          ldk<TC>(dy_s + t * N + j0, gy);
+          float pr[TR], pk[TR], pw[TR], pv[TC];
+#pragma unroll
+          for (int a = 0; a < TR; ++a) pr[a] = pk[a] = pw[a] = 0.f;
+#pragma unroll
+          for (int bb = 0; bb < TC; ++bb) pv[bb] = 0.f;
+#pragma unroll
+          for (int a = 0; a < TR; ++a)
+#pragma unroll
+            for (int bb = 0; bb < TC; ++bb) {
+              const float sp = hist[tt][a][bb], d = dS[a][bb];
+              pr[a] = fmaf(sp, gy[bb], pr[a]);
+              pw[a] = fmaf(sp, d, pw[a]);
+              pk[a] = fmaf(d, vv[bb], pk[a]);
+              pv[bb] = fmaf(d, kk[a], pv[bb]);
+              dS[a][bb] = fmaf(ww[a], d, rr[a] * gy[bb]);
+            }
+          float* rp = rowp + (tt * 3 * S::CG + q) * S::PR + i0;
+          *reinterpret_cast<float4*>(rp) =
+              make_float4(pr[0], pr[1], pr[2], pr[3]);
+          *reinterpret_cast<float4*>(rp + S::CG * S::PR) =
+              make_float4(pk[0], pk[1], pk[2], pk[3]);
+          *reinterpret_cast<float4*>(rp + 2 * S::CG * S::PR) =
+              make_float4(pw[0], pw[1], pw[2], pw[3]);
+          *reinterpret_cast<float4*>(colp + (tt * S::RG + g) * N + j0) =
+              make_float4(pv[0], pv[1], pv[2], pv[3]);
+        }
+      }
+      __syncthreads();   // every tile's partial sums are in place
+
+      // the history's gradients: the partial sums added in a fixed order,
+      // the bonus terms, rounded once to the output's type
+      const int m = min(HC, n - t_lo);
+      for (int p = tid; p < m * 4 * N; p += S::NT) {
+        const int tt = p / (4 * N), qty = (p / N) % 4, i = p % N;
+        const int t = t_lo + tt;
+        const size_t off = base + t * stride + i;
+        float acc = 0.f;
+        if (qty < 3) {
+          const float* pp = rowp + (tt * 3 + qty) * S::CG * S::PR + i;
+#pragma unroll
+          for (int c = 0; c < S::CG; ++c) acc += pp[c * S::PR];
+        } else {
+          const float* pp = colp + tt * S::RG * N + i;
+#pragma unroll
+          for (int c = 0; c < S::RG; ++c) acc += pp[c * N];
+        }
+        if (qty == 0) {
+          acc = fmaf(u_s[i] * k_s[t * N + i], a_s[t], acc);
+          from_f32(acc, dr + off);
+        } else if (qty == 1) {
+          acc = fmaf(u_s[i] * r_s[t * N + i], a_s[t], acc);
+          from_f32(acc, dk + off);
+        } else if (qty == 2) {
+          dw[off] = acc;
+        } else {
+          acc = fmaf(c_s[t], dy_s[t * N + i], acc);
+          from_f32(acc, dv + off);
+        }
+      }
+      // du[i] += r_t[i] k_t[i] a_t, from the last step to the first
+      if (tid < N)
+        for (int tt = m - 1; tt >= 0; --tt) {
+          const int t = t_lo + tt;
+          du_acc = fmaf(r_s[t * N + tid] * k_s[t * N + tid], a_s[t], du_acc);
+        }
+      __syncthreads();   // the partial sums are read before the next walk
+    }
+  }
+
+  if (ds0 != nullptr) {
+    float* dst = ds0 + (size_t)bh * N * N + (size_t)i0 * N + j0;
+#pragma unroll
+    for (int a = 0; a < TR; ++a)
+      *reinterpret_cast<float4*>(dst + a * N) =
+          make_float4(dS[a][0], dS[a][1], dS[a][2], dS[a][3]);
+  }
+  if (tid < N) du_part[(size_t)bh * N + tid] = du_acc;
+}
+
+// du = the B streams' parts of each (h, i), added in order of b
+__global__ void wkv6_du_sum(const float* __restrict__ part,
+                            float* __restrict__ du, int B, int HN) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= HN) return;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) acc += part[(size_t)b * HN + x];
+  du[x] = acc;
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 struct Args {
   const void *r, *k, *v;
   const float *w, *u, *s0;
-  float *y, *sT;
+  float *y, *sT, *ckpt;
   int B, T_len, H;
   cudaStream_t stream;
 };
@@ -443,8 +750,48 @@ int launch_split(const Args& a) {
   }
   kern<<<dim3(a.B * a.H, N / S::CJ), S::NT, S::SMEM, a.stream>>>(
       (const T*)a.r, (const T*)a.k, (const T*)a.v, a.w, a.u, a.s0, a.y,
-      a.sT, a.T_len, a.H);
+      a.sT, a.ckpt, a.T_len, a.H);
   return (int)cudaGetLastError();
+}
+
+struct BwdArgs {
+  const void *r, *k, *v;
+  const float *w, *u, *dy, *dsT, *ckpt;
+  void *dr, *dk, *dv;
+  float *dw, *du_part, *du, *ds0;
+  int B, T_len, H;
+  cudaStream_t stream;
+};
+
+template <typename T, int N>
+int launch_bwd(const BwdArgs& a) {
+  using S = Bwd<N>;
+  auto kern = wkv6_bwd_kernel<T, N>;
+  if (S::SMEM > 48 * 1024) {
+    static std::atomic<bool> done[kDevices];
+    const cudaError_t e = allow_smem(kern, S::SMEM, done);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<a.B * a.H, S::NT, S::SMEM, a.stream>>>(
+      (const T*)a.r, (const T*)a.k, (const T*)a.v, a.w, a.u, a.dy, a.dsT,
+      a.ckpt, (T*)a.dr, (T*)a.dk, (T*)a.dv, a.dw, a.du_part, a.ds0, a.T_len,
+      a.H);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int HN = a.H * N;
+  wkv6_du_sum<<<(HN + 255) / 256, 256, 0, a.stream>>>(a.du_part, a.du, a.B,
+                                                      HN);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(int N, const BwdArgs& a) {
+  switch (N) {
+    case 16: return launch_bwd<T, 16>(a);
+    case 32: return launch_bwd<T, 32>(a);
+    case 64: return launch_bwd<T, 64>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -463,18 +810,42 @@ extern "C" {
 
 // r, k, v: (B, T, H, N) of one dtype (0: float32, 1: bfloat16); w:
 // (B, T, H, N) float32; u: (H, N) float32; s0: (B, H, N, N) float32;
-// y: (B, T, H, N) float32; sT: (B, H, N, N) float32.  All contiguous and
-// 16-byte aligned.  variant 0 is wkv6_split, 1 wkv6_seq.  Returns a
-// cudaError_t.
+// y: (B, T, H, N) float32; sT: (B, H, N, N) float32; ckpt: null, or
+// (B, H, ceil(T / 16), N, N) float32 for the state before every 16th
+// step (wkv6_split only).  All contiguous and 16-byte aligned.  variant 0
+// is wkv6_split, 1 wkv6_seq.  Returns a cudaError_t.
 int wkv6_fwd(const void* r, const void* k, const void* v, const float* w,
-             const float* u, const float* s0, float* y, float* sT, int B,
-             int T_len, int H, int N, int dtype, int variant, void* stream) {
+             const float* u, const float* s0, float* y, float* sT,
+             float* ckpt, int B, int T_len, int H, int N, int dtype,
+             int variant, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaSuccess;
-  if (T_len <= 0 || variant < 0 || variant > 1)
+  if (T_len <= 0 || variant < 0 || variant > 1 ||
+      (variant == 1 && ckpt != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{r, k, v, w, u, s0, y, sT, B, T_len, H, (cudaStream_t)stream};
+  const Args a{r, k, v, w, u, s0, y, sT, ckpt, B, T_len, H,
+               (cudaStream_t)stream};
   if (dtype == 0) return dispatch_n<float>(variant, N, a);
   if (dtype == 1) return dispatch_n<__nv_bfloat16>(variant, N, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward.  r, k, v, w, u and ckpt as wkv6_fwd takes and writes
+// them; dy: (B, T, H, N) float32; dsT: null (zero) or (B, H, N, N)
+// float32.  Writes dr, dk, dv: (B, T, H, N) in r's dtype; dw: (B, T, H, N)
+// float32; du_part: (B, H, N) float32 scratch; du: (H, N) float32; ds0:
+// null (not wanted) or (B, H, N, N) float32.  Two launches: the walk, and
+// du's sum over b.  Returns a cudaError_t.
+int wkv6_bwd(const void* r, const void* k, const void* v, const float* w,
+             const float* u, const float* dy, const float* dsT,
+             const float* ckpt, void* dr, void* dk, void* dv, float* dw,
+             float* du_part, float* du, float* ds0, int B, int T_len, int H,
+             int N, int dtype, void* stream) {
+  if (B <= 0 || H <= 0) return (int)cudaSuccess;
+  if (T_len <= 0) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{r, k, v, w, u, dy, dsT, ckpt, dr, dk, dv, dw, du_part,
+                  du, ds0, B, T_len, H, (cudaStream_t)stream};
+  if (dtype == 0) return dispatch_bwd<float>(N, a);
+  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(N, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,9 @@ rounds of a few elementwise ops, and no Python step per token.
 RWKV-6.  The time mix's WKV recurrence goes to the hand-written CUDA
 kernel through :func:`repro_torch.kernels.ops.wkv6` for every T, prefill
 and decode alike (the reference uses ``wkv6_scan_chunked`` for T > 1 and
-``wkv6_scan_ref`` for T = 1, both the same function).
+``wkv6_scan_ref`` for T = 1, both the same function), and in training
+its gradient to the WKV6 backward kernel (the reference differentiates
+``wkv6_scan_chunked`` with XLA).
 :func:`wkv6_scan_chunked` stays here as the plain chunked form the tests
 hold the kernel's plain version to.
 """

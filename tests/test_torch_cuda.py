@@ -767,7 +767,7 @@ def test_cuda_wkv6_matches_plain(cuda_device, shape, dtype):
     got = wk.wkv6(*args)
     torch.cuda.synchronize()
     assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
-        "wkv6": 1, "wkv6_seq": 0}
+        "wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0}
     _wkv_close(got, wk.wkv6_scan_ref(*args))
 
 
@@ -794,7 +794,7 @@ def test_cuda_wkv6_split_matches_sequential(cuda_device, shape, dtype):
     seq = wk._launch(*args, variant="seq")
     torch.cuda.synchronize()
     assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
-        "wkv6": 1, "wkv6_seq": 1}
+        "wkv6": 1, "wkv6_seq": 1, "wkv6_bwd": 0}
     _wkv_close(split, seq)
 
 
@@ -1384,12 +1384,115 @@ def test_cuda_flash_attention_backward_routes_through_the_kernel(
     assert fa.LAUNCHES["flash_attention_bwd"] == 0
 
 
-def test_cuda_wkv6_backward_is_not_ported(cuda_device):
-    from repro_torch.models import NotPortedError
-    args = _wkv_inputs(cuda_device, 1, 4, 2, 16, torch.float32)
-    r = args[0].clone().requires_grad_()
-    with pytest.raises(NotPortedError, match="WKV6"):
-        wk.wkv6(r, *args[1:])
+#: the WKV6 backward's cases (B, T, H, N): a step alone, ragged T, one
+#: past the 16-step chunk and past a power of two, every head size, and
+#: rwkv6-3b's training shape
+WKV_BWD_SHAPES = [(2, 1, 3, 64), (1, 37, 2, 64), (2, 100, 2, 16),
+                  (1, 64, 4, 32), (2, 17, 3, 64), (1, 1025, 2, 64),
+                  (4, 1024, 40, 64)]
+
+
+def _wkv_bwd_inputs(device, shape, dtype, seed):
+    """The forward's inputs (strong decays, a random s0), dy and dsT."""
+    B, T, H, N = shape
+    args = _wkv_inputs(device, *shape, dtype, seed=seed, strong=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn((B, T, H, N), generator=gen, device=device)
+    dsT = torch.randn((B, H, N, N), generator=gen, device=device)
+    return args, dy, dsT
+
+
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_wkv6_backward_matches_plain(cuda_device, shape, dtype):
+    """The forward's checkpoints against ``wkv6_fwd_ref``, and the backward
+    kernel (one launch) against ``wkv6_bwd_ref``: each of dr, dk, dv, dw,
+    du and ds0 within relative L2 1e-5 (fp32) or 1e-2 (bf16), with a
+    nonzero dsT, and without dsT or ds0 as the train step launches it."""
+    args, dy, dsT = _wkv_bwd_inputs(cuda_device, shape, dtype, 11)
+    y, sT, ckpt = wk._launch(*args, ckpt=True)
+    _wkv_close((y, sT, ckpt), wk.wkv6_fwd_ref(*args))
+    for cot, want_ds0 in ((dsT, True), (None, False)):
+        before = dict(wk.LAUNCHES)
+        got = wk._launch_bwd(*args[:5], ckpt, dy, cot, want_ds0)
+        torch.cuda.synchronize()
+        assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
+            "wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1}
+        want = wk.wkv6_bwd_ref(*args, dy, cot)
+        assert (got[5] is not None) == want_ds0
+        for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                              want[:6 if want_ds0 else 5]):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert _rel_or_floor(g, w, 1.0) < BWD_LIMIT[dtype], name
+
+
+def test_cuda_wkv6_backward_is_deterministic(cuda_device):
+    """Two calls give the same bits: every sum is taken in a fixed order
+    inside one block a stream, du's over b by a second kernel in order
+    (no atomics)."""
+    for i, shape in enumerate(WKV_BWD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, dy, dsT = _wkv_bwd_inputs(cuda_device, shape, dtype, i)
+            _, _, ckpt = wk._launch(*args, ckpt=True)
+            first = wk._launch_bwd(*args[:5], ckpt, dy, dsT, True)
+            second = wk._launch_bwd(*args[:5], ckpt, dy, dsT, True)
+            torch.cuda.synchronize()
+            for a, b in zip(first, second):
+                assert torch.equal(a, b), (shape, dtype)
+
+
+def test_cuda_wkv6_gradients_route_through_the_kernels(cuda_device):
+    """With gradients wanted, ``wkv6`` goes through ``WKV6Fn``: one forward
+    launch (with checkpoints) and one backward launch, the gradients of
+    every input against the plain backward; under ``inference_mode`` the
+    forward alone, as serving runs it."""
+    args, dy, dsT = _wkv_bwd_inputs(cuda_device, (2, 40, 3, 64),
+                                    torch.bfloat16, 5)
+    leaves = [t.clone().requires_grad_() for t in args]
+    wk.reset_launches()
+    y, sT = wk.wkv6(*leaves)
+    got = torch.autograd.grad((y, sT), leaves, (dy, dsT))
+    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 1}
+    want = wk.wkv6_bwd_ref(*args, dy, dsT)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert _rel_or_floor(g, w, 1.0) < BWD_LIMIT[torch.bfloat16]
+    wk.reset_launches()
+    with torch.inference_mode():
+        wk.wkv6(*leaves)
+    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0}
+
+
+def test_cuda_reduced_rwkv_training_step_matches_cpu(cuda_device):
+    """A reduced rwkv6-3b train step in fp32 on the card (the split kernel
+    twice a layer with remat, the backward kernel once) against the same
+    step on the CPU."""
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              trainable_params)
+    cfg = configs.reduced(configs.get("rwkv6-3b"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40)).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 40)).astype(
+                 np.int32)}
+    out = []
+    for dev in ("cpu", cuda_device):
+        model = LM(cfg, device="cpu", seed=0).to(dev)
+        params = trainable_params(model)
+        step, opt = make_train_step(model, TrainConfig())
+        wk.reset_launches()
+        _, _, m = step(params, opt.init(params), batch)
+        out.append((float(m["loss"]), {k: p.detach().cpu()
+                                       for k, p in params.items()},
+                    dict(wk.LAUNCHES)))
+    (l_cpu, p_cpu, _), (l_gpu, p_gpu, launches) = out
+    assert launches == {"wkv6": 2 * cfg.num_layers, "wkv6_seq": 0,
+                        "wkv6_bwd": cfg.num_layers}
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_gpu[k].numpy(), p_cpu[k].numpy(),
+                                   rtol=1e-5, atol=1e-6)
 
 
 def test_cuda_reduced_training_step_matches_cpu(cuda_device):
