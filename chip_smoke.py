@@ -2089,7 +2089,8 @@ ENCDEC_PARITY_LAYERS, ENCDEC_PARITY_FRAMES = 2, 100
 ENCDEC_PARITY_STEPS = 8
 #: the backwards' counts, none of which a serving phase may move
 NO_BWD = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-          "flash_attention_bwd_scalar": 0, "wkv6_bwd": 0}
+          "flash_attention_bwd_scalar": 0, "wkv6_bwd": 0,
+          "wkv6_bwd_block": 0}
 #: the record entries whose ``time_lm_kernel`` also times the scalar
 #: kernel in fp32 at their path's shape (its entry's name)
 SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
@@ -2216,7 +2217,7 @@ def check_wkv(torch, args, label, errs=None):
     before = dict(wk.LAUNCHES)
     y, sT = wk.wkv6(*args)
     check({n: wk.LAUNCHES[n] - before[n] for n in before}
-          == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0},
+          == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0, "wkv6_bwd_block": 0},
           f"{label}: wkv6 did not launch the split kernel once")
     y_p, s_p = wk.wkv6_scan_ref(*args)
     sync(torch, y.device)
@@ -3308,18 +3309,22 @@ WKV_BWD_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 
 def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
     """The forward's checkpoints against ``wkv6_fwd_ref`` (``WKV_TOL``),
-    and the backward kernel against ``wkv6_bwd_ref``, each of its six
-    gradients within :data:`BWD_LIMIT` relative L2, one launch a call and
-    a second call bitwise, over :data:`WKV_BWD_CASES` and
-    ``train_shape``; the planted fault (dS not carried across the middle
-    chunk boundary) must fail the check at the shapes of more than 64
-    steps at N = 16 and at the training shape.  Returns the largest max
-    |err|."""
+    and each backward kernel (``rwkv6_scan.BWD_VARIANTS``: the cluster
+    kernel the train step runs, and the one-block-a-stream yardstick)
+    against ``wkv6_bwd_ref``, each of its six gradients within
+    :data:`BWD_LIMIT` relative L2, one launch a call (counted under its
+    variant) and a second call bitwise, over :data:`WKV_BWD_CASES` and
+    ``train_shape``; the cluster kernel also within :data:`BWD_LIMIT` of
+    the yardstick.  The planted fault (dS not carried across the middle
+    chunk boundary) must fail the cluster kernel's check at the shapes of
+    more than 64 steps at N = 16 and at the training shape.  Returns the
+    largest max |err| by variant."""
     from repro_torch.kernels import rwkv6_scan as wk
-    worst_abs, n_caught = 0.0, 0
+    worst_abs, n_caught = dict.fromkeys(wk.BWD_VARIANTS, 0.0), 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        limit, worst = BWD_LIMIT[name], 0.0
+        limit, worst = BWD_LIMIT[name], dict.fromkeys(wk.BWD_VARIANTS, 0.0)
+        worst_pair = 0.0
         for i, shape in enumerate(WKV_BWD_CASES + [tuple(train_shape)]):
             B, T, H, N = shape
             r, k, v, w, u, s0 = wkv_inputs(torch, *shape, dtype, seed + i,
@@ -3334,27 +3339,44 @@ def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
                       for a, b in zip((y, sT, ckpt), want_f)),
                   f"wkv6 {name} {shape}: the forward's y, s_T or "
                   f"checkpoints outside atol {WKV_TOL[0]} rtol {WKV_TOL[1]}")
-            before = dict(wk.LAUNCHES)
-            got = wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT, True)
-            check({n: wk.LAUNCHES[n] - before[n] for n in before}
-                  == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1},
-                  f"wkv6 backward {name} {shape}: not one launch")
             want = wk.wkv6_bwd_ref(r, k, v, w, u, s0, dy, dsT)
-            sync(torch, dev)
-            for gname, g, wg in zip(WKV_BWD_GRADS, got, want):
-                check(g.dtype == wg.dtype and g.shape == wg.shape,
-                      f"wkv6 backward {name} {shape}: {gname} {g.dtype} "
-                      f"{tuple(g.shape)}")
+            got = {}
+            for variant in wk.BWD_VARIANTS:
+                before = dict(wk.LAUNCHES)
+                got[variant] = wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT,
+                                              True, variant=variant)
+                check({n: wk.LAUNCHES[n] - before[n] for n in before}
+                      == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1,
+                          "wkv6_bwd_block": int(variant == "block")},
+                      f"wkv6 backward {variant} {name} {shape}: not one "
+                      f"launch")
+                sync(torch, dev)
+                for gname, g, wg in zip(WKV_BWD_GRADS, got[variant], want):
+                    check(g.dtype == wg.dtype and g.shape == wg.shape,
+                          f"wkv6 backward {variant} {name} {shape}: {gname} "
+                          f"{g.dtype} {tuple(g.shape)}")
+                    rel = bwd_rel(torch, g, wg, 1.0)
+                    check(rel < limit, f"wkv6 backward {variant} {name} "
+                          f"{shape}: {gname} relative L2 {rel:.3g} >= "
+                          f"{limit}")
+                    worst[variant] = max(worst[variant], rel)
+                    worst_abs[variant] = max(worst_abs[variant], max_err(
+                        torch, g.float(), wg.float()))
+                again = wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT, True,
+                                       variant=variant)
+                sync(torch, dev)
+                check(all(torch.equal(a, b)
+                          for a, b in zip(got[variant], again)),
+                      f"wkv6 backward {variant} {name} {shape}: two calls "
+                      f"differ")
+                del again
+            for gname, g, wg in zip(WKV_BWD_GRADS, got["cluster"],
+                                    got["block"]):
                 rel = bwd_rel(torch, g, wg, 1.0)
                 check(rel < limit, f"wkv6 backward {name} {shape}: {gname} "
-                      f"relative L2 {rel:.3g} >= {limit}")
-                worst = max(worst, rel)
-                worst_abs = max(worst_abs, max_err(torch, g.float(),
-                                                   wg.float()))
-            again = wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT, True)
-            sync(torch, dev)
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"wkv6 backward {name} {shape}: two calls differ")
+                      f"of the cluster kernel {rel:.3g} from the "
+                      f"yardstick's (limit {limit})")
+                worst_pair = max(worst_pair, rel)
             if T > 64 and (N == 16 or shape == tuple(train_shape)):
                 cut = wk.CKPT_STEPS * (-(-T // wk.CKPT_STEPS) // 2)
                 f = wkv6_cut_bwd(torch, wk._launch_bwd, r, k, v, w, u, ckpt,
@@ -3368,34 +3390,55 @@ def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
                     + " ".join(f"{g} {x:.3g}"
                                for g, x in zip(WKV_BWD_GRADS, rels))
                     + f" (caught: >= {limit})")
-            del r, k, v, w, u, s0, dy, dsT, y, sT, ckpt, want_f, got, want, \
-                again
+            del r, k, v, w, u, s0, dy, dsT, y, sT, ckpt, want_f, got, want
         log(f"[train] wkv6 backward {name}: {len(WKV_BWD_CASES) + 1} shapes "
             f"(strong decays, nonzero s0 and dsT) within relative L2 {limit} "
-            f"for each of {', '.join(WKV_BWD_GRADS)} (worst {worst:.3g}); "
-            f"the forward's checkpoints within atol {WKV_TOL[0]}; second "
-            f"calls bitwise")
+            f"for each of {', '.join(WKV_BWD_GRADS)} (worst: cluster "
+            f"{worst['cluster']:.3g}, yardstick {worst['block']:.3g}; "
+            f"cluster against yardstick {worst_pair:.3g}); the forward's "
+            f"checkpoints within atol {WKV_TOL[0]}; second calls bitwise")
     check(n_caught > 0, "no planted fault was checked")
     return worst_abs
 
 
+def bwd_waves(torch, occ, streams) -> int:
+    """Waves of a backward launch over ``streams`` (b, h) streams: the
+    cluster kernel's clusters over those resident at once, the block
+    kernel's blocks over blocks an SM times the card's SMs."""
+    if occ["clusters"]:
+        return -(-streams // occ["clusters"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-streams // (occ["blocks_per_sm"] * sms))
+
+
 def time_wkv6_bwd(torch, seed, shape, dev="cuda"):
     """The WKV6 backward at rwkv6-3b's training ``shape`` as the train step
-    launches it (bf16 r, k and v, no dsT, no ds0): its time, the
-    forward's with and without its checkpoints, the plain version's and
-    the bound.  The bound counts 14 N^2 flops a step and stream (the
-    state recomputed from its checkpoint, 3; dr, dk, dv, dw, 2 each; dS,
-    3) and the bytes of r, k, v, w, u, dy and the checkpoints in, dr, dk,
-    dv, dw and du out.  No single PyTorch call computes this function:
-    ``library_ms`` is None."""
+    launches it (bf16 r, k and v, no dsT, no ds0): the cluster kernel's
+    time and the yardstick's (``variant="block"``) in turns, each with
+    what the card gives it (blocks an SM, clusters resident, registers)
+    and its waves; the forward's with and without its checkpoints, the
+    plain version's and the bound.  The bound counts 14 N^2 flops a step
+    and stream (the state recomputed from its checkpoint, 3; dr, dk, dv,
+    dw, 2 each; dS, 3) and the bytes of r, k, v, w, u, dy and the
+    checkpoints in, dr, dk, dv, dw and du out.  No single PyTorch call
+    computes this function: ``library_ms`` is None."""
     from repro_torch.kernels import rwkv6_scan as wk
     B, T, H, N = shape
     r, k, v, w, u, s0 = wkv_inputs(torch, *shape, torch.bfloat16, seed,
                                    random_state=False, dev=dev, strong=True)
     dy = torch.randn((B, T, H, N), device=dev)
     _, _, ckpt = wk._launch(r, k, v, w, u, s0, ckpt=True)
-    ms = time_ms(torch, lambda: wk._launch_bwd(r, k, v, w, u, ckpt, dy, None,
-                                               False), iters=50, warmup=5)
+
+    def run(variant):
+        return lambda: wk._launch_bwd(r, k, v, w, u, ckpt, dy, None, False,
+                                      variant=variant)
+    turns = {"cluster": [], "block": []}
+    for variant in ("cluster", "block", "block", "cluster"):
+        turns[variant].append(time_ms(torch, run(variant), iters=50,
+                                      warmup=5))
+    ms, block_ms = (sum(turns[x]) / 2 for x in ("cluster", "block"))
+    occ = {x: wk.bwd_occupancy(N, torch.bfloat16, x) for x in turns}
+    waves = {x: bwd_waves(torch, occ[x], B * H) for x in turns}
     fwd_ckpt_ms = time_ms(torch, lambda: wk._launch(r, k, v, w, u, s0,
                                                     ckpt=True))
     fwd_ms = time_ms(torch, lambda: wk._launch(r, k, v, w, u, s0))
@@ -3404,14 +3447,34 @@ def time_wkv6_bwd(torch, seed, shape, dev="cuda"):
     n, es = B * T * H * N, r.element_size()
     n_bytes = 6 * es * n + 3 * 4 * n + 4 * ckpt.numel() + 2 * 4 * H * N
     bound = bound_ms(n_bytes, 14 * N * N * B * H * T)
-    log(f"[time] wkv6_bwd B,T,H,N={shape} bf16: {ms:.4f} ms (plain "
-        f"{plain_ms:.3f} ms); bound {bound[0]:.5f} ms ({bound[1]}; "
-        f"{n_bytes / 1e6:.1f} MB, {14 * N * N * B * H * T / 1e9:.3f} "
-        f"GFLOP); the forward with its checkpoints {fwd_ckpt_ms:.4f} ms, "
-        f"without {fwd_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound": bound,
-            "library_ms": None, "forward_ckpt_ms": fwd_ckpt_ms,
-            "forward_ms": fwd_ms}
+    for x, label in (("cluster", "wkv6_bwd_cluster"),
+                     ("block", "wkv6_bwd_block (yardstick)")):
+        o = occ[x]
+        log(f"[time] {label} B,T,H,N={shape} bf16: "
+            f"{' '.join(f'{t:.4f}' for t in turns[x])} ms in turns; "
+            f"{o['threads']} threads, {o['registers']} registers, "
+            f"{o['spill']} bytes of spills, {o['smem']} bytes of shared "
+            f"memory a block; {o['blocks_per_sm']} blocks an SM, "
+            f"{o['clusters'] or '-'} clusters resident, "
+            f"{B * H * o['blocks_per_stream']} blocks in {waves[x]} "
+            f"wave(s)")
+    log(f"[time] wkv6_bwd B,T,H,N={shape} bf16: {ms:.4f} ms, "
+        f"{ms / bound[0]:.1f} x the bound, {block_ms / ms:.2f} x faster "
+        f"than the yardstick's {block_ms:.4f} (plain {plain_ms:.3f} ms); "
+        f"bound {bound[0]:.5f} ms ({bound[1]}; {n_bytes / 1e6:.1f} MB, "
+        f"{14 * N * N * B * H * T / 1e9:.3f} GFLOP); the forward with its "
+        f"checkpoints {fwd_ckpt_ms:.4f} ms, without {fwd_ms:.4f} ms")
+    common = {"plain_ms": plain_ms, "bound": bound, "library_ms": None}
+    return {"ms": ms, "earlier_ms": block_ms, **common,
+            "forward_ckpt_ms": fwd_ckpt_ms, "forward_ms": fwd_ms,
+            "blocks_per_sm": occ["cluster"]["blocks_per_sm"],
+            "clusters": occ["cluster"]["clusters"],
+            "waves": waves["cluster"],
+            "registers": occ["cluster"]["registers"],
+            "block": {"ms": block_ms, **common,
+                      "blocks_per_sm": occ["block"]["blocks_per_sm"],
+                      "waves": waves["block"],
+                      "registers": occ["block"]["registers"]}}
 
 
 def bwd_rel(torch, got, want, floor):
@@ -3635,6 +3698,73 @@ def time_attention_bwd(torch, seed, dev="cuda"):
                 "ms": scalar_ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound": bound, "err": s_err,
                 "shape": label}
+        del q, k, v, o, do
+        free_card(torch, dev)
+    return out
+
+
+#: the scalar backward's own uses (B, T, H, G, D, window, dtype), by
+#: record entry: pixtral-12b's and recurrentgemma-9b's bf16 shapes (its
+#: window of 2,048 reaches every earlier key of 1,024: causal), which no
+#: path trains yet, and qwen3-1.7b's in fp32, the fp32 gradient check's
+SCALAR_BWD_TIMED = {
+    "flash_attention_bwd_scalar_d160": (4, 2048, 32, 8, 160, None,
+                                        "bfloat16"),
+    "flash_attention_bwd_scalar_d256": (4, 1024, 16, 1, 256, 2048,
+                                        "bfloat16"),
+    "flash_attention_bwd_scalar_fp32": (TRAIN_B, TRAIN_T, 16, 8, 128, None,
+                                        "float32")}
+
+
+def time_scalar_bwd(torch, seed, dev="cuda"):
+    """The scalar backward (``kind="scalar"``) at each shape of
+    :data:`SCALAR_BWD_TIMED`, causal, held against its plain version on
+    the same inputs (:data:`BWD_LIMIT`): its time, the plain version's,
+    SDPA's backward alone (``enable_gqa``, the forward outside the timed
+    region; the port never calls it) and the bound (operations at the
+    dtype's peak, bytes of q, k, v, o, dO in and dq, dk, dv out).  Returns
+    {entry: numbers}."""
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for entry, (B, T, H, G, D, window, dt) in SCALAR_BWD_TIMED.items():
+        dtype = getattr(torch, dt)
+        q, k, v = attn_inputs(torch, B, T, H, G, D, dtype, seed, dev)
+        o = fa._launch(q, k, v, True, window)
+        do = torch.randn_like(q)
+        label = (B, T, T, H, G, D, True, window)
+
+        def scalar():
+            return fa._launch_bwd(q, k, v, o, do, True, window,
+                                  kind="scalar")
+        want = fa.attention_bwd_ref(q, k, v, o, do, causal=True,
+                                    window=window)
+        rel, err = hold_bwd(torch, scalar(), want, dtype, ("scalar",) + label)
+        del want
+        ms = time_ms(torch, scalar, iters=5, warmup=1)
+        plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
+            q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        y = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        dos = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            y, (qs, ks, vs), dos, retain_graph=True), iters=20, warmup=3)
+        del y, qs, ks, vs
+        flops = 5 * 2 * B * H * T * T * D / 2
+        n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
+        bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
+                         if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+        log(f"[time] {entry} (B={B} T={T} H={H} G={G} D={D} causal"
+            f"{f' window {window}' if window else ''}, {dt}): scalar "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
+            f"{library_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+            f"{ms / bound[0]:.1f} x the bound, {ms / library_ms:.2f} x "
+            f"SDPA; against the plain version relative L2 {rel:.3g}, max "
+            f"|err| {err:.3g}")
+        out[entry] = {"ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound": bound, "err": err,
+                      "shape": label}
         del q, k, v, o, do
         free_card(torch, dev)
     return out
@@ -4107,7 +4237,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
           "the backward kernel launched before the training phase")
     errs = check_attention_bwd(torch, seed, dev)
     err, scalar_err = errs["tc"], errs["scalar"]
-    times = None
+    times = scalar_times = None
     if on_card:
         err = max(err, check_attention_bwd_path_shapes(torch, seed, dev))
         times = time_attention_bwd(torch, seed, dev)
@@ -4254,6 +4384,13 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
               f"{cfg4.num_layers}")
     del model, params
     free_card(torch, dev)
+    # the scalar backward at its own uses, after qwen3-1.7b's timed steps,
+    # which measured slower after it (its plain references at D = 160 and
+    # 256 take several GiB)
+    if on_card:
+        scalar_times = time_scalar_bwd(torch, seed, dev)
+        scalar_err = max([scalar_err]
+                         + [r["err"] for r in scalar_times.values()])
 
     # the encoder-decoder: bidirectional and cross backward on its path
     ecfg = encdec_cfg or configs.get("seamless-m4t-large-v2")
@@ -4301,7 +4438,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
             "encdec_launches": shapes, "err": err, "scalar_err": scalar_err,
             "losses": losses, "step_ms": med_s * 1e3, "share": share,
             "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
-            "wkv6": wkv}
+            "scalar_times": scalar_times, "wkv6": wkv}
 
 
 def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
@@ -4331,7 +4468,7 @@ def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
     L, H = cfg.num_layers, cfg.d_model // cfg.rwkv_head_dim
     check(wk.LAUNCHES["wkv6_bwd"] == 0,
           "the WKV6 backward launched before its training phase")
-    err = check_wkv6_bwd(torch, seed, (B, T, H, cfg.rwkv_head_dim), dev)
+    errs = check_wkv6_bwd(torch, seed, (B, T, H, cfg.rwkv_head_dim), dev)
     times = time_wkv6_bwd(torch, seed, (B, T, H, cfg.rwkv_head_dim), dev) \
         if on_card else None
     stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
@@ -4341,7 +4478,8 @@ def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
         torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=dev, seed=seed)
     params, state, step_fn, counted = trainer(
-        model, ("wkv6", "wkv6_bwd", "flash_attention", "flash_attention_bwd"))
+        model, ("wkv6", "wkv6_bwd", "flash_attention", "flash_attention_bwd",
+                "wkv6_bwd_block"))
     params, state, hist = loop(model, params, state, step_fn, 0, steps,
                                batches_of=stream)
     losses, step_s = hist["loss"], hist["step_time"]
@@ -4350,10 +4488,11 @@ def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     if on_card:
-        check(counted == [(2 * L, L, 0, 0)] * steps, f"launches (wkv6, "
-              f"wkv6_bwd, attention forward and backward) a step "
-              f"{counted}, expected {(2 * L, L, 0, 0)}: {L} layers and "
-              f"their recompute, {L} backward")
+        check(counted == [(2 * L, L, 0, 0, 0)] * steps, f"launches (wkv6, "
+              f"wkv6_bwd, attention forward and backward, the WKV6 "
+              f"yardstick) a step {counted}, expected {(2 * L, L, 0, 0, 0)}"
+              f": {L} layers and their recompute, {L} backward, every one "
+              f"the cluster kernel")
     med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
     log(f"[train] {cfg.name} ({L} layers, d_model {cfg.d_model}, "
         f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B params, "
@@ -4403,8 +4542,8 @@ def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
                   f"backward {n} times, expected {n_layers}")
         del model, params
         free_card(torch, dev)
-    return {"launches": sum(c[1] for c in counted), "err": err,
-            "losses": losses, "step_ms": med_s * 1e3, "share": share,
+    return {"launches": sum(c[1] for c in counted), "err": errs["cluster"],
+            "block_err": errs["block"], "losses": losses, "step_ms": med_s * 1e3, "share": share,
             "peak": peak, "rel": tuple(rels), "layer_rel": layer_rel,
             "times": times}
 
@@ -4721,11 +4860,27 @@ def main() -> int:
                 if bwd_name == "flash_attention_bwd":
                     kernels[-1].update(step_ms=train["step_ms"],
                                        step_share=train["share"])
+            # the scalar backward at its own uses: the fp32 check's
+            # launches at qwen3-1.7b's shape; none at D = 160, 256
+            for bwd_name, r in train["scalar_times"].items():
+                n_launches = train["scalar_launches"] \
+                    if bwd_name.endswith("fp32") else 0
+                kernels.append(entry(
+                    bwd_name, "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    TRAIN_REPLACES, n_launches, train["scalar_err"], r))
         if name == "wkv6_bwd":
-            kernels[-1].update(forward_ckpt_ms=r["forward_ckpt_ms"],
-                               forward_ms=r["forward_ms"],
-                               step_ms=wkv["step_ms"],
-                               step_share=wkv["share"])
+            kernels[-1].update(
+                kernel="wkv6_bwd_cluster", forward_ckpt_ms=r["forward_ckpt_ms"],
+                forward_ms=r["forward_ms"], step_ms=wkv["step_ms"],
+                step_share=wkv["share"], blocks_per_sm=r["blocks_per_sm"],
+                clusters=r["clusters"], waves=r["waves"],
+                registers=r["registers"])
+            # the yardstick, timed beside it: no launch on the path
+            y = r["block"]
+            kernels.append(entry("wkv6_bwd_block", spec["source"],
+                                 spec["replaces"], 0, wkv["block_err"], y))
+            kernels[-1].update(blocks_per_sm=y["blocks_per_sm"],
+                               waves=y["waves"], registers=y["registers"])
         if "decode_ms" in r:
             kernels[-1].update(
                 decode_ms=r["decode_ms"],

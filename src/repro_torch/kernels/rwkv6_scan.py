@@ -21,8 +21,9 @@ it launches the kernel or raises, and never falls back.
 The gradient.  On CUDA tensors that require grad (with grad mode on)
 :func:`wkv6` goes through :class:`WKV6Fn`: its forward launches the split
 kernel, which also saves the state before every :data:`CKPT_STEPS`-th
-step, and its backward launches ``wkv6_bwd``, which recomputes each
-chunk's states from those and walks the chunk back (the header of
+step, and its backward launches ``wkv6_bwd_cluster``, which recomputes
+each chunk's states from those and walks the chunk back, a stream's state
+columns split over a thread-block cluster (the header of
 ``csrc/wkv6_scan.cu`` has the design).  :func:`wkv6_bwd_ref` is the plain
 version of the backward, from the explicit formulas, and
 :func:`wkv6_fwd_ref` that of the forward with its checkpoints.
@@ -30,10 +31,14 @@ version of the backward, from the explicit formulas, and
 Kernels, all in ``csrc/wkv6_scan.cu``: ``wkv6_split`` (variant
 ``"split"``), which :func:`wkv6` launches, the sequential ``wkv6_seq`` it
 replaced (variant ``"seq"``), kept as the yardstick and reached only
-through ``_launch(..., variant="seq")``, and the backward.
-:data:`LAUNCHES` counts kernel launches and nothing else: ``wkv6`` every
-forward launch of either, ``wkv6_seq`` the sequential kernel's,
-``wkv6_bwd`` the backward's.
+through ``_launch(..., variant="seq")``; the backward's
+``wkv6_bwd_cluster`` (variant ``"cluster"``), which :class:`WKV6Fn`
+launches, and the one-block-a-stream ``wkv6_bwd_block`` it replaced
+(variant ``"block"``), the yardstick, reached only through
+``_launch_bwd(..., variant="block")``.  :data:`LAUNCHES` counts kernel
+launches and nothing else: ``wkv6`` every forward launch of either,
+``wkv6_seq`` the sequential kernel's, ``wkv6_bwd`` every backward launch
+of either, ``wkv6_bwd_block`` the yardstick's.
 """
 from __future__ import annotations
 
@@ -44,20 +49,25 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["CKPT_STEPS", "HEAD_SIZES", "LAUNCHES", "VARIANTS", "WKV6Fn",
-           "reset_launches", "wkv6", "wkv6_bwd_ref", "wkv6_fwd_ref",
-           "wkv6_scan_ref"]
+__all__ = ["BWD_VARIANTS", "CKPT_STEPS", "HEAD_SIZES", "LAUNCHES",
+           "VARIANTS", "WKV6Fn", "bwd_occupancy", "reset_launches", "wkv6",
+           "wkv6_bwd_ref", "wkv6_fwd_ref", "wkv6_scan_ref"]
 
 #: kernel launches since the last :func:`reset_launches`: ``wkv6`` counts
 #: both forward variants, ``wkv6_seq`` the sequential one alone,
-#: ``wkv6_bwd`` the backward
-LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 0}
+#: ``wkv6_bwd`` both backward variants, ``wkv6_bwd_block`` the yardstick
+#: alone
+LAUNCHES: Dict[str, int] = {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 0,
+                            "wkv6_bwd_block": 0}
 #: the forward saves the state before every this many steps for the
 #: backward (the split kernel's chunk)
 CKPT_STEPS = 16
 #: the kernels ``_launch`` takes by name: the column- and row-split kernel
 #: and the sequential one it replaced
 VARIANTS = ("split", "seq")
+#: the backward kernels ``_launch_bwd`` takes by name: the cluster kernel
+#: and the one-block-a-stream kernel it replaced
+BWD_VARIANTS = ("cluster", "block")
 #: the head sizes the kernel is built for: rwkv6-3b's 64, the reduced
 #: configs' 16 and the reference kernel tests' 32
 HEAD_SIZES = (16, 32, 64)
@@ -66,7 +76,11 @@ _SOURCE = "wkv6_scan"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"wkv6_fwd": [_P] * 9 + [_I] * 6 + [_P],
-               "wkv6_bwd": [_P] * 15 + [_I] * 5 + [_P]}
+               "wkv6_bwd": [_P] * 15 + [_I] * 5 + [_P],
+               "wkv6_bwd_yardstick": [_P] * 15 + [_I] * 5 + [_P],
+               "wkv6_bwd_occupancy": [_I] * 3 + [_P]}
+#: the C entry of each backward variant
+_BWD_ENTRIES = {"cluster": "wkv6_bwd", "block": "wkv6_bwd_yardstick"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -178,6 +192,12 @@ def _check_bwd(r, k, v, w, u, ckpt, dy, dsT) -> Tuple[int, int, int, int]:
     return B, T, H, N
 
 
+def _check_bwd_variant(variant) -> None:
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"unknown backward variant {variant!r}; "
+                         f"expected one of {BWD_VARIANTS}")
+
+
 def _check_operands(r, k, v, w, u, named):
     """The kernels' rules for their operands: r, k and v of one of the
     kernels' dtypes, the rest (w, u and ``named``) float32, N a built head
@@ -232,11 +252,14 @@ def _launch(r, k, v, w, u, s0, variant: str = "split", ckpt: bool = False):
 
 
 def _launch_bwd(r, k, v, w, u, ckpt, dy, dsT: Optional[torch.Tensor],
-                want_ds0: bool):
-    """Launch the backward on CUDA tensors: ``(dr, dk, dv, dw, du, ds0)``
-    as :func:`wkv6_bwd_ref` gives them from ``_launch(..., ckpt=True)``'s
-    checkpoints (ds0 None unless ``want_ds0``; ``dsT`` None is zero).
-    Refuses what the kernel does not take before it builds anything."""
+                want_ds0: bool, variant: str = "cluster"):
+    """Launch the backward ``variant`` on CUDA tensors: ``"cluster"`` (the
+    default, what :class:`WKV6Fn` runs) or ``"block"``.  Returns ``(dr,
+    dk, dv, dw, du, ds0)`` as :func:`wkv6_bwd_ref` gives them from
+    ``_launch(..., ckpt=True)``'s checkpoints (ds0 None unless
+    ``want_ds0``; ``dsT`` None is zero).  Refuses what the kernels do not
+    take before it builds anything."""
+    _check_bwd_variant(variant)
     B, T, H, N = _check_bwd(r, k, v, w, u, ckpt, dy, dsT)
     named = (("ckpt", ckpt), ("dy", dy)) + \
         ((("dsT", dsT),) if dsT is not None else ())
@@ -250,13 +273,37 @@ def _launch_bwd(r, k, v, w, u, ckpt, dy, dsT: Optional[torch.Tensor],
     lib = _build.load(_SOURCE, _SIGNATURES)
     ptr = (lambda t: None if t is None else t.data_ptr())
     _build.check(_build.launch_on(
-        r, lib.wkv6_bwd, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        w.data_ptr(), u.data_ptr(), dy.data_ptr(), ptr(dsT), ckpt.data_ptr(),
-        *(g.data_ptr() for g in grads), dw.data_ptr(), du_part.data_ptr(),
-        du.data_ptr(), ptr(ds0), B, T, H, N, _DTYPE_CODES[r.dtype],
-        _build.current_stream(r)), "wkv6_bwd")
+        r, getattr(lib, _BWD_ENTRIES[variant]), r.data_ptr(), k.data_ptr(),
+        v.data_ptr(), w.data_ptr(), u.data_ptr(), dy.data_ptr(), ptr(dsT),
+        ckpt.data_ptr(), *(g.data_ptr() for g in grads), dw.data_ptr(),
+        du_part.data_ptr(), du.data_ptr(), ptr(ds0), B, T, H, N,
+        _DTYPE_CODES[r.dtype], _build.current_stream(r)),
+        f"wkv6_bwd_{variant}")
     LAUNCHES["wkv6_bwd"] += 1
+    if variant == "block":
+        LAUNCHES["wkv6_bwd_block"] += 1
     return (*grads, dw, du, ds0)
+
+
+def bwd_occupancy(N: int, dtype: torch.dtype,
+                  variant: str = "cluster") -> Dict[str, int]:
+    """What the current card gives the backward ``variant``'s walk at head
+    size ``N`` and ``dtype``: ``blocks_per_sm`` and ``clusters`` resident at
+    once (the CUDA occupancy calls; 0 clusters for ``"block"``), and the
+    block's ``threads``, ``smem`` bytes, ``registers`` a thread, ``spill``
+    bytes a thread and ``blocks_per_stream``.  Builds the kernels; needs a
+    card."""
+    _check_bwd_variant(variant)
+    if dtype not in _DTYPE_CODES or N not in HEAD_SIZES:
+        raise ValueError(f"no backward kernel for {dtype} at N = {N}")
+    out = (ctypes.c_int * 7)()
+    lib = _build.load(_SOURCE, _SIGNATURES)
+    _build.check(lib.wkv6_bwd_occupancy(N, _DTYPE_CODES[dtype],
+                                        BWD_VARIANTS.index(variant),
+                                        ctypes.addressof(out)),
+                 f"the occupancy of wkv6_bwd_{variant}")
+    return dict(zip(("blocks_per_sm", "clusters", "threads", "smem",
+                     "registers", "spill", "blocks_per_stream"), out))
 
 
 class WKV6Fn(torch.autograd.Function):

@@ -767,7 +767,8 @@ def test_cuda_wkv6_matches_plain(cuda_device, shape, dtype):
     got = wk.wkv6(*args)
     torch.cuda.synchronize()
     assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
-        "wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0}
+        "wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0,
+        "wkv6_bwd_block": 0}
     _wkv_close(got, wk.wkv6_scan_ref(*args))
 
 
@@ -794,7 +795,7 @@ def test_cuda_wkv6_split_matches_sequential(cuda_device, shape, dtype):
     seq = wk._launch(*args, variant="seq")
     torch.cuda.synchronize()
     assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
-        "wkv6": 1, "wkv6_seq": 1, "wkv6_bwd": 0}
+        "wkv6": 1, "wkv6_seq": 1, "wkv6_bwd": 0, "wkv6_bwd_block": 0}
     _wkv_close(split, seq)
 
 
@@ -1418,7 +1419,7 @@ def test_cuda_wkv6_backward_matches_plain(cuda_device, shape, dtype):
         got = wk._launch_bwd(*args[:5], ckpt, dy, cot, want_ds0)
         torch.cuda.synchronize()
         assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
-            "wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1}
+            "wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1, "wkv6_bwd_block": 0}
         want = wk.wkv6_bwd_ref(*args, dy, cot)
         assert (got[5] is not None) == want_ds0
         for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
@@ -1429,8 +1430,8 @@ def test_cuda_wkv6_backward_matches_plain(cuda_device, shape, dtype):
 
 def test_cuda_wkv6_backward_is_deterministic(cuda_device):
     """Two calls give the same bits: every sum is taken in a fixed order
-    inside one block a stream, du's over b by a second kernel in order
-    (no atomics)."""
+    (over the lanes by a fixed butterfly, over a cluster's ranks in rank
+    order), du's over b by a second kernel in order (no atomics)."""
     for i, shape in enumerate(WKV_BWD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             args, dy, dsT = _wkv_bwd_inputs(cuda_device, shape, dtype, i)
@@ -1440,6 +1441,76 @@ def test_cuda_wkv6_backward_is_deterministic(cuda_device):
             torch.cuda.synchronize()
             for a, b in zip(first, second):
                 assert torch.equal(a, b), (shape, dtype)
+
+
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("variant", ["cluster", "block"])
+def test_cuda_wkv6_backward_variants_match_plain(cuda_device, variant, shape,
+                                                 dtype):
+    """Each backward kernel by name (the cluster kernel the train step runs,
+    and the one-block-a-stream yardstick) against ``wkv6_bwd_ref``, strong
+    decays, a nonzero s0 and dsT: one launch counted under its variant,
+    each of the six gradients within relative L2 1e-5 (fp32) or 1e-2
+    (bf16)."""
+    args, dy, dsT = _wkv_bwd_inputs(cuda_device, shape, dtype, 17)
+    _, _, ckpt = wk._launch(*args, ckpt=True)
+    before = dict(wk.LAUNCHES)
+    got = wk._launch_bwd(*args[:5], ckpt, dy, dsT, True, variant=variant)
+    torch.cuda.synchronize()
+    assert {n: wk.LAUNCHES[n] - before[n] for n in before} == {
+        "wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 1,
+        "wkv6_bwd_block": int(variant == "block")}
+    want = wk.wkv6_bwd_ref(*args, dy, dsT)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel_or_floor(g, w, 1.0) < BWD_LIMIT[dtype], name
+
+
+@pytest.mark.parametrize("shape", [(4, 1024, 40, 64), (1, 1025, 2, 64),
+                                   (2, 37, 3, 32), (2, 100, 2, 16)], ids=str)
+def test_cuda_wkv6_backward_five_calls_bitwise(cuda_device, shape):
+    """Five calls of the cluster kernel on the same inputs give the same
+    bits, at rwkv6-3b's training shape and at ragged T, with and without
+    dsT and ds0."""
+    args, dy, dsT = _wkv_bwd_inputs(cuda_device, shape, torch.bfloat16, 19)
+    _, _, ckpt = wk._launch(*args, ckpt=True)
+    for cot, want_ds0 in ((dsT, True), (None, False)):
+        calls = [wk._launch_bwd(*args[:5], ckpt, dy, cot, want_ds0)
+                 for _ in range(5)]
+        torch.cuda.synchronize()
+        for other in calls[1:]:
+            for a, b in zip(calls[0], other):
+                assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", WKV_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_wkv6_backward_cluster_matches_yardstick(cuda_device, shape,
+                                                      dtype):
+    """The cluster kernel against the kernel it replaced, on the same
+    inputs: each gradient within ``BWD_LIMIT``."""
+    args, dy, dsT = _wkv_bwd_inputs(cuda_device, shape, dtype, 23)
+    _, _, ckpt = wk._launch(*args, ckpt=True)
+    new = wk._launch_bwd(*args[:5], ckpt, dy, dsT, True)
+    old = wk._launch_bwd(*args[:5], ckpt, dy, dsT, True, variant="block")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), new, old):
+        assert _rel_or_floor(a, b, 1.0) < BWD_LIMIT[dtype], name
+
+
+def test_cuda_wkv6_backward_runs_in_one_wave(cuda_device):
+    """At rwkv6-3b's training shape in bf16 (B = 4, H = 40: 160 streams)
+    the card holds every cluster (two blocks of 32 state columns) at once;
+    the yardstick's 160 blocks of one an SM do not fit."""
+    if torch.cuda.get_device_properties(0).multi_processor_count < 132:
+        pytest.skip("the one-wave claim is for a 132-SM H100")
+    occ = wk.bwd_occupancy(64, torch.bfloat16)
+    assert occ["blocks_per_stream"] == 2 and occ["clusters"] >= 160, occ
+    old = wk.bwd_occupancy(64, torch.bfloat16, "block")
+    assert old["clusters"] == 0 and old["blocks_per_sm"] == 1, old
 
 
 def test_cuda_wkv6_gradients_route_through_the_kernels(cuda_device):
@@ -1453,7 +1524,8 @@ def test_cuda_wkv6_gradients_route_through_the_kernels(cuda_device):
     wk.reset_launches()
     y, sT = wk.wkv6(*leaves)
     got = torch.autograd.grad((y, sT), leaves, (dy, dsT))
-    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 1}
+    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 1,
+                           "wkv6_bwd_block": 0}
     want = wk.wkv6_bwd_ref(*args, dy, dsT)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
@@ -1461,7 +1533,8 @@ def test_cuda_wkv6_gradients_route_through_the_kernels(cuda_device):
     wk.reset_launches()
     with torch.inference_mode():
         wk.wkv6(*leaves)
-    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0}
+    assert wk.LAUNCHES == {"wkv6": 1, "wkv6_seq": 0, "wkv6_bwd": 0,
+        "wkv6_bwd_block": 0}
 
 
 def test_cuda_reduced_rwkv_training_step_matches_cpu(cuda_device):
@@ -1488,7 +1561,7 @@ def test_cuda_reduced_rwkv_training_step_matches_cpu(cuda_device):
                     dict(wk.LAUNCHES)))
     (l_cpu, p_cpu, _), (l_gpu, p_gpu, launches) = out
     assert launches == {"wkv6": 2 * cfg.num_layers, "wkv6_seq": 0,
-                        "wkv6_bwd": cfg.num_layers}
+                        "wkv6_bwd": cfg.num_layers, "wkv6_bwd_block": 0}
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
     for k in p_cpu:
         np.testing.assert_allclose(p_gpu[k].numpy(), p_cpu[k].numpy(),

@@ -160,7 +160,8 @@ def test_cpu_counts_no_launch():
     arrays = _real_decay_inputs(4, 2, 5, 2, 32, True)
     wk.reset_launches()
     ops.wkv6(*(torch.from_numpy(a) for a in arrays))
-    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 0}
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 0,
+                           "wkv6_bwd_block": 0}
 
 
 @pytest.mark.parametrize("variant", ["scalar", "tc", "", "SEQ", None])

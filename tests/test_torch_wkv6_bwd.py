@@ -298,6 +298,70 @@ def test_launch_bwd_refuses_before_it_builds(bad, monkeypatch):
     assert wk.LAUNCHES == before
 
 
+@pytest.mark.parametrize("variant", ["split", "seq", "tc", "", "CLUSTER",
+                                     None])
+def test_launch_bwd_accepts_only_known_variants(variant, monkeypatch):
+    """``_launch_bwd`` names the backward kernels ``"cluster"`` (the
+    default) and ``"block"`` (the yardstick) and refuses any other name
+    before it builds anything or counts a launch; so does
+    ``bwd_occupancy``."""
+    def no_build(*a, **kw):
+        raise AssertionError("built")
+    monkeypatch.setattr(_build, "load", no_build)
+    assert wk.BWD_VARIANTS == ("cluster", "block")
+    arrays = _inputs((1, 20, 2, 16), seed=12)
+    r, k, v, w, u, s0, dy, dsT = (torch.from_numpy(a) for a in arrays)
+    ckpt = wk.wkv6_fwd_ref(r, k, v, w, u, s0)[2]
+    before = dict(wk.LAUNCHES)
+    with pytest.raises(ValueError, match="variant"):
+        wk._launch_bwd(r, k, v, w, u, ckpt, dy, dsT, True, variant=variant)
+    with pytest.raises(ValueError, match="variant"):
+        wk.bwd_occupancy(16, torch.float32, variant)
+    assert wk.LAUNCHES == before
+
+
+def test_wkv6fn_takes_the_cluster_kernel(monkeypatch):
+    """``WKV6Fn``'s backward names no variant: ``_launch_bwd``'s default,
+    the cluster kernel, with no fallback to the yardstick."""
+    import inspect
+    assert inspect.signature(wk._launch_bwd).parameters["variant"].default \
+        == "cluster"
+    seen = []
+
+    def launch_bwd(*args, **kw):
+        seen.append(kw)
+        grads = wk.wkv6_bwd_ref(*args[:5], args[5][:, :, 0], *args[6:8])
+        return (*grads[:5], None)
+    monkeypatch.setattr(wk, "_launch", lambda *a, **kw: wk.wkv6_fwd_ref(
+        *a[:6]))
+    monkeypatch.setattr(wk, "_launch_bwd", launch_bwd)
+    leaves = [torch.from_numpy(a).requires_grad_(i < 5)
+              for i, a in enumerate(_inputs((1, 17, 2, 16), seed=13)[:6])]
+    y, _ = wk.WKV6Fn.apply(*leaves)
+    y.sum().backward()
+    assert seen == [{}]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", wk.HEAD_SIZES)
+def test_bwd_occupancy_refuses_what_no_kernel_takes(N, dtype, monkeypatch):
+    """``bwd_occupancy`` refuses a head size or dtype the kernels are not
+    built for before it builds anything; the ones they are built for go
+    on to the build."""
+    class Built(Exception):
+        pass
+
+    def no_build(*a, **kw):
+        raise Built
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        wk.bwd_occupancy(N + 8, dtype)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        wk.bwd_occupancy(N, torch.float16)
+    with pytest.raises(Built):
+        wk.bwd_occupancy(N, dtype, "block")
+
+
 def test_launch_saves_checkpoints_only_from_the_split_kernel():
     tens = [torch.from_numpy(a) for a in _inputs((1, 4, 2, 16))[:6]]
     before = dict(wk.LAUNCHES)
@@ -314,7 +378,8 @@ def test_cpu_gradients_launch_nothing():
     wk.reset_launches()
     y, sT = ops.wkv6(*leaves)
     (y.sum() + sT.sum()).backward()
-    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 0}
+    assert wk.LAUNCHES == {"wkv6": 0, "wkv6_seq": 0, "wkv6_bwd": 0,
+                           "wkv6_bwd_block": 0}
 
 
 def test_checkpoint_steps_are_the_kernels_chunk():
