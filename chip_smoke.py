@@ -155,12 +155,15 @@ Phases:
    bidirectional with Tq != Tk and fully masked rows, GQA R = 1, 2, 4,
    48, ragged T, Tq = 1; each of dq, dk, dv within relative L2 1e-5 in
    fp32 and 1e-2 in bf16): the variant ``bwd_variant`` names (the
-   tensor-core kernel for bf16 at D <= 128, whose second call must give
-   the same bits) and, where that is the tensor-core kernel, the scalar
-   yardstick too; with a planted fault (the last 64 keys' contribution
-   dropped) that the check must refuse; held the same way at the path's
-   shapes (seamless-m4t-large-v2's three in bf16 and fp32, qwen3-1.7b's
-   in fp32, and in bf16 where each is timed, ``BWD_TIMED``: the
+   tensor-core kernel for bf16 at every head size, whose second call
+   must give the same bits) and, where that is the tensor-core kernel,
+   the scalar yardstick too; with a planted fault (the last 64 keys'
+   contribution dropped) that the check must refuse; held the same way at
+   the path's shapes (seamless-m4t-large-v2's three in bf16 and fp32,
+   qwen3-1.7b's in fp32, pixtral-12b's and recurrentgemma-9b's and a
+   4,096-position one where the 2,048 window binds in bf16, each a second
+   call bitwise and the kernel with the planted fault refused, and in
+   bf16 where each is timed, ``BWD_TIMED``: the
    tensor-core kernel beside the scalar yardstick, the plain version,
    SDPA's backward and its bound); qwen3-1.7b at full width and depth for 10 steps of
    4 x 1,024 tokens through ``make_train_step`` and ``train_loop``
@@ -201,7 +204,17 @@ Phases:
    versions differ by more than the limits): bf16 over 2 layers within
    0.1 and 0.05 a leaf, with the planted fault in the last layer, which
    the limits must refuse, and fp32 over 1 layer within 1e-3 and 1e-4
-   (one backward launch);
+   (one backward launch); then recurrentgemma-9b at 9 layers (three
+   cycles of rec, rec, attn) and pixtral-12b at 8, full width (one card
+   holds neither at full depth with AdamW), 6 steps each of 4 x 1,024
+   tokens (pixtral's each after 1,024 random patch embeddings labelled
+   -1) as qwen3's: finite losses that fall, 6 and 16 forward and 3 and 8
+   backward launches a step, every backward on the tensor cores (D = 256
+   and 160), step time, positions/s, peak memory and the backward's
+   share; every attention backward launch of a step held against the
+   plain version on its own inputs; one step's gradients against plain
+   attention at one cycle and at 2 layers, with the planted fault in the
+   last attention layer, which the limits must refuse;
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
@@ -210,7 +223,8 @@ Phases:
     training step (device time by kernel and by group: the backward
     kernel, the forward attention kernel, matrix products, the rest) and
     its AdamW update alone, and the same for rwkv6-3b (the backward
-    kernel there WKV6's); then the tensor-core backward's and SDPA's
+    kernel there WKV6's), recurrentgemma-9b at 9 layers and pixtral-12b
+    at 8; then the tensor-core backward's and SDPA's
     backward's device time a call at each timed shape.
 
 Every phase runs on every call.  Every check that fails exits non-zero.
@@ -263,11 +277,21 @@ SDPA's backward alone; it adds the run's median ``step_ms`` and the
 kernel's ``step_share``.  ``flash_attention_bwd_enc``, ``_dec`` and
 ``_cross`` are the same kernel at seamless-m4t-large-v2's training
 shapes (bidirectional 2 x 4,096 over 4,096, causal 2 x 512, 512 over
-4,096; D = 64), their launches its one step's.  These four add
-``device_ms`` and ``library_device_ms``: the kernel's and SDPA's
-backward's device time a call from the profiler, without the host's.
+4,096; D = 64), their launches its one step's.
+``flash_attention_bwd_d160`` and ``_d256`` are the same kernel at
+pixtral-12b's (4 x 2,048, 32 heads over 8, D = 160, causal) and
+recurrentgemma-9b's (4 x 1,024, 16 heads on one, D = 256, causal, window
+2,048) training shapes, their launches the cut-depth runs' 6 steps,
+their ``earlier_ms`` the scalar backward's; they add the run's
+``step_ms``, the kernel's ``step_share``, and the profiled step's busy
+share ``step_busy`` and the backward's share of its device time
+``step_backward_share``.  These six add ``device_ms`` and
+``library_device_ms``: the kernel's and SDPA's backward's device time a
+call from the profiler, without the host's, and ``device_pass_ms``, the
+kernel's by pass ({kernel: ms}).
 ``flash_attention_bwd_scalar`` is the scalar backward, the yardstick, at
-qwen3-1.7b's shape in bf16, its launches the fp32 gradient check's.
+qwen3-1.7b's shape in bf16, its launches the fp32 gradient check's;
+``flash_attention_bwd_scalar_fp32`` the same in fp32.
 ``wkv6_bwd`` is WKV6's backward at rwkv6-3b's training shape (bf16 r,
 k, v; 4 x 1,024, 40 heads, N = 64; no dsT, no ds0), its launches the
 8-step run's, ``library_ms`` null (no one PyTorch call computes it); it
@@ -442,6 +466,7 @@ def phase_build(torch) -> None:
                                          or "smem" in line) \
                     or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    bwd_spills(built["flash_attention_bwd"][1])
     sass_wgmma(built["flash_attention_bwd"][0])
     log(f"[build] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
@@ -449,8 +474,51 @@ def phase_build(torch) -> None:
           "float32 matmuls must not run in TF32")
 
 
-#: the tensor-core backward's passes, each of which must issue wgmma
+#: the tensor-core backward's passes, each of which must run wgmma (the
+#: names match their two-warpgroup forms, bwd_dq_tc2 and bwd_dkdv_tc2,
+#: too)
 BWD_TC_PASSES = ("bwd_stats_tc", "bwd_dq_tc", "bwd_dkdv_tc")
+
+
+def ptxas_spills(out) -> dict:
+    """The functions that spill in ``-Xptxas -v`` output: {name: (bytes
+    of spill stores, bytes of spill loads)}, each spill line read against
+    the "Compiling entry function" or "Function properties for" line
+    before it.  ``name`` is short where it is a backward kernel
+    (``bwd_dq<bf16, 32>``, ``bwd_dkdv_tc2<256>``), else ptxas's own."""
+    import re
+    spills, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'"
+                      r"|Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) or m.group(2)
+            k = re.search(r"\d(bwd_\w+?)I(13__nv_bfloat16|f)?Li(\d+)E", fn)
+            if k:
+                dtype = {"f": "fp32 ", "13__nv_bfloat16": "bf16 "}.get(
+                    k.group(2), "")
+                fn = f"{k.group(1)}<{dtype}{k.group(3)}>".replace(" ", ", ")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None and (int(m.group(1)) or int(m.group(2))):
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+def bwd_spills(out) -> dict:
+    """The backward source's functions that spill (:func:`ptxas_spills`
+    of its build output), logged by name; a tensor-core pass
+    (:data:`BWD_TC_PASSES`, their two-warpgroup forms too) among them
+    fails the check."""
+    spills = ptxas_spills(out)
+    log("[build] flash_attention_bwd spills (bytes stored/loaded): "
+        + (", ".join(f"{fn} {st}/{ld}" for fn, (st, ld) in spills.items())
+           or "none"))
+    tc = {fn: n for fn, n in spills.items()
+          if any(name in fn for name in BWD_TC_PASSES)}
+    check(not tc, f"tensor-core backward passes spill to local memory: {tc}")
+    return spills
 
 
 def sass_wgmma(lib) -> None:
@@ -458,6 +526,7 @@ def sass_wgmma(lib) -> None:
     instructions (``HGMMA``) in each tensor-core pass at each head size it
     is built for, one quoted; a pass without one fails the check."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -472,7 +541,8 @@ def sass_wgmma(lib) -> None:
                 quoted = line.split("*/", 1)[-1].split(";")[0].strip()
     for name in BWD_TC_PASSES:
         by_d = {fn: n for fn, n in counts.items() if name in fn}
-        check(len(by_d) == 5 and all(n > 0 for n in by_d.values()),
+        check(len(by_d) == len(fa.BWD_TC_HEAD_DIMS)
+              and all(n > 0 for n in by_d.values()),
               f"{name}: HGMMA counts {by_d}")
         log(f"[build] sass {name}: HGMMA instructions at each of "
             f"{len(by_d)} head sizes: {sorted(by_d.values())}")
@@ -3306,6 +3376,23 @@ WKV_BWD_CASES = [(2, 1, 3, 64), (1, 37, 2, 64), (2, 100, 2, 16),
                  (1, 64, 4, 32), (2, 17, 3, 64), (1, 1025, 2, 64)]
 WKV_BWD_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 
+#: pixtral-12b's and recurrentgemma-9b's training at full width and cut
+#: depth, by architecture: (layers, text tokens a sequence, patch
+#: embeddings a sequence, the depth of the gradient check).  One 80 GB
+#: card holds neither at full depth with AdamW (bf16 weights and
+#: gradients, fp32 moments: 12 bytes a parameter, 105.0 GiB for
+#: recurrentgemma-9b's 9.396 B and 142.7 GiB for pixtral-12b's 12.772 B);
+#: at 9 layers (three cycles of rec, rec, attn) and 8 layers they are
+#: 3.018 B and 3.628 B parameters, 33.7 and 40.5 GiB of state.  Their
+#: gradient checks take a depth that holds an attention layer: one cycle,
+#: and 2 layers
+CUT_TRAIN = {"recurrentgemma-9b": (9, 1024, 0, 3),
+             "pixtral-12b": (8, 1024, 1024, 2)}
+CUT_STEPS = 6
+#: the record entry of each cut model's backward shape
+CUT_ENTRY = {"recurrentgemma-9b": "flash_attention_bwd_d256",
+             "pixtral-12b": "flash_attention_bwd_d160"}
+
 
 def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
     """The forward's checkpoints against ``wkv6_fwd_ref`` (``WKV_TOL``),
@@ -3602,88 +3689,142 @@ def check_attention_bwd(torch, seed, dev="cuda"):
     return worst_abs
 
 
+#: the backward's shapes on pixtral-12b's and recurrentgemma-9b's training
+#: steps (B, Tq, Tk, H, G, D, causal, window): 1,024 patches and 1,024
+#: text tokens a sequence; 1,024 tokens under the 2,048 window (which
+#: reaches every earlier key: causal); and recurrentgemma-9b's 4,096
+#: positions, where the window binds
+CUT_BWD_SHAPES = [(4, 2048, 2048, 32, 8, 160, True, None),
+                  (4, 1024, 1024, 16, 1, 256, True, 2048),
+                  (1, 4096, 4096, 16, 1, 256, True, 2048)]
+
+
 def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
     """The backward kernel against its plain version at the shapes the
-    training path gives it beyond :func:`time_attention_bwd`'s:
+    training paths give it beyond :func:`time_attention_bwd`'s:
     seamless-m4t-large-v2's three (:data:`ENCDEC_BWD_SHAPES`) in bf16 and
-    fp32, and qwen3-1.7b's in fp32.  Returns the largest max |err|."""
+    fp32, qwen3-1.7b's in fp32, and :data:`CUT_BWD_SHAPES` in bf16.  At
+    every bf16 shape a second call must give the same bits and the
+    kernel with the planted fault (the last :data:`BWD_FAULT_KEYS` keys
+    dropped) must fail the check.  Returns the largest max |err|."""
     from repro_torch.kernels import flash_attention as fa
-    shapes = [(dt, s) for s in ENCDEC_BWD_SHAPES
+    shapes = [(dt, s + (None,)) for s in ENCDEC_BWD_SHAPES
               for dt in (torch.bfloat16, torch.float32)]
     shapes.append((torch.float32, (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
-                                   True)))
+                                   True, None)))
+    shapes += [(torch.bfloat16, s) for s in CUT_BWD_SHAPES]
     worst_abs = 0.0
-    for dtype, (B, Tq, Tk, H, G, D, causal) in shapes:
+    for dtype, (B, Tq, Tk, H, G, D, causal, window) in shapes:
+        name = str(dtype).split('.')[-1]
         q, k, v = attn_inputs(torch, B, Tq, H, G, D, dtype, seed, dev, Tk=Tk)
-        o = fa._launch(q, k, v, causal, None)
+        o = fa._launch(q, k, v, causal, window)
         do = torch.randn_like(q)
-        got = fa._launch_bwd(q, k, v, o, do, causal, None)
-        want = plain_bwd(q, k, v, o, do, causal, None)
+        got = fa._launch_bwd(q, k, v, o, do, causal, window)
+        want = plain_bwd(q, k, v, o, do, causal, window)
         sync(torch, dev)
-        label = (B, Tq, Tk, H, G, D, causal)
+        label = (B, Tq, Tk, H, G, D, causal, window)
         rel, err = hold_bwd(torch, got, want, dtype, label)
         worst_abs = max(worst_abs, err)
-        log(f"[train] backward at the path's shape {label} "
-            f"{str(dtype).split('.')[-1]}: relative L2 {rel:.3g} (limit "
-            f"{BWD_LIMIT[str(dtype).split('.')[-1]]}), max |err| {err:.3g}")
+        note = ""
+        if dtype == torch.bfloat16:
+            again = fa._launch_bwd(q, k, v, o, do, causal, window)
+            sync(torch, dev)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"backward {name} {label}: two calls differ")
+            floor = float(want[2].double().norm())
+            f = planted_fault(torch, fa._launch_bwd, q, k, v, o, do, causal,
+                              window)
+            rels = [bwd_rel(torch, a, w, floor) for a, w in zip(f, want)]
+            check(max(rels) >= BWD_LIMIT[name], f"backward {name} {label}: "
+                  f"the kernel with the planted fault passes ({rels})")
+            note = (f"; a second call bitwise; the planted fault dq "
+                    f"{rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} "
+                    f"(caught)")
+            del again, f
+        log(f"[train] backward at the path's shape {label} {name}: "
+            f"relative L2 {rel:.3g} (limit {BWD_LIMIT[name]}), max |err| "
+            f"{err:.3g}{note}")
         del q, k, v, o, do, got, want
     return worst_abs
 
 
-#: the backward's timed shapes (B, Tq, Tk, H, G, D, causal), by record
-#: entry: qwen3-1.7b's training step, then seamless-m4t-large-v2's three
+#: the backward's timed shapes (B, Tq, Tk, H, G, D, causal, window), by
+#: record entry: qwen3-1.7b's training step, seamless-m4t-large-v2's
+#: three, pixtral-12b's and recurrentgemma-9b's
 BWD_TIMED = {"flash_attention_bwd": (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
-                                     True),
-             "flash_attention_bwd_enc": ENCDEC_BWD_SHAPES[0],
-             "flash_attention_bwd_dec": ENCDEC_BWD_SHAPES[1],
-             "flash_attention_bwd_cross": ENCDEC_BWD_SHAPES[2]}
+                                     True, None),
+             "flash_attention_bwd_enc": ENCDEC_BWD_SHAPES[0] + (None,),
+             "flash_attention_bwd_dec": ENCDEC_BWD_SHAPES[1] + (None,),
+             "flash_attention_bwd_cross": ENCDEC_BWD_SHAPES[2] + (None,),
+             "flash_attention_bwd_d160": CUT_BWD_SHAPES[0],
+             "flash_attention_bwd_d256": CUT_BWD_SHAPES[1]}
 
 
-def time_attention_bwd(torch, seed, dev="cuda"):
-    """The tensor-core backward at each shape of :data:`BWD_TIMED` (bf16),
-    held against its plain version on the same inputs: its time, the
-    scalar yardstick's (by name), the plain version's, SDPA's backward
-    alone (``enable_gqa``, the forward outside the timed region) and the
+def sdpa_grads(torch, q, k, v, do, causal, window):
+    """SDPA's backward alone on (q, k, v, dO) in the kernels' layout: a
+    function that takes the gradients of one SDPA forward (``enable_gqa``;
+    the window as a mask where it binds), which runs outside it.  The
+    port never calls it: it is the timed yardstick."""
+    from repro_torch.kernels import flash_attention as fa
+    Tq, Tk = q.shape[1], k.shape[1]
+    mask = None if window is None or window >= Tq else fa._mask(
+        Tq, Tk, causal, window, q.device)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    y = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
+    dos = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(y, (qs, ks, vs), dos,
+                                       retain_graph=True)
+
+
+def time_attention_bwd(torch, seed, dev="cuda", entries=None):
+    """The tensor-core backward at each shape of :data:`BWD_TIMED` (bf16;
+    the ``entries`` of it where given), held against its plain version
+    on the same inputs: its time, the scalar yardstick's (by name), the
+    plain version's, SDPA's backward alone (:func:`sdpa_grads`) and the
     bound.  Returns {entry: numbers}; ``flash_attention_bwd_scalar`` is
     the yardstick at qwen3-1.7b's shape."""
     from repro_torch.kernels import flash_attention as fa
     out = {}
-    for entry, (B, Tq, Tk, H, G, D, causal) in BWD_TIMED.items():
+    for entry in entries or BWD_TIMED:
+        B, Tq, Tk, H, G, D, causal, window = BWD_TIMED[entry]
         q, k, v = attn_inputs(torch, B, Tq, H, G, D, torch.bfloat16, seed,
                               dev, Tk=Tk)
-        o = fa._launch(q, k, v, causal, None)
+        o = fa._launch(q, k, v, causal, window)
         do = torch.randn_like(q)
-        label = (B, Tq, Tk, H, G, D, causal)
-        want = plain_bwd(q, k, v, o, do, causal, None)
+        label = (B, Tq, Tk, H, G, D, causal, window)
+        want = plain_bwd(q, k, v, o, do, causal, window)
         rel, err = hold_bwd(torch, fa._launch_bwd(q, k, v, o, do, causal,
-                                                  None),
+                                                  window),
                             want, torch.bfloat16, label)
         s_rel, s_err = hold_bwd(torch, fa._launch_bwd(
-            q, k, v, o, do, causal, None, kind="scalar"), want,
+            q, k, v, o, do, causal, window, kind="scalar"), want,
             torch.bfloat16, ("scalar",) + label)
         del want
         ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, do, causal,
-                                                   None), iters=50, warmup=3)
+                                                   window), iters=50,
+                     warmup=3)
         scalar_ms = time_ms(torch, lambda: fa._launch_bwd(
-            q, k, v, o, do, causal, None, kind="scalar"), iters=10,
+            q, k, v, o, do, causal, window, kind="scalar"), iters=10,
             warmup=2)
         plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
-            q, k, v, o, do, causal=causal), iters=10, warmup=2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        y = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
-        dos = do.transpose(1, 2)
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(
-            y, (qs, ks, vs), dos, retain_graph=True), iters=50, warmup=3)
-        del y, qs, ks, vs
-        # five products of 2 B H Tq Tk D, halved by a causal mask; q, k,
-        # v, o and dO read once, dq, dk, dv written once
+            q, k, v, o, do, causal=causal, window=window), iters=10,
+            warmup=2)
+        library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, causal,
+                                               window), iters=50, warmup=3)
+        # five products of 2 B H Tq Tk D, halved by a causal mask (every
+        # timed window reaches every earlier key); q, k, v, o and dO read
+        # once, dq, dk, dv written once
+        check(window is None or window >= Tq, f"{entry}: the bound counts "
+              f"no window")
         flops = 5 * 2 * B * H * Tq * Tk * D / (2 if causal else 1)
         n_bytes = 2 * (4 * B * Tq * H * D + 4 * B * Tk * G * D)
         bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
         log(f"[time] {entry} (B={B} Tq={Tq} Tk={Tk} H={H} G={G} D={D} "
-            f"{'causal' if causal else 'bidirectional'}, bf16): tensor "
+            f"{'causal' if causal else 'bidirectional'}"
+            f"{f' window {window}' if window else ''}, bf16): tensor "
             f"cores {ms:.4f} ms, scalar {scalar_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
             f"{bound[0]:.5f} ms ({bound[1]}); {ms / bound[0]:.1f} x the "
@@ -3703,15 +3844,10 @@ def time_attention_bwd(torch, seed, dev="cuda"):
     return out
 
 
-#: the scalar backward's own uses (B, T, H, G, D, window, dtype), by
-#: record entry: pixtral-12b's and recurrentgemma-9b's bf16 shapes (its
-#: window of 2,048 reaches every earlier key of 1,024: causal), which no
-#: path trains yet, and qwen3-1.7b's in fp32, the fp32 gradient check's
+#: the scalar backward's own use (B, T, H, G, D, window, dtype), by record
+#: entry: qwen3-1.7b's shape in fp32, the fp32 gradient check's (in bf16
+#: it is timed by name beside the tensor-core kernel, time_attention_bwd)
 SCALAR_BWD_TIMED = {
-    "flash_attention_bwd_scalar_d160": (4, 2048, 32, 8, 160, None,
-                                        "bfloat16"),
-    "flash_attention_bwd_scalar_d256": (4, 1024, 16, 1, 256, 2048,
-                                        "bfloat16"),
     "flash_attention_bwd_scalar_fp32": (TRAIN_B, TRAIN_T, 16, 8, 128, None,
                                         "float32")}
 
@@ -3743,14 +3879,8 @@ def time_scalar_bwd(torch, seed, dev="cuda"):
         ms = time_ms(torch, scalar, iters=5, warmup=1)
         plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
             q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        y = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
-        dos = do.transpose(1, 2)
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(
-            y, (qs, ks, vs), dos, retain_graph=True), iters=20, warmup=3)
-        del y, qs, ks, vs
+        library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, True,
+                                               window), iters=20, warmup=3)
         flops = 5 * 2 * B * H * T * T * D / 2
         n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
         bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
@@ -3780,25 +3910,21 @@ def bwd_device_times(torch, seed, times, dev="cuda", calls=10):
     times of :func:`time_attention_bwd` include wherever the host is
     slower than the card.  Logged beside the profile's busy span and, for
     the kernel, the time a call replayed from a CUDA graph; added to
-    ``times``' entries as ``device_ms`` and ``library_device_ms``.  A
-    profiled phase: it runs after the training phase's step times."""
+    ``times``' entries as ``device_ms`` and ``library_device_ms``, and
+    the kernel's by pass (its kernels: the statistics, dQ, dK/dV, each
+    over its own count) as ``device_pass_ms``.  A profiled phase: it runs
+    after the training phase's step times."""
+    import re
     from repro_torch.kernels import flash_attention as fa
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for entry, (B, Tq, Tk, H, G, D, causal) in BWD_TIMED.items():
+    for entry, (B, Tq, Tk, H, G, D, causal, window) in BWD_TIMED.items():
         q, k, v = attn_inputs(torch, B, Tq, H, G, D, torch.bfloat16, seed,
                               dev, Tk=Tk)
-        o = fa._launch(q, k, v, causal, None)
+        o = fa._launch(q, k, v, causal, window)
         do = torch.randn_like(q)
-        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        y = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
-        dos = do.transpose(1, 2)
+        library = sdpa_grads(torch, q, k, v, do, causal, window)
 
         def kernel():
-            fa._launch_bwd(q, k, v, o, do, causal, None)
-
-        def library():
-            torch.autograd.grad(y, (qs, ks, vs), dos, retain_graph=True)
+            fa._launch_bwd(q, k, v, o, do, causal, window)
         out, notes = {}, []
         for name, fn in (("device_ms", kernel), ("library_device_ms",
                                                  library)):
@@ -3813,6 +3939,13 @@ def bwd_device_times(torch, seed, times, dev="cuda", calls=10):
                       f"time for {name}")
             notes.append(f"{seen} calls recorded, busy span "
                          f"{busy_us / calls / 1e3:.4f} ms a call")
+            if name == "device_ms":
+                passes = {}
+                for t_us, key, count in by_name:
+                    m = re.search(r"(bwd_\w+<\d+>)", key)
+                    if m and count:
+                        passes[m.group(1)] = t_us / count / 1e3
+                out["device_pass_ms"] = passes
         graph = graph_ms(torch, kernel, calls=calls, replays=5)
         times[entry].update(out)
         log(f"[time] {entry}: device time a call (profiler) tensor cores "
@@ -3821,8 +3954,10 @@ def bwd_device_times(torch, seed, times, dev="cuda", calls=10):
             f"{out['library_device_ms']:.4f} ms ({notes[1]}): "
             f"{out['device_ms'] / max(out['library_device_ms'], 1e-12):.2f}"
             f" x; bound "
-            f"{times[entry]['bound'][0]:.5f} ms")
-        del q, k, v, o, do, qs, ks, vs, y, dos
+            f"{times[entry]['bound'][0]:.5f} ms; by pass "
+            + ", ".join(f"{p} {t:.4f} ms"
+                        for p, t in out["device_pass_ms"].items()))
+        del q, k, v, o, do, library
         free_card(torch, dev)
 
 
@@ -4005,14 +4140,15 @@ def wkv6_layers_vs_plain(torch, model, params, batch, label, fault=False):
 
 
 def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
-                          leaf_limit, fault=None):
+                          leaf_limit, fault=None, fault_launches=0):
     """One step's gradients with the kernels and with plain attention and
     WKV6 on the same weights and batch: relative L2 over the whole
     gradient (checked against ``limit``) and each leaf's (against
     ``leaf_limit``).  With ``fault`` (a key of :data:`FAULTS`) the
-    kernels' gradients are taken once more with :func:`faulty_backward`,
-    and the check must refuse them.  Returns the whole gradient's
-    relative L2."""
+    kernels' gradients are taken once more with :func:`faulty_backward`
+    (which must launch the backward ``fault_launches`` times, once a
+    layer that has the kernel), and the check must refuse them.
+    Returns the whole gradient's relative L2."""
     names = list(params)
 
     def grads():
@@ -4036,8 +4172,9 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
     if fault:
         with faulty_backward(torch, fault) as calls:
             g_fault = grads()
-        check(calls[0] > 1, f"{label}: the backward launched {calls[0]} "
-              f"times under the planted fault")
+        check(calls[0] == fault_launches, f"{label}: the backward launched "
+              f"{calls[0]} times under the planted fault, expected "
+              f"{fault_launches}")
         f_rel, f_leaf = gaps(g_fault, g_plain)
         del g_fault
         caught = f_rel >= limit or f_leaf[0] >= leaf_limit
@@ -4205,59 +4342,22 @@ def train_steps(torch, seed=0, arch=TRAIN_ARCH, steps=TRAIN_STEPS,
         f"first {med_s * 1e3:.3f} ms")
     return med_s * 1e3
 
-def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
-                T=TRAIN_T, steps=TRAIN_STEPS, ckpt_step=TRAIN_CKPT_STEP,
-                vocab_chunk=TRAIN_VOCAB_CHUNK, encdec_cfg=None,
-                encdec=ENCDEC_TRAIN, rwkv_cfg=None, rwkv_steps=RWKV_STEPS):
-    """Training on the card: the backward kernel against its plain
-    version; qwen3-1.7b for ``steps`` steps through ``make_train_step``
-    and ``train_loop`` (falling loss, exact launch counts each step, step
-    time, tokens/s, TFLOP/s, peak memory, the backward's share), with a
-    checkpoint after ``ckpt_step`` that a new model and optimizer restore
-    and continue from; full-width kernel-vs-plain gradients in bf16 and
-    in fp32 over 4 layers; seamless-m4t-large-v2's step over its
-    bidirectional and cross attention; rwkv6-3b's training
-    (:func:`phase_train_rwkv`, under ``"wkv6"``).  Returns the record
-    entries' numbers."""
-    import shutil
-    from repro_torch import configs
+def train_kit(tcfg, vocab_chunk, stream=None):
+    """The training phases' ``trainer`` and ``loop``.  ``trainer(model,
+    keys)`` gives the model's parameters, optimizer state (``tcfg``'s) and
+    a train step that records each step's launches of ``keys``;
+    ``loop(model, params, state, step_fn, start, stop, batches_of=None,
+    **kw)`` runs ``train_loop`` from step ``start`` to ``stop`` over
+    ``batches_of`` (default ``stream``), prefetched onto the model's
+    device, with the head over vocabulary chunks of ``vocab_chunk``."""
     from repro_torch.data import pipeline
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
     from repro_torch.models import settings as msettings
-    from repro_torch.models.types import ShapeSpec
-    from repro_torch.obs import MetricsRegistry
-    from repro_torch.train.checkpoint import Checkpointer
-    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
-                                              to_device, train_loop,
+    from repro_torch.train.train_loop import (make_train_step, train_loop,
                                               trainable_params)
-    on_card = torch.device(dev).type == "cuda"
-    check(fa.LAUNCHES["flash_attention_bwd"] == 0,
-          "the backward kernel launched before the training phase")
-    errs = check_attention_bwd(torch, seed, dev)
-    err, scalar_err = errs["tc"], errs["scalar"]
-    times = scalar_times = None
-    if on_card:
-        err = max(err, check_attention_bwd_path_shapes(torch, seed, dev))
-        times = time_attention_bwd(torch, seed, dev)
-        scalar_err = max(scalar_err,
-                         times["flash_attention_bwd_scalar"]["err"])
-        err = max([err] + [r["err"] for name, r in times.items()
-                           if name != "flash_attention_bwd_scalar"])
-    cfg = cfg or configs.get(TRAIN_ARCH)
-    L = cfg.num_layers
-    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
-                                seed=seed)
-    tcfg = TrainConfig()
-    ckpt_dir = ROOT / "build" / "train_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    ck = Checkpointer(str(ckpt_dir), keep=1)
 
     def trainer(model, keys=("flash_attention", "flash_attention_bwd",
                              "flash_attention_bwd_tc")):
-        """The model's parameters, optimizer state and a train step that
-        records each step's launches of ``keys``."""
         params = trainable_params(model)
         step_fn, opt = make_train_step(model, tcfg)
         counted = []
@@ -4282,7 +4382,62 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
                                   train_step=step_fn, **kw)
         finally:
             batches.close()
+    return trainer, loop
 
+
+def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
+                T=TRAIN_T, steps=TRAIN_STEPS, ckpt_step=TRAIN_CKPT_STEP,
+                vocab_chunk=TRAIN_VOCAB_CHUNK, encdec_cfg=None,
+                encdec=ENCDEC_TRAIN, rwkv_cfg=None, rwkv_steps=RWKV_STEPS,
+                cut=CUT_TRAIN):
+    """Training on the card: the backward kernel against its plain
+    version; qwen3-1.7b for ``steps`` steps through ``make_train_step``
+    and ``train_loop`` (falling loss, exact launch counts each step, step
+    time, tokens/s, TFLOP/s, peak memory, the backward's share), with a
+    checkpoint after ``ckpt_step`` that a new model and optimizer restore
+    and continue from; full-width kernel-vs-plain gradients in bf16 and
+    in fp32 over 4 layers; seamless-m4t-large-v2's step over its
+    bidirectional and cross attention; rwkv6-3b's training
+    (:func:`phase_train_rwkv`, under ``"wkv6"``); recurrentgemma-9b's and
+    pixtral-12b's at cut depth (:func:`phase_train_cut` over ``cut``,
+    under ``"cut"``; ``{}`` leaves them out, as a rehearsal on the CPU
+    does, which drives :func:`phase_train_cut` on its own).  Returns the
+    record entries' numbers."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              to_device, trainable_params)
+    on_card = torch.device(dev).type == "cuda"
+    check(fa.LAUNCHES["flash_attention_bwd"] == 0,
+          "the backward kernel launched before the training phase")
+    errs = check_attention_bwd(torch, seed, dev)
+    err, scalar_err = errs["tc"], errs["scalar"]
+    times = scalar_times = None
+    if on_card:
+        err = max(err, check_attention_bwd_path_shapes(torch, seed, dev))
+        times = time_attention_bwd(torch, seed, dev, [
+            e for e in BWD_TIMED if e not in CUT_ENTRY.values()])
+        scalar_err = max(scalar_err,
+                         times["flash_attention_bwd_scalar"]["err"])
+        err = max([err] + [r["err"] for name, r in times.items()
+                           if name != "flash_attention_bwd_scalar"])
+    cfg = cfg or configs.get(TRAIN_ARCH)
+    L = cfg.num_layers
+    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
+                                seed=seed)
+    tcfg = TrainConfig()
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = Checkpointer(str(ckpt_dir), keep=1)
+
+    trainer, loop = train_kit(tcfg, vocab_chunk, stream)
     # the uninterrupted run: a checkpoint after step ckpt_step
     free_card(torch, dev)
     if on_card:
@@ -4342,7 +4497,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
         rel_bf16 = grads_kernel_vs_plain(
             torch, model, params, batch, f"{cfg.name} {cfg.dtype} {L} "
             f"layers", TRAIN_GRAD_L2[cfg.dtype], TRAIN_LEAF_L2[cfg.dtype],
-            fault="attention" if on_card else None)
+            fault="attention" if on_card else None, fault_launches=L)
     del model, params, state, step_fn
     free_card(torch, dev)
 
@@ -4384,10 +4539,13 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
               f"{cfg4.num_layers}")
     del model, params
     free_card(torch, dev)
-    # the scalar backward at its own uses, after qwen3-1.7b's timed steps,
-    # which measured slower after it (its plain references at D = 160 and
-    # 256 take several GiB)
+    # the scalar backward at its own use and the tensor-core backward at
+    # D = 160 and 256, after qwen3-1.7b's timed steps, which measured
+    # slower after them (the plain references at D = 160 and 256 take
+    # several GiB)
     if on_card:
+        times.update(time_attention_bwd(torch, seed, dev, CUT_ENTRY.values()))
+        err = max([err] + [times[e]["err"] for e in CUT_ENTRY.values()])
         scalar_times = time_scalar_bwd(torch, seed, dev)
         scalar_err = max([scalar_err]
                          + [r["err"] for r in scalar_times.values()])
@@ -4434,11 +4592,13 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
 
     wkv = phase_train_rwkv(torch, seed, card, trainer, loop, dev, rwkv_cfg,
                            B, T, rwkv_steps, vocab_chunk)
+    cut_runs = phase_train_cut(torch, seed, card, trainer, loop, dev, cut,
+                               None, B, CUT_STEPS, vocab_chunk, times)
     return {"launches": n_bwd, "scalar_launches": n_scalar,
             "encdec_launches": shapes, "err": err, "scalar_err": scalar_err,
             "losses": losses, "step_ms": med_s * 1e3, "share": share,
             "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
-            "scalar_times": scalar_times, "wkv6": wkv}
+            "scalar_times": scalar_times, "wkv6": wkv, "cut": cut_runs}
 
 
 def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
@@ -4535,7 +4695,7 @@ def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
             rels.append(grads_kernel_vs_plain(
                 torch, model, params, batch, f"{cfg.name} {dtype} "
                 f"{n_layers} layers", TRAIN_GRAD_L2[dtype],
-                TRAIN_LEAF_L2[dtype], fault=fault))
+                TRAIN_LEAF_L2[dtype], fault=fault, fault_launches=n_layers))
         n = wk.LAUNCHES["wkv6_bwd"] - before
         if on_card and not fault:
             check(n == n_layers, f"the {dtype} gradients launched the WKV6 "
@@ -4548,21 +4708,194 @@ def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
             "times": times}
 
 
+class PatchStream:
+    """``stream``'s batches, each sequence after ``frames`` random patch
+    embeddings (``frontend_embeds``, standard normal, float32, drawn from
+    (seed, step)) whose labels are -1, as the vision-language model's
+    training batches carry them."""
+
+    def __init__(self, stream, frames, d_model, seed):
+        self.stream, self.cfg = stream, stream.cfg
+        self.frames, self.d_model, self.seed = frames, d_model, seed
+
+    def batch_at(self, step):
+        import numpy as np
+        batch = dict(self.stream.batch_at(step))
+        B = batch["tokens"].shape[0]
+        rng = np.random.default_rng((self.seed, step))
+        batch["frontend_embeds"] = rng.standard_normal(
+            (B, self.frames, self.d_model), dtype=np.float32)
+        batch["labels"] = np.concatenate(
+            [np.full((B, self.frames), -1, np.int32), batch["labels"]], 1)
+        return batch
+
+
+def train_stream(cfg, B, T, seed, frames=0):
+    """The training batches of ``cfg``: ``B`` sequences of ``T`` tokens,
+    after ``frames`` patch embeddings each where ``frames`` > 0."""
+    from repro_torch.data import pipeline
+    from repro_torch.models.types import ShapeSpec
+    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
+                                seed=seed)
+    return PatchStream(stream, frames, cfg.d_model, seed) if frames \
+        else stream
+
+
+def attention_layers(cfg) -> int:
+    return sum(cfg.block_kind(i) == "attn" for i in range(cfg.num_layers))
+
+
+def attention_layers_vs_plain(torch, model, params, batch, label, limit):
+    """One step's backward with each attention backward launch held, on
+    its own inputs, against ``attention_bwd_ref``: every layer's dq, dk
+    and dv within ``limit`` relative L2.  Returns the worst
+    relative L2 of each over the layers and the number of launches (0 on
+    the CPU, where the backward is autograd of the plain version)."""
+    from repro_torch.kernels import flash_attention as fa
+    original, rels = fa._launch_bwd, []
+
+    def launch(q, k, v, o, do, causal, window, kind=None):
+        out = original(q, k, v, o, do, causal, window, kind=kind)
+        want = fa.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                    window=window)
+        floor = float(want[2].double().norm())
+        rels.append([bwd_rel(torch, g, w, floor) for g, w in zip(out, want)])
+        return out
+    fa._launch_bwd = launch
+    try:
+        loss, _ = model.loss(batch)
+        torch.autograd.grad(loss, list(params.values()))
+    finally:
+        fa._launch_bwd = original
+    worst = [max((x[j] for x in rels), default=0.0) for j in range(3)]
+    log(f"[train] {label}: each of its {len(rels)} attention backward "
+        f"launches against the plain version on the same inputs: worst "
+        f"relative L2 dq {worst[0]:.3g}, dk {worst[1]:.3g}, dv "
+        f"{worst[2]:.3g} (limit {limit})")
+    check(max(worst) < limit, f"{label}: a layer's attention backward off "
+          f"its plain version by {max(worst):.3g} >= {limit}")
+    return worst, len(rels)
+
+
+def phase_train_cut(torch, seed, card, trainer, loop, dev="cuda",
+                    models=CUT_TRAIN, cfgs=None, B=TRAIN_B, steps=CUT_STEPS,
+                    vocab_chunk=TRAIN_VOCAB_CHUNK, times=None):
+    """recurrentgemma-9b's and pixtral-12b's training on the card at full
+    width and the depth :data:`CUT_TRAIN` cuts them to (``models``: arch
+    -> (layers, T, patches, gradient depth); ``cfgs``: arch -> a config in
+    place of the full one, e.g. a reduced one on the CPU), through
+    ``phase_train``'s ``trainer`` and ``loop``: ``steps`` steps (a finite
+    loss that falls; the launches of every step exact, each attention
+    layer's forward and its recompute and one backward, every one
+    ``flash_attention_bwd_tc``; step ms, positions/s, peak memory, the
+    backward's share of a step from ``times``, time_attention_bwd's);
+    every attention backward launch of a bf16 step on the trained weights
+    held against the plain version on its own inputs; one step's
+    gradients with the kernels against plain attention at the gradient
+    depth, with the planted fault in the last attention layer's backward.
+    Returns {arch: numbers}."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.train.train_loop import to_device, trainable_params
+    on_card = torch.device(dev).type == "cuda"
+    out = {}
+    for arch, (layers, T, frames, grad_layers) in models.items():
+        cfg = dataclasses.replace((cfgs or {}).get(arch) or configs.get(arch),
+                                  num_layers=layers)
+        A = attention_layers(cfg)
+        stream = train_stream(cfg, B, T, seed, frames)
+        free_card(torch, dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=dev, seed=seed)
+        params, state, step_fn, counted = trainer(
+            model, ("flash_attention", "flash_attention_bwd",
+                    "flash_attention_bwd_tc", "flash_attention_bwd_scalar"))
+        params, state, hist = loop(model, params, state, step_fn, 0, steps,
+                                   batches_of=stream)
+        losses, step_s = hist["loss"], hist["step_time"]
+        peak = card_gib(torch, dev, peak=True)
+        check(len(losses) == steps, f"{len(losses)} steps recorded of {steps}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        want = [(2 * A, A, A, 0) if on_card else (0, 0, 0, 0)] * steps
+        check(counted == want, f"{arch}: launches (attention forward, "
+              f"backward, tensor-core backward, scalar backward) a step "
+              f"{counted}, expected {want[0]}: {A} attention layers and "
+              f"their recompute, {A} backward, every one on the tensor "
+              f"cores")
+        med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        positions = B * (frames + T)
+        log(f"[train] {cfg.name} ({layers} layers of "
+            f"{configs.get(arch).num_layers}: {A} attention, d_model "
+            f"{cfg.d_model}, {sum(p.numel() for p in params.values()) / 1e9:.3f}"
+            f" B params, {cfg.dtype}) on {card}: {steps} steps of {B} x "
+            f"({frames} patches + {T} tokens), AdamW (TrainConfig "
+            f"defaults), remat, vocab_chunk {vocab_chunk}")
+        log(f"[train] {cfg.name} loss by step {[round(x, 4) for x in losses]}")
+        log(f"[train] {cfg.name} step ms {[round(x * 1e3, 2) for x in step_s]}"
+            f" (the first warms up); median after the first "
+            f"{med_s * 1e3:.3f} ms, {positions / med_s:,.1f} positions/s "
+            f"({B * T / med_s:,.1f} text tokens/s), peak {peak:.2f} GiB; "
+            f"launches a step: forward {counted[0][0]}, backward "
+            f"{counted[0][1]} ({counted[0][2]} on the tensor cores)")
+        share = None
+        if times is not None:
+            bwd_ms = times[CUT_ENTRY[arch]]["ms"]
+            share = A * bwd_ms / (med_s * 1e3)
+            log(f"[train] {cfg.name}: the backward kernel's share of a step: "
+                f"{A} x {bwd_ms:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
+        del state, step_fn
+        free_card(torch, dev)
+        # every attention backward of a step on the trained weights
+        batch = to_device(stream.batch_at(steps), model.device)
+        with msettings.use(vocab_chunk=vocab_chunk):
+            layer_rel, n_held = attention_layers_vs_plain(
+                torch, model, params, batch, f"{cfg.name} {cfg.dtype} "
+                f"{layers} layers", BWD_LIMIT[cfg.dtype])
+        check(n_held == (A if on_card else 0), f"{arch}: {n_held} backward "
+              f"launches held, expected {A}")
+        del model, params
+        free_card(torch, dev)
+        # the gradients, kernel against plain, at the check's depth
+        cfg_n = dataclasses.replace(cfg, num_layers=grad_layers)
+        model = build_model(cfg_n, device=dev, seed=seed)
+        params = trainable_params(model)
+        batch = to_device(stream.batch_at(0), model.device)
+        with msettings.use(vocab_chunk=vocab_chunk):
+            rel = grads_kernel_vs_plain(
+                torch, model, params, batch, f"{cfg.name} {cfg.dtype} "
+                f"{grad_layers} layers", TRAIN_GRAD_L2[cfg.dtype],
+                TRAIN_LEAF_L2[cfg.dtype],
+                fault="attention" if on_card else None,
+                fault_launches=attention_layers(cfg_n))
+        del model, params
+        free_card(torch, dev)
+        out[arch] = {"launches": sum(c[1] for c in counted),
+                     "losses": losses, "step_ms": med_s * 1e3,
+                     "positions_per_s": positions / med_s, "peak": peak,
+                     "share": share, "layer_rel": layer_rel, "rel": rel}
+    return out
+
+
 def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
-                        T=TRAIN_T, vocab_chunk=TRAIN_VOCAB_CHUNK):
+                        T=TRAIN_T, vocab_chunk=TRAIN_VOCAB_CHUNK, frames=0):
     """Where a training step's time goes: the model (qwen3-1.7b unless
-    ``cfg`` names another) rebuilt from the seed takes two warm-up steps,
+    ``cfg`` names another; its sequences after ``frames`` patch
+    embeddings where ``frames`` > 0) rebuilt from the seed takes two
+    warm-up steps,
     then one step under ``torch.profiler`` (device time by kernel, grouped
     as the backward kernel, its forward kernel, matrix products and the
     rest, and the busy share);
     then the optimizer's update alone on the same parameters, by the
     host clock around a synchronised call.  Last of the profiled phases,
-    as the training phase's step times are taken without a profiler."""
+    as the training phase's step times are taken without a profiler.
+    Returns the card's busy share of the step and each group's share of
+    its device time."""
     from repro_torch import configs
-    from repro_torch.data import pipeline
     from repro_torch.models import build_model
     from repro_torch.models import settings as msettings
-    from repro_torch.models.types import ShapeSpec
     from repro_torch.train.train_loop import (TrainConfig, make_train_step,
                                               to_device, trainable_params)
     cfg = cfg or configs.get(TRAIN_ARCH)
@@ -4570,8 +4903,7 @@ def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
     params = trainable_params(model)
     step_fn, opt = make_train_step(model, TrainConfig())
     state = opt.init(params)
-    stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
-                                seed=seed)
+    stream = train_stream(cfg, B, T, seed, frames)
     batches = [to_device(stream.batch_at(i), model.device) for i in range(3)]
 
     def step(i):
@@ -4595,7 +4927,8 @@ def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
             groups["matrix products"] += t_us
         else:
             groups["the rest"] += t_us
-    log(f"[profile] {cfg.name} train step ({B} x {T} tokens) under the "
+    log(f"[profile] {cfg.name} ({cfg.num_layers} layers) train step ({B} x "
+        f"{f'({frames} patches + {T})' if frames else T} tokens) under the "
         f"profiler: {wall * 1e3:.3f} ms wall, card busy "
         f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / wall:.1%}; device time "
         + ", ".join(f"{name} {t / 1e3:.3f} ms ({t / total:.1%})"
@@ -4614,6 +4947,8 @@ def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
         f"{opt_ms:.3f} ms (host clock, synchronised)")
     del model, params, state, step_fn, opt, grads, batches
     free_card(torch, dev)
+    return {"busy": busy_us / 1e6 / wall,
+            **{name: t / total for name, t in groups.items()}}
 
 
 def main() -> int:
@@ -4754,6 +5089,10 @@ def main() -> int:
         phase_lm_profile(torch, np, configs.get(arch), args.seed)
     phase_train_profile(torch, np, args.seed)
     phase_train_profile(torch, np, args.seed, cfg=configs.get(RWKV_ARCH))
+    for arch, (layers, T, frames, _) in CUT_TRAIN.items():
+        train["cut"][arch]["profile"] = phase_train_profile(
+            torch, np, args.seed, cfg=dataclasses.replace(
+                configs.get(arch), num_layers=layers), T=T, frames=frames)
     bwd_device_times(torch, args.seed, train["times"])
     done("profile")
 
@@ -4765,7 +5104,7 @@ def main() -> int:
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
         for key in ("device_ms", "earlier_device_ms", "library_device_ms",
-                    "kernel"):
+                    "device_pass_ms", "kernel"):
             if key in r:
                 e[key] = r[key]
         if "wave_ms" in r:
@@ -4841,16 +5180,20 @@ def main() -> int:
         if name == "flash_attention_llama4":
             # the backward: the tensor-core kernel at each timed shape,
             # its launches that shape's on the training path (seamless's
-            # one step: a call a layer); the scalar yardstick's the fp32
-            # gradient check's
+            # one step: a call a layer; the cut models' steps); the scalar
+            # yardstick's the fp32 gradient check's
+            cut_of = {e: arch for arch, e in CUT_ENTRY.items()}
             for bwd_name, r in train["times"].items():
                 if bwd_name == "flash_attention_bwd_scalar":
                     n_launches, err = train["scalar_launches"], \
                         train["scalar_err"]
                 elif bwd_name == "flash_attention_bwd":
                     n_launches, err = train["launches"], train["err"]
+                elif bwd_name in cut_of:
+                    n_launches = train["cut"][cut_of[bwd_name]]["launches"]
+                    err = train["err"]
                 else:
-                    _, Tq, Tk, _, _, _, causal = r["shape"]
+                    _, Tq, Tk, _, _, _, causal, _ = r["shape"]
                     n_launches = train["encdec_launches"].get(
                         ("bwd_tc", Tq, Tk, causal), 0)
                     err = train["err"]
@@ -4860,11 +5203,18 @@ def main() -> int:
                 if bwd_name == "flash_attention_bwd":
                     kernels[-1].update(step_ms=train["step_ms"],
                                        step_share=train["share"])
-            # the scalar backward at its own uses: the fp32 check's
-            # launches at qwen3-1.7b's shape; none at D = 160, 256
+                if bwd_name in cut_of:
+                    cut_run = train["cut"][cut_of[bwd_name]]
+                    kernels[-1].update(
+                        step_ms=cut_run["step_ms"],
+                        step_share=cut_run["share"],
+                        step_busy=cut_run["profile"]["busy"],
+                        step_backward_share=cut_run["profile"][
+                            "backward kernel"])
+            # the scalar backward at its own use: the fp32 check's
+            # launches at qwen3-1.7b's shape
             for bwd_name, r in train["scalar_times"].items():
-                n_launches = train["scalar_launches"] \
-                    if bwd_name.endswith("fp32") else 0
+                n_launches = train["scalar_launches"]
                 kernels.append(entry(
                     bwd_name, "src/repro_torch/csrc/flash_attention_bwd.cu",
                     TRAIN_REPLACES, n_launches, train["scalar_err"], r))

@@ -648,7 +648,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   cudaError_t err = allow_smem(flash_fwd_sm90<D>, (int)bytes, done);
   if (err != cudaSuccess) return (int)err;
   Maps maps = {};
-  if (!make_maps<D>(&maps.q, &maps.q_tail, q, B, Tq, H, rows) ||
+  if (!bind_context() ||
+      !make_maps<D>(&maps.q, &maps.q_tail, q, B, Tq, H, rows) ||
       !make_maps<D>(&maps.k, &maps.k_tail, k, B, Tk, G, rows) ||
       !make_maps<D>(&maps.v, &maps.v_tail, v, B, Tk, G, rows))
     return (int)cudaErrorInvalidValue;

@@ -20,9 +20,11 @@
 // reaches that rate.  Two variants, chosen by the wrapper from the dtype
 // and the head size alone (bwd_variant):
 //
-// flash_attention_bwd_sm90 (bf16, D in {16, 32, 64, 80, 128}): three
-//   passes on the tensor cores, each a grid of one-warpgroup blocks (128
-//   threads, two or more a block an SM) on 64-row tiles, fed by TMA from
+// flash_attention_bwd_sm90 (bf16, every D in {16, 32, 64, 80, 128, 160,
+//   256}): three passes on the tensor cores, each a grid of
+//   one-warpgroup blocks (128 threads, two or more a block an SM; dQ and
+//   dK/dV at D = 160 and 256 on two warpgroups, below) on 64-row tiles,
+//   fed by TMA from
 //   4-d tensor maps over the tensors' own (B, T, heads, D) layouts (GQA
 //   is a coordinate, the out-of-bounds fill gives the rows past Tq and
 //   Tk), the tiles cut into swizzled column blocks as the forward's
@@ -62,12 +64,14 @@
 //   ran slower and were not kept: S and dP split into two groups, to take
 //   P while dP runs (it spills a few registers); and blocks of two
 //   warpgroups owning 128 rows, which halves the loop tiles' traffic but
-//   makes the groups wait on the same tiles in lockstep.  D = 160
-//   and 256 are not taken: their dK and dV alone are 160 and 256 fp32 a
-//   thread.
+//   makes the groups wait on the same tiles in lockstep.  At D = 160 and
+//   256 dK and dV alone are 160 and 256 fp32 a thread of one warpgroup:
+//   there bwd_dq_tc2 and bwd_dkdv_tc2 split the output columns over two
+//   warpgroups, and bwd_dkdv_tc2 a key tile's query heads over a
+//   thread-block cluster (the section "D = 160 and 256" below).
 //
-// flash_attention_bwd (fp32 at every D, bf16 at D = 160 and 256; bf16 at
-//   the other sizes only by name, the yardstick): three scalar kernels.
+// flash_attention_bwd (fp32 at every D; bf16 only by name, the
+//   yardstick): three scalar kernels.
 //   bwd_stats, bwd_dq and bwd_dkdv have the same work split as the
 //   tensor-core passes but stage fp32 tiles in shared memory (rows padded
 //   to D + 1 floats, so the 16 threads of a row group read 16 banks) and
@@ -538,6 +542,7 @@ struct Maps {
 struct Args {
   int B, Tq, Tk, H, G, causal, window, Tqp;
   float scale;
+  int split;   // blocks (a cluster) a key tile in bwd_dkdv_tc2; 1 elsewhere
 };
 
 __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp) {
@@ -582,11 +587,42 @@ __device__ __forceinline__ QItem q_item(const Args& a, bool stats) {
   return w;
 }
 
-// Per thread of the warpgroup: element 4 j + e of an m64nNk16 accumulator
+// A key tile's work item: its batch, KV head and key tile (heaviest
+// first) and the query heads and tiles it walks.  The key tile is that of
+// cluster c = block / split; its rank r of `split` takes query heads
+// [g R + r R / split, g R + (r + 1) R / split).  bwd_dkdv_tc runs it at
+// split 1 (every head), bwd_dkdv_tc2 at Args::split.
+struct KItem {
+  int b, g, k0, rank, h0, qlo, per, n;
+};
+
+__device__ __forceinline__ KItem k_item(const Args& a, int split) {
+  KItem w;
+  const int BG = a.B * a.G, R = a.H / a.G;
+  const int c = blockIdx.x / split;
+  w.rank = blockIdx.x % split;
+  const int bg = c % BG, kt = c / BG;
+  w.g = bg % a.G;
+  w.b = bg / a.G;
+  w.k0 = kt * kRows;
+  const int nq = (a.Tq + kRows - 1) / kRows;
+  w.qlo = a.causal ? kt : 0;
+  const int qhi = (a.causal && a.window > 0)
+                      ? min(nq, (w.k0 + kRows - 1 + a.window + kRows - 1) /
+                                    kRows)
+                      : nq;
+  w.per = max(qhi - w.qlo, 0);
+  w.h0 = w.g * R + w.rank * R / split;
+  w.n = (w.g * R + (w.rank + 1) * R / split - w.h0) * w.per;
+  return w;
+}
+
+// Per thread of a warpgroup: element 4 j + e of an m64nNk16 accumulator
 // sits at row 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) +
-// e % 2.
+// e % 2, with warp the thread's warp within its warpgroup.
 __device__ __forceinline__ int acc_row(int i) {
-  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4 + 8 * ((i / 2) % 2);
+  return 16 * ((threadIdx.x / 32) % 4) + (threadIdx.x % 32) / 4 +
+         8 * ((i / 2) % 2);
 }
 __device__ __forceinline__ int acc_col(int i) {
   return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
@@ -882,18 +918,11 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
   const uint32_t full = full_kv + 8;                         // [kStages]
   const float* st_g = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
 
-  const int BG = a.B * a.G, R = a.H / a.G;
-  const int bg = blockIdx.x % BG, kt = blockIdx.x / BG;   // heaviest first
-  const int g = bg % a.G, b = bg / a.G, k0 = kt * kRows;
-  const int nq = (a.Tq + kRows - 1) / kRows;
-  const int qlo = a.causal ? kt : 0;
-  const int qhi = (a.causal && a.window > 0)
-                      ? min(nq, (k0 + kRows - 1 + a.window + kRows - 1) / kRows)
-                      : nq;
-  const int per = max(qhi - qlo, 0), n = R * per;
+  const KItem w = k_item(a, 1);
+  const int b = w.b, g = w.g, k0 = w.k0, qlo = w.qlo, per = w.per, n = w.n;
   // iteration i: query head g R + i / per, query tile qlo + i % per
   auto load = [&](int i, int st) {
-    const int h = g * R + i / per, q0 = (qlo + i % per) * kRows;
+    const int h = w.h0 + i / per, q0 = (qlo + i % per) * kRows;
     const uint32_t bar = full + 8 * st;
     mbar_expect_tx(bar, 2 * Gm::kTileBytes + kStatBytes);
     load_tile<Gm>(q_s + st * Gm::kTileBytes, &maps.q, &maps.q_tail, bar, h,
@@ -986,6 +1015,487 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
   }
 }
 
+// --- D = 160 and 256: two warpgroups a block -----------------------------------
+//
+// dK and dV of a 64-key tile are 64 x D fp32 each: D / 2 + D / 2 floats a
+// thread of one warpgroup, 256 at D = 256 before S^T and dP^T, which no
+// thread's 255 registers hold.  So bwd_dq_tc2 and bwd_dkdv_tc2 run two
+// warpgroups a block (256 threads) that split the output columns (Half):
+// 128 and 128 at D = 256, and at D = 160 full block 0 with the 32-column
+// tail (96) and full block 1 (64), since a warpgroup's product columns
+// must start on a swizzle block (80 and 80 would cut block 1 through its
+// 128-byte swizzle); the 96-column group does 22% more of the tile's
+// work.  The first products are split by the other side: warpgroup W
+// takes loop rows [32 W, 32 W + 32) (wgmma N = 32), so S and dP (or S^T
+// and dP^T) are still computed once a tile pair.  Each group turns its
+// half into bf16 A fragments of its two k16 steps, writes them to shared
+// memory (8 KiB for dS in dQ, 16 KiB for P^T and dS^T in dK/dV), and
+// after a named barrier over the 256 threads reads the other group's two,
+// so both run their column products over all 64 loop rows with A in
+// registers (thread t of one group holds exactly the fragment slots
+// thread t of the other needs).  dS = P (dP - delta) stays fp32 until
+// the fragments, as p_ds computes it.  Shared memory at D = 256: Q, dO
+// (or K, V) resident, two ring stages of K, V (or Q, dO), the statistics
+// and the exchange: 205,848 bytes for dQ, 216,088 for dK/dV, one block
+// an SM; at D = 160 132,120 and 142,360.  Registers (ptxas, CUDA 12.9):
+// dK/dV 222 at D = 256 and 190 at 160, dQ 136 and 120, no spills, no
+// C7512 warning.  One trial ran slower in each pass and was not kept:
+// the next tile's first products started behind this tile's column
+// products (a wgmma group in flight across the stage barrier).
+//
+// The dK/dV grid under few KV heads.  A block walks a key tile's R query
+// heads; at recurrentgemma-9b's G = 1 (B = 4, T = 1,024) that is 64
+// blocks of 256 iterations for 132 SMs.  So a key tile's heads are split
+// over a thread-block cluster of `split` blocks (1, 2 or 4: the least
+// power of two that gives at least one block an SM, at most R), each
+// summing its heads' partial dK and dV in fp32 registers.  After a
+// cluster barrier (every rank's ring is free) each rank sends the pairs
+// it does not own (pair p belongs to rank p % split) into the owner's
+// ring space through distributed shared memory; after a second barrier
+// each owner adds the split partials in rank order and writes its pairs.
+// No atomics, a fixed order: two calls give the same bits.
+
+constexpr int kWide = 256;       // two warpgroups a block
+constexpr int kMaxSplit = 4;     // blocks a key tile in bwd_dkdv_tc2
+
+// The columns of dQ, dK and dV that warpgroup W owns at head size D
+// (kN of them, kN / 2 accumulator floats a thread), the global column of
+// its accumulator column c, and acc += A (64 x 16, registers) x rows
+// [16 ks, 16 ks + 16) of a tile over those columns (the MN-major B).
+template <int D, int W> struct Half;
+template <int W> struct Half<256, W> {   // full blocks 2 W, 2 W + 1
+  static constexpr int kN = 128;
+  static __device__ __forceinline__ int col(int c) { return 128 * W + c; }
+  template <typename Gm>
+  static __device__ __forceinline__ void mma(float (&acc)[kN / 2],
+                                             const uint32_t (&a)[4],
+                                             uint32_t tile, int ks) {
+    RS<128>::mma(acc, a, Gm::mn_full_desc(tile, ks, 2 * W));
+  }
+};
+template <> struct Half<160, 0> {        // full block 0 and the tail
+  static constexpr int kN = 96;
+  static __device__ __forceinline__ int col(int c) {
+    return c < 64 ? c : c + 64;
+  }
+  template <typename Gm>
+  static __device__ __forceinline__ void mma(float (&acc)[kN / 2],
+                                             const uint32_t (&a)[4],
+                                             uint32_t tile, int ks) {
+    RS<64>::mma(acc_part<0, 32>(acc), a, Gm::mn_full_desc(tile, ks, 0));
+    RS<32>::mma(acc_part<32, 16>(acc), a, Gm::mn_tail_desc(tile, ks));
+  }
+};
+template <> struct Half<160, 1> {        // full block 1
+  static constexpr int kN = 64;
+  static __device__ __forceinline__ int col(int c) { return c + 64; }
+  template <typename Gm>
+  static __device__ __forceinline__ void mma(float (&acc)[kN / 2],
+                                             const uint32_t (&a)[4],
+                                             uint32_t tile, int ks) {
+    RS<64>::mma(acc, a, Gm::mn_full_desc(tile, ks, 1));
+  }
+};
+// pairs of accumulator floats a thread in dK and dV together, at most
+template <int D>
+constexpr int kMaxPairs = Half<D, 0>::kN / 2;
+
+// the 256 threads of a wide block (barrier 1: the two groups run apart
+// code, so not __syncthreads)
+__device__ __forceinline__ void sync_wide() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One group's two k16 steps of A fragments (the loop rows it computed)
+// into slots [2 W, 2 W + 2) of the exchange x ([kinds][4][4][128] words),
+// then, after the barrier, the other group's two from it.
+template <int W, int K>
+__device__ __forceinline__ void swap_frags(uint32_t* x,
+                                           const uint32_t (&mine)[K][2][4],
+                                           uint32_t (&all)[K][4][4]) {
+  const int lt = threadIdx.x % 128;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        x[((k * 4 + 2 * W + t) * 4 + r) * 128 + lt] = mine[k][t][r];
+        all[k][2 * W + t][r] = mine[k][t][r];
+      }
+  sync_wide();
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        all[k][2 * (1 - W) + t][r] =
+            x[((k * 4 + 2 * (1 - W) + t) * 4 + r) * 128 + lt];
+}
+
+// The shared memory of bwd_dq_tc2 from its 1024-aligned base: Q and dO
+// resident, the K and V ring, the exchange of dS fragments, the barriers.
+template <int D>
+struct DqWide {
+  static constexpr int kTile = Geo<D>::kTileBytes;
+  static constexpr int kX = 8192;
+  static constexpr int kBytes =
+      1024 + (2 + 2 * kStages) * kTile + kX + 8 * (1 + kStages);
+  uint32_t q, dout, k, v, x, full_q, full_kv;
+  __device__ __forceinline__ explicit DqWide(uint32_t base)
+      : q(base), dout(base + kTile), k(base + 2 * kTile),
+        v(base + (2 + kStages) * kTile),
+        x(base + (2 + 2 * kStages) * kTile), full_q(x + kX),
+        full_kv(full_q + 8) {}
+};
+
+// bwd_dq_tc's work on two warpgroups: warpgroup W's loop over the block's
+// key tiles (S and dP over keys [32 W, 32 W + 32) of each, dQ over its
+// columns) and its part of dQ.
+template <int D, int W>
+__device__ __forceinline__ void dq_wide(const Maps& maps,
+                                        const float* __restrict__ stats,
+                                        __nv_bfloat16* __restrict__ dq,
+                                        const Args& a, const QItem& w,
+                                        const DqWide<D>& L, uint32_t* x) {
+  using Gm = Geo<D>;
+  using Hf = Half<D, W>;
+  float m[2], il[2], dl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const size_t at = (size_t)w.bh * a.Tqp + w.q0 + acc_row(2 * e);
+    const size_t plane = (size_t)a.B * a.H * a.Tqp;
+    m[e] = stats[at];
+    il[e] = stats[plane + at];
+    dl[e] = stats[2 * plane + at];
+  }
+  float acc[Hf::kN / 2];
+#pragma unroll
+  for (int i = 0; i < Hf::kN / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(L.full_q, 0);
+  for (int i = 0; i < w.n; ++i) {
+    const int st = i % kStages, k0 = (w.lo + i) * kRows;
+    const uint32_t kb = L.k + st * Gm::kTileBytes;
+    const uint32_t vb = L.v + st * Gm::kTileBytes;
+    mbar_wait(L.full_kv + 8 * st, (i / kStages) & 1);
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < Gm::kKSteps; ++ks)
+      SS<32>::mma(s, Gm::k_desc(L.q, 0, ks), Gm::k_desc(kb, 32 * W, ks),
+                  ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < Gm::kKSteps; ++ks)
+      SS<32>::mma(dp, Gm::k_desc(L.dout, 0, ks), Gm::k_desc(vb, 32 * W, ks),
+                  ks > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool mask = needs_mask(a, w.q0, k0);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int e = (j / 2) % 2;
+      float p;
+      p_ds(a, mask, w.q0 + acc_row(j), k0 + 32 * W + acc_col(j), s[j], dp[j],
+           m[e], il[e], dl[e], p, dp[j]);
+    }
+    uint32_t mine[1][2][4], da[1][4][4];
+    to_frags<32>(dp, mine[0]);
+    swap_frags<W>(x, mine, da);
+    fence_regs(acc);
+    fence_frags(da[0]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      Hf::template mma<Gm>(acc, da[0][ks], kb, ks);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_frags(da[0]);
+    sync_wide();   // both groups' products have read the stage and x
+    if (threadIdx.x == 0 && i + kStages < w.n) {
+      const int kn = k0 + kStages * kRows;
+      mbar_expect_tx(L.full_kv + 8 * st, 2 * Gm::kTileBytes);
+      load_tile<Gm>(kb, &maps.k, &maps.k_tail, L.full_kv + 8 * st, w.g, kn,
+                    w.b);
+      load_tile<Gm>(vb, &maps.v, &maps.v_tail, L.full_kv + 8 * st, w.g, kn,
+                    w.b);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = w.q0 + acc_row(2 * e);
+    if (t >= a.Tq) continue;
+    __nv_bfloat16* out = dq + (((size_t)w.b * a.Tq + t) * a.H + w.h) * D;
+#pragma unroll
+    for (int jj = 0; jj < Hf::kN / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(out + Hf::col(acc_col(4 * jj))) =
+          pack_bf16(acc[4 * jj + 2 * e] * a.scale,
+                    acc[4 * jj + 2 * e + 1] * a.scale);
+  }
+}
+
+// Pass 2 at D = 160 and 256: bwd_dq_tc's block (b, query head, 64-row
+// query tile) on two warpgroups.
+template <int D>
+__global__ void __launch_bounds__(kWide, 1)
+bwd_dq_tc2(const __grid_constant__ Maps maps,
+           const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
+           Args a) {
+  using Gm = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const DqWide<D> L((raw + 1023u) & ~1023u);
+  uint32_t* x = reinterpret_cast<uint32_t*>(smem_raw + (L.x - raw));
+  const QItem w = q_item(a, false);
+
+  if (threadIdx.x == 0) {
+    mbar_init(L.full_q, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(L.full_kv + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(L.full_q, 2 * Gm::kTileBytes);
+    load_tile<Gm>(L.q, &maps.q, &maps.q_tail, L.full_q, w.h, w.q0, w.b);
+    load_tile<Gm>(L.dout, &maps.dout, &maps.do_tail, L.full_q, w.h, w.q0,
+                  w.b);
+    for (int i = 0; i < min(w.n, kStages); ++i) {
+      const int k0 = (w.lo + i) * kRows;
+      mbar_expect_tx(L.full_kv + 8 * i, 2 * Gm::kTileBytes);
+      load_tile<Gm>(L.k + i * Gm::kTileBytes, &maps.k, &maps.k_tail,
+                    L.full_kv + 8 * i, w.g, k0, w.b);
+      load_tile<Gm>(L.v + i * Gm::kTileBytes, &maps.v, &maps.v_tail,
+                    L.full_kv + 8 * i, w.g, k0, w.b);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 128)
+    dq_wide<D, 0>(maps, stats, dq, a, w, L, x);
+  else
+    dq_wide<D, 1>(maps, stats, dq, a, w, L, x);
+}
+
+// The shared memory of bwd_dkdv_tc2 from its 1024-aligned base: K and V
+// resident, the ring of Q, dO and their statistics (Q's and dO's stages
+// one span, which the cluster's sum takes over after the loop), the
+// exchange of P^T and dS^T fragments, the barriers.
+template <int D>
+struct DkdvWide {
+  static constexpr int kTile = Geo<D>::kTileBytes;
+  static constexpr int kX = 16384;
+  static constexpr int kBytes = 1024 + (2 + 2 * kStages) * kTile +
+                                kStages * kStatStride + kX +
+                                8 * (1 + kStages);
+  uint32_t k, v, q, dout, stat, x, full_kv, full;
+  __device__ __forceinline__ explicit DkdvWide(uint32_t base)
+      : k(base), v(base + kTile), q(base + 2 * kTile),
+        dout(base + (2 + kStages) * kTile),
+        stat(base + (2 + 2 * kStages) * kTile),
+        x(stat + kStages * kStatStride), full_kv(x + kX),
+        full(full_kv + 8) {}
+  // ring stage st of iteration i: Q, dO and the statistics of query head
+  // w.h0 + i / w.per, query tile w.qlo + i % w.per
+  __device__ __forceinline__ void load(const Maps& maps, const Args& a,
+                                       const KItem& w, int i, int st) const {
+    using Gm = Geo<D>;
+    const int h = w.h0 + i / w.per, q0 = (w.qlo + i % w.per) * kRows;
+    const uint32_t bar = full + 8 * st;
+    mbar_expect_tx(bar, 2 * kTile + kStatBytes);
+    load_tile<Gm>(q + st * kTile, &maps.q, &maps.q_tail, bar, h, q0, w.b);
+    load_tile<Gm>(dout + st * kTile, &maps.dout, &maps.do_tail, bar, h, q0,
+                  w.b);
+    tma_load_3d(stat + st * kStatStride, &maps.stats, bar, q0,
+                w.b * a.H + h, 0);
+  }
+};
+
+// The pairs of accumulator floats (q: floats 4 (q / 2) + 2 (q % 2) and
+// the next, at row acc_row(2 (q % 2)), column acc_col(4 (q / 2))) of one
+// of dK or dV that a thread sends to their owners: pair p0 + q belongs to
+// rank (p0 + q) % split, and lands in its ring at slot (sender, (p0 + q) /
+// split) of [split - 1][per_rank][256] float2.
+template <int N>
+__device__ __forceinline__ void send_pairs(const float (&acc)[N], int p0,
+                                           int S, int rank, int per_rank,
+                                           uint32_t ring) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const int p = p0 + q, o = p % S;
+    if (o == rank) continue;
+    const int slot = rank < o ? rank : rank - 1;
+    const uint32_t at = ring + 8 * ((slot * per_rank + p / S) * kWide +
+                                    threadIdx.x);
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote) : "r"(at), "r"(o));
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+                 :: "r"(remote), "f"(acc[4 * (q / 2) + 2 * (q % 2)]),
+                    "f"(acc[4 * (q / 2) + 2 * (q % 2) + 1]) : "memory");
+  }
+}
+
+// The owned pairs of one of dK or dV: the split partials added in rank
+// order (the thread's own from registers), times mul, written in bf16.
+template <int D, int W, int N>
+__device__ __forceinline__ void own_pairs(const float (&acc)[N], int p0,
+                                          int S, int rank, int per_rank,
+                                          const float2* ring,
+                                          __nv_bfloat16* __restrict__ out,
+                                          const Args& a, const KItem& w,
+                                          float mul) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const int p = p0 + q, e = q % 2, j = 4 * (q / 2) + 2 * e;
+    if (p % S != rank) continue;
+    float2 v = make_float2(acc[j], acc[j + 1]);
+    if (S > 1) {
+      for (int r = 0; r < S; ++r) {
+        const float2 part = r == rank
+            ? make_float2(acc[j], acc[j + 1])
+            : ring[((r < rank ? r : r - 1) * per_rank + p / S) * kWide +
+                   threadIdx.x];
+        if (r == 0) {
+          v = part;
+        } else {
+          v.x += part.x;
+          v.y += part.y;
+        }
+      }
+    }
+    const int t = w.k0 + acc_row(2 * e);
+    if (t >= a.Tk) continue;
+    *reinterpret_cast<uint32_t*>(
+        out + (((size_t)w.b * a.Tk + t) * a.G + w.g) * D +
+        Half<D, W>::col(acc_col(4 * (q / 2))))
+        = pack_bf16(v.x * mul, v.y * mul);
+  }
+}
+
+// bwd_dkdv_tc's work on two warpgroups: warpgroup W's loop (S^T and dP^T
+// over queries [32 W, 32 W + 32) of each query tile, dK and dV over its
+// columns), the cluster's sum and its part of dK and dV.
+template <int D, int W>
+__device__ __forceinline__ void dkdv_wide(const Maps& maps,
+                                          __nv_bfloat16* __restrict__ dk,
+                                          __nv_bfloat16* __restrict__ dv,
+                                          const Args& a, const KItem& w,
+                                          const DkdvWide<D>& L,
+                                          uint8_t* smem_raw, uint32_t raw) {
+  using Gm = Geo<D>;
+  using Hf = Half<D, W>;
+  const float* st_g = reinterpret_cast<const float*>(smem_raw + (L.stat - raw));
+  uint32_t* x = reinterpret_cast<uint32_t*>(smem_raw + (L.x - raw));
+  float ak[Hf::kN / 2], av[Hf::kN / 2];
+#pragma unroll
+  for (int i = 0; i < Hf::kN / 2; ++i) {
+    ak[i] = 0.f;
+    av[i] = 0.f;
+  }
+  mbar_wait(L.full_kv, 0);
+  for (int i = 0; i < w.n; ++i) {
+    const int st = i % kStages, q0 = (w.qlo + i % w.per) * kRows;
+    const uint32_t qb = L.q + st * Gm::kTileBytes;
+    const uint32_t dob = L.dout + st * Gm::kTileBytes;
+    const float* sm = st_g + st * (kStatStride / 4);   // m, 1/l, delta
+    mbar_wait(L.full + 8 * st, (i / kStages) & 1);
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < Gm::kKSteps; ++ks)
+      SS<32>::mma(s, Gm::k_desc(L.k, 0, ks), Gm::k_desc(qb, 32 * W, ks),
+                  ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < Gm::kKSteps; ++ks)
+      SS<32>::mma(dp, Gm::k_desc(L.v, 0, ks), Gm::k_desc(dob, 32 * W, ks),
+                  ks > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool mask = needs_mask(a, q0, w.k0);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {   // rows the keys, columns the queries
+      const int c = 32 * W + acc_col(j);
+      p_ds(a, mask, q0 + c, w.k0 + acc_row(j), s[j], dp[j], sm[c],
+           sm[kRows + c], sm[2 * kRows + c], s[j], dp[j]);
+    }
+    uint32_t mine[2][2][4], pd[2][4][4];   // [P^T, dS^T]
+    to_frags<32>(s, mine[0]);
+    to_frags<32>(dp, mine[1]);
+    swap_frags<W>(x, mine, pd);
+    fence_regs(av);
+    fence_regs(ak);
+    fence_frags(pd[0]);
+    fence_frags(pd[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      Hf::template mma<Gm>(av, pd[0][ks], dob, ks);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      Hf::template mma<Gm>(ak, pd[1][ks], qb, ks);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(av);
+    fence_regs(ak);
+    fence_frags(pd[0]);
+    fence_frags(pd[1]);
+    sync_wide();   // both groups' products have read the stage and x
+    if (threadIdx.x == 0 && i + kStages < w.n) L.load(maps, a, w, i + kStages,
+                                                      st);
+  }
+  // pairs 0 .. kN / 4 - 1 are dK's, the next kN / 4 dV's
+  constexpr int kQ = Hf::kN / 4;
+  const int S = a.split, per_rank = kMaxPairs<D> / S;
+  if (S > 1) {
+    cluster_sync();   // every rank's loop is done: the rings are free
+    send_pairs(ak, 0, S, w.rank, per_rank, L.q);
+    send_pairs(av, kQ, S, w.rank, per_rank, L.q);
+    cluster_sync();   // every pair is in its owner's shared memory
+  }
+  const float2* ring = reinterpret_cast<const float2*>(smem_raw + (L.q - raw));
+  own_pairs<D, W>(ak, 0, S, w.rank, per_rank, ring, dk, a, w, a.scale);
+  own_pairs<D, W>(av, kQ, S, w.rank, per_rank, ring, dv, a, w, 1.f);
+}
+
+// Pass 3 at D = 160 and 256: bwd_dkdv_tc's block on two warpgroups, the
+// R query heads of a key tile split over a cluster of a.split blocks.
+template <int D>
+__global__ void __launch_bounds__(kWide, 1)
+bwd_dkdv_tc2(const __grid_constant__ Maps maps,
+             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+             Args a) {
+  using Gm = Geo<D>;
+  static_assert((kMaxSplit - 1) * (kMaxPairs<D> / kMaxSplit) * kWide * 8 <=
+                    2 * kStages * Gm::kTileBytes,
+                "the cluster's sum fits the ring");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const DkdvWide<D> L((raw + 1023u) & ~1023u);
+  const KItem w = k_item(a, a.split);
+
+  if (threadIdx.x == 0) {
+    mbar_init(L.full_kv, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(L.full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(L.full_kv, 2 * Gm::kTileBytes);
+    load_tile<Gm>(L.k, &maps.k, &maps.k_tail, L.full_kv, w.g, w.k0, w.b);
+    load_tile<Gm>(L.v, &maps.v, &maps.v_tail, L.full_kv, w.g, w.k0, w.b);
+    for (int i = 0; i < min(w.n, kStages); ++i) L.load(maps, a, w, i, i);
+  }
+  __syncthreads();
+  if (threadIdx.x < 128)
+    dkdv_wide<D, 0>(maps, dk, dv, a, w, L, smem_raw, raw);
+  else
+    dkdv_wide<D, 1>(maps, dk, dv, a, w, L, smem_raw, raw);
+}
+
 // Shared memory of each pass, with slack to align the tiles to 1024 bytes.
 template <int D>
 constexpr int stats_smem() {
@@ -1016,20 +1526,39 @@ bool make_stats_map(CUtensorMap* map, float* stats, int BH, int Tqp) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The blocks a key tile takes in bwd_dkdv_tc2: the least power of two (at
+// most kMaxSplit and R) that gives each of the card's sms SMs a block.
+int dkdv_split(const Args& a, int nkt, int sms) {
+  int split = 1;
+  while (2 * split <= kMaxSplit && 2 * split <= a.H / a.G &&
+         a.B * a.G * nkt * split < sms)
+    split *= 2;
+  return split;
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, float* stats,
            const Args& a, cudaStream_t stream) {
+  constexpr bool kWideD = D > 128;
   static std::atomic<bool> done_st[kDevices], done_dq[kDevices],
       done_kv[kDevices];
   cudaError_t err = allow_smem(bwd_stats_tc<D>, stats_smem<D>(), done_st);
-  if (err == cudaSuccess)
-    err = allow_smem(bwd_dq_tc<D>, dq_smem<D>(), done_dq);
-  if (err == cudaSuccess)
-    err = allow_smem(bwd_dkdv_tc<D>, dkdv_smem<D>(), done_kv);
+  if constexpr (kWideD) {
+    if (err == cudaSuccess)
+      err = allow_smem(bwd_dq_tc2<D>, DqWide<D>::kBytes, done_dq);
+    if (err == cudaSuccess)
+      err = allow_smem(bwd_dkdv_tc2<D>, DkdvWide<D>::kBytes, done_kv);
+  } else {
+    if (err == cudaSuccess)
+      err = allow_smem(bwd_dq_tc<D>, dq_smem<D>(), done_dq);
+    if (err == cudaSuccess)
+      err = allow_smem(bwd_dkdv_tc<D>, dkdv_smem<D>(), done_kv);
+  }
   if (err != cudaSuccess) return (int)err;
   Maps maps = {};
-  if (!make_maps<D>(&maps.q, &maps.q_tail, q, a.B, a.Tq, a.H, kRows) ||
+  if (!bind_context() ||
+      !make_maps<D>(&maps.q, &maps.q_tail, q, a.B, a.Tq, a.H, kRows) ||
       !make_maps<D>(&maps.k, &maps.k_tail, k, a.B, a.Tk, a.G, kRows) ||
       !make_maps<D>(&maps.v, &maps.v_tail, v, a.B, a.Tk, a.G, kRows) ||
       !make_maps<D>(&maps.dout, &maps.do_tail, dout, a.B, a.Tq, a.H,
@@ -1041,12 +1570,39 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       maps, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, stats, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dq_tc<D><<<a.B * a.H * nqt, kThreads, dq_smem<D>(), stream>>>(
-      maps, stats, (__nv_bfloat16*)dq, a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bwd_dkdv_tc<D><<<a.B * a.G * nkt, kThreads, dkdv_smem<D>(), stream>>>(
-      maps, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  if constexpr (kWideD) {
+    bwd_dq_tc2<D><<<a.B * a.H * nqt, kWide, DqWide<D>::kBytes, stream>>>(
+        maps, stats, (__nv_bfloat16*)dq, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0;
+    err = (cudaError_t)sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    Args ak = a;
+    ak.split = dkdv_split(a, nkt, sms);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.B * a.G * nkt * ak.split, 1, 1);
+    cfg.blockDim = dim3(kWide, 1, 1);
+    cfg.dynamicSmemBytes = DkdvWide<D>::kBytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ak.split;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, bwd_dkdv_tc2<D>, maps, (__nv_bfloat16*)dk,
+                             (__nv_bfloat16*)dv, ak);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    bwd_dq_tc<D><<<a.B * a.H * nqt, kThreads, dq_smem<D>(), stream>>>(
+        maps, stats, (__nv_bfloat16*)dq, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    bwd_dkdv_tc<D><<<a.B * a.G * nkt, kThreads, dkdv_smem<D>(), stream>>>(
+        maps, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1078,8 +1634,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The same call for bf16 tensors at D in {16, 32, 64, 80, 128} on the
-// tensor cores.  stats: fp32 scratch (3, B H, Tqp) with Tqp = Tq rounded
+// The same call for bf16 tensors at D in {16, 32, 64, 80, 128, 160, 256}
+// on the tensor cores (D = 160 and 256 on two-warpgroup blocks, dK/dV as
+// a cluster launch).  stats: fp32 scratch (3, B H, Tqp) with Tqp = Tq rounded
 // up to 64.  Base pointers must be 16-byte aligned (the tensor maps'
 // rule; the wrapper checks).  Launches the three passes on `stream`.
 // Returns a cudaError_t.
@@ -1091,7 +1648,8 @@ int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G <= 0 || H % G != 0)
     return (int)cudaErrorInvalidValue;
   const tcb::Args a{B, Tq, Tk, H, G, causal, window,
-                    (Tq + tcb::kRows - 1) / tcb::kRows * tcb::kRows, scale};
+                    (Tq + tcb::kRows - 1) / tcb::kRows * tcb::kRows, scale,
+                    1};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 16: return tcb::launch<16>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
@@ -1099,6 +1657,8 @@ int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
     case 64: return tcb::launch<64>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
     case 80: return tcb::launch<80>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
     case 128: return tcb::launch<128>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
+    case 160: return tcb::launch<160>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
+    case 256: return tcb::launch<256>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

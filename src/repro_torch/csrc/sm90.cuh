@@ -279,9 +279,30 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D += A B over one k16 step at N = the B tile's rows (64 or 128), both
-// operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D += A B over one k16 step at N = the B tile's rows (32, 64 or 128),
+// both operands K-major in shared memory.
 template <int N> struct SS;
+template <> struct SS<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    wgmma_ss_n32(d, a, b, accumulate);
+  }
+};
 template <> struct SS<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
@@ -511,6 +532,18 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int T,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Make the current device's primary context current on the calling
+// thread.  The tensor-map encoder (cuTensorMapEncodeTiled) needs one; a host
+// thread whose first CUDA work this is (autograd's backward thread, when
+// the kernels' attributes were set on another) has none until a runtime
+// call binds it, which cudaSetDevice does since CUDA 12.  A launch calls it
+// once, before its first make_maps.
+inline bool bind_context() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess &&
+         cudaSetDevice(dev) == cudaSuccess;
 }
 
 // The maps of one tensor: over its full 64-column blocks and over its

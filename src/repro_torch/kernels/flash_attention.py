@@ -37,12 +37,13 @@ of two variants that :func:`bwd_variant` picks from the dtype and the
 head size alone:
 
 * ``tc`` — three passes on the tensor cores (wgmma fed by TMA), for bf16
-  at every ``D`` in :data:`BWD_TC_HEAD_DIMS`;
-* ``scalar`` — three scalar-fp32 kernels, for fp32 and for bf16 at
-  ``D = 160`` and ``256`` (their dK and dV accumulators do not fit a
-  thread's registers beside S and dP).  It takes the tensor-core variant's
-  calls too, but only when named (``_launch_bwd(..., kind="scalar")``):
-  the yardstick.
+  at every ``D`` in :data:`BWD_TC_HEAD_DIMS` (at ``D = 160`` and ``256``
+  dQ and dK/dV on blocks of two warpgroups that split the output
+  columns, and dK/dV's key tiles split over a thread-block cluster where
+  the KV heads are too few to fill the card);
+* ``scalar`` — three scalar-fp32 kernels, for fp32 (wgmma takes no fp32
+  operands).  It takes the tensor-core variant's calls too, but only when
+  named (``_launch_bwd(..., kind="scalar")``): the yardstick.
 
 :data:`LAUNCHES` counts ``flash_attention_bwd`` (every backward call) and
 ``flash_attention_bwd_tc`` and ``flash_attention_bwd_scalar`` (each
@@ -83,10 +84,10 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 #: the bf16 head sizes the tensor-core kernel takes: rows cut into 128-byte
 #: blocks and a 32- or 64-byte tail, each swizzled by its width
 TC_HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
-#: the bf16 head sizes the tensor-core backward takes: dK and dV, D / 2
-#: fp32 each a thread, fit beside S and dP up to D = 128 (the training
-#: paths' D = 128 and 64)
-BWD_TC_HEAD_DIMS = (16, 32, 64, 80, 128)
+#: the bf16 head sizes the tensor-core backward takes: all of them (dK
+#: and dV, D / 2 fp32 each a thread, fit one warpgroup beside S and dP up
+#: to D = 128; at D = 160 and 256 two warpgroups split the columns)
+BWD_TC_HEAD_DIMS = HEAD_DIMS
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"

@@ -46,6 +46,9 @@ CASES = [
     (1, 30, 10, 4, 1, 16, False, 4),         # Tq > Tk: fully masked rows
     (2, 1, 17, 4, 4, 32, False, None),       # Tq = 1 (cross decode)
     (1, 1, 1, 4, 2, 16, True, None),         # Tq = Tk = 1
+    (1, 40, 40, 4, 2, 160, True, None),      # D = 160, GQA (pixtral-12b)
+    (1, 50, 50, 4, 1, 256, True, 7),         # D = 256, MQA, a window
+    (2, 9, 21, 4, 1, 256, False, None),      # D = 256, Tq < Tk
 ]
 LIMIT = 1e-5
 
@@ -160,28 +163,28 @@ def test_reference_ragged_chunk_fault_reaches_the_gradients():
                                    torch.float16], ids=str)
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_bwd_variant_routes_by_dtype_and_head_size(dtype, D):
-    """bf16 at D <= 128 takes the tensor-core backward, everything else
-    the scalar one; a fixed choice by dtype and head size."""
-    want = "tc" if dtype == torch.bfloat16 and D <= 128 else "scalar"
+    """bf16 at every head size takes the tensor-core backward, everything
+    else the scalar one; a fixed choice by dtype and head size."""
+    want = "tc" if dtype == torch.bfloat16 else "scalar"
     assert fa.bwd_variant(dtype, D) == want
-    assert (D in fa.BWD_TC_HEAD_DIMS) == (D <= 128)
+    assert D in fa.BWD_TC_HEAD_DIMS
 
 
 def test_training_paths_take_the_tensor_core_backward():
-    """qwen3-1.7b (D = 128) and seamless-m4t-large-v2 (D = 64) train on
-    the tensor-core backward; pixtral-12b (D = 160) and recurrentgemma-9b
-    (D = 256) would take the scalar one."""
+    """qwen3-1.7b (D = 128), seamless-m4t-large-v2 (D = 64), pixtral-12b
+    (D = 160) and recurrentgemma-9b (D = 256) train on the tensor-core
+    backward."""
     from repro_torch import configs
-    for name, kind in (("qwen3-1.7b", "tc"), ("seamless-m4t-large-v2", "tc"),
-                       ("pixtral-12b", "scalar"),
-                       ("recurrentgemma-9b", "scalar")):
+    for name in ("qwen3-1.7b", "seamless-m4t-large-v2", "pixtral-12b",
+                 "recurrentgemma-9b"):
         cfg = configs.get(name)
-        assert fa.bwd_variant(cfg.compute_dtype, cfg.head_dim) == kind, name
+        assert fa.bwd_variant(cfg.compute_dtype, cfg.head_dim) == "tc", name
 
 
 @pytest.mark.parametrize("dtype,D,kind", [
-    (torch.float32, 128, "tc"), (torch.bfloat16, 160, "tc"),
-    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 128, "fast")],
+    (torch.float32, 128, "tc"), (torch.float32, 160, "tc"),
+    (torch.float32, 256, "tc"), (torch.float32, 16, "tc"),
+    (torch.bfloat16, 128, "fast")],
     ids=str)
 def test_launch_bwd_refuses_what_the_variant_does_not_take(dtype, D, kind):
     """``_launch_bwd(kind="tc")`` raises where ``bwd_variant`` names the
@@ -246,3 +249,87 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     assert first == _build._target("k")
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build._target("k") != first
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_cut_training_phase_rehearses_on_the_cpu():
+    """``chip_smoke.phase_train_cut`` (recurrentgemma-9b's and
+    pixtral-12b's training at cut depth) on reduced configs on the CPU,
+    through ``train_kit``'s trainer and loop: one cycle of rec, rec, attn
+    and 2 layers with 8 patches a sequence, a finite loss that falls, and
+    no kernel launch (the CPU runs the plain versions).  The rate is one
+    the 64-wide models learn from in 6 steps: the defaults' 100-step
+    warmup moves them by less than the batches' own spread of the loss
+    (measured with the defaults: recurrentgemma-9b's cycle from 6.2733 to
+    6.2803 in 6 steps, and up and down by 0.05 over 16)."""
+    from repro_torch import configs
+    from repro_torch.train.train_loop import TrainConfig
+    cs = _chip_smoke()
+    trainer, loop = cs.train_kit(TrainConfig(peak_lr=1e-2, warmup_steps=1),
+                                 vocab_chunk=100)
+    cfgs = {arch: configs.reduced(configs.get(arch)) for arch in cs.CUT_TRAIN}
+    models = {"recurrentgemma-9b": (3, 16, 0, 3), "pixtral-12b": (2, 12, 8, 2)}
+    assert set(models) == set(cs.CUT_TRAIN)
+    ops.reset_launches()
+    runs = cs.phase_train_cut(torch, 0, "cpu", trainer, loop, dev="cpu",
+                              models=models, cfgs=cfgs, B=2, steps=6)
+    assert set(runs) == set(models)
+    for arch, run in runs.items():
+        assert len(run["losses"]) == 6, arch
+        assert all(np.isfinite(run["losses"])), arch
+        assert run["losses"][-1] < run["losses"][0], arch
+        assert run["launches"] == 0 and run["step_ms"] > 0, arch
+        assert run["rel"] < cs.TRAIN_GRAD_L2["float32"], arch
+    assert all(n == 0 for n in ops.launches().values())
+
+
+_PTXAS_HEAD = ("ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__"
+               "733d37c0_22_flash_attention_bwd_cu_2b1a21a5{}' for 'sm_90a'\n"
+               "ptxas info    : Function properties for _ZN55_GLOBAL__N__"
+               "733d37c0_22_flash_attention_bwd_cu_2b1a21a5{}\n")
+_PTXAS_SPILL = ("    {} bytes stack frame, {} bytes spill stores, {} bytes "
+                "spill loads\nptxas info    : Used 168 registers\n")
+
+
+def _ptxas(functions):
+    """``-Xptxas -v`` output of mangled backward kernels, each with (stack
+    frame, spill stores, spill loads) bytes."""
+    return "".join(_PTXAS_HEAD.format(fn, fn) + _PTXAS_SPILL.format(*n)
+                   for fn, n in functions)
+
+
+@pytest.mark.parametrize("functions,spills,refused", [
+    # the scalar kernels' spills are logged and allowed
+    ([("8bwd_dkdvI13__nv_bfloat16Li16EEEvPKT_S4_S4_S4_PKfS6_S6_PS2_S7_NS_"
+       "5ShapeE", (16, 12, 28)),
+      ("6bwd_dqIfLi32EEEvPKT_S3_S3_S3_PKfS5_S5_PS1_NS_5ShapeE", (24, 20, 20)),
+      ("11bwd_dkdv_tcILi128EEEvNS_4MapsEP13__nv_bfloat16S3_NS_4ArgsE",
+       (0, 0, 0))],
+     {"bwd_dkdv<bf16, 16>": (12, 28), "bwd_dq<fp32, 32>": (20, 20)}, False),
+    # a tensor-core pass that spills fails the check, its wide forms too
+    ([("10bwd_dq_tc2ILi256EEEvNS_4MapsEPKfP13__nv_bfloat16NS_4ArgsE",
+       (8, 4, 4))], {"bwd_dq_tc2<256>": (4, 4)}, True),
+    ([("12bwd_stats_tcILi64EEEvNS_4MapsEPK13__nv_bfloat16S4_PfNS_4ArgsE",
+       (0, 0, 8))], {"bwd_stats_tc<64>": (0, 8)}, True),
+])
+def test_build_spill_check_reads_ptxas(functions, spills, refused):
+    """``chip_smoke.bwd_spills`` reads the spill lines of ptxas's verbose
+    output by function: the scalar kernels may spill, a tensor-core pass
+    of the backward may not."""
+    cs = _chip_smoke()
+    text = _ptxas(functions)
+    assert cs.ptxas_spills(text) == spills
+    if refused:
+        with pytest.raises(cs.CheckFailed, match="spill to local memory"):
+            cs.bwd_spills(text)
+    else:
+        assert cs.bwd_spills(text) == spills

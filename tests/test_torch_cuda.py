@@ -9,6 +9,7 @@ card alone:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -1309,8 +1310,8 @@ def _bwd_inputs(device, dtype, D, case, seed):
 def test_cuda_attention_bwd_matches_plain(cuda_device, D, dtype):
     """Each backward variant that takes (dtype, D) against the plain
     version on every case: the one ``bwd_variant`` names, and the scalar
-    yardstick too where that is the tensor-core kernel (bf16 at D <=
-    128); one launch a call, counted in the total and its variant."""
+    yardstick too where that is the tensor-core kernel (bf16 at every
+    D); one launch a call, counted in the total and its variant."""
     kinds = ["tc", "scalar"] if fa.bwd_variant(dtype, D) == "tc" \
         else ["scalar"]
     for i, case in enumerate(BWD_CASES):
@@ -1348,10 +1349,86 @@ def test_cuda_attention_bwd_tc_is_deterministic(cuda_device, D):
             assert torch.equal(a, b), case
 
 
+#: the D = 160 and 256 cases of ATTN_CASES: the training shapes of
+#: pixtral-12b and recurrentgemma-9b, the 4,096-token one past the 2,048
+#: window, windows, bidirectional, T = 1 and one past a tile
+WIDE_BWD_CASES = [c for c in ATTN_CASES if c[4] in (160, 256)]
+
+
+@pytest.mark.parametrize("case", WIDE_BWD_CASES, ids=str)
+def test_cuda_attention_bwd_tc_at_wide_head_sizes(cuda_device, case):
+    """The tensor-core backward at D = 160 and 256 (two warpgroups a
+    block; dK/dV's key tiles split over a cluster where the KV heads are
+    few) against ``attention_bwd_ref``: each of dq, dk, dv within
+    relative L2 1e-2, one launch counted under ``tc``, none under
+    ``scalar``."""
+    B, T, H, G, D, causal, window = case
+    q, k, v, o, do = _bwd_inputs(cuda_device, torch.bfloat16, D,
+                                 (B, T, T, H, G, causal, window), 11 * D + T)
+    assert fa.bwd_variant(torch.bfloat16, D) == "tc"
+    fa.reset_launches()
+    got = fa._launch_bwd(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd_tc"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd_scalar"] == 0
+    want = fa.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    floor = float(want[2].double().norm())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = _rel_or_floor(g, w, floor)
+        assert err < BWD_LIMIT[torch.bfloat16], (name, case, err)
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_cuda_flash_attention_backward_counts_by_variant(cuda_device, D):
+    """A bf16 call with gradients at D = 160 and 256 through
+    ``flash_attention``: one forward and one backward launch, both on the
+    tensor cores; the scalar kernels' counts stay 0.  The backward is
+    first launched on this thread (which sets the kernels' attributes)
+    and then on a new host thread, which has no current context until a
+    launch binds one, as autograd's backward thread has none on its first
+    launch; both give the autograd call's bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    q = torch.randn((2, 130, 4, D), generator=gen, device=cuda_device)
+    k, v = (torch.randn((2, 130, 1, D), generator=gen, device=cuda_device)
+            for _ in range(2))
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        o = fa._launch(*leaves, True, None)
+    main = fa._launch_bwd(*leaves, o, do, True, None)
+    fresh = {}
+
+    def launch():
+        try:
+            fresh["grads"] = fa._launch_bwd(*leaves, o, do, True, None)
+            torch.cuda.synchronize()
+        except Exception as exc:   # re-raised on the test's thread
+            fresh["error"] = exc
+    thread = threading.Thread(target=launch)
+    thread.start()
+    thread.join()
+    if "error" in fresh:
+        raise fresh["error"]
+    fa.reset_launches()
+    out = fa.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert {name: n for name, n in fa.LAUNCHES.items()} == {
+        "flash_attention": 1, "flash_attention_tc": 1,
+        "flash_attention_scalar": 0, "flash_attention_bwd": 1,
+        "flash_attention_bwd_tc": 1, "flash_attention_bwd_scalar": 0}
+    assert fa.SHAPE_LAUNCHES[("bwd_tc", 130, 130, True)] == 1
+    for a, b, c in zip(main, fresh["grads"], got):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_cuda_attention_bwd_refuses_tc_where_scalar(cuda_device):
     """The tensor-core backward named where ``bwd_variant`` says scalar
-    (fp32; bf16 at D = 160) raises, and launches nothing."""
-    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 160)):
+    (fp32, at D = 64, 160 and 256) raises, and launches nothing."""
+    for dtype, D in ((torch.float32, 64), (torch.float32, 160),
+                     (torch.float32, 256)):
         q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, BWD_CASES[0], 0)
         before = dict(fa.LAUNCHES)
         with pytest.raises(ValueError, match="takes bf16 at head sizes"):
