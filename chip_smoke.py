@@ -8,9 +8,11 @@ Phases:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all started together (``-Xptxas -v`` registers,
-   shared memory and spills printed, and each source's build time), and
-   read the tensor-core backward's passes with ``cuobjdump -sass``: each
-   must issue wgmma (``HGMMA``) at every head size it is built for;
+   shared memory and spills printed, and each source's build time; the
+   tensor-core forward and backward, bf16 and fp32 on three bf16 pieces,
+   must not spill), and read the tensor-core backward's passes with
+   ``cuobjdump -sass``: each must issue wgmma (``HGMMA``) at every head
+   size and operand dtype it is built for;
 2. hold every ``rank_delta`` kernel against its plain PyTorch version on
    the card: the tick's price ``scatter`` (bitwise, C = 1 to 100,000, n =
    0 to C, each case scattered twice back to back); ``rowmin`` and the
@@ -90,9 +92,10 @@ Phases:
    ``PollingPriceFeed`` evaluates as the recorded feed on ``torch_fused``,
    and the quickstart's picks through the port's Flora (class A -> #9,
    class B -> #1, Flora the best row of Table IV);
-7. hold both flash-attention kernels and the WKV6 kernel against their
-   plain versions: the tensor-core kernel (bf16) and the scalar one
-   (fp32); causal, windowed and bidirectional; GQA and MQA; ragged T;
+7. hold the flash-attention kernels and the WKV6 kernel against their
+   plain versions: the tensor-core kernel (bf16) and the split one (fp32
+   on three bf16 pieces); causal, windowed and bidirectional (also held
+   to a relative L2 limit, ``ATTN_REL_L2``); GQA and MQA; ragged T;
    head sizes 16 to 256, with D = 80 (a 64-column block and a 16-column
    tail) also at stablelm-3b's prefill shape, GQA, T = 1, 100, 129 and a
    windowed T = 1,000, and D = 256 (its own block shape) at
@@ -132,7 +135,7 @@ Phases:
    agree on, layer by layer); for attention, the first wave's prefill
    timed in turns with the tensor-core kernel and with the scalar one it
    replaced; prefill + decode against ``forward`` at full width, 4
-   layers, fp32 (the scalar attention kernel; MoE at capacity factor
+   layers, fp32 (every attention launch the split kernel; MoE at capacity factor
    64; recurrentgemma-9b's rec, rec, attn, rec with a 2,100-token
    prompt and 8 steps past its window; seamless at 2 encoder and 2
    decoder layers, 100 source frames, a 6-token prompt and 8 steps;
@@ -142,7 +145,10 @@ Phases:
    kernel and the plain version (``[window]``); and the kernels at the shapes the path gave them, against their
    plain versions and timed beside their bounds, the kernel they
    replaced (the scalar attention kernel, bf16; the sequential WKV6
-   kernel) and, for attention, ``scaled_dot_product_attention``; for
+   kernel) and, for attention, ``scaled_dot_product_attention``, and
+   at qwen3-1.7b's, recurrentgemma-9b's and pixtral-12b's shapes in fp32
+   the split kernel beside the scalar one, both held against the plain
+   version and logged by their distance from a float64 run; for
    WKV6 also the decode step back to back and from a CUDA graph.  Then
    ``llama4-maverick-400b-a17b`` at full width over 2 layers (one dense,
    one MoE; the whole model does not fit one card): a 2 x 1,024-token
@@ -155,17 +161,19 @@ Phases:
    bidirectional with Tq != Tk and fully masked rows, GQA R = 1, 2, 4,
    48, ragged T, Tq = 1; each of dq, dk, dv within relative L2 1e-5 in
    fp32 and 1e-2 in bf16): the variant ``bwd_variant`` names (the
-   tensor-core kernel for bf16 at every head size, whose second call
-   must give the same bits) and, where that is the tensor-core kernel,
-   the scalar yardstick too; with a planted fault (the last 64 keys'
-   contribution dropped) that the check must refuse; held the same way at
-   the path's shapes (seamless-m4t-large-v2's three in bf16 and fp32,
-   qwen3-1.7b's in fp32, pixtral-12b's and recurrentgemma-9b's and a
-   4,096-position one where the 2,048 window binds in bf16, each a second
-   call bitwise and the kernel with the planted fault refused, and in
-   bf16 where each is timed, ``BWD_TIMED``: the
-   tensor-core kernel beside the scalar yardstick, the plain version,
-   SDPA's backward and its bound); qwen3-1.7b at full width and depth for 10 steps of
+   tensor-core kernel for bf16 at every head size, the split one for fp32
+   up to D = 128, each of whose second calls must give the same bits)
+   and, where that is not the scalar kernel, the scalar yardstick too;
+   with a planted fault (the last 64 keys' contribution dropped) that the
+   check must refuse; held the same way at the path's shapes
+   (seamless-m4t-large-v2's three in bf16 and fp32, qwen3-1.7b's in fp32,
+   pixtral-12b's and recurrentgemma-9b's and a 4,096-position one where
+   the 2,048 window binds in bf16, each a second call bitwise and the
+   kernel with the planted fault refused, and in bf16 where each is
+   timed, ``BWD_TIMED``: the tensor-core kernel beside the scalar
+   yardstick, the plain version, SDPA's backward and its bound; in fp32
+   at qwen3-1.7b's shape the split kernel beside the scalar one, SDPA's
+   fp32 backward and both bounds); qwen3-1.7b at full width and depth for 10 steps of
    4 x 1,024 tokens through ``make_train_step`` and ``train_loop``
    (AdamW, the reference's ``TrainConfig`` defaults, remat, vocab chunks
    of 16,384; batches from the port's ``TokenStream``): finite losses,
@@ -178,8 +186,8 @@ Phases:
    the kernels against plain attention, bf16 over all 28 layers within
    relative L2 0.1 over the whole gradient and 0.05 on each leaf, and
    with the planted fault in the last layer, which the leaf limit must
-   refuse; fp32 over 4 layers within 1e-3 and 1e-4 (the scalar backward,
-   one launch a layer); seamless-m4t-large-v2
+   refuse; fp32 over 4 layers within 1e-3 and 1e-4 (the split backward,
+   one launch a layer, the scalar one none); seamless-m4t-large-v2
    at 2 + 2 layers, full width, one bf16 step over 2 x 4,096 frames and
    2 x 512 tokens (the backward bidirectional, causal and in cross mode,
    counted by shape), its gradients held the same way; then rwkv6-3b:
@@ -225,7 +233,8 @@ Phases:
     its AdamW update alone, and the same for rwkv6-3b (the backward
     kernel there WKV6's), recurrentgemma-9b at 9 layers and pixtral-12b
     at 8; then the tensor-core backward's and SDPA's
-    backward's device time a call at each timed shape.
+    backward's device time a call at each timed shape, and the backend
+    that serves SDPA's fp32 yardstick, from the kernels' names.
 
 Every phase runs on every call.  Every check that fails exits non-zero.
 The last three lines are the ``{"kernels": [...]}`` record, the card's
@@ -258,9 +267,18 @@ shape, with the ``kernel`` that k takes.
 ``flash_attention_d160`` (pixtral-12b, D = 160, 2,048 positions a
 sequence) add ``wave_ms`` and ``wave_earlier_ms``: the first wave's
 prefill with the tensor-core kernel and with the scalar one.
-``flash_attention_scalar``, ``flash_attention_scalar_d256`` and
-``flash_attention_scalar_d160`` are the scalar kernel in fp32 at
-qwen3-1.7b's, recurrentgemma-9b's and pixtral-12b's shapes.
+``flash_attention_split``, ``flash_attention_split_d256`` and
+``flash_attention_split_d160`` are the split kernel (fp32 on three bf16
+pieces) at qwen3-1.7b's, recurrentgemma-9b's and pixtral-12b's shapes,
+their launches those models' fp32 4-layer checks', their
+``earlier_ms`` the scalar kernel's; ``flash_attention_scalar``,
+``flash_attention_scalar_d256`` and ``flash_attention_scalar_d160`` the
+scalar kernel in fp32 at the same shapes, by name (no launch on a path).
+These six add ``ffma_bound_ms`` (``bound_ms`` is six bf16 products a
+product at the bf16 peak, this the scalar FFMAs' at the fp32 peak),
+``rel_l2_float64`` and ``plain_rel_l2_float64`` (the kernel's and the
+plain version's distance from a float64 run) and ``library_backend``
+(the backend that served SDPA's fp32 call).
 ``flash_attention_enc``, ``flash_attention_dec``, ``flash_attention_cross``
 and ``flash_attention_xdec`` are the tensor-core kernel at
 seamless-m4t-large-v2's encoder (bidirectional, 4 x 4,096 over 4,096),
@@ -290,8 +308,12 @@ share ``step_busy`` and the backward's share of its device time
 call from the profiler, without the host's, and ``device_pass_ms``, the
 kernel's by pass ({kernel: ms}).
 ``flash_attention_bwd_scalar`` is the scalar backward, the yardstick, at
-qwen3-1.7b's shape in bf16, its launches the fp32 gradient check's;
-``flash_attention_bwd_scalar_fp32`` the same in fp32.
+qwen3-1.7b's shape in bf16; ``flash_attention_bwd_split_fp32`` the split
+backward at that shape in fp32, its launches the fp32 gradient check's,
+its ``earlier_ms`` the scalar backward's, ``library_ms`` SDPA's fp32
+backward; ``flash_attention_bwd_scalar_fp32`` the scalar backward there
+by name (no launch on a path); these two add the keys of the fp32
+forward entries.
 ``wkv6_bwd`` is WKV6's backward at rwkv6-3b's training shape (bf16 r,
 k, v; 4 x 1,024, 40 heads, N = 64; no dsT, no ds0), its launches the
 8-step run's, ``library_ms`` null (no one PyTorch call computes it); it
@@ -466,6 +488,7 @@ def phase_build(torch) -> None:
                                          or "smem" in line) \
                     or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    fwd_spills(built["flash_attention"][1])
     bwd_spills(built["flash_attention_bwd"][1])
     sass_wgmma(built["flash_attention_bwd"][0])
     log(f"[build] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -476,16 +499,21 @@ def phase_build(torch) -> None:
 
 #: the tensor-core backward's passes, each of which must run wgmma (the
 #: names match their two-warpgroup forms, bwd_dq_tc2 and bwd_dkdv_tc2,
-#: too)
+#: and their fp32 instantiations on three bf16 pieces too)
 BWD_TC_PASSES = ("bwd_stats_tc", "bwd_dq_tc", "bwd_dkdv_tc")
+#: the tensor-core forward, bf16 and fp32 (three pieces), which may not
+#: spill either
+FWD_TC_KERNELS = ("flash_fwd_sm90",)
 
 
 def ptxas_spills(out) -> dict:
     """The functions that spill in ``-Xptxas -v`` output: {name: (bytes
     of spill stores, bytes of spill loads)}, each spill line read against
     the "Compiling entry function" or "Function properties for" line
-    before it.  ``name`` is short where it is a backward kernel
-    (``bwd_dq<bf16, 32>``, ``bwd_dkdv_tc2<256>``), else ptxas's own."""
+    before it.  ``name`` is short where it is an attention kernel
+    (``bwd_dq<bf16, 32>``, ``bwd_dkdv_tc2<256>``, ``bwd_dq_tc<128, 3>``
+    and ``flash_fwd_sm90<256, 3>``: head size and operand pieces),
+    else ptxas's own."""
     import re
     spills, fn = {}, None
     for line in out.splitlines():
@@ -493,11 +521,14 @@ def ptxas_spills(out) -> dict:
                       r"|Function properties for (\S+)", line)
         if m:
             fn = m.group(1) or m.group(2)
-            k = re.search(r"\d(bwd_\w+?)I(13__nv_bfloat16|f)?Li(\d+)E", fn)
+            k = re.search(r"\d((?:bwd|flash_fwd)_\w+?)I(13__nv_bfloat16|f)?"
+                          r"Li(\d+)E(?:Li(\d+)E)?", fn)
             if k:
                 dtype = {"f": "fp32 ", "13__nv_bfloat16": "bf16 "}.get(
                     k.group(2), "")
-                fn = f"{k.group(1)}<{dtype}{k.group(3)}>".replace(" ", ", ")
+                pieces = f" {k.group(4)}" if k.group(4) else ""
+                fn = f"{k.group(1)}<{dtype}{k.group(3)}{pieces}>".replace(
+                    " ", ", ")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -521,10 +552,26 @@ def bwd_spills(out) -> dict:
     return spills
 
 
+def fwd_spills(out) -> dict:
+    """The forward source's functions that spill (:func:`ptxas_spills` of
+    its build output), logged by name; the tensor-core kernel
+    (:data:`FWD_TC_KERNELS`, its bf16 and its fp32 instantiations) among
+    them fails the check."""
+    spills = ptxas_spills(out)
+    log("[build] flash_attention spills (bytes stored/loaded): "
+        + (", ".join(f"{fn} {st}/{ld}" for fn, (st, ld) in spills.items())
+           or "none"))
+    tc = {fn: n for fn, n in spills.items()
+          if any(name in fn for name in FWD_TC_KERNELS)}
+    check(not tc, f"tensor-core forward kernels spill to local memory: {tc}")
+    return spills
+
+
 def sass_wgmma(lib) -> None:
     """``cuobjdump -sass`` of the built backward library: the wgmma
     instructions (``HGMMA``) in each tensor-core pass at each head size it
-    is built for, one quoted; a pass without one fails the check."""
+    is built for, bf16 and fp32 (three pieces), one quoted; a pass
+    without one fails the check."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     tool = Path(_build._nvcc()).parent / "cuobjdump"
@@ -539,13 +586,14 @@ def sass_wgmma(lib) -> None:
             counts[fn] += 1
             if quoted is None and "bwd_dkdv_tc" in fn:
                 quoted = line.split("*/", 1)[-1].split(";")[0].strip()
+    built = len(fa.BWD_TC_HEAD_DIMS) + len(fa.BWD_SPLIT_HEAD_DIMS)
     for name in BWD_TC_PASSES:
         by_d = {fn: n for fn, n in counts.items() if name in fn}
-        check(len(by_d) == len(fa.BWD_TC_HEAD_DIMS)
-              and all(n > 0 for n in by_d.values()),
+        check(len(by_d) == built and all(n > 0 for n in by_d.values()),
               f"{name}: HGMMA counts {by_d}")
-        log(f"[build] sass {name}: HGMMA instructions at each of "
-            f"{len(by_d)} head sizes: {sorted(by_d.values())}")
+        log(f"[build] sass {name}: HGMMA instructions in each of its "
+            f"{len(by_d)} instantiations (bf16 and fp32 by head size): "
+            f"{sorted(by_d.values())}")
     log(f"[build] sass bwd_dkdv_tc, first HGMMA: {quoted}")
 
 
@@ -2078,13 +2126,16 @@ WKV_STRONG_CASES = [(2, 17, 3, 64), (1, 1025, 2, 64), (2, 50, 2, 16)]
 REL_L2_TOL = 0.1
 #: the reference kernel tests' tolerances
 ATTN_TOL = {"float32": (2e-5, 1e-2), "bfloat16": (2e-2, 1e-2)}
-#: a bidirectional bf16 case is also held to this relative L2 error over
-#: its whole output.  With random q, k and v an output row averages about
-#: Tk values of v, so |o| is about sqrt(e / Tk): at Tk = 4,096 near
-#: 0.026, on the scale of ATTN_TOL's bf16 atol, which alone would pass a
-#: kernel that skipped a key tile.  bf16 rounding of the output costs
-#: about 2^-9 of it; a skipped tile of n keys about sqrt(n / Tk)
-ATTN_REL_L2 = {"bfloat16": 1e-2}
+#: a bidirectional case is also held to this relative L2 error over its
+#: whole output.  With random q, k and v an output row averages about Tk
+#: values of v, so |o| is about sqrt(e / Tk): at Tk = 4,096 near 0.026, on
+#: the scale of ATTN_TOL's bf16 atol, which alone would pass a kernel that
+#: skipped a key tile.  bf16 rounding of the output costs about 2^-9 of
+#: it; a skipped tile of n keys about sqrt(n / Tk).  fp32 (the split
+#: kernel): its P V sum, carried in the tensor cores' fp32 accumulator
+#: (coarser than fp32 FMAs) across Tk / 32 key tiles, sat 2.7e-5 from
+#: the plain version at Tk = 4,096 on an H100, the scalar kernel 1.2e-6
+ATTN_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-4}
 #: the planted fault that shows ``ATTN_REL_L2`` has the power to fail a
 #: kernel: the plain version with its last this many keys dropped (the
 #: smallest key tile of any head size, D = 256's) must fail it
@@ -2124,6 +2175,9 @@ LM_KERNELS = {
     "flash_attention_xdec": _ATTN,
     "flash_attention_d160": _ATTN,
     "flash_attention_scalar_d160": _ATTN,
+    "flash_attention_split": _ATTN,
+    "flash_attention_split_d256": _ATTN,
+    "flash_attention_split_d160": _ATTN,
     "wkv6": dict(op="wkv6", source="src/repro_torch/csrc/wkv6_scan.cu",
                  replaces="src/repro/kernels/rwkv6_scan.py:25"),
     # the backward of the training path (phase 9): XLA's autodiff of the
@@ -2159,13 +2213,18 @@ ENCDEC_PARITY_LAYERS, ENCDEC_PARITY_FRAMES = 2, 100
 ENCDEC_PARITY_STEPS = 8
 #: the backwards' counts, none of which a serving phase may move
 NO_BWD = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+          "flash_attention_bwd_split": 0,
           "flash_attention_bwd_scalar": 0, "wkv6_bwd": 0,
           "wkv6_bwd_block": 0}
-#: the record entries whose ``time_lm_kernel`` also times the scalar
-#: kernel in fp32 at their path's shape (its entry's name)
-SCALAR_ENTRIES = {"flash_attention": "flash_attention_scalar",
-                  "flash_attention_d256": "flash_attention_scalar_d256",
-                  "flash_attention_d160": "flash_attention_scalar_d160"}
+#: the record entries whose ``time_lm_kernel`` also times the split
+#: kernel (what fp32 takes) and the scalar one (its yardstick, by name) in
+#: fp32 at their path's shape (their entries' names)
+FP32_ENTRIES = {
+    "flash_attention": ("flash_attention_split", "flash_attention_scalar"),
+    "flash_attention_d256": ("flash_attention_split_d256",
+                             "flash_attention_scalar_d256"),
+    "flash_attention_d160": ("flash_attention_split_d160",
+                             "flash_attention_scalar_d160")}
 #: the vision-language model's fp32 check: patches a sequence ahead of
 #: its prompt, ragged against the 64-row tile
 VLM_PARITY_PATCHES = 100
@@ -2246,8 +2305,9 @@ def check_attention(torch, q, k, v, causal, window, label, errs=None,
     if limit is not None and not causal:
         check_rel_l2(torch, q, k, v, got, want, limit, label)
     if errs is not None:
-        name = name or ("flash_attention" if kind == "tc"
-                        else "flash_attention_scalar")
+        name = name or {"tc": "flash_attention",
+                        "split": "flash_attention_split"}.get(
+                            kind, "flash_attention_scalar")
         errs[name] = max(errs[name], err)
     return err
 
@@ -2454,12 +2514,16 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
                           frames=0):
     """``cfg``'s width, 4 layers, fp32: a ``prompt``-token prefill and
     ``steps`` decode steps against ``forward`` over all ``prompt + steps``
-    tokens, within the reference's decode-parity tolerance 2e-3.  A
+    tokens, within the reference's decode-parity tolerance 2e-3; returns
+    the check's split-kernel launches.  A
     windowed model takes a prompt past its window, so that the prefill
     writes its ring with T > S and decode wraps it.  An encoder-decoder
     model takes ``ENCDEC_PARITY_LAYERS`` encoder and decoder layers and a
     source of ``frames`` frames; a vision-language model ``frames``
-    patches ahead of its prompt (decode at ``frames + t``)."""
+    patches ahead of its prompt (decode at ``frames + t``).  Every
+    attention kernel launch of the check is the split kernel (fp32 on the
+    tensor cores), at least one where the cut model has attention."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     name = cfg.name
     vlm = cfg.frontend == "vision"
@@ -2493,6 +2557,7 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
     if cfg.is_encdec:
         kinds = f"{cfg.encoder_layers} encoder + {kinds} with cross"
     F = frames if vlm else 0      # patches ahead of the prompt
+    before = dict(fa.LAUNCHES)
     with torch.inference_mode():
         full = model({"tokens": tokens, **extra})
         state = new_state(model, 2, F + total, extra)
@@ -2507,6 +2572,17 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
         f"{cfg.encoder_layers} + {cfg.num_layers} layers"
     check(max(errs) < 2e-3, f"{name} {label} fp32: prefill/decode vs "
           f"forward max |err| {max(errs):.3g} >= 2e-3")
+    n = {key: fa.LAUNCHES[key] - before[key] for key in before}
+    has_attn = cfg.is_encdec or "attn" in kinds
+    if torch.device(dev).type == "cuda":     # the CPU runs no kernel
+        check(n["flash_attention_split"] == n["flash_attention"]
+              and (n["flash_attention"] > 0) == has_attn,
+              f"{name} {label} fp32: forward launches {n}, expected every "
+              f"one the split kernel")
+    log(f"[serve] {name} {label} fp32: {n['flash_attention_split']} "
+        f"attention launches, all flash_attention_split" if has_attn else
+        f"[serve] {name} {label} fp32: no attention layer, no attention "
+        f"launch")
     source = f", {frames} source frames" if cfg.is_encdec else \
         f", {frames} patches ahead of the prompt" if vlm else ""
     log(f"[serve] {name} {label} fp32 at d_model {cfg.d_model} ({kinds}; "
@@ -2515,6 +2591,7 @@ def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
         f"(< 2e-3) ok")
     del model, full, state
     free_card(torch, dev)
+    return n["flash_attention_split"]
 
 
 def new_state(model, B, max_len, batch):
@@ -2616,6 +2693,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
         n_kernel = cfg.encoder_layers + 2 * cfg.num_layers
         n = n_kernel * eng.prefills + cfg.num_layers * eng.decode_steps
         expect = {"flash_attention": n, "flash_attention_tc": n,
+                  "flash_attention_split": 0,
                   "flash_attention_scalar": 0, **NO_BWD,
                   "wkv6": 0, "wkv6_seq": 0}
         # each entry's launches are its shape's, as the wrapper counted
@@ -2647,6 +2725,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             # attention layer, causal over the patches and the prompt
             n = n_kernel * eng.prefills
             expect = {"flash_attention": n, "flash_attention_tc": n,
+                      "flash_attention_split": 0,
                       "flash_attention_scalar": 0, **NO_BWD,
                       "wkv6": 0, "wkv6_seq": 0}
             T = P + prompt_len
@@ -2657,6 +2736,7 @@ def phase_serve(torch, np, cfg, seed, card, placement=None, n_requests=8,
             # every model call launches the split kernel, never the
             # sequential one
             expect = {"flash_attention": 0, "flash_attention_tc": 0,
+                      "flash_attention_split": 0,
                       "flash_attention_scalar": 0, **NO_BWD,
                       "wkv6": n_kernel * (eng.prefills + eng.decode_steps),
                       "wkv6_seq": 0}
@@ -2910,6 +2990,7 @@ def phase_llama4(torch, np, seed, card, batch=2, prompt_len=1024, steps=4,
     launches = ops.launches()
     L = cfg.num_layers
     expect = {"flash_attention": L, "flash_attention_tc": L,
+              "flash_attention_split": 0,
               "flash_attention_scalar": 0, **NO_BWD,
               "wkv6": 0, "wkv6_seq": 0}
     check(launches == expect, f"{name}: kernel launches {launches}, "
@@ -3153,16 +3234,28 @@ def rec_shares(torch, model, batch, dev="cuda"):
                 grad_scan_ms=grad_scan_ms, layers=len(rec))
 
 
+def rel64(a, b) -> float:
+    """Relative L2 distance of ``a`` from ``b``, in float64 (fine enough
+    for fp32's own 1e-7)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
 def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
-                   name=None, scalar_entry=None):
+                   name=None, fp32_entries=None):
     """The kernel at the shapes its path gave it: held against its plain
     version, then timed beside the plain version, the library call (SDPA
     for attention, none for WKV6) and its bound; ``name`` is its record
     entry (default ``kernel``).  For attention, also the scalar kernel on
     the same bf16 inputs (the kernel this path ran before the tensor-core
-    one: ``earlier_ms``) and, with ``scalar_entry`` (the name of its
-    record entry), as its own entry under ``"scalar"``, on fp32 inputs of
-    the same shape, its dtype."""
+    one: ``earlier_ms``) and, with ``fp32_entries`` (the names of two
+    record entries), on fp32 inputs of the same shape: the split kernel
+    (what fp32 takes) under ``"split"`` and the scalar kernel (by name,
+    the yardstick: the split entry's ``earlier_ms``) under ``"scalar"``,
+    both held against the plain version, their relative L2 distances from
+    a float64 run logged side by side, each with the split bound (six
+    bf16 products a product at the bf16 peak) and the scalar FFMA bound
+    (``ffma_bound``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
     name = name or kernel
@@ -3190,7 +3283,7 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
             out = dict(
                 ms=time_ms(torch, lambda: fa._launch(q, k, v, causal, None,
                                                      kind),
-                           iters=50 if kind == "tc" else 10, warmup=3),
+                           iters=10 if kind == "scalar" else 50, warmup=3),
                 plain_ms=time_ms(torch, lambda: fa.attention_ref(
                     q, k, v, causal=causal), iters=5, warmup=1),
                 library_ms=time_ms(torch, lambda: sdpa(
@@ -3206,21 +3299,58 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
             q, k, v, causal, None, "scalar"), iters=10, warmup=2)
         what = (f"B={B} Tq={T} Tk={Tk} H={H} G={G} D={D} "
                 f"{'causal' if causal else 'bidirectional'} bf16")
-    if kernel == "flash_attention" and scalar_entry:
+    if kernel == "flash_attention" and fp32_entries:
+        split_entry, scalar_entry = fp32_entries
         q32, k32, v32 = (x.float() for x in (q, k, v))
-        err = check_attention(torch, q32, k32, v32, causal, None,
-                              f"path shape {shape} fp32", errs,
-                              scalar_entry)
-        log(f"[lm-parity] flash attention float32 (scalar) at the path "
-            f"shape: max |err| {err:.3g} ok")
-        # the scalar kernel's fp32 FMAs: the fp32 peak off the tensor cores
-        r["scalar"] = timed(q32, k32, v32, "scalar", FP32_FLOPS_PER_S)
+        label = f"path shape {shape} fp32"
+        err = check_attention(torch, q32, k32, v32, causal, None, label,
+                              errs, split_entry)
+        check(fa.variant(torch.float32, D) == "split",
+              f"{label}: fp32 routes to {fa.variant(torch.float32, D)}")
+        # the scalar kernel by name on the same inputs, the same limits
+        got = {"split": fa._launch(q32, k32, v32, causal, None),
+               "scalar": fa._launch(q32, k32, v32, causal, None, "scalar")}
+        want = fa.attention_ref(q32, k32, v32, causal=causal)
+        atol, rtol = ATTN_TOL["float32"]
+        s_err = max_err(torch, got["scalar"], want)
+        check(allclose(torch, got["scalar"], want, atol, rtol),
+              f"{label}: the scalar kernel outside atol {atol} rtol {rtol} "
+              f"(max |err| {s_err:.3g})")
+        errs[scalar_entry] = max(errs[scalar_entry], s_err)
+        # both kernels and the plain version against a float64 run (the
+        # plain version's casts to float32 taken for float64)
+        with float64_math(torch, {}):
+            want64 = fa.attention_ref(q32.double(), k32.double(),
+                                      v32.double(), causal=causal)
+        sync(torch, dev)
+        dist = {kind: rel64(o, want64) for kind, o in got.items()}
+        dist["plain"] = rel64(want, want64)
+        del got, want, want64
+        log(f"[lm-parity] flash attention float32 at the path shape: split "
+            f"max |err| {err:.3g}, scalar {s_err:.3g} ok; relative L2 from "
+            f"a float64 run: split {dist['split']:.3g}, scalar "
+            f"{dist['scalar']:.3g}, plain {dist['plain']:.3g}")
+        # the split kernel's work: six bf16 products a product at the bf16
+        # peak; the scalar kernel's fp32 FFMAs at the fp32 peak off the
+        # tensor cores (the same work: each entry carries both)
+        r["split"] = timed(q32, k32, v32, "split", BF16_FLOPS_PER_S / 6)
+        r["scalar"] = timed(q32, k32, v32, "scalar", BF16_FLOPS_PER_S / 6)
+        ffma = bound_ms(q32.element_size() * n_elems, 4 * D * pairs,
+                        FP32_FLOPS_PER_S)
+        for kind in ("split", "scalar"):
+            r[kind].update(ffma_bound=ffma, dist64=dist[kind],
+                           plain_dist64=dist["plain"])
+        r["split"]["earlier_ms"] = r["scalar"]["ms"]
         del q32, k32, v32
-        sc = r["scalar"]
-        log(f"[time] {scalar_entry}: kernel {sc['ms']:.4f} ms, "
-            f"plain {sc['plain_ms']:.4f} ms, library "
-            f"{sc['library_ms']:.4f} ms, bound {sc['bound'][0]:.5f} ms "
-            f"({sc['bound'][1]}) at {what.replace('bf16', 'fp32')}")
+        sp, sc = r["split"], r["scalar"]
+        log(f"[time] {split_entry}: kernel {sp['ms']:.4f} ms, scalar "
+            f"{sc['ms']:.4f} ms ({sc['ms'] / sp['ms']:.2f} x the split), "
+            f"plain {sp['plain_ms']:.4f} ms, SDPA fp32 "
+            f"{sp['library_ms']:.4f} ms ({sp['library_ms'] / sp['ms']:.2f} x "
+            f"the split; scalar's run {sc['library_ms']:.4f}), split bound "
+            f"{sp['bound'][0]:.5f} ms ({sp['bound'][1]}), FFMA bound "
+            f"{ffma[0]:.5f} ms; {sp['ms'] / sp['bound'][0]:.1f} x the split "
+            f"bound, at {what.replace('bf16', 'fp32')}")
     if kernel == "wkv6":
         H, N = sh["d"] // sh["N"], sh["N"]
         args = wkv_inputs(torch, B, T, H, N, dt, seed, random_state=False,
@@ -3619,18 +3749,19 @@ def check_attention_bwd(torch, seed, dev="cuda"):
     """The backward kernels against ``attention_bwd_ref`` at every head
     size and case of :data:`BWD_CASES`, in fp32 and bf16: the variant
     ``bwd_variant`` names, and the scalar yardstick too where that is the
-    tensor-core kernel, whose second call on the same inputs must give
-    the same bits; with a planted fault the check must catch.  Returns
-    the largest max |err| by variant."""
+    tensor-core kernel (bf16) or the split one (fp32 up to D = 128), whose
+    second call on the same inputs must give the same bits; with a
+    planted fault the check must catch.  Returns the largest max |err| by
+    variant."""
     from repro_torch.kernels import flash_attention as fa
-    worst_abs, worst = {"tc": 0.0, "scalar": 0.0}, {}
+    worst_abs, worst = {"tc": 0.0, "split": 0.0, "scalar": 0.0}, {}
     n_caught = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         limit = BWD_LIMIT[name]
         for D in fa.HEAD_DIMS:
-            kinds = ["tc", "scalar"] if fa.bwd_variant(dtype, D) == "tc" \
-                else ["scalar"]
+            routed = fa.bwd_variant(dtype, D)
+            kinds = [routed, "scalar"] if routed != "scalar" else ["scalar"]
             for i, (B, Tq, Tk, H, G, causal, window) in enumerate(BWD_CASES):
                 gen = torch.Generator(device=dev).manual_seed(seed + D + i)
                 q, do = (torch.randn((B, Tq, H, D), generator=gen,
@@ -3657,13 +3788,13 @@ def check_attention_bwd(torch, seed, dev="cuda"):
                     worst[name, kind] = max(worst.get((name, kind), 0.0),
                                             rel)
                     worst_abs[kind] = max(worst_abs[kind], err)
-                    if kind == "tc":
+                    if kind != "scalar":
                         again = fa._launch_bwd(q, k, v, o, do, causal,
                                                window)
                         sync(torch, dev)
                         check(all(torch.equal(a, b)
                                   for a, b in zip(got, again)),
-                              f"backward {name} {case}: two tensor-core "
+                              f"backward {name} {case}: two {kind} "
                               f"calls differ")
                 if Tk > 2 * BWD_FAULT_KEYS and D in (64, 128):
                     floor = float(want[2].double().norm())
@@ -3678,13 +3809,14 @@ def check_attention_bwd(torch, seed, dev="cuda"):
                         f"{BWD_FAULT_KEYS} keys dropped -> relative L2 "
                         f"dq {rels[0]:.3g} dk {rels[1]:.3g} dv "
                         f"{rels[2]:.3g} (caught: >= {limit})")
-        for kind in ("tc", "scalar"):
+        for kind in ("tc", "split", "scalar"):
             if (name, kind) in worst:
                 log(f"[train] backward kernel {kind} {name}: "
                     f"{len(BWD_CASES)} cases x the head sizes it takes "
                     f"within relative L2 {limit} (worst "
                     f"{worst[name, kind]:.3g})"
-                    + ("; second calls bitwise" if kind == "tc" else ""))
+                    + ("; second calls bitwise" if kind != "scalar"
+                       else ""))
     check(n_caught > 0, "no planted fault was checked")
     return worst_abs
 
@@ -3704,16 +3836,17 @@ def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
     training paths give it beyond :func:`time_attention_bwd`'s:
     seamless-m4t-large-v2's three (:data:`ENCDEC_BWD_SHAPES`) in bf16 and
     fp32, qwen3-1.7b's in fp32, and :data:`CUT_BWD_SHAPES` in bf16.  At
-    every bf16 shape a second call must give the same bits and the
-    kernel with the planted fault (the last :data:`BWD_FAULT_KEYS` keys
-    dropped) must fail the check.  Returns the largest max |err|."""
+    every shape (the tensor-core kernel in bf16, the split one in fp32) a
+    second call must give the same bits and the kernel with the planted
+    fault (the last :data:`BWD_FAULT_KEYS` keys dropped) must fail the
+    check.  Returns the largest max |err| by variant."""
     from repro_torch.kernels import flash_attention as fa
     shapes = [(dt, s + (None,)) for s in ENCDEC_BWD_SHAPES
               for dt in (torch.bfloat16, torch.float32)]
     shapes.append((torch.float32, (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
                                    True, None)))
     shapes += [(torch.bfloat16, s) for s in CUT_BWD_SHAPES]
-    worst_abs = 0.0
+    worst_abs = {"tc": 0.0, "split": 0.0}
     for dtype, (B, Tq, Tk, H, G, D, causal, window) in shapes:
         name = str(dtype).split('.')[-1]
         q, k, v = attn_inputs(torch, B, Tq, H, G, D, dtype, seed, dev, Tk=Tk)
@@ -3723,25 +3856,27 @@ def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
         want = plain_bwd(q, k, v, o, do, causal, window)
         sync(torch, dev)
         label = (B, Tq, Tk, H, G, D, causal, window)
+        kind = fa.bwd_variant(dtype, D)
+        check(kind != "scalar", f"backward {name} {label}: the path's "
+              f"shape takes the scalar kernel")
         rel, err = hold_bwd(torch, got, want, dtype, label)
-        worst_abs = max(worst_abs, err)
-        note = ""
-        if dtype == torch.bfloat16:
-            again = fa._launch_bwd(q, k, v, o, do, causal, window)
-            sync(torch, dev)
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"backward {name} {label}: two calls differ")
-            floor = float(want[2].double().norm())
-            f = planted_fault(torch, fa._launch_bwd, q, k, v, o, do, causal,
-                              window)
-            rels = [bwd_rel(torch, a, w, floor) for a, w in zip(f, want)]
-            check(max(rels) >= BWD_LIMIT[name], f"backward {name} {label}: "
-                  f"the kernel with the planted fault passes ({rels})")
-            note = (f"; a second call bitwise; the planted fault dq "
-                    f"{rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} "
-                    f"(caught)")
-            del again, f
-        log(f"[train] backward at the path's shape {label} {name}: "
+        worst_abs[kind] = max(worst_abs[kind], err)
+        # every path shape: a second call bitwise, and the fault caught
+        again = fa._launch_bwd(q, k, v, o, do, causal, window)
+        sync(torch, dev)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"backward {name} {label}: two calls differ")
+        floor = float(want[2].double().norm())
+        f = planted_fault(torch, fa._launch_bwd, q, k, v, o, do, causal,
+                          window)
+        rels = [bwd_rel(torch, a, w, floor) for a, w in zip(f, want)]
+        check(max(rels) >= BWD_LIMIT[name], f"backward {name} {label}: "
+              f"the kernel with the planted fault passes ({rels})")
+        note = (f"; a second call bitwise; the planted fault dq "
+                f"{rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} "
+                f"(caught)")
+        del again, f
+        log(f"[train] backward ({kind}) at the path's shape {label} {name}: "
             f"relative L2 {rel:.3g} (limit {BWD_LIMIT[name]}), max |err| "
             f"{err:.3g}{note}")
         del q, k, v, o, do, got, want
@@ -3844,59 +3979,83 @@ def time_attention_bwd(torch, seed, dev="cuda", entries=None):
     return out
 
 
-#: the scalar backward's own use (B, T, H, G, D, window, dtype), by record
-#: entry: qwen3-1.7b's shape in fp32, the fp32 gradient check's (in bf16
-#: it is timed by name beside the tensor-core kernel, time_attention_bwd)
-SCALAR_BWD_TIMED = {
-    "flash_attention_bwd_scalar_fp32": (TRAIN_B, TRAIN_T, 16, 8, 128, None,
-                                        "float32")}
+#: the fp32 backward's own use (B, T, H, G, D, window): qwen3-1.7b's
+#: shape, the fp32 gradient check's, where the split kernel (record entry
+#: ``flash_attention_bwd_split_fp32``) is timed beside the scalar one by
+#: name (``flash_attention_bwd_scalar_fp32``, the yardstick; in bf16 it is
+#: timed beside the tensor-core kernel, :func:`time_attention_bwd`)
+FP32_BWD_TIMED = (TRAIN_B, TRAIN_T, 16, 8, 128, None)
 
 
-def time_scalar_bwd(torch, seed, dev="cuda"):
-    """The scalar backward (``kind="scalar"``) at each shape of
-    :data:`SCALAR_BWD_TIMED`, causal, held against its plain version on
-    the same inputs (:data:`BWD_LIMIT`): its time, the plain version's,
-    SDPA's backward alone (``enable_gqa``, the forward outside the timed
-    region; the port never calls it) and the bound (operations at the
-    dtype's peak, bytes of q, k, v, o, dO in and dq, dk, dv out).  Returns
-    {entry: numbers}."""
+def time_fp32_bwd(torch, seed, dev="cuda"):
+    """The fp32 backward at :data:`FP32_BWD_TIMED`, causal: the split
+    kernel (what fp32 takes) and the scalar one (by name), each held
+    against the plain version on the same inputs (:data:`BWD_LIMIT`),
+    their relative L2 distances from a float64 run of the plain version
+    logged side by side; their times, the plain version's, SDPA's fp32
+    backward alone (``enable_gqa``, the forward outside the timed region;
+    the port never calls it) and the bounds: six bf16 products a product
+    at the bf16 peak (``bound``) and the scalar FFMAs at the fp32 peak
+    (``ffma_bound``), bytes of q, k, v, o, dO in and dq, dk, dv out.
+    Returns {entry: numbers}."""
     from repro_torch.kernels import flash_attention as fa
+    B, T, H, G, D, window = FP32_BWD_TIMED
+    q, k, v = attn_inputs(torch, B, T, H, G, D, torch.float32, seed, dev)
+    o = fa._launch(q, k, v, True, window)
+    do = torch.randn_like(q)
+    label = (B, T, T, H, G, D, True, window)
+    check(fa.bwd_variant(torch.float32, D) == "split",
+          f"fp32 {label} routes to {fa.bwd_variant(torch.float32, D)}")
+    kernels = {"split": lambda: fa._launch_bwd(q, k, v, o, do, True, window),
+               "scalar": lambda: fa._launch_bwd(q, k, v, o, do, True, window,
+                                                kind="scalar")}
+    want = fa.attention_bwd_ref(q, k, v, o, do, causal=True, window=window)
+    with float64_math(torch, {}):   # its float32 casts taken for float64
+        want64 = fa.attention_bwd_ref(
+            *(t.double() for t in (q, k, v, o, do)), causal=True,
+            window=window)
+    floor = float(want64[2].norm())
+    held, dist = {}, {}
+    for kind, fn in kernels.items():
+        got = fn()
+        held[kind] = hold_bwd(torch, got, want, torch.float32,
+                              (kind,) + label)
+        dist[kind] = max(bwd_rel(torch, g, w, floor)
+                         for g, w in zip(got, want64))
+    dist["plain"] = max(bwd_rel(torch, g, w, floor)
+                        for g, w in zip(want, want64))
+    del want, want64, got
+    ms = {"split": time_ms(torch, kernels["split"], iters=20, warmup=3),
+          "scalar": time_ms(torch, kernels["scalar"], iters=5, warmup=1)}
+    plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
+        q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
+    library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, True, window),
+                         iters=20, warmup=3)
+    flops = 5 * 2 * B * H * T * T * D / 2
+    n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
+    bound = bound_ms(n_bytes, 6 * flops, BF16_FLOPS_PER_S)
+    ffma = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
     out = {}
-    for entry, (B, T, H, G, D, window, dt) in SCALAR_BWD_TIMED.items():
-        dtype = getattr(torch, dt)
-        q, k, v = attn_inputs(torch, B, T, H, G, D, dtype, seed, dev)
-        o = fa._launch(q, k, v, True, window)
-        do = torch.randn_like(q)
-        label = (B, T, T, H, G, D, True, window)
-
-        def scalar():
-            return fa._launch_bwd(q, k, v, o, do, True, window,
-                                  kind="scalar")
-        want = fa.attention_bwd_ref(q, k, v, o, do, causal=True,
-                                    window=window)
-        rel, err = hold_bwd(torch, scalar(), want, dtype, ("scalar",) + label)
-        del want
-        ms = time_ms(torch, scalar, iters=5, warmup=1)
-        plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
-            q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
-        library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, True,
-                                               window), iters=20, warmup=3)
-        flops = 5 * 2 * B * H * T * T * D / 2
-        n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
-        bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S
-                         if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
-        log(f"[time] {entry} (B={B} T={T} H={H} G={G} D={D} causal"
-            f"{f' window {window}' if window else ''}, {dt}): scalar "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
-            f"{library_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
-            f"{ms / bound[0]:.1f} x the bound, {ms / library_ms:.2f} x "
-            f"SDPA; against the plain version relative L2 {rel:.3g}, max "
-            f"|err| {err:.3g}")
-        out[entry] = {"ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound": bound, "err": err,
-                      "shape": label}
-        del q, k, v, o, do
-        free_card(torch, dev)
+    for kind in ("split", "scalar"):
+        out[f"flash_attention_bwd_{kind}_fp32"] = {
+            "ms": ms[kind], "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound": bound, "ffma_bound": ffma, "err": held[kind][1],
+            "dist64": dist[kind], "plain_dist64": dist["plain"],
+            "shape": label}
+    out["flash_attention_bwd_split_fp32"]["earlier_ms"] = ms["scalar"]
+    log(f"[time] flash_attention_bwd_split_fp32 (B={B} T={T} H={H} G={G} "
+        f"D={D} causal, float32): split {ms['split']:.4f} ms, scalar "
+        f"{ms['scalar']:.4f} ms ({ms['scalar'] / ms['split']:.2f} x the "
+        f"split), plain {plain_ms:.4f} ms, SDPA fp32 backward "
+        f"{library_ms:.4f} ms ({ms['split'] / library_ms:.2f} x SDPA), "
+        f"split bound {bound[0]:.5f} ms ({bound[1]}), FFMA bound "
+        f"{ffma[0]:.5f} ms; {ms['split'] / bound[0]:.1f} x the split bound; "
+        f"against the plain version relative L2 split {held['split'][0]:.3g}"
+        f", scalar {held['scalar'][0]:.3g}; from a float64 run split "
+        f"{dist['split']:.3g}, scalar {dist['scalar']:.3g}, plain "
+        f"{dist['plain']:.3g}")
+    del q, k, v, o, do
+    free_card(torch, dev)
     return out
 
 
@@ -3942,7 +4101,7 @@ def bwd_device_times(torch, seed, times, dev="cuda", calls=10):
             if name == "device_ms":
                 passes = {}
                 for t_us, key, count in by_name:
-                    m = re.search(r"(bwd_\w+<\d+>)", key)
+                    m = re.search(r"(bwd_\w+<\d+(?:, \d+)?>)", key)
                     if m and count:
                         passes[m.group(1)] = t_us / count / 1e3
                 out["device_pass_ms"] = passes
@@ -3959,6 +4118,53 @@ def bwd_device_times(torch, seed, times, dev="cuda", calls=10):
                         for p, t in out["device_pass_ms"].items()))
         del q, k, v, o, do, library
         free_card(torch, dev)
+
+
+def sdpa_backend(names) -> str:
+    """SDPA's backend, from the names of the kernels one call ran."""
+    low = " ".join(names).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("fmha", "memory-efficient"),
+                         ("flash", "flash"), ("gemm", "math")):
+        if key in low:
+            return backend
+    return "unknown"
+
+
+def sdpa_fp32_backends(torch, seed, fwd_shapes, dev="cuda"):
+    """The backend that serves SDPA's fp32 yardstick, from the names of the
+    kernels ``torch.profiler`` records over one forward call at each
+    record entry's path shape (``fwd_shapes``: {entry: the path's
+    shapes}), and at :data:`FP32_BWD_TIMED` under
+    ``flash_attention_bwd_split_fp32``: SDPA picks its backend in the
+    forward, and the timed backward (:func:`sdpa_grads`) is that
+    backend's.  A profiled phase.  Returns {entry: backend}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def backend_of(entry, fn):
+        fn()
+        sync(torch, dev)
+        _, _, by_name = profile_window(torch, fn, dev)
+        names = [key for t, key, _ in by_name if t > 0]
+        backend = sdpa_backend(names)
+        log(f"[time] {entry}: SDPA's fp32 yardstick runs its {backend} "
+            f"backend (kernels by device time: "
+            f"{', '.join(n[:72] for n in names[:4])})")
+        return backend
+    B, T, H, G, D, window = FP32_BWD_TIMED
+    check(window is None, "the backward's yardstick shape has no window")
+    shapes = {**fwd_shapes, "flash_attention_bwd_split_fp32": dict(
+        B=B, T=T, H=H, G=G, D=D, causal=True)}
+    out = {}
+    for entry, sh in shapes.items():
+        B, T, H, G, D = sh["B"], sh["T"], sh["H"], sh["G"], sh["D"]
+        Tk, causal = sh.get("Tk", T), sh.get("causal", True)
+        q, k, v = (x.transpose(1, 2).contiguous() for x in attn_inputs(
+            torch, B, T, H, G, D, torch.float32, seed, dev, Tk=Tk))
+        out[entry] = backend_of(entry, lambda: sdpa(
+            q, k, v, is_causal=causal, enable_gqa=True))
+        del q, k, v
+    free_card(torch, dev)
+    return out
 
 
 def train_flops(cfg, B, T) -> float:
@@ -4418,10 +4624,12 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     check(fa.LAUNCHES["flash_attention_bwd"] == 0,
           "the backward kernel launched before the training phase")
     errs = check_attention_bwd(torch, seed, dev)
-    err, scalar_err = errs["tc"], errs["scalar"]
-    times = scalar_times = None
+    err, split_err, scalar_err = errs["tc"], errs["split"], errs["scalar"]
+    times = fp32_times = None
     if on_card:
-        err = max(err, check_attention_bwd_path_shapes(torch, seed, dev))
+        path_errs = check_attention_bwd_path_shapes(torch, seed, dev)
+        err = max(err, path_errs["tc"])
+        split_err = max(split_err, path_errs["split"])
         times = time_attention_bwd(torch, seed, dev, [
             e for e in BWD_TIMED if e not in CUT_ENTRY.values()])
         scalar_err = max(scalar_err,
@@ -4525,30 +4733,40 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     model = build_model(cfg4, device=dev, seed=seed)
     params = trainable_params(model)
     batch = to_device(stream.batch_at(0), model.device)
-    before = fa.LAUNCHES["flash_attention_bwd_scalar"]
+    before = dict(fa.LAUNCHES)
     with msettings.use(vocab_chunk=vocab_chunk):
         rel_fp32 = grads_kernel_vs_plain(
             torch, model, params, batch, f"{cfg.name} float32 "
             f"{cfg4.num_layers} layers", TRAIN_GRAD_L2["float32"],
             TRAIN_LEAF_L2["float32"])
-    # fp32 takes the scalar backward, one launch a layer
-    n_scalar = fa.LAUNCHES["flash_attention_bwd_scalar"] - before
+    # fp32 takes the split backward, one launch a layer, and never the
+    # scalar one
+    n_split = fa.LAUNCHES["flash_attention_bwd_split"] \
+        - before["flash_attention_bwd_split"]
+    n_scalar = fa.LAUNCHES["flash_attention_bwd_scalar"] \
+        - before["flash_attention_bwd_scalar"]
     if on_card:
-        check(n_scalar == cfg4.num_layers, f"the fp32 gradients launched "
-              f"the scalar backward {n_scalar} times, expected "
-              f"{cfg4.num_layers}")
+        check(n_split == cfg4.num_layers and n_scalar == 0,
+              f"the fp32 gradients launched the split backward {n_split} "
+              f"and the scalar one {n_scalar} times, expected "
+              f"{cfg4.num_layers} and 0")
+        log(f"[train] {cfg.name} float32 {cfg4.num_layers} layers: "
+            f"{n_split} flash_attention_bwd_split launches, {n_scalar} "
+            f"scalar")
     del model, params
     free_card(torch, dev)
-    # the scalar backward at its own use and the tensor-core backward at
-    # D = 160 and 256, after qwen3-1.7b's timed steps, which measured
-    # slower after them (the plain references at D = 160 and 256 take
-    # several GiB)
+    # the fp32 backward at its own use (split and scalar) and the
+    # tensor-core backward at D = 160 and 256, after qwen3-1.7b's timed
+    # steps, which measured slower after them (the plain references at D =
+    # 160 and 256 take several GiB)
     if on_card:
         times.update(time_attention_bwd(torch, seed, dev, CUT_ENTRY.values()))
         err = max([err] + [times[e]["err"] for e in CUT_ENTRY.values()])
-        scalar_times = time_scalar_bwd(torch, seed, dev)
-        scalar_err = max([scalar_err]
-                         + [r["err"] for r in scalar_times.values()])
+        fp32_times = time_fp32_bwd(torch, seed, dev)
+        split_err = max(split_err,
+                        fp32_times["flash_attention_bwd_split_fp32"]["err"])
+        scalar_err = max(scalar_err,
+                         fp32_times["flash_attention_bwd_scalar_fp32"]["err"])
 
     # the encoder-decoder: bidirectional and cross backward on its path
     ecfg = encdec_cfg or configs.get("seamless-m4t-large-v2")
@@ -4594,11 +4812,12 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
                            B, T, rwkv_steps, vocab_chunk)
     cut_runs = phase_train_cut(torch, seed, card, trainer, loop, dev, cut,
                                None, B, CUT_STEPS, vocab_chunk, times)
-    return {"launches": n_bwd, "scalar_launches": n_scalar,
-            "encdec_launches": shapes, "err": err, "scalar_err": scalar_err,
+    return {"launches": n_bwd, "split_launches": n_split,
+            "scalar_launches": n_scalar, "encdec_launches": shapes,
+            "err": err, "split_err": split_err, "scalar_err": scalar_err,
             "losses": losses, "step_ms": med_s * 1e3, "share": share,
             "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
-            "scalar_times": scalar_times, "wkv6": wkv, "cut": cut_runs}
+            "fp32_times": fp32_times, "wkv6": wkv, "cut": cut_runs}
 
 
 def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
@@ -5034,26 +5253,28 @@ def main() -> int:
         check(run["kernel"] == op, f"{cfg.name} ran {run['kernel']}")
         check(fa.LAUNCHES["flash_attention_bwd"] == 0,
               f"serving {cfg.name} launched the backward kernel")
+        # the fp32 check's split launches: the split entries' launches
         if cfg.window:
-            phase_parity_4_layers(torch, cfg, args.seed,
-                                  prompt=WINDOW_PARITY_PROMPT,
-                                  steps=WINDOW_PARITY_STEPS)
+            n_split = phase_parity_4_layers(torch, cfg, args.seed,
+                                            prompt=WINDOW_PARITY_PROMPT,
+                                            steps=WINDOW_PARITY_STEPS)
         elif cfg.is_encdec:
-            phase_parity_4_layers(torch, cfg, args.seed,
-                                  steps=ENCDEC_PARITY_STEPS,
-                                  frames=ENCDEC_PARITY_FRAMES)
+            n_split = phase_parity_4_layers(torch, cfg, args.seed,
+                                            steps=ENCDEC_PARITY_STEPS,
+                                            frames=ENCDEC_PARITY_FRAMES)
         elif cfg.frontend == "vision":
-            phase_parity_4_layers(torch, cfg, args.seed,
-                                  frames=VLM_PARITY_PATCHES)
+            n_split = phase_parity_4_layers(torch, cfg, args.seed,
+                                            frames=VLM_PARITY_PATCHES)
         else:
-            phase_parity_4_layers(torch, cfg, args.seed)
+            n_split = phase_parity_4_layers(torch, cfg, args.seed)
+        run["fp32_launches"] = n_split
         if run["modes"] is not None:
             lm_runs.update(time_encdec_kernels(torch, cfg, run, lm_errs,
                                                args.seed))
             done(f"serve {cfg.name}")
             continue
         r = time_lm_kernel(torch, op, run["shapes"], lm_errs, args.seed,
-                           name=name, scalar_entry=SCALAR_ENTRIES.get(name))
+                           name=name, fp32_entries=FP32_ENTRIES.get(name))
         run["times"] = r
         if run["waves"] is not None:
             # the kernel's share of a prefill wave, with each kernel
@@ -5094,6 +5315,14 @@ def main() -> int:
             torch, np, args.seed, cfg=dataclasses.replace(
                 configs.get(arch), num_layers=layers), T=T, frames=frames)
     bwd_device_times(torch, args.seed, train["times"])
+    backends = sdpa_fp32_backends(torch, args.seed, {
+        split: lm_runs[name]["shapes"]
+        for name, (split, _) in FP32_ENTRIES.items()})
+    for name, (split, _) in FP32_ENTRIES.items():
+        for kind in ("split", "scalar"):
+            lm_runs[name]["times"][kind]["library_backend"] = backends[split]
+    for r in train["fp32_times"].values():
+        r["library_backend"] = backends["flash_attention_bwd_split_fp32"]
     done("profile")
 
     def entry(name, source, replaces, n_launches, err, r):
@@ -5104,9 +5333,15 @@ def main() -> int:
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
         for key in ("device_ms", "earlier_device_ms", "library_device_ms",
-                    "device_pass_ms", "kernel"):
+                    "device_pass_ms", "kernel", "library_backend"):
             if key in r:
                 e[key] = r[key]
+        if "ffma_bound" in r:
+            # fp32: the bound is six bf16 products a product; the scalar
+            # FFMAs' beside it, and the distance from a float64 run
+            e.update(ffma_bound_ms=r["ffma_bound"][0],
+                     rel_l2_float64=r["dist64"],
+                     plain_rel_l2_float64=r["plain_dist64"])
         if "wave_ms" in r:
             e.update(wave_ms=r["wave_ms"], wave_earlier_ms=r["wave_earlier_ms"])
         return e
@@ -5165,8 +5400,11 @@ def main() -> int:
                                         run["kernel"] == "flash_attention"
                                         else "wkv6"], run["times"])
             for name, run in lm_runs.items()}
-    for name, scalar_name in SCALAR_ENTRIES.items():
+    # the split kernel's: its model's fp32 4-layer check's; the scalar
+    # one's (the yardstick) the serving path's, none
+    for name, (split_name, scalar_name) in FP32_ENTRIES.items():
         run = lm_runs[name]
+        runs[split_name] = (run["fp32_launches"], run["times"]["split"])
         runs[scalar_name] = (run["launches"]["flash_attention_scalar"],
                              run["times"]["scalar"])
     # WKV6's backward: its launches rwkv6-3b's training steps'
@@ -5211,13 +5449,15 @@ def main() -> int:
                         step_busy=cut_run["profile"]["busy"],
                         step_backward_share=cut_run["profile"][
                             "backward kernel"])
-            # the scalar backward at its own use: the fp32 check's
-            # launches at qwen3-1.7b's shape
-            for bwd_name, r in train["scalar_times"].items():
-                n_launches = train["scalar_launches"]
+            # the fp32 backward at its own use, qwen3-1.7b's shape: the
+            # split kernel's launches the fp32 gradient check's, the
+            # scalar one's (by name, the yardstick) none on the path
+            for bwd_name, r in train["fp32_times"].items():
+                kind = "split" if "_split_" in bwd_name else "scalar"
                 kernels.append(entry(
                     bwd_name, "src/repro_torch/csrc/flash_attention_bwd.cu",
-                    TRAIN_REPLACES, n_launches, train["scalar_err"], r))
+                    TRAIN_REPLACES, train[f"{kind}_launches"],
+                    train[f"{kind}_err"], r))
         if name == "wkv6_bwd":
             kernels[-1].update(
                 kernel="wkv6_bwd_cluster", forward_ckpt_ms=r["forward_ckpt_ms"],

@@ -4,11 +4,13 @@
 // returns cudaGetLastError() after its launch and never synchronizes.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_kernel
-// (:28), called by flash_attention_pallas (:85).  Two kernels, chosen by
-// the wrapper from the dtype and the head size alone:
+// (:28), called by flash_attention_pallas (:85).  Two kernels; the
+// wrapper picks one, and its operand pieces, from the dtype and the head
+// size alone:
 //
-// flash_fwd_sm90 (bf16, D in {16, 32, 64, 80, 128, 160, 256}): the
-//   tensor-core kernel.
+// flash_fwd_sm90<D, NP> (D in {16, 32, 64, 80, 128, 160, 256}): the
+//   tensor-core kernel, on bf16 (NP = 1) or on fp32 split into three bf16
+//   pieces (NP = 3, below).
 //   What bounds it: operations.  A causal call does 4 B H D Tq (Tq + 1) / 2
 //   flops on B Tq H D + 2 B Tk G D inputs, far above the card's ridge; at
 //   989 TFLOP/s bf16 the qwen3-1.7b prefill (B = 4, T = 1024, H = 16,
@@ -79,12 +81,31 @@
 //     leading offset steps from block to block, as D = 256's halves) and
 //     one m64n32k16 on the tail, into disjoint ranges of one
 //     accumulator.
-//   fp32 takes the scalar kernel: wgmma has no fp32 operands, and TF32
-//   would break the fp32 tolerance.
+//   fp32 (NP = 3, the wrapper's "split" variant): wgmma has no fp32
+//   operands, and tf32 keeps 10 of fp32's 23 bits, so split_pieces
+//   (sm90.cuh) first writes q's, k's and v's three bf16 pieces to scratch
+//   as (3 B, T, heads, D) tensors, which the same tensor maps read as
+//   ordinary bf16 tiles (piece p of batch b is batch p B + b), and each
+//   product is six wgmma products on the piece pairs (2, 0), (1, 1),
+//   (0, 2), (1, 0), (0, 1), (0, 0), smallest first, into one fp32
+//   accumulator; P is split in registers.  What bounds it: operations,
+//   six bf16 products a product at 989 TFLOP/s: 0.1043 ms for the
+//   qwen3-1.7b prefill in fp32, against 0.2567 for scalar FFMAs at 67
+//   TFLOP/s; the split pass adds 10 bytes an element.  Every tile takes
+//   three times a bf16 tile's shared memory, so the K/V tiles shrink: 64
+//   keys up to D = 80, 32 from D = 128 on, in two stages but one at D =
+//   256 (Q's pieces 96 KB and a stage's K and V pieces 96 KB): 36 to 193
+//   KB in all.  A stage's K is freed after Q K^T and its V after P V, so
+//   the next K loads under the softmax and P V.  The tensor cores' fp32
+//   accumulation is coarser than a chain of fp32 FMAs, so a P V sum
+//   carried across many key tiles drifts from the plain version: 2.7e-5
+//   relative L2 at Tk = 4,096 (one decode token, D = 64) against the
+//   scalar kernel's 1.2e-6 on an H100; within the fp32 tolerance (atol
+//   2e-5).
 //
-// flash_fwd_kernel (fp32 at every D): the scalar kernel.  It takes bf16
-//   too, reached only by name (the wrapper's yardstick for the
-//   tensor-core kernel).
+// flash_fwd_kernel (fp32 and bf16 at every D): the scalar kernel, reached
+//   only by name (the wrapper's yardstick for the tensor-core kernel on
+//   both dtypes).
 //   One block owns one (b, query head, 64-row q tile); Q, K and V are
 //   staged in shared memory as fp32 and both products run as scalar FMAs
 //   (4 x 4 scores and 4 x D/16 outputs per thread), no tensor cores.
@@ -321,43 +342,55 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 namespace tc {
 
-constexpr int kStages = 2;       // K/V ring depth
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The block's shape at head size D.  Up to D = 128: a producer warpgroup
-// and two consumer warpgroups of 64 query rows each (384 threads), a
-// work item 128 query rows, K/V tiles of 128 keys, and the two groups in
-// ping-pong.  D = 160 and 256 ("wide"): the O accumulator is D / 2 fp32 a
-// consumer thread (80 or 128), which with S and P overflows the 168
-// registers a thread of a 384-thread block may hold, so one consumer
-// warpgroup beside the producer (256 threads: up to 255 registers a
-// thread, no setmaxnreg, no ping-pong), items of 64 query rows and K/V
-// tiles of 64 keys, which keeps Q and two stages of K and V to 5 x 20 KB
-// (D = 160) or 5 x 32 KB (D = 256) of shared memory.
-template <int D>
+// The block's shape at head size D and NP operand pieces (sm90.cuh: 1 for
+// bf16, 3 for fp32).  Up to D = 128: a producer warpgroup and two consumer
+// warpgroups of 64 query rows each (384 threads), a work item 128 query
+// rows, and the two groups in ping-pong.  D = 160 and 256 ("wide"): the O
+// accumulator is D / 2 fp32 a consumer thread (80 or 128), which with S
+// and P overflows the 168 registers a thread of a 384-thread block may
+// hold, so one consumer warpgroup beside the producer (256 threads: up to
+// 255 registers a thread, no setmaxnreg, no ping-pong) and items of 64
+// query rows.  K/V tiles: for bf16 as many keys as the item has rows (128
+// or 64), through a ring of two stages, which keeps Q and the ring to 5 x
+// 20 KB (D = 160) or 5 x 32 KB (D = 256) of shared memory.  fp32 holds
+// three pieces of every tile, so its K/V tiles are smaller: 64 keys up to
+// D = 80, 32 from D = 128 on, two stages but at D = 256 one (Q's pieces
+// 96 KB and a stage's K and V pieces 96 KB): 36 KB (D = 16) to 192 KB (D =
+// 128 and 256) in all.
+template <int D, int NP>
 struct Shape {
   static constexpr bool kWide = D > 128;
   static constexpr int kConsumers = kWide ? 1 : 2;
   static constexpr int kBM = 64 * kConsumers;     // query rows an item
-  static constexpr int kBN = kWide ? 64 : 128;    // keys a tile
+  static constexpr int kBN = NP == 1 ? (kWide ? 64 : 128)    // keys a tile
+                                     : (D >= 128 ? 32 : 64);
+  static constexpr int kStages = NP == 3 && D == 256 ? 1 : 2;  // K/V ring
   static constexpr int kThreads = 128 * (1 + kConsumers);
-  static_assert(kBM == kBN, "Q and K/V tiles share one geometry");
+  static_assert(NP == 3 || kBM == kBN, "bf16 Q and K/V tiles share one "
+                "geometry");
 };
 
-// Shared-memory geometry of a tile of Q, K or V at head size D: a
-// TileGeo (sm90.cuh) of Shape<D>::kBM rows, 128 or 64.
-template <int D>
-struct Geo : TileGeo<D, Shape<D>::kBM> {
-  // Q, the K and V rings, the mbarriers (full and empty for Q, full K,
-  // full V and empty for each stage), and slack to align to 1024 bytes:
-  // 164,928 bytes at D = 128 and at D = 256, 103,488 at D = 80 and at
-  // D = 160
+// Shared-memory geometry at head size D: a TileGeo (sm90.cuh) for a piece
+// of the Q tile (Shape::kBM rows) and one for a piece of a K or V tile
+// (Shape::kBN rows); Q's NP pieces, the K and V rings' (NP pieces a
+// stage), the mbarriers (full and empty for Q, full K and full V a stage,
+// and a stage's empty: one for K and V, or for NP = 3 one each), and slack
+// to align to 1024 bytes.  bf16: 164,928 bytes at D = 128 and at D = 256,
+// 103,488 at D = 80 and at D = 160.
+template <int D, int NP>
+struct Geo {
+  using Q = TileGeo<D, Shape<D, NP>::kBM>;
+  using KV = TileGeo<D, Shape<D, NP>::kBN>;
+  static constexpr int kStages = Shape<D, NP>::kStages;
+  static constexpr int kBars = 2 + (NP == 1 ? 3 : 4) * kStages;
   static constexpr size_t kSmemBytes =
-      (size_t)(1 + 2 * kStages) * TileGeo<D, Shape<D>::kBM>::kTileBytes +
-      8 * (2 + 3 * kStages) + 1024;
+      (size_t)NP * (Q::kTileBytes + 2 * kStages * KV::kTileBytes) +
+      8 * kBars + 1024;
 };
 
 // Named barriers 1 and 2 over the two consumer groups (256 threads).
@@ -376,9 +409,9 @@ struct Work {
   int b, h, g, q0, lo, ntiles;
 };
 
-template <int D>
+template <typename Sh>
 struct Items {
-  static constexpr int kBM = Shape<D>::kBM, kBN = Shape<D>::kBN;
+  static constexpr int kBM = Sh::kBM, kBN = Sh::kBN;
   int total, nmt, BH, H, G, Tq, Tk, causal, window;
 
   __device__ __forceinline__ int at(int r) const {   // round r's item, or -1
@@ -407,6 +440,8 @@ struct Items {
 
 // The tensor maps of one call: for each of Q, K and V one over the full
 // 64-column blocks and one over the tail (left zeroed where D has none).
+// For NP = 3 they map the pieces' (3 B, T, heads, D) tensors: piece p of
+// batch b is batch p B + b.
 struct Maps {
   CUtensorMap q, k, v, q_tail, k_tail, v_tail;
 };
@@ -415,32 +450,39 @@ struct Maps {
 // warp w of the group, lane l, r = 16 w + l / 4 and q = l % 4, element
 // 4 j + e sits at row r + 8 (e / 2), column 8 j + 2 q + e % 2.  A thread
 // holds two rows; the four threads of a quad share them.
-template <int D>
-__global__ void __launch_bounds__(Shape<D>::kThreads, 1)
-flash_fwd_sm90(const __grid_constant__ Maps maps,
-               __nv_bfloat16* __restrict__ o, int B, int Tq, int Tk, int H,
-               int G, int causal, int window, float scale) {
-  using Gm = Geo<D>;
-  using Sh = Shape<D>;
-  constexpr int kBM = Sh::kBM, kBN = Sh::kBN;
+template <int D, int NP>
+__global__ void __launch_bounds__(Shape<D, NP>::kThreads, 1)
+flash_fwd_sm90(const __grid_constant__ Maps maps, Elem<NP>* __restrict__ o,
+               int B, int Tq, int Tk, int H, int G, int causal, int window,
+               float scale) {
+  using Sh = Shape<D, NP>;
+  using Gq = typename Geo<D, NP>::Q;
+  using Gk = typename Geo<D, NP>::KV;
+  constexpr int kBM = Sh::kBM, kBN = Sh::kBN, kStages = Sh::kStages;
   constexpr int kConsumerWarps = 4 * Sh::kConsumers;
+  constexpr int kQBytes = NP * Gq::kTileBytes;     // Q's pieces
+  constexpr int kKVBytes = NP * Gk::kTileBytes;    // a stage's K (or V)
   extern __shared__ uint8_t smem_raw[];
   // TMA's swizzle and the wgmma descriptors assume 1024-byte aligned tiles
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t k_s = q_s + Gm::kTileBytes;                  // [kStages]
-  const uint32_t v_s = k_s + kStages * Gm::kTileBytes;        // [kStages]
-  const uint32_t bars = v_s + kStages * Gm::kTileBytes;
+  const uint32_t k_s = q_s + kQBytes;                         // [kStages]
+  const uint32_t v_s = k_s + kStages * kKVBytes;              // [kStages]
+  const uint32_t bars = v_s + kStages * kKVBytes;
   const uint32_t full_q = bars;
   const uint32_t q_empty = bars + 8;
   const uint32_t full_k = bars + 16;                          // [kStages]
   const uint32_t full_v = full_k + 8 * kStages;               // [kStages]
   const uint32_t empty = full_v + 8 * kStages;                // [kStages]
+  // fp32 frees a stage's K after Q K^T (`empty`) and its V after P V
+  // (`empty_v`), so the next K loads under this tile's softmax and P V;
+  // bf16 frees both at once
+  const uint32_t empty_v = NP == 1 ? empty : empty + 8 * kStages;
 
   const int nmt = (Tq + kBM - 1) / kBM;
-  const Items<D> items{nmt * B * H, nmt, B * H, H, G, Tq, Tk, causal,
-                       window};
+  const Items<Sh> items{nmt * B * H, nmt, B * H, H, G, Tq, Tk, causal,
+                        window};
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
@@ -449,6 +491,7 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumerWarps);
+      if constexpr (NP == 3) mbar_init(empty_v + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -465,18 +508,29 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
       for (int r = 0, j; (j = items.at(r)) >= 0; ++r) {
         const Work w = items.work(j);
         mbar_wait(q_empty, (r & 1) ^ 1);     // the last item's Q is read
-        mbar_expect_tx(full_q, Gm::kTileBytes);
-        load_tile<Gm>(q_s, &maps.q, &maps.q_tail, full_q, w.h, w.q0, w.b);
+        mbar_expect_tx(full_q, kQBytes);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          load_tile<Gq>(q_s + p * Gq::kTileBytes, &maps.q, &maps.q_tail,
+                        full_q, w.h, w.q0, p * B + w.b);
         for (int n = 0; n < w.ntiles; ++n, ++tiles) {
           const int st = tiles % kStages;
-          mbar_wait(empty + 8 * st, ((tiles / kStages) & 1) ^ 1);
+          const uint32_t free_ph = ((tiles / kStages) & 1) ^ 1;
+          mbar_wait(empty + 8 * st, free_ph);
           const int k0 = (w.lo + n) * kBN;
-          mbar_expect_tx(full_k + 8 * st, Gm::kTileBytes);
-          load_tile<Gm>(k_s + st * Gm::kTileBytes, &maps.k, &maps.k_tail,
-                       full_k + 8 * st, w.g, k0, w.b);
-          mbar_expect_tx(full_v + 8 * st, Gm::kTileBytes);
-          load_tile<Gm>(v_s + st * Gm::kTileBytes, &maps.v, &maps.v_tail,
-                       full_v + 8 * st, w.g, k0, w.b);
+          mbar_expect_tx(full_k + 8 * st, kKVBytes);
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            load_tile<Gk>(k_s + st * kKVBytes + p * Gk::kTileBytes, &maps.k,
+                          &maps.k_tail, full_k + 8 * st, w.g, k0,
+                          p * B + w.b);
+          if constexpr (NP == 3) mbar_wait(empty_v + 8 * st, free_ph);
+          mbar_expect_tx(full_v + 8 * st, kKVBytes);
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            load_tile<Gk>(v_s + st * kKVBytes + p * Gk::kTileBytes, &maps.v,
+                          &maps.v_tail, full_v + 8 * st, w.g, k0,
+                          p * B + w.b);
         }
       }
     }
@@ -520,18 +574,25 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
         const int st = tiles % kStages;
         const uint32_t ph = (tiles / kStages) & 1;
         const int k0 = (w.lo + n) * kBN;
-        const uint32_t kb = k_s + st * Gm::kTileBytes;
-        const uint32_t vb = v_s + st * Gm::kTileBytes;
+        const uint32_t kb = k_s + st * kKVBytes;
+        const uint32_t vb = v_s + st * kKVBytes;
 
+        // S = Q K^T: for fp32 the six piece products (sm90.cuh) into one
+        // accumulator
         float s[kBN / 2];
         mbar_wait(full_k + 8 * st, ph);
         if constexpr (kPingPong)
           if (wg == 1 || tiles > 0) named_sync(1 + wg);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < Gm::kKSteps; ++ks)   // A: this group's rows
-          SS<kBN>::mma(s, Gm::k_desc(q_s, 64 * wg, ks),
-                       Gm::k_desc(kb, 0, ks), ks > 0);
+        for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+          for (int ks = 0; ks < Gq::kKSteps; ++ks)   // A: this group's rows
+            SS<kBN>::mma(
+                s, Gq::k_desc(q_s + piece_a<NP>(pr) * Gq::kTileBytes,
+                              64 * wg, ks),
+                Gk::k_desc(kb + piece_b<NP>(pr) * Gk::kTileBytes, 0, ks),
+                pr > 0 || ks > 0);
         wgmma_commit();
         if constexpr (kPingPong)
           if (wg == 0 || tiles + 1 < total_s) named_arrive(2 - wg);
@@ -540,6 +601,10 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
         if (n + 1 == w.ntiles) {        // this item's Q is read
           __syncwarp();
           if (lane == 0) mbar_arrive(q_empty);
+        }
+        if constexpr (NP == 3) {        // and this tile's K
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * st);
         }
 
         // scale into log2 units and mask, only where this tile can mask
@@ -596,24 +661,30 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
           for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
         }
 
-        // O += P V: P straight from S's accumulator layout as the A operand.
-        // wgmma reads its register operands asynchronously, so every
-        // fragment stays live until the wait.
-        uint32_t pa[kBN / 16][4];
-        to_frags<kBN>(s, pa);
+        // O += P V: P straight from S's accumulator layout as the A operand
+        // (for fp32 its three pieces, six products).  wgmma reads its
+        // register operands asynchronously, so every fragment stays live
+        // until the wait.
+        uint32_t pa[NP][kBN / 16][4];
+        to_piece_frags<kBN, NP>(s, pa);
         mbar_wait(full_v + 8 * st, ph);
         fence_regs(acc);
-        fence_frags(pa);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fence_frags(pa[p]);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kBN / 16; ++ks)
-          mma_rows<Gm>(acc, pa[ks], vb, ks);
+        for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+          for (int ks = 0; ks < kBN / 16; ++ks)
+            mma_rows<Gk>(acc, pa[piece_a<NP>(pr)][ks],
+                         vb + piece_b<NP>(pr) * Gk::kTileBytes, ks);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
-        fence_frags(pa);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fence_frags(pa[p]);
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty + 8 * st);   // K and V are read
+        if (lane == 0) mbar_arrive(empty_v + 8 * st);   // V (and K) is read
       }
 
 #pragma unroll
@@ -626,32 +697,32 @@ flash_fwd_sm90(const __grid_constant__ Maps maps,
       for (int e = 0; e < 2; ++e) {
         const int row = row0 + 8 * e;
         if (row >= Tq) continue;
-        __nv_bfloat16* out = o + (((size_t)w.b * Tq + row) * H + w.h) * D;
+        Elem<NP>* out = o + (((size_t)w.b * Tq + row) * H + w.h) * D;
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(out + 8 * jj + col0) = pack_bf16(
-              acc[4 * jj + 2 * e] * l[e], acc[4 * jj + 2 * e + 1] * l[e]);
+          store2(out + 8 * jj + col0, acc[4 * jj + 2 * e] * l[e],
+                 acc[4 * jj + 2 * e + 1] * l[e]);
       }
     }
   }
 }
 
-template <int D>
+// Launch flash_fwd_sm90<D, NP> on tensors q, k, v (bf16; for NP = 3 the
+// pieces' (3 B, T, heads, D) tensors) into o.
+template <int D, int NP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int G, int causal, int window, float scale,
            cudaStream_t stream) {
-  using Gm = Geo<D>;
-  using Sh = Shape<D>;
-  constexpr size_t bytes = Gm::kSmemBytes;
-  constexpr int rows = Gm::kRows;
+  using Sh = Shape<D, NP>;
+  constexpr size_t bytes = Geo<D, NP>::kSmemBytes;
   static std::atomic<bool> done[kDevices];   // per instantiation and device
-  cudaError_t err = allow_smem(flash_fwd_sm90<D>, (int)bytes, done);
+  cudaError_t err = allow_smem(flash_fwd_sm90<D, NP>, (int)bytes, done);
   if (err != cudaSuccess) return (int)err;
   Maps maps = {};
   if (!bind_context() ||
-      !make_maps<D>(&maps.q, &maps.q_tail, q, B, Tq, H, rows) ||
-      !make_maps<D>(&maps.k, &maps.k_tail, k, B, Tk, G, rows) ||
-      !make_maps<D>(&maps.v, &maps.v_tail, v, B, Tk, G, rows))
+      !make_maps<D>(&maps.q, &maps.q_tail, q, NP * B, Tq, H, Sh::kBM) ||
+      !make_maps<D>(&maps.k, &maps.k_tail, k, NP * B, Tk, G, Sh::kBN) ||
+      !make_maps<D>(&maps.v, &maps.v_tail, v, NP * B, Tk, G, Sh::kBN))
     return (int)cudaErrorInvalidValue;
   // persistent: one block an SM of the current device, each walking its
   // share of the q tiles
@@ -659,10 +730,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   err = (cudaError_t)sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const int items = B * H * ((Tq + Sh::kBM - 1) / Sh::kBM);
-  flash_fwd_sm90<D><<<min(items, sms), Sh::kThreads, bytes, stream>>>(
-      maps, (__nv_bfloat16*)o, B, Tq, Tk, H, G, causal,
-      window, scale);
+  flash_fwd_sm90<D, NP><<<min(items, sms), Sh::kThreads, bytes, stream>>>(
+      maps, (Elem<NP>*)o, B, Tq, Tk, H, G, causal, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <int NP>
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int Tq, int Tk, int H, int G, int D, int causal, int window,
+             float scale, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<16, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 32: return launch<32, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 64: return launch<64, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 80: return launch<80, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 128: return launch<128, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 160: return launch<160, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    case 256: return launch<256, NP>(q, k, v, o, B, Tq, Tk, H, G, causal, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc
@@ -699,32 +785,36 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                              void* stream) {
   if (B <= 0 || Tq <= 0 || H <= 0) return (int)cudaSuccess;
   if (G <= 0 || H % G != 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
+  return tc::dispatch<1>(q, k, v, o, B, Tq, Tk, H, G, D, causal, window,
+                         scale, (cudaStream_t)stream);
+}
+
+// The same call for fp32 tensors at the same head sizes on the tensor
+// cores: split_pieces writes q's, k's and v's three bf16 pieces (sm90.cuh)
+// to `pieces`, bf16 scratch of 3 (q's + k's + v's elements), in that
+// order; then flash_fwd_sm90<D, 3> reads them.  Base pointers 16-byte
+// aligned.  Launches both kernels on `stream`.  Returns a cudaError_t.
+int flash_attention_fwd_split(const void* q, const void* k, const void* v,
+                              void* o, void* pieces, int B, int Tq, int Tk,
+                              int H, int G, int D, int causal, int window,
+                              float scale, void* stream) {
+  if (B <= 0 || Tq <= 0 || H <= 0) return (int)cudaSuccess;
+  if (G <= 0 || H % G != 0 || Tk <= 0 || D % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16:
-      return tc::launch<16>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                            scale, s);
-    case 32:
-      return tc::launch<32>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                            scale, s);
-    case 64:
-      return tc::launch<64>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                            scale, s);
-    case 80:
-      return tc::launch<80>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                            scale, s);
-    case 128:
-      return tc::launch<128>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                             scale, s);
-    case 160:
-      return tc::launch<160>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                             scale, s);
-    case 256:
-      return tc::launch<256>(q, k, v, o, B, Tq, Tk, H, G, causal, window,
-                             scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const long long nq = (long long)B * Tq * H * D;
+  const long long nk = (long long)B * Tk * G * D;
+  __nv_bfloat16* pq = (__nv_bfloat16*)pieces;
+  __nv_bfloat16* pk = pq + 3 * nq;
+  __nv_bfloat16* pv = pk + 3 * nk;
+  const sm90::SplitJobs jobs = {
+      {(const float*)q, (const float*)k, (const float*)v, nullptr},
+      {pq, pk, pv, nullptr},
+      {nq, nk, nk, 0}};
+  const int err = sm90::launch_split(jobs, 3, s);
+  if (err != 0) return err;
+  return tc::dispatch<3>(pq, pk, pv, o, B, Tq, Tk, H, G, D, causal, window,
+                         scale, s);
 }
 
 }  // extern "C"

@@ -17,8 +17,10 @@
 // products of 2 B H Tq Tk D, halved for causal, are 4.3e10 flops: 0.0434
 // ms at 989 TFLOP/s bf16, against 1.0e8 bytes moved (q, k, v, o, dO read
 // once, dq, dk, dv written once: 0.030 ms at 3.35 TB/s).  Only wgmma
-// reaches that rate.  Two variants, chosen by the wrapper from the dtype
-// and the head size alone (bwd_variant):
+// reaches that rate.  In fp32 the same work is six bf16 piece products a
+// product (sm90.cuh): 0.2606 ms at 989 TFLOP/s, against 0.6410 for scalar
+// FFMAs at 67.  Three variants, chosen by the wrapper from the dtype and
+// the head size alone (bwd_variant):
 //
 // flash_attention_bwd_sm90 (bf16, every D in {16, 32, 64, 80, 128, 160,
 //   256}): three passes on the tensor cores, each a grid of
@@ -70,8 +72,27 @@
 //   warpgroups, and bwd_dkdv_tc2 a key tile's query heads over a
 //   thread-block cluster (the section "D = 160 and 256" below).
 //
-// flash_attention_bwd (fp32 at every D; bf16 only by name, the
-//   yardstick): three scalar kernels.
+// flash_attention_bwd_split (fp32, D in {16, 32, 64, 80, 128}): the
+//   one-warpgroup passes above at NP = 3.  split_pieces (sm90.cuh) writes
+//   q's, k's, v's and dO's three bf16 pieces to scratch as (3 B, T,
+//   heads, D) tensors that the same tensor maps read (piece p of batch b
+//   is batch p B + b); each product is six wgmma products on the piece
+//   pairs, smallest first; P, P^T, dS and dS^T are split in registers.
+//   The pieces take three times a bf16 tile's shared memory: at D = 128
+//   dQ's and dK/dV's rings have one stage (148,504, 197,648 and 198,672
+//   bytes, one block an SM).  The tensor cores' fp32 accumulation is
+//   coarser than a chain of fp32 FMAs, so a gradient carried inside wgmma
+//   across the loop drifts with its length (dK and dV 1.3e-5 from the
+//   plain version at qwen3-1.7b's shape, over the 1e-5 limit, in a first
+//   build); dQ, dK and dV therefore take each tile's products into a
+//   zeroed partial added to the total in fp32 (add_tile), and dK/dV runs
+//   two warpgroups, dV's (P^T dO) and dK's (dP^T and dS^T Q), both taking
+//   S^T, since one thread cannot hold both totals, a partial and the
+//   pieces.  D = 160 and 256 stay scalar: the pieces of the wide passes'
+//   tiles do not fit.
+//
+// flash_attention_bwd (fp32 at D = 160 and 256; every other call only by
+//   name, the yardstick): three scalar kernels.
 //   bwd_stats, bwd_dq and bwd_dkdv have the same work split as the
 //   tensor-core passes but stage fp32 tiles in shared memory (rows padded
 //   to D + 1 floats, so the 16 threads of a row group read 16 banks) and
@@ -522,6 +543,7 @@ namespace tcb {
 
 constexpr int kRows = 64;        // every tile: 64 queries or 64 keys (wgmma M)
 constexpr int kThreads = 128;    // one warpgroup a block
+constexpr int kWide = 256;       // two warpgroups a block
 constexpr int kStages = 2;       // depth of the ring a loop tile comes through
 constexpr int kStatBytes = 3 * kRows * 4;   // m, 1/l, delta of a query tile
 constexpr int kStatStride = 1024;           // their room a stage
@@ -530,6 +552,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 using Geo = TileGeo<D, kRows>;
+
+// The ring's depth in dQ and dK/dV at head size D and NP operand pieces
+// (sm90.cuh: 1 bf16, 3 fp32): two stages, but one for fp32 from D = 128 on,
+// where the resident tiles' pieces (96 KB) and a stage's (96 KB) fill the
+// 227 KB.
+template <int D, int NP>
+__host__ __device__ constexpr int ring_stages() {
+  return NP == 3 && D > 80 ? 1 : 2;
+}
 
 // The tensor maps of one call: Q, K, V and dO over their full 64-column
 // blocks and their tails (left zeroed where D has none), boxes of 64 rows;
@@ -635,19 +666,22 @@ __device__ __forceinline__ int acc_col(int i) {
 // running max m and sum l of 2^(S log2(e) / sqrt(D) - m) as the forward
 // keeps them, keys past Tk left out of l; and delta = rowsum(dO * O) from
 // plain 16-byte loads while the first tiles arrive.  Writes m (log2 units),
-// 1 / max(l, 1e-30) and delta for all 64 rows (0 past Tq).
-template <int D>
+// 1 / max(l, 1e-30) and delta for all 64 rows (0 past Tq).  For fp32 (NP =
+// 3) the tiles are Q's and K's pieces, S six piece products, and delta
+// comes from the fp32 O and dO.
+template <int D, int NP>
 __global__ void __launch_bounds__(kThreads)
 bwd_stats_tc(const __grid_constant__ Maps maps,
-             const __nv_bfloat16* __restrict__ o,
-             const __nv_bfloat16* __restrict__ dout,
+             const Elem<NP>* __restrict__ o,
+             const Elem<NP>* __restrict__ dout,
              float* __restrict__ stats, Args a) {
   using Gm = Geo<D>;
+  constexpr int kT = NP * Gm::kTileBytes;                    // a tile's pieces
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t k_s = q_s + Gm::kTileBytes;                 // [kStages]
-  const uint32_t full_q = k_s + kStages * Gm::kTileBytes;
+  const uint32_t k_s = q_s + kT;                             // [kStages]
+  const uint32_t full_q = k_s + kStages * kT;
   const uint32_t full_k = full_q + 8;                        // [kStages]
   const QItem w = q_item(a, true);
 
@@ -655,35 +689,56 @@ bwd_stats_tc(const __grid_constant__ Maps maps,
     mbar_init(full_q, 1);
     for (int s = 0; s < kStages; ++s) mbar_init(full_k + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(full_q, Gm::kTileBytes);
-    load_tile<Gm>(q_s, &maps.q, &maps.q_tail, full_q, w.h, w.q0, w.b);
+    mbar_expect_tx(full_q, kT);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      load_tile<Gm>(q_s + p * Gm::kTileBytes, &maps.q, &maps.q_tail, full_q,
+                    w.h, w.q0, p * a.B + w.b);
     for (int i = 0; i < min(w.n, kStages); ++i) {
-      mbar_expect_tx(full_k + 8 * i, Gm::kTileBytes);
-      load_tile<Gm>(k_s + i * Gm::kTileBytes, &maps.k, &maps.k_tail,
-                    full_k + 8 * i, w.g, (w.lo + i) * kRows, w.b);
+      mbar_expect_tx(full_k + 8 * i, kT);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        load_tile<Gm>(k_s + i * kT + p * Gm::kTileBytes, &maps.k,
+                      &maps.k_tail, full_k + 8 * i, w.g, (w.lo + i) * kRows,
+                      p * a.B + w.b);
     }
   }
   __syncthreads();
 
-  {  // delta: two threads a row, D / 2 columns each, 8 bf16 a load
+  {  // delta: two threads a row, D / 2 columns each, 16 bytes a load
     const int r = threadIdx.x / 2, t = w.q0 + r;
     float acc = 0.f;
     if (t < a.Tq) {
       const size_t at = (((size_t)w.b * a.Tq + t) * a.H + w.h) * D +
                         (threadIdx.x % 2) * (D / 2);
-      const uint4* po = reinterpret_cast<const uint4*>(o + at);
-      const uint4* pd = reinterpret_cast<const uint4*>(dout + at);
+      if constexpr (NP == 1) {
+        const uint4* po = reinterpret_cast<const uint4*>(o + at);
+        const uint4* pd = reinterpret_cast<const uint4*>(dout + at);
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        const uint4 x = po[c], y = pd[c];
-        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+        for (int c = 0; c < D / 16; ++c) {
+          const uint4 x = po[c], y = pd[c];
+          const __nv_bfloat162* x2 =
+              reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* y2 =
+              reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 fx = __bfloat1622float2(x2[e]);
-          const float2 fy = __bfloat1622float2(y2[e]);
-          acc = fmaf(fx.x, fy.x, acc);
-          acc = fmaf(fx.y, fy.y, acc);
+          for (int e = 0; e < 4; ++e) {
+            const float2 fx = __bfloat1622float2(x2[e]);
+            const float2 fy = __bfloat1622float2(y2[e]);
+            acc = fmaf(fx.x, fy.x, acc);
+            acc = fmaf(fx.y, fy.y, acc);
+          }
+        }
+      } else {
+        const float4* po = reinterpret_cast<const float4*>(o + at);
+        const float4* pd = reinterpret_cast<const float4*>(dout + at);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          const float4 x = po[c], y = pd[c];
+          acc = fmaf(x.x, y.x, acc);
+          acc = fmaf(x.y, y.y, acc);
+          acc = fmaf(x.z, y.z, acc);
+          acc = fmaf(x.w, y.w, acc);
         }
       }
     }
@@ -697,21 +752,29 @@ bwd_stats_tc(const __grid_constant__ Maps maps,
   mbar_wait(full_q, 0);
   for (int i = 0; i < w.n; ++i) {
     const int st = i % kStages, k0 = (w.lo + i) * kRows;
-    const uint32_t kb = k_s + st * Gm::kTileBytes;
+    const uint32_t kb = k_s + st * kT;
     mbar_wait(full_k + 8 * st, (i / kStages) & 1);
     float s[32];
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < Gm::kKSteps; ++ks)
-      SS<64>::mma(s, Gm::k_desc(q_s, 0, ks), Gm::k_desc(kb, 0, ks), ks > 0);
+    for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+      for (int ks = 0; ks < Gm::kKSteps; ++ks)
+        SS<64>::mma(s, Gm::k_desc(q_s + piece_a<NP>(pr) * Gm::kTileBytes, 0,
+                                  ks),
+                    Gm::k_desc(kb + piece_b<NP>(pr) * Gm::kTileBytes, 0, ks),
+                    pr > 0 || ks > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
     __syncthreads();   // every warp's product has read the stage
     if (threadIdx.x == 0 && i + kStages < w.n) {
-      mbar_expect_tx(full_k + 8 * st, Gm::kTileBytes);
-      load_tile<Gm>(kb, &maps.k, &maps.k_tail, full_k + 8 * st, w.g,
-                    k0 + kStages * kRows, w.b);
+      mbar_expect_tx(full_k + 8 * st, kT);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        load_tile<Gm>(kb + p * Gm::kTileBytes, &maps.k, &maps.k_tail,
+                      full_k + 8 * st, w.g, k0 + kStages * kRows,
+                      p * a.B + w.b);
     }
     const bool mask = needs_mask(a, w.q0, k0);
     float mx[2] = {kNegInf, kNegInf};
@@ -773,6 +836,44 @@ __device__ __forceinline__ void p_ds(const Args& a, bool mask, int qp, int kp,
   ds = ok ? p * (dp - delta) : 0.f;
 }
 
+// fp32 (NP = 3): tot += x (64 x 64 in an accumulator's layout, split into
+// its three pieces as the register A operand) times rows [0, 64) of the
+// three-piece tile at `tile` (the MN-major B operand, D columns), the six
+// piece products waited on.  The products go to a zeroed partial that is
+// then added to tot in fp32: the tensor cores' fp32 accumulation is
+// coarser than a chain of fp32 FMAs, so a sum carried inside wgmma across
+// a whole loop drifts with its length (dK and dV 1.3e-5 from the plain
+// version at qwen3-1.7b's 2 x 16 query tiles, 2.1e-5 at 48 heads x 2
+// tiles, on an H100), where one tile's chain is 24 products.
+template <typename Gm, int M>
+__device__ __forceinline__ void add_tile(float (&tot)[M],
+                                         const float (&x)[32],
+                                         uint32_t tile) {
+  constexpr int NP = 3;
+  uint32_t pf[NP][4][4];
+  to_piece_frags<64, NP>(x, pf);
+  float part[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) part[i] = 0.f;
+  fence_regs(part);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) fence_frags(pf[p]);
+  wgmma_fence();
+#pragma unroll
+  for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      mma_rows<Gm>(part, pf[piece_a<NP>(pr)][ks],
+                   tile + piece_b<NP>(pr) * Gm::kTileBytes, ks);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(part);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) fence_frags(pf[p]);
+#pragma unroll
+  for (int i = 0; i < M; ++i) tot[i] += part[i];
+}
+
 // --- pass 2: dQ ----------------------------------------------------------------
 //
 // One block a (b, query head, 64-row query tile), Q and dO resident, K and
@@ -780,38 +881,51 @@ __device__ __forceinline__ void p_ds(const Args& a, bool mask, int qp, int kp,
 // score: S = Q K^T and dP = dO V^T on wgmma from shared memory, P and dS
 // in the accumulators' registers, and dQ += dS K with dS as the register A
 // operand (bf16) and K the MN-major B operand.  The block owns its rows:
-// no atomics, a fixed order.
-template <int D>
+// no atomics, a fixed order.  For fp32 (NP = 3) every tile is its three
+// pieces, each product six piece products, dS split into its pieces as the
+// A operand, and at D = 128 the ring has one stage (ring_stages).
+template <int D, int NP>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_tc(const __grid_constant__ Maps maps,
-          const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq,
+          const float* __restrict__ stats, Elem<NP>* __restrict__ dq,
           Args a) {
   using Gm = Geo<D>;
+  constexpr int kT = NP * Gm::kTileBytes;                    // a tile's pieces
+  constexpr int kS = ring_stages<D, NP>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t do_s = q_s + Gm::kTileBytes;
-  const uint32_t k_s = do_s + Gm::kTileBytes;                // [kStages]
-  const uint32_t v_s = k_s + kStages * Gm::kTileBytes;       // [kStages]
-  const uint32_t full_q = v_s + kStages * Gm::kTileBytes;
-  const uint32_t full_kv = full_q + 8;                       // [kStages]
+  const uint32_t do_s = q_s + kT;
+  const uint32_t k_s = do_s + kT;                            // [kS]
+  const uint32_t v_s = k_s + kS * kT;                        // [kS]
+  const uint32_t full_q = v_s + kS * kT;
+  const uint32_t full_kv = full_q + 8;                       // [kS]
   const QItem w = q_item(a, false);
+  // the K and V tiles of key tile k0 into ring stage st
+  auto load_kv = [&](int st, int k0) {
+    mbar_expect_tx(full_kv + 8 * st, 2 * kT);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      load_tile<Gm>(k_s + st * kT + p * Gm::kTileBytes, &maps.k,
+                    &maps.k_tail, full_kv + 8 * st, w.g, k0, p * a.B + w.b);
+      load_tile<Gm>(v_s + st * kT + p * Gm::kTileBytes, &maps.v,
+                    &maps.v_tail, full_kv + 8 * st, w.g, k0, p * a.B + w.b);
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
-    for (int s = 0; s < kStages; ++s) mbar_init(full_kv + 8 * s, 1);
+    for (int s = 0; s < kS; ++s) mbar_init(full_kv + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(full_q, 2 * Gm::kTileBytes);
-    load_tile<Gm>(q_s, &maps.q, &maps.q_tail, full_q, w.h, w.q0, w.b);
-    load_tile<Gm>(do_s, &maps.dout, &maps.do_tail, full_q, w.h, w.q0, w.b);
-    for (int i = 0; i < min(w.n, kStages); ++i) {
-      const int k0 = (w.lo + i) * kRows;
-      mbar_expect_tx(full_kv + 8 * i, 2 * Gm::kTileBytes);
-      load_tile<Gm>(k_s + i * Gm::kTileBytes, &maps.k, &maps.k_tail,
-                    full_kv + 8 * i, w.g, k0, w.b);
-      load_tile<Gm>(v_s + i * Gm::kTileBytes, &maps.v, &maps.v_tail,
-                    full_kv + 8 * i, w.g, k0, w.b);
+    mbar_expect_tx(full_q, 2 * kT);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      load_tile<Gm>(q_s + p * Gm::kTileBytes, &maps.q, &maps.q_tail, full_q,
+                    w.h, w.q0, p * a.B + w.b);
+      load_tile<Gm>(do_s + p * Gm::kTileBytes, &maps.dout, &maps.do_tail,
+                    full_q, w.h, w.q0, p * a.B + w.b);
     }
+    for (int i = 0; i < min(w.n, kS); ++i) load_kv(i, (w.lo + i) * kRows);
   }
   __syncthreads();
 
@@ -830,19 +944,29 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
 
   mbar_wait(full_q, 0);
   for (int i = 0; i < w.n; ++i) {
-    const int st = i % kStages, k0 = (w.lo + i) * kRows;
-    const uint32_t kb = k_s + st * Gm::kTileBytes;
-    const uint32_t vb = v_s + st * Gm::kTileBytes;
-    mbar_wait(full_kv + 8 * st, (i / kStages) & 1);
+    const int st = i % kS, k0 = (w.lo + i) * kRows;
+    const uint32_t kb = k_s + st * kT;
+    const uint32_t vb = v_s + st * kT;
+    mbar_wait(full_kv + 8 * st, (i / kS) & 1);
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < Gm::kKSteps; ++ks)
-      SS<64>::mma(s, Gm::k_desc(q_s, 0, ks), Gm::k_desc(kb, 0, ks), ks > 0);
+    for (int pr = 0; pr < products<NP>(); ++pr)
 #pragma unroll
-    for (int ks = 0; ks < Gm::kKSteps; ++ks)
-      SS<64>::mma(dp, Gm::k_desc(do_s, 0, ks), Gm::k_desc(vb, 0, ks),
-                  ks > 0);
+      for (int ks = 0; ks < Gm::kKSteps; ++ks)
+        SS<64>::mma(s, Gm::k_desc(q_s + piece_a<NP>(pr) * Gm::kTileBytes, 0,
+                                  ks),
+                    Gm::k_desc(kb + piece_b<NP>(pr) * Gm::kTileBytes, 0, ks),
+                    pr > 0 || ks > 0);
+#pragma unroll
+    for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+      for (int ks = 0; ks < Gm::kKSteps; ++ks)
+        SS<64>::mma(dp,
+                    Gm::k_desc(do_s + piece_a<NP>(pr) * Gm::kTileBytes, 0,
+                               ks),
+                    Gm::k_desc(vb + piece_b<NP>(pr) * Gm::kTileBytes, 0, ks),
+                    pr > 0 || ks > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -855,37 +979,78 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
       p_ds(a, mask, w.q0 + acc_row(j), k0 + acc_col(j), s[j], dp[j], m[e],
            il[e], dl[e], p, dp[j]);
     }
-    uint32_t da[4][4];
-    to_frags<64>(dp, da);
-    fence_regs(acc);
-    fence_frags(da);
-    wgmma_fence();
+    if constexpr (NP == 1) {
+      uint32_t da[4][4];
+      to_frags<64>(dp, da);
+      fence_regs(acc);
+      fence_frags(da);
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) mma_rows<Gm>(acc, da[ks], kb, ks);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_frags(da);
-    __syncthreads();   // every warp's products have read the stage
-    if (threadIdx.x == 0 && i + kStages < w.n) {
-      const int kn = k0 + kStages * kRows;
-      mbar_expect_tx(full_kv + 8 * st, 2 * Gm::kTileBytes);
-      load_tile<Gm>(kb, &maps.k, &maps.k_tail, full_kv + 8 * st, w.g, kn,
-                    w.b);
-      load_tile<Gm>(vb, &maps.v, &maps.v_tail, full_kv + 8 * st, w.g, kn,
-                    w.b);
+      for (int ks = 0; ks < 4; ++ks) mma_rows<Gm>(acc, da[ks], kb, ks);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_frags(da);
+    } else {
+      add_tile<Gm>(acc, dp, kb);   // dS's pieces times K's
     }
+    __syncthreads();   // every warp's products have read the stage
+    if (threadIdx.x == 0 && i + kS < w.n) load_kv(st, k0 + kS * kRows);
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int t = w.q0 + acc_row(2 * e);
     if (t >= a.Tq) continue;
-    __nv_bfloat16* out = dq + (((size_t)w.b * a.Tq + t) * a.H + w.h) * D;
+    Elem<NP>* out = dq + (((size_t)w.b * a.Tq + t) * a.H + w.h) * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
-      *reinterpret_cast<uint32_t*>(out + acc_col(4 * jj)) =
-          pack_bf16(acc[4 * jj + 2 * e] * a.scale,
-                    acc[4 * jj + 2 * e + 1] * a.scale);
+      store2(out + acc_col(4 * jj), acc[4 * jj + 2 * e] * a.scale,
+             acc[4 * jj + 2 * e + 1] * a.scale);
+  }
+}
+
+// S^T = K Q^T and, `with_dp`, dP^T = V dO^T of a key tile and a query
+// tile from q0 on wgmma (for NP = 3 each six piece products), waited on,
+// then P^T and dS^T in their place, rows the keys and columns the queries
+// (p_ds with the query tile's m, 1/l, delta at sm; dS^T 0 without dP^T).
+template <typename Gm, int NP>
+__device__ __forceinline__ void scores_t(float (&s)[32], float (&dp)[32],
+                                         bool with_dp, uint32_t k_s,
+                                         uint32_t v_s, uint32_t qb,
+                                         uint32_t dob, const Args& a, int q0,
+                                         int k0, const float* sm) {
+  if (!with_dp) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) dp[j] = 0.f;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+    for (int ks = 0; ks < Gm::kKSteps; ++ks)
+      SS<64>::mma(s, Gm::k_desc(k_s + piece_a<NP>(pr) * Gm::kTileBytes, 0, ks),
+                  Gm::k_desc(qb + piece_b<NP>(pr) * Gm::kTileBytes, 0, ks),
+                  pr > 0 || ks > 0);
+  if (with_dp) {
+#pragma unroll
+    for (int pr = 0; pr < products<NP>(); ++pr)
+#pragma unroll
+      for (int ks = 0; ks < Gm::kKSteps; ++ks)
+        SS<64>::mma(dp,
+                    Gm::k_desc(v_s + piece_a<NP>(pr) * Gm::kTileBytes, 0, ks),
+                    Gm::k_desc(dob + piece_b<NP>(pr) * Gm::kTileBytes, 0, ks),
+                    pr > 0 || ks > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  fence_regs(dp);
+  const bool mask = needs_mask(a, q0, k0);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = acc_col(j);
+    p_ds(a, mask, q0 + c, k0 + acc_row(j), s[j], dp[j], sm[c],
+         sm[kRows + c], sm[2 * kRows + c], s[j], dp[j]);
   }
 }
 
@@ -899,23 +1064,32 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
 // delta) in the accumulators' layout, rows the keys; dV += P^T dO and dK
 // += dS^T Q take them as the register A operand (bf16) with dO and Q the
 // MN-major B operand, so nothing is transposed in memory.  The block owns
-// its key rows: no atomics, a fixed order.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// its key rows: no atomics, a fixed order.  For fp32 (NP = 3) every tile
+// is its three pieces and each product six piece products, and the block
+// has two warpgroups: each product's tile goes to a zeroed partial added
+// to its total in fp32 (add_tile), and dK's and dV's totals, partials and
+// the pieces of P^T or dS^T (64 + 64 + 64 + 64 + 48 registers a thread at
+// D = 128) do not fit one.  Both take S^T; warpgroup 0 adds P^T dO into
+// dV, warpgroup 1 takes dP^T too and adds dS^T Q into dK (a quarter more
+// tensor work than one warpgroup's four products).
+template <int D, int NP>
+__global__ void __launch_bounds__(NP == 1 ? kThreads : kWide)
 bwd_dkdv_tc(const __grid_constant__ Maps maps,
-            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+            Elem<NP>* __restrict__ dk, Elem<NP>* __restrict__ dv,
             Args a) {
   using Gm = Geo<D>;
+  constexpr int kT = NP * Gm::kTileBytes;                    // a tile's pieces
+  constexpr int kS = ring_stages<D, NP>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t k_s = base;
-  const uint32_t v_s = k_s + Gm::kTileBytes;
-  const uint32_t q_s = v_s + Gm::kTileBytes;                 // [kStages]
-  const uint32_t do_s = q_s + kStages * Gm::kTileBytes;      // [kStages]
-  const uint32_t st_s = do_s + kStages * Gm::kTileBytes;     // [kStages]
-  const uint32_t full_kv = st_s + kStages * kStatStride;
-  const uint32_t full = full_kv + 8;                         // [kStages]
+  const uint32_t v_s = k_s + kT;
+  const uint32_t q_s = v_s + kT;                             // [kS]
+  const uint32_t do_s = q_s + kS * kT;                       // [kS]
+  const uint32_t st_s = do_s + kS * kT;                      // [kS]
+  const uint32_t full_kv = st_s + kS * kStatStride;
+  const uint32_t full = full_kv + 8;                         // [kS]
   const float* st_g = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
 
   const KItem w = k_item(a, 1);
@@ -924,93 +1098,117 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
   auto load = [&](int i, int st) {
     const int h = w.h0 + i / per, q0 = (qlo + i % per) * kRows;
     const uint32_t bar = full + 8 * st;
-    mbar_expect_tx(bar, 2 * Gm::kTileBytes + kStatBytes);
-    load_tile<Gm>(q_s + st * Gm::kTileBytes, &maps.q, &maps.q_tail, bar, h,
-                  q0, b);
-    load_tile<Gm>(do_s + st * Gm::kTileBytes, &maps.dout, &maps.do_tail, bar,
-                  h, q0, b);
+    mbar_expect_tx(bar, 2 * kT + kStatBytes);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      load_tile<Gm>(q_s + st * kT + p * Gm::kTileBytes, &maps.q, &maps.q_tail,
+                    bar, h, q0, p * a.B + b);
+      load_tile<Gm>(do_s + st * kT + p * Gm::kTileBytes, &maps.dout,
+                    &maps.do_tail, bar, h, q0, p * a.B + b);
+    }
     tma_load_3d(st_s + st * kStatStride, &maps.stats, bar, q0, b * a.H + h,
                 0);
   };
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
-    for (int s = 0; s < kStages; ++s) mbar_init(full + 8 * s, 1);
+    for (int s = 0; s < kS; ++s) mbar_init(full + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(full_kv, 2 * Gm::kTileBytes);
-    load_tile<Gm>(k_s, &maps.k, &maps.k_tail, full_kv, g, k0, b);
-    load_tile<Gm>(v_s, &maps.v, &maps.v_tail, full_kv, g, k0, b);
-    for (int i = 0; i < min(n, kStages); ++i) load(i, i);
+    mbar_expect_tx(full_kv, 2 * kT);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      load_tile<Gm>(k_s + p * Gm::kTileBytes, &maps.k, &maps.k_tail, full_kv,
+                    g, k0, p * a.B + b);
+      load_tile<Gm>(v_s + p * Gm::kTileBytes, &maps.v, &maps.v_tail, full_kv,
+                    g, k0, p * a.B + b);
+    }
+    for (int i = 0; i < min(n, kS); ++i) load(i, i);
   }
   __syncthreads();
 
-  float ak[D / 2], av[D / 2];
+  if constexpr (NP == 1) {
+    float ak[D / 2], av[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    ak[i] = 0.f;
-    av[i] = 0.f;
-  }
-  mbar_wait(full_kv, 0);
-  for (int i = 0; i < n; ++i) {
-    const int st = i % kStages, q0 = (qlo + i % per) * kRows;
-    const uint32_t qb = q_s + st * Gm::kTileBytes;
-    const uint32_t dob = do_s + st * Gm::kTileBytes;
-    const float* sm = st_g + st * (kStatStride / 4);   // m, 1/l, delta
-    mbar_wait(full + 8 * st, (i / kStages) & 1);
-    float s[32], dp[32];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < Gm::kKSteps; ++ks)
-      SS<64>::mma(s, Gm::k_desc(k_s, 0, ks), Gm::k_desc(qb, 0, ks), ks > 0);
-#pragma unroll
-    for (int ks = 0; ks < Gm::kKSteps; ++ks)
-      SS<64>::mma(dp, Gm::k_desc(v_s, 0, ks), Gm::k_desc(dob, 0, ks),
-                  ks > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
-    const bool mask = needs_mask(a, q0, k0);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {   // rows the keys, columns the queries
-      const int c = acc_col(j);
-      p_ds(a, mask, q0 + c, k0 + acc_row(j), s[j], dp[j], sm[c],
-           sm[kRows + c], sm[2 * kRows + c], s[j], dp[j]);
+    for (int i = 0; i < D / 2; ++i) {
+      ak[i] = 0.f;
+      av[i] = 0.f;
     }
-    uint32_t pa[4][4], da[4][4];
-    to_frags<64>(s, pa);
-    to_frags<64>(dp, da);
-    fence_regs(av);
-    fence_regs(ak);
-    fence_frags(pa);
-    fence_frags(da);
-    wgmma_fence();
+    mbar_wait(full_kv, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kS, q0 = (qlo + i % per) * kRows;
+      const uint32_t qb = q_s + st * kT;
+      const uint32_t dob = do_s + st * kT;
+      const float* sm = st_g + st * (kStatStride / 4);   // m, 1/l, delta
+      mbar_wait(full + 8 * st, (i / kS) & 1);
+      float s[32], dp[32];
+      scores_t<Gm, NP>(s, dp, true, k_s, v_s, qb, dob, a, q0, k0, sm);
+      uint32_t pa[4][4], da[4][4];
+      to_frags<64>(s, pa);
+      to_frags<64>(dp, da);
+      fence_regs(av);
+      fence_regs(ak);
+      fence_frags(pa);
+      fence_frags(da);
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) mma_rows<Gm>(av, pa[ks], dob, ks);
+      for (int ks = 0; ks < 4; ++ks) mma_rows<Gm>(av, pa[ks], dob, ks);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) mma_rows<Gm>(ak, da[ks], qb, ks);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(av);
-    fence_regs(ak);
-    fence_frags(pa);
-    fence_frags(da);
-    __syncthreads();   // every warp's products have read the stage
-    if (threadIdx.x == 0 && i + kStages < n) load(i + kStages, st);
-  }
+      for (int ks = 0; ks < 4; ++ks) mma_rows<Gm>(ak, da[ks], qb, ks);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(av);
+      fence_regs(ak);
+      fence_frags(pa);
+      fence_frags(da);
+      __syncthreads();   // every warp's products have read the stage
+      if (threadIdx.x == 0 && i + kS < n) load(i + kS, st);
+    }
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int t = k0 + acc_row(2 * e);
-    if (t >= a.Tk) continue;
-    const size_t row = (((size_t)b * a.Tk + t) * a.G + g) * D;
+    for (int e = 0; e < 2; ++e) {
+      const int t = k0 + acc_row(2 * e);
+      if (t >= a.Tk) continue;
+      const size_t row = (((size_t)b * a.Tk + t) * a.G + g) * D;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
-      const int c = acc_col(4 * jj);
-      *reinterpret_cast<uint32_t*>(dk + row + c) =
-          pack_bf16(ak[4 * jj + 2 * e] * a.scale,
-                    ak[4 * jj + 2 * e + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv + row + c) =
-          pack_bf16(av[4 * jj + 2 * e], av[4 * jj + 2 * e + 1]);
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int c = acc_col(4 * jj);
+        store2(dk + row + c, ak[4 * jj + 2 * e] * a.scale,
+               ak[4 * jj + 2 * e + 1] * a.scale);
+        store2(dv + row + c, av[4 * jj + 2 * e], av[4 * jj + 2 * e + 1]);
+      }
+    }
+  } else {
+    // fp32: warpgroup W's total, dV (W = 0) or dK (W = 1)
+    const int W = threadIdx.x / 128;
+    float tot[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) tot[i] = 0.f;
+    mbar_wait(full_kv, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kS, q0 = (qlo + i % per) * kRows;
+      const uint32_t qb = q_s + st * kT;
+      const uint32_t dob = do_s + st * kT;
+      const float* sm = st_g + st * (kStatStride / 4);   // m, 1/l, delta
+      mbar_wait(full + 8 * st, (i / kS) & 1);
+      float s[32], dp[32];
+      scores_t<Gm, NP>(s, dp, W == 1, k_s, v_s, qb, dob, a, q0, k0, sm);
+      if (W == 0)
+        add_tile<Gm>(tot, s, dob);   // P^T's pieces times dO's
+      else
+        add_tile<Gm>(tot, dp, qb);   // dS^T's pieces times Q's
+      __syncthreads();   // both groups' products have read the stage
+      if (threadIdx.x == 0 && i + kS < n) load(i + kS, st);
+    }
+    Elem<NP>* out = W == 0 ? dv : dk;
+    const float mul = W == 0 ? 1.f : a.scale;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = k0 + acc_row(2 * e);
+      if (t >= a.Tk) continue;
+      const size_t row = (((size_t)b * a.Tk + t) * a.G + g) * D;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        store2(out + row + acc_col(4 * jj), tot[4 * jj + 2 * e] * mul,
+               tot[4 * jj + 2 * e + 1] * mul);
     }
   }
 }
@@ -1055,7 +1253,6 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
 // each owner adds the split partials in rank order and writes its pairs.
 // No atomics, a fixed order: two calls give the same bits.
 
-constexpr int kWide = 256;       // two warpgroups a block
 constexpr int kMaxSplit = 4;     // blocks a key tile in bwd_dkdv_tc2
 
 // The columns of dQ, dK and dV that warpgroup W owns at head size D
@@ -1496,19 +1693,23 @@ bwd_dkdv_tc2(const __grid_constant__ Maps maps,
     dkdv_wide<D, 1>(maps, dk, dv, a, w, L, smem_raw, raw);
 }
 
-// Shared memory of each pass, with slack to align the tiles to 1024 bytes.
-template <int D>
+// Shared memory of each pass, with slack to align the tiles to 1024 bytes:
+// for fp32 (NP = 3) 148,504 bytes (statistics), 197,648 (dQ) and 198,672
+// (dK/dV) at D = 128, one block an SM.
+template <int D, int NP>
 constexpr int stats_smem() {
-  return 1024 + (1 + kStages) * Geo<D>::kTileBytes + 8 * (1 + kStages);
+  return 1024 + (1 + kStages) * NP * Geo<D>::kTileBytes + 8 * (1 + kStages);
 }
-template <int D>
+template <int D, int NP>
 constexpr int dq_smem() {
-  return 1024 + (2 + 2 * kStages) * Geo<D>::kTileBytes + 8 * (1 + kStages);
+  constexpr int kS = ring_stages<D, NP>();
+  return 1024 + (2 + 2 * kS) * NP * Geo<D>::kTileBytes + 8 * (1 + kS);
 }
-template <int D>
+template <int D, int NP>
 constexpr int dkdv_smem() {
-  return 1024 + (2 + 2 * kStages) * Geo<D>::kTileBytes +
-         kStages * kStatStride + 8 * (1 + kStages);
+  constexpr int kS = ring_stages<D, NP>();
+  return 1024 + (2 + 2 * kS) * NP * Geo<D>::kTileBytes + kS * kStatStride +
+         8 * (1 + kS);
 }
 
 // The statistics' map: fp32 (3, B H, Tqp), a box of 64 rows of each.
@@ -1536,14 +1737,20 @@ int dkdv_split(const Args& a, int nkt, int sms) {
   return split;
 }
 
-template <int D>
+// The three passes at head size D on NP-piece operands: q, k, v and dout
+// are what the tensor maps read (bf16, or for NP = 3 the pieces' (3 B, T,
+// heads, D) tensors), o and dout_raw the inputs of delta = rowsum(dO * O)
+// in q's dtype.
+template <int D, int NP>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* stats,
-           const Args& a, cudaStream_t stream) {
+           const void* dout, const void* dout_raw, void* dq, void* dk,
+           void* dv, float* stats, const Args& a, cudaStream_t stream) {
   constexpr bool kWideD = D > 128;
+  static_assert(NP == 1 || !kWideD, "fp32 takes one-warpgroup passes");
   static std::atomic<bool> done_st[kDevices], done_dq[kDevices],
       done_kv[kDevices];
-  cudaError_t err = allow_smem(bwd_stats_tc<D>, stats_smem<D>(), done_st);
+  cudaError_t err =
+      allow_smem(bwd_stats_tc<D, NP>, stats_smem<D, NP>(), done_st);
   if constexpr (kWideD) {
     if (err == cudaSuccess)
       err = allow_smem(bwd_dq_tc2<D>, DqWide<D>::kBytes, done_dq);
@@ -1551,23 +1758,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       err = allow_smem(bwd_dkdv_tc2<D>, DkdvWide<D>::kBytes, done_kv);
   } else {
     if (err == cudaSuccess)
-      err = allow_smem(bwd_dq_tc<D>, dq_smem<D>(), done_dq);
+      err = allow_smem(bwd_dq_tc<D, NP>, dq_smem<D, NP>(), done_dq);
     if (err == cudaSuccess)
-      err = allow_smem(bwd_dkdv_tc<D>, dkdv_smem<D>(), done_kv);
+      err = allow_smem(bwd_dkdv_tc<D, NP>, dkdv_smem<D, NP>(), done_kv);
   }
   if (err != cudaSuccess) return (int)err;
   Maps maps = {};
+  const int NB = NP * a.B;   // the maps' batches: NP pieces of each
   if (!bind_context() ||
-      !make_maps<D>(&maps.q, &maps.q_tail, q, a.B, a.Tq, a.H, kRows) ||
-      !make_maps<D>(&maps.k, &maps.k_tail, k, a.B, a.Tk, a.G, kRows) ||
-      !make_maps<D>(&maps.v, &maps.v_tail, v, a.B, a.Tk, a.G, kRows) ||
-      !make_maps<D>(&maps.dout, &maps.do_tail, dout, a.B, a.Tq, a.H,
+      !make_maps<D>(&maps.q, &maps.q_tail, q, NB, a.Tq, a.H, kRows) ||
+      !make_maps<D>(&maps.k, &maps.k_tail, k, NB, a.Tk, a.G, kRows) ||
+      !make_maps<D>(&maps.v, &maps.v_tail, v, NB, a.Tk, a.G, kRows) ||
+      !make_maps<D>(&maps.dout, &maps.do_tail, dout, NB, a.Tq, a.H,
                     kRows) ||
       !make_stats_map(&maps.stats, stats, a.B * a.H, a.Tqp))
     return (int)cudaErrorInvalidValue;
   const int nqt = (a.Tq + kRows - 1) / kRows, nkt = (a.Tk + kRows - 1) / kRows;
-  bwd_stats_tc<D><<<a.B * a.H * nqt, kThreads, stats_smem<D>(), stream>>>(
-      maps, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, stats, a);
+  bwd_stats_tc<D, NP>
+      <<<a.B * a.H * nqt, kThreads, stats_smem<D, NP>(), stream>>>(
+          maps, (const Elem<NP>*)o, (const Elem<NP>*)dout_raw, stats, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (kWideD) {
@@ -1596,12 +1805,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                              (__nv_bfloat16*)dv, ak);
     if (err != cudaSuccess) return (int)err;
   } else {
-    bwd_dq_tc<D><<<a.B * a.H * nqt, kThreads, dq_smem<D>(), stream>>>(
-        maps, stats, (__nv_bfloat16*)dq, a);
+    bwd_dq_tc<D, NP><<<a.B * a.H * nqt, kThreads, dq_smem<D, NP>(),
+                       stream>>>(maps, stats, (Elem<NP>*)dq, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    bwd_dkdv_tc<D><<<a.B * a.G * nkt, kThreads, dkdv_smem<D>(), stream>>>(
-        maps, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, a);
+    bwd_dkdv_tc<D, NP><<<a.B * a.G * nkt, NP == 1 ? kThreads : kWide,
+                         dkdv_smem<D, NP>(), stream>>>(
+        maps, (Elem<NP>*)dk, (Elem<NP>*)dv, a);
   }
   return (int)cudaGetLastError();
 }
@@ -1652,14 +1862,53 @@ int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                     1};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return tcb::launch<16>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
-    case 32: return tcb::launch<32>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
-    case 64: return tcb::launch<64>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
-    case 80: return tcb::launch<80>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
-    case 128: return tcb::launch<128>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
-    case 160: return tcb::launch<160>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
-    case 256: return tcb::launch<256>(q, k, v, o, dout, dq, dk, dv, stats, a, st);
+    case 16: return tcb::launch<16, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
+    case 32: return tcb::launch<32, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
+    case 64: return tcb::launch<64, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
+    case 80: return tcb::launch<80, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
+    case 128: return tcb::launch<128, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
+    case 160: return tcb::launch<160, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
+    case 256: return tcb::launch<256, 1>(q, k, v, o, dout, dout, dq, dk, dv, stats, a, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same call for fp32 tensors at D in {16, 32, 64, 80, 128} on the
+// tensor cores: split_pieces writes q's, k's, v's and dout's three bf16
+// pieces (sm90.cuh) to `pieces`, bf16 scratch of 3 (2 q's + 2 k's
+// elements), in that order; then the three passes read them (NP = 3).
+// Base pointers 16-byte aligned.  Returns a cudaError_t.
+int flash_attention_bwd_split(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, void* dq,
+                              void* dk, void* dv, float* stats, void* pieces,
+                              int B, int Tq, int Tk, int H, int G, int D,
+                              int causal, int window, float scale,
+                              void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
+      (D != 16 && D != 32 && D != 64 && D != 80 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  const tcb::Args a{B, Tq, Tk, H, G, causal, window,
+                    (Tq + tcb::kRows - 1) / tcb::kRows * tcb::kRows, scale,
+                    1};
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long nq = (long long)B * Tq * H * D;
+  const long long nk = (long long)B * Tk * G * D;
+  __nv_bfloat16* pq = (__nv_bfloat16*)pieces;
+  __nv_bfloat16* pk = pq + 3 * nq;
+  __nv_bfloat16* pv = pk + 3 * nk;
+  __nv_bfloat16* pd = pv + 3 * nk;
+  const sm90::SplitJobs jobs = {
+      {(const float*)q, (const float*)k, (const float*)v, (const float*)dout},
+      {pq, pk, pv, pd},
+      {nq, nk, nk, nq}};
+  const int err = sm90::launch_split(jobs, 4, st);
+  if (err != 0) return err;
+  switch (D) {
+    case 16: return tcb::launch<16, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    case 32: return tcb::launch<32, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    case 64: return tcb::launch<64, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    case 80: return tcb::launch<80, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    default: return tcb::launch<128, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
   }
 }
 

@@ -13,6 +13,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace sm90 {
 
@@ -109,6 +110,92 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// --- fp32 on the tensor cores: three bf16 pieces ----------------------------
+//
+// wgmma takes no fp32 operands, and tf32 keeps 10 bits of fp32's 23.  An
+// fp32 value x splits into three bf16 pieces, p0 = bf16_rn(x), p1 =
+// bf16_rn(x - p0), p2 = bf16_rn(x - p0 - p1): each difference is exact in
+// fp32, and the pieces sum to x exactly wherever a bf16 can hold x's last
+// bit (|x| >= 2^-110).  Where bf16_rn(x) overflows (|x| within half a bf16
+// step of the largest float) p0 rounds toward zero instead.  A product of
+// two such operands is the sum of the six piece products (i, j) with i + j
+// <= 2, issued smallest first into one fp32 accumulator; the three left
+// out, (1, 2), (2, 1) and (2, 2), are below 2^-24 of the product.  A piece
+// product is exact in the tensor core (8 x 8 significant bits), so the sum
+// keeps about fp32's accuracy at six bf16 products' rate: 164.8 TFLOP/s of
+// fp32 work at 989, 2.46 times the 67 TFLOP/s of scalar FFMAs.  Kernels
+// take the number of pieces NP as a template argument: 1 is bf16 (the one
+// product (0, 0)), 3 is fp32.
+
+// The element type of an NP-piece kernel's inputs and outputs: bf16, or
+// fp32 for NP = 3.
+template <int NP>
+using Elem = typename std::conditional<NP == 1, __nv_bfloat16, float>::type;
+
+// The products a k16 step of an NP-piece operand pair takes, and the
+// pieces of A and B product t multiplies.
+template <int NP>
+__host__ __device__ constexpr int products() { return NP == 1 ? 1 : 6; }
+template <int NP>
+__host__ __device__ constexpr int piece_a(int t) {
+  return NP == 1 ? 0 : t == 0 ? 2 : (t == 1 || t == 3) ? 1 : 0;
+}
+template <int NP>
+__host__ __device__ constexpr int piece_b(int t) {
+  return NP == 1 ? 0 : t == 2 ? 2 : (t == 1 || t == 4) ? 1 : 0;
+}
+
+// x's three pieces (above).
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& p0,
+                                       __nv_bfloat16& p1, __nv_bfloat16& p2) {
+  p0 = __float2bfloat16_rn(x);
+  if (isinf(__bfloat162float(p0)) && !isinf(x)) p0 = __float2bfloat16_rz(x);
+  const float r = x - __bfloat162float(p0);
+  p1 = __float2bfloat16_rn(r);
+  p2 = __float2bfloat16_rn(r - __bfloat162float(p1));
+}
+
+// The pass that splits fp32 tensors into their pieces: job j reads n[j]
+// floats (a multiple of 4) at src[j] and writes piece p of element i to
+// dst[j][p n[j] + i], so a contiguous (B, T, heads, D) tensor's pieces are
+// one contiguous (3 B, T, heads, D) bf16 tensor whose 4-d tensor maps read
+// piece p of batch b as batch p B + b.  16-byte loads, 8-byte stores.
+struct SplitJobs {
+  const float* src[4];
+  __nv_bfloat16* dst[4];
+  long long n[4];
+};
+
+static __global__ void __launch_bounds__(256)
+split_pieces(const SplitJobs jobs) {
+  const int j = blockIdx.y;
+  const long long n = jobs.n[j], n4 = n / 4;
+  const float4* src = reinterpret_cast<const float4*>(jobs.src[j]);
+  __nv_bfloat16* dst = jobs.dst[j];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 x = src[i];
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    __align__(8) __nv_bfloat16 p[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split3(xs[e], p[0][e], p[1][e], p[2][e]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      *reinterpret_cast<uint2*>(dst + q * n + 4 * i) =
+          *reinterpret_cast<const uint2*>(p[q]);
+  }
+}
+
+// Launch split_pieces over the first `count` jobs on `stream`.
+inline int launch_split(const SplitJobs& jobs, int count, cudaStream_t stream) {
+  long long most = 0;
+  for (int j = 0; j < count; ++j) most = jobs.n[j] > most ? jobs.n[j] : most;
+  const long long blocks = (most / 4 + 255) / 256;
+  const int grid = (int)(blocks < 1056 ? (blocks > 0 ? blocks : 1) : 1056);
+  split_pieces<<<dim3(grid, count), 256, 0, stream>>>(jobs);
+  return (int)cudaGetLastError();
+}
+
 // A wgmma shared-memory matrix descriptor: start address, leading and
 // stride byte offsets (16-byte units) and the swizzle layout type.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -120,7 +207,8 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 }
 
 // Shared-memory geometry of a Rows-row bf16 tile of head size D (a tile of
-// Q, K, V or dO; Rows a multiple of 64): kFull blocks of 64 columns
+// Q, K, V or dO, or of one of their pieces; Rows a multiple of 32: 64 for
+// an A operand, 32 or more for a B operand): kFull blocks of 64 columns
 // (128-byte rows, 128-byte swizzle) and, where 64 does not divide D, one
 // tail block of the kTail columns left (16 or 32: rows and swizzle of 32
 // or 64 bytes).  Each block holds all Rows rows of its columns, so one TMA
@@ -138,7 +226,7 @@ struct TileGeo {
   static constexpr int kTailLayout = kTailSw == 64 ? 2 : 3;
   static constexpr int kKSteps = D / 16;              // k16 steps over D
   static_assert(kTail == 0 || kTail == 16 || kTail == 32, "head size");
-  static_assert(Rows % 64 == 0, "tile rows");
+  static_assert(Rows % 32 == 0, "tile rows");
 
   // The K-major descriptor of k16 step ks (16 columns, 32 bytes) of rows
   // [row, row + 64) of a tile: steps 4 c to 4 c + 3 lie in full block c,
@@ -208,6 +296,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two output values at out[0], out[1] in the output's type (Elem).
+__device__ __forceinline__ void store2(__nv_bfloat16* out, float x0,
+                                      float x1) {
+  *reinterpret_cast<uint32_t*>(out) = pack_bf16(x0, x1);
+}
+__device__ __forceinline__ void store2(float* out, float x0, float x1) {
+  *reinterpret_cast<float2*>(out) = make_float2(x0, x1);
+}
+
 // An m64nNk16 fp32 accumulator (N / 2 floats a thread) as the A operand
 // fragments of the next product, k16 step by k16 step, rounded to bf16:
 // the accumulator's columns become the product's K.
@@ -220,6 +317,31 @@ __device__ __forceinline__ void to_frags(const float (&s)[N / 2],
     a[ks][1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
     a[ks][2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
     a[ks][3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
+  }
+}
+
+// The same fragments of an NP-piece operand: NP = 1 rounds to bf16 as
+// to_frags; NP = 3 gives piece p of each value in a[p] (split3's pieces;
+// the values here, P and dS, are far from fp32's largest).
+template <int N, int NP>
+__device__ __forceinline__ void to_piece_frags(const float (&s)[N / 2],
+                                               uint32_t (&a)[NP][N / 16][4]) {
+  if constexpr (NP == 1) {
+    to_frags<N>(s, a[0]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float x0 = s[2 * i], x1 = s[2 * i + 1];
+      const uint32_t h0 = pack_bf16(x0, x1);
+      const __nv_bfloat162 b0 = *reinterpret_cast<const __nv_bfloat162*>(&h0);
+      const float r0 = x0 - __low2float(b0), r1 = x1 - __high2float(b0);
+      const uint32_t h1 = pack_bf16(r0, r1);
+      const __nv_bfloat162 b1 = *reinterpret_cast<const __nv_bfloat162*>(&h1);
+      a[0][i / 4][i % 4] = h0;
+      a[1][i / 4][i % 4] = h1;
+      a[2][i / 4][i % 4] =
+          pack_bf16(r0 - __low2float(b1), r1 - __high2float(b1));
+    }
   }
 }
 

@@ -6,8 +6,8 @@ Counterpart of the reference's Pallas kernel
 ``_kernel``).  ``q`` is ``(B, Tq, H, D)``, ``k`` and ``v`` are ``(B, Tk, G,
 D)`` with ``H = G * R``; query head ``h`` reads KV head ``h // R``.  The
 kernels live in ``csrc/flash_attention.cu`` (see its header for the work
-split, the masking and what bounds them on the card).  Two variants, chosen
-by :func:`variant` from the dtype and the head size alone:
+split, the masking and what bounds them on the card).  Three variants,
+chosen by :func:`variant` from the dtype and the head size alone:
 
 * ``tc`` — ``flash_fwd_sm90``, on the tensor cores (wgmma fed by TMA), for
   bf16 at every ``D`` in :data:`TC_HEAD_DIMS` (``D = 80``'s 160-byte rows
@@ -15,17 +15,30 @@ by :func:`variant` from the dtype and the head size alone:
   ``D = 160`` and ``D = 256`` in a block shape of their own: one consumer
   warpgroup, 64-row query tiles and 64-key tiles; ``D = 160``'s rows are
   two 64-column blocks and a 32-column tail);
-* ``scalar`` — ``flash_fwd_kernel``, scalar fp32 FMAs, for fp32 at every
-  ``D``.  It takes bf16 too, but only when named (``_launch(..., kind=
-  "scalar")``): the yardstick the tensor-core kernel is timed against.
+* ``split`` — the same kernel on three bf16 pieces of each fp32 operand
+  (``csrc/sm90.cuh``: ``p0 = bf16(x)``, ``p1 = bf16(x - p0)``, ``p2 =
+  bf16(x - p0 - p1)``; each product the six piece products with ``i + j
+  <= 2``), for fp32 at every ``D`` in :data:`HEAD_DIMS`: a pass
+  writes the pieces of q, k and v to bf16 scratch the call allocates,
+  then the kernel reads them through the same tensor maps, with K/V
+  tiles of 32 or 64 keys;
+* ``scalar`` — ``flash_fwd_kernel``, scalar fp32 FMAs.  It takes fp32 and
+  bf16, but only when named (``_launch(..., kind="scalar")``): the
+  yardstick the tensor-core and the split kernels are timed against.
+
+:func:`split_pieces` and :func:`piece_einsum` are the plain versions of
+the split and of the six-product arithmetic, :func:`attention_split_model`
+and :func:`attention_bwd_split_model` the split kernels' arithmetic in
+plain PyTorch; only tests use them.
 
 :func:`attention_ref` is the plain PyTorch version, the counterpart of the
 reference's oracle ``repro.kernels.ref.attention_ref``.
 :func:`flash_attention` takes it for tensors on the CPU; for CUDA tensors
 it launches a kernel or raises, and never falls back.  :data:`LAUNCHES`
 counts kernel launches and nothing else: ``flash_attention`` is the
-forward's total, ``flash_attention_tc`` and ``flash_attention_scalar``
-each variant;
+forward's total, ``flash_attention_tc``, ``flash_attention_split`` and
+``flash_attention_scalar`` each variant (the split kernel's pass that
+writes the pieces is part of its one launch);
 :data:`SHAPE_LAUNCHES` counts the same launches by variant and shape.
 
 The gradients.  :func:`flash_attention` on CUDA tensors goes through
@@ -33,7 +46,7 @@ The gradients.  :func:`flash_attention` on CUDA tensors goes through
 requires grad: its forward is the same launch, and it saves q, k, v and
 o; its backward launches ``csrc/flash_attention_bwd.cu`` (see its header:
 the row statistics recomputed, then dQ, then dK/dV, no atomics), in one
-of two variants that :func:`bwd_variant` picks from the dtype and the
+of three variants that :func:`bwd_variant` picks from the dtype and the
 head size alone:
 
 * ``tc`` — three passes on the tensor cores (wgmma fed by TMA), for bf16
@@ -41,15 +54,21 @@ head size alone:
   dQ and dK/dV on blocks of two warpgroups that split the output
   columns, and dK/dV's key tiles split over a thread-block cluster where
   the KV heads are too few to fill the card);
-* ``scalar`` — three scalar-fp32 kernels, for fp32 (wgmma takes no fp32
-  operands).  It takes the tensor-core variant's calls too, but only when
-  named (``_launch_bwd(..., kind="scalar")``): the yardstick.
+* ``split`` — the same one-warpgroup passes on three bf16 pieces of each
+  fp32 operand (q, k, v and dO; P and dS split in registers), for fp32 at
+  every ``D`` in :data:`BWD_SPLIT_HEAD_DIMS` (up to 128: the resident
+  tiles' pieces and a ring stage fill 227 KB there), dK and dV on two
+  warpgroups, each tile's products added to the gradients in fp32;
+* ``scalar`` — three scalar-fp32 kernels, for fp32 at ``D = 160`` and
+  ``256``, where no path takes it.  It takes the other variants' calls
+  too, but only when named (``_launch_bwd(..., kind="scalar")``): the
+  yardstick.
 
 :data:`LAUNCHES` counts ``flash_attention_bwd`` (every backward call) and
-``flash_attention_bwd_tc`` and ``flash_attention_bwd_scalar`` (each
-variant), and :data:`SHAPE_LAUNCHES` the same calls under ``"bwd_tc"`` or
-``"bwd_scalar"``.  Under ``torch.inference_mode`` or ``no_grad`` (serving)
-nothing changes.
+``flash_attention_bwd_tc``, ``flash_attention_bwd_split`` and
+``flash_attention_bwd_scalar`` (each variant), and :data:`SHAPE_LAUNCHES`
+the same calls under ``"bwd_tc"``, ``"bwd_split"`` or ``"bwd_scalar"``.
+Under ``torch.inference_mode`` or ``no_grad`` (serving) nothing changes.
 :func:`attention_bwd_ref` is the backward's plain version, from the
 explicit formulas in float32; CPU tensors take :func:`attention_ref`,
 which autograd differentiates.
@@ -64,16 +83,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["BWD_TC_HEAD_DIMS", "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES",
-           "SHAPE_LAUNCHES", "TC_HEAD_DIMS", "attention_bwd_ref",
-           "attention_ref", "bwd_variant", "flash_attention",
-           "reset_launches", "variant"]
+__all__ = ["BWD_SPLIT_HEAD_DIMS", "BWD_TC_HEAD_DIMS", "FlashAttentionFn",
+           "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES", "SPLIT_PAIRS",
+           "TC_HEAD_DIMS", "attention_bwd_ref", "attention_bwd_split_model",
+           "attention_ref", "attention_split_model", "bwd_variant",
+           "flash_attention", "piece_einsum", "reset_launches",
+           "split_pieces", "variant"]
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
+                             "flash_attention_split": 0,
                              "flash_attention_scalar": 0,
                              "flash_attention_bwd": 0,
                              "flash_attention_bwd_tc": 0,
+                             "flash_attention_bwd_split": 0,
                              "flash_attention_bwd_scalar": 0}
 #: the same launches by (variant, Tq, Tk, causal)
 SHAPE_LAUNCHES: Dict[Tuple[str, int, int, bool], int] = {}
@@ -88,6 +111,10 @@ TC_HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 #: and dV, D / 2 fp32 each a thread, fit one warpgroup beside S and dP up
 #: to D = 128; at D = 160 and 256 two warpgroups split the columns)
 BWD_TC_HEAD_DIMS = HEAD_DIMS
+#: the fp32 head sizes the split backward takes: its one-warpgroup passes,
+#: whose resident tiles' pieces and a ring stage's fit 227 KB up to
+#: D = 128; fp32 at D = 160 and 256 stays on the scalar backward
+BWD_SPLIT_HEAD_DIMS = (16, 32, 64, 80, 128)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"
@@ -99,10 +126,13 @@ _SIGNATURES = {
                             ctypes.c_float, _I, _P],
     "flash_attention_fwd_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, ctypes.c_float, _P],
+    "flash_attention_fwd_split": [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
 }
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P] * 11 + [_I] * 8
                    + [ctypes.c_float, _I, _P],
                    "flash_attention_bwd_sm90": [_P] * 9 + [_I] * 8
+                   + [ctypes.c_float, _P],
+                   "flash_attention_bwd_split": [_P] * 10 + [_I] * 8
                    + [ctypes.c_float, _P]}
 #: the tensor-core backward's row statistics are padded to its 64-row tile
 _BWD_ROWS = 64
@@ -117,16 +147,24 @@ def reset_launches() -> None:
 
 def variant(dtype: torch.dtype, D: int) -> str:
     """The kernel a CUDA call runs: ``"tc"`` for bf16 at ``D`` in
-    :data:`TC_HEAD_DIMS`, else ``"scalar"``."""
-    return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS \
-        else "scalar"
+    :data:`TC_HEAD_DIMS`, ``"split"`` for fp32 at every ``D`` in
+    :data:`HEAD_DIMS`, else ``"scalar"``."""
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        return "tc"
+    if dtype == torch.float32 and D in HEAD_DIMS:
+        return "split"
+    return "scalar"
 
 
 def bwd_variant(dtype: torch.dtype, D: int) -> str:
     """The backward kernel a CUDA call runs: ``"tc"`` for bf16 at ``D`` in
-    :data:`BWD_TC_HEAD_DIMS`, else ``"scalar"``."""
-    return "tc" if dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS \
-        else "scalar"
+    :data:`BWD_TC_HEAD_DIMS`, ``"split"`` for fp32 at ``D`` in
+    :data:`BWD_SPLIT_HEAD_DIMS`, else ``"scalar"``."""
+    if dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS:
+        return "tc"
+    if dtype == torch.float32 and D in BWD_SPLIT_HEAD_DIMS:
+        return "split"
+    return "scalar"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -192,6 +230,102 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(v.dtype))
 
 
+def split_pieces(x: torch.Tensor) -> torch.Tensor:
+    """The three bf16 pieces of fp32 ``x``, stacked first: ``p0 =
+    bf16(x)``, ``p1 = bf16(x - p0)``, ``p2 = bf16(x - p0 - p1)``, each
+    rounded to nearest and each difference exact in fp32, so that they sum
+    to ``x`` exactly wherever a bf16 can hold ``x``'s last bit (|x| >=
+    2^-110).  Where ``bf16(x)`` overflows, ``p0`` rounds toward zero
+    instead.  The plain version of the kernels' ``split3``
+    (``csrc/sm90.cuh``); only tests use it."""
+    x = x.float()
+    p0 = x.to(torch.bfloat16)
+    over = torch.isinf(p0) & torch.isfinite(x)
+    if bool(over.any()):
+        # toward zero: drop the 16 low bits of the fp32 pattern
+        rz = (x.view(torch.int32) & -65536).view(torch.float32)
+        p0 = torch.where(over, rz.to(torch.bfloat16), p0)
+    r = x - p0.float()
+    p1 = r.to(torch.bfloat16)
+    p2 = (r - p1.float()).to(torch.bfloat16)
+    return torch.stack([p0, p1, p2])
+
+
+#: the piece pairs (A's, B's) of the split kernels' six products, in the
+#: order they are issued: smallest first (``csrc/sm90.cuh``)
+SPLIT_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def piece_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                 pieces: int = 3) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` as the split kernels compute it in fp32:
+    for ``pieces`` 3 the sum of the six products of :data:`SPLIT_PAIRS`
+    on :func:`split_pieces`, each exact in fp32 (8 x 8 significant bits),
+    summed in fp32; for 1 the one product of ``a`` and ``b`` rounded to
+    bf16, as the bf16 kernels take them.  Only tests use it."""
+    if pieces == 1:
+        return torch.einsum(eq, a.to(torch.bfloat16).float(),
+                            b.to(torch.bfloat16).float())
+    pa, pb = split_pieces(a).float(), split_pieces(b).float()
+    out = None
+    for i, j in SPLIT_PAIRS:
+        term = torch.einsum(eq, pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
+
+
+def attention_split_model(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          pieces: int = 3) -> torch.Tensor:
+    """:func:`attention_ref`'s output (float32) by the split forward's
+    arithmetic: S = Q K^T by :func:`piece_einsum`, scaled and masked
+    (-1e30) in fp32, ``p = exp(s - max)`` in fp32, O = P V by
+    :func:`piece_einsum` on p over the row sum of p.  ``pieces`` 1 is the
+    one-product (bf16 operand) model.  Only tests use it."""
+    B, Tq, H, D = q.shape
+    Tk, G = k.shape[1], k.shape[2]
+    R = H // G
+    qg = q.float().reshape(B, Tq, G, R, D)
+    s = piece_einsum("btgrd,bsgd->bgrts", qg, k.float(), pieces)
+    s = s / math.sqrt(D)
+    mask = _mask(Tq, Tk, causal, window, q.device)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = piece_einsum("bgrts,bsgd->btgrd", p, v.float(), pieces)
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, Tq, H, D)
+
+
+def attention_bwd_split_model(q, k, v, o, do, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              pieces: int = 3
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """:func:`attention_bwd_ref`'s gradients (float32) by the split
+    backward's arithmetic: S, dP = dO V^T, dV = P^T dO, dK = dS^T Q and
+    dQ = dS K by :func:`piece_einsum`; P, delta = rowsum(dO * O) and dS =
+    P (dP - delta) in fp32.  Only tests use it."""
+    B, Tq, H, D = q.shape
+    Tk, G = k.shape[1], k.shape[2]
+    R = H // G
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Tq, G, R, D)
+    dog = do.float().reshape(B, Tq, G, R, D)
+    kf, vf = k.float(), v.float()
+    mask = _mask(Tq, Tk, causal, window, q.device)
+    s = piece_einsum("btgrd,bsgd->bgrts", qg, kf, pieces) * scale
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    delta = (dog * o.float().reshape(B, Tq, G, R, D)).sum(-1)
+    dp = piece_einsum("btgrd,bsgd->bgrts", dog, vf, pieces)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    ds = torch.where(mask, ds, torch.zeros((), device=q.device))
+    dv = piece_einsum("bgrts,btgrd->bsgd", p, dog, pieces)
+    dk = piece_einsum("bgrts,btgrd->bsgd", ds, qg, pieces) * scale
+    dq = piece_einsum("bgrts,bsgd->btgrd", ds, kf, pieces) * scale
+    return dq.reshape(B, Tq, H, D), dk, dv
+
+
 def _check_causal(Tq: int, Tk: int, causal: bool) -> None:
     # the reference's rule: causal masking assumes q and k cover the same
     # positions, so Tq != Tk has no meaning there
@@ -222,11 +356,31 @@ def _check(q, k, v, causal, window) -> None:
                          f"got {window!r}")
 
 
+def _refuse_unrouted(kind: str, routed: str, dtype, D: int, dims) -> None:
+    """Raise unless ``routed`` (the variant the dtype and head size pick)
+    is ``kind``: ``"tc"`` takes bf16 and ``"split"`` fp32, each only at
+    its head sizes ``dims``."""
+    if routed != kind:
+        want = "bf16" if kind == "tc" else "float32"
+        what = "tensor-core" if kind == "tc" else "split"
+        raise ValueError(f"the {what} kernel takes {want} at head sizes "
+                         f"{dims}, got {dtype} at {D}")
+
+
+def _aligned(tensors) -> None:
+    # the tensor maps' rule: 16-byte aligned bases (row strides of 2D or
+    # 4D bytes are multiples of 16 at every head size)
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _launch(q, k, v, causal: bool, window: Optional[int],
             kind: Optional[str] = None) -> torch.Tensor:
     """Launch ``kind`` (default: :func:`variant`'s choice) on CUDA
     tensors; ``"scalar"`` takes every dtype and head size it is built
-    for, ``"tc"`` only what :func:`variant` routes to it."""
+    for, ``"tc"`` and ``"split"`` only what :func:`variant` routes to
+    them."""
     B, Tq, H, D = q.shape
     Tk, G = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODES:
@@ -241,29 +395,32 @@ def _launch(q, k, v, causal: bool, window: Optional[int],
         raise ValueError("empty batch or sequence")
     _check_causal(Tq, Tk, causal)
     kind = kind or variant(q.dtype, D)
+    if kind not in ("tc", "split", "scalar"):
+        raise ValueError(f"unknown kernel variant {kind!r}")
+    if kind != "scalar":
+        _refuse_unrouted(kind, variant(q.dtype, D), q.dtype, D,
+                         TC_HEAD_DIMS if kind == "tc" else HEAD_DIMS)
+        _aligned((("q", q), ("k", k), ("v", v)))
     o = torch.empty_like(q)
     lib = _build.load(_SOURCE, _SIGNATURES)
     stream = _build.current_stream(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Tq,
             Tk, H, G, D, int(causal), window or 0, 1.0 / math.sqrt(D))
     if kind == "tc":
-        if variant(q.dtype, D) != "tc":
-            raise ValueError(f"the tensor-core kernel takes bf16 at head "
-                             f"sizes {TC_HEAD_DIMS}, got {q.dtype} at {D}")
-        # the tensor maps' rule: 16-byte aligned bases (row strides of 2D
-        # bytes are multiples of 16 at every such D)
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary")
         _build.check(_build.launch_on(q, lib.flash_attention_fwd_sm90,
                                       *args, stream),
                      "flash_attention_fwd_sm90")
-    elif kind == "scalar":
+    elif kind == "split":
+        # q's, k's and v's three bf16 pieces, written by the call
+        pieces = torch.empty(3 * (q.numel() + 2 * k.numel()),
+                             dtype=torch.bfloat16, device=q.device)
+        _build.check(_build.launch_on(
+            q, lib.flash_attention_fwd_split, *args[:4], pieces.data_ptr(),
+            *args[4:], stream), "flash_attention_fwd_split")
+    else:
         _build.check(_build.launch_on(q, lib.flash_attention_fwd, *args,
                                       _DTYPE_CODES[q.dtype], stream),
                      "flash_attention_fwd")
-    else:
-        raise ValueError(f"unknown kernel variant {kind!r}")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention_{kind}"] += 1
     key = (kind, Tq, Tk, bool(causal))
@@ -304,8 +461,8 @@ def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
     choice; ``csrc/flash_attention_bwd.cu``, counted in the total and the
     variant's count) on CUDA tensors:
     (dq, dk, dv) in q's dtype.  ``"scalar"`` takes every dtype and head
-    size it is built for, ``"tc"`` only what :func:`bwd_variant` routes to
-    it."""
+    size it is built for, ``"tc"`` and ``"split"`` only what
+    :func:`bwd_variant` routes to them."""
     B, Tq, H, D = q.shape
     Tk, G = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODES:
@@ -325,16 +482,13 @@ def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
         raise ValueError("empty batch or sequence")
     _check_causal(Tq, Tk, causal)
     kind = kind or bwd_variant(q.dtype, D)
-    if kind not in ("tc", "scalar"):
+    if kind not in ("tc", "split", "scalar"):
         raise ValueError(f"unknown kernel variant {kind!r}")
-    if kind == "tc":
-        if bwd_variant(q.dtype, D) != "tc":
-            raise ValueError(f"the tensor-core backward takes bf16 at head "
-                             f"sizes {BWD_TC_HEAD_DIMS}, got {q.dtype} at "
-                             f"{D}")
-        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary")
+    if kind != "scalar":
+        _refuse_unrouted(kind, bwd_variant(q.dtype, D), q.dtype, D,
+                         BWD_TC_HEAD_DIMS if kind == "tc"
+                         else BWD_SPLIT_HEAD_DIMS)
+        _aligned((("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     lib = _build.load(_BWD_SOURCE, _BWD_SIGNATURES)
@@ -343,15 +497,24 @@ def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (B, Tq, Tk, H, G, D, int(causal), window or 0,
              1.0 / math.sqrt(D))
-    if kind == "tc":
+    if kind != "scalar":
         # the row statistics (max, 1 / sum, rowsum(dO * O)), rows padded
         # to the kernel's tile
         Tqp = -(-Tq // _BWD_ROWS) * _BWD_ROWS
         stats = torch.empty((3, B * H, Tqp), dtype=torch.float32,
                             device=q.device)
-        _build.check(_build.launch_on(
-            q, lib.flash_attention_bwd_sm90, *head, stats.data_ptr(), *shape,
-            stream), "flash_attention_bwd_sm90")
+        if kind == "tc":
+            _build.check(_build.launch_on(
+                q, lib.flash_attention_bwd_sm90, *head, stats.data_ptr(),
+                *shape, stream), "flash_attention_bwd_sm90")
+        else:
+            # q's, k's, v's and do's three bf16 pieces, written by the call
+            pieces = torch.empty(3 * (2 * q.numel() + 2 * k.numel()),
+                                 dtype=torch.bfloat16, device=q.device)
+            _build.check(_build.launch_on(
+                q, lib.flash_attention_bwd_split, *head, stats.data_ptr(),
+                pieces.data_ptr(), *shape, stream),
+                "flash_attention_bwd_split")
     else:
         stats = torch.empty((3, B, H, Tq), dtype=torch.float32,
                             device=q.device)

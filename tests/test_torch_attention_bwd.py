@@ -163,11 +163,19 @@ def test_reference_ragged_chunk_fault_reaches_the_gradients():
                                    torch.float16], ids=str)
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_bwd_variant_routes_by_dtype_and_head_size(dtype, D):
-    """bf16 at every head size takes the tensor-core backward, everything
-    else the scalar one; a fixed choice by dtype and head size."""
-    want = "tc" if dtype == torch.bfloat16 else "scalar"
+    """bf16 at every head size takes the tensor-core backward, fp32 up to
+    D = 128 the split one (three bf16 pieces an operand on the tensor
+    cores), everything else the scalar one; a fixed choice by dtype and
+    head size."""
+    if dtype == torch.bfloat16:
+        want = "tc"
+    elif dtype == torch.float32 and D <= 128:
+        want = "split"
+    else:
+        want = "scalar"
     assert fa.bwd_variant(dtype, D) == want
     assert D in fa.BWD_TC_HEAD_DIMS
+    assert (D in fa.BWD_SPLIT_HEAD_DIMS) == (D <= 128)
 
 
 def test_training_paths_take_the_tensor_core_backward():
@@ -184,17 +192,20 @@ def test_training_paths_take_the_tensor_core_backward():
 @pytest.mark.parametrize("dtype,D,kind", [
     (torch.float32, 128, "tc"), (torch.float32, 160, "tc"),
     (torch.float32, 256, "tc"), (torch.float32, 16, "tc"),
-    (torch.bfloat16, 128, "fast")],
+    (torch.bfloat16, 128, "fast"), (torch.bfloat16, 128, "split"),
+    (torch.float32, 160, "split"), (torch.float32, 256, "split")],
     ids=str)
 def test_launch_bwd_refuses_what_the_variant_does_not_take(dtype, D, kind):
-    """``_launch_bwd(kind="tc")`` raises where ``bwd_variant`` names the
-    scalar kernel, and an unknown variant raises, before anything is
-    built or launched (so on the CPU too)."""
+    """``_launch_bwd(kind="tc")`` raises where ``bwd_variant`` names
+    another kernel, ``kind="split"`` likewise (bf16, and fp32 at D = 160
+    and 256, which stay scalar), and an unknown variant raises, before
+    anything is built or launched (so on the CPU too)."""
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(
         (1, 8, 8, 2, 1, D, True, None)))
     o = torch.zeros_like(q)
     before = dict(fa.LAUNCHES)
-    match = "takes bf16 at head sizes" if kind == "tc" else "unknown"
+    match = {"tc": "takes bf16 at head sizes",
+             "split": "takes float32 at head sizes"}.get(kind, "unknown")
     with pytest.raises(ValueError, match=match):
         fa._launch_bwd(q, k, v, o, do, True, None, kind=kind)
     assert fa.LAUNCHES == before
@@ -320,6 +331,11 @@ def _ptxas(functions):
        (8, 4, 4))], {"bwd_dq_tc2<256>": (4, 4)}, True),
     ([("12bwd_stats_tcILi64EEEvNS_4MapsEPK13__nv_bfloat16S4_PfNS_4ArgsE",
        (0, 0, 8))], {"bwd_stats_tc<64>": (0, 8)}, True),
+    # the passes by head size and operand pieces: an fp32 (three-piece)
+    # pass that spills fails it, its bf16 form beside it named apart
+    ([("11bwd_dkdv_tcILi128ELi3EEEvNS_4MapsEPfS3_NS_4ArgsE", (8, 4, 4)),
+      ("11bwd_dkdv_tcILi128ELi1EEEvNS_4MapsEP13__nv_bfloat16S4_NS_4ArgsE",
+       (0, 0, 0))], {"bwd_dkdv_tc<128, 3>": (4, 4)}, True),
 ])
 def test_build_spill_check_reads_ptxas(functions, spills, refused):
     """``chip_smoke.bwd_spills`` reads the spill lines of ptxas's verbose

@@ -665,23 +665,25 @@ ATTN_CASES = [
 def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     """The kernel :func:`fa.variant` names against the plain version on
     the same card tensors (fp32 atol 2e-5, bf16 atol 2e-2, rtol 1e-2):
-    the tensor-core kernel for bf16 at every head size, the scalar one for
-    fp32; one launch per call, counted in the total and its variant."""
+    the tensor-core kernel for bf16 at every head size, the split one
+    (three bf16 pieces an operand on the tensor cores) for fp32; one
+    launch per call, counted in the total and its variant."""
     B, T, H, G, D, causal, window = case
     gen = torch.Generator(device=cuda_device).manual_seed(sum(case[:5]))
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
                            ).to(dtype)
                for shape in ((B, T, H, D), (B, T, G, D), (B, T, G, D)))
     kind = fa.variant(dtype, D)
-    assert kind == ("tc" if dtype == torch.bfloat16 else "scalar")
+    assert kind == ("tc" if dtype == torch.bfloat16 else "split")
     before = dict(fa.LAUNCHES)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_attention": 1, "flash_attention_tc": int(kind == "tc"),
-        "flash_attention_scalar": int(kind == "scalar"),
+        "flash_attention_split": int(kind == "split"),
+        "flash_attention_scalar": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-        "flash_attention_bwd_scalar": 0}
+        "flash_attention_bwd_split": 0, "flash_attention_bwd_scalar": 0}
     want = fa.attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == want.shape
     atol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -714,6 +716,35 @@ def test_cuda_flash_attention_scalar_kernel_on_bf16(cuda_device, D, H, G):
                                    rtol=1e-2)
     with pytest.raises(ValueError, match="tensor-core"):
         fa._launch(q.float(), k.float(), v.float(), True, None, "tc")
+    with pytest.raises(ValueError, match="split"):
+        fa._launch(q, k, v, True, None, "split")
+
+
+@pytest.mark.parametrize("D,H,G", [(128, 16, 8), (256, 16, 1), (160, 32, 8),
+                                   (64, 4, 2)],
+                         ids=["D128", "D256", "D160", "D64"])
+def test_cuda_flash_attention_scalar_kernel_on_fp32(cuda_device, D, H, G):
+    """fp32 takes the split kernel (three bf16 pieces an operand on the
+    tensor cores) by default; the scalar kernel, its yardstick, still
+    takes fp32 when named.  Both agree with the plain version (atol 2e-5,
+    rtol 1e-2), one launch each under its own variant."""
+    assert fa.variant(torch.float32, D) == "split"
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((2, 300, H, D), (2, 300, G, D),
+                             (2, 300, G, D)))
+    before = dict(fa.LAUNCHES)
+    split = fa._launch(q, k, v, True, None)
+    scalar = fa._launch(q, k, v, True, None, "scalar")
+    torch.cuda.synchronize()
+    for kind in ("split", "scalar"):
+        assert fa.LAUNCHES[f"flash_attention_{kind}"] == \
+            before[f"flash_attention_{kind}"] + 1
+    want = fa.attention_ref(q, k, v, causal=True)
+    for got in (split, scalar):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=2e-5, rtol=1e-2)
 
 
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
@@ -840,7 +871,7 @@ ENGINE_CASES = [("qwen3-1.7b", None, "float32"), ("rwkv6-3b", None, "float32"),
 def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
                                                       head_dim, dtype):
     """A reduced model served on the card: each layer's kernel launches
-    once per prefill (flash attention, on attention layers: the scalar
+    once per prefill (flash attention, on attention layers: the split
     kernel in fp32, the tensor-core one in bf16) or once per model call
     (WKV6), and the prefill logits equal the same weights' on the CPU
     within the decode-parity tolerance (2e-3) in fp32, and within the LM
@@ -868,13 +899,13 @@ def test_cuda_reduced_engine_runs_through_the_kernels(cuda_device, name,
         assert wk.LAUNCHES["wkv6_seq"] == 0
         assert fa.LAUNCHES["flash_attention"] == 0
     else:
-        kind = "tc" if dtype == "bfloat16" else "scalar"
-        other = "scalar" if kind == "tc" else "tc"
+        kind = "tc" if dtype == "bfloat16" else "split"
         n_attn = sum(cfg.block_kind(i) == "attn"
                      for i in range(cfg.num_layers))
         assert fa.LAUNCHES["flash_attention"] == n_attn * 2
         assert fa.LAUNCHES[f"flash_attention_{kind}"] == n_attn * 2
-        assert fa.LAUNCHES[f"flash_attention_{other}"] == 0
+        for other in {"tc", "split", "scalar"} - {kind}:
+            assert fa.LAUNCHES[f"flash_attention_{other}"] == 0
         assert wk.LAUNCHES["wkv6"] == 0
     tokens = torch.as_tensor(prompts[:2])
     want, _ = cpu.prefill({"tokens": tokens}, cpu.init_state(2, 24))
@@ -969,7 +1000,7 @@ def test_cuda_encdec_engine_serves_through_the_kernels(cuda_device, dtype):
                                frames=frames[i]) for i in range(3)])
     assert sorted(c.uid for c in comps) == [0, 1, 2]
     assert eng.prefills == 2 and eng.decode_steps == 6
-    kind = "tc" if dtype == "bfloat16" else "scalar"
+    kind = "tc" if dtype == "bfloat16" else "split"
     n = (cfg.encoder_layers + 2 * cfg.num_layers) * 2 + cfg.num_layers * 6
     assert fa.LAUNCHES["flash_attention"] == \
         fa.LAUNCHES[f"flash_attention_{kind}"] == n
@@ -1020,7 +1051,7 @@ def test_cuda_vlm_engine_serves_patches_through_the_kernel(cuda_device,
                                frames=patches[i]) for i in range(3)])
     assert sorted(c.uid for c in comps) == [0, 1, 2]
     assert eng.prefills == 2 and eng.decode_steps == 6
-    kind = "tc" if dtype == "bfloat16" else "scalar"
+    kind = "tc" if dtype == "bfloat16" else "split"
     n = cfg.num_layers * 2
     assert fa.LAUNCHES["flash_attention"] == \
         fa.LAUNCHES[f"flash_attention_{kind}"] == n
@@ -1311,9 +1342,10 @@ def test_cuda_attention_bwd_matches_plain(cuda_device, D, dtype):
     """Each backward variant that takes (dtype, D) against the plain
     version on every case: the one ``bwd_variant`` names, and the scalar
     yardstick too where that is the tensor-core kernel (bf16 at every
-    D); one launch a call, counted in the total and its variant."""
-    kinds = ["tc", "scalar"] if fa.bwd_variant(dtype, D) == "tc" \
-        else ["scalar"]
+    D) or the split one (fp32 up to D = 128); one launch a call, counted
+    in the total and its variant."""
+    routed = fa.bwd_variant(dtype, D)
+    kinds = [routed, "scalar"] if routed != "scalar" else ["scalar"]
     for i, case in enumerate(BWD_CASES):
         q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, case, D + i)
         causal, window = case[5], case[6]
@@ -1342,6 +1374,20 @@ def test_cuda_attention_bwd_tc_is_deterministic(cuda_device, D):
     for i, case in enumerate(BWD_CASES):
         q, k, v, o, do = _bwd_inputs(cuda_device, torch.bfloat16, D, case,
                                      7 * D + i)
+        first = fa._launch_bwd(q, k, v, o, do, case[5], case[6])
+        second = fa._launch_bwd(q, k, v, o, do, case[5], case[6])
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), case
+
+
+@pytest.mark.parametrize("D", fa.BWD_SPLIT_HEAD_DIMS)
+def test_cuda_attention_bwd_split_is_deterministic(cuda_device, D):
+    """Two calls of the split backward (fp32 on three bf16 pieces) on the
+    same inputs give the same bits, as the tensor-core one's."""
+    for i, case in enumerate(BWD_CASES):
+        q, k, v, o, do = _bwd_inputs(cuda_device, torch.float32, D, case,
+                                     5 * D + i)
         first = fa._launch_bwd(q, k, v, o, do, case[5], case[6])
         second = fa._launch_bwd(q, k, v, o, do, case[5], case[6])
         torch.cuda.synchronize()
@@ -1417,22 +1463,32 @@ def test_cuda_flash_attention_backward_counts_by_variant(cuda_device, D):
     torch.cuda.synchronize()
     assert {name: n for name, n in fa.LAUNCHES.items()} == {
         "flash_attention": 1, "flash_attention_tc": 1,
-        "flash_attention_scalar": 0, "flash_attention_bwd": 1,
-        "flash_attention_bwd_tc": 1, "flash_attention_bwd_scalar": 0}
+        "flash_attention_split": 0, "flash_attention_scalar": 0,
+        "flash_attention_bwd": 1, "flash_attention_bwd_tc": 1,
+        "flash_attention_bwd_split": 0, "flash_attention_bwd_scalar": 0}
     assert fa.SHAPE_LAUNCHES[("bwd_tc", 130, 130, True)] == 1
     for a, b, c in zip(main, fresh["grads"], got):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_cuda_attention_bwd_refuses_tc_where_scalar(cuda_device):
-    """The tensor-core backward named where ``bwd_variant`` says scalar
-    (fp32, at D = 64, 160 and 256) raises, and launches nothing."""
+    """The tensor-core backward named where ``bwd_variant`` names another
+    kernel (fp32: the split one at D = 64, the scalar one at 160 and 256)
+    raises, and launches nothing; so does the split backward named at D =
+    160 and 256 in fp32 and in bf16."""
     for dtype, D in ((torch.float32, 64), (torch.float32, 160),
                      (torch.float32, 256)):
         q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, BWD_CASES[0], 0)
         before = dict(fa.LAUNCHES)
         with pytest.raises(ValueError, match="takes bf16 at head sizes"):
             fa._launch_bwd(q, k, v, o, do, True, None, kind="tc")
+        assert fa.LAUNCHES == before
+    for dtype, D in ((torch.float32, 160), (torch.float32, 256),
+                     (torch.bfloat16, 64)):
+        q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, BWD_CASES[0], 0)
+        before = dict(fa.LAUNCHES)
+        with pytest.raises(ValueError, match="takes float32 at head sizes"):
+            fa._launch_bwd(q, k, v, o, do, True, None, kind="split")
         assert fa.LAUNCHES == before
 
 
@@ -1681,12 +1737,14 @@ def test_cuda_reduced_training_step_matches_cpu(cuda_device):
 def test_cuda_forward_rows_with_no_key_match_plain(cuda_device):
     """ROADMAP.md §C, entry 9 (closed): a bidirectional call with a
     window and Tq > Tk leaves rows with no key in reach (row t sees key s
-    when t - s < 8: rows from 37 - 1 + 8 = 44 see none).  Both forward
+    when t - s < 8: rows from 37 - 1 + 8 = 44 see none).  The forward
     kernels give such a row ``attention_ref``'s mean of v over the Tk
-    keys, and every other row its own softmax: fp32 on the scalar kernel
-    (atol 2e-5), bf16 on both (atol 2e-2, as the other forward checks)."""
+    keys, and every other row its own softmax: fp32 on the split and the
+    scalar kernel (atol 2e-5), bf16 on the tensor-core and the scalar
+    kernel (atol 2e-2, as the other forward checks)."""
     for Tq in (100, 45):
-        for dtype, kinds, atol in ((torch.float32, ("scalar",), 2e-5),
+        for dtype, kinds, atol in ((torch.float32, ("split", "scalar"),
+                                    2e-5),
                                    (torch.bfloat16, ("tc", "scalar"), 2e-2)):
             gen = torch.Generator(device=cuda_device).manual_seed(3)
             q = torch.randn((1, Tq, 4, 32), generator=gen,

@@ -136,18 +136,22 @@ def test_kernel_head_sizes_cover_the_repository():
 
 def test_variant_is_chosen_by_dtype_and_head_size_alone():
     """bf16 at every head size (80 included) goes to the tensor-core
-    kernel, fp32 at every head size to the scalar one; the qwen3-1.7b
-    (D = 128) and stablelm-3b (D = 80) prefills are tensor-core calls."""
+    kernel, fp32 at every head size to the split one (three bf16 pieces
+    an operand on the tensor cores); the scalar kernel only by name.  The
+    qwen3-1.7b (D = 128) and stablelm-3b (D = 80) prefills are
+    tensor-core calls."""
     from repro_torch import configs
     for D in fa.HEAD_DIMS:
-        assert fa.variant(torch.float32, D) == "scalar"
+        assert fa.variant(torch.float32, D) == "split"
         assert fa.variant(torch.bfloat16, D) == "tc"
     assert set(fa.TC_HEAD_DIMS) == set(fa.HEAD_DIMS)
     for name in ("qwen3-1.7b", "stablelm-3b"):
         cfg = configs.get(name)
         assert fa.variant(cfg.compute_dtype, cfg.head_dim) == "tc", name
     assert set(fa.LAUNCHES) == {"flash_attention", "flash_attention_tc",
+                                "flash_attention_split",
                                 "flash_attention_scalar",
                                 "flash_attention_bwd",
                                 "flash_attention_bwd_tc",
+                                "flash_attention_bwd_split",
                                 "flash_attention_bwd_scalar"}
