@@ -162,18 +162,20 @@ Phases:
    48, ragged T, Tq = 1; each of dq, dk, dv within relative L2 1e-5 in
    fp32 and 1e-2 in bf16): the variant ``bwd_variant`` names (the
    tensor-core kernel for bf16 at every head size, the split one for fp32
-   up to D = 128, each of whose second calls must give the same bits)
-   and, where that is not the scalar kernel, the scalar yardstick too;
+   at every head size, column pairs at D = 160 and 256, each of whose
+   second calls must give the same bits) and the scalar yardstick too;
    with a planted fault (the last 64 keys' contribution dropped) that the
    check must refuse; held the same way at the path's shapes
    (seamless-m4t-large-v2's three in bf16 and fp32, qwen3-1.7b's in fp32,
    pixtral-12b's and recurrentgemma-9b's and a 4,096-position one where
-   the 2,048 window binds in bf16, each a second call bitwise and the
-   kernel with the planted fault refused, and in bf16 where each is
-   timed, ``BWD_TIMED``: the tensor-core kernel beside the scalar
+   the 2,048 window binds in bf16 and fp32, each a second call bitwise
+   and the kernel with the planted fault refused, and in bf16 where each
+   is timed, ``BWD_TIMED``: the tensor-core kernel beside the scalar
    yardstick, the plain version, SDPA's backward and its bound; in fp32
-   at qwen3-1.7b's shape the split kernel beside the scalar one, SDPA's
-   fp32 backward and both bounds); qwen3-1.7b at full width and depth for 10 steps of
+   at qwen3-1.7b's, pixtral-12b's and recurrentgemma-9b's shapes,
+   ``FP32_BWD_TIMED``, the split kernel beside the scalar one, SDPA's
+   fp32 backward and both bounds, each kernel's distance from a float64
+   run logged beside the plain version's); qwen3-1.7b at full width and depth for 10 steps of
    4 x 1,024 tokens through ``make_train_step`` and ``train_loop``
    (AdamW, the reference's ``TrainConfig`` defaults, remat, vocab chunks
    of 16,384; batches from the port's ``TokenStream``): finite losses,
@@ -222,7 +224,9 @@ Phases:
    share; every attention backward launch of a step held against the
    plain version on its own inputs; one step's gradients against plain
    attention at one cycle and at 2 layers, with the planted fault in the
-   last attention layer, which the limits must refuse;
+   last attention layer, which the limits must refuse, in bf16 and in
+   fp32 (within 1e-3 and 1e-4 a leaf, the split backward launched once
+   an attention layer, 1 and 2, the scalar one never);
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
@@ -312,8 +316,12 @@ qwen3-1.7b's shape in bf16; ``flash_attention_bwd_split_fp32`` the split
 backward at that shape in fp32, its launches the fp32 gradient check's,
 its ``earlier_ms`` the scalar backward's, ``library_ms`` SDPA's fp32
 backward; ``flash_attention_bwd_scalar_fp32`` the scalar backward there
-by name (no launch on a path); these two add the keys of the fp32
-forward entries.
+by name (no launch on a path); ``flash_attention_bwd_split_fp32_d160``
+and ``_d256`` the split backward (column pairs) at pixtral-12b's and
+recurrentgemma-9b's training shapes, their launches the cut models' fp32
+gradient checks' (2 and 1), and ``flash_attention_bwd_scalar_fp32_d160``
+and ``_d256`` the scalar backward there by name; these six add the keys
+of the fp32 forward entries.
 ``wkv6_bwd`` is WKV6's backward at rwkv6-3b's training shape (bf16 r,
 k, v; 4 x 1,024, 40 heads, N = 64; no dsT, no ds0), its launches the
 8-step run's, ``library_ms`` null (no one PyTorch call computes it); it
@@ -511,9 +519,10 @@ def ptxas_spills(out) -> dict:
     of spill stores, bytes of spill loads)}, each spill line read against
     the "Compiling entry function" or "Function properties for" line
     before it.  ``name`` is short where it is an attention kernel
-    (``bwd_dq<bf16, 32>``, ``bwd_dkdv_tc2<256>``, ``bwd_dq_tc<128, 3>``
-    and ``flash_fwd_sm90<256, 3>``: head size and operand pieces),
-    else ptxas's own."""
+    (``bwd_dq<bf16, 32>``, ``bwd_dkdv_tc2<256>``, ``bwd_dq_tc<128, 3>``,
+    ``flash_fwd_sm90<256, 3>`` and ``bwd_dkdv_tc<256, 3, 2>``: head size,
+    operand pieces and the blocks a column pair takes), else ptxas's
+    own."""
     import re
     spills, fn = {}, None
     for line in out.splitlines():
@@ -522,12 +531,12 @@ def ptxas_spills(out) -> dict:
         if m:
             fn = m.group(1) or m.group(2)
             k = re.search(r"\d((?:bwd|flash_fwd)_\w+?)I(13__nv_bfloat16|f)?"
-                          r"Li(\d+)E(?:Li(\d+)E)?", fn)
+                          r"Li(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?", fn)
             if k:
                 dtype = {"f": "fp32 ", "13__nv_bfloat16": "bf16 "}.get(
                     k.group(2), "")
-                pieces = f" {k.group(4)}" if k.group(4) else ""
-                fn = f"{k.group(1)}<{dtype}{k.group(3)}{pieces}>".replace(
+                more = "".join(f" {g}" for g in k.groups()[3:] if g)
+                fn = f"{k.group(1)}<{dtype}{k.group(3)}{more}>".replace(
                     " ", ", ")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -3519,9 +3528,11 @@ WKV_BWD_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 CUT_TRAIN = {"recurrentgemma-9b": (9, 1024, 0, 3),
              "pixtral-12b": (8, 1024, 1024, 2)}
 CUT_STEPS = 6
-#: the record entry of each cut model's backward shape
+#: the record entry of each cut model's backward shape, bf16 and fp32
 CUT_ENTRY = {"recurrentgemma-9b": "flash_attention_bwd_d256",
              "pixtral-12b": "flash_attention_bwd_d160"}
+CUT_ENTRY_FP32 = {"recurrentgemma-9b": "flash_attention_bwd_split_fp32_d256",
+                  "pixtral-12b": "flash_attention_bwd_split_fp32_d160"}
 
 
 def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
@@ -3748,11 +3759,11 @@ def hold_bwd(torch, got, want, dtype, label):
 def check_attention_bwd(torch, seed, dev="cuda"):
     """The backward kernels against ``attention_bwd_ref`` at every head
     size and case of :data:`BWD_CASES`, in fp32 and bf16: the variant
-    ``bwd_variant`` names, and the scalar yardstick too where that is the
-    tensor-core kernel (bf16) or the split one (fp32 up to D = 128), whose
-    second call on the same inputs must give the same bits; with a
-    planted fault the check must catch.  Returns the largest max |err| by
-    variant."""
+    ``bwd_variant`` names (the tensor-core kernel in bf16, the split one
+    in fp32, column pairs at D = 160 and 256), whose second call on the
+    same inputs must give the same bits, and the scalar yardstick too;
+    with a planted fault the check must catch (D = 64, 128, 160, 256).
+    Returns the largest max |err| by variant."""
     from repro_torch.kernels import flash_attention as fa
     worst_abs, worst = {"tc": 0.0, "split": 0.0, "scalar": 0.0}, {}
     n_caught = 0
@@ -3796,7 +3807,7 @@ def check_attention_bwd(torch, seed, dev="cuda"):
                                   for a, b in zip(got, again)),
                               f"backward {name} {case}: two {kind} "
                               f"calls differ")
-                if Tk > 2 * BWD_FAULT_KEYS and D in (64, 128):
+                if Tk > 2 * BWD_FAULT_KEYS and D in (64, 128, 160, 256):
                     floor = float(want[2].double().norm())
                     f = planted_fault(torch, plain_bwd, q, k, v, o, do,
                                       causal, window)
@@ -3835,17 +3846,19 @@ def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
     """The backward kernel against its plain version at the shapes the
     training paths give it beyond :func:`time_attention_bwd`'s:
     seamless-m4t-large-v2's three (:data:`ENCDEC_BWD_SHAPES`) in bf16 and
-    fp32, qwen3-1.7b's in fp32, and :data:`CUT_BWD_SHAPES` in bf16.  At
-    every shape (the tensor-core kernel in bf16, the split one in fp32) a
-    second call must give the same bits and the kernel with the planted
-    fault (the last :data:`BWD_FAULT_KEYS` keys dropped) must fail the
-    check.  Returns the largest max |err| by variant."""
+    fp32, qwen3-1.7b's in fp32, and :data:`CUT_BWD_SHAPES` in bf16 and
+    fp32.  At every shape (the tensor-core kernel in bf16, the split one
+    in fp32, column pairs at D = 160 and 256) a second call must give the
+    same bits and the kernel with the planted fault (the last
+    :data:`BWD_FAULT_KEYS` keys dropped) must fail the check.  Returns
+    the largest max |err| by variant."""
     from repro_torch.kernels import flash_attention as fa
     shapes = [(dt, s + (None,)) for s in ENCDEC_BWD_SHAPES
               for dt in (torch.bfloat16, torch.float32)]
     shapes.append((torch.float32, (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
                                    True, None)))
-    shapes += [(torch.bfloat16, s) for s in CUT_BWD_SHAPES]
+    shapes += [(dt, s) for s in CUT_BWD_SHAPES
+               for dt in (torch.bfloat16, torch.float32)]
     worst_abs = {"tc": 0.0, "split": 0.0}
     for dtype, (B, Tq, Tk, H, G, D, causal, window) in shapes:
         name = str(dtype).split('.')[-1]
@@ -3979,83 +3992,108 @@ def time_attention_bwd(torch, seed, dev="cuda", entries=None):
     return out
 
 
-#: the fp32 backward's own use (B, T, H, G, D, window): qwen3-1.7b's
-#: shape, the fp32 gradient check's, where the split kernel (record entry
-#: ``flash_attention_bwd_split_fp32``) is timed beside the scalar one by
-#: name (``flash_attention_bwd_scalar_fp32``, the yardstick; in bf16 it is
-#: timed beside the tensor-core kernel, :func:`time_attention_bwd`)
-FP32_BWD_TIMED = (TRAIN_B, TRAIN_T, 16, 8, 128, None)
+#: the fp32 backward's own use (B, T, H, G, D, window), causal, by record
+#: entry of the split kernel: qwen3-1.7b's shape, the fp32 gradient
+#: check's, and pixtral-12b's and recurrentgemma-9b's training shapes,
+#: their cut models' fp32 gradient checks' (column pairs; the window
+#: reaches every earlier key), where the split kernel is timed beside the
+#: scalar one by name (the entry with ``_scalar_`` for ``_split_``, the
+#: yardstick; in bf16 it is timed beside the tensor-core kernel,
+#: :func:`time_attention_bwd`)
+FP32_BWD_TIMED = {
+    "flash_attention_bwd_split_fp32": (TRAIN_B, TRAIN_T, 16, 8, 128, None),
+    "flash_attention_bwd_split_fp32_d160": (TRAIN_B, 2 * TRAIN_T, 32, 8,
+                                            160, None),
+    "flash_attention_bwd_split_fp32_d256": (TRAIN_B, TRAIN_T, 16, 1, 256,
+                                            2048)}
+
+
+def scalar_entry(entry: str) -> str:
+    """The scalar yardstick's record entry beside a split one."""
+    return entry.replace("_split_", "_scalar_")
 
 
 def time_fp32_bwd(torch, seed, dev="cuda"):
-    """The fp32 backward at :data:`FP32_BWD_TIMED`, causal: the split
-    kernel (what fp32 takes) and the scalar one (by name), each held
-    against the plain version on the same inputs (:data:`BWD_LIMIT`),
+    """The fp32 backward at each shape of :data:`FP32_BWD_TIMED`, causal:
+    the split kernel (what fp32 takes) and the scalar one (by name), each
+    held against the plain version on the same inputs (:data:`BWD_LIMIT`),
     their relative L2 distances from a float64 run of the plain version
-    logged side by side; their times, the plain version's, SDPA's fp32
-    backward alone (``enable_gqa``, the forward outside the timed region;
-    the port never calls it) and the bounds: six bf16 products a product
-    at the bf16 peak (``bound``) and the scalar FFMAs at the fp32 peak
+    logged side by side (the split kernel may be no farther than the
+    scalar one); their times, the plain version's, SDPA's fp32 backward
+    alone (``enable_gqa``, the forward outside the timed region; the port
+    never calls it) and the bounds: six bf16 products a product at the
+    bf16 peak (``bound``) and the scalar FFMAs at the fp32 peak
     (``ffma_bound``), bytes of q, k, v, o, dO in and dq, dk, dv out.
     Returns {entry: numbers}."""
     from repro_torch.kernels import flash_attention as fa
-    B, T, H, G, D, window = FP32_BWD_TIMED
-    q, k, v = attn_inputs(torch, B, T, H, G, D, torch.float32, seed, dev)
-    o = fa._launch(q, k, v, True, window)
-    do = torch.randn_like(q)
-    label = (B, T, T, H, G, D, True, window)
-    check(fa.bwd_variant(torch.float32, D) == "split",
-          f"fp32 {label} routes to {fa.bwd_variant(torch.float32, D)}")
-    kernels = {"split": lambda: fa._launch_bwd(q, k, v, o, do, True, window),
-               "scalar": lambda: fa._launch_bwd(q, k, v, o, do, True, window,
-                                                kind="scalar")}
-    want = fa.attention_bwd_ref(q, k, v, o, do, causal=True, window=window)
-    with float64_math(torch, {}):   # its float32 casts taken for float64
-        want64 = fa.attention_bwd_ref(
-            *(t.double() for t in (q, k, v, o, do)), causal=True,
-            window=window)
-    floor = float(want64[2].norm())
-    held, dist = {}, {}
-    for kind, fn in kernels.items():
-        got = fn()
-        held[kind] = hold_bwd(torch, got, want, torch.float32,
-                              (kind,) + label)
-        dist[kind] = max(bwd_rel(torch, g, w, floor)
-                         for g, w in zip(got, want64))
-    dist["plain"] = max(bwd_rel(torch, g, w, floor)
-                        for g, w in zip(want, want64))
-    del want, want64, got
-    ms = {"split": time_ms(torch, kernels["split"], iters=20, warmup=3),
-          "scalar": time_ms(torch, kernels["scalar"], iters=5, warmup=1)}
-    plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
-        q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
-    library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, True, window),
-                         iters=20, warmup=3)
-    flops = 5 * 2 * B * H * T * T * D / 2
-    n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
-    bound = bound_ms(n_bytes, 6 * flops, BF16_FLOPS_PER_S)
-    ffma = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
     out = {}
-    for kind in ("split", "scalar"):
-        out[f"flash_attention_bwd_{kind}_fp32"] = {
-            "ms": ms[kind], "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound": bound, "ffma_bound": ffma, "err": held[kind][1],
-            "dist64": dist[kind], "plain_dist64": dist["plain"],
-            "shape": label}
-    out["flash_attention_bwd_split_fp32"]["earlier_ms"] = ms["scalar"]
-    log(f"[time] flash_attention_bwd_split_fp32 (B={B} T={T} H={H} G={G} "
-        f"D={D} causal, float32): split {ms['split']:.4f} ms, scalar "
-        f"{ms['scalar']:.4f} ms ({ms['scalar'] / ms['split']:.2f} x the "
-        f"split), plain {plain_ms:.4f} ms, SDPA fp32 backward "
-        f"{library_ms:.4f} ms ({ms['split'] / library_ms:.2f} x SDPA), "
-        f"split bound {bound[0]:.5f} ms ({bound[1]}), FFMA bound "
-        f"{ffma[0]:.5f} ms; {ms['split'] / bound[0]:.1f} x the split bound; "
-        f"against the plain version relative L2 split {held['split'][0]:.3g}"
-        f", scalar {held['scalar'][0]:.3g}; from a float64 run split "
-        f"{dist['split']:.3g}, scalar {dist['scalar']:.3g}, plain "
-        f"{dist['plain']:.3g}")
-    del q, k, v, o, do
-    free_card(torch, dev)
+    for entry, (B, T, H, G, D, window) in FP32_BWD_TIMED.items():
+        q, k, v = attn_inputs(torch, B, T, H, G, D, torch.float32, seed, dev)
+        o = fa._launch(q, k, v, True, window)
+        do = torch.randn_like(q)
+        label = (B, T, T, H, G, D, True, window)
+        check(fa.bwd_variant(torch.float32, D) == "split",
+              f"fp32 {label} routes to {fa.bwd_variant(torch.float32, D)}")
+        check(window is None or window >= T, f"{entry}: the bound counts "
+              f"no window")
+        kernels = {
+            "split": lambda: fa._launch_bwd(q, k, v, o, do, True, window),
+            "scalar": lambda: fa._launch_bwd(q, k, v, o, do, True, window,
+                                             kind="scalar")}
+        want = fa.attention_bwd_ref(q, k, v, o, do, causal=True,
+                                    window=window)
+        with float64_math(torch, {}):   # its float32 casts taken for float64
+            want64 = fa.attention_bwd_ref(
+                *(t.double() for t in (q, k, v, o, do)), causal=True,
+                window=window)
+        floor = float(want64[2].norm())
+        held, dist = {}, {}
+        for kind, fn in kernels.items():
+            got = fn()
+            held[kind] = hold_bwd(torch, got, want, torch.float32,
+                                  (kind,) + label)
+            dist[kind] = max(bwd_rel(torch, g, w, floor)
+                             for g, w in zip(got, want64))
+            del got
+        dist["plain"] = max(bwd_rel(torch, g, w, floor)
+                            for g, w in zip(want, want64))
+        del want, want64
+        free_card(torch, dev)
+        check(dist["split"] <= dist["scalar"], f"{entry}: the split kernel "
+              f"is farther from a float64 run ({dist['split']:.3g}) than the "
+              f"scalar one ({dist['scalar']:.3g})")
+        ms = {"split": time_ms(torch, kernels["split"], iters=20, warmup=3),
+              "scalar": time_ms(torch, kernels["scalar"], iters=5, warmup=1)}
+        plain_ms = time_ms(torch, lambda: fa.attention_bwd_ref(
+            q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
+        library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, True,
+                                               window), iters=20, warmup=3)
+        flops = 5 * 2 * B * H * T * T * D / 2
+        n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
+        bound = bound_ms(n_bytes, 6 * flops, BF16_FLOPS_PER_S)
+        ffma = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
+        for kind, name in (("split", entry), ("scalar", scalar_entry(entry))):
+            out[name] = {
+                "ms": ms[kind], "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound": bound,
+                "ffma_bound": ffma, "err": held[kind][1],
+                "dist64": dist[kind], "plain_dist64": dist["plain"],
+                "shape": label}
+        out[entry]["earlier_ms"] = ms["scalar"]
+        log(f"[time] {entry} (B={B} T={T} H={H} G={G} D={D} causal"
+            f"{f' window {window}' if window else ''}, float32): split "
+            f"{ms['split']:.4f} ms, scalar {ms['scalar']:.4f} ms "
+            f"({ms['scalar'] / ms['split']:.2f} x the split), plain "
+            f"{plain_ms:.4f} ms, SDPA fp32 backward {library_ms:.4f} ms "
+            f"({ms['split'] / library_ms:.2f} x SDPA), split bound "
+            f"{bound[0]:.5f} ms ({bound[1]}), FFMA bound {ffma[0]:.5f} ms; "
+            f"{ms['split'] / bound[0]:.1f} x the split bound; against the "
+            f"plain version relative L2 split {held['split'][0]:.3g}, scalar "
+            f"{held['scalar'][0]:.3g}; from a float64 run split "
+            f"{dist['split']:.3g}, scalar {dist['scalar']:.3g}, plain "
+            f"{dist['plain']:.3g}")
+        del q, k, v, o, do
+        free_card(torch, dev)
     return out
 
 
@@ -4134,10 +4172,10 @@ def sdpa_fp32_backends(torch, seed, fwd_shapes, dev="cuda"):
     """The backend that serves SDPA's fp32 yardstick, from the names of the
     kernels ``torch.profiler`` records over one forward call at each
     record entry's path shape (``fwd_shapes``: {entry: the path's
-    shapes}), and at :data:`FP32_BWD_TIMED` under
-    ``flash_attention_bwd_split_fp32``: SDPA picks its backend in the
-    forward, and the timed backward (:func:`sdpa_grads`) is that
-    backend's.  A profiled phase.  Returns {entry: backend}."""
+    shapes}), and at each shape of :data:`FP32_BWD_TIMED` under its
+    entry: SDPA picks its backend in the forward, and the timed backward
+    (:func:`sdpa_grads`) is that backend's.  A profiled phase.  Returns
+    {entry: backend}."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def backend_of(entry, fn):
@@ -4150,10 +4188,11 @@ def sdpa_fp32_backends(torch, seed, fwd_shapes, dev="cuda"):
             f"backend (kernels by device time: "
             f"{', '.join(n[:72] for n in names[:4])})")
         return backend
-    B, T, H, G, D, window = FP32_BWD_TIMED
-    check(window is None, "the backward's yardstick shape has no window")
-    shapes = {**fwd_shapes, "flash_attention_bwd_split_fp32": dict(
-        B=B, T=T, H=H, G=G, D=D, causal=True)}
+    shapes = dict(fwd_shapes)
+    for entry, (B, T, H, G, D, window) in FP32_BWD_TIMED.items():
+        check(window is None or window >= T, f"{entry}: the backward's "
+              f"yardstick shape has a window that binds")
+        shapes[entry] = dict(B=B, T=T, H=H, G=G, D=D, causal=True)
     out = {}
     for entry, sh in shapes.items():
         B, T, H, G, D = sh["B"], sh["T"], sh["H"], sh["G"], sh["D"]
@@ -4346,15 +4385,19 @@ def wkv6_layers_vs_plain(torch, model, params, batch, label, fault=False):
 
 
 def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
-                          leaf_limit, fault=None, fault_launches=0):
+                          leaf_limit, fault=None, fault_launches=0,
+                          launches=None):
     """One step's gradients with the kernels and with plain attention and
     WKV6 on the same weights and batch: relative L2 over the whole
     gradient (checked against ``limit``) and each leaf's (against
     ``leaf_limit``).  With ``fault`` (a key of :data:`FAULTS`) the
     kernels' gradients are taken once more with :func:`faulty_backward`
     (which must launch the backward ``fault_launches`` times, once a
-    layer that has the kernel), and the check must refuse them.
+    layer that has the kernel), and the check must refuse them.  A
+    ``launches`` dict gets the attention kernels' launches
+    (``flash_attention.LAUNCHES``) of the kernels' own pass.
     Returns the whole gradient's relative L2."""
+    from repro_torch.kernels import flash_attention as fa
     names = list(params)
 
     def grads():
@@ -4365,7 +4408,10 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
         return gradient_gaps(names, g_a, g_b)
     with plain_attention(), plain_wkv6():
         g_plain = grads()
+    before = dict(fa.LAUNCHES)
     g_kernel = grads()
+    if launches is not None:
+        launches.update({n: fa.LAUNCHES[n] - before[n] for n in before})
     rel, leaf = gaps(g_kernel, g_plain)
     del g_kernel
     log(f"[train] {label}: kernel vs plain gradients relative L2 {rel:.4g} "
@@ -4763,10 +4809,10 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
         times.update(time_attention_bwd(torch, seed, dev, CUT_ENTRY.values()))
         err = max([err] + [times[e]["err"] for e in CUT_ENTRY.values()])
         fp32_times = time_fp32_bwd(torch, seed, dev)
-        split_err = max(split_err,
-                        fp32_times["flash_attention_bwd_split_fp32"]["err"])
-        scalar_err = max(scalar_err,
-                         fp32_times["flash_attention_bwd_scalar_fp32"]["err"])
+        for entry in FP32_BWD_TIMED:
+            split_err = max(split_err, fp32_times[entry]["err"])
+            scalar_err = max(scalar_err,
+                             fp32_times[scalar_entry(entry)]["err"])
 
     # the encoder-decoder: bidirectional and cross backward on its path
     ecfg = encdec_cfg or configs.get("seamless-m4t-large-v2")
@@ -5011,7 +5057,10 @@ def phase_train_cut(torch, seed, card, trainer, loop, dev="cuda",
     every attention backward launch of a bf16 step on the trained weights
     held against the plain version on its own inputs; one step's
     gradients with the kernels against plain attention at the gradient
-    depth, with the planted fault in the last attention layer's backward.
+    depth, with the planted fault in the last attention layer's backward,
+    in the model's dtype and in fp32 (:data:`TRAIN_GRAD_L2` and
+    :data:`TRAIN_LEAF_L2`; in fp32 one ``flash_attention_bwd_split``
+    launch an attention layer in the kernels' pass, no scalar one).
     Returns {arch: numbers}."""
     from repro_torch import configs
     from repro_torch.models import build_model
@@ -5077,24 +5126,46 @@ def phase_train_cut(torch, seed, card, trainer, loop, dev="cuda",
               f"launches held, expected {A}")
         del model, params
         free_card(torch, dev)
-        # the gradients, kernel against plain, at the check's depth
-        cfg_n = dataclasses.replace(cfg, num_layers=grad_layers)
-        model = build_model(cfg_n, device=dev, seed=seed)
-        params = trainable_params(model)
-        batch = to_device(stream.batch_at(0), model.device)
-        with msettings.use(vocab_chunk=vocab_chunk):
-            rel = grads_kernel_vs_plain(
-                torch, model, params, batch, f"{cfg.name} {cfg.dtype} "
-                f"{grad_layers} layers", TRAIN_GRAD_L2[cfg.dtype],
-                TRAIN_LEAF_L2[cfg.dtype],
-                fault="attention" if on_card else None,
-                fault_launches=attention_layers(cfg_n))
-        del model, params
-        free_card(torch, dev)
+        # the gradients, kernel against plain, at the check's depth: in
+        # the model's dtype, then in fp32 (the split backward, column
+        # pairs at D = 160 and 256), each with the planted fault in the
+        # last attention layer's backward
+        rel = {}
+        for dtype in dict.fromkeys((cfg.dtype, "float32")):
+            cfg_n = dataclasses.replace(cfg, num_layers=grad_layers,
+                                        dtype=dtype)
+            A_n = attention_layers(cfg_n)
+            model = build_model(cfg_n, device=dev, seed=seed)
+            params = trainable_params(model)
+            batch = to_device(stream.batch_at(0), model.device)
+            n = {}
+            with msettings.use(vocab_chunk=vocab_chunk):
+                rel[dtype] = grads_kernel_vs_plain(
+                    torch, model, params, batch, f"{cfg.name} {dtype} "
+                    f"{grad_layers} layers", TRAIN_GRAD_L2[dtype],
+                    TRAIN_LEAF_L2[dtype],
+                    fault="attention" if on_card else None,
+                    fault_launches=A_n, launches=n)
+            if dtype == "float32":
+                # one split launch an attention layer, never the scalar
+                split_n = n["flash_attention_bwd_split"]
+                want = A_n if on_card else 0
+                check(split_n == want and n["flash_attention_bwd_scalar"]
+                      == 0, f"{arch}: the fp32 gradients launched the split "
+                      f"backward {split_n} and the scalar one "
+                      f"{n['flash_attention_bwd_scalar']} times, expected "
+                      f"{want} and 0")
+                log(f"[train] {cfg.name} float32 {grad_layers} layers: "
+                    f"{split_n} flash_attention_bwd_split launches, "
+                    f"{n['flash_attention_bwd_scalar']} scalar")
+            del model, params
+            free_card(torch, dev)
         out[arch] = {"launches": sum(c[1] for c in counted),
                      "losses": losses, "step_ms": med_s * 1e3,
                      "positions_per_s": positions / med_s, "peak": peak,
-                     "share": share, "layer_rel": layer_rel, "rel": rel}
+                     "share": share, "layer_rel": layer_rel,
+                     "rel": rel[cfg.dtype], "rel_fp32": rel["float32"],
+                     "split_launches": split_n}
     return out
 
 
@@ -5321,8 +5392,9 @@ def main() -> int:
     for name, (split, _) in FP32_ENTRIES.items():
         for kind in ("split", "scalar"):
             lm_runs[name]["times"][kind]["library_backend"] = backends[split]
-    for r in train["fp32_times"].values():
-        r["library_backend"] = backends["flash_attention_bwd_split_fp32"]
+    for entry in FP32_BWD_TIMED:
+        for name in (entry, scalar_entry(entry)):
+            train["fp32_times"][name]["library_backend"] = backends[entry]
     done("profile")
 
     def entry(name, source, replaces, n_launches, err, r):
@@ -5449,15 +5521,21 @@ def main() -> int:
                         step_busy=cut_run["profile"]["busy"],
                         step_backward_share=cut_run["profile"][
                             "backward kernel"])
-            # the fp32 backward at its own use, qwen3-1.7b's shape: the
-            # split kernel's launches the fp32 gradient check's, the
-            # scalar one's (by name, the yardstick) none on the path
+            # the fp32 backward at its own use, qwen3-1.7b's,
+            # pixtral-12b's and recurrentgemma-9b's shapes: the split
+            # kernel's launches the fp32 gradient checks' (qwen3-1.7b's,
+            # the cut models'), the scalar one's (by name, the yardstick)
+            # none on the path
+            fp32_cut_of = {e: arch for arch, e in CUT_ENTRY_FP32.items()}
             for bwd_name, r in train["fp32_times"].items():
                 kind = "split" if "_split_" in bwd_name else "scalar"
+                n_launches = train[f"{kind}_launches"]
+                if bwd_name in fp32_cut_of:
+                    n_launches = train["cut"][fp32_cut_of[bwd_name]][
+                        "split_launches"]
                 kernels.append(entry(
                     bwd_name, "src/repro_torch/csrc/flash_attention_bwd.cu",
-                    TRAIN_REPLACES, train[f"{kind}_launches"],
-                    train[f"{kind}_err"], r))
+                    TRAIN_REPLACES, n_launches, train[f"{kind}_err"], r))
         if name == "wkv6_bwd":
             kernels[-1].update(
                 kernel="wkv6_bwd_cluster", forward_ckpt_ms=r["forward_ckpt_ms"],

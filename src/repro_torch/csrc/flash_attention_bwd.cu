@@ -72,8 +72,8 @@
 //   warpgroups, and bwd_dkdv_tc2 a key tile's query heads over a
 //   thread-block cluster (the section "D = 160 and 256" below).
 //
-// flash_attention_bwd_split (fp32, D in {16, 32, 64, 80, 128}): the
-//   one-warpgroup passes above at NP = 3.  split_pieces (sm90.cuh) writes
+// flash_attention_bwd_split (fp32, every D): the one-warpgroup passes
+//   above at NP = 3.  split_pieces (sm90.cuh) writes
 //   q's, k's, v's and dO's three bf16 pieces to scratch as (3 B, T,
 //   heads, D) tensors that the same tensor maps read (piece p of batch b
 //   is batch p B + b); each product is six wgmma products on the piece
@@ -88,11 +88,17 @@
 //   zeroed partial added to the total in fp32 (add_tile), and dK/dV runs
 //   two warpgroups, dV's (P^T dO) and dK's (dP^T and dS^T Q), both taking
 //   S^T, since one thread cannot hold both totals, a partial and the
-//   pieces.  D = 160 and 256 stay scalar: the pieces of the wide passes'
-//   tiles do not fit.
+//   pieces.  At D = 160 and 256 a tile's pieces (61,440 and 98,304 bytes)
+//   leave no room for the resident pair and a ring stage, so dQ and dK/dV
+//   run as column pairs: two blocks of a cluster, each the same pass at D
+//   / 2 columns (80 or 128), S and dP summed from their two partials
+//   through distributed shared memory (the section "a column pair"
+//   below); dK/dV's key tiles split their query heads over the cluster
+//   too where the KV heads are few.  The statistics take all D columns
+//   (one ring stage at D = 256).
 //
-// flash_attention_bwd (fp32 at D = 160 and 256; every other call only by
-//   name, the yardstick): three scalar kernels.
+// flash_attention_bwd (scalar fp32 and bf16, every D; only by name, the
+//   yardstick): three scalar kernels.
 //   bwd_stats, bwd_dq and bwd_dkdv have the same work split as the
 //   tensor-core passes but stage fp32 tiles in shared memory (rows padded
 //   to D + 1 floats, so the 16 threads of a row group read 16 banks) and
@@ -110,6 +116,8 @@
 // > Tk) has dS = 0 and P = 1 / Tk on every key, so its statistics walk
 // every key tile, and dK/dV walks every query tile of a bidirectional
 // call.
+
+#include <utility>
 
 #include "sm90.cuh"
 
@@ -545,6 +553,7 @@ constexpr int kRows = 64;        // every tile: 64 queries or 64 keys (wgmma M)
 constexpr int kThreads = 128;    // one warpgroup a block
 constexpr int kWide = 256;       // two warpgroups a block
 constexpr int kStages = 2;       // depth of the ring a loop tile comes through
+constexpr int kMaxSplit = 4;     // blocks a key tile's query heads split over
 constexpr int kStatBytes = 3 * kRows * 4;   // m, 1/l, delta of a query tile
 constexpr int kStatStride = 1024;           // their room a stage
 constexpr float kNegInf = -1e30f;
@@ -553,13 +562,22 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 using Geo = TileGeo<D, kRows>;
 
-// The ring's depth in dQ and dK/dV at head size D and NP operand pieces
-// (sm90.cuh: 1 bf16, 3 fp32): two stages, but one for fp32 from D = 128 on,
-// where the resident tiles' pieces (96 KB) and a stage's (96 KB) fill the
-// 227 KB.
+// The ring's depth in dQ and dK/dV at tile width D (the head size, or a
+// column pair's half of it: 80 at D = 160, 128 at D = 256) and NP operand
+// pieces (sm90.cuh: 1 bf16, 3 fp32): two stages, but one for fp32 at 128
+// columns, where the resident tiles' pieces (96 KB) and a stage's (96 KB)
+// fill the 227 KB.
 template <int D, int NP>
 __host__ __device__ constexpr int ring_stages() {
   return NP == 3 && D > 80 ? 1 : 2;
+}
+
+// The statistics pass's ring (K only, Q resident, all D columns): two
+// stages, but one for fp32 at D = 256, where Q's pieces and two stages'
+// would be 295,936 bytes.
+template <int D, int NP>
+__host__ __device__ constexpr int stats_stages() {
+  return NP == 3 && D > 160 ? 1 : 2;
 }
 
 // The tensor maps of one call: Q, K, V and dO over their full 64-column
@@ -573,7 +591,8 @@ struct Maps {
 struct Args {
   int B, Tq, Tk, H, G, causal, window, Tqp;
   float scale;
-  int split;   // blocks (a cluster) a key tile in bwd_dkdv_tc2; 1 elsewhere
+  int split;   // blocks a key tile's query heads split over (a cluster, or
+               // with a column pair C x split a cluster) in dK/dV; else 1
 };
 
 __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp) {
@@ -592,15 +611,17 @@ __device__ __forceinline__ bool needs_mask(const Args& a, int q0, int k0) {
 }
 
 // A query tile's work item: heaviest first under a causal mask (the last
-// query tiles see the most keys), so the grid's tail is light.
+// query tiles see the most keys), so the grid's tail is light.  With a
+// column pair (C = 2) item j is the cluster of blocks 2 j and 2 j + 1.
 struct QItem {
   int b, h, g, bh, q0, lo, n;
 };
 
-__device__ __forceinline__ QItem q_item(const Args& a, bool stats) {
+__device__ __forceinline__ QItem q_item(const Args& a, bool stats,
+                                        int C = 1) {
   QItem w;
   const int BH = a.B * a.H, nqt = (a.Tq + kRows - 1) / kRows;
-  const int j = blockIdx.x;
+  const int j = blockIdx.x / C;
   w.bh = j % BH;
   w.h = w.bh % a.H;
   w.b = w.bh / a.H;
@@ -620,18 +641,22 @@ __device__ __forceinline__ QItem q_item(const Args& a, bool stats) {
 
 // A key tile's work item: its batch, KV head and key tile (heaviest
 // first) and the query heads and tiles it walks.  The key tile is that of
-// cluster c = block / split; its rank r of `split` takes query heads
-// [g R + r R / split, g R + (r + 1) R / split).  bwd_dkdv_tc runs it at
-// split 1 (every head), bwd_dkdv_tc2 at Args::split.
+// cluster c = block / (C split); the block's cluster rank is col + C rank,
+// col its half of a column pair (0 at C = 1) and rank of `split` takes
+// query heads [g R + rank R / split, g R + (rank + 1) R / split).
+// bwd_dkdv_tc runs it at split 1 (every head) up to D = 128 and at C = 2
+// and Args::split at D = 160 and 256 (fp32); bwd_dkdv_tc2 at Args::split.
 struct KItem {
-  int b, g, k0, rank, h0, qlo, per, n;
+  int b, g, k0, rank, col, h0, qlo, per, n;
 };
 
-__device__ __forceinline__ KItem k_item(const Args& a, int split) {
+__device__ __forceinline__ KItem k_item(const Args& a, int split,
+                                        int C = 1) {
   KItem w;
   const int BG = a.B * a.G, R = a.H / a.G;
-  const int c = blockIdx.x / split;
-  w.rank = blockIdx.x % split;
+  const int c = blockIdx.x / (C * split);
+  w.col = blockIdx.x % C;
+  w.rank = (blockIdx.x % (C * split)) / C;
   const int bg = c % BG, kt = c / BG;
   w.g = bg % a.G;
   w.b = bg / a.G;
@@ -668,7 +693,9 @@ __device__ __forceinline__ int acc_col(int i) {
 // plain 16-byte loads while the first tiles arrive.  Writes m (log2 units),
 // 1 / max(l, 1e-30) and delta for all 64 rows (0 past Tq).  For fp32 (NP =
 // 3) the tiles are Q's and K's pieces, S six piece products, and delta
-// comes from the fp32 O and dO.
+// comes from the fp32 O and dO; at D = 256 the ring has one stage
+// (stats_stages).  It takes all D columns at every head size: at D = 160
+// and 256 in fp32 the other passes split the columns over a pair.
 template <int D, int NP>
 __global__ void __launch_bounds__(kThreads)
 bwd_stats_tc(const __grid_constant__ Maps maps,
@@ -677,6 +704,7 @@ bwd_stats_tc(const __grid_constant__ Maps maps,
              float* __restrict__ stats, Args a) {
   using Gm = Geo<D>;
   constexpr int kT = NP * Gm::kTileBytes;                    // a tile's pieces
+  constexpr int kStages = stats_stages<D, NP>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
@@ -874,6 +902,122 @@ __device__ __forceinline__ void add_tile(float (&tot)[M],
   for (int i = 0; i < M; ++i) tot[i] += part[i];
 }
 
+// --- fp32 at D = 160 and 256: a column pair ---------------------------------
+//
+// One 64-row tile's three pieces are 61,440 bytes at D = 160 and 98,304 at
+// D = 256, so dQ's and dK/dV's two resident tiles and a ring stage of two
+// (at least 245,760 and 393,216 bytes) do not fit a block's 232,448.  So
+// at C = 2 two blocks of a thread-block cluster each own half of the
+// head's columns (80 + 80, 128 + 128): each loads its columns alone (the
+// tiles' Geo is the half's width, loaded from column col0 = col D / 2, a
+// multiple of 16 bytes, so no operand starts inside a swizzle block) and
+// runs the one-warpgroup passes' work at that width, whose shared memory
+// and registers are those of D = 80 and 128.  S = Q K^T and dP = dO V^T
+// (or S^T and dP^T) contract over all D columns: each block takes its
+// six-product partial over its columns, sends it into the peer's exchange
+// by st.async (16-byte stores whose bytes complete on the peer's
+// mbarrier), waits on its own mbarrier for the peer's, and adds it to its
+// own.  IEEE addition commutes, so rank 0's partial plus rank 1's is the
+// same bits on both blocks: both hold the same S and dP, and so the same
+// P and dS, and each writes its own columns of dQ, dK and dV with no
+// further exchange and no atomics.  A relaxed cluster barrier an
+// iteration (arrive once the exchange is read, wait before the next
+// sends) keeps a block from writing partials its peer has not read: its
+// arrive follows the adds that consume those reads (fence_regs), so no
+// read is outstanding when it issues.  Every block of a cluster takes the
+// same number of iterations (dkdv_split keeps the head split to divisors
+// of R), as the cluster barrier counts all of them.
+
+constexpr int kPartBytes = 64 * 64 * 4;    // a 64 x 64 fp32 partial
+constexpr int kXBytes = 2 * kPartBytes;    // S's (or S^T's) and dP's
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// a shared memory address of this block as the cluster's block `rank`'s
+__device__ __forceinline__ uint32_t peer_addr(uint32_t at, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(at), "r"(rank));
+  return out;
+}
+
+// A column pair's exchange in one block: its buffer (kXBytes: the peer's
+// partials of S and dP, [2][8][128] float4), its mbarrier, and the
+// peer's two as shared::cluster addresses.
+struct Xchg {
+  const float4* mine;
+  uint32_t bar, peer_buf, peer_bar;
+};
+
+__device__ __forceinline__ Xchg make_xchg(const uint8_t* smem_raw,
+                                          uint32_t raw, uint32_t buf,
+                                          uint32_t bar, int peer) {
+  return {reinterpret_cast<const float4*>(smem_raw + (buf - raw)), bar,
+          peer_addr(buf, peer), peer_addr(bar, peer)};
+}
+
+// This warpgroup's 64 x 64 fp32 partial (32 floats a thread, an
+// accumulator's layout) into part `part` (0: S, 1: dP) of the peer's
+// exchange: eight 16-byte st.async a thread, counted on its mbarrier.
+__device__ __forceinline__ void send_part(const Xchg& x, int part,
+                                          const float (&v)[32]) {
+  const uint32_t at = x.peer_buf + part * kPartBytes + 16 * (threadIdx.x % 128);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
+        " [%0], {%1, %2, %3, %4}, [%5];\n"
+        :: "r"(at + j * 128 * 16), "r"(__float_as_uint(v[4 * j])),
+           "r"(__float_as_uint(v[4 * j + 1])),
+           "r"(__float_as_uint(v[4 * j + 2])),
+           "r"(__float_as_uint(v[4 * j + 3])), "r"(x.peer_bar)
+        : "memory");
+}
+
+// v += the peer's partial in part `part` of this block's exchange.
+__device__ __forceinline__ void add_part(const Xchg& x, int part,
+                                         float (&v)[32]) {
+  const float4* p = x.mine + part * (kPartBytes / 16) + threadIdx.x % 128;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 t = p[j * 128];
+    v[4 * j] += t.x;
+    v[4 * j + 1] += t.y;
+    v[4 * j + 2] += t.z;
+    v[4 * j + 3] += t.w;
+  }
+}
+
+// Iteration i of n's exchange of the partials s (sent by warpgroup
+// sends_s) and dp (by sends_dp; nullptr: none), the peer's added into
+// both where wants_dp, into s alone otherwise.  Thread 0 expects the next
+// iteration's bytes as soon as this one's are in: the peer sends them
+// only after this block's arrive.
+__device__ __forceinline__ void exchange(const Xchg& x, int i, int n,
+                                         float (&s)[32], float (&dp)[32],
+                                         bool sends_s, bool sends_dp,
+                                         bool wants_dp) {
+  if (i > 0) cluster_wait();   // the peer has read the last partials
+  if (sends_s) send_part(x, 0, s);
+  if (sends_dp) send_part(x, 1, dp);
+  mbar_wait(x.bar, i & 1);     // the peer's partials are in
+  if (threadIdx.x == 0 && i + 1 < n) mbar_expect_tx(x.bar, kXBytes);
+  add_part(x, 0, s);
+  if (wants_dp) add_part(x, 1, dp);
+  fence_regs(s);
+  fence_regs(dp);
+  cluster_arrive_relaxed();    // this block's exchange is read
+}
+
 // --- pass 2: dQ ----------------------------------------------------------------
 //
 // One block a (b, query head, 64-row query tile), Q and dO resident, K and
@@ -883,51 +1027,72 @@ __device__ __forceinline__ void add_tile(float (&tot)[M],
 // operand (bf16) and K the MN-major B operand.  The block owns its rows:
 // no atomics, a fixed order.  For fp32 (NP = 3) every tile is its three
 // pieces, each product six piece products, dS split into its pieces as the
-// A operand, and at D = 128 the ring has one stage (ring_stages).
-template <int D, int NP>
+// A operand, and at 128 columns the ring has one stage (ring_stages).  At C
+// = 2 (fp32 at D = 160 and 256) a cluster of two blocks a query tile, each
+// its D / 2 columns, S and dP summed over the pair (the column pair's
+// section above).
+template <int D, int NP, int C>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_tc(const __grid_constant__ Maps maps,
           const float* __restrict__ stats, Elem<NP>* __restrict__ dq,
           Args a) {
-  using Gm = Geo<D>;
+  constexpr int W = D / C;                                   // the columns
+  using Gm = Geo<W>;
   constexpr int kT = NP * Gm::kTileBytes;                    // a tile's pieces
-  constexpr int kS = ring_stages<D, NP>();
+  constexpr int kS = ring_stages<W, NP>();
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t q_s = base;
   const uint32_t do_s = q_s + kT;
   const uint32_t k_s = do_s + kT;                            // [kS]
   const uint32_t v_s = k_s + kS * kT;                        // [kS]
-  const uint32_t full_q = v_s + kS * kT;
+  const uint32_t x_s = v_s + kS * kT;                        // C = 2
+  const uint32_t full_q = x_s + (C > 1 ? kXBytes : 0);
   const uint32_t full_kv = full_q + 8;                       // [kS]
-  const QItem w = q_item(a, false);
+  const uint32_t full_x = full_kv + 8 * kS;                  // C = 2
+  const QItem w = q_item(a, false, C);
+  const int col = C > 1 ? (int)(blockIdx.x % C) : 0;
+  const int c0 = col * W;
   // the K and V tiles of key tile k0 into ring stage st
   auto load_kv = [&](int st, int k0) {
     mbar_expect_tx(full_kv + 8 * st, 2 * kT);
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       load_tile<Gm>(k_s + st * kT + p * Gm::kTileBytes, &maps.k,
-                    &maps.k_tail, full_kv + 8 * st, w.g, k0, p * a.B + w.b);
+                    &maps.k_tail, full_kv + 8 * st, w.g, k0, p * a.B + w.b,
+                    c0);
       load_tile<Gm>(v_s + st * kT + p * Gm::kTileBytes, &maps.v,
-                    &maps.v_tail, full_kv + 8 * st, w.g, k0, p * a.B + w.b);
+                    &maps.v_tail, full_kv + 8 * st, w.g, k0, p * a.B + w.b,
+                    c0);
     }
   };
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < kS; ++s) mbar_init(full_kv + 8 * s, 1);
+    if (C > 1) {
+      mbar_init(full_x, 1);
+      if (w.n > 0) mbar_expect_tx(full_x, kXBytes);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(full_q, 2 * kT);
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       load_tile<Gm>(q_s + p * Gm::kTileBytes, &maps.q, &maps.q_tail, full_q,
-                    w.h, w.q0, p * a.B + w.b);
+                    w.h, w.q0, p * a.B + w.b, c0);
       load_tile<Gm>(do_s + p * Gm::kTileBytes, &maps.dout, &maps.do_tail,
-                    full_q, w.h, w.q0, p * a.B + w.b);
+                    full_q, w.h, w.q0, p * a.B + w.b, c0);
     }
     for (int i = 0; i < min(w.n, kS); ++i) load_kv(i, (w.lo + i) * kRows);
   }
-  __syncthreads();
+  Xchg x = {};
+  if constexpr (C > 1) {
+    cluster_sync();   // both blocks' mbarriers are set
+    x = make_xchg(smem_raw, raw, x_s, full_x, col ^ 1);
+  } else {
+    __syncthreads();
+  }
 
   float m[2], il[2], dl[2];
 #pragma unroll
@@ -938,9 +1103,9 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
     il[e] = stats[plane + at];
     dl[e] = stats[2 * plane + at];
   }
-  float acc[D / 2];
+  float acc[W / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(full_q, 0);
   for (int i = 0; i < w.n; ++i) {
@@ -971,6 +1136,7 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(dp);
+    if constexpr (C > 1) exchange(x, i, w.n, s, dp, true, true, true);
     const bool mask = needs_mask(a, w.q0, k0);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -997,13 +1163,16 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
     __syncthreads();   // every warp's products have read the stage
     if (threadIdx.x == 0 && i + kS < w.n) load_kv(st, k0 + kS * kRows);
   }
+  if constexpr (C > 1) {
+    if (w.n > 0) cluster_wait();   // the peer has read this block's sends
+  }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int t = w.q0 + acc_row(2 * e);
     if (t >= a.Tq) continue;
-    Elem<NP>* out = dq + (((size_t)w.b * a.Tq + t) * a.H + w.h) * D;
+    Elem<NP>* out = dq + (((size_t)w.b * a.Tq + t) * a.H + w.h) * D + c0;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
+    for (int jj = 0; jj < W / 8; ++jj)
       store2(out + acc_col(4 * jj), acc[4 * jj + 2 * e] * a.scale,
              acc[4 * jj + 2 * e + 1] * a.scale);
   }
@@ -1011,14 +1180,16 @@ bwd_dq_tc(const __grid_constant__ Maps maps,
 
 // S^T = K Q^T and, `with_dp`, dP^T = V dO^T of a key tile and a query
 // tile from q0 on wgmma (for NP = 3 each six piece products), waited on,
-// then P^T and dS^T in their place, rows the keys and columns the queries
+// then `sum(s, dp)` (a column pair's exchange; nothing at C = 1), then
+// P^T and dS^T in their place, rows the keys and columns the queries
 // (p_ds with the query tile's m, 1/l, delta at sm; dS^T 0 without dP^T).
-template <typename Gm, int NP>
+template <typename Gm, int NP, typename Sum>
 __device__ __forceinline__ void scores_t(float (&s)[32], float (&dp)[32],
                                          bool with_dp, uint32_t k_s,
                                          uint32_t v_s, uint32_t qb,
                                          uint32_t dob, const Args& a, int q0,
-                                         int k0, const float* sm) {
+                                         int k0, const float* sm,
+                                         const Sum& sum) {
   if (!with_dp) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) dp[j] = 0.f;
@@ -1045,12 +1216,76 @@ __device__ __forceinline__ void scores_t(float (&s)[32], float (&dp)[32],
   wgmma_wait_all();
   fence_regs(s);
   fence_regs(dp);
+  sum(s, dp);
   const bool mask = needs_mask(a, q0, k0);
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const int c = acc_col(j);
     p_ds(a, mask, q0 + c, k0 + acc_row(j), s[j], dp[j], sm[c],
          sm[kRows + c], sm[2 * kRows + c], s[j], dp[j]);
+  }
+}
+
+// The head split's sum of dK and dV over a cluster (bwd_dkdv_tc2, and
+// bwd_dkdv_tc at C = 2): the pairs of accumulator floats (q: floats 4 (q /
+// 2) + 2 (q % 2) and the next, at row acc_row(2 (q % 2)), column acc_col(4
+// (q / 2))) of one of dK or dV that a thread sends to their owners: pair
+// p0 + q belongs to head rank (p0 + q) % split, the cluster's block col +
+// C rank (the same column half), and lands in its ring at slot (sender,
+// (p0 + q) / split) of [split - 1][per_rank][256] float2.
+template <int N>
+__device__ __forceinline__ void send_pairs(const float (&acc)[N], int p0,
+                                           int S, int rank, int per_rank,
+                                           uint32_t ring, int col = 0,
+                                           int C = 1) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const int p = p0 + q, o = p % S;
+    if (o == rank) continue;
+    const int slot = rank < o ? rank : rank - 1;
+    const uint32_t at = ring + 8 * ((slot * per_rank + p / S) * kWide +
+                                    threadIdx.x);
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+                 :: "r"(peer_addr(at, col + C * o)),
+                    "f"(acc[4 * (q / 2) + 2 * (q % 2)]),
+                    "f"(acc[4 * (q / 2) + 2 * (q % 2) + 1]) : "memory");
+  }
+}
+
+// The owned pairs of one of dK or dV: the split partials added in rank
+// order (the thread's own from registers), times mul, written in out's
+// type at the row's column col(accumulator column) of D.
+template <int D, int N, typename T, typename Col>
+__device__ __forceinline__ void own_pairs(const float (&acc)[N], int p0,
+                                          int S, int rank, int per_rank,
+                                          const float2* ring,
+                                          T* __restrict__ out, const Args& a,
+                                          const KItem& w, float mul,
+                                          const Col& col) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const int p = p0 + q, e = q % 2, j = 4 * (q / 2) + 2 * e;
+    if (p % S != rank) continue;
+    float2 v = make_float2(acc[j], acc[j + 1]);
+    if (S > 1) {
+      for (int r = 0; r < S; ++r) {
+        const float2 part = r == rank
+            ? make_float2(acc[j], acc[j + 1])
+            : ring[((r < rank ? r : r - 1) * per_rank + p / S) * kWide +
+                   threadIdx.x];
+        if (r == 0) {
+          v = part;
+        } else {
+          v.x += part.x;
+          v.y += part.y;
+        }
+      }
+    }
+    const int t = w.k0 + acc_row(2 * e);
+    if (t >= a.Tk) continue;
+    store2(out + (((size_t)w.b * a.Tk + t) * a.G + w.g) * D +
+               col(acc_col(4 * (q / 2))),
+           v.x * mul, v.y * mul);
   }
 }
 
@@ -1071,15 +1306,21 @@ __device__ __forceinline__ void scores_t(float (&s)[32], float (&dp)[32],
 // the pieces of P^T or dS^T (64 + 64 + 64 + 64 + 48 registers a thread at
 // D = 128) do not fit one.  Both take S^T; warpgroup 0 adds P^T dO into
 // dV, warpgroup 1 takes dP^T too and adds dS^T Q into dK (a quarter more
-// tensor work than one warpgroup's four products).
-template <int D, int NP>
+// tensor work than one warpgroup's four products).  At C = 2 (fp32 at D =
+// 160 and 256) a key tile is a cluster of C x Args::split blocks: a
+// column pair (warpgroup 0 sends its S^T partial, warpgroup 1 its dP^T's)
+// times the head split of bwd_dkdv_tc2 (below), whose sum of dK and dV
+// over the head ranks takes the ring after the loop.
+template <int D, int NP, int C>
 __global__ void __launch_bounds__(NP == 1 ? kThreads : kWide)
 bwd_dkdv_tc(const __grid_constant__ Maps maps,
             Elem<NP>* __restrict__ dk, Elem<NP>* __restrict__ dv,
             Args a) {
-  using Gm = Geo<D>;
+  constexpr int Wd = D / C;                                  // the columns
+  using Gm = Geo<Wd>;
   constexpr int kT = NP * Gm::kTileBytes;                    // a tile's pieces
-  constexpr int kS = ring_stages<D, NP>();
+  constexpr int kS = ring_stages<Wd, NP>();
+  static_assert(C == 1 || NP == 3, "a column pair is fp32's");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1088,12 +1329,16 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
   const uint32_t q_s = v_s + kT;                             // [kS]
   const uint32_t do_s = q_s + kS * kT;                       // [kS]
   const uint32_t st_s = do_s + kS * kT;                      // [kS]
-  const uint32_t full_kv = st_s + kS * kStatStride;
+  const uint32_t x_s = st_s + kS * kStatStride;              // C = 2
+  const uint32_t full_kv = x_s + (C > 1 ? kXBytes : 0);
   const uint32_t full = full_kv + 8;                         // [kS]
+  const uint32_t full_x = full + 8 * kS;                     // C = 2
   const float* st_g = reinterpret_cast<const float*>(smem_raw + (st_s - raw));
 
-  const KItem w = k_item(a, 1);
+  const int split = C > 1 ? a.split : 1;
+  const KItem w = k_item(a, split, C);
   const int b = w.b, g = w.g, k0 = w.k0, qlo = w.qlo, per = w.per, n = w.n;
+  const int c0 = w.col * Wd;
   // iteration i: query head g R + i / per, query tile qlo + i % per
   auto load = [&](int i, int st) {
     const int h = w.h0 + i / per, q0 = (qlo + i % per) * kRows;
@@ -1102,9 +1347,9 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       load_tile<Gm>(q_s + st * kT + p * Gm::kTileBytes, &maps.q, &maps.q_tail,
-                    bar, h, q0, p * a.B + b);
+                    bar, h, q0, p * a.B + b, c0);
       load_tile<Gm>(do_s + st * kT + p * Gm::kTileBytes, &maps.dout,
-                    &maps.do_tail, bar, h, q0, p * a.B + b);
+                    &maps.do_tail, bar, h, q0, p * a.B + b, c0);
     }
     tma_load_3d(st_s + st * kStatStride, &maps.stats, bar, q0, b * a.H + h,
                 0);
@@ -1113,18 +1358,28 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
     for (int s = 0; s < kS; ++s) mbar_init(full + 8 * s, 1);
+    if (C > 1) {
+      mbar_init(full_x, 1);
+      if (n > 0) mbar_expect_tx(full_x, kXBytes);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(full_kv, 2 * kT);
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       load_tile<Gm>(k_s + p * Gm::kTileBytes, &maps.k, &maps.k_tail, full_kv,
-                    g, k0, p * a.B + b);
+                    g, k0, p * a.B + b, c0);
       load_tile<Gm>(v_s + p * Gm::kTileBytes, &maps.v, &maps.v_tail, full_kv,
-                    g, k0, p * a.B + b);
+                    g, k0, p * a.B + b, c0);
     }
     for (int i = 0; i < min(n, kS); ++i) load(i, i);
   }
-  __syncthreads();
+  Xchg x = {};
+  if constexpr (C > 1) {
+    cluster_sync();   // every block's mbarriers are set
+    x = make_xchg(smem_raw, raw, x_s, full_x, (w.col ^ 1) + C * w.rank);
+  } else {
+    __syncthreads();
+  }
 
   if constexpr (NP == 1) {
     float ak[D / 2], av[D / 2];
@@ -1141,7 +1396,8 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
       const float* sm = st_g + st * (kStatStride / 4);   // m, 1/l, delta
       mbar_wait(full + 8 * st, (i / kS) & 1);
       float s[32], dp[32];
-      scores_t<Gm, NP>(s, dp, true, k_s, v_s, qb, dob, a, q0, k0, sm);
+      scores_t<Gm, NP>(s, dp, true, k_s, v_s, qb, dob, a, q0, k0, sm,
+                       [](float (&)[32], float (&)[32]) {});
       uint32_t pa[4][4], da[4][4];
       to_frags<64>(s, pa);
       to_frags<64>(dp, da);
@@ -1179,9 +1435,9 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
   } else {
     // fp32: warpgroup W's total, dV (W = 0) or dK (W = 1)
     const int W = threadIdx.x / 128;
-    float tot[D / 2];
+    float tot[Wd / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) tot[i] = 0.f;
+    for (int i = 0; i < Wd / 2; ++i) tot[i] = 0.f;
     mbar_wait(full_kv, 0);
     for (int i = 0; i < n; ++i) {
       const int st = i % kS, q0 = (qlo + i % per) * kRows;
@@ -1190,7 +1446,12 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
       const float* sm = st_g + st * (kStatStride / 4);   // m, 1/l, delta
       mbar_wait(full + 8 * st, (i / kS) & 1);
       float s[32], dp[32];
-      scores_t<Gm, NP>(s, dp, W == 1, k_s, v_s, qb, dob, a, q0, k0, sm);
+      scores_t<Gm, NP>(s, dp, W == 1, k_s, v_s, qb, dob, a, q0, k0, sm,
+                       [&](float (&s2)[32], float (&dp2)[32]) {
+                         if constexpr (C > 1)
+                           exchange(x, i, n, s2, dp2, W == 0, W == 1,
+                                    W == 1);
+                       });
       if (W == 0)
         add_tile<Gm>(tot, s, dob);   // P^T's pieces times dO's
       else
@@ -1200,15 +1461,35 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
     }
     Elem<NP>* out = W == 0 ? dv : dk;
     const float mul = W == 0 ? 1.f : a.scale;
+    if constexpr (C > 1) {
+      // the head split's sum over the ranks of this column half, through
+      // the ring (Q's and dO's stages, one span) once every loop is done
+      constexpr int kPairs = Wd / 4;
+      static_assert((kMaxSplit - 1) * ((kPairs + kMaxSplit - 1) / kMaxSplit) *
+                            kWide * 8 <= 2 * kS * kT,
+                    "the cluster's sum fits the ring");
+      const int per_rank = (kPairs + split - 1) / split;
+      if (n > 0) cluster_wait();   // the peer has read this block's sends
+      if (split > 1) {
+        cluster_sync();   // every rank's loop is done: the rings are free
+        send_pairs(tot, 0, split, w.rank, per_rank, q_s, w.col, C);
+        cluster_sync();   // every pair is in its owner's shared memory
+      }
+      const float2* ring =
+          reinterpret_cast<const float2*>(smem_raw + (q_s - raw));
+      own_pairs<D>(tot, 0, split, w.rank, per_rank, ring, out, a, w, mul,
+                   [c0](int c) { return c0 + c; });
+    } else {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int t = k0 + acc_row(2 * e);
-      if (t >= a.Tk) continue;
-      const size_t row = (((size_t)b * a.Tk + t) * a.G + g) * D;
+      for (int e = 0; e < 2; ++e) {
+        const int t = k0 + acc_row(2 * e);
+        if (t >= a.Tk) continue;
+        const size_t row = (((size_t)b * a.Tk + t) * a.G + g) * D;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj)
-        store2(out + row + acc_col(4 * jj), tot[4 * jj + 2 * e] * mul,
-               tot[4 * jj + 2 * e + 1] * mul);
+        for (int jj = 0; jj < D / 8; ++jj)
+          store2(out + row + acc_col(4 * jj), tot[4 * jj + 2 * e] * mul,
+                 tot[4 * jj + 2 * e + 1] * mul);
+      }
     }
   }
 }
@@ -1252,8 +1533,6 @@ bwd_dkdv_tc(const __grid_constant__ Maps maps,
 // ring space through distributed shared memory; after a second barrier
 // each owner adds the split partials in rank order and writes its pairs.
 // No atomics, a fixed order: two calls give the same bits.
-
-constexpr int kMaxSplit = 4;     // blocks a key tile in bwd_dkdv_tc2
 
 // The columns of dQ, dK and dV that warpgroup W owns at head size D
 // (kN of them, kN / 2 accumulator floats a thread), the global column of
@@ -1301,11 +1580,6 @@ constexpr int kMaxPairs = Half<D, 0>::kN / 2;
 // code, so not __syncthreads)
 __device__ __forceinline__ void sync_wide() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // One group's two k16 steps of A fragments (the loop rows it computed)
@@ -1512,68 +1786,6 @@ struct DkdvWide {
   }
 };
 
-// The pairs of accumulator floats (q: floats 4 (q / 2) + 2 (q % 2) and
-// the next, at row acc_row(2 (q % 2)), column acc_col(4 (q / 2))) of one
-// of dK or dV that a thread sends to their owners: pair p0 + q belongs to
-// rank (p0 + q) % split, and lands in its ring at slot (sender, (p0 + q) /
-// split) of [split - 1][per_rank][256] float2.
-template <int N>
-__device__ __forceinline__ void send_pairs(const float (&acc)[N], int p0,
-                                           int S, int rank, int per_rank,
-                                           uint32_t ring) {
-#pragma unroll
-  for (int q = 0; q < N / 2; ++q) {
-    const int p = p0 + q, o = p % S;
-    if (o == rank) continue;
-    const int slot = rank < o ? rank : rank - 1;
-    const uint32_t at = ring + 8 * ((slot * per_rank + p / S) * kWide +
-                                    threadIdx.x);
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(remote) : "r"(at), "r"(o));
-    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
-                 :: "r"(remote), "f"(acc[4 * (q / 2) + 2 * (q % 2)]),
-                    "f"(acc[4 * (q / 2) + 2 * (q % 2) + 1]) : "memory");
-  }
-}
-
-// The owned pairs of one of dK or dV: the split partials added in rank
-// order (the thread's own from registers), times mul, written in bf16.
-template <int D, int W, int N>
-__device__ __forceinline__ void own_pairs(const float (&acc)[N], int p0,
-                                          int S, int rank, int per_rank,
-                                          const float2* ring,
-                                          __nv_bfloat16* __restrict__ out,
-                                          const Args& a, const KItem& w,
-                                          float mul) {
-#pragma unroll
-  for (int q = 0; q < N / 2; ++q) {
-    const int p = p0 + q, e = q % 2, j = 4 * (q / 2) + 2 * e;
-    if (p % S != rank) continue;
-    float2 v = make_float2(acc[j], acc[j + 1]);
-    if (S > 1) {
-      for (int r = 0; r < S; ++r) {
-        const float2 part = r == rank
-            ? make_float2(acc[j], acc[j + 1])
-            : ring[((r < rank ? r : r - 1) * per_rank + p / S) * kWide +
-                   threadIdx.x];
-        if (r == 0) {
-          v = part;
-        } else {
-          v.x += part.x;
-          v.y += part.y;
-        }
-      }
-    }
-    const int t = w.k0 + acc_row(2 * e);
-    if (t >= a.Tk) continue;
-    *reinterpret_cast<uint32_t*>(
-        out + (((size_t)w.b * a.Tk + t) * a.G + w.g) * D +
-        Half<D, W>::col(acc_col(4 * (q / 2))))
-        = pack_bf16(v.x * mul, v.y * mul);
-  }
-}
-
 // bwd_dkdv_tc's work on two warpgroups: warpgroup W's loop (S^T and dP^T
 // over queries [32 W, 32 W + 32) of each query tile, dK and dV over its
 // columns), the cluster's sum and its part of dK and dV.
@@ -1657,8 +1869,9 @@ __device__ __forceinline__ void dkdv_wide(const Maps& maps,
     cluster_sync();   // every pair is in its owner's shared memory
   }
   const float2* ring = reinterpret_cast<const float2*>(smem_raw + (L.q - raw));
-  own_pairs<D, W>(ak, 0, S, w.rank, per_rank, ring, dk, a, w, a.scale);
-  own_pairs<D, W>(av, kQ, S, w.rank, per_rank, ring, dv, a, w, 1.f);
+  const auto col = [](int c) { return Hf::col(c); };
+  own_pairs<D>(ak, 0, S, w.rank, per_rank, ring, dk, a, w, a.scale, col);
+  own_pairs<D>(av, kQ, S, w.rank, per_rank, ring, dv, a, w, 1.f, col);
 }
 
 // Pass 3 at D = 160 and 256: bwd_dkdv_tc's block on two warpgroups, the
@@ -1695,21 +1908,26 @@ bwd_dkdv_tc2(const __grid_constant__ Maps maps,
 
 // Shared memory of each pass, with slack to align the tiles to 1024 bytes:
 // for fp32 (NP = 3) 148,504 bytes (statistics), 197,648 (dQ) and 198,672
-// (dK/dV) at D = 128, one block an SM.
+// (dK/dV) at D = 128, one block an SM; at D = 160 185,368, 218,144 and
+// 220,192, at D = 256 197,648, 230,424 and 231,448 (a column pair's
+// halves, each with its exchange).
+constexpr int kSmemLimit = 232448;   // a block's most on the H100
 template <int D, int NP>
 constexpr int stats_smem() {
-  return 1024 + (1 + kStages) * NP * Geo<D>::kTileBytes + 8 * (1 + kStages);
+  constexpr int kSt = stats_stages<D, NP>();
+  return 1024 + (1 + kSt) * NP * Geo<D>::kTileBytes + 8 * (1 + kSt);
 }
-template <int D, int NP>
+template <int D, int NP, int C>
 constexpr int dq_smem() {
-  constexpr int kS = ring_stages<D, NP>();
-  return 1024 + (2 + 2 * kS) * NP * Geo<D>::kTileBytes + 8 * (1 + kS);
+  constexpr int kS = ring_stages<D / C, NP>();
+  return 1024 + (2 + 2 * kS) * NP * Geo<D / C>::kTileBytes +
+         (C > 1 ? kXBytes + 8 : 0) + 8 * (1 + kS);
 }
-template <int D, int NP>
+template <int D, int NP, int C>
 constexpr int dkdv_smem() {
-  constexpr int kS = ring_stages<D, NP>();
-  return 1024 + (2 + 2 * kS) * NP * Geo<D>::kTileBytes + kS * kStatStride +
-         8 * (1 + kS);
+  constexpr int kS = ring_stages<D / C, NP>();
+  return 1024 + (2 + 2 * kS) * NP * Geo<D / C>::kTileBytes +
+         kS * kStatStride + (C > 1 ? kXBytes + 8 : 0) + 8 * (1 + kS);
 }
 
 // The statistics' map: fp32 (3, B H, Tqp), a box of 64 rows of each.
@@ -1727,26 +1945,57 @@ bool make_stats_map(CUtensorMap* map, float* stats, int BH, int Tqp) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The blocks a key tile takes in bwd_dkdv_tc2: the least power of two (at
-// most kMaxSplit and R) that gives each of the card's sms SMs a block.
-int dkdv_split(const Args& a, int nkt, int sms) {
+// The blocks a key tile's query heads split over in dK/dV: the least
+// power of two (at most kMaxSplit and R) that gives each of the card's sms
+// SMs a block, counting the `cols` blocks of a column pair; with a pair
+// (whose cluster barrier counts every block's iterations) only divisors
+// of R, so that every rank takes as many heads.
+int dkdv_split(const Args& a, int nkt, int sms, int cols = 1) {
+  const int R = a.H / a.G;
   int split = 1;
-  while (2 * split <= kMaxSplit && 2 * split <= a.H / a.G &&
-         a.B * a.G * nkt * split < sms)
+  while (2 * split <= kMaxSplit && 2 * split <= R &&
+         (cols == 1 || R % (2 * split) == 0) &&
+         a.B * a.G * nkt * cols * split < sms)
     split *= 2;
   return split;
+}
+
+// kern on `blocks` blocks of `threads` in clusters of `cluster`.
+template <typename... Params, typename... Actual>
+cudaError_t launch_clusters(void (*kern)(Params...), int blocks, int threads,
+                            int smem, int cluster, cudaStream_t stream,
+                            Actual&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, std::forward<Actual>(args)...);
 }
 
 // The three passes at head size D on NP-piece operands: q, k, v and dout
 // are what the tensor maps read (bf16, or for NP = 3 the pieces' (3 B, T,
 // heads, D) tensors), o and dout_raw the inputs of delta = rowsum(dO * O)
-// in q's dtype.
+// in q's dtype.  bf16 at D = 160 and 256 takes the two-warpgroup passes,
+// fp32 there the column pair (C = 2: dQ a cluster of 2 blocks a query
+// tile, dK/dV of 2 x split a key tile, the statistics at all D columns).
 template <int D, int NP>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* dout_raw, void* dq, void* dk,
            void* dv, float* stats, const Args& a, cudaStream_t stream) {
-  constexpr bool kWideD = D > 128;
-  static_assert(NP == 1 || !kWideD, "fp32 takes one-warpgroup passes");
+  constexpr bool kWideD = NP == 1 && D > 128;
+  constexpr int C = NP == 3 && D > 128 ? 2 : 1;
+  static_assert(stats_smem<D, NP>() <= kSmemLimit &&
+                    dq_smem<D, NP, C>() <= kSmemLimit &&
+                    dkdv_smem<D, NP, C>() <= kSmemLimit,
+                "a pass's shared memory fits a block");
   static std::atomic<bool> done_st[kDevices], done_dq[kDevices],
       done_kv[kDevices];
   cudaError_t err =
@@ -1758,12 +2007,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       err = allow_smem(bwd_dkdv_tc2<D>, DkdvWide<D>::kBytes, done_kv);
   } else {
     if (err == cudaSuccess)
-      err = allow_smem(bwd_dq_tc<D, NP>, dq_smem<D, NP>(), done_dq);
+      err = allow_smem(bwd_dq_tc<D, NP, C>, dq_smem<D, NP, C>(), done_dq);
     if (err == cudaSuccess)
-      err = allow_smem(bwd_dkdv_tc<D, NP>, dkdv_smem<D, NP>(), done_kv);
+      err = allow_smem(bwd_dkdv_tc<D, NP, C>, dkdv_smem<D, NP, C>(),
+                       done_kv);
   }
   if (err != cudaSuccess) return (int)err;
-  Maps maps = {};
+  // the maps over all D columns (the statistics, and every pass at C =
+  // 1) and, at C = 2, over D / 2-column slices of the same rows
+  Maps maps = {}, half = {};
   const int NB = NP * a.B;   // the maps' batches: NP pieces of each
   if (!bind_context() ||
       !make_maps<D>(&maps.q, &maps.q_tail, q, NB, a.Tq, a.H, kRows) ||
@@ -1773,44 +2025,56 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                     kRows) ||
       !make_stats_map(&maps.stats, stats, a.B * a.H, a.Tqp))
     return (int)cudaErrorInvalidValue;
+  if constexpr (C > 1) {
+    constexpr int W = D / C;
+    half.stats = maps.stats;
+    if (!make_maps<W>(&half.q, &half.q_tail, q, NB, a.Tq, a.H, kRows, D) ||
+        !make_maps<W>(&half.k, &half.k_tail, k, NB, a.Tk, a.G, kRows, D) ||
+        !make_maps<W>(&half.v, &half.v_tail, v, NB, a.Tk, a.G, kRows, D) ||
+        !make_maps<W>(&half.dout, &half.do_tail, dout, NB, a.Tq, a.H, kRows,
+                      D))
+      return (int)cudaErrorInvalidValue;
+  }
   const int nqt = (a.Tq + kRows - 1) / kRows, nkt = (a.Tk + kRows - 1) / kRows;
   bwd_stats_tc<D, NP>
       <<<a.B * a.H * nqt, kThreads, stats_smem<D, NP>(), stream>>>(
           maps, (const Elem<NP>*)o, (const Elem<NP>*)dout_raw, stats, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kWideD) {
-    bwd_dq_tc2<D><<<a.B * a.H * nqt, kWide, DqWide<D>::kBytes, stream>>>(
-        maps, stats, (__nv_bfloat16*)dq, a);
-    err = cudaGetLastError();
+  if constexpr (kWideD || C > 1) {
+    if constexpr (kWideD) {
+      bwd_dq_tc2<D><<<a.B * a.H * nqt, kWide, DqWide<D>::kBytes, stream>>>(
+          maps, stats, (__nv_bfloat16*)dq, a);
+      err = cudaGetLastError();
+    } else {
+      err = launch_clusters(bwd_dq_tc<D, NP, C>, a.B * a.H * nqt * C,
+                            kThreads, dq_smem<D, NP, C>(), C, stream, half,
+                            stats, (Elem<NP>*)dq, a);
+    }
     if (err != cudaSuccess) return (int)err;
     int sms = 0;
     err = (cudaError_t)sm_count(&sms);
     if (err != cudaSuccess) return (int)err;
     Args ak = a;
-    ak.split = dkdv_split(a, nkt, sms);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(a.B * a.G * nkt * ak.split, 1, 1);
-    cfg.blockDim = dim3(kWide, 1, 1);
-    cfg.dynamicSmemBytes = DkdvWide<D>::kBytes;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = ak.split;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, bwd_dkdv_tc2<D>, maps, (__nv_bfloat16*)dk,
-                             (__nv_bfloat16*)dv, ak);
+    ak.split = dkdv_split(a, nkt, sms, C);
+    if constexpr (kWideD)
+      err = launch_clusters(bwd_dkdv_tc2<D>, a.B * a.G * nkt * ak.split,
+                            kWide, DkdvWide<D>::kBytes, ak.split, stream,
+                            maps, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+                            ak);
+    else
+      err = launch_clusters(bwd_dkdv_tc<D, NP, C>,
+                            a.B * a.G * nkt * C * ak.split, kWide,
+                            dkdv_smem<D, NP, C>(), C * ak.split, stream,
+                            half, (Elem<NP>*)dk, (Elem<NP>*)dv, ak);
     if (err != cudaSuccess) return (int)err;
   } else {
-    bwd_dq_tc<D, NP><<<a.B * a.H * nqt, kThreads, dq_smem<D, NP>(),
-                       stream>>>(maps, stats, (Elem<NP>*)dq, a);
+    bwd_dq_tc<D, NP, C><<<a.B * a.H * nqt, kThreads, dq_smem<D, NP, C>(),
+                          stream>>>(maps, stats, (Elem<NP>*)dq, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    bwd_dkdv_tc<D, NP><<<a.B * a.G * nkt, NP == 1 ? kThreads : kWide,
-                         dkdv_smem<D, NP>(), stream>>>(
+    bwd_dkdv_tc<D, NP, C><<<a.B * a.G * nkt, NP == 1 ? kThreads : kWide,
+                            dkdv_smem<D, NP, C>(), stream>>>(
         maps, (Elem<NP>*)dk, (Elem<NP>*)dv, a);
   }
   return (int)cudaGetLastError();
@@ -1873,11 +2137,12 @@ int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
   }
 }
 
-// The same call for fp32 tensors at D in {16, 32, 64, 80, 128} on the
-// tensor cores: split_pieces writes q's, k's, v's and dout's three bf16
-// pieces (sm90.cuh) to `pieces`, bf16 scratch of 3 (2 q's + 2 k's
-// elements), in that order; then the three passes read them (NP = 3).
-// Base pointers 16-byte aligned.  Returns a cudaError_t.
+// The same call for fp32 tensors at D in {16, 32, 64, 80, 128, 160, 256}
+// on the tensor cores: split_pieces writes q's, k's, v's and dout's three
+// bf16 pieces (sm90.cuh) to `pieces`, bf16 scratch of 3 (2 q's + 2 k's
+// elements), in that order; then the three passes read them (NP = 3; at
+// D = 160 and 256 dQ and dK/dV as column pairs, cluster launches).  Base
+// pointers 16-byte aligned.  Returns a cudaError_t.
 int flash_attention_bwd_split(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, void* dq,
                               void* dk, void* dv, float* stats, void* pieces,
@@ -1885,7 +2150,8 @@ int flash_attention_bwd_split(const void* q, const void* k, const void* v,
                               int causal, int window, float scale,
                               void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G <= 0 || H % G != 0 ||
-      (D != 16 && D != 32 && D != 64 && D != 80 && D != 128))
+      (D != 16 && D != 32 && D != 64 && D != 80 && D != 128 && D != 160 &&
+       D != 256))
     return (int)cudaErrorInvalidValue;
   const tcb::Args a{B, Tq, Tk, H, G, causal, window,
                     (Tq + tcb::kRows - 1) / tcb::kRows * tcb::kRows, scale,
@@ -1908,7 +2174,9 @@ int flash_attention_bwd_split(const void* q, const void* k, const void* v,
     case 32: return tcb::launch<32, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
     case 64: return tcb::launch<64, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
     case 80: return tcb::launch<80, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
-    default: return tcb::launch<128, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    case 128: return tcb::launch<128, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    case 160: return tcb::launch<160, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
+    default: return tcb::launch<256, 3>(pq, pk, pv, o, pd, dout, dq, dk, dv, stats, a, st);
   }
 }
 

@@ -589,19 +589,22 @@ __device__ __forceinline__ void mma_rows(float (&acc)[M],
 
 // One tile, Geo::kRows rows of one head from ``row``, into shared memory
 // at ``dst``: a box for each full block and one for the tail, all
-// completing on ``bar``.
+// completing on ``bar``.  The tile's columns start at ``col0`` of the
+// tensor's rows (a column slice of a wider head: its Geo is the slice's
+// width, its maps' boxes that width's blocks).
 template <typename Geo>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const CUtensorMap* full,
                                           const CUtensorMap* tail,
                                           uint32_t bar, int head, int row,
-                                          int b) {
+                                          int b, int col0 = 0) {
 #pragma unroll
   for (int c = 0; c < Geo::kFull; ++c)
-    tma_load_4d(dst + c * Geo::kFullBytes, full, bar, 64 * c, head, row, b);
-  if (Geo::kTail > 0)
-    tma_load_4d(dst + Geo::kTailOffset, tail, bar, 64 * Geo::kFull, head,
+    tma_load_4d(dst + c * Geo::kFullBytes, full, bar, col0 + 64 * c, head,
                 row, b);
+  if (Geo::kTail > 0)
+    tma_load_4d(dst + Geo::kTailOffset, tail, bar, col0 + 64 * Geo::kFull,
+                head, row, b);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -669,13 +672,15 @@ inline bool bind_context() {
 }
 
 // The maps of one tensor: over its full 64-column blocks and over its
-// tail (left zeroed where D has none), boxes of ``rows`` rows.
+// tail (left zeroed where D has none), boxes of ``rows`` rows.  ``width``
+// is the tensor's row (D unless the tiles are D-column slices of wider
+// rows, which load_tile's ``col0`` places).
 template <int D>
 bool make_maps(CUtensorMap* full, CUtensorMap* tail, const void* ptr, int B,
-               int T, int heads, int rows) {
-  if (D / 64 > 0 && !make_map(full, ptr, B, T, heads, D, 64, rows))
+               int T, int heads, int rows, int width = D) {
+  if (D / 64 > 0 && !make_map(full, ptr, B, T, heads, width, 64, rows))
     return false;
-  if (D % 64 > 0 && !make_map(tail, ptr, B, T, heads, D, D % 64, rows))
+  if (D % 64 > 0 && !make_map(tail, ptr, B, T, heads, width, D % 64, rows))
     return false;
   return true;
 }

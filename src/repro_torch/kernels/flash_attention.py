@@ -56,13 +56,15 @@ head size alone:
   the KV heads are too few to fill the card);
 * ``split`` — the same one-warpgroup passes on three bf16 pieces of each
   fp32 operand (q, k, v and dO; P and dS split in registers), for fp32 at
-  every ``D`` in :data:`BWD_SPLIT_HEAD_DIMS` (up to 128: the resident
-  tiles' pieces and a ring stage fill 227 KB there), dK and dV on two
-  warpgroups, each tile's products added to the gradients in fp32;
-* ``scalar`` — three scalar-fp32 kernels, for fp32 at ``D = 160`` and
-  ``256``, where no path takes it.  It takes the other variants' calls
-  too, but only when named (``_launch_bwd(..., kind="scalar")``): the
-  yardstick.
+  every ``D`` in :data:`BWD_SPLIT_HEAD_DIMS` (all of them), dK and dV on
+  two warpgroups, each tile's products added to the gradients in fp32; at
+  ``D = 160`` and ``256``, where a tile's pieces leave no room for the
+  resident pair and a ring stage in 227 KB, dQ and dK/dV as column pairs:
+  two blocks of a thread-block cluster, each half the columns, summing
+  their S and dP partials through distributed shared memory
+  (:func:`attention_bwd_split_model` sums them in the same order);
+* ``scalar`` — three scalar kernels (fp32 and bf16), which no path takes:
+  only when named (``_launch_bwd(..., kind="scalar")``), the yardstick.
 
 :data:`LAUNCHES` counts ``flash_attention_bwd`` (every backward call) and
 ``flash_attention_bwd_tc``, ``flash_attention_bwd_split`` and
@@ -83,9 +85,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["BWD_SPLIT_HEAD_DIMS", "BWD_TC_HEAD_DIMS", "FlashAttentionFn",
-           "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES", "SPLIT_PAIRS",
-           "TC_HEAD_DIMS", "attention_bwd_ref", "attention_bwd_split_model",
+__all__ = ["BWD_PAIR_HEAD_DIMS", "BWD_SPLIT_HEAD_DIMS", "BWD_TC_HEAD_DIMS",
+           "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES",
+           "SPLIT_PAIRS", "TC_HEAD_DIMS", "attention_bwd_ref",
+           "attention_bwd_split_model",
            "attention_ref", "attention_split_model", "bwd_variant",
            "flash_attention", "piece_einsum", "reset_launches",
            "split_pieces", "variant"]
@@ -111,10 +114,14 @@ TC_HEAD_DIMS = (16, 32, 64, 80, 128, 160, 256)
 #: and dV, D / 2 fp32 each a thread, fit one warpgroup beside S and dP up
 #: to D = 128; at D = 160 and 256 two warpgroups split the columns)
 BWD_TC_HEAD_DIMS = HEAD_DIMS
-#: the fp32 head sizes the split backward takes: its one-warpgroup passes,
-#: whose resident tiles' pieces and a ring stage's fit 227 KB up to
-#: D = 128; fp32 at D = 160 and 256 stays on the scalar backward
-BWD_SPLIT_HEAD_DIMS = (16, 32, 64, 80, 128)
+#: the fp32 head sizes the split backward takes: all of them (its
+#: one-warpgroup passes' resident tiles' pieces and a ring stage fit 227 KB
+#: up to D = 128; at D = 160 and 256 dQ and dK/dV split the columns over a
+#: cluster of two blocks)
+BWD_SPLIT_HEAD_DIMS = HEAD_DIMS
+#: the head sizes whose split backward takes S and dP as the sum of two
+#: column halves' partials (a column pair)
+BWD_PAIR_HEAD_DIMS = (160, 256)
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention"
@@ -304,7 +311,10 @@ def attention_bwd_split_model(q, k, v, o, do, *, causal: bool = True,
     """:func:`attention_bwd_ref`'s gradients (float32) by the split
     backward's arithmetic: S, dP = dO V^T, dV = P^T dO, dK = dS^T Q and
     dQ = dS K by :func:`piece_einsum`; P, delta = rowsum(dO * O) and dS =
-    P (dP - delta) in fp32.  Only tests use it."""
+    P (dP - delta) in fp32.  At the column pair's head sizes
+    (:data:`BWD_PAIR_HEAD_DIMS`) S and dP are each the sum of two
+    partials over the halves of the D columns, the first half's plus the
+    second's, as the pair's two blocks add them.  Only tests use it."""
     B, Tq, H, D = q.shape
     Tk, G = k.shape[1], k.shape[2]
     R = H // G
@@ -312,12 +322,19 @@ def attention_bwd_split_model(q, k, v, o, do, *, causal: bool = True,
     qg = q.float().reshape(B, Tq, G, R, D)
     dog = do.float().reshape(B, Tq, G, R, D)
     kf, vf = k.float(), v.float()
+    halves = ([slice(0, D // 2), slice(D // 2, D)]
+              if D in BWD_PAIR_HEAD_DIMS else [slice(0, D)])
+
+    def contract(a, b):   # over D, a column pair's halves added in order
+        parts = [piece_einsum("btgrd,bsgd->bgrts", a[..., c], b[..., c],
+                              pieces) for c in halves]
+        return parts[0] if len(parts) == 1 else parts[0] + parts[1]
     mask = _mask(Tq, Tk, causal, window, q.device)
-    s = piece_einsum("btgrd,bsgd->bgrts", qg, kf, pieces) * scale
+    s = contract(qg, kf) * scale
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     delta = (dog * o.float().reshape(B, Tq, G, R, D)).sum(-1)
-    dp = piece_einsum("btgrd,bsgd->bgrts", dog, vf, pieces)
+    dp = contract(dog, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     ds = torch.where(mask, ds, torch.zeros((), device=q.device))
     dv = piece_einsum("bgrts,btgrd->bsgd", p, dog, pieces)
@@ -462,7 +479,9 @@ def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
     variant's count) on CUDA tensors:
     (dq, dk, dv) in q's dtype.  ``"scalar"`` takes every dtype and head
     size it is built for, ``"tc"`` and ``"split"`` only what
-    :func:`bwd_variant` routes to them."""
+    :func:`bwd_variant` routes to them (``"split"``: fp32 at every head
+    size, column pairs at ``D = 160`` and ``256``).  A call the kernel
+    cannot take raises; nothing falls back to another variant."""
     B, Tq, H, D = q.shape
     Tk, G = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODES:

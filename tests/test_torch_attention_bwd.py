@@ -163,19 +163,19 @@ def test_reference_ragged_chunk_fault_reaches_the_gradients():
                                    torch.float16], ids=str)
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_bwd_variant_routes_by_dtype_and_head_size(dtype, D):
-    """bf16 at every head size takes the tensor-core backward, fp32 up to
-    D = 128 the split one (three bf16 pieces an operand on the tensor
-    cores), everything else the scalar one; a fixed choice by dtype and
-    head size."""
+    """bf16 at every head size takes the tensor-core backward, fp32 at
+    every head size the split one (three bf16 pieces an operand on the
+    tensor cores; column pairs at D = 160 and 256), everything else the
+    scalar one; a fixed choice by dtype and head size."""
     if dtype == torch.bfloat16:
         want = "tc"
-    elif dtype == torch.float32 and D <= 128:
+    elif dtype == torch.float32:
         want = "split"
     else:
         want = "scalar"
     assert fa.bwd_variant(dtype, D) == want
     assert D in fa.BWD_TC_HEAD_DIMS
-    assert (D in fa.BWD_SPLIT_HEAD_DIMS) == (D <= 128)
+    assert D in fa.BWD_SPLIT_HEAD_DIMS
 
 
 def test_training_paths_take_the_tensor_core_backward():
@@ -193,13 +193,13 @@ def test_training_paths_take_the_tensor_core_backward():
     (torch.float32, 128, "tc"), (torch.float32, 160, "tc"),
     (torch.float32, 256, "tc"), (torch.float32, 16, "tc"),
     (torch.bfloat16, 128, "fast"), (torch.bfloat16, 128, "split"),
-    (torch.float32, 160, "split"), (torch.float32, 256, "split")],
+    (torch.bfloat16, 160, "split"), (torch.bfloat16, 256, "split")],
     ids=str)
 def test_launch_bwd_refuses_what_the_variant_does_not_take(dtype, D, kind):
     """``_launch_bwd(kind="tc")`` raises where ``bwd_variant`` names
-    another kernel, ``kind="split"`` likewise (bf16, and fp32 at D = 160
-    and 256, which stay scalar), and an unknown variant raises, before
-    anything is built or launched (so on the CPU too)."""
+    another kernel, ``kind="split"`` likewise (bf16 at every head size,
+    the column pair's 160 and 256 too), and an unknown variant raises,
+    before anything is built or launched (so on the CPU too)."""
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(
         (1, 8, 8, 2, 1, D, True, None)))
     o = torch.zeros_like(q)
@@ -336,6 +336,11 @@ def _ptxas(functions):
     ([("11bwd_dkdv_tcILi128ELi3EEEvNS_4MapsEPfS3_NS_4ArgsE", (8, 4, 4)),
       ("11bwd_dkdv_tcILi128ELi1EEEvNS_4MapsEP13__nv_bfloat16S4_NS_4ArgsE",
        (0, 0, 0))], {"bwd_dkdv_tc<128, 3>": (4, 4)}, True),
+    # an fp32 column pair's pass (D = 160 or 256 over two blocks) that
+    # spills fails it, named by head size, pieces and blocks
+    ([("9bwd_dq_tcILi160ELi3ELi2EEEvNS_4MapsEPKfPfNS_4ArgsE", (0, 0, 0)),
+      ("11bwd_dkdv_tcILi256ELi3ELi2EEEvNS_4MapsEPfS3_NS_4ArgsE",
+       (16, 8, 12))], {"bwd_dkdv_tc<256, 3, 2>": (8, 12)}, True),
 ])
 def test_build_spill_check_reads_ptxas(functions, spills, refused):
     """``chip_smoke.bwd_spills`` reads the spill lines of ptxas's verbose

@@ -17,8 +17,9 @@ through its plain model in ``repro_torch.kernels.flash_attention``:
   ``repro.kernels.ref.attention_ref`` in fp32 within atol 2e-5, and
   ``attention_bwd_split_model`` against ``jax.vjp`` of it within relative
   L2 1e-5 for each of dq, dk, dv, over causal, windowed, bidirectional
-  (Tq != Tk, fully masked rows), GQA, MQA and Tq = 1 cases; the one-piece
-  models fail those limits.
+  (Tq != Tk, fully masked rows), GQA, MQA and Tq = 1 cases, at D = 160
+  and 256 with S and dP summed from two column halves as the column
+  pair's two blocks add them; the one-piece models fail those limits.
 
 The kernels themselves are held to the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The wrappers' refusals
@@ -48,6 +49,10 @@ CASES = [
     (1, 20, 20, 4, 4, 80, True, None),       # stablelm-3b's
     (1, 18, 18, 4, 2, 160, True, None),      # pixtral-12b's
     (1, 17, 17, 4, 1, 256, True, 5),         # recurrentgemma-9b's, window
+    # the column pair's head sizes, bidirectional with a window (Tq > Tk:
+    # rows with no key in reach; Tq < Tk)
+    (1, 21, 15, 4, 2, 160, False, 5),
+    (2, 12, 19, 4, 1, 256, False, 6),
 ]
 FWD_ATOL = 2e-5
 BWD_LIMIT = 1e-5
@@ -205,12 +210,13 @@ def test_launch_refuses_what_the_variant_does_not_take(dtype, D, kind,
 
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_fp32_routes_to_the_split_kernels(D):
-    """fp32 takes the split forward at every head size and the split
-    backward up to D = 128; at D = 160 and 256 the scalar backward."""
+    """fp32 takes the split forward and the split backward at every head
+    size (at D = 160 and 256 the backward's column pair); the scalar
+    kernels only by name."""
     assert fa.variant(torch.float32, D) == "split"
-    assert fa.bwd_variant(torch.float32, D) == (
-        "split" if D <= 128 else "scalar")
-    assert (D in fa.BWD_SPLIT_HEAD_DIMS) == (D <= 128)
+    assert fa.bwd_variant(torch.float32, D) == "split"
+    assert fa.BWD_SPLIT_HEAD_DIMS == fa.HEAD_DIMS
+    assert (D in fa.BWD_PAIR_HEAD_DIMS) == (D > 128)
 
 
 _PTXAS_HEAD = ("ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__"

@@ -1340,10 +1340,11 @@ def _bwd_inputs(device, dtype, D, case, seed):
                          ids=str)
 def test_cuda_attention_bwd_matches_plain(cuda_device, D, dtype):
     """Each backward variant that takes (dtype, D) against the plain
-    version on every case: the one ``bwd_variant`` names, and the scalar
-    yardstick too where that is the tensor-core kernel (bf16 at every
-    D) or the split one (fp32 up to D = 128); one launch a call, counted
-    in the total and its variant."""
+    version on every case: the one ``bwd_variant`` names (the tensor-core
+    kernel for bf16, the split one for fp32, both at every D; the split
+    one's column pair at D = 160 and 256), and the scalar yardstick too,
+    reached by name at every D (fp32 at 160 and 256 included); one
+    launch a call, counted in the total and its variant."""
     routed = fa.bwd_variant(dtype, D)
     kinds = [routed, "scalar"] if routed != "scalar" else ["scalar"]
     for i, case in enumerate(BWD_CASES):
@@ -1383,8 +1384,10 @@ def test_cuda_attention_bwd_tc_is_deterministic(cuda_device, D):
 
 @pytest.mark.parametrize("D", fa.BWD_SPLIT_HEAD_DIMS)
 def test_cuda_attention_bwd_split_is_deterministic(cuda_device, D):
-    """Two calls of the split backward (fp32 on three bf16 pieces) on the
-    same inputs give the same bits, as the tensor-core one's."""
+    """Two calls of the split backward (fp32 on three bf16 pieces, at
+    every head size; D = 160 and 256 as column pairs whose S and dP
+    partials are summed across a cluster) on the same inputs give the
+    same bits, as the tensor-core one's."""
     for i, case in enumerate(BWD_CASES):
         q, k, v, o, do = _bwd_inputs(cuda_device, torch.float32, D, case,
                                      5 * D + i)
@@ -1423,6 +1426,30 @@ def test_cuda_attention_bwd_tc_at_wide_head_sizes(cuda_device, case):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         err = _rel_or_floor(g, w, floor)
         assert err < BWD_LIMIT[torch.bfloat16], (name, case, err)
+
+
+@pytest.mark.parametrize("case", WIDE_BWD_CASES, ids=str)
+def test_cuda_attention_bwd_split_at_wide_head_sizes(cuda_device, case):
+    """The split backward at D = 160 and 256 (fp32; dQ and dK/dV as
+    column pairs over a cluster, dK/dV's query heads split over it too
+    where the KV heads are few) against ``attention_bwd_ref``: each of
+    dq, dk, dv within relative L2 1e-5, one launch counted under
+    ``split``, none under ``scalar``."""
+    B, T, H, G, D, causal, window = case
+    q, k, v, o, do = _bwd_inputs(cuda_device, torch.float32, D,
+                                 (B, T, T, H, G, causal, window), 13 * D + T)
+    assert fa.bwd_variant(torch.float32, D) == "split"
+    fa.reset_launches()
+    got = fa._launch_bwd(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd_split"] == 1
+    assert fa.LAUNCHES["flash_attention_bwd_scalar"] == 0
+    want = fa.attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    floor = float(want[2].double().norm())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = _rel_or_floor(g, w, floor)
+        assert err < BWD_LIMIT[torch.float32], (name, case, err)
 
 
 @pytest.mark.parametrize("D", [160, 256])
@@ -1473,9 +1500,9 @@ def test_cuda_flash_attention_backward_counts_by_variant(cuda_device, D):
 
 def test_cuda_attention_bwd_refuses_tc_where_scalar(cuda_device):
     """The tensor-core backward named where ``bwd_variant`` names another
-    kernel (fp32: the split one at D = 64, the scalar one at 160 and 256)
-    raises, and launches nothing; so does the split backward named at D =
-    160 and 256 in fp32 and in bf16."""
+    kernel (fp32: the split one, at D = 64, 160 and 256) raises, and
+    launches nothing; so does the split backward named in bf16 (at D =
+    64, 160 and 256)."""
     for dtype, D in ((torch.float32, 64), (torch.float32, 160),
                      (torch.float32, 256)):
         q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, BWD_CASES[0], 0)
@@ -1483,7 +1510,7 @@ def test_cuda_attention_bwd_refuses_tc_where_scalar(cuda_device):
         with pytest.raises(ValueError, match="takes bf16 at head sizes"):
             fa._launch_bwd(q, k, v, o, do, True, None, kind="tc")
         assert fa.LAUNCHES == before
-    for dtype, D in ((torch.float32, 160), (torch.float32, 256),
+    for dtype, D in ((torch.bfloat16, 160), (torch.bfloat16, 256),
                      (torch.bfloat16, 64)):
         q, k, v, o, do = _bwd_inputs(cuda_device, dtype, D, BWD_CASES[0], 0)
         before = dict(fa.LAUNCHES)
