@@ -366,6 +366,7 @@ SOURCE = "src/repro_torch/csrc/rank_delta.cu"
 #: ``jax.lax.top_k`` that the reference fleet's ``top_k`` serves from
 #: (the service calls ``top_k``, never ``reprice_with_heads``)
 REPLACES = {"scatter": "src/repro/selector/pallas_rank.py:248",
+            "scatter_pageable": "src/repro/selector/pallas_rank.py:248",
             "rowmin": "src/repro/kernels/rank_delta.py:69",
             "rowmin_row": "src/repro/kernels/rank_delta.py:69",
             "fold": "src/repro/kernels/rank_delta.py:69",
@@ -378,8 +379,8 @@ REPLACES = {"scatter": "src/repro/selector/pallas_rank.py:248",
 ALSO_REPLACES = {"select": "src/repro/kernels/rank_delta.py:157",
                  "select_sort": "src/repro/kernels/rank_delta.py:157",
                  "select_rounds": "src/repro/kernels/rank_delta.py:157"}
-KERNELS = ("scatter", "rowmin", "rowmin_row", "fold", "fold_col", "select",
-           "select_sort", "select_rounds")
+KERNELS = ("scatter", "scatter_pageable", "rowmin", "rowmin_row", "fold",
+           "fold_col", "select", "select_sort", "select_rounds")
 #: the kernels the selection path launches (its k is 10: ``select_sort``
 #: serves only k above ``rank_delta.SELECT_CAP``)
 PATH_KERNELS = ("scatter", "rowmin", "fold", "select")
@@ -826,53 +827,104 @@ def make_pairs(np, rng, C, n):
 
 
 def check_scatter(torch, np, rng, errs) -> None:
-    """``scatter`` against its plain version (the pairs uploaded,
-    ``index_copy`` and ``index_fill_``), new prices and flags bit for
-    bit: C = 1, 3, 10,000 and 100,000; n = 0, 1, 1% and every column; two
-    scatters back to back."""
+    """``scatter`` against its plain version (``index_copy`` and
+    ``index_fill_``), new prices and flags bit for bit: C = 1, 3, 10,000
+    and 100,000; n = 0, 1, 1% and every column; two scatters back to back
+    through the public wrapper; the pageable yardstick by name; then the
+    staged launch captured once a C into a CUDA graph and replayed with n
+    changing between replays (0, 1, 1%, C, 1, 0)."""
     from repro_torch.kernels import rank_delta as rd
     dev = torch.device("cuda")
-    cases = 0
+    cases = replays = 0
     for C in (1, 3, 10_000, 100_000):
         prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, C)).astype(
             np.float32)).to(dev)
-        for n in sorted({0, 1, max(1, C // 100), C}):
+        ns = sorted({0, 1, max(1, C // 100), C})
+        for n in ns:
             pairs = [make_pairs(np, rng, C, n) for _ in range(2)]
             got = [rd.scatter_prices(*p, prices) for p in pairs]
-            for p, out in zip(pairs, got):
+            got.append(rd._launch_scatter_pageable(*pairs[0], prices))
+            for name, p, out in zip(("scatter", "scatter",
+                                     "scatter_pageable"),
+                                    pairs + pairs[:1], got):
                 want = rd.scatter_prices_plain(*p, prices)
                 check(all(bitwise(torch, a, b) for a, b in zip(out, want)),
-                      f"scatter C={C} n={n}: differs from the plain "
+                      f"{name} C={C} n={n}: differs from the plain "
                       f"version")
-                errs["scatter"] = max(errs["scatter"],
-                                      max_err(torch, out[0], want[0]))
+                errs[name] = max(errs[name], max_err(torch, out[0], want[0]))
             cases += 1
+        staging = rd.PairStaging(C, dev)
+        new_p, changed = torch.empty_like(prices), torch.empty_like(prices)
+        graph = rd.capture(lambda: rd._launch_scatter_staged(
+            staging, 0, prices, new_p, changed), dev)
+        for n in ns + [1, 0]:
+            p = make_pairs(np, rng, C, n)
+            staging.fill(0, *p)
+            rd.replay(graph, ("scatter",))
+            staging.release(0)
+            staging.wait(0)
+            want = rd.scatter_prices_plain(*p, prices)
+            check(bitwise(torch, new_p, want[0])
+                  and bitwise(torch, changed, want[1]),
+                  f"scatter C={C} n={n}: a graph replay differs from the "
+                  f"plain version")
+            replays += 1
     log(f"[parity] scatter: {cases} cases (C = 1 to 100,000, n = 0 to C, "
-        f"twice back to back): bitwise ok")
+        f"twice back to back, and scatter_pageable), {replays} replays of "
+        f"one graph a C with n changing: bitwise ok")
+
+
+def in_turns(torch, a, b, iters=100):
+    """``time_ms`` of ``a`` and of ``b`` in turns (a, b, b, a): each the
+    mean of its two turns."""
+    ms = {"a": 0.0, "b": 0.0}
+    for key, fn in (("a", a), ("b", b), ("b", b), ("a", a)):
+        ms[key] += time_ms(torch, fn, iters=iters) / 2
+    return ms["a"], ms["b"]
 
 
 def time_scatter(torch, np, rng, C, frac=0.01):
-    """``scatter`` at C columns and a tick of ``frac`` of them, back to back,
-    beside its plain version (the PyTorch scatter it replaced on the card:
-    upload, ``index_copy``, ``zeros_like``, ``index_fill_``).  It reads its
-    pairs from host memory, so it refuses a CUDA graph and has no graph
-    time."""
+    """``scatter`` at C columns and a tick of ``frac`` of them, back to
+    back through the public wrapper (the pairs packed into the next
+    staging slot and one queued call: what the sharded fleet pays) in
+    turns with the pageable yardstick it replaced (``earlier_ms``; it
+    refuses a graph), and the staged call alone replayed from a CUDA graph
+    (the card's time: the copy, the clear and the kernel's reads over
+    PCIe), beside the plain version (``index_copy``, ``zeros_like``,
+    ``index_fill_``).  Also the kernel's fixed grid from a graph at three
+    sizes: sized for C, :data:`rank_delta.SCATTER_BLOCKS` (the wrapper's
+    cap) and 8.  Returns the records of ``scatter`` and
+    ``scatter_pageable``."""
     from repro_torch.kernels import rank_delta as rd
+    dev = torch.device("cuda")
     n = max(1, int(round(frac * C)))
     prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, C)).astype(
-        np.float32)).to(torch.device("cuda"))
+        np.float32)).to(dev)
     cols, new = make_pairs(np, rng, C, n)
+    staging = rd.PairStaging(C, dev)
+    staging.fill(0, cols, new)
+    new_p, changed = torch.empty_like(prices), torch.empty_like(prices)
 
-    def kernel():
-        return rd._launch_scatter(cols, new, prices)
+    def staged(blocks=None):
+        return lambda: rd._launch_scatter_staged(staging, 0, prices, new_p,
+                                                 changed, blocks)
 
-    def plain():
-        return rd.scatter_prices_plain(cols, new, prices)
-
-    r = dict(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
+    ms, pageable_ms = in_turns(
+        torch, lambda: rd._launch_scatter(cols, new, prices),
+        lambda: rd._launch_scatter_pageable(cols, new, prices))
+    r = dict(ms=ms, device_ms=graph_ms(torch, staged()),
+             earlier_ms=pageable_ms,
+             plain_ms=time_ms(torch, lambda: rd.scatter_prices_plain(
+                 cols, new, prices)),
              library_ms=None, bound=bound_ms(12 * C + 8 * n, n))
     log_time("scatter", r, f"C={C}, n={n}")
-    return r
+    grids = {b: graph_ms(torch, staged(b)) for b in sorted(
+        {-(-C // rd.SCATTER_THREADS), rd.SCATTER_BLOCKS, 8})}
+    log(f"[time] scatter grid at C={C}, n={n} (graph): " + ", ".join(
+        f"{b} blocks {t:.4f} ms" for b, t in grids.items()))
+    pageable = dict(ms=pageable_ms, plain_ms=r["plain_ms"], library_ms=None,
+                    bound=r["bound"])
+    return r, pageable
 
 
 def phase_parity(torch, np, seed):
@@ -1077,10 +1129,12 @@ def dense_densify(np, state, deltas):
 
 
 def pairs_host_step(state, deltas) -> None:
-    """The host step of the pair path: the deltas validated into pairs,
-    and the checks ``scatter_prices`` makes of them before its launch."""
+    """The host step of the pair path: the deltas validated into pairs
+    (distinct columns in range by construction) and packed into a staging
+    slot as the tick packs them."""
     from repro_torch.kernels import rank_delta as rd
-    rd._check_pairs(*state._pairs(deltas), len(state.config_ids))
+    cols, prices = state._pairs(deltas)
+    rd.pack_pairs(state._staging.slots[1 - state._cur], cols, prices)
 
 
 def dense_tick(torch, np, state, deltas) -> int:
@@ -1120,6 +1174,8 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
     from repro_torch.kernels import rank_delta as rd
     from repro_torch.selector import (TorchFusedRankState, rank_dense,
                                       score_contract)
+    from repro_torch.selector.fused_rank import GRAPHS
+    graphs0 = dict(GRAPHS)
     rng, hours, mask, prices, ids, members = fleet_universe(np, seed, J, C,
                                                             S)
     contract = score_contract("torch_fused")
@@ -1167,32 +1223,57 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
           and torch.equal(rb, state.d_row_best) and int(moved) == 0,
           f"{label}: identity tick changed the fleet")
     # the pair path against the dense path it replaced, on the same deltas
-    # from the same state: scores, row minima, prices and moved bit for bit
-    before = (state.d_scores, state.d_row_best, state.d_prices,
-              state._host_prices.copy())
+    # from the same state: scores, row minima, prices and moved bit for
+    # bit.  The state's tensors are its own buffers, rewritten two ticks
+    # later, so the results are cloned; assigning the saved ones back is
+    # an assignment from outside, which the next tick rebinds
+    def snapshot():
+        return (state.d_scores.clone(), state.d_row_best.clone(),
+                state.d_prices.clone(), state._host_prices.copy())
+
+    def restore(saved):
+        (state.d_scores, state.d_row_best, state.d_prices,
+         state._host_prices) = (saved[0], saved[1], saved[2],
+                                saved[3].copy())
+
+    before = snapshot()
     d = next_deltas()[0]
     m_pairs = state.reprice(d)
-    pairs = (state.d_scores, state.d_row_best, state.d_prices)
-    (state.d_scores, state.d_row_best, state.d_prices,
-     state._host_prices) = before
+    pairs = snapshot()[:3]
+    restore(before)
     m_dense = dense_tick(torch, np, state, d)
     check(m_pairs == m_dense and all(
         bitwise(torch, a, b) for a, b in zip(pairs, (
             state.d_scores, state.d_row_best, state.d_prices))),
         f"{label}: the pair tick differs from the dense tick")
+    # the graphed tick against the eager one (the same launches, queued one
+    # by one), on the same deltas from the same state, both directions
+    for _ in range(2):
+        before = snapshot()
+        d = next_deltas()[0]
+        m_graph = state.reprice(d)
+        graphed = snapshot()[:3]
+        restore(before)
+        m_eager = state._reprice(d, graph=False)
+        check(m_graph == m_eager and all(
+            bitwise(torch, a, b) for a, b in zip(graphed, (
+                state.d_scores, state.d_row_best, state.d_prices))),
+            f"{label}: the graphed tick differs from the eager tick")
     # the tick's time, after warm-up, through each path in turns (dense,
-    # pairs, pairs, dense; 25 ticks a turn): the host step + the upload and
-    # scatter + the two kernels + the handoff count read back
-    batches = [next_deltas()[0] for _ in range(120)]
-    for d in batches[:10]:
-        state.reprice(d)
-        dense_tick(torch, np, state, d)
-    ticks_by = {"pairs": state.reprice,
+    # eager, graph, graph, eager, dense; 25 ticks a turn): the host step +
+    # the scatter + the two kernels + the handoff count read back
+    order = ("dense", "eager", "graph", "graph", "eager", "dense")
+    batches = [next_deltas()[0] for _ in range(15 + 25 * len(order))]
+    ticks_by = {"graph": state.reprice,
+                "eager": lambda d: state._reprice(d, graph=False),
                 "dense": lambda d: dense_tick(torch, np, state, d)}
-    host_ms, dev_ms = {"pairs": 0.0, "dense": 0.0}, {"pairs": 0.0,
-                                                      "dense": 0.0}
-    for turn, path in enumerate(("dense", "pairs", "pairs", "dense")):
-        part = batches[10 + 25 * turn:35 + 25 * turn]
+    for i, d in enumerate(batches[:15]):
+        ticks_by[("dense", "eager", "graph")[i % 3]](d)
+    host_ms = dict.fromkeys(ticks_by, 0.0)
+    dev_ms = dict.fromkeys(ticks_by, 0.0)
+    turns = []
+    for turn, path in enumerate(order):
+        part = batches[15 + 25 * turn:40 + 25 * turn]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -1202,31 +1283,55 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
             ticks_by[path](d)
         stop.record()
         torch.cuda.synchronize()
-        host_ms[path] += (time.perf_counter() - t0) * 1e3 / 50
+        turns.append((time.perf_counter() - t0) * 1e3 / 25)
+        host_ms[path] += turns[-1] / 2
         dev_ms[path] += start.elapsed_time(stop) / 50
+    log(f"[fleet] {label}: per tick by turn (host ms): " + ", ".join(
+        f"{path} {ms:.4f}" for path, ms in zip(order, turns)))
     tick_bytes = (J * C * 5 + C * 4 + J * 8) + (
         J * C * 5 + 3 * C * 4 + 2 * J * 4 + S * J * 4 + 2 * S * C * 4)
     log(f"[fleet] {label}: {ticks} ticks, one dispatch each; per tick "
-        f"{dev_ms['pairs']:.4f} ms (CUDA events) / {host_ms['pairs']:.4f} "
-        f"ms (host), bound {tick_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms "
-        f"({tick_bytes} bytes at 3.35 TB/s) on {card}")
+        f"{dev_ms['graph']:.4f} ms (CUDA events) / {host_ms['graph']:.4f} "
+        f"ms (host) through the graph, {dev_ms['eager']:.4f} / "
+        f"{host_ms['eager']:.4f} ms eager "
+        f"({host_ms['graph'] / host_ms['eager']:.2f} x by the host clock, "
+        f"in turns), bound "
+        f"{tick_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms ({tick_bytes} bytes "
+        f"at 3.35 TB/s) on {card}")
     # where the tick's time goes: the host step alone (validation and
-    # checks; for the dense path the densify), and the two kernels alone
-    # on the fleet's own tensors, replayed from a CUDA graph (the card's
-    # time); the rest is the upload and scatter, the launches' host work
-    # and the handoff count read back
-    host_step = {"pairs": lambda d: pairs_host_step(state, d),
+    # checks; for the dense path the densify), the two kernels alone on the
+    # fleet's own tensors replayed from a CUDA graph (the card's time), and
+    # the fleet's own tick graph replayed back to back (CUDA events: its
+    # copy, clear, scatter, rowmin, fold and handoff copy); the rest is the
+    # launches' or the replay's host work and the handoff count read back
+    host_step = {"graph": lambda d: pairs_host_step(state, d),
+                 "eager": lambda d: pairs_host_step(state, d),
                  "dense": lambda d: dense_densify(np, state, d)}
-    step_ms = {"pairs": 0.0, "dense": 0.0}
-    for path in ("dense", "pairs", "pairs", "dense"):
+    step_ms = dict.fromkeys(ticks_by, 0.0)
+    for path in order:
         t0 = time.perf_counter()
-        for d in batches[10:60]:
+        for d in batches[15:65]:
             host_step[path](d)
         step_ms[path] += (time.perf_counter() - t0) * 1e3 / 100
     kernels_ms = graph_ms(torch, lambda: rd.fused_reprice(
         state.d_hours, state.d_mask, state.d_prices, state.d_prices, zeros,
         state.d_row_best, state.d_row_masks, state.d_scores))
-    for path in ("pairs", "dense"):
+    # (a rehearsal on the CPU keeps no graph: nothing to replay or count)
+    on_card = state.device.type == "cuda"
+    tick_graph = state._graphs[state._cur]
+    check(tick_graph is not None or not on_card,
+          f"{label}: the fleet holds no tick graph")
+    graph_card_ms = time_ms(torch, tick_graph.replay) if on_card else None
+    # one replay and its wait, by the host clock: the graph's launch and
+    # card time when nothing is queued behind it, as a tick sees them
+    replay_ms = None
+    if on_card:
+        t0 = time.perf_counter()
+        for _ in range(100):
+            tick_graph.replay()
+            torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3 / 100
+    for path in ("graph", "eager", "dense"):
         log(f"[fleet] {label}: {path} path, per tick {host_ms[path]:.4f} ms "
             f"(host; {dev_ms[path]:.4f} by CUDA events): densify "
             f"{step_ms[path]:.4f} ms (host), rowmin+fold {kernels_ms:.4f} "
@@ -1234,6 +1339,17 @@ def phase_fleet(torch, np, seed, J, C, S, ticks, check_every, label,
             f"{host_ms[path] - step_ms[path] - kernels_ms:.4f} ms; the "
             f"kernels' card time is {kernels_ms / host_ms[path]:.1%} of the "
             f"tick")
+    if on_card:
+        log(f"[fleet] {label}: the tick graph replayed back to back "
+            f"{graph_card_ms:.4f} ms a tick (CUDA events; rowmin+fold alone "
+            f"{kernels_ms:.4f}), one replay and its wait {replay_ms:.4f} ms "
+            f"(host); graphs this phase: " + ", ".join(
+                f"{k} {v - graphs0[k]}" for k, v in GRAPHS.items()))
+        check(GRAPHS["replays"] > graphs0["replays"],
+              f"{label}: no tick was served by a graph")
+    return dict(host_ms=host_ms, dev_ms=dev_ms, step_ms=step_ms,
+                kernels_ms=kernels_ms, graph_card_ms=graph_card_ms,
+                replay_ms=replay_ms)
 
 
 # --- phase 3b: the sharded fleet -----------------------------------------------
@@ -5268,8 +5384,10 @@ def main() -> int:
     heads_times = time_kernels(torch, big_shape)
     fleet_times = time_kernels(torch, main_shape)
     scatter_rng = np.random.default_rng(args.seed + 3)
-    scatter_times = {C: time_scatter(torch, np, scatter_rng, C)
-                     for C in (10_000, 100_000)}
+    scatter_times, pageable_times = {}, {}
+    for C in (10_000, 100_000):
+        scatter_times[C], pageable_times[C] = time_scatter(torch, np,
+                                                           scatter_rng, C)
     done("parity")
     phase_fleet(torch, np, args.seed, 64, 10_000, 16, 100, 10,
                 "64x10000x16", card)
@@ -5281,10 +5399,19 @@ def main() -> int:
     phase_sharded(torch, np, rd, args.seed, card)
     sharded_launches = phase_sharded_service(torch, np, rd, args.seed, errs)
     done("sharded")
+    from repro_torch.selector import fused_rank
     rd.reset_launches()
+    fused_rank.reset_graphs()
     service, store, table = phase_service(np, args.seed)
     launches = dict(rd.LAUNCHES)
+    graphs = dict(fused_rank.GRAPHS)
     done("service")
+    # the daemon's ticks replay the fleet's tick graph (its first runs
+    # eagerly, and each capture serves every tick in its direction after)
+    log(f"[service] tick graphs: {graphs} for "
+        f"{service.reprice_dispatches} fleet ticks")
+    check(graphs["replays"] > 0 and graphs["captures"] > 0,
+          f"main path: no tick was served by a graph ({graphs})")
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on "
               f"the main path")
@@ -5302,6 +5429,7 @@ def main() -> int:
     # scatter's: the service's C and a 1% tick
     times["select_sort"] = head_times[(1, 10_000, rd.SELECT_CAP + 1)]
     times["scatter"] = scatter_times[10_000]
+    times["scatter_pageable"] = pageable_times[10_000]
     phase_guard(torch, rd, row)
     done("main-path kernels")
     frontend = phase_frontend(torch, np, args.seed, service, store, card,

@@ -3,7 +3,8 @@
 // plain C interface, loaded with ctypes by
 // repro_torch/kernels/rank_delta.py; every entry point returns
 // cudaGetLastError() after its launch and never synchronizes (but for
-// what CUDA may do to stage rank_delta_scatter's pageable upload).
+// what CUDA may do to stage rank_delta_scatter_pageable's upload, and
+// the page-locked allocation entries).
 //
 // Replaces the Pallas kernel repro/kernels/rank_delta.py::_make_kernel
 // (fused_reprice, and fused_reprice_heads with heads=k).  The TPU grid ran
@@ -42,19 +43,42 @@
 // count moved, so it saves nothing.  Launches that share a scratch must be
 // ordered: the wrapper keeps one scratch a (device, stream).
 //
-// The tick's prices (rank_delta_scatter).  The reference densifies each
-// tick on the host (repro/selector/pallas_rank.py::_dense_tick: a (1, C)
-// price vector and a (1, C) changed vector, both uploaded).  Here the
-// tick's n (int32 column, float32 price) pairs go up in one copy, the
-// old prices are copied, the flags cleared, and one small kernel writes
-// each pair's price and flag: four operations queued by one call.  The
-// copy is from pageable memory, which CUDA has read when the call
-// returns, so the caller holds no buffer past it and no event guards one;
-// a graph capture is refused, since a replay would re-read host memory.
-// What bounds it is the host: the card moves 12 C + 8 n bytes, well
-// under a microsecond, while each PyTorch operation of the same
-// scatter (upload, index_copy, zeros_like, index_fill_) costs the host
-// 8-16 us.  The columns are distinct, so the writes never race.
+// The tick's prices (rank_delta_scatter_mapped, kernel scatter).  The
+// reference densifies each tick on the host
+// (repro/selector/pallas_rank.py::_dense_tick: a (1, C) price vector and
+// a (1, C) changed vector, both uploaded).  Here the host writes the
+// tick's n (int32 column, float32 price) pairs into a staging slot of
+// page-locked host memory mapped into the card's address space
+// (cudaHostAllocMapped | cudaHostAllocPortable, rank_delta_host_alloc):
+// word 0 holds n, words 1 to cap the columns, the cap words after them
+// the prices, so a slot is 8 cap + 4 bytes and never grows (the columns
+// are distinct, so n <= C = cap for a fleet).  Two launches, counted as
+// one: scatter_prepare_kernel copies old_p into new_p and clears changed
+// on a grid over C, while one of its threads reads n from the slot into
+// a word on the card; scatter_staged_kernel then reads n there and walks
+// the pairs in a grid-stride loop on a grid the wrapper fixes from C
+// alone, writing each pair's price and a 1.0 flag (the columns are
+// distinct, so the writes never race).  Nothing in either launch depends
+// on n, and the slot is read when the kernels run, not when they are
+// queued: a CUDA graph captures the two once and every replay reads the
+// pairs the host wrote before it.  The reads are zero-copy (__ldcv, never
+// a cached line) rather than a memcpy node, whose size a graph fixes at
+// capture (a copy of all C pairs a tick, or a graph a size).  Why one
+// thread reads n: with every block reading it (the first design), the
+// uncached reads of that one word went over PCIe one after another, about
+// 1.2 us a block on the H100 (8 blocks 0.0164 ms, 132 blocks 0.1649 ms a
+// call from a graph at C = 10,000, n = 100), while the pairs' reads, each
+// word read once, overlap.  The copy and the clear go in the first launch
+// and not in the second: a pair's write must land after the copy of its
+// column, an order across blocks that two launches give and one would
+// need a grid-wide barrier for.  The host must not rewrite a slot while
+// a queued launch may still read it; the wrapper alternates slots and
+// waits on the event recorded after a slot's last launch.  What bounds
+// it: 12 C + 8 n bytes on the card (0.04 us at 10,000 columns), plus one
+// PCIe round trip for n and one for the pairs, about a microsecond each.
+// rank_delta_scatter_pageable, the entry it replaced and the yardstick,
+// sends the pairs from pageable memory in a copy whose size only the host
+// knows, so it refuses a graph capture.
 //
 // The fold (fold_rows_kernel).  With one thread a column walking all J
 // rows (fold_col_kernel, kept as the yardstick), 10,000 columns are 2.4
@@ -134,6 +158,8 @@ constexpr int kFoldMembers = 16;    // member accumulators in registers
 constexpr int kFoldCols = 32;       // fold_rows: columns a block, one a lane
 constexpr int kFoldWarps = 8;       // fold_rows: row groups a block
 constexpr int kSelectThreads = 512;
+constexpr int kScatterThreads = 256;  // scatter: threads a block
+constexpr int kScatterPrepBlocks = 1024;  // scatter: copy and clear
 constexpr int kWarp = 32;
 constexpr int kNoIndex = 0x7fffffff;  // sorts after every column
 
@@ -279,8 +305,8 @@ rowmin_split_kernel(const float* __restrict__ hours,
   if (threadIdx.x == 0) *moved = n;
 }
 
-// The pairs' prices and flags: thread i writes pair i (the wrapper has
-// checked that the columns are distinct and in [0, C)).
+// The pageable yardstick's pairs: thread i writes pair i (the wrapper
+// has checked that the columns are distinct and in [0, C)).
 __global__ void scatter_kernel(const int* __restrict__ cols,
                                const float* __restrict__ prices, int n,
                                float* __restrict__ new_p,
@@ -290,6 +316,44 @@ __global__ void scatter_kernel(const int* __restrict__ cols,
   const int c = cols[i];
   new_p[c] = prices[i];
   changed[c] = 1.0f;
+}
+
+// Scatter, launch 1 of 2 (see the note above): new_p = old_p and
+// changed = 0 over the grid, and the slot's n, clamped to the slot, into
+// *count by one thread.
+__global__ void scatter_prepare_kernel(const int* staged, int cap, int C,
+                                       const float* __restrict__ old_p,
+                                       float* __restrict__ new_p,
+                                       float* __restrict__ changed,
+                                       int* __restrict__ count) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *count = min(max(__ldcv(staged), 0), cap);
+  for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < C;
+       c += gridDim.x * blockDim.x) {
+    new_p[c] = old_p[c];
+    changed[c] = 0.0f;
+  }
+}
+
+// Scatter, launch 2 of 2: the grid walks the staged pairs.  A column
+// outside [0, C) is skipped, so a corrupt slot cannot write outside the
+// vectors; the wrapper has checked the columns.
+__global__ void scatter_staged_kernel(const int* staged, int cap, int C,
+                                      const int* __restrict__ count,
+                                      float* __restrict__ new_p,
+                                      float* __restrict__ changed) {
+  const int n = *count;
+  const int* cols = staged + 1;
+  const float* prices = reinterpret_cast<const float*>(staged + 1 + cap);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int c = __ldcv(cols + i);
+    const float p = __ldcv(prices + i);
+    if ((unsigned)c < (unsigned)C) {
+      new_p[c] = p;
+      changed[c] = 1.0f;
+    }
+  }
 }
 
 // Both norms of cell (j, c) from its hours h, and their difference:
@@ -934,18 +998,58 @@ int rank_delta_rowmin(const float* hours, const uint8_t* mask,
   return (int)cudaGetLastError();
 }
 
-// The tick's new prices and changed flags from n (column, price) pairs:
-// cols holds n int32 columns (distinct, in [0, C)) and prices n float32
-// prices, both in host memory; dev_pairs is 8 n bytes on the card.  new_p
-// = old_p with the pairs' prices; changed = 1.0 at their columns and 0
-// elsewhere.  The pairs are packed into one pageable buffer and sent in
-// one copy; cudaMemcpyAsync returns once CUDA has read it (it stages
-// pageable memory), so nothing on the host is held past the call.  A
-// stream being captured into a graph is refused with
-// cudaErrorStreamCaptureUnsupported.
-int rank_delta_scatter(const int* cols, const float* prices, void* dev_pairs,
-                       const float* old_p, float* new_p, float* changed,
-                       int n, int C, void* stream) {
+// The tick's new prices and changed flags from the pairs in a staging
+// slot (see the note above): staged is the slot's address on the card,
+// 1 + 2 cap int32 words, and count one int on the card for its n; new_p =
+// old_p with the pairs' prices, changed = 1.0 at their columns and 0
+// elsewhere.  blocks (at least 1) is the pair launch's fixed grid.  A
+// graph may capture it.
+int rank_delta_scatter_mapped(const int* staged, int cap, int* count,
+                              const float* old_p, float* new_p,
+                              float* changed, int C, int blocks,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C < 0 || cap < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (C == 0) return (int)cudaGetLastError();
+  const int prep = min((C + kScatterThreads - 1) / kScatterThreads,
+                       kScatterPrepBlocks);
+  scatter_prepare_kernel<<<prep, kScatterThreads, 0, st>>>(
+      staged, cap, C, old_p, new_p, changed, count);
+  scatter_staged_kernel<<<blocks, kScatterThreads, 0, st>>>(
+      staged, cap, C, count, new_p, changed);
+  return (int)cudaGetLastError();
+}
+
+// bytes of zeroed page-locked host memory mapped into the card's address
+// space: *host is its host address, *dev its address on the card.  For
+// the staging slots and the tick's handoff count, which rowmin's last
+// block writes there directly.
+int rank_delta_host_alloc(size_t bytes, void** host, void** dev) {
+  cudaError_t err = cudaHostAlloc(host, bytes, cudaHostAllocMapped |
+                                                   cudaHostAllocPortable);
+  if (err != cudaSuccess) return (int)err;
+  memset(*host, 0, bytes);
+  err = cudaHostGetDevicePointer(dev, *host, 0);
+  if (err != cudaSuccess) {
+    cudaFreeHost(*host);
+    *host = nullptr;
+  }
+  return (int)err;
+}
+
+int rank_delta_host_free(void* host) { return (int)cudaFreeHost(host); }
+
+// The entry scatter replaced, kept as the yardstick: cols holds n int32
+// columns (distinct, in [0, C)) and prices n float32 prices, both in
+// host memory; dev_pairs is 8 n bytes on the card.  The pairs are packed
+// into one pageable buffer and sent in one copy; cudaMemcpyAsync returns
+// once CUDA has read it (it stages pageable memory), so nothing on the
+// host is held past the call.  A stream being captured into a graph is
+// refused with cudaErrorStreamCaptureUnsupported.
+int rank_delta_scatter_pageable(const int* cols, const float* prices,
+                                void* dev_pairs, const float* old_p,
+                                float* new_p, float* changed, int n, int C,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n < 0 || C < 0) return (int)cudaErrorInvalidValue;
   cudaStreamCaptureStatus capture;

@@ -108,7 +108,9 @@ def current_stream(t) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _one_card() -> bool:
+def one_card() -> bool:
+    """Whether the process sees one card (so every CUDA tensor is on the
+    current one)."""
     return torch.cuda.device_count() == 1
 
 
@@ -121,7 +123,7 @@ def launch_on(t, entry, *args) -> int:
     the current device, so it calls ``entry`` directly; with several, two
     raw device exchanges (a fraction of ``torch.cuda.device``'s context
     manager) surround the call."""
-    if _one_card():
+    if one_card():
         return entry(*args)
     prev = torch.cuda._exchange_device(t.device.index)
     try:

@@ -6,8 +6,8 @@
 ``BatchedRankState``): one shared (J x C) universe, member slots with
 their row masks (S x J) and score accumulators (S x C), one dispatch per
 tick for the whole fleet, and per-member serving.  The tick runs
-:func:`repro_torch.kernels.rank_delta.fused_reprice` — two kernel
-launches, row minima then member folds — on the card.
+:func:`repro_torch.kernels.rank_delta.tick_into` — the price scatter, the
+row minima, then the member folds — on the card.
 
 No cost or norm matrix is kept: both are recomputed from the read-only
 ``hours``/``mask`` residents and the price vector, which float32 IEEE
@@ -15,13 +15,29 @@ elementwise arithmetic makes bit-identical to what a stored matrix would
 hold (DESIGN.md §14).  Per-tick state is the price vector, the masked
 row minima and the member accumulators.
 
-A tick's deltas go to the card as (int32 column, float32 price) pairs in
-one copy (:func:`~repro_torch.kernels.rank_delta.scatter_prices`) and are
+A tick's deltas become (int32 column, float32 price) pairs on the host,
+packed into a slot of page-locked host memory that the card reads
+directly (:class:`~repro_torch.kernels.rank_delta.PairStaging`), and are
 scattered there into the tick's ``(1, C)`` price vector and
-changed-column flags.  Duplicates
-collapse on the host (the last wins), so the columns are distinct and the
-scatter deterministic.  The job axis needs no padding (the reference
-padded it to its TPU tile).
+changed-column flags.  Duplicates collapse on the host (the last wins),
+so the columns are distinct and the scatter deterministic.  The job axis
+needs no padding (the reference padded it to its TPU tile).
+
+**The tick as a CUDA graph.**  The state keeps two fixed sets of tick
+buffers (:class:`~repro_torch.kernels.rank_delta.TickSet`: prices, flags,
+row minima, scores) and ticks from one into the other, and two staging
+slots that alternate with them.  So each direction's tick (scatter,
+rowmin, which writes the moved count straight to the host, and fold) is
+the same launches on the same addresses: on the card it is captured once
+into a CUDA graph a direction and replayed every tick after the first,
+which runs eagerly.  ``d_prices``, ``d_row_best`` and ``d_scores`` are the
+current set's buffers, rewritten two ticks later: clone them to keep
+them.  Before each tick the state checks that they are still its own; a
+tensor assigned to one of them from outside is copied into its own
+buffer (a rebind: the graphs stay).  A grow, which replaces the member
+tensors, or new ``d_hours``, ``d_mask`` or ``d_row_masks`` drop the
+graphs, which are captured again.  :data:`GRAPHS` counts all four.  On
+the CPU the same buffers and rotation run the plain versions, eagerly.
 
 :class:`FleetMembers` is the host half this state shares with the
 sharded fleet (:mod:`repro_torch.selector.sharded`): member slots,
@@ -35,9 +51,10 @@ from typing import Dict, Hashable, List, Mapping, Optional, Sequence, \
 import numpy as np
 import torch
 
-from repro_torch.kernels.rank_delta import (fused_reprice,
-                                            fused_reprice_heads,
-                                            scatter_prices, select_heads)
+from repro_torch.kernels.rank_delta import (PairStaging, TickSet, capture,
+                                            replay, rowmin_scratch,
+                                            select_heads, tick_buffers,
+                                            tick_into)
 from repro_torch.obs import MetricsRegistry, maybe_span
 from repro_torch.selector.rank import (
     BackendUnavailableError,
@@ -52,7 +69,22 @@ from repro_torch.selector.rank import (
     _validated_deltas,
 )
 
-__all__ = ["FleetMembers", "TorchFusedRankState", "resolve_device"]
+__all__ = ["FleetMembers", "GRAPHS", "TorchFusedRankState",
+           "resolve_device"]
+
+#: the fused fleets' tick graphs since the last :func:`reset_graphs`:
+#: ``captures`` (one a direction, again after an invalidation),
+#: ``replays`` (a tick the card ran from a graph), ``rebinds`` (a state
+#: tensor assigned from outside, copied into the state's own buffer) and
+#: ``invalidations`` (tick buffers reallocated or a captured input
+#: replaced; counted on the CPU too, where no graph is kept)
+GRAPHS: Dict[str, int] = {"captures": 0, "replays": 0, "rebinds": 0,
+                          "invalidations": 0}
+
+
+def reset_graphs() -> None:
+    for name in GRAPHS:
+        GRAPHS[name] = 0
 
 Deltas = Union[Mapping[Hashable, float], Sequence[Tuple[Hashable, float]]]
 
@@ -349,6 +381,15 @@ class TorchFusedRankState(FleetMembers):
 
     def _init_members(self, cap: int) -> None:
         self._init_slots(cap)
+        # the tick's two buffer sets and staging slots, made at the first
+        # tick; _cur is the set the state's tensors are
+        self._sets: Optional[Tuple[TickSet, TickSet]] = None
+        self._cur = 0
+        self._staging: Optional[PairStaging] = None
+        self._graphs: List = [None, None]
+        self._inputs: Optional[Tuple[torch.Tensor, ...]] = None
+        self._scratch = None
+        self._warm = False
         n_cfgs = len(self.config_ids)
         self.d_row_masks = torch.zeros((cap, self._n_jobs),
                                        dtype=torch.float32,
@@ -395,24 +436,113 @@ class TorchFusedRankState(FleetMembers):
         row = self.d_scores[self._slot_of(key)]
         return row.cpu().numpy().astype(np.float64)
 
+    def _bind(self) -> Tuple[TickSet, TickSet]:
+        """The tick's ``(source, target)`` sets, after making the state's
+        tensors its own buffers again: sets (re)made where the shapes
+        changed, a tensor assigned from outside copied in, and the graphs
+        dropped where a captured input is another tensor now."""
+        sets, inputs = self._sets, self._inputs
+        if sets is not None:                   # the usual tick: all its own
+            own = sets[self._cur]
+            if (self.d_scores is own.scores
+                    and self.d_row_best is own.row_best
+                    and self.d_prices is own.prices
+                    and self.d_hours is inputs[0]
+                    and self.d_mask is inputs[1]
+                    and self.d_row_masks is inputs[2]):
+                return own, sets[1 - self._cur]
+        S, C = self.d_scores.shape
+        shapes = (self.d_prices.shape, self.d_row_best.shape, (S, C))
+        fresh = sets is None or shapes != (
+            sets[0].prices.shape, sets[0].row_best.shape,
+            sets[0].scores.shape)
+        if fresh:
+            if sets is not None:
+                GRAPHS["invalidations"] += 1
+            sets = self._sets = tuple(
+                tick_buffers(self._n_jobs, C, S, self.device)
+                for _ in range(2))
+            self._graphs = [None, None]
+        own = sets[self._cur]
+        for name in ("d_prices", "d_row_best", "d_scores"):
+            mine, t = getattr(own, name[2:]), getattr(self, name)
+            if t is not mine:
+                mine.copy_(t)
+                setattr(self, name, mine)
+                GRAPHS["rebinds"] += not fresh
+        inputs = (self.d_hours, self.d_mask, self.d_row_masks)
+        if self._inputs is None or any(
+                a is not b for a, b in zip(inputs, self._inputs)):
+            if self._inputs is not None and not fresh:
+                GRAPHS["invalidations"] += 1
+            self._inputs = inputs
+            self._graphs = [None, None]
+        if self._staging is None:
+            self._staging = PairStaging(C, self.device)
+        return own, sets[1 - self._cur]
+
+    def _capture(self, slot: int):
+        """The tick from set ``slot`` into the other, captured."""
+        scratch = self._scratch or rowmin_scratch(
+            self.device, self._n_jobs, len(self.config_ids))
+        src, dst = self._sets[slot], self._sets[1 - slot]
+        graph = capture(lambda: tick_into(
+            self.d_hours, self.d_mask, self.d_row_masks, self._staging, slot,
+            src, dst, scratch=scratch), self.device)
+        self._scratch = scratch
+        GRAPHS["captures"] += 1
+        return graph
+
+    def _tick(self, pairs: Tuple[np.ndarray, np.ndarray], graph: bool
+              ) -> Tuple[TickSet, int]:
+        """One tick into the other set, completed: ``(target set, moved)``.
+        The state's tensors stay the source set's until :meth:`_turn`.  On
+        the card a warm state replays the direction's graph (captured
+        first where it has none); ``graph=False``, or the first tick, runs
+        the same launches eagerly."""
+        src, dst = self._bind()
+        slot, staging = self._cur, self._staging
+        # _pairs' columns are distinct and in range by construction
+        staging.fill(slot, *pairs)
+        if graph and self._warm:
+            if self._graphs[slot] is None:
+                self._graphs[slot] = self._capture(slot)
+            replay(self._graphs[slot])
+            GRAPHS["replays"] += 1
+        else:
+            tick_into(self.d_hours, self.d_mask, self.d_row_masks, staging,
+                      slot, src, dst)
+            self._warm = self.device.type == "cuda"
+        # the tick's last node records the slot's event
+        staging.wait(slot)
+        return dst, int(staging.moved[slot])
+
+    def _turn(self, pairs: Tuple[np.ndarray, np.ndarray]) -> None:
+        """The tick's target set becomes the state's, and the host mirror
+        and counts take the tick."""
+        self._cur ^= 1
+        own = self._sets[self._cur]
+        self.d_prices, self.d_row_best, self.d_scores = (
+            own.prices, own.row_best, own.scores)
+        self._commit(*pairs)
+
     def reprice(self, deltas: Deltas) -> int:
         """Apply ``{config_id: new $/h}`` deltas with ONE fused dispatch
         refreshing every member; returns #rows whose masked row-minimum
         handed off (read back to the host, so a return means the tick's
-        kernels have completed)."""
+        kernels have completed).  On the card the dispatch is a replay of
+        the tick's CUDA graph."""
+        return self._reprice(deltas, graph=True)
+
+    def _reprice(self, deltas: Deltas, graph: bool) -> int:
+        """:meth:`reprice`; ``graph=False`` runs the tick's launches eagerly
+        (the yardstick, by name only)."""
         pairs = self._pairs(deltas)
         if pairs is None:
             return 0
-        # the pairs to the card in one copy, scattered there into the
-        # tick's (1, C) new prices and changed flags (1 at every pair's
-        # column, moved or not)
-        d_newp, changed = scatter_prices(*pairs, self.d_prices)
-        self.d_scores, self.d_row_best, moved = fused_reprice(
-            self.d_hours, self.d_mask, self.d_prices, d_newp, changed,
-            self.d_row_best, self.d_row_masks, self.d_scores)
-        self.d_prices = d_newp
-        self._commit(*pairs)
-        return int(moved.item())
+        _, moved = self._tick(pairs, graph)
+        self._turn(pairs)
+        return moved
 
     def reprice_with_heads(self, deltas: Deltas, k: int
                            ) -> Tuple[int, Dict[Hashable,
@@ -425,19 +555,15 @@ class TorchFusedRankState(FleetMembers):
         pairs = self._pairs(deltas)
         if pairs is None:
             return 0, {key: self.top_k(key, k) for key in self._slots}
-        d_newp, changed = scatter_prices(*pairs, self.d_prices)
-        (self.d_scores, self.d_row_best, moved,
-         top_i, top_v) = fused_reprice_heads(
-            self.d_hours, self.d_mask, self.d_prices, d_newp, changed,
-            self.d_row_best, self.d_row_masks, self.d_scores,
-            self._d_finite, k=k)
-        self.d_prices = d_newp
-        self._commit(*pairs)
+        # the tick's graph, then select on its scores
+        dst, moved = self._tick(pairs, graph=True)
+        top_i, top_v = select_heads(dst.scores, self._d_finite, k)
         top_i = top_i.cpu().numpy()
         top_v = top_v.cpu().numpy().astype(np.float64)
+        self._turn(pairs)
         heads = {key: self._head(slot, top_i[slot], top_v[slot])
                  for key, slot in self._slots.items()}
-        return int(moved.item()), heads
+        return moved, heads
 
     # -- per-member serving ----------------------------------------------------
     def heads(self, keys: Sequence[Hashable], k: int

@@ -19,6 +19,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rank_delta as rd
 from repro_torch.kernels import rwkv6_scan as wk
+from repro_torch.selector import fused_rank
 from repro_torch.models import LM
 from repro_torch.serve import Engine, Request
 from repro_torch.selector import (IdentityCatalog, PriceTable,
@@ -75,8 +76,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
     before = dict(rd.LAUNCHES)
     s, rb, mv, ti, tv = rd.fused_reprice_heads(*t, fin, k=10)
     assert {n: rd.LAUNCHES[n] - before[n] for n in before} == \
-        {"scatter": 0, "rowmin": 1, "rowmin_row": 0, "fold": 1,
-         "fold_col": 0, "select": 1, "select_sort": 0, "select_rounds": 0}
+        {"scatter": 0, "scatter_pageable": 0, "rowmin": 1, "rowmin_row": 0,
+         "fold": 1, "fold_col": 0, "select": 1, "select_sort": 0,
+         "select_rounds": 0}
     rb_p, mv_p = rd.rowmin_plain(t[0], t[1], t[3], t[5])
     assert torch.equal(rb, rb_p) and int(mv) == int(mv_p)
     s_p = rd.fold_plain(*t[:6], rb, t[6], t[7])
@@ -331,6 +333,257 @@ def test_cuda_scatter_refuses_bad_columns(cuda_device):
         with pytest.raises(ValueError, match="columns must"):
             rd.scatter_prices(np.array(cols), np.ones(len(cols)), prices)
     assert rd.LAUNCHES == before
+
+
+def _staged_cases(rng, C):
+    """Pairs for n = 0, 1, 1%, every column, then 1 and 0 again: what one
+    graph replays with n changing."""
+    ns = sorted({0, 1, max(1, C // 100), C}) + [1, 0]
+    return [(rng.choice(C, n, replace=False).astype(np.int32),
+             rng.uniform(0.5, 20.0, n).astype(np.float32)) for n in ns]
+
+
+def _assert_bits(a, b):
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("C", [1, 3, 257, 10_000, 100_000])
+def test_cuda_staged_scatter_matches_plain_across_replays(cuda_device, C):
+    """Kernel ``scatter`` from a staging slot equals its plain version bit
+    for bit, launched and replayed from ONE captured graph whose pairs
+    change between replays (n = 0, 1, 1%, C, 1, 0); the old prices stay
+    as they were, and each replay counts one ``scatter``."""
+    rng = np.random.default_rng(C)
+    prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, C)).astype(
+        np.float32)).to(cuda_device)
+    keep = prices.clone()
+    staging = rd.PairStaging(C, cuda_device)
+    new_p, changed = torch.empty_like(prices), torch.empty_like(prices)
+    cases = _staged_cases(rng, C)
+    for cols, new in cases:
+        staging.fill(0, cols, new)
+        rd._launch_scatter_staged(staging, 0, prices, new_p, changed)
+        staging.release(0)
+        staging.wait(0)
+        for a, b in zip((new_p, changed),
+                        rd.scatter_prices_plain(cols, new, prices)):
+            _assert_bits(a, b)
+    graph = rd.capture(lambda: rd._launch_scatter_staged(
+        staging, 1, prices, new_p, changed), cuda_device)
+    before = dict(rd.LAUNCHES)
+    for cols, new in cases:
+        staging.fill(1, cols, new)
+        rd.replay(graph, ("scatter",))
+        staging.release(1)
+        staging.wait(1)
+        for a, b in zip((new_p, changed),
+                        rd.scatter_prices_plain(cols, new, prices)):
+            _assert_bits(a, b)
+    assert {k: rd.LAUNCHES[k] - before[k] for k in before} == \
+        {k: len(cases) * int(k == "scatter") for k in before}
+    assert torch.equal(prices, keep)
+
+
+def test_cuda_pageable_scatter_is_the_yardstick(cuda_device):
+    """The scatter it replaced, by name only: equal to the plain version,
+    counted as ``scatter_pageable`` (not ``scatter``), and it refuses a
+    graph capture."""
+    rng = np.random.default_rng(4)
+    prices = torch.from_numpy(rng.uniform(0.5, 20.0, (1, 10_000)).astype(
+        np.float32)).to(cuda_device)
+    cols = rng.choice(10_000, 100, replace=False).astype(np.int32)
+    new = rng.uniform(0.5, 20.0, 100).astype(np.float32)
+    before = dict(rd.LAUNCHES)
+    got = rd._launch_scatter_pageable(cols, new, prices)
+    for a, b in zip(got, rd.scatter_prices_plain(cols, new, prices)):
+        _assert_bits(a, b)
+    assert {k: rd.LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == "scatter_pageable") for k in before}
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        rd.capture(lambda: rd._launch_scatter_pageable(cols, new, prices),
+                   cuda_device)
+
+
+def _graph_fleet(device, seed, J, C, S, capacity=None):
+    rng = np.random.default_rng(seed)
+    hours = rng.uniform(0.05, 10.0, (J, C))
+    mask = rng.random((J, C)) > 0.15
+    mask[np.arange(J), rng.integers(0, C, J)] = True
+    prices = rng.uniform(0.5, 20.0, C)
+    ids = [f"c{i}" for i in range(C)]
+    members = {"all": list(range(J))}
+    for m in range(S - 1):
+        members[f"m{m}"] = sorted(int(i) for i in rng.choice(
+            J, int(rng.integers(1, J)), replace=False))
+    state = TorchFusedRankState(hours, mask, prices, ids,
+                                capacity=capacity or S, device=device)
+    for key, rows in members.items():
+        state.add_state(key, rows=rows)
+    return state, ids, members
+
+
+def _tick_deltas(rng, state, ids, frac=0.01):
+    C = len(ids)
+    cols = rng.choice(C, max(1, int(C * frac)), replace=False)
+    live = state.prices
+    return {ids[c]: float(live[c] * rng.uniform(0.7, 1.3)) for c in cols}
+
+
+def _eager_tick(state, deltas):
+    """The tick on new tensors from the state's current ones, and the
+    dense tick from the same: ``((scores, rb, prices, moved), ...)``."""
+    pairs = state._pairs(deltas)
+    newp, changed = rd.scatter_prices(*pairs, state.d_prices)
+    s, rb, mv = rd.fused_reprice(
+        state.d_hours, state.d_mask, state.d_prices, newp, changed,
+        state.d_row_best, state.d_row_masks, state.d_scores)
+    dense_p = state._host_prices.copy()
+    dense_p[0, pairs[0]] = pairs[1]
+    flags = np.zeros_like(dense_p)
+    flags[0, pairs[0]] = 1.0
+    d_newp = torch.from_numpy(dense_p).to(state.device)
+    ds, drb, dmv = rd.fused_reprice(
+        state.d_hours, state.d_mask, state.d_prices, d_newp,
+        torch.from_numpy(flags).to(state.device), state.d_row_best,
+        state.d_row_masks, state.d_scores)
+    return ((s, rb, newp, int(mv.item())),
+            (ds, drb, d_newp, int(dmv.item())))
+
+
+def _assert_state_is(state, moved, want):
+    scores, rb, newp, want_moved = want
+    assert moved == want_moved
+    _assert_bits(state.d_scores, scores)
+    _assert_bits(state.d_row_best, rb)
+    _assert_bits(state.d_prices, newp)
+
+
+def test_cuda_graphed_tick_equals_eager_tick_over_100_ticks(cuda_device):
+    """Two fleets at 64 x 10,000 x 16 from one seed take the same 100
+    ticks of 1% of prices (every fifth with heads): the graphed one
+    (``reprice``, ``reprice_with_heads``) and the eager one
+    (``_reprice(graph=False)``) agree with each other and with the dense
+    tick on scores, row minima, prices and moved bit for bit, and on the
+    heads.  The graphed fleet ran its first tick eagerly, captured two
+    graphs and replayed the other 99; one ``scatter``, ``rowmin`` and
+    ``fold`` a tick on each fleet."""
+    graphed, ids, members = _graph_fleet(cuda_device, 7, 64, 10_000, 16)
+    eager, _, _ = _graph_fleet(cuda_device, 7, 64, 10_000, 16)
+    rng = np.random.default_rng(8)
+    fused_rank.reset_graphs()
+    rd.reset_launches()
+    ticks, heads_ticks = 100, 0
+    for tick in range(ticks):
+        deltas = _tick_deltas(rng, graphed, ids)
+        _, dense = _eager_tick(graphed, deltas)
+        if tick % 5 == 4:
+            moved, heads = graphed.reprice_with_heads(deltas, 10)
+            heads_ticks += 1
+        else:
+            moved = graphed.reprice(deltas)
+        m_eager = eager._reprice(deltas, graph=False)
+        _assert_state_is(graphed, moved, dense)
+        _assert_state_is(graphed, m_eager, (eager.d_scores,
+                                            eager.d_row_best,
+                                            eager.d_prices, m_eager))
+        if tick % 5 == 4:
+            keys = list(members)
+            assert [heads[k] for k in keys] == eager.heads(keys, 10)
+    assert fused_rank.GRAPHS == {"captures": 2, "replays": ticks - 1,
+                                 "rebinds": 0, "invalidations": 0}
+    # a tick each on both fleets and in the eager and dense ticks held
+    # beside them (the dense tick scatters on the host)
+    assert rd.LAUNCHES["scatter"] == 3 * ticks
+    assert rd.LAUNCHES["rowmin"] == rd.LAUNCHES["fold"] == 4 * ticks
+    assert rd.LAUNCHES["scatter_pageable"] == 0
+    assert rd.LAUNCHES["select"] == 2 * heads_ticks
+
+
+def test_cuda_tick_graph_is_recaptured_or_rebound_never_stale(cuda_device):
+    """A graphed fleet through a retire, an add into the freed slot, a
+    grow, its tick tensors assigned from outside and new row masks:
+    every tick equals the eager tick from the same state bit for bit.
+    The grow and the new row masks drop the graphs (each direction is
+    captured again), the assignment rebinds three tensors and keeps
+    them."""
+    state, ids, members = _graph_fleet(cuda_device, 9, 21, 3_000, 4,
+                                       capacity=4)
+    rng = np.random.default_rng(10)
+    fused_rank.reset_graphs()
+
+    def tick():
+        deltas = _tick_deltas(rng, state, ids, 0.02)
+        want, _ = _eager_tick(state, deltas)
+        _assert_state_is(state, state.reprice(deltas), want)
+
+    for _ in range(3):
+        tick()
+    assert fused_rank.GRAPHS["captures"] == 2
+    state.retire_state("m0")
+    state.add_state("m7", rows=[0, 5, 9])
+    tick()
+    tick()
+    assert fused_rank.GRAPHS["captures"] == 2
+    state.add_state("m8", rows=[2, 3])               # past the capacity
+    assert state.realloc_count == 1
+    tick()
+    tick()
+    assert fused_rank.GRAPHS["captures"] == 4
+    assert fused_rank.GRAPHS["invalidations"] == 1
+    state.d_scores = state.d_scores.clone()
+    state.d_row_best = state.d_row_best.clone()
+    state.d_prices = state.d_prices.clone()
+    tick()
+    assert fused_rank.GRAPHS["rebinds"] == 3
+    assert fused_rank.GRAPHS["captures"] == 4
+    state.d_row_masks = state.d_row_masks.clone()
+    tick()
+    tick()
+    assert fused_rank.GRAPHS["captures"] == 6
+    assert fused_rank.GRAPHS["invalidations"] == 2
+    assert fused_rank.GRAPHS["replays"] == 9
+
+
+def test_cuda_failed_tick_capture_raises(cuda_device, monkeypatch):
+    """``rowmin`` captured on a stream with no scratch for its shape
+    raises, and with the graph's own scratch replays bitwise; a fleet
+    whose tick capture fails raises (it never carries on eagerly) and
+    leaves the state as it was, and once the fault is gone it captures
+    and ticks exactly."""
+    h, m, _, pn, rb = _rowmin_args(16, 5_000, 64, cuda_device)
+    with pytest.raises(RuntimeError, match="before a CUDA graph"):
+        rd.capture(lambda: rd._launch_rowmin(h, m, pn, rb), cuda_device)
+    scratch = rd.rowmin_scratch(cuda_device, 5_000, 64)
+    out = (torch.empty_like(rb),
+           torch.empty((1, 1), dtype=torch.int32, device=cuda_device))
+    graph = rd.capture(lambda: rd._launch_rowmin(h, m, pn, rb, out=out,
+                                                 scratch=scratch),
+                       cuda_device)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_rowmin_bitwise(out, rd.rowmin_plain(h, m, pn, rb))
+    state, ids, _ = _graph_fleet(cuda_device, 11, 13, 2_000, 3)
+    rng = np.random.default_rng(12)
+    state.reprice(_tick_deltas(rng, state, ids))          # eager, warm
+    fused_rank.reset_graphs()
+    monkeypatch.setattr(fused_rank, "rowmin_scratch",
+                        lambda device, J, C: rd.rowmin_scratch(device, 1, 1))
+    snap = (state.d_scores.clone(), state.d_row_best.clone(),
+            state.d_prices.clone(), state.prices.copy(), state.reprices)
+    with pytest.raises(ValueError, match="too small"):
+        state.reprice(_tick_deltas(rng, state, ids))
+    assert fused_rank.GRAPHS["captures"] == fused_rank.GRAPHS["replays"] == 0
+    for a, b in zip(snap[:3], (state.d_scores, state.d_row_best,
+                               state.d_prices)):
+        _assert_bits(a, b)
+    assert np.array_equal(state.prices, snap[3])
+    assert state.reprices == snap[4]
+    monkeypatch.undo()
+    deltas = _tick_deltas(rng, state, ids)
+    want, _ = _eager_tick(state, deltas)
+    _assert_state_is(state, state.reprice(deltas), want)
+    assert fused_rank.GRAPHS["captures"] == fused_rank.GRAPHS["replays"] == 1
 
 
 def _pair_and_dense_ticks(state, deltas):

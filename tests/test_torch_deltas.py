@@ -235,7 +235,7 @@ def test_prices_match_after_20_ticks():
 
 @pytest.mark.parametrize("heads", [False, True])
 def test_a_tick_whose_kernels_raise_leaves_the_state(monkeypatch, heads):
-    """A tick that fails after its pairs were scattered (the
+    """A tick that fails after its pairs were staged (the tick's
     kernels raise) leaves prices, scores, row minima and the tick counts
     on the device and the host as they were."""
     rng, hours, mask, prices, ids, members = _universe(12)
@@ -245,8 +245,7 @@ def test_a_tick_whose_kernels_raise_leaves_the_state(monkeypatch, heads):
     def boom(*args, **kwargs):
         raise RuntimeError("launch failed")
 
-    monkeypatch.setattr(fused_rank, "fused_reprice", boom)
-    monkeypatch.setattr(fused_rank, "fused_reprice_heads", boom)
+    monkeypatch.setattr(fused_rank, "tick_into", boom)
     snap = _snapshot(port)
     with pytest.raises(RuntimeError, match="launch failed"):
         if heads:

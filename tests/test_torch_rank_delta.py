@@ -253,9 +253,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     rd.select_heads(u[7], fin, 3)
     rd.select_heads(u[7], fin, C)
     rd.scatter_prices([3, 0], [1.5, 2.5], u[2])
-    assert rd.LAUNCHES == {"scatter": 0, "rowmin": 0, "rowmin_row": 0,
-                           "fold": 0, "fold_col": 0, "select": 0,
-                           "select_sort": 0, "select_rounds": 0}
+    assert rd.LAUNCHES == {"scatter": 0, "scatter_pageable": 0,
+                           "rowmin": 0, "rowmin_row": 0, "fold": 0,
+                           "fold_col": 0, "select": 0, "select_sort": 0,
+                           "select_rounds": 0}
 
 
 def test_launch_fold_names_only_its_two_kernels():
