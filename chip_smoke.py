@@ -111,8 +111,21 @@ Phases:
    WKV6 a decode step,
    ragged T, one step past the split kernel's chunk, RWKV-6's strong
    decays (w = exp(-exp(x)), x in [-8, 2]) and a two-call state carry;
-8. plan the decode fleet's mesh through the port's selection service from
-   a hand-made dry-run report;
+8. the dry run (``[dryrun]`` lines): the port's CLI
+   (``python -m repro_torch.launch.dryrun``) writes the report of
+   qwen3-1.7b, stablelm-3b and rwkv6-3b x ``train_4k`` and ``decode_32k``
+   x the four splits of ``mesh_options(256)``, one process a split, all
+   started together and with the card hidden, and a fifth counts the
+   card's own training step (qwen3-1.7b at full width and depth, 4 x
+   1,024 tokens, AdamW, remat, the same vocabulary chunks) on a (1, 1)
+   mesh; the decode fleet's mesh is planned through the port's selection
+   service from that report, on ``torch_fused`` and ``numpy`` (the same
+   decision), with every cell's dominant term logged; the training
+   launcher (``--auto-mesh --report``) prints its ``[flora]`` line and
+   trains a reduced model 2 steps; after phase 9b the card cell's count
+   is held within 1% of ``FlopCounterMode`` around one real training
+   step (the kernels counted through their counting forms), at least
+   ``train_flops``, and its roofline step at most the measured step;
 9. serve ``qwen3-1.7b``, ``stablelm-3b``, ``rwkv6-3b``, ``deepseek-7b``,
    ``granite-20b``, ``qwen3-moe-30b-a3b``, ``recurrentgemma-9b``,
    ``seamless-m4t-large-v2`` and ``pixtral-12b`` at full width and depth
@@ -329,10 +342,11 @@ adds ``forward_ckpt_ms`` and ``forward_ms`` (the split kernel with and
 without the checkpoints the backward reads), the run's median
 ``step_ms`` and the kernel's ``step_share``.
 Without a CUDA device the script exits non-zero before printing any
-result.  Two functions are not run by it, each called alone on the
+result.  Some functions are not run by it, each called alone on the
 card: ``rwkv_grad_witness`` (rwkv6-3b's gradients by depth against a
-float64 run) and ``train_steps`` (a model's training steps alone, for
-comparing the package of two trees in one call).  It
+float64 run) and ``tree_turns`` (the training steps and serving decode
+of qwen3-1.7b and rwkv6-3b, ``train_steps`` and ``serve_steps``, for the
+package of this tree and another in turns, a process a turn).  It
 imports ``torch``, ``numpy``, the standard library and the port
 (``src/repro_torch``), nothing else.
 """
@@ -353,10 +367,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet) for the bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+#: published H100 SXM peaks (NVIDIA data sheet) for the bounds: the dry
+#: run's roofline reads the same numbers
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_FLOPS as FP32_FLOPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S)
 REL_TOL, ABS_TOL = 1e-4, 1e-6
 SOURCE = "src/repro_torch/csrc/rank_delta.cu"
 #: what each CUDA kernel replaces on the main path: the reference's host
@@ -2570,40 +2585,157 @@ def phase_lm_parity(torch, dev="cuda"):
         log(f"[lm-parity] wkv6 {name} state carry over 29 + 35 steps ok")
 
 
-# --- phase 8: decode-fleet placement ------------------------------------------
+# --- phase 8: the dry run, and the decode fleet's placement from it ----------
 
-def placement_report():
-    """A hand-made dry-run report: decode and train cells of three
-    architectures on four mesh splits (the high-TP split decodes
-    fastest, the high-DP one trains fastest)."""
-    speed = {"dp256xtp1": (1.0, 4.0), "dp32xtp8": (1.2, 1.5),
-             "dp16xtp16": (1.5, 1.0), "dp8xtp32": (2.5, 1.1)}
-    cells = []
-    for arch in ("qwen3-1.7b", "rwkv6-3b", "stablelm-3b"):
-        for mesh, (train, decode) in speed.items():
-            for shape, step in (("train_4k", train), ("decode_32k", decode)):
-                cells.append({"arch": arch, "shape": shape, "mesh": mesh,
-                              "ok": True, "roofline": {
-                                  "compute_s": step, "memory_s": step / 2,
-                                  "collective_s": step / 4}})
-    return {"cells": cells}
+#: the report's cells: the architectures and shapes the placement ranks
+DRYRUN_ARCHS = ("qwen3-1.7b", "stablelm-3b", "rwkv6-3b")
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
 
 
-def phase_placement(dev="cuda"):
+def dryrun_card_cell(path) -> None:
+    """(a child process) The dry run's count of the card's training step:
+    :data:`TRAIN_ARCH` at full width and depth, ``TRAIN_B`` x ``TRAIN_T``
+    tokens, AdamW and remat as phase 9b trains it, the head over
+    :data:`TRAIN_VOCAB_CHUNK` columns, on a (1, 1) mesh; the cell to
+    ``path``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.types import ShapeSpec
+    cell = dryrun.lower_cell(
+        TRAIN_ARCH, "chip", multi_pod=False, mesh_shape=(1, 1),
+        shape=ShapeSpec("chip", TRAIN_T, TRAIN_B, "train"),
+        settings_extra={"vocab_chunk": TRAIN_VOCAB_CHUNK}, quiet=True)
+    Path(path).write_text(json.dumps(cell))
+
+
+def phase_dryrun(out=None):
+    """Phase 8's dry run (under ``out``, default ``build/dryrun``): the
+    port's CLI writes one report a split of ``mesh_options(256)``
+    (``--mesh dp{d}xtp{m}``) of :data:`DRYRUN_ARCHS` x
+    :data:`DRYRUN_SHAPES`, each in its own process, all started together
+    with the card hidden, and :func:`dryrun_card_cell` runs in a fifth;
+    every cell must be ``ok``.  Returns (the merged report's path, the
+    report, the card cell)."""
+    import os
+    from repro_torch.launch.mesh import mesh_options
+    out = Path(out or ROOT / "build" / "dryrun")
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cmds = {name: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", ",".join(DRYRUN_ARCHS),
+                   "--shape", ",".join(DRYRUN_SHAPES),
+                   "--mesh", name, "--out", str(out / f"{name}.json")]
+            for _, name in mesh_options(256)}
+    card_path = str(out / "card.json")
+    cmds["card"] = [sys.executable, "-c", f"import chip_smoke; "
+                    f"chip_smoke.dryrun_card_cell({card_path!r})"]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in cmds.items()}
+    for name, p in procs.items():
+        try:
+            _, err = p.communicate(timeout=600)
+        finally:
+            p.kill()
+        check(p.returncode == 0, f"dry run {name}: exit {p.returncode}: "
+              f"{err[-2000:]}")
+    wall = time.perf_counter() - t0
+    cells = [c for _, name in mesh_options(256)
+             for c in json.loads((out / f"{name}.json").read_text())["cells"]]
+    report = {"cells": cells}
+    path = out / "report.json"
+    path.write_text(json.dumps(report, indent=1))
+    failed = [(c["arch"], c["shape"], c["mesh"], c.get("error"))
+              for c in cells if not c["ok"]]
+    check(len(cells) == 4 * len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES)
+          and not failed, f"the report's cells that failed: {failed}")
+    for c in cells:
+        r = c["roofline"]
+        log(f"[dryrun] {c['arch']} {c['shape']} {c['mesh']}: step "
+            f"{r['step_s']:.6g} s, {r['dominant']} (compute "
+            f"{r['compute_s']:.6g}, memory {r['memory_s']:.6g}, collective "
+            f"{r['collective_s']:.6g}); {r['flops_per_device']:.6g} FLOP, "
+            f"{r['hbm_bytes_per_device']:.6g} HBM bytes, "
+            f"{r['wire_bytes_per_device']:.6g} wire bytes a device; trace "
+            f"{c['trace_s']} s")
+    card = json.loads(Path(card_path).read_text())
+    log(f"[dryrun] report: {len(cells)} cells, {len(procs)} processes in "
+        f"{wall:.1f} s (no card; CPU), written to {path}")
+    return path, report, card
+
+
+def phase_placement(report, dev="cuda"):
+    """The decode fleet's mesh from the dry run's report through the
+    port's selection service on ``torch_fused`` (on ``dev``), which must
+    decide as the ``numpy`` backend does on the same report."""
     from repro_torch.core.costmodel import TpuPriceModel
     from repro_torch.core.tpu_flora import service_from_dryrun_report
     from repro_torch.serve import plan_decode_placement
-    service = service_from_dryrun_report(placement_report(),
-                                         TpuPriceModel("spot"), device=dev)
-    decision = plan_decode_placement(service,
-                                     exclude_archs=("qwen3-1.7b",))
-    check(decision.config_id == "dp16xtp16",
-          f"placement picked {decision.config_id}, expected dp16xtp16")
+    decisions = {}
+    for backend, device in (("torch_fused", dev), ("numpy", "cpu")):
+        service = service_from_dryrun_report(report, TpuPriceModel("spot"),
+                                             backend=backend, device=device)
+        decisions[backend] = plan_decode_placement(
+            service, exclude_archs=("qwen3-1.7b",))
+    decision = decisions["torch_fused"]
+    check(decision.config_id == decisions["numpy"].config_id,
+          f"placement picked {decision.config_id} on torch_fused, "
+          f"{decisions['numpy'].config_id} on numpy")
     log(f"[placement] decode fleet: mesh {decision.config_id} at "
         f"{decision.hourly_cost:.2f} $/h (class {decision.job_class.value}, "
-        f"{service.backend} on {service.device}); ranking "
+        f"torch_fused on {dev}; numpy decides the same); ranking "
         f"{[r.config_id for r in decision.ranking]}")
     return decision
+
+
+def phase_launcher(report_path, dev="cuda"):
+    """The training launcher with ``--auto-mesh --report``: its
+    ``[flora]`` line (the mesh the selection service ranks first for
+    ``train_4k``), then 2 steps of the reduced model on ``dev``."""
+    import io
+    from repro_torch.launch import train as launch_train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_train.main(["--arch", TRAIN_ARCH, "--reduced", "--steps", "2",
+                           "--auto-mesh", "--report", str(report_path),
+                           "--device", dev])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[dryrun] launcher: {line}")
+    check(sum(line.startswith("[flora]") for line in lines) == 1
+          and any(line.startswith("[train] done") for line in lines),
+          f"the launcher printed {lines}")
+
+
+def check_card_cell(cell, train, card, cfg=None):
+    """(a) The dry run's count of the card's step against ``phase_train``'s
+    ``FlopCounterMode`` count of a real step (within 1%), at least
+    :func:`train_flops` (remat's recompute comes on top), and the
+    roofline step at most the measured median step."""
+    from repro_torch import configs
+    cfg = cfg or configs.get(TRAIN_ARCH)
+    check(cell["ok"], f"the card cell: {cell}")
+    roof = cell["roofline"]
+    counted, real = roof["flops_per_device"], train["step_flops"]
+    floor = train_flops(cfg, TRAIN_B, TRAIN_T)
+    measured_s = train["step_ms"] / 1e3
+    log(f"[dryrun] {cfg.name} {TRAIN_B} x {TRAIN_T} on (1, 1): the dry "
+        f"run counts {counted:.6g} FLOP, FlopCounterMode around a real "
+        f"step on {card} {real:.6g} (ratio {counted / real:.6f}); "
+        f"train_flops {floor:.6g}; roofline: compute {roof['compute_s']:.6g} "
+        f"s, memory {roof['memory_s']:.6g} s, collective "
+        f"{roof['collective_s']:.6g} s, step {roof['step_s']:.6g} s "
+        f"({roof['dominant']}); the measured step {measured_s:.6g} s is "
+        f"{measured_s / roof['step_s']:.3f} x the roofline; trace "
+        f"{cell['trace_s']} s")
+    check(abs(counted / real - 1) <= 0.01, f"the dry run's count "
+          f"{counted:.6g} is not within 1% of the step's {real:.6g}")
+    check(counted >= floor, f"the count {counted:.6g} is below "
+          f"train_flops {floor:.6g}")
+    check(roof["step_s"] <= measured_s, f"the roofline step "
+          f"{roof['step_s']:.6g} s is above the measured {measured_s:.6g} s")
 
 
 # --- phase 9: LM serving at full width; phase 10's model profiles -------------
@@ -3399,8 +3531,9 @@ def time_lm_kernel(torch, kernel, shapes, errs, seed, dev="cuda",
             f"B={B} Tq={T} Tk={Tk} H={H} G={G} D={D} causal={causal}: "
             f"max |err| {err:.3g} ok")
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        # the (query, key) pairs the mask lets through
-        pairs = B * H * T * (T + 1) // 2 if causal else B * H * T * Tk
+        # the (query, key) pairs the mask lets through (the forward's
+        # counting form counts 4 D a pair, as this bound)
+        pairs = fa.attention_pairs(B, H, T, Tk, causal, None)
         n_elems = 2 * B * T * H * D + 2 * B * Tk * G * D
 
         def timed(q, k, v, kind, ops_per_s):
@@ -4078,12 +4211,11 @@ def time_attention_bwd(torch, seed, dev="cuda", entries=None):
             warmup=2)
         library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, causal,
                                                window), iters=50, warmup=3)
-        # five products of 2 B H Tq Tk D, halved by a causal mask (every
-        # timed window reaches every earlier key); q, k, v, o and dO read
-        # once, dq, dk, dv written once
-        check(window is None or window >= Tq, f"{entry}: the bound counts "
-              f"no window")
-        flops = 5 * 2 * B * H * Tq * Tk * D / (2 if causal else 1)
+        # five products of 2 D a (query, key) pair the mask lets through
+        # (the backward's counting form); q, k, v, o and dO read once,
+        # dq, dk, dv written once
+        flops = fa.attention_flops(q.shape, k.shape, causal, window,
+                                   backward=True)
         n_bytes = 2 * (4 * B * Tq * H * D + 4 * B * Tk * G * D)
         bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
         log(f"[time] {entry} (B={B} Tq={Tq} Tk={Tk} H={H} G={G} D={D} "
@@ -4184,7 +4316,8 @@ def time_fp32_bwd(torch, seed, dev="cuda"):
             q, k, v, o, do, causal=True, window=window), iters=2, warmup=1)
         library_ms = time_ms(torch, sdpa_grads(torch, q, k, v, do, True,
                                                window), iters=20, warmup=3)
-        flops = 5 * 2 * B * H * T * T * D / 2
+        flops = fa.attention_flops(q.shape, k.shape, True, window,
+                                   backward=True)
         n_bytes = q.element_size() * (4 * B * T * H * D + 4 * B * T * G * D)
         bound = bound_ms(n_bytes, 6 * flops, BF16_FLOPS_PER_S)
         ffma = bound_ms(n_bytes, flops, FP32_FLOPS_PER_S)
@@ -4670,13 +4803,8 @@ def train_steps(torch, seed=0, arch=TRAIN_ARCH, steps=TRAIN_STEPS,
     ``TrainConfig`` defaults, remat, vocabulary chunks), without its
     checkpoint and checks: logs the package it ran, the step ms and their
     median after the first, and returns that median.  Not run by
-    :func:`main`: it compares the port of two trees in one call, the
-    other tree's ``src`` put first on ``sys.path`` once this module is
-    imported::
-
-        python -c "import sys, torch, chip_smoke as cs; sys.path.insert(
-            0, 'OTHER/src'); cs.train_steps(torch)"
-    """
+    :func:`main`: :func:`tree_turns` runs it on the port of two trees in
+    turns, each turn a process (:func:`use_tree`)."""
     import repro_torch
     from repro_torch import configs
     from repro_torch.data import pipeline
@@ -4709,6 +4837,134 @@ def train_steps(torch, seed=0, arch=TRAIN_ARCH, steps=TRAIN_STEPS,
         f"ms {[round(x * 1e3, 2) for x in step_s]}, median after the "
         f"first {med_s * 1e3:.3f} ms")
     return med_s * 1e3
+
+def serve_steps(torch, seed=0, arch=TRAIN_ARCH, n_requests=8,
+                prompt_len=1024, slots=4, max_new=32, dev="cuda", cfg=None):
+    """``arch`` served as phase 9 serves it (the published width, the
+    same requests, a warm-up engine first), without its checks: logs the
+    package it ran and the decode ms a step of two runs on warm engines,
+    and returns them.  Not run by :func:`main` (see :func:`tree_turns`)."""
+    import numpy as np
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import Engine, Request
+    cfg = cfg or configs.get(arch)
+    model = build_model(cfg, device=dev, seed=seed)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (n_requests, prompt_len))
+    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=max_new)
+            for i in range(n_requests)]
+    max_len = prompt_len + max_new
+    Engine(model, slots=slots, max_len=max_len, device=dev).generate_batch(
+        [dataclasses.replace(reqs[0], max_new_tokens=2)])
+    step_ms = []
+    for _ in range(2):
+        metrics = MetricsRegistry()
+        eng = Engine(model, slots=slots, max_len=max_len, metrics=metrics,
+                     device=dev)
+        eng.serve(reqs)
+        sync(torch, dev)
+        dec_s = metrics.snapshot()["histograms"]["serve.decode"]["sum"]
+        step_ms.append(dec_s / eng.decode_steps * 1e3)
+    log(f"[steps] {arch} served from {Path(repro_torch.__file__).parent}: "
+        f"{n_requests} requests x {prompt_len}-token prompts over {slots} "
+        f"slots, {max_new} new tokens each; decode ms a step "
+        f"{[round(x, 3) for x in step_ms]}")
+    return step_ms
+
+
+def use_tree(src) -> None:
+    """Make ``src`` (another tree's ``src`` directory) the port this
+    process imports: the port's modules this script loaded are dropped
+    and ``src`` put first on ``sys.path``."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, str(src))
+
+
+#: the readings :func:`tree_turns` takes in each turn
+TURN_READINGS = (("train", TRAIN_ARCH, TRAIN_STEPS),
+                 ("train", RWKV_ARCH, RWKV_STEPS),
+                 ("serve", TRAIN_ARCH, None), ("serve", RWKV_ARCH, None))
+
+
+def tree_turns(other, order="OTTOOTTO", out=None) -> dict:
+    """The port of this tree (T) and of ``other`` (O, another checkout's
+    root) in turns on one card, ``order`` naming whose turn each is; each
+    turn is a process of its own (:func:`use_tree`) taking
+    :data:`TURN_READINGS`: the training step's median ms
+    (:func:`train_steps`) and the decode ms a step (:func:`serve_steps`,
+    each of its two runs a reading).  Logs every reading and each side's
+    median, least and greatest, writes them to ``out`` as JSON, and
+    returns them.  Not run by :func:`main`::
+
+        python -c "import chip_smoke as cs; cs.tree_turns('PARENT_ROOT',
+            out='turns.json')"
+    """
+    roots = {"T": ROOT, "O": Path(other).resolve()}
+    readings = {side: {f"{kind} {arch}": [] for kind, arch, _ in
+                       TURN_READINGS} for side in roots}
+    for turn, side in enumerate(order):
+        code = (f"import json, sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke as cs; "
+                f"cs.use_tree({str(roots[side] / 'src')!r}); "
+                f"import torch; print('TURN ' + json.dumps(cs.turn(torch)))")
+        done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              capture_output=True, text=True)
+        sys.stderr.write(done.stderr[-4000:])
+        check(done.returncode == 0, f"turn {turn} ({side}) exited "
+              f"{done.returncode}: {done.stderr[-2000:]}")
+        for line in done.stdout.splitlines():
+            if line.startswith("[steps]"):
+                log(f"[turns] {turn} {side}: {line}")
+            elif line.startswith("TURN "):
+                for key, values in json.loads(line[5:]).items():
+                    readings[side][key].extend(values)
+    summary = {"card": gpu_name_and_limit(), "order": order,
+               "roots": {k: str(v) for k, v in roots.items()},
+               "readings": readings}
+    for side, by_key in readings.items():
+        for key, xs in by_key.items():
+            med = sorted(xs)[len(xs) // 2]
+            log(f"[turns] {side} {key}: median {med:.3f} ms, least "
+                f"{min(xs):.3f}, greatest {max(xs):.3f} over {len(xs)} "
+                f"readings {[round(x, 3) for x in xs]}")
+    if out is not None:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(summary, indent=1))
+    return summary
+
+
+def turn(torch) -> dict:
+    """One turn of :func:`tree_turns`: :data:`TURN_READINGS` in this
+    process's port."""
+    got = {}
+    for kind, arch, steps in TURN_READINGS:
+        if kind == "train":
+            got[f"train {arch}"] = [train_steps(torch, arch=arch,
+                                                steps=steps)]
+        else:
+            got[f"serve {arch}"] = serve_steps(torch, arch=arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return got
+
+
+def count_step_flops(torch, model, step_fn, params, state, batch,
+                     vocab_chunk) -> float:
+    """``FlopCounterMode``'s total over one training step (``step_fn`` on
+    ``batch``, the head over ``vocab_chunk`` columns)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import settings as msettings
+    from repro_torch.train.train_loop import to_device
+    batch = to_device(batch, model.device)
+    with msettings.use(vocab_chunk=vocab_chunk), \
+            FlopCounterMode(display=False) as counter:
+        step_fn(params, state, batch)
+    return float(counter.get_total_flops())
+
 
 def train_kit(tcfg, vocab_chunk, stream=None):
     """The training phases' ``trainer`` and ``loop``.  ``trainer(model,
@@ -4861,6 +5117,12 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
         share = L * bwd_ms / (med_s * 1e3)
         log(f"[train] the backward kernel's share of a step: {L} x "
             f"{bwd_ms:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
+    # one more step under FlopCounterMode (the kernels through their
+    # counting forms), which the dry run's card cell is held to
+    step_flops = count_step_flops(torch, model, step_fn, params, state,
+                                  stream.batch_at(steps), vocab_chunk)
+    log(f"[train] FlopCounterMode around one more step: {step_flops:.6g} "
+        f"FLOP")
     # full-width gradients, kernel against plain, on the trained weights
     batch = to_device(stream.batch_at(steps), model.device)
     with msettings.use(vocab_chunk=vocab_chunk):
@@ -4978,6 +5240,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
             "scalar_launches": n_scalar, "encdec_launches": shapes,
             "err": err, "split_err": split_err, "scalar_err": scalar_err,
             "losses": losses, "step_ms": med_s * 1e3, "share": share,
+            "step_flops": step_flops,
             "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
             "fp32_times": fp32_times, "wkv6": wkv, "cut": cut_runs}
 
@@ -5439,7 +5702,10 @@ def main() -> int:
     done("turbulence")
     phase_lm_parity(torch)
     done("lm-parity")
-    placement = phase_placement()
+    report_path, report, card_cell = phase_dryrun()
+    done("dryrun")
+    placement = phase_placement(report)
+    phase_launcher(report_path)
     done("placement")
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
@@ -5499,6 +5765,7 @@ def main() -> int:
           "the serving phases launched a backward kernel")
     train = phase_train(torch, np, args.seed, card)
     done("train")
+    check_card_cell(card_cell, train, card)
     # the profiled phases come last: a profiler session may slow the
     # host's launches for the rest of the process (phase_lm_profile reads
     # whether it did), and the serving phases time those launches

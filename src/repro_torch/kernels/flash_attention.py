@@ -74,14 +74,33 @@ Under ``torch.inference_mode`` or ``no_grad`` (serving) nothing changes.
 :func:`attention_bwd_ref` is the backward's plain version, from the
 explicit formulas in float32; CPU tensors take :func:`attention_ref`,
 which autograd differentiates.
+
+The counting form.  On the card the forward and the backward are reached
+through two operators, ``torch.ops.repro_torch.flash_attention`` and
+``flash_attention_bwd``: their CUDA kernel is the launch above (one
+launch a call, counted as above), their CPU kernel the plain version (a
+plain CPU tensor takes it before the operator; a DTensor's CPU shards
+reach it through the operator), their fake kernel an empty result of the
+right shape, and their FLOPs (:func:`attention_flops`: 4 D for each (query, key) pair the
+mask lets through forward, 10 D backward, the products PERF.md's bounds
+count) are registered with :mod:`torch.utils.flop_counter`, so
+``FlopCounterMode`` around a step counts the kernels.  Tensors that hold
+no data (fake or meta tensors, DTensors: the dry run,
+:mod:`repro_torch.launch.dryrun`) take the operators too, never the plain
+version's einsums, whose (Tq, Tk) scores are not the kernel's work; the first such call gives DTensor their rules
+(:func:`register_sharding`: split over the batch, or over the heads
+where the query and KV heads both divide).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -89,8 +108,9 @@ __all__ = ["BWD_PAIR_HEAD_DIMS", "BWD_SPLIT_HEAD_DIMS", "BWD_TC_HEAD_DIMS",
            "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES",
            "SPLIT_PAIRS", "TC_HEAD_DIMS", "attention_bwd_ref",
            "attention_bwd_split_model",
-           "attention_ref", "attention_split_model", "bwd_variant",
-           "flash_attention", "piece_einsum", "reset_launches",
+           "attention_flops", "attention_pairs", "attention_ref",
+           "attention_split_model", "bwd_variant", "flash_attention",
+           "piece_einsum", "register_sharding", "reset_launches",
            "split_pieces", "variant"]
 
 #: kernel launches since the last :func:`reset_launches`
@@ -460,15 +480,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     over the Tk keys, as the plain version does, and its gradients are
     those of that mean."""
     _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
+    if type(q) is torch.Tensor and q.device.type == "cpu":
         _check_causal(q.shape[1], k.shape[1], causal)
         return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {q.device}")
+    if type(q) is not torch.Tensor:
+        register_sharding()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
 
 
 def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
@@ -556,7 +578,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        o = _launch(q, k, v, causal, window)
+        o = torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.window = causal, window
         return o
@@ -564,6 +586,101 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, o, do.contiguous(), ctx.causal,
-                                 ctx.window)
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, o, do.contiguous(), ctx.causal, ctx.window)
         return dq, dk, dv, None, None
+
+
+# --- the counting form (see the module's note) -----------------------------
+
+def attention_pairs(B: int, H: int, Tq: int, Tk: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """The (query, key) pairs the mask lets through, over B H streams:
+    query i sees key j when ``j <= i`` (causal) and ``i - j < window``."""
+    i = np.arange(Tq, dtype=np.int64)
+    hi = np.minimum(i, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Tq, np.int64)
+    return B * H * int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, causal: bool, window: Optional[int],
+                    backward: bool = False) -> int:
+    """The kernels' products: 2 D a pair for each of S = Q K^T and P V
+    forward; S again, dP, dV, dQ and dK backward."""
+    B, Tq, H, D = q_shape
+    pairs = attention_pairs(B, H, Tq, k_shape[1], causal, window)
+    return (10 if backward else 4) * D * pairs
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window) -> Tensor")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor do, bool causal, int? window) -> (Tensor, Tensor, "
+            "Tensor)")
+# the launchers by name at call time on the card, the plain versions on
+# the CPU (a CPU tensor inside a DTensor reaches the operator)
+_LIB.impl("flash_attention", lambda q, k, v, causal, window: _launch(
+    q, k, v, causal, window), "CUDA")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, o, do, causal, window: _launch_bwd(
+              q, k, v, o, do, causal, window), "CUDA")
+_LIB.impl("flash_attention", lambda q, k, v, causal, window: attention_ref(
+    q, k, v, causal=causal, window=window), "CPU")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, o, do, causal, window: attention_bwd_ref(
+              q, k, v, o, do, causal=causal, window=window), "CPU")
+
+
+def _fake_heads(q, k) -> None:
+    # a device's slice must keep whole groups of query heads a KV head
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads do not split over "
+                         f"{k.shape[2]} KV heads")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _fake_fwd(q, k, v, causal, window):
+    _fake_heads(q, k)
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd", lib=_LIB)
+def _fake_bwd(q, k, v, o, do, causal, window):
+    _fake_heads(q, k)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _fwd_flop_formula(q_shape, k_shape, v_shape, causal, window, *args,
+                      **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flop_formula(q_shape, k_shape, v_shape, o_shape, do_shape, causal,
+                      window, *args, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, window, backward=True)
+
+
+@functools.cache
+def register_sharding() -> None:
+    """Give DTensor the operators' rules (once a process): every tensor
+    replicated, or split over the batch, or over the heads where the
+    query and KV heads both divide every mesh axis (a query head's KV
+    head must land on its device)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding as reg
+
+    def strategies(q, k, n_in: int, n_out: int):
+        out = [([Replicate()] * n_out, [Replicate()] * n_in + [None, None]),
+               ([Shard(0)] * n_out, [Shard(0)] * n_in + [None, None])]
+        H, G = q.shape[2], k.shape[2]
+        if all(H % n == 0 and G % n == 0 for n in q.mesh.shape):
+            out.append(([Shard(2)] * n_out, [Shard(2)] * n_in + [None, None]))
+        return out
+
+    reg(torch.ops.repro_torch.flash_attention.default)(
+        lambda q, k, v, causal, window: strategies(q, k, 3, 1))
+    reg(torch.ops.repro_torch.flash_attention_bwd.default)(
+        lambda q, k, v, o, do, causal, window: strategies(q, k, 5, 3))

@@ -39,19 +39,35 @@ launches, and the one-block-a-stream ``wkv6_bwd_block`` it replaced
 launches and nothing else: ``wkv6`` every forward launch of either,
 ``wkv6_seq`` the sequential kernel's, ``wkv6_bwd`` every backward launch
 of either, ``wkv6_bwd_block`` the yardstick's.
+
+The counting form.  On the card the kernels are reached through three
+operators, ``torch.ops.repro_torch.wkv6`` (the forward), ``wkv6_ckpt``
+(the forward with its checkpoints) and ``wkv6_bwd``: their CUDA kernel is
+the launch above (one a call, counted as above), their CPU kernel the
+plain version (a plain CPU tensor takes it before the operator; a
+DTensor's CPU shards reach it through the operator), their fake kernel
+empty results of the right shapes, and their FLOPs (:func:`wkv6_flops`: 5 N^2 a step of each (b, h) stream
+forward, 14 N^2 backward, PERF.md's bounds) are registered with
+:mod:`torch.utils.flop_counter`.  Tensors that hold no data (fake, meta,
+DTensors: the dry run) take the operators, never the plain Python loop
+over T; the first such call gives DTensor their rules
+(:func:`register_sharding`: split over the batch, or over the heads).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
 __all__ = ["BWD_VARIANTS", "CKPT_STEPS", "HEAD_SIZES", "LAUNCHES",
-           "VARIANTS", "WKV6Fn", "bwd_occupancy", "reset_launches", "wkv6",
-           "wkv6_bwd_ref", "wkv6_fwd_ref", "wkv6_scan_ref"]
+           "VARIANTS", "WKV6Fn", "bwd_occupancy", "register_sharding",
+           "reset_launches", "wkv6", "wkv6_bwd_ref", "wkv6_flops",
+           "wkv6_fwd_ref", "wkv6_scan_ref"]
 
 #: kernel launches since the last :func:`reset_launches`: ``wkv6`` counts
 #: both forward variants, ``wkv6_seq`` the sequential one alone,
@@ -314,7 +330,7 @@ class WKV6Fn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
-        y, sT, ckpt = _launch(r, k, v, w, u, s0, ckpt=True)
+        y, sT, ckpt = torch.ops.repro_torch.wkv6_ckpt(r, k, v, w, u, s0)
         ctx.save_for_backward(r, k, v, w, u, ckpt)
         ctx.set_materialize_grads(False)
         return y, sT
@@ -326,8 +342,10 @@ class WKV6Fn(torch.autograd.Function):
             if dy is None else dy.float().contiguous()
         if dsT is not None:
             dsT = dsT.float().contiguous()
-        return _launch_bwd(r, k, v, w, u, ckpt, dy, dsT,
-                           ctx.needs_input_grad[5])
+        want_ds0 = ctx.needs_input_grad[5]
+        *grads, ds0 = torch.ops.repro_torch.wkv6_bwd(
+            r, k, v, w, u, ckpt, dy, dsT, want_ds0)
+        return (*grads, ds0 if want_ds0 else None)
 
 
 def wkv6(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -338,11 +356,134 @@ def wkv6(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     through :class:`WKV6Fn` (the backward kernel), CPU tensors through
     autograd of the plain version."""
     _check(r, k, v, w, u, s0)
-    if r.device.type == "cpu":
+    if type(r) is torch.Tensor and r.device.type == "cpu":
         return wkv6_scan_ref(r, k, v, w, u, s0)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {r.device}")
+    if type(r) is not torch.Tensor:
+        register_sharding()
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, k, v, w, u, s0)):
         return WKV6Fn.apply(r, k, v, w, u, s0)
-    return _launch(r, k, v, w, u, s0)
+    return torch.ops.repro_torch.wkv6(r, k, v, w, u, s0)
+
+
+# --- the counting form (see the module's note) -----------------------------
+
+def wkv6_flops(r_shape, backward: bool = False) -> int:
+    """The recurrence's work: 5 N^2 a step of each (b, h) stream forward
+    (the bonus term, the read-out, the decay and the update of the (N, N)
+    state), 14 N^2 backward (the chunk's states recomputed, then the
+    walk back)."""
+    B, T, H, N = r_shape
+    return (14 if backward else 5) * N * N * B * H * T
+
+
+def _n_ckpt(T: int) -> int:
+    return -(-T // CKPT_STEPS)
+
+
+def _launch_plain(r, k, v, w, u, s0, variant: str = "split",
+                  ckpt: bool = False):
+    """The operators' CPU kernel, with :func:`_launch`'s signature: the
+    plain version (with its checkpoints under ``ckpt``)."""
+    return wkv6_fwd_ref(r, k, v, w, u, s0) if ckpt else \
+        wkv6_scan_ref(r, k, v, w, u, s0)
+
+
+def _launch_bwd_plain(r, k, v, w, u, ckpt, dy, dsT, want_ds0):
+    """The backward operator's CPU kernel, with :func:`_launch_bwd`'s
+    signature: the plain version from the first checkpoint, s0."""
+    *grads, ds0 = wkv6_bwd_ref(r, k, v, w, u, ckpt[:, :, 0], dy, dsT)
+    return (*grads, ds0 if want_ds0 else None)
+
+
+def _bwd(launch, r, k, v, w, u, ckpt, dy, dsT, want_ds0):
+    # the operator returns an empty ds0 where none was asked for
+    *grads, ds0 = launch(r, k, v, w, u, ckpt, dy, dsT, want_ds0)
+    return (*grads, ds0 if want_ds0 else
+            torch.empty(0, dtype=torch.float32, device=r.device))
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+            "Tensor s0) -> (Tensor, Tensor)")
+_LIB.define("wkv6_ckpt(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+            "Tensor s0) -> (Tensor, Tensor, Tensor)")
+_LIB.define("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+            "Tensor ckpt, Tensor dy, Tensor? dsT, bool want_ds0) -> "
+            "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+# the launchers on the card, the plain versions on the CPU (a CPU tensor
+# inside a DTensor reaches the operator), each by name at call time
+_LIB.impl("wkv6", lambda *a: _launch(*a), "CUDA")
+_LIB.impl("wkv6_ckpt", lambda *a: _launch(*a, ckpt=True), "CUDA")
+_LIB.impl("wkv6_bwd", lambda *a: _bwd(_launch_bwd, *a), "CUDA")
+_LIB.impl("wkv6", lambda *a: _launch_plain(*a), "CPU")
+_LIB.impl("wkv6_ckpt", lambda *a: _launch_plain(*a, ckpt=True), "CPU")
+_LIB.impl("wkv6_bwd", lambda *a: _bwd(_launch_bwd_plain, *a), "CPU")
+
+
+def _state(r):
+    B, T, H, N = r.shape
+    return r.new_empty((B, H, N, N), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::wkv6", lib=_LIB)
+def _fake_fwd(r, k, v, w, u, s0):
+    return r.new_empty(r.shape, dtype=torch.float32), _state(r)
+
+
+@torch.library.register_fake("repro_torch::wkv6_ckpt", lib=_LIB)
+def _fake_ckpt(r, k, v, w, u, s0):
+    B, T, H, N = r.shape
+    return (r.new_empty(r.shape, dtype=torch.float32), _state(r),
+            r.new_empty((B, H, _n_ckpt(T), N, N), dtype=torch.float32))
+
+
+@torch.library.register_fake("repro_torch::wkv6_bwd", lib=_LIB)
+def _fake_bwd(r, k, v, w, u, ckpt, dy, dsT, want_ds0):
+    return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(r),
+            torch.empty_like(w), torch.empty_like(u),
+            _state(r) if want_ds0 else r.new_empty(0, dtype=torch.float32))
+
+
+@register_flop_formula([torch.ops.repro_torch.wkv6,
+                        torch.ops.repro_torch.wkv6_ckpt])
+def _fwd_flop_formula(r_shape, *args, **kwargs) -> int:
+    return wkv6_flops(r_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_bwd)
+def _bwd_flop_formula(r_shape, *args, **kwargs) -> int:
+    return wkv6_flops(r_shape, backward=True)
+
+
+@functools.cache
+def register_sharding() -> None:
+    """Give DTensor the operators' rules (once a process): every tensor
+    replicated, or split over the batch (``u`` replicated; its gradient a
+    partial sum), or over the heads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding as reg
+    R, S = Replicate(), Shard
+
+    def forward(n_out):
+        # outputs y, s_T[, ckpt]; inputs r, k, v, w, u, s0
+        return [([R] * n_out, [R] * 6),
+                ([S(0)] * n_out, [S(0)] * 4 + [R, S(0)]),
+                ([S(2), S(1), S(1)][:n_out], [S(2)] * 4 + [S(0), S(1)])]
+
+    def backward(r, k, v, w, u, ckpt, dy, dsT, want_ds0):
+        # outputs dr, dk, dv, dw, du, ds0; inputs r, k, v, w, u, ckpt, dy,
+        # dsT, want_ds0
+        opt = (lambda p: p if dsT is not None else None)
+        ds0 = (lambda p: p if want_ds0 else R)
+        return [([R] * 6, [R] * 7 + [opt(R), None]),
+                ([S(0)] * 4 + [Partial(), ds0(S(0))],
+                 [S(0)] * 4 + [R, S(0), S(0), opt(S(0)), None]),
+                ([S(2)] * 4 + [S(0), ds0(S(1))],
+                 [S(2)] * 4 + [S(0), S(1), S(2), opt(S(1)), None])]
+
+    reg(torch.ops.repro_torch.wkv6.default)(lambda *a: forward(2))
+    reg(torch.ops.repro_torch.wkv6_ckpt.default)(lambda *a: forward(3))
+    reg(torch.ops.repro_torch.wkv6_bwd.default)(backward)

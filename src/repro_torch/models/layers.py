@@ -17,21 +17,26 @@ PyTorch, as it is an XLA op and not a Pallas kernel in the reference.
 The MoE layer (:func:`moe_apply`) computes the reference's dispatch step
 by step in plain PyTorch, on whatever device its input lies: the
 reference runs it as XLA code, not as a Pallas kernel, and its expert
-products are batched matrix products.  The reference's
-``sharding.ctx.constrain`` calls have no counterpart on one card and are
-dropped.  Caches are written in place (the reference returns new
+products are batched matrix products.  Activations carry the
+reference's logical-axis annotations
+(:func:`repro_torch.sharding.ctx.constrain`), which return their input
+outside a sharding context (one card) and place DTensors inside one (the
+dry run).  Caches are written in place (the reference returns new
 arrays); the functions still return the cache they wrote.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ops
 from repro_torch.models.types import ModelConfig, ParamSpec
+from repro_torch.sharding.ctx import constrain, constrain_merged
 
 Params = Mapping[str, torch.Tensor]
 
@@ -88,11 +93,13 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["embedding"])
+    return constrain(F.embedding(tokens, p["embedding"]),
+                     ("batch", "seq", None))
 
 
 def head_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x @ (p["embedding"].t() if cfg.tie_embeddings else p["head"])
+    logits = x @ (p["embedding"].t() if cfg.tie_embeddings else p["head"])
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -133,22 +140,102 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """One token's scaled scores over a cache, float32: (B, G, R, 1, S)."""
+    B, _, H, D = q.shape
+    G = k_cache.shape[2]
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, 1, G, H // G, D)
+    return torch.einsum("btgrd,bsgd->bgrts", qg.float(), k_cache.float())
+
+
+def _decode_out(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """The probabilities (B, G, R, 1, S) over the values: (B, 1, H, D)."""
+    B, G, R = p.shape[:3]
+    o = torch.einsum("bgrts,bsgd->btgrd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, 1, G * R, v_cache.shape[3])
+
+
 def sdpa_decode(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Single-token attention over a cache.
 
     q: (B,1,H,D); caches: (B,S,G,D); valid: (S,) bool mask of live
-    entries.  Scores and softmax in float32, as the reference."""
-    B, _, H, D = q.shape
-    S, G = k_cache.shape[1], k_cache.shape[2]
-    R = H // G
-    qg = (q * (1.0 / math.sqrt(D))).reshape(B, 1, G, R, D)
-    s = torch.einsum("btgrd,bsgd->bgrts", qg.float(), k_cache.float())
-    s = torch.where(valid[None, None, None, None, :], s,
+    entries.  Scores and softmax in float32, as the reference.  The two
+    products are the operators ``repro_torch::decode_scores`` and
+    ``decode_out``, which DTensor (the dry run) splits over the batch,
+    the heads or the head size (the scores then a partial sum, reduced
+    before the softmax) without merging two split dimensions into a
+    batched product's one."""
+    if type(q) is not torch.Tensor:
+        register_sharding()
+    s = torch.where(valid[None, None, None, None, :],
+                    torch.ops.repro_torch.decode_scores(q, k_cache),
                     torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrts,bsgd->btgrd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(B, 1, H, D)
+    return torch.ops.repro_torch.decode_out(torch.softmax(s, dim=-1),
+                                            v_cache)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("decode_scores(Tensor q, Tensor k_cache) -> Tensor")
+_LIB.define("decode_out(Tensor p, Tensor v_cache) -> Tensor")
+_LIB.impl("decode_scores", _decode_scores, "CompositeExplicitAutograd")
+_LIB.impl("decode_out", _decode_out, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("repro_torch::decode_scores", lib=_LIB)
+def _fake_scores(q, k_cache):
+    B, _, H, _ = q.shape
+    S, G = k_cache.shape[1], k_cache.shape[2]
+    return q.new_empty((B, G, H // G, 1, S), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::decode_out", lib=_LIB)
+def _fake_out(p, v_cache):
+    B, G, R = p.shape[:3]
+    return v_cache.new_empty((B, 1, G * R, v_cache.shape[3]))
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_scores)
+def _scores_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    B, _, H, D = q_shape
+    return 2 * B * H * k_shape[1] * D
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_out)
+def _out_flops(p_shape, v_shape, *args, **kwargs) -> int:
+    B, G, R, _, S = p_shape
+    return 2 * B * G * R * S * v_shape[3]
+
+
+@functools.cache
+def register_sharding() -> None:
+    """Give DTensor the decode operators' rules (once a process): every
+    tensor replicated, or split over the batch, over the heads (where the
+    query and KV heads divide every mesh axis), or over the head size
+    (the scores a partial sum; the probabilities replicated)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Shard as S
+    from torch.distributed.tensor.experimental import register_sharding as reg
+    R = Replicate()
+
+    def heads_divide(H, G, mesh) -> bool:
+        return all(H % n == 0 and G % n == 0 for n in mesh.shape)
+
+    def scores(q, k):
+        out = [([R], [R, R]), ([S(0)], [S(0), S(0)]),
+               ([Partial()], [S(3), S(3)])]
+        if heads_divide(q.shape[2], k.shape[2], q.mesh):
+            out.append(([S(1)], [S(2), S(2)]))
+        return out
+
+    def values(p, v):
+        out = [([R], [R, R]), ([S(0)], [S(0), S(0)]), ([S(3)], [R, S(3)])]
+        if heads_divide(p.shape[1] * p.shape[2], v.shape[2], p.mesh):
+            out.append(([S(2)], [S(1), S(2)]))
+        return out
+
+    reg(torch.ops.repro_torch.decode_scores.default)(scores)
+    reg(torch.ops.repro_torch.decode_out.default)(values)
 
 
 def _cache_write_prefill(cache: torch.Tensor, k: torch.Tensor
@@ -191,30 +278,41 @@ def attn_specs(cfg: ModelConfig, *, cross: bool = False
     return specs
 
 
-def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("btd,dhk->bthk")`` as one matmul over the flattened heads."""
+def _proj_heads(x: torch.Tensor, w: torch.Tensor, axes) -> torch.Tensor:
+    """``einsum("btd,dhk->bthk")`` as one matmul over the flattened heads
+    (``axes``: the logical axes of the result).  Under a sharding context
+    a split of the head size (decode's head_dim scheme) is gathered
+    before the heads merge, and the result split again after: DTensor
+    cannot merge a dimension whose later part is split (PyTorch 2.11)."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    w = constrain(w, ("embed", axes[2], None))
+    wm = constrain_merged(w.reshape(d, h * k), ("embed",) + axes[2:], (h, k))
+    y = constrain_merged(x @ wm, axes, (h, k))
+    return constrain(y.unflatten(-1, (h, k)), axes)
+
+
+_Q_AXES = ("batch", "seq", "heads", "head_dim")
+_KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
 
 
 def _project_q(p, cfg, x, positions, *, use_rope=True):
-    q = _proj_heads(x, p["wq"])
+    q = _proj_heads(x, p["wq"], _Q_AXES)
     if cfg.qk_norm and "q_norm" in p:
         q = rms_norm_1d(q, p["q_norm"])
     if use_rope and positions is not None:
-        q = rope(q, positions, theta=cfg.rope_theta,
-                 fraction=cfg.rope_fraction)
+        q = constrain(rope(q, positions, theta=cfg.rope_theta,
+                           fraction=cfg.rope_fraction), _Q_AXES)
     return q
 
 
 def _project_kv(p, cfg, x, positions, *, use_rope=True):
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    k = _proj_heads(x, p["wk"], _KV_AXES)
+    v = _proj_heads(x, p["wv"], _KV_AXES)
     if cfg.qk_norm and "k_norm" in p:
         k = rms_norm_1d(k, p["k_norm"])
     if use_rope and positions is not None:
-        k = rope(k, positions, theta=cfg.rope_theta,
-                 fraction=cfg.rope_fraction)
+        k = constrain(rope(k, positions, theta=cfg.rope_theta,
+                           fraction=cfg.rope_fraction), _KV_AXES)
     return k, v
 
 
@@ -280,9 +378,14 @@ def attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         raise ValueError(mode)
+    # a split head size is gathered before the merge, as in _proj_heads
+    o = constrain(o, _Q_AXES[:3] + (None,))
     H, D, d = p["wo"].shape
-    y = o.reshape(*o.shape[:2], H * D) @ p["wo"].reshape(H * D, d)
-    return y, new_cache
+    o = constrain_merged(o.reshape(*o.shape[:2], H * D), _Q_AXES, (H, D))
+    wo = constrain(p["wo"], ("heads", None, "embed"))
+    wo = constrain_merged(wo.reshape(H * D, d), _Q_AXES[2:] + ("embed",),
+                          (H, D), dim=0)
+    return constrain(o @ wo, ("batch", "seq", None)), new_cache
 
 
 def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int
@@ -316,12 +419,13 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["w_up"]
+    h = constrain(x @ p["w_up"], ("batch", "seq", "mlp"))
     if "w_gate" in p:
-        h = _act(x @ p["w_gate"], cfg.act) * h
+        g = constrain(x @ p["w_gate"], ("batch", "seq", "mlp"))
+        h = _act(g, cfg.act) * h
     else:
         h = _act(h, cfg.act)
-    return h @ p["w_down"]
+    return constrain(h @ p["w_down"], ("batch", "seq", None))
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +517,8 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
     x_tk = x.repeat_interleave(K, dim=1).reshape(B * T * K, d)
     xe = x.new_zeros(B * (E * C + 1), d).index_add_(0, rows, x_tk)
     xe = xe.view(B, E * C + 1, d)[:, :E * C]                # drop overflow
-    xe = xe.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    xe = constrain(xe.reshape(B, E, C, d), ("batch", "experts", None, None))
+    xe = xe.transpose(0, 1).reshape(E, B * C, d)
 
     h = _act(torch.bmm(xe, p["w_gate"]), cfg.act) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"])                          # (E, B*C, d)

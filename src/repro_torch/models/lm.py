@@ -55,6 +55,7 @@ from repro_torch.models import settings as settings_lib
 from repro_torch.models.types import (ModelConfig, ParamSpec, SpecTree,
                                       init_params, map_specs)
 from repro_torch.selector.fused_rank import resolve_device
+from repro_torch.sharding.ctx import constrain
 
 __all__ = ["AUX_LOSS_WEIGHT", "Block", "LM", "LayerPlan", "Z_LOSS_WEIGHT",
            "block_apply", "block_cache_specs", "block_specs", "fused_xent",
@@ -328,6 +329,7 @@ def run_stack(cfg: ModelConfig, plans: List[LayerPlan], blocks, x, *,
             x, aux_i, nc = block_apply(cfg, plan, block, x, mode=mode,
                                        positions=positions, cache=cache,
                                        pos=pos, enc_out=enc_out)
+        x = constrain(x, ("batch", "seq", None))
         aux = aux + aux_i
         if new_state is not None:
             new_state.append(nc)
@@ -389,10 +391,14 @@ def fused_xent(embed, cfg: ModelConfig, x: torch.Tensor,
 def plain_xent(logits: torch.Tensor, labels: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logsumexp, label logit) per token from whole logits, in float32;
-    ``labels`` must be in [0, V)."""
+    ``labels`` must be in [0, V).  Written as a max, a sum and a gather
+    over a flat row of tokens, which DTensor keeps split over the
+    vocabulary (it gathers the whole logits for ``torch.logsumexp``)."""
     logits = logits.float()
-    ll = logits.gather(-1, labels[..., None])[..., 0]
-    return torch.logsumexp(logits, dim=-1), ll
+    m = logits.amax(-1, keepdim=True).detach()
+    lse = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[..., 0]
+    ll = logits.flatten(0, -2).gather(-1, labels.reshape(-1, 1))
+    return lse, ll.view(labels.shape)
 
 
 def xent_loss(lse: torch.Tensor, ll: torch.Tensor, labels: torch.Tensor,

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.rwkv6_scan import wkv6_scan_ref
 from repro_torch.models.layers import _act
 from repro_torch.models.types import ModelConfig, ParamSpec
+from repro_torch.sharding.ctx import constrain, constrain_merged
 
 __all__ = ["RGLRU_C", "rglru_block_apply", "rglru_block_specs", "rglru_scan",
            "rglru_state_shapes", "rwkv_channel_mix_apply",
@@ -158,8 +159,9 @@ def rglru_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
     state = {"h": (B, w) float32, "conv": (B, conv_width-1, w)} for
     prefill and decode, else None."""
-    gate = _act(x @ p["w_in_gate"], "gelu")
-    rec = x @ p["w_in_rec"]
+    gate = constrain(_act(x @ p["w_in_gate"], "gelu"),
+                     ("batch", "seq", "mlp"))
+    rec = constrain(x @ p["w_in_rec"], ("batch", "seq", "mlp"))
     rec, new_conv = _depthwise_conv(
         p, rec, state["conv"] if state is not None else None)
     log_a, gated = _rglru_gates(p, rec)
@@ -231,7 +233,9 @@ def _ddlerp(p: Params, x: torch.Tensor, x_prev: torch.Tensor
     diff = x_prev - x
     xx = x + diff * p["maa_x"]
     B, T, _ = x.shape
-    lora = torch.tanh((xx @ p["tm_w1"]).reshape(B, T, 5, -1))
+    lora = constrain_merged(xx @ p["tm_w1"], ("batch", "seq", None, None),
+                            (5, p["tm_w1"].shape[1] // 5))
+    lora = torch.tanh(lora.reshape(B, T, 5, -1))
     mix = torch.einsum("btfk,fkd->btfd", lora, p["tm_w2"])
     mix = mix + p["maa_wkvrg"][None, None]
     return x[:, :, None, :] + diff[:, :, None, :] * mix   # (B,T,5,d)
@@ -278,15 +282,21 @@ def rwkv_time_mix_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     shp = (B, T, H, N)
     s0 = state["wkv"] if state is not None else torch.zeros(
         (B, H, N, N), dtype=torch.float32, device=x.device)
-    y, sT = ops.wkv6(r.reshape(shp), k.reshape(shp), v.reshape(shp),
-                     w.reshape(shp), p["u"], s0)
+    r, k, v, w = (constrain_merged(t, ("batch", "seq", "heads_flat", None),
+                                   (H, N)).reshape(shp)
+                  for t in (r, k, v, w))
+    y, sT = ops.wkv6(r, k, v, w, p["u"], s0)
 
     # per-head group norm, then output gate + projection
     y = y.reshape(B, T, H, N).float()
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(B, T, d) * p["ln_scale"].float() + p["ln_bias"].float()
+    # held whole over the model axis, as the heads were: its gradient
+    # splits back into (H, N), which DTensor takes only unsplit there
+    y = constrain_merged(y.reshape(B, T, d), ("batch", "seq", "heads_flat",
+                                              None), (H, N))
+    y = y * p["ln_scale"].float() + p["ln_bias"].float()
     y = y.to(x.dtype) * F.silu(g)
     y = y @ p["wo"]
 
@@ -314,7 +324,8 @@ def rwkv_channel_mix_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     diff = _token_shift(x, prev) - x
     xk = x + diff * p["mu_k"]
     xr = x + diff * p["mu_r"]
-    kk = torch.square(torch.relu(xk @ p["wk"]))
+    kk = torch.square(torch.relu(constrain(xk @ p["wk"],
+                                           ("batch", "seq", "mlp"))))
     kv = kk @ p["wv"]
     rr = torch.sigmoid(xr @ p["wr"])
     new_state = {"shift": x[:, -1]} if state is not None else None

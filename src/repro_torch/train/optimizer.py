@@ -95,9 +95,10 @@ class AdamW:
 
     def init(self, params: Tensors) -> Dict:
         """``{"m": {name: zeros}, "v": {name: zeros}, "count": int32 0}``,
-        on each parameter's device."""
-        zeros = lambda p: torch.zeros(p.shape, dtype=self.moment_dtype,
-                                      device=p.device)
+        on each parameter's device (a DTensor parameter's moments placed
+        as it is)."""
+        zeros = lambda p: torch.zeros_like(
+            p, dtype=self.moment_dtype, memory_format=torch.contiguous_format)
         device = next(iter(params.values())).device
         return {"m": {k: zeros(p) for k, p in params.items()},
                 "v": {k: zeros(p) for k, p in params.items()},

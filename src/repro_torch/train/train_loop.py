@@ -96,6 +96,17 @@ def _split_microbatches(batch: Tensors, n: int):
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 
+def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A DTensor parameter's gradient on the parameter's placements (a
+    partial sum over the batch's devices reduced and scattered as the
+    parameter is split, as FSDP does), so that the update's elementwise
+    ops meet alike-placed operands; a plain tensor's as it is."""
+    placements = getattr(param, "placements", None)
+    if placements is None or grad.placements == placements:
+        return grad
+    return grad.redistribute(param.device_mesh, placements)
+
+
 def make_train_step(model: nn.Module, tcfg: TrainConfig,
                     compress_fn: Optional[Callable[[Tensors], Tensors]]
                     = None):
@@ -108,7 +119,8 @@ def make_train_step(model: nn.Module, tcfg: TrainConfig,
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
                                     allow_unused=True)
-        grads = {k: g if g is not None else torch.zeros_like(params[k])
+        grads = {k: _placed_like(g, params[k]) if g is not None
+                 else torch.zeros_like(params[k])
                  for k, g in zip(names, grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()

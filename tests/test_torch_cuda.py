@@ -2075,3 +2075,81 @@ def test_cuda_flash_attention_gradients_on_rows_with_no_key(cuda_device,
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert _rel_or_floor(g, w, floor) < BWD_LIMIT[dtype], name
     assert float(got[0][:, 44:].float().abs().max()) == 0.0
+
+
+# --- the sharding rules on a real mesh of four cards ---------------------------
+
+MESH_CHILD = r"""
+import json, os, sys
+import torch, torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
+from repro_torch import configs
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm
+from repro_torch.models.types import map_specs
+from repro_torch.sharding import rules as R
+rank = int(os.environ["RANK"])
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", device_id=torch.device("cuda", rank))
+cfg = configs.get("qwen3-1.7b")
+mesh = make_mesh((2, 2), ("data", "model"))
+rules = R.production_rules().with_overrides(**R.arch_overrides(cfg, 2))
+specs = lm.param_specs(cfg)
+local = []
+
+def place(s):
+    full = torch.empty(s.shape, dtype=s.storage_dtype(cfg.compute_dtype),
+                       device="cuda")
+    d = distribute_tensor(full, mesh, R.sharding_for_spec(s, rules,
+                                                          mesh).placements)
+    t = d.to_local()
+    local.append(t.numel() * t.element_size())
+    del full, d, t
+
+map_specs(place, specs)
+torch.cuda.synchronize()
+out = {"local": sum(local), "leaves": len(local),
+       "want": R.bytes_per_device(specs, rules, mesh, cfg.compute_dtype)}
+with open(sys.argv[1] % rank, "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def test_cuda_four_card_mesh_holds_bytes_per_device(cuda_device, tmp_path):
+    """qwen3-1.7b's parameters distributed by ``tree_shardings`` over a
+    2 x 2 ``DeviceMesh`` of four cards (NCCL, four ranks): each rank's
+    local bytes equal ``bytes_per_device`` at the model's dtype (bf16
+    weights, float32 norm scales)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (a 2 x 2 mesh, one rank a "
+                    "card)")
+    root = Path(__file__).resolve().parent.parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(4):
+        env = dict(os.environ, PYTHONPATH=str(root / "src"),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   RANK=str(rank), WORLD_SIZE="4", LOCAL_RANK=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MESH_CHILD, str(tmp_path / "r%d.json")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+    got = [json.loads((tmp_path / f"r{r}.json").read_text())
+           for r in range(4)]
+    for r, g in enumerate(got):
+        assert g["local"] == g["want"], (r, g)
+    print(f"[mesh] qwen3-1.7b on 2 x 2 cards: {got[0]['leaves']} leaves, "
+          f"{got[0]['local']} bytes a rank = bytes_per_device "
+          f"{got[0]['want']}")

@@ -178,8 +178,9 @@ def test_fwd_ref_checkpoints_are_the_states(case):
 
 @pytest.fixture
 def plain_launchers(monkeypatch):
-    """``WKV6Fn``'s launchers replaced by the plain versions (no kernel
-    runs on the CPU), counting their calls as the kernels' would."""
+    """The CPU kernels of ``WKV6Fn``'s operators (``_launch_plain``,
+    ``_launch_bwd_plain``, which take the launchers' arguments) replaced
+    by the plain versions, counting their calls as the kernels' would."""
     calls = {"fwd": 0, "bwd": 0, "dsT": []}
 
     def launch(r, k, v, w, u, s0, variant="split", ckpt=False):
@@ -194,8 +195,8 @@ def plain_launchers(monkeypatch):
         assert dsT is None or dsT.dtype == torch.float32
         grads = wk.wkv6_bwd_ref(r, k, v, w, u, ckpt[:, :, 0], dy, dsT)
         return (*grads[:5], grads[5] if want_ds0 else None)
-    monkeypatch.setattr(wk, "_launch", launch)
-    monkeypatch.setattr(wk, "_launch_bwd", launch_bwd)
+    monkeypatch.setattr(wk, "_launch_plain", launch)
+    monkeypatch.setattr(wk, "_launch_bwd_plain", launch_bwd)
     return calls
 
 
@@ -322,7 +323,8 @@ def test_launch_bwd_accepts_only_known_variants(variant, monkeypatch):
 
 def test_wkv6fn_takes_the_cluster_kernel(monkeypatch):
     """``WKV6Fn``'s backward names no variant: ``_launch_bwd``'s default,
-    the cluster kernel, with no fallback to the yardstick."""
+    the cluster kernel, with no fallback to the yardstick (the operator
+    hands its CPU kernel, stubbed here, what it hands the launcher)."""
     import inspect
     assert inspect.signature(wk._launch_bwd).parameters["variant"].default \
         == "cluster"
@@ -332,9 +334,9 @@ def test_wkv6fn_takes_the_cluster_kernel(monkeypatch):
         seen.append(kw)
         grads = wk.wkv6_bwd_ref(*args[:5], args[5][:, :, 0], *args[6:8])
         return (*grads[:5], None)
-    monkeypatch.setattr(wk, "_launch", lambda *a, **kw: wk.wkv6_fwd_ref(
-        *a[:6]))
-    monkeypatch.setattr(wk, "_launch_bwd", launch_bwd)
+    monkeypatch.setattr(wk, "_launch_plain", lambda *a, **kw:
+                        wk.wkv6_fwd_ref(*a[:6]))
+    monkeypatch.setattr(wk, "_launch_bwd_plain", launch_bwd)
     leaves = [torch.from_numpy(a).requires_grad_(i < 5)
               for i, a in enumerate(_inputs((1, 17, 2, 16), seed=13)[:6])]
     y, _ = wk.WKV6Fn.apply(*leaves)
