@@ -240,6 +240,30 @@ Phases:
    last attention layer, which the limits must refuse, in bf16 and in
    fp32 (within 1e-3 and 1e-4 a leaf, the split backward launched once
    an attention layer, 1 and 2, the scalar one never);
+9c. sharded training (after phase 9b): an NCCL group of one rank, a 1 x 1
+   (data, model) mesh, and qwen3-1.7b at full width and depth trained 3
+   steps of 4 x 1,024 tokens as DTensors through the sharded step (its
+   weights drawn leaf by leaf and placed, ``sharding.place.init_placed``;
+   its batches from ``PrefetchIterator(shardings=)``; the step inside
+   ``ctx.use(rules, mesh)``), held against phase 9b's first 3 steps from
+   the same seed: each loss and weight leaf within relative 1e-5 (bitwise
+   recorded), 56 tensor-core forward and 28 tensor-core backward
+   attention launches a step, none scalar; the group is destroyed after.
+   Where the machine has 2 or more cards, one process a card
+   (``--mesh-rank``, NCCL; any rank that fails fails the run):
+   qwen3-1.7b at 2 x 2 and 4 x 1 (2 x 1 on two cards), its first step
+   against the one-card step (loss within relative 1e-2, gradients within
+   the bf16 limits), each rank's parameter bytes ``bytes_per_device``;
+   the int8 compressed all-reduce over NCCL (``compressed_psum`` and a
+   step with ``make_compressed_allreduce``, within n scale / 2); a save on
+   the first mesh restored on the second (qwen3-1.7b at full width, 2
+   layers, float32: steps 3 and 4 within relative 1e-5 of the run that
+   saved); recurrentgemma-9b (38 layers) and pixtral-12b (40, after 1,024
+   patches) at full width and depth on the (cards) x 1 mesh, 4 steps:
+   finite losses that fall, every rank's peak under 75 GiB, every
+   attention backward on the tensor cores; step ms, positions/s, peak
+   GiB a rank and the collectives' share of a profiled step (``[mesh]``
+   lines);
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
@@ -335,6 +359,9 @@ recurrentgemma-9b's training shapes, their launches the cut models' fp32
 gradient checks' (2 and 1), and ``flash_attention_bwd_scalar_fp32_d160``
 and ``_d256`` the scalar backward there by name; these six add the keys
 of the fp32 forward entries.
+``flash_attention`` and ``flash_attention_bwd`` add ``mesh_launches``:
+the tensor-core forward's and backward's launches in phase 9c's steps on
+the one-card mesh.
 ``wkv6_bwd`` is WKV6's backward at rwkv6-3b's training shape (bf16 r,
 k, v; 4 x 1,024, 40 heads, N = 64; no dsT, no ds0), its launches the
 8-step run's, ``library_ms`` null (no one PyTorch call computes it); it
@@ -2740,9 +2767,11 @@ def check_card_cell(cell, train, card, cfg=None):
 
 # --- phase 9: LM serving at full width; phase 10's model profiles -------------
 
-def profile_window(torch, fn, dev="cuda"):
+def profile_window(torch, fn, dev="cuda", kernels=None):
     """Device time by kernel name and the busy share over ``fn()``, from
-    ``torch.profiler`` (CUDA activity; CPU activity on a CPU rehearsal)."""
+    ``torch.profiler`` (CUDA activity; CPU activity on a CPU rehearsal).
+    ``kernels``, a list, receives every device event's (start us,
+    duration us, name) in start order."""
     from torch.profiler import ProfilerActivity, profile
     on_card = torch.device(dev).type == "cuda"
     kind = torch.autograd.DeviceType.CUDA if on_card \
@@ -2764,7 +2793,30 @@ def profile_window(torch, fn, dev="cuda"):
     by_name = sorted(((getattr(e, "self_device_time_total", 0.0), e.key,
                        e.count) for e in prof.key_averages()),
                      reverse=True)
+    if kernels is not None:
+        kernels.extend(sorted(
+            (e.time_range.start, e.time_range.end - e.time_range.start,
+             e.name) for e in prof.events() if e.device_type == kind))
     return wall, busy_us, by_name
+
+
+def collective_waits(durs):
+    """This rank's collective kernels of a profiled step (durations in
+    us, in launch order; every rank launches the same collectives in the
+    same order) split into transfer and wait: a collective's kernel ends
+    on every rank of its group at about one time, so the shortest of the
+    ranks' i-th kernels is about its transfer (that rank arrived last)
+    and the rest of this rank's i-th is its wait for the later ranks
+    (over all ranks, so on a mesh of several groups the wait is an upper
+    bound).  Returns (transfer us, wait us), or None where the ranks'
+    counts of kernels differ."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, list(durs))
+    if len({len(d) for d in every}) != 1:
+        return None
+    low = sum(min(d[i] for d in every) for i in range(len(durs)))
+    return low, sum(durs) - low
 
 
 def phase_parity_4_layers(torch, cfg, seed, dev="cuda", prompt=6, steps=6,
@@ -5074,9 +5126,16 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     t_init = time.perf_counter() - t0
     params, state, step_fn, counted = trainer(model)
     reg = MetricsRegistry()
-    params, state, hist_a = loop(model, params, state, step_fn, 0,
+    # phase 9c's yardstick: the losses and weights after MESH_STEPS steps
+    params, state, hist_0 = loop(model, params, state, step_fn, 0,
+                                 MESH_STEPS, obs=reg)
+    mesh_ref = {"losses": list(hist_0["loss"]),
+                "params": {k: p.detach().to("cpu", copy=True)
+                           for k, p in params.items()}}
+    params, state, hist_a = loop(model, params, state, step_fn, MESH_STEPS,
                                  ckpt_step, checkpointer=ck,
                                  checkpoint_every=ckpt_step, obs=reg)
+    hist_a = {k: hist_0[k] + v for k, v in hist_a.items()}
     t0 = time.perf_counter()
     ck.wait()
     t_save = time.perf_counter() - t0
@@ -5242,7 +5301,8 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
             "losses": losses, "step_ms": med_s * 1e3, "share": share,
             "step_flops": step_flops,
             "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
-            "fp32_times": fp32_times, "wkv6": wkv, "cut": cut_runs}
+            "fp32_times": fp32_times, "wkv6": wkv, "cut": cut_runs,
+            "mesh_ref": mesh_ref}
 
 
 def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
@@ -5620,10 +5680,599 @@ def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
             **{name: t / total for name, t in groups.items()}}
 
 
+# --- phase 9c: sharded training ----------------------------------------------
+
+#: the one-card mesh's steps, held against phase 9b's first steps (the same
+#: seed, batches and vocabulary chunks)
+MESH_STEPS = 3
+#: the cards' leg: qwen3-1.7b's first step on each mesh against the
+#: one-card step, its loss within this relative distance and its
+#: gradients within the bf16 limits (TRAIN_GRAD_L2, TRAIN_LEAF_L2)
+MESH_LOSS_RTOL = 1e-2
+#: recurrentgemma-9b and pixtral-12b at full width and depth on the
+#: (cards, 1) mesh: patch embeddings a sequence, the steps, every rank's
+#: peak memory under this
+BIG_TRAIN = {"recurrentgemma-9b": 0, "pixtral-12b": 1024}
+BIG_STEPS = 4
+MESH_PEAK_GIB = 75.0
+#: the elastic restore: qwen3-1.7b at full width over this many layers in
+#: float32 (bf16 rounding would hide a 1e-5 check), saved after step 2 on
+#: the first mesh, steps 3 and 4 on the second against the first's own
+ELASTIC_LAYERS, ELASTIC_RTOL = 2, 1e-5
+#: the ranks' time limit (the whole leg, the kernels' build excluded)
+MESH_TIMEOUT_S = 1800
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def open_group(torch, rank, world, port, dev) -> None:
+    """This process as rank ``rank`` of ``world`` (NCCL on a card, gloo
+    on the CPU), its store on ``localhost:port``."""
+    import torch.distributed as dist
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card and dev.index is not None:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+
+
+def mesh_shapes(world):
+    """The cards' (data, model) meshes: 2 x (cards / 2) and (cards) x 1,
+    or (cards) x 1 alone under four cards."""
+    return [(2, world // 2), (world, 1)] if world >= 4 else [(world, 1)]
+
+
+def mesh_model(torch, cfg, dims, seed, dev):
+    """``cfg``'s LM on a (data, model) mesh of ``dims``: its weights drawn
+    from ``seed`` one whole leaf at a time on ``dev`` and sliced
+    (``place.init_placed``), equal leaf for leaf to ``LM(cfg,
+    seed=seed)``.  Returns (mesh, rules, model)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.sharding import place
+    from repro_torch.sharding import rules as R
+    dev = torch.device(dev)
+    mesh = make_mesh(dims, ("data", "model"), device_type=dev.type)
+    rules = R.production_rules().with_overrides(
+        **R.arch_overrides(cfg, dims[1]))
+    placed = place.init_placed(lm_lib.param_specs(cfg), rules, mesh,
+                               seed=seed, compute_dtype=cfg.compute_dtype,
+                               device=dev)
+    return mesh, rules, lm_lib.LM(cfg, device=dev, params=placed)
+
+
+def mesh_batches(torch, stream, rules, mesh, start, dev):
+    """``stream``'s batches from ``start``, placed by the rules'
+    ``batch_shardings`` (each rank its rows) on ``dev``."""
+    from repro_torch.data import pipeline
+    from repro_torch.sharding import rules as R
+    sh = R.batch_shardings({k: torch.from_numpy(v) for k, v in
+                            stream.batch_at(start).items()}, rules, mesh)
+    return pipeline.PrefetchIterator(stream, start_step=start, device=dev,
+                                     shardings=sh)
+
+
+def leaf_gap(a, b) -> float:
+    """``rel_l2(a, b)``; ``a``'s norm where ``b`` is zero."""
+    return rel_l2(a, b) if float(b.float().norm()) > 0 \
+        else float(a.float().norm())
+
+
+def whole(t):
+    """A DTensor's whole value, a copy on the host (every rank gathers
+    it)."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t
+            ).detach().to("cpu", copy=True)
+
+
+def counting_step(torch, step_fn, counted):
+    """``step_fn`` recording each call's kernel launches in ``counted``."""
+    from repro_torch.kernels import ops
+
+    def step(p, s, b):
+        ops.reset_launches()
+        out = step_fn(p, s, b)
+        counted.append(ops.launches())
+        return out
+    return step
+
+
+def phase_train_mesh(torch, seed, card, ref, dev="cuda", cfg=None,
+                     B=TRAIN_B, T=TRAIN_T, steps=MESH_STEPS,
+                     vocab_chunk=TRAIN_VOCAB_CHUNK):
+    """Phase 9c on one card: an NCCL group of one rank, a 1 x 1 mesh, and
+    qwen3-1.7b (``cfg``) at full width and depth trained ``steps`` steps
+    as DTensors through the sharded step (``train_loop`` over
+    ``PrefetchIterator(shardings=)``), held against phase 9b's
+    plain-tensor steps from the same seed (``ref``: their losses and the
+    weights after them): each loss and each weight leaf within relative
+    1e-5, bitwise recorded; 2 L tensor-core forward and L tensor-core
+    backward attention launches a step, none scalar.  The group is
+    destroyed before any later phase opens a fake world."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.models import settings as msettings
+    from repro_torch.sharding import ctx
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              train_loop, trainable_params)
+    cfg = cfg or configs.get(TRAIN_ARCH)
+    L = cfg.num_layers
+    on_card = torch.device(dev).type == "cuda"
+    free_card(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    open_group(torch, 0, 1, free_port(), dev)
+    try:
+        mesh, rules, model = mesh_model(torch, cfg, (1, 1), seed, dev)
+        params = trainable_params(model)
+        step_fn, opt = make_train_step(model, TrainConfig())
+        counted = []
+        state = opt.init(params)
+        batches = mesh_batches(torch, train_stream(cfg, B, T, seed), rules,
+                               mesh, 0, dev)
+        try:
+            with ctx.use(rules, mesh), msettings.use(vocab_chunk=vocab_chunk):
+                params, state, hist = train_loop(
+                    model, TrainConfig(), params, state, batches,
+                    steps=steps, log_every=0,
+                    train_step=counting_step(torch, step_fn, counted))
+        finally:
+            batches.close()
+        peak = card_gib(torch, dev, peak=True)
+        losses = hist["loss"]
+        rel_loss = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref["losses"]))
+        bitwise = losses == ref["losses"]
+        rel_w = 0.0
+        for k, p in params.items():
+            got, want = whole(p), ref["params"][k]
+            bitwise &= torch.equal(got, want)
+            rel_w = max(rel_w, leaf_gap(got, want))
+        del model, params, state, step_fn, opt
+    finally:
+        dist.destroy_process_group()
+    free_card(torch, dev)
+    check(rel_loss <= 1e-5 and rel_w <= 1e-5,
+          f"the 1 x 1 mesh's steps against phase 9b's: losses {losses} "
+          f"against {ref['losses']} (relative {rel_loss:.3g}), weights "
+          f"within relative L2 {rel_w:.3g}")
+    per_step = [(c["flash_attention_tc"], c["flash_attention_bwd_tc"],
+                 c["flash_attention_scalar"], c["flash_attention_bwd_scalar"])
+                for c in counted]
+    if on_card:
+        check(per_step == [(2 * L, L, 0, 0)] * steps,
+              f"the mesh step's launches (tensor-core forward, backward, "
+              f"scalar forward, backward) {per_step}, expected "
+              f"{(2 * L, L, 0, 0)} a step")
+    med_s = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2]
+    log(f"[mesh] {cfg.name} on a 1 x 1 mesh ("
+        f"{'NCCL' if on_card else 'gloo'}, one rank) on {card}: "
+        f"{steps} steps of {B} x {T} tokens as DTensors: losses {losses} "
+        f"against phase 9b's {ref['losses']} (relative {rel_loss:.3g}; "
+        f"bitwise, losses and weights: {bitwise}); weights within "
+        f"relative L2 {rel_w:.3g}; step ms "
+        f"{[round(s * 1e3, 2) for s in hist['step_time']]}, median after "
+        f"the first {med_s * 1e3:.3f}; peak {peak:.2f} GiB; launches a "
+        f"step (forward tc, backward tc, scalar forward, backward) "
+        f"{per_step[0]}; {time.perf_counter() - t0:.1f} s in all")
+    return {"losses": losses, "bitwise": bitwise, "rel_loss": rel_loss,
+            "rel_weights": rel_w, "step_ms": med_s * 1e3,
+            "launches": sum(c[0] for c in per_step),
+            "bwd_launches": sum(c[1] for c in per_step)}
+
+
+def phase_train_cards(torch, seed, card, n=None, dev_type="cuda",
+                      reduced=False, timeout=MESH_TIMEOUT_S):
+    """Phase 9c where the machine has 2 or more cards: one process a card
+    (``python3 chip_smoke.py --mesh-rank R ...``, :func:`mesh_leg`), NCCL
+    between them; the phase fails if any rank exits non-zero (the others
+    are then stopped) or outlasts ``timeout``.  Rank 0's lines are
+    printed; returns its record.  ``dev_type="cpu"`` rehearses it over
+    gloo CPU ranks (``reduced``: the reduced configs)."""
+    import shutil
+    n = n or torch.cuda.device_count()
+    out = ROOT / "build" / "mesh_ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    free_card(torch, "cuda" if dev_type == "cuda" else "cpu")
+    port = free_port()
+    args = ["--mesh-world", str(n), "--mesh-port", str(port), "--mesh-out",
+            str(out), "--seed", str(seed)] + \
+        (["--mesh-cpu"] if dev_type == "cpu" else []) + \
+        (["--mesh-reduced"] if reduced else [])
+    logs = [open(out / f"rank{r}.log", "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--mesh-rank", str(r)] + args,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(n)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs if p.poll() is not None) \
+                    or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for line in (out / "rank0.log").read_text().splitlines():
+        if line.startswith("["):
+            print(line, flush=True)
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    for r in failed:
+        tail = (out / f"rank{r}.log").read_text()[-3000:]
+        print(f"[mesh] rank {r} exited {procs[r].returncode}:\n{tail}",
+              file=sys.stderr, flush=True)
+    check(not failed, f"the sharded training ranks {failed} failed")
+    with open(out / "rank0.json") as f:
+        rec = json.load(f)
+    log(f"[mesh] {n} ranks done in {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of :func:`phase_train_cards`: :func:`mesh_leg`, its record
+    written as ``rank<R>.json`` in ``--mesh-out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    rank, world = args.mesh_rank, args.mesh_world
+    dev = "cpu" if args.mesh_cpu else f"cuda:{rank}"
+    open_group(torch, rank, world, args.mesh_port, dev)
+    try:
+        rec = mesh_leg(torch, np, args.seed, dev, world, args.mesh_reduced)
+        with open(Path(args.mesh_out) / f"rank{rank}.json", "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_leg(torch, np, seed, dev, world, reduced=False):
+    """A rank's part of the cards' leg (see :func:`phase_train_cards`):
+    qwen3-1.7b on each of :func:`mesh_shapes` against the one-card step
+    (:func:`mesh_qwen3`); the int8 compressed all-reduce on the card's
+    collectives (:func:`mesh_compression`); the elastic restore
+    (:func:`mesh_elastic`); recurrentgemma-9b and pixtral-12b at full
+    depth (:func:`mesh_run`).  ``reduced``: the reduced configs and 32
+    tokens a sequence (a CPU rehearsal)."""
+    from repro_torch import configs
+    get = (lambda a: configs.reduced(configs.get(a))) if reduced \
+        else configs.get
+    T = 32 if reduced else TRAIN_T
+    on_card = torch.device(dev).type == "cuda"
+    rec = {"card": gpu_name_and_limit() if on_card else "cpu"}
+    rec["qwen3"] = mesh_qwen3(torch, seed, dev, world, get(TRAIN_ARCH),
+                              TRAIN_B, T)
+    rec["compression"] = mesh_compression(torch, seed, dev, world,
+                                          get(TRAIN_ARCH), TRAIN_B, T)
+    rec["elastic"] = mesh_elastic(torch, seed, dev, world, dataclasses.replace(
+        get(TRAIN_ARCH), num_layers=ELASTIC_LAYERS, dtype="float32"),
+        TRAIN_B, T)
+    for arch, frames in BIG_TRAIN.items():
+        cfg = get(arch)
+        frames = min(frames, cfg.frontend_len) if reduced else frames
+        stream = train_stream(cfg, TRAIN_B, T, seed, frames)
+        rec[arch] = mesh_run(torch, cfg, (world, 1), seed, dev, stream,
+                             TRAIN_B, T + frames, BIG_STEPS, big=True)
+    return rec
+
+
+def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
+             compare=False, big=False):
+    """``cfg`` trained ``steps`` steps on the (data, model) mesh ``dims``
+    through ``train_loop`` and the sharded prefetch, then one more step
+    under the profiler: each rank's parameter bytes equal to
+    ``bytes_per_device``; finite losses (and, ``big``, the last below the
+    first, every rank's peak under ``MESH_PEAK_GIB``); every attention
+    backward launch on the tensor cores.  With ``compare`` (on every
+    rank) the first step's gradients are gathered whole on rank 0 and,
+    with its loss, held to ``one`` (rank 0's one-card first step: its loss
+    and gradients) within the bf16 limits.  Returns the
+    record: losses, step ms (median after the first), positions/s, peak
+    GiB (this rank's), the collectives' share of the profiled step's
+    device time, launches a step."""
+    import torch.distributed as dist
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              train_loop, trainable_params)
+    rank, on_card = dist.get_rank(), torch.device(dev).type == "cuda"
+    name = f"{cfg.name} {dims[0]} x {dims[1]}"
+    free_card(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh, rules, model = mesh_model(torch, cfg, dims, seed, dev)
+    sync(torch, dev)
+    t_init = time.perf_counter() - t0
+    local = sum(p.to_local().numel() * p.to_local().element_size()
+                for p in model.parameters())
+    want = R.bytes_per_device(lm_lib.param_specs(cfg), rules, mesh,
+                              dtype=cfg.compute_dtype)
+    check(local == want, f"{name}: rank {rank} holds {local} parameter "
+          f"bytes, bytes_per_device says {want}")
+    params = trainable_params(model)
+    grads = {}
+
+    def record(g):      # the first step's gradients, whole on rank 0
+        if not grads:
+            for k, v in g.items():
+                w = whole(v)
+                grads[k] = w if rank == 0 else None
+        return g
+    step_fn, opt = make_train_step(model, TrainConfig(),
+                                   compress_fn=record if compare else None)
+    counted = []
+    state = opt.init(params)
+    batches = mesh_batches(torch, stream, rules, mesh, 0, dev)
+    try:
+        with ctx.use(rules, mesh):
+            params, state, hist = train_loop(
+                model, TrainConfig(), params, state, batches, steps=steps,
+                log_every=0, train_step=counting_step(torch, step_fn,
+                                                      counted))
+            step = counting_step(torch, step_fn, counted)
+            batch = next(batches)
+            kernels = []
+            wall, busy_us, by_name = profile_window(
+                torch, lambda: step(params, state, batch), dev, kernels)
+    finally:
+        batches.close()
+    split = collective_waits([d for _, d, k in kernels if "nccl" in
+                              k.lower()])
+    peak = card_gib(torch, dev, peak=True)
+    losses = hist["loss"]
+    total = sum(t for t, _, _ in by_name) or 1.0
+    coll = sum(t for t, key, _ in by_name if "nccl" in key.lower())
+    med_s = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2]
+    n_attn = attention_layers(cfg)
+    per_step = [(c["flash_attention_bwd"], c["flash_attention_bwd_tc"])
+                for c in counted]
+    check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
+    if on_card:
+        check(per_step == [(n_attn, n_attn)] * (steps + 1),
+              f"{name}: attention backward launches (all, tensor-core) a "
+              f"step {per_step}, expected {(n_attn, n_attn)}")
+    if big:
+        check(losses[-1] < losses[0], f"{name}: the loss did not fall: "
+              f"{losses}")
+        if on_card:
+            check(peak < MESH_PEAK_GIB, f"{name}: rank {rank}'s peak "
+                  f"{peak:.2f} GiB")
+    rel = None
+    if rank == 0 and compare:
+        check(abs(losses[0] - one["loss"]) <= MESH_LOSS_RTOL
+              * abs(one["loss"]), f"{name}: first loss {losses[0]} "
+              f"against the one-card step's {one['loss']}")
+        whole_rel, (worst, leaf) = gradient_gaps(
+            list(grads), [grads[k] for k in grads],
+            [one["grads"][k] for k in grads])
+        rel = (whole_rel, worst, leaf)
+        check(whole_rel < TRAIN_GRAD_L2[cfg.dtype]
+              and worst < TRAIN_LEAF_L2[cfg.dtype],
+              f"{name}: gradients against the one-card step's: whole "
+              f"{whole_rel:.4g}, worst leaf {worst:.4g} ({leaf})")
+    r = {"losses": losses, "step_ms": med_s * 1e3,
+         "positions_per_s": B * T / med_s, "peak_gib": peak,
+         "collective_share": coll / total, "busy": busy_us / 1e6 / wall,
+         "collective_ms": coll / 1e3, "collective_transfer_ms":
+         split and split[0] / 1e3, "collective_wait_ms":
+         split and split[1] / 1e3,
+         "init_s": t_init, "launches": per_step[0], "grad_rel": rel,
+         "param_bytes": local}
+    log(f"[mesh] {name}: {steps} steps of {B} x {T} positions, losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(s * 1e3, 1) for s in hist['step_time']]}, median after "
+        f"the first {med_s * 1e3:.1f} ({B * T / med_s:,.1f} positions/s); "
+        f"rank {rank}: peak {peak:.2f} GiB, {local / 2**30:.3f} GiB of "
+        f"parameters (bytes_per_device), init {t_init:.1f} s; the profiled "
+        f"step: collectives {coll / total:.1%} of device time ("
+        + (f"{coll / 1e3:.3f} ms: transfer about {split[0] / 1e3:.3f}, "
+           f"waiting for later ranks {split[1] / 1e3:.3f}" if split else
+           f"{coll / 1e3:.3f} ms; ranks' kernel counts differ, not split")
+        + f"), card busy "
+        f"{busy_us / 1e6 / wall:.1%} of {wall * 1e3:.1f} ms; attention "
+        f"backward launches a step (all, tensor-core) {per_step[0]}"
+        + (f"; against the one-card step: first loss {one['loss']:.6f}, "
+           f"gradients whole {rel[0]:.4g}, worst leaf {rel[1]:.4g} "
+           f"({rel[2]})" if rel else ""))
+    del model, params, state, step_fn, opt, grads
+    free_card(torch, dev)
+    return r
+
+
+def mesh_qwen3(torch, seed, dev, world, cfg, B, T):
+    """qwen3-1.7b on each of :func:`mesh_shapes` (:func:`mesh_run`,
+    ``MESH_STEPS`` steps), its first step held to the one-card step on
+    rank 0's card (plain tensors, the same seed and batch)."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.train.train_loop import to_device, trainable_params
+    stream = train_stream(cfg, B, T, seed)
+    one = None
+    if dist.get_rank() == 0:
+        model = build_model(cfg, device=dev, seed=seed)
+        params = trainable_params(model)
+        loss, _ = model.loss(to_device(stream.batch_at(0), model.device))
+        g = torch.autograd.grad(loss, list(params.values()))
+        one = {"loss": float(loss),
+               "grads": {k: v.cpu() for k, v in zip(params, g)}}
+        del model, params, g, loss
+        free_card(torch, dev)
+    dist.barrier()
+    return {f"{d}x{m}": mesh_run(torch, cfg, (d, m), seed, dev, stream, B,
+                                 T, MESH_STEPS, one=one, compare=True)
+            for d, m in mesh_shapes(world)}
+
+
+def mesh_compression(torch, seed, dev, world, cfg, B, T):
+    """The int8 all-reduce (``compressed_psum``) over all ranks: ROADMAP
+    §C entry 11's shards spread over the ranks and a random tensor, each
+    element within ``n * scale / 2`` of the exact sum; then one
+    qwen3-1.7b step on the (cards, 1) mesh with
+    ``make_compressed_allreduce`` on the data axis, every gradient leaf
+    within that bound, and the gradient dtype's rounding of the result,
+    of its float32 sum, and a finite loss."""
+    import torch.distributed as dist
+    from repro_torch.sharding import ctx
+    from repro_torch.train.compression import (compressed_psum,
+                                               make_compressed_allreduce)
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              trainable_params)
+    rank = dist.get_rank()
+    shards = [[1.0, -0.5, 0.25, 0.1], [0.01, 0.02, -0.01, 0.005]]
+    gen = torch.Generator(device=dev).manual_seed(seed + rank)
+    worst = 0.0
+    for x in (torch.tensor(shards[rank % 2], device=dev),
+              torch.randn(4096, generator=gen, device=dev) * (rank + 1)):
+        exact = x.clone()
+        dist.all_reduce(exact)
+        amax = x.abs().max()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+        err = float((compressed_psum(x) - exact).abs().max())
+        bound = float(world * amax / 127 / 2)
+        check(err <= bound * (1 + 1e-5), f"compressed_psum over {world} "
+              f"ranks: {err} from the exact sum, bound {bound}")
+        worst = max(worst, err / bound)
+    mesh, rules, model = mesh_model(torch, cfg, (world, 1), seed, dev)
+    reduce = make_compressed_allreduce(mesh)
+    data = mesh.get_group("data")
+    leaf_worst, n_leaves = [0.0], [0]
+
+    def compress(grads):
+        # each leaf against its float32 sum over the data axis: within
+        # n scale / 2 (the int8 sum) and the result's rounding to the
+        # gradient's dtype (bf16: half a unit in the 8th bit)
+        got = reduce(grads)
+        for k, g in grads.items():
+            if not g.placements[0].is_partial():
+                continue
+            local = g.to_local().float()
+            exact = local.clone()
+            dist.all_reduce(exact, group=data)
+            amax = local.abs().max()
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=data)
+            c = got[k].to_local().float()
+            ulp = 2.0 ** -8 if g.dtype == torch.bfloat16 else 2.0 ** -24
+            bound = world * amax / 127 / 2 + c.abs() * ulp
+            ratio = float(((c - exact).abs() / bound).max())
+            check(ratio <= 1 + 1e-5, f"compressed step: {k} {ratio:.6f} of "
+                  f"its bound from the float32 sum")
+            leaf_worst[0] = max(leaf_worst[0], ratio)
+            n_leaves[0] += 1
+        return got
+    params = trainable_params(model)
+    step_fn, opt = make_train_step(model, TrainConfig(), compress_fn=compress)
+    batch = train_stream(cfg, B, T, seed).batch_at(0)
+    with ctx.use(rules, mesh):
+        _, _, m = step_fn(params, opt.init(params), batch)
+    loss = float(m["loss"])
+    check(math.isfinite(loss) and n_leaves[0] > 0, f"compressed step: loss "
+          f"{loss}, {n_leaves[0]} leaves compressed")
+    log(f"[mesh] compressed_psum over {world} ranks: worst error "
+        f"{worst:.3f} of n scale / 2; a {cfg.name} step on {world} x 1 "
+        f"with the int8 all-reduce: loss {loss:.6f}, {n_leaves[0]} "
+        f"gradient leaves each within {leaf_worst[0]:.3f} of its bound")
+    del model, params, step_fn, opt
+    free_card(torch, dev)
+    return {"psum_worst": worst, "step_worst": leaf_worst[0], "loss": loss}
+
+
+def mesh_elastic(torch, seed, dev, world, cfg, B, T):
+    """Saved on the first of :func:`mesh_shapes` after step 2 (every rank
+    gathers, rank 0 writes), steps 3 and 4 there (the uninterrupted run)
+    and, restored (``Checkpointer.restore_into``) into a model drawn from
+    another seed, on the last mesh: each loss and weight leaf within
+    ``ELASTIC_RTOL``."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.sharding import ctx
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.train_loop import (TrainConfig, make_train_step,
+                                              train_loop, trainable_params)
+    rank = dist.get_rank()
+    stream = train_stream(cfg, B, T, seed)
+    ckdir = ROOT / "build" / "mesh_ckpt"
+    if rank == 0:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    dist.barrier()
+    ck = Checkpointer(str(ckdir), keep=1)
+    first, last = mesh_shapes(world)[0], mesh_shapes(world)[-1]
+    runs = {}
+    for dims, start, s in ((first, 0, seed), (last, 2, seed + 1)):
+        mesh, rules, model = mesh_model(torch, cfg, dims, s, dev)
+        params = trainable_params(model)
+        step_fn, opt = make_train_step(model, TrainConfig())
+        state = opt.init(params)
+        if start:
+            check(ck.restore_into(params, state) == start,
+                  "the mesh checkpoint restored another step")
+        losses = []
+        # the first mesh saves after step 2 and goes on; the last resumes
+        legs = ((0, 2, ck), (2, 4, None)) if not start else ((2, 4, None),)
+        with ctx.use(rules, mesh):
+            for lo, hi, saver in legs:
+                batches = mesh_batches(torch, stream, rules, mesh, lo, dev)
+                try:
+                    params, state, hist = train_loop(
+                        model, TrainConfig(), params, state, batches,
+                        steps=hi, start_step=lo, log_every=0,
+                        train_step=step_fn, checkpointer=saver,
+                        checkpoint_every=hi)
+                finally:
+                    batches.close()
+                losses += hist["loss"]
+        ck.wait()
+        runs[dims] = (losses[-2:], {k: whole(p) for k, p in params.items()})
+        del model, params, state, step_fn, opt
+        free_card(torch, dev)
+    (want, w_want), (got, w_got) = runs[first], runs[last]
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    rel_w = max(leaf_gap(w_got[k], w_want[k]) for k in w_want)
+    check(rel_loss <= ELASTIC_RTOL and rel_w <= ELASTIC_RTOL,
+          f"restored on {last} after a save on {first}: losses {got} "
+          f"against {want} (relative {rel_loss:.3g}), weights within "
+          f"{rel_w:.3g}")
+    log(f"[mesh] elastic restore ({cfg.name}, {cfg.num_layers} layers, "
+        f"float32): saved on {first[0]} x {first[1]} after step 2, steps 3 "
+        f"and 4 restored on {last[0]} x {last[1]}: losses {got} against "
+        f"{want} (relative {rel_loss:.3g}, bitwise {got == want}); weights "
+        f"within relative L2 {rel_w:.3g}")
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"losses": got, "want": want, "rel_loss": rel_loss,
+            "rel_weights": rel_w}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 9c's cards' leg (phase_train_cards starts them)
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-cpu", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-reduced", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -5765,6 +6414,11 @@ def main() -> int:
           "the serving phases launched a backward kernel")
     train = phase_train(torch, np, args.seed, card)
     done("train")
+    mesh = phase_train_mesh(torch, args.seed, card, train.pop("mesh_ref"))
+    done("mesh")
+    if torch.cuda.device_count() >= 2:
+        phase_train_cards(torch, args.seed, card)
+        done("mesh cards")
     check_card_cell(card_cell, train, card)
     # the profiled phases come last: a profiler session may slow the
     # host's launches for the rest of the process (phase_lm_profile reads
@@ -5951,6 +6605,12 @@ def main() -> int:
                 decode_earlier_ms=r["decode_earlier_ms"],
                 decode_earlier_graph_ms=r["decode_earlier_graph_ms"],
                 decode_bound_ms=r["decode_bound"][0])
+    # phase 9c's launches: the 1 x 1 mesh's steps
+    for e in kernels:
+        if e["name"] == "flash_attention":
+            e["mesh_launches"] = mesh["launches"]
+        elif e["name"] == "flash_attention_bwd":
+            e["mesh_launches"] = mesh["bwd_launches"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

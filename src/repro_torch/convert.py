@@ -62,6 +62,7 @@ __all__ = ["FLEET_ARRAYS", "adafactor_state_from_reference",
            "adamw_state_from_reference", "encdec_params_from_reference",
            "encdec_state_from_reference", "fleet_state_from_reference",
            "lm_params_from_reference", "lm_state_from_reference",
+           "lm_tree_from_reference",
            "model_config_from_reference", "store_from_reference"]
 
 #: the reference fleet's attributes a conversion reads, as numpy arrays
@@ -182,10 +183,19 @@ def lm_params_from_reference(cfg: ModelConfig, params: Mapping[str, Any], *,
     """The reference ``LM.init`` tree (``{"embed", "final_norm",
     "stack"}``, leaves as numpy arrays) loaded into a port :class:`LM` on
     ``device``."""
-    tree = {"embed": _map_leaves(np.asarray, params["embed"]),
+    return LM(cfg, device=device, params=lm_tree_from_reference(cfg,
+                                                                params))
+
+
+def lm_tree_from_reference(cfg: ModelConfig, params: Mapping[str, Any]
+                           ) -> Dict[str, Any]:
+    """The reference ``LM.init`` tree as the port's parameter tree
+    (``{"embed", "final_norm", "layers": [per-layer dicts]}``, numpy
+    leaves), which ``LM(params=)`` loads and
+    :func:`repro_torch.sharding.place.place_tree` places on a mesh."""
+    return {"embed": _map_leaves(np.asarray, params["embed"]),
             "final_norm": _map_leaves(np.asarray, params["final_norm"]),
             "layers": _unstack_layers(cfg, params["stack"])}
-    return LM(cfg, device=device, params=tree)
 
 
 def lm_state_from_reference(cfg: ModelConfig, state: Mapping[str, Any], *,

@@ -7,15 +7,19 @@ host materialises only its shard of the global batch; a background
 thread keeps ``prefetch`` batches ready.  The synthetic backend draws
 Zipf-like token ids from numpy's counter-based Philox generator keyed by
 (seed, step, host), so its batches equal the reference's byte for byte.
-:class:`PrefetchIterator` takes a ``device`` where the reference takes
-``shardings``: batches arrive as tensors there.
+:class:`PrefetchIterator` takes a ``device`` (batches arrive as tensors
+there) and, as the reference, ``shardings`` (the rules'
+``batch_shardings``): on a mesh, one process a rank, each batch arrives
+as DTensors of which each rank holds the rows the reference's
+``device_put`` gives its device (:func:`repro_torch.sharding.place.
+place`), on ``device``.
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator, Optional, Union
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -65,12 +69,15 @@ class TokenStream:
 
 class PrefetchIterator:
     """Background-thread prefetch of ready batches, as tensors on
-    ``device`` when one is given (numpy arrays otherwise)."""
+    ``device`` when one is given (numpy arrays otherwise), placed by
+    ``shardings`` when they are given (see the module's note)."""
 
     def __init__(self, stream: TokenStream, *, start_step: int = 0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 shardings: Optional[Dict[str, Any]] = None):
         self.stream = stream
         self.device = torch.device(device) if device is not None else None
+        self.shardings = shardings
         self._q: "queue.Queue" = queue.Queue(stream.cfg.prefetch)
         self._stop = threading.Event()
         self._step = start_step
@@ -80,21 +87,36 @@ class PrefetchIterator:
     def _fill(self) -> None:
         step = self._step
         while not self._stop.is_set():
-            batch = self.stream.batch_at(step)
-            if self.device is not None:
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in batch.items()}
+            try:
+                batch = self._make(step)
+            except Exception as e:      # raised by __next__
+                self._q.put(e)
+                return
             try:
                 self._q.put(batch, timeout=0.5)
                 step += 1
             except queue.Full:
                 continue
 
+    def _make(self, step: int):
+        batch = self.stream.batch_at(step)
+        if self.shardings is not None:
+            from repro_torch.sharding.place import place
+            return {k: place(v, self.shardings[k], device=self.device)
+                    for k, v in batch.items()}
+        if self.device is not None:
+            return {k: torch.from_numpy(v).to(self.device)
+                    for k, v in batch.items()}
+        return batch
+
     def __iter__(self):
         return self
 
     def __next__(self):
-        return self._q.get()
+        batch = self._q.get()
+        if isinstance(batch, Exception):
+            raise batch
+        return batch
 
     def close(self) -> None:
         self._stop.set()

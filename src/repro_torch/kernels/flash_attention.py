@@ -102,7 +102,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shards
 
 __all__ = ["BWD_PAIR_HEAD_DIMS", "BWD_SPLIT_HEAD_DIMS", "BWD_TC_HEAD_DIMS",
            "FlashAttentionFn", "HEAD_DIMS", "LAUNCHES", "SHAPE_LAUNCHES",
@@ -490,7 +490,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window)
-    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
+    return _shards.call(torch.ops.repro_torch.flash_attention, q, k, v,
+                        causal, window)
 
 
 def _launch_bwd(q, k, v, o, do, causal: bool, window: Optional[int],
@@ -578,7 +579,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        o = torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
+        o = _shards.call(torch.ops.repro_torch.flash_attention, q, k, v,
+                         causal, window)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.window = causal, window
         return o
@@ -586,8 +588,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
-            q, k, v, o, do.contiguous(), ctx.causal, ctx.window)
+        dq, dk, dv = _shards.call(
+            torch.ops.repro_torch.flash_attention_bwd, q, k, v, o,
+            do.contiguous(), ctx.causal, ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -619,17 +622,21 @@ _LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
             "Tensor do, bool causal, int? window) -> (Tensor, Tensor, "
             "Tensor)")
 # the launchers by name at call time on the card, the plain versions on
-# the CPU (a CPU tensor inside a DTensor reaches the operator)
+# the CPU (a CPU tensor inside a DTensor reaches the operator); a
+# DTensor's shards dense (see ``_shards``), a plain tensor as it came
 _LIB.impl("flash_attention", lambda q, k, v, causal, window: _launch(
-    q, k, v, causal, window), "CUDA")
+    *_shards.dense((q, k, v)), causal, window), "CUDA")
 _LIB.impl("flash_attention_bwd",
           lambda q, k, v, o, do, causal, window: _launch_bwd(
-              q, k, v, o, do, causal, window), "CUDA")
+              *_shards.dense((q, k, v, o, do)), causal, window), "CUDA")
+# (dense, as the kernels' outputs are: DTensor takes an output's strides
+# from the fake kernels below, and views the gradients by them)
 _LIB.impl("flash_attention", lambda q, k, v, causal, window: attention_ref(
-    q, k, v, causal=causal, window=window), "CPU")
+    q, k, v, causal=causal, window=window).contiguous(), "CPU")
 _LIB.impl("flash_attention_bwd",
-          lambda q, k, v, o, do, causal, window: attention_bwd_ref(
-              q, k, v, o, do, causal=causal, window=window), "CPU")
+          lambda q, k, v, o, do, causal, window: tuple(
+              g.contiguous() for g in attention_bwd_ref(
+                  q, k, v, o, do, causal=causal, window=window)), "CPU")
 
 
 def _fake_heads(q, k) -> None:
@@ -642,13 +649,13 @@ def _fake_heads(q, k) -> None:
 @torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
 def _fake_fwd(q, k, v, causal, window):
     _fake_heads(q, k)
-    return torch.empty_like(q)
+    return q.new_empty(q.shape)
 
 
 @torch.library.register_fake("repro_torch::flash_attention_bwd", lib=_LIB)
 def _fake_bwd(q, k, v, o, do, causal, window):
     _fake_heads(q, k)
-    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)

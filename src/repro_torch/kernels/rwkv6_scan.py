@@ -62,7 +62,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _shards
 
 __all__ = ["BWD_VARIANTS", "CKPT_STEPS", "HEAD_SIZES", "LAUNCHES",
            "VARIANTS", "WKV6Fn", "bwd_occupancy", "register_sharding",
@@ -330,7 +330,8 @@ class WKV6Fn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
-        y, sT, ckpt = torch.ops.repro_torch.wkv6_ckpt(r, k, v, w, u, s0)
+        y, sT, ckpt = _shards.call(torch.ops.repro_torch.wkv6_ckpt,
+                                   r, k, v, w, u, s0)
         ctx.save_for_backward(r, k, v, w, u, ckpt)
         ctx.set_materialize_grads(False)
         return y, sT
@@ -343,8 +344,8 @@ class WKV6Fn(torch.autograd.Function):
         if dsT is not None:
             dsT = dsT.float().contiguous()
         want_ds0 = ctx.needs_input_grad[5]
-        *grads, ds0 = torch.ops.repro_torch.wkv6_bwd(
-            r, k, v, w, u, ckpt, dy, dsT, want_ds0)
+        *grads, ds0 = _shards.call(torch.ops.repro_torch.wkv6_bwd,
+                                   r, k, v, w, u, ckpt, dy, dsT, want_ds0)
         return (*grads, ds0 if want_ds0 else None)
 
 
@@ -365,7 +366,7 @@ def wkv6(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (r, k, v, w, u, s0)):
         return WKV6Fn.apply(r, k, v, w, u, s0)
-    return torch.ops.repro_torch.wkv6(r, k, v, w, u, s0)
+    return _shards.call(torch.ops.repro_torch.wkv6, r, k, v, w, u, s0)
 
 
 # --- the counting form (see the module's note) -----------------------------
@@ -414,10 +415,13 @@ _LIB.define("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
             "Tensor ckpt, Tensor dy, Tensor? dsT, bool want_ds0) -> "
             "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
 # the launchers on the card, the plain versions on the CPU (a CPU tensor
-# inside a DTensor reaches the operator), each by name at call time
-_LIB.impl("wkv6", lambda *a: _launch(*a), "CUDA")
-_LIB.impl("wkv6_ckpt", lambda *a: _launch(*a, ckpt=True), "CUDA")
-_LIB.impl("wkv6_bwd", lambda *a: _bwd(_launch_bwd, *a), "CUDA")
+# inside a DTensor reaches the operator), each by name at call time; a
+# DTensor's shards dense (see ``_shards``), a plain tensor as it came
+_LIB.impl("wkv6", lambda *a: _launch(*_shards.dense(a)), "CUDA")
+_LIB.impl("wkv6_ckpt", lambda *a: _launch(*_shards.dense(a), ckpt=True),
+          "CUDA")
+_LIB.impl("wkv6_bwd", lambda *a: _bwd(_launch_bwd, *_shards.dense(a)),
+          "CUDA")
 _LIB.impl("wkv6", lambda *a: _launch_plain(*a), "CPU")
 _LIB.impl("wkv6_ckpt", lambda *a: _launch_plain(*a, ckpt=True), "CPU")
 _LIB.impl("wkv6_bwd", lambda *a: _bwd(_launch_bwd_plain, *a), "CPU")
@@ -442,8 +446,8 @@ def _fake_ckpt(r, k, v, w, u, s0):
 
 @torch.library.register_fake("repro_torch::wkv6_bwd", lib=_LIB)
 def _fake_bwd(r, k, v, w, u, ckpt, dy, dsT, want_ds0):
-    return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(r),
-            torch.empty_like(w), torch.empty_like(u),
+    return (r.new_empty(r.shape), r.new_empty(r.shape), r.new_empty(r.shape),
+            w.new_empty(w.shape), u.new_empty(u.shape),
             _state(r) if want_ds0 else r.new_empty(0, dtype=torch.float32))
 
 

@@ -134,11 +134,12 @@ class _Counter(TorchDispatchMode):
 
 @contextlib.contextmanager
 def count() -> Iterator[Counts]:
-    """Count what runs inside, per device (see the module's note); plain
-    tensors beside DTensors are taken as replicated."""
-    from torch.distributed.tensor.experimental import implicit_replication
+    """Count what runs inside, per device (see the module's note), in the
+    sharded program's context (:func:`repro_torch.sharding.ctx.spmd`,
+    which the sharded train step enters too)."""
+    from repro_torch.sharding.ctx import spmd
     counts = Counts()
-    with implicit_replication(), _Counter(counts):
+    with spmd(), _Counter(counts):
         yield counts
 
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +36,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ops
 from repro_torch.models.types import ModelConfig, ParamSpec
-from repro_torch.sharding.ctx import constrain, constrain_merged
+from repro_torch.sharding.ctx import constrain, constrain_merged, placed
 
 Params = Mapping[str, torch.Tensor]
 
@@ -93,8 +93,110 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return constrain(F.embedding(tokens, p["embedding"]),
-                     ("batch", "seq", None))
+    """The token embeddings; a table split over the vocabulary (a
+    DTensor) is looked up shard by shard (:func:`vocab_lookup`)."""
+    table = p["embedding"]
+    x = vocab_lookup(table, tokens) if vocab_dims(table, 0) \
+        else F.embedding(tokens, table)
+    return constrain(x, ("batch", "seq", None))
+
+
+# --- vocabulary-parallel lookups (a DTensor split over the vocabulary) ------
+#
+# DTensor's own rules for an embedding or a gather over a split vocabulary
+# keep a mask beside a partial sum, which breaks once the ids are split
+# over another mesh axis (the batch over data): the mask keeps the ids'
+# local shape and the output is redistributed at another.  These two do
+# the Megatron lookups on the local shards instead: each rank reads the
+# ids that fall in its slice of the vocabulary, zeros the rest, and the
+# result is a partial sum over the vocabulary's mesh axes.
+
+def vocab_dims(t: torch.Tensor, dim: int) -> List[int]:
+    """The mesh dimensions over which DTensor ``t`` splits ``dim``
+    (none for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor):
+        return []
+    dim = dim % t.dim()
+    return [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+
+
+def _vocab_offset(mesh, dims: List[int], n_local: int) -> int:
+    """The first vocabulary id of this rank's slice (the dimension cut in
+    mesh order over ``dims``, the first the major)."""
+    coord, idx = mesh.get_coordinate(), 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    return idx * n_local
+
+
+def _placed_ids(ids: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """Integer ids as a DTensor at ``placements`` (plain ids are the same
+    on every rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return ids.redistribute(mesh, placements)
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)`` for a DTensor ``table`` (V, d) split
+    over the vocabulary: any other split (an FSDP split of d) gathered
+    first, the ids' rows kept as the ids are split, and the result a
+    partial sum over the vocabulary's mesh axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    vdims = vocab_dims(table, 0)
+    table = placed(table, [Shard(0) if i in vdims else Replicate()
+                           for i in range(mesh.ndim)], weight=True)
+    ids = _placed_ids(ids, mesh, [Replicate() if i in vdims else p
+                                  for i, p in enumerate(
+                                      getattr(ids, "placements", [])
+                                      or [Replicate()] * mesh.ndim)])
+    # the table's gradient: each rank's rows exact, a partial sum over the
+    # axes that split the ids
+    grad_pl = [Shard(0) if i in vdims else
+               Partial() if isinstance(p, Shard) else Replicate()
+               for i, p in enumerate(ids.placements)]
+    local = table.to_local(grad_placements=grad_pl)
+    n = local.shape[0]
+    rel = ids.to_local().long() - _vocab_offset(mesh, vdims, n)
+    hit = (rel >= 0) & (rel < n)
+    out = F.embedding(rel.clamp(0, n - 1), local) * \
+        hit[..., None].to(local.dtype)
+    shape = tuple(ids.shape) + (local.shape[1],)
+    return DTensor.from_local(
+        out, mesh, [Partial() if i in vdims else p
+                    for i, p in enumerate(ids.placements)],
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def vocab_pick(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``logits[..., ids]`` (one id a row, ``ids`` of ``logits``'s
+    leading shape) for a DTensor ``logits`` split over its last
+    dimension, the vocabulary: replicated over the vocabulary's mesh axes
+    (an all-reduce of the partial picks), split as ``logits``'s rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = logits.device_mesh
+    vdims = vocab_dims(logits, -1)
+    rows = [Replicate() if i in vdims else p
+            for i, p in enumerate(logits.placements)]
+    ids = _placed_ids(ids, mesh, rows)
+    local = logits.to_local()
+    n = local.shape[-1]
+    rel = ids.to_local().long() - _vocab_offset(mesh, vdims, n)
+    hit = (rel >= 0) & (rel < n)
+    picked = local.gather(-1, rel.clamp(0, n - 1)[..., None])[..., 0] * hit
+    shape = tuple(ids.shape)
+    out = DTensor.from_local(
+        picked, mesh, [Partial() if i in vdims else p
+                       for i, p in enumerate(rows)],
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+    return out.redistribute(mesh, rows)
 
 
 def head_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -285,8 +387,9 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor, axes) -> torch.Tensor:
     before the heads merge, and the result split again after: DTensor
     cannot merge a dimension whose later part is split (PyTorch 2.11)."""
     d, h, k = w.shape
-    w = constrain(w, ("embed", axes[2], None))
-    wm = constrain_merged(w.reshape(d, h * k), ("embed",) + axes[2:], (h, k))
+    w = constrain(w, ("embed", axes[2], None), weight=True)
+    wm = constrain_merged(w.reshape(d, h * k), ("embed",) + axes[2:], (h, k),
+                          weight=True)
     y = constrain_merged(x @ wm, axes, (h, k))
     return constrain(y.unflatten(-1, (h, k)), axes)
 
@@ -382,9 +485,9 @@ def attn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
     o = constrain(o, _Q_AXES[:3] + (None,))
     H, D, d = p["wo"].shape
     o = constrain_merged(o.reshape(*o.shape[:2], H * D), _Q_AXES, (H, D))
-    wo = constrain(p["wo"], ("heads", None, "embed"))
+    wo = constrain(p["wo"], ("heads", None, "embed"), weight=True)
     wo = constrain_merged(wo.reshape(H * D, d), _Q_AXES[2:] + ("embed",),
-                          (H, D), dim=0)
+                          (H, D), dim=0, weight=True)
     return constrain(o @ wo, ("batch", "seq", None)), new_cache
 
 

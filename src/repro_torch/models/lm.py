@@ -59,8 +59,8 @@ from repro_torch.sharding.ctx import constrain
 
 __all__ = ["AUX_LOSS_WEIGHT", "Block", "LM", "LayerPlan", "Z_LOSS_WEIGHT",
            "block_apply", "block_cache_specs", "block_specs", "fused_xent",
-           "layer_plans", "model_groups", "param_groups", "param_specs",
-           "xent_loss"]
+           "layer_plans", "model_groups", "named_specs", "param_groups",
+           "param_specs", "xent_loss"]
 
 State = List[Dict[str, torch.Tensor]]
 #: a parameter group: the reference leaf's path in its tree and the port's
@@ -370,9 +370,16 @@ def fused_xent(embed, cfg: ModelConfig, x: torch.Tensor,
     reference's ``fused_xent``): per token (logsumexp, label logit), (B, T)
     float32 each, without the (B, T, V) float32 logits.  Each chunk runs
     under ``torch.utils.checkpoint``, so its logits live only inside its
-    step, forward and backward.  ``labels`` must be in [0, V)."""
+    step, forward and backward.  ``labels`` must be in [0, V).  A head
+    split over the vocabulary (a DTensor) is refused: the plain head
+    serves it."""
     tied = cfg.tie_embeddings
     w = embed["embedding"] if tied else embed["head"]
+    if L.vocab_dims(w, 0 if tied else 1):
+        raise NotImplementedError(
+            "vocab_chunk over a head split over the vocabulary (a mesh's "
+            "model axis): the plain head (vocab_chunk=0) keeps the logits "
+            "split there and picks the labels shard by shard")
     V = w.shape[0] if tied else w.shape[1]
     chunk = min(chunk, V)
     # views of one split: the backward assembles w's gradient once
@@ -393,10 +400,14 @@ def plain_xent(logits: torch.Tensor, labels: torch.Tensor
     """(logsumexp, label logit) per token from whole logits, in float32;
     ``labels`` must be in [0, V).  Written as a max, a sum and a gather
     over a flat row of tokens, which DTensor keeps split over the
-    vocabulary (it gathers the whole logits for ``torch.logsumexp``)."""
+    vocabulary (it gathers the whole logits for ``torch.logsumexp``); a
+    vocabulary split over a mesh picks the labels' logits shard by shard
+    (:func:`repro_torch.models.layers.vocab_pick`)."""
     logits = logits.float()
     m = logits.amax(-1, keepdim=True).detach()
     lse = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[..., 0]
+    if L.vocab_dims(logits, -1):
+        return lse, L.vocab_pick(logits, labels)
     ll = logits.flatten(0, -2).gather(-1, labels.reshape(-1, 1))
     return lse, ll.view(labels.shape)
 
@@ -476,6 +487,22 @@ def param_groups(specs: Mapping[str, Any], stacks) -> List[Group]:
         if name not in grouped:
             groups[tuple(name.split("."))] = [name]
     return sorted(groups.items())
+
+
+def named_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """The model's ParamSpecs by parameter name (the names of
+    ``LM.named_parameters``), in spec order: what places each parameter
+    on a mesh (``sharding.rules.sharding_for_spec``)."""
+    specs = param_specs(cfg)
+    trees = [("embed", specs["embed"]), ("final_norm", specs["final_norm"])]
+    trees += [(f"blocks.{i}.groups", layer)
+              for i, layer in enumerate(specs["layers"])]
+    out: Dict[str, ParamSpec] = {}
+    for prefix, tree in trees:
+        leaves: List[ParamSpec] = []
+        map_specs(leaves.append, tree)
+        out.update(zip(_spec_names(tree, prefix), leaves))
+    return out
 
 
 def model_groups(cfg: ModelConfig) -> List[Group]:

@@ -13,6 +13,22 @@ each op's sharding greedily, op by op, so without these annotations it
 drifts (weights' splits pushed into activations, a free split of a
 replicated product's output that a later ``unflatten`` cannot take); they
 hold the activations where the reference's rules put them.
+
+One context for the sharded program: :func:`spmd`, which both the dry
+run's count (:func:`repro_torch.launch.roofline.count`) and the sharded
+train step (:func:`repro_torch.train.train_loop.make_train_step`) enter,
+so the dry run counts the program the ranks run, where DTensor plans the
+step as it does on the dry run's meta mesh: a host of
+``launch.dryrun.CARDS_PER_HOST`` devices (DTensor's cost model reads the
+devices per host) and an all-to-all run as one collective (DTensor runs
+it as an all-gather and a chunk on a CPU mesh).  Other cards per host,
+or another torch, may plan other collectives.  Inside it a
+plain tensor beside DTensors is taken as replicated
+(``implicit_replication``): the RoPE tables and positions, the loss's
+vocabulary positions and constants are the same on every rank, drawn
+from ``arange`` and the config, so they stay plain rather than being
+placed by hand in each of those places.  Anything that differs by rank
+(a batch, a gradient) must arrive placed.
 """
 from __future__ import annotations
 
@@ -23,7 +39,8 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["constrain", "constrain_merged", "current", "use"]
+__all__ = ["constrain", "constrain_merged", "current", "placed", "spmd",
+           "use"]
 
 _TLS = threading.local()
 
@@ -42,20 +59,31 @@ def use(rules, mesh):
         _TLS.ctx = old
 
 
-def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]
-              ) -> torch.Tensor:
+@contextlib.contextmanager
+def spmd():
+    """The sharded program's context (see the module's note): plain
+    tensors beside DTensors are taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        yield
+
+
+def constrain(x: torch.Tensor, axes: Sequence[Optional[str]], *,
+              weight: bool = False) -> torch.Tensor:
     """Annotate activation ``x`` with logical axes (no-op without
-    context; see the module's note)."""
+    context; see the module's note).  A ``weight``'s gradient keeps its
+    partial sums (see :func:`placed`)."""
     ctx = current()
     if ctx is None:
         return x
     rules, mesh = ctx
     from repro_torch.sharding.rules import spec_for
     spec = spec_for(tuple(x.shape), tuple(axes), rules, mesh)
-    return _place(x, list(spec), rules, mesh)
+    return _place(x, list(spec), rules, mesh, weight)
 
 
-def _place(x: torch.Tensor, entries, rules, mesh) -> torch.Tensor:
+def _place(x: torch.Tensor, entries, rules, mesh, weight: bool
+           ) -> torch.Tensor:
     """``x`` redistributed to the spec ``entries`` (see the module's
     note on plain tensors)."""
     from torch.distributed.tensor import DTensor
@@ -67,26 +95,42 @@ def _place(x: torch.Tensor, entries, rules, mesh) -> torch.Tensor:
         raise TypeError(f"constrain got a plain tensor of shape "
                         f"{tuple(x.shape)} under a mesh of "
                         f"{mesh_sizes(mesh)}: place it as a DTensor first")
-    return _Placed.apply(x, placements_for(PartitionSpec(*entries), mesh))
+    return placed(x, placements_for(PartitionSpec(*entries), mesh),
+                  weight=weight)
+
+
+def placed(x, placements, *, weight: bool = False):
+    """DTensor ``x`` redistributed to ``placements``, and its gradient too
+    (as a sharding constraint binds the cotangent in JAX).  A ``weight``'s
+    gradient keeps the mesh axes on which it is a partial sum (the
+    batch's): a parameter's gradient is reduced once, onto the
+    parameter's placements, by the train step (or handed to its
+    ``compress_fn`` before that)."""
+    return _Placed.apply(x, tuple(placements), weight)
 
 
 class _Placed(torch.autograd.Function):
-    """``x`` redistributed to ``placements``, and its gradient too (as a
-    sharding constraint binds the cotangent in JAX; DTensor's own
-    ``redistribute`` sends a gradient back to the input's placements)."""
+    """``x`` redistributed to ``placements``, and its gradient too (see
+    :func:`placed`; DTensor's own ``redistribute`` sends a gradient back
+    to the input's placements)."""
 
     @staticmethod
-    def forward(ctx, x, placements):
-        ctx.placements = placements
+    def forward(ctx, x, placements, weight):
+        ctx.placements, ctx.weight = placements, weight
         return x.redistribute(x.device_mesh, placements)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.redistribute(grad.device_mesh, ctx.placements), None
+        placements = ctx.placements
+        if ctx.weight:
+            placements = [g if g.is_partial() else p
+                          for g, p in zip(grad.placements, placements)]
+        return grad.redistribute(grad.device_mesh, placements), None, None
 
 
 def constrain_merged(x: torch.Tensor, axes: Sequence[Optional[str]],
-                     sizes: Sequence[int], dim: int = -1) -> torch.Tensor:
+                     sizes: Sequence[int], dim: int = -1, *,
+                     weight: bool = False) -> torch.Tensor:
     """Annotate ``x`` whose dimension ``dim`` merges ``len(sizes)``
     dimensions of these ``sizes``; ``axes`` names every dimension with
     the merged ones unmerged (a projection to ``(heads, head_dim)`` before
@@ -108,4 +152,4 @@ def constrain_merged(x: torch.Tensor, axes: Sequence[Optional[str]],
     inner = entries[dim:dim + k]
     merged = inner[0] if all(e is None for e in inner[1:]) else None
     return _place(x, entries[:dim] + [merged] + entries[dim + k:], rules,
-                  mesh)
+                  mesh, weight)

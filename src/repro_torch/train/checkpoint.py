@@ -17,9 +17,20 @@ leaf is stored as its raw 16 bits (``int16``) with its dtype in the
 manifest, and comes back bit for bit.  ``restore(template)`` returns new
 tensors of the template's dtypes on its devices; ``restore_into`` copies a
 checkpoint into a live model's parameters and optimizer state in place.
-Restoring onto another
-mesh (the reference's elastic restore) waits for the sharding slice
-(ROADMAP.md §A).
+
+On a mesh (DTensor leaves, one process a rank) every rank calls ``save``:
+each DTensor leaf is gathered whole (``full_tensor``), one leaf at a
+time, rank 0 keeps the host copy and writes, the other ranks keep
+nothing, and every rank waits for rank 0's write (a barrier in
+``wait()``, which ``save`` calls first) before the next save or a
+restore.  The format is the one-process one, whole arrays, so a
+checkpoint saved on one card restores onto a mesh and back.  The elastic
+restore is the reference's: ``restore(template, shardings=)`` places
+each saved whole array onto a mesh that may differ from the one that
+saved (``shardings`` a tree of :class:`~repro_torch.sharding.rules.
+NamedSharding` parallel to ``template``), each rank keeping its slice;
+without ``shardings`` a DTensor template leaf is placed as it is, so
+``restore_into`` copies into placed parameters and moments.
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,11 +71,24 @@ def _unflatten(tree: Any, leaves: List[Any]) -> Any:
     return build(tree)
 
 
+def _is_placed(t: Any) -> bool:
+    return isinstance(t, torch.Tensor) and hasattr(t, "placements")
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _to_host(t: Any) -> Tuple[np.ndarray, str]:
     if not isinstance(t, torch.Tensor):
         a = np.asarray(t)
         return a, str(a.dtype)
     t = t.detach()
+    if _is_placed(t):
+        t = t.full_tensor()       # every rank gathers; rank 0 keeps it
+        if _rank():
+            return None, str(t.dtype).split(".")[-1]
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy(), "bfloat16"
     return t.cpu().numpy(), str(t.dtype).split(".")[-1]
@@ -77,6 +101,8 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        #: the last save was a mesh's: wait() is a barrier
+        self._collective = False
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, params: Any, opt_state: Any = None,
@@ -86,9 +112,13 @@ class Checkpointer:
         tree = {"params": params}
         if opt_state is not None:
             tree["opt_state"] = opt_state
+        leaves = _flatten(tree)
+        self._collective = any(_is_placed(v) for _, v in leaves)
         # the host copy is synchronous: the next step may overwrite the
         # device buffers
-        host = [(k, *_to_host(v)) for k, v in _flatten(tree)]
+        host = [(k, *_to_host(v)) for k, v in leaves]
+        if _rank():
+            return                 # rank 0 writes
         manifest = {"step": step, "keys": [k for k, _, _ in host],
                     "dtypes": {k: d for k, _, d in host},
                     "time": time.time(), "extra": extra or {}}
@@ -125,9 +155,13 @@ class Checkpointer:
             self._error = e
 
     def wait(self) -> None:
+        """Join the write (on a mesh: every rank waits for rank 0's)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._collective:
+            import torch.distributed as dist
+            dist.barrier()
         if self._error is not None:
             e, self._error = self._error, None
             raise e
@@ -151,11 +185,22 @@ class Checkpointer:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, template: Any, *, step: Optional[int] = None
-                ) -> Tuple[Any, int]:
+    def restore(self, template: Any, *, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, int]:
         """The checkpoint at ``step`` (default: the latest) in the
         structure of ``template``, each leaf a new tensor of the template
-        leaf's dtype on its device.  Returns (tree, step)."""
+        leaf's dtype on its device: placed by ``shardings`` (a parallel
+        tree of NamedShardings, the elastic path: the mesh may differ from
+        the one that saved), else a DTensor template leaf's placements,
+        each rank keeping its slice.  Returns (tree, step)."""
+        step, leaves = self._leaves(template, step, shardings)
+        return _unflatten(template, list(leaves)), step
+
+    def _leaves(self, template: Any, step: Optional[int], shardings: Any
+                ) -> Tuple[int, Iterator[torch.Tensor]]:
+        """The step, and :meth:`restore`'s leaves in ``template``'s order,
+        read one at a time."""
+        from repro_torch.sharding.place import place, place_on
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -164,22 +209,37 @@ class Checkpointer:
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        with np.load(os.path.join(d, "arrays.npz")) as z:
-            data = {k: z[f"a{i}"] for i, k in enumerate(manifest["keys"])}
-        out = []
-        for k, tmpl in _flatten(template):
-            if k not in data:
+        index = {k: i for i, k in enumerate(manifest["keys"])}
+        flat = _flatten(template)
+        placing = [s for _, s in _flatten(shardings)] if shardings \
+            is not None else [None] * len(flat)
+        if len(placing) != len(flat):
+            raise ValueError(f"{len(placing)} shardings for {len(flat)} "
+                             f"leaves")
+        for k, _ in flat:
+            if k not in index:
                 raise KeyError(f"checkpoint missing leaf {k}")
-            arr = data[k]
-            if tuple(arr.shape) != tuple(tmpl.shape):
-                raise ValueError(f"shape mismatch for {k}: ckpt "
-                                 f"{arr.shape} vs template "
-                                 f"{tuple(tmpl.shape)}")
-            t = torch.from_numpy(arr)
-            if manifest["dtypes"][k] == "bfloat16":
-                t = t.view(torch.bfloat16)
-            out.append(t.to(device=tmpl.device, dtype=tmpl.dtype))
-        return _unflatten(template, out), step
+
+        def read():
+            with np.load(os.path.join(d, "arrays.npz")) as z:
+                for (k, tmpl), sharding in zip(flat, placing):
+                    arr = z[f"a{index[k]}"]
+                    if tuple(arr.shape) != tuple(tmpl.shape):
+                        raise ValueError(f"shape mismatch for {k}: ckpt "
+                                         f"{arr.shape} vs template "
+                                         f"{tuple(tmpl.shape)}")
+                    t = torch.from_numpy(arr)
+                    if manifest["dtypes"][k] == "bfloat16":
+                        t = t.view(torch.bfloat16)
+                    kw = dict(device=tmpl.device, dtype=tmpl.dtype)
+                    if sharding is not None:
+                        yield place(t, sharding, **kw)
+                    elif _is_placed(tmpl):
+                        yield place_on(t, tmpl.device_mesh, tmpl.placements,
+                                       **kw)
+                    else:
+                        yield t.to(**kw)
+        return step, read()
 
     def restore_into(self, params: Any, opt_state: Any = None, *,
                      step: Optional[int] = None) -> int:
@@ -190,9 +250,8 @@ class Checkpointer:
         tree = {"params": params}
         if opt_state is not None:
             tree["opt_state"] = opt_state
-        restored, step = self.restore(tree, step=step)
+        step, leaves = self._leaves(tree, step, None)
         with torch.no_grad():
-            for (_, dst), (_, src) in zip(_flatten(tree),
-                                          _flatten(restored)):
-                dst.copy_(src)
+            for (_, dst), src in zip(_flatten(tree), leaves):
+                dst.copy_(src)       # one leaf at a time
         return step

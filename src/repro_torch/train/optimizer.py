@@ -11,6 +11,13 @@ reference: the moments are kept in ``moment_dtype``, every update runs in
 float32, each new parameter is cast back to its own dtype (bf16 at full
 width), and the schedule is computed in float32 from an int32 count.
 
+On a mesh the parameters, gradients and moments are DTensors alike
+placed (the gradients put on their parameters' placements by the train
+step): the elementwise updates run on each rank's slices, and the global
+norm, Adafactor's row and column statistics and its update clip's RMS
+are reduced over the shards by DTensor as the reference's jitted update
+reduces them.
+
 Adafactor is not leaf-local in the reference: its leaves are the
 cycle-stacked layer tensors ``(n_cycles, ...)``, so a stacked norm scale
 ``(n_cycles, d)`` is factored as a matrix whose rows are the layers, and
@@ -73,6 +80,25 @@ def clip_by_global_norm(tree: Tensors, max_norm: float
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in tree.items()}, \
         norm
+
+
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial sums reduced (a plain tensor as it is)."""
+    placements = getattr(t, "placements", None)
+    if placements is None or not any(p.is_partial() for p in placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in placements])
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, a DTensor ``src`` first put on ``dst``'s
+    placements."""
+    placements = getattr(dst, "placements", None)
+    if placements is not None and src.placements != placements:
+        src = src.redistribute(dst.device_mesh, placements)
+    dst.copy_(src)
 
 
 def _advance(state) -> torch.Tensor:
@@ -161,19 +187,18 @@ class Adafactor:
     def init(self, params: Tensors) -> Dict:
         """``{"f": [per-leaf dicts], "count": int32 0}``: a factored leaf
         keeps row and column statistics ``vr``, ``vc``, any other leaf
-        ``v``, all float32."""
+        ``v``, all float32 (on a mesh placed as the update computes them
+        from the leaf's placements)."""
         f = []
         for members, stacked in self.leaves(params):
-            shape = tuple(params[members[0]].shape)
-            if stacked:
-                shape = (len(members),) + shape
-            dev = params[members[0]].device
-            z = lambda s: torch.zeros(s, dtype=torch.float32, device=dev)
-            if self._factored(shape):
-                f.append({"vr": z(shape[:-1]),
-                          "vc": z(shape[:-2] + shape[-1:])})
+            zeros = [torch.zeros_like(params[n], dtype=torch.float32)
+                     for n in (members if stacked else members[:1])]
+            z = torch.stack(zeros) if stacked else zeros[0]
+            if self._factored(z.shape):
+                f.append({"vr": _settled(z.mean(-1)),
+                          "vc": _settled(z.mean(-2))})
             else:
-                f.append({"v": z(shape)})
+                f.append({"v": z})
         device = next(iter(params.values())).device
         return {"f": f, "count": torch.zeros((), dtype=torch.int32,
                                              device=device)}
@@ -198,20 +223,20 @@ class Adafactor:
                     vr.mean(-1, keepdim=True)[..., None], self.eps)) \
                     * vc[..., None, :]
                 step = g32 * torch.rsqrt(torch.clamp_min(denom, self.eps))
-                f["vr"].copy_(vr)
-                f["vc"].copy_(vc)
+                _assign(f["vr"], vr)
+                _assign(f["vc"], vc)
             else:
                 v = beta * f["v"] + (1 - beta) * g2
                 step = g32 * torch.rsqrt(torch.clamp_min(v, self.eps))
-                f["v"].copy_(v)
+                _assign(f["v"], v)
             rms = torch.sqrt(torch.mean(step * step) + 1e-12)
             step = step / torch.clamp_min(rms / self.clip_threshold, 1.0)
             new = p32 - lr * (step + self.weight_decay * p32)
             if stacked:
                 for i, n in enumerate(members):
-                    params[n].copy_(new[i])
+                    _assign(params[n], new[i])
             else:
-                params[members[0]].copy_(new)
+                _assign(params[members[0]], new)
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
 

@@ -17,6 +17,24 @@ not one of the model's parameters (a copy, such as a checkpoint restored
 into a fresh dict): autograd would give it no gradient, and the update
 would apply weight decay alone.
 
+On a mesh (the parameters DTensors placed by
+:func:`repro_torch.sharding.place.init_placed` or ``place_tree``, the step
+called inside ``ctx.use(rules, mesh)``) the step runs the reference's
+jitted step as one program a rank: it enters the sharded program's
+context (:func:`repro_torch.sharding.ctx.spmd`, which the dry run's count
+enters too), places a whole batch by the rules' ``batch_shardings``
+(each rank keeps its rows; a batch already placed, as
+``PrefetchIterator(shardings=)`` gives it, is taken as it is), takes
+``microbatches`` as the reference does, rows ``[i B / n, (i + 1) B / n)``
+of the global batch (the ids gathered and placed again, a few KB), and
+puts each gradient on its parameter's placements (a partial sum over the
+batch's axes reduced and scattered as the parameter is split, as FSDP
+does), so the moments and the update take the parameters' placements.
+A ``compress_fn`` receives the gradients before that reduction (the
+partial sums over the data axis, :func:`repro_torch.train.compression.
+make_compressed_allreduce` reduces them), and the metrics come back as
+plain tensors on every rank.
+
 ``train_loop`` adds the reference's fault tolerance: periodic asynchronous
 checkpoints, a checkpoint on SIGTERM (:class:`PreemptionHandler`) and a
 straggler watchdog (:class:`StragglerWatchdog`).  With an ``obs``
@@ -38,6 +56,7 @@ import torch
 from torch import nn
 
 from repro_torch.obs import MetricsRegistry
+from repro_torch.sharding import ctx as sharding_ctx
 from repro_torch.train import optimizer as opt_lib
 
 __all__ = ["PreemptionHandler", "StragglerWatchdog", "TrainConfig",
@@ -87,13 +106,35 @@ def to_device(batch: Dict[str, Any], device: torch.device
 
 
 def _split_microbatches(batch: Tensors, n: int):
-    """The batch cut along its leading dim into ``n`` equal parts."""
+    """The batch cut along its leading dim into ``n`` equal parts, rows
+    ``[i B / n, (i + 1) B / n)`` each (a placed batch's gathered and each
+    part placed again by the context's rules)."""
     B = next(iter(batch.values())).shape[0]
     if B % n:
         raise ValueError(f"a batch of {B} does not split into {n} "
                          f"microbatches")
-    parts = {k: v.chunk(n, dim=0) for k, v in batch.items()}
-    return [{k: parts[k][i] for k in batch} for i in range(n)]
+    if not any(_is_placed(v) for v in batch.values()):
+        parts = {k: v.chunk(n, dim=0) for k, v in batch.items()}
+        return [{k: parts[k][i] for k in batch} for i in range(n)]
+    from repro_torch.sharding.place import place_batch
+    rules, mesh = _context()
+    whole = {k: v.full_tensor() if _is_placed(v) else v
+             for k, v in batch.items()}
+    b = B // n
+    return [place_batch({k: v[i * b:(i + 1) * b] for k, v in whole.items()},
+                        rules, mesh) for i in range(n)]
+
+
+def _is_placed(t) -> bool:
+    return hasattr(t, "placements")
+
+
+def _context():
+    ctx = sharding_ctx.current()
+    if ctx is None:
+        raise RuntimeError("the parameters are DTensors: run the step "
+                           "inside sharding.ctx.use(rules, mesh)")
+    return ctx
 
 
 def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
@@ -107,19 +148,28 @@ def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
     return grad.redistribute(param.device_mesh, placements)
 
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's whole value)."""
+    return t.full_tensor() if _is_placed(t) else t
+
+
 def make_train_step(model: nn.Module, tcfg: TrainConfig,
                     compress_fn: Optional[Callable[[Tensors], Tensors]]
                     = None):
     """Returns (train_step, optimizer); see the module's note."""
     opt = tcfg.make_optimizer(groups=model.param_groups())
     device = next(model.parameters()).device
+    on_mesh = _is_placed(next(model.parameters()))
 
     def grads_of(params: Tensors, batch: Tensors):
         loss, metrics = model.loss(batch, remat=tcfg.remat)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names],
                                     allow_unused=True)
-        grads = {k: _placed_like(g, params[k]) if g is not None
+        # a compress_fn reduces the data axis's partial sums itself
+        place = (lambda g, p: g) if compress_fn is not None \
+            else _placed_like
+        grads = {k: place(g, params[k]) if g is not None
                  else torch.zeros_like(params[k])
                  for k, g in zip(names, grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -136,28 +186,40 @@ def make_train_step(model: nn.Module, tcfg: TrainConfig,
                     f"copy gets no gradient (pass trainable_params(model), "
                     f"and restore checkpoints into it)")
 
-    def train_step(params: Tensors, opt_state, batch):
-        check_own(params)
-        batch = to_device(batch, device)
+    def step(params: Tensors, opt_state, batch):
         n = tcfg.microbatches
         if n > 1:
-            acc = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-                   for k, p in params.items()}
+            # summed in float32 (the first microbatch's gradients the
+            # sum's start, placed as they are)
+            acc: Tensors = {}
             for mb in _split_microbatches(batch, n):
                 g, metrics = grads_of(params, mb)
-                for k, a in acc.items():
-                    a.add_(g.pop(k).float())
+                for k in params:
+                    gk = g.pop(k).float()
+                    acc[k] = acc[k].add_(gk) if k in acc else gk
             grads = {k: a / n for k, a in acc.items()}
             del acc
         else:
             grads, metrics = grads_of(params, batch)
         if compress_fn is not None:
             grads = compress_fn(grads)
+            grads = {k: _placed_like(g, params[k]) for k, g in grads.items()}
         params, opt_state, opt_metrics = opt.update(grads, opt_state,
                                                     params)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
+
+    def train_step(params: Tensors, opt_state, batch):
+        check_own(params)
+        if not on_mesh:
+            return step(params, opt_state, to_device(batch, device))
+        rules, mesh = _context()
+        if not all(_is_placed(v) for v in batch.values()):
+            from repro_torch.sharding.place import place_batch
+            batch = place_batch(batch, rules, mesh, device=device)
+        with sharding_ctx.spmd():
+            params, opt_state, metrics = step(params, opt_state, batch)
+        return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
     return train_step, opt
 
