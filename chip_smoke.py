@@ -118,7 +118,9 @@ Phases:
    started together and with the card hidden, and a fifth counts the
    card's own training step (qwen3-1.7b at full width and depth, 4 x
    1,024 tokens, AdamW, remat, the same vocabulary chunks) on a (1, 1)
-   mesh; the decode fleet's mesh is planned through the port's selection
+   mesh; beside them, one process a split, qwen3-moe-30b-a3b's
+   ``train_4k`` and ``decode_32k`` cells (expert parallelism; ``[dryrun]
+   moe`` lines, not in the report); the decode fleet's mesh is planned through the port's selection
    service from that report, on ``torch_fused`` and ``numpy`` (the same
    decision), with every cell's dominant term logged; the training
    launcher (``--auto-mesh --report``) prints its ``[flora]`` line and
@@ -239,7 +241,16 @@ Phases:
    attention at one cycle and at 2 layers, with the planted fault in the
    last attention layer, which the limits must refuse, in bf16 and in
    fp32 (within 1e-3 and 1e-4 a leaf, the split backward launched once
-   an attention layer, 1 and 2, the scalar one never);
+   an attention layer, 1 and 2, the scalar one never); then
+   qwen3-moe-30b-a3b at 8 of 48 layers, full width (one card cannot hold
+   its 30.5 B parameters' training state), Adafactor at its peak rate
+   from the first step, 4 steps of 4 x 1,024 tokens: finite losses that
+   fall, 16 forward and 8 backward launches a step, all on the tensor
+   cores, none scalar; every attention backward launch of a bf16 step
+   held against the plain version on its own inputs; one step's
+   gradients against plain attention at 2 layers, in bf16 with the
+   routes pinned to the kernels' pass's (within 0.1 and 0.05 a leaf) and
+   in fp32 with the routes free (within 1e-3 and 1e-4, 2 split launches);
 9c. sharded training (after phase 9b): an NCCL group of one rank, a 1 x 1
    (data, model) mesh, and qwen3-1.7b at full width and depth trained 3
    steps of 4 x 1,024 tokens as DTensors through the sharded step (its
@@ -261,9 +272,16 @@ Phases:
    saved); recurrentgemma-9b (38 layers) and pixtral-12b (40, after 1,024
    patches) at full width and depth on the (cards) x 1 mesh, 4 steps:
    finite losses that fall, every rank's peak under 75 GiB, every
-   attention backward on the tensor cores; step ms, positions/s, peak
-   GiB a rank and the collectives' share of a profiled step (``[mesh]``
-   lines);
+   attention backward on the tensor cores; qwen3-moe-30b-a3b at full
+   width and depth (48 layers, 128 experts split over the model axis) on
+   2 x 2 and 1 x 4, Adafactor, 4 steps, as those two; qwen3-moe-30b-a3b
+   at 2 fp32 layers on 2 x 2 against the one-card fp32 step (loss within
+   relative 1e-5, gradients within 1e-3 and 1e-4 a leaf, every backward
+   the split kernel); seamless-m4t-large-v2 at full depth (24 + 24,
+   4,096 source frames a sequence) on 2 x 2, 4 steps, against the
+   one-card step within the bf16 limits, 72 tensor-core backward
+   launches a step; step ms, positions/s, peak GiB a rank and the
+   collectives' share of a profiled step (``[mesh]`` lines);
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
@@ -337,6 +355,12 @@ kernel's ``step_share``.  ``flash_attention_bwd_enc``, ``_dec`` and
 ``_cross`` are the same kernel at seamless-m4t-large-v2's training
 shapes (bidirectional 2 x 4,096 over 4,096, causal 2 x 512, 512 over
 4,096; D = 64), their launches its one step's.
+``flash_attention_bwd_d64`` is the same kernel at qwen3-moe-30b-a3b's
+training shape (4 x 1,024, 32 heads over 4, D = 64, causal), its
+launches phase 9b's 4 MoE steps, with their ``step_ms`` and the
+kernel's ``step_share``; ``flash_attention_d64`` adds
+``train_launches``, the same steps' forward launches (its serving
+prefill shape is this training shape).
 ``flash_attention_bwd_d160`` and ``_d256`` are the same kernel at
 pixtral-12b's (4 x 2,048, 32 heads over 8, D = 160, causal) and
 recurrentgemma-9b's (4 x 1,024, 16 heads on one, D = 256, causal, window
@@ -344,7 +368,7 @@ recurrentgemma-9b's (4 x 1,024, 16 heads on one, D = 256, causal, window
 their ``earlier_ms`` the scalar backward's; they add the run's
 ``step_ms``, the kernel's ``step_share``, and the profiled step's busy
 share ``step_busy`` and the backward's share of its device time
-``step_backward_share``.  These six add ``device_ms`` and
+``step_backward_share``.  These seven add ``device_ms`` and
 ``library_device_ms``: the kernel's and SDPA's backward's device time a
 call from the profiler, without the host's, and ``device_pass_ms``, the
 kernel's by pass ({kernel: ms}).
@@ -2617,6 +2641,9 @@ def phase_lm_parity(torch, dev="cuda"):
 #: the report's cells: the architectures and shapes the placement ranks
 DRYRUN_ARCHS = ("qwen3-1.7b", "stablelm-3b", "rwkv6-3b")
 DRYRUN_SHAPES = ("train_4k", "decode_32k")
+#: the MoE cells of phase 8, beside the report (which they do not join):
+#: expert parallelism traced on each split
+DRYRUN_MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
 def dryrun_card_cell(path) -> None:
@@ -2639,9 +2666,11 @@ def phase_dryrun(out=None):
     port's CLI writes one report a split of ``mesh_options(256)``
     (``--mesh dp{d}xtp{m}``) of :data:`DRYRUN_ARCHS` x
     :data:`DRYRUN_SHAPES`, each in its own process, all started together
-    with the card hidden, and :func:`dryrun_card_cell` runs in a fifth;
-    every cell must be ``ok``.  Returns (the merged report's path, the
-    report, the card cell)."""
+    with the card hidden, :func:`dryrun_card_cell` runs in a fifth, and
+    :data:`DRYRUN_MOE_ARCH`'s cells of the same shapes on each split in
+    one process a split (``[dryrun] moe`` lines; not in the report the
+    placement and the launcher rank); every cell must be ``ok``.
+    Returns (the merged report's path, the report, the card cell)."""
     import os
     from repro_torch.launch.mesh import mesh_options
     out = Path(out or ROOT / "build" / "dryrun")
@@ -2653,6 +2682,11 @@ def phase_dryrun(out=None):
                    "--shape", ",".join(DRYRUN_SHAPES),
                    "--mesh", name, "--out", str(out / f"{name}.json")]
             for _, name in mesh_options(256)}
+    for _, name in mesh_options(256):
+        cmds[f"moe-{name}"] = [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            DRYRUN_MOE_ARCH, "--shape", ",".join(DRYRUN_SHAPES), "--mesh",
+            name, "--out", str(out / f"moe-{name}.json")]
     card_path = str(out / "card.json")
     cmds["card"] = [sys.executable, "-c", f"import chip_smoke; "
                     f"chip_smoke.dryrun_card_cell({card_path!r})"]
@@ -2674,13 +2708,17 @@ def phase_dryrun(out=None):
     report = {"cells": cells}
     path = out / "report.json"
     path.write_text(json.dumps(report, indent=1))
+    moe = [c for _, name in mesh_options(256) for c in json.loads(
+        (out / f"moe-{name}.json").read_text())["cells"]]
     failed = [(c["arch"], c["shape"], c["mesh"], c.get("error"))
-              for c in cells if not c["ok"]]
+              for c in cells + moe if not c["ok"]]
     check(len(cells) == 4 * len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES)
-          and not failed, f"the report's cells that failed: {failed}")
-    for c in cells:
+          and len(moe) == 4 * len(DRYRUN_SHAPES) and not failed,
+          f"the dry run's cells that failed: {failed}")
+    for c in cells + moe:
         r = c["roofline"]
-        log(f"[dryrun] {c['arch']} {c['shape']} {c['mesh']}: step "
+        log(f"[dryrun]{' moe' if c in moe else ''} {c['arch']} {c['shape']} "
+            f"{c['mesh']}: step "
             f"{r['step_s']:.6g} s, {r['dominant']} (compute "
             f"{r['compute_s']:.6g}, memory {r['memory_s']:.6g}, collective "
             f"{r['collective_s']:.6g}); {r['flops_per_device']:.6g} FLOP, "
@@ -2688,8 +2726,9 @@ def phase_dryrun(out=None):
             f"{r['wire_bytes_per_device']:.6g} wire bytes a device; trace "
             f"{c['trace_s']} s")
     card = json.loads(Path(card_path).read_text())
-    log(f"[dryrun] report: {len(cells)} cells, {len(procs)} processes in "
-        f"{wall:.1f} s (no card; CPU), written to {path}")
+    log(f"[dryrun] report: {len(cells)} cells, and {len(moe)} MoE cells "
+        f"beside it, {len(procs)} processes in {wall:.1f} s (no card; "
+        f"CPU), written to {path}")
     return path, report, card
 
 
@@ -3834,6 +3873,18 @@ CUT_ENTRY = {"recurrentgemma-9b": "flash_attention_bwd_d256",
              "pixtral-12b": "flash_attention_bwd_d160"}
 CUT_ENTRY_FP32 = {"recurrentgemma-9b": "flash_attention_bwd_split_fp32_d256",
                   "pixtral-12b": "flash_attention_bwd_split_fp32_d160"}
+#: qwen3-moe-30b-a3b's training on one card at full width: (layers of its
+#: 48, steps, the depth of the gradient check).  One card holds the full
+#: depth with no optimizer (30.5 B parameters, 61 GB of bf16 weights
+#: alone); 8 layers are 5.53 B, 22.1 GB of bf16 weights and gradients,
+#: Adafactor's factored state under 0.1 GB
+MOE_ARCH, MOE_TRAIN = "qwen3-moe-30b-a3b", (8, 4, 2)
+#: its optimizer, on one card and on four: Adafactor at the reference's
+#: peak rate from the first step (the default 100-step warmup moves the
+#: weights by less than the batches' spread of the loss in 4 steps)
+MOE_TCFG = dict(optimizer="adafactor", warmup_steps=1)
+#: the record entry of its backward's training shape
+MOE_ENTRY = "flash_attention_bwd_d64"
 
 
 def check_wkv6_bwd(torch, seed, train_shape, dev="cuda"):
@@ -4198,10 +4249,11 @@ def check_attention_bwd_path_shapes(torch, seed, dev="cuda"):
 
 
 #: the backward's timed shapes (B, Tq, Tk, H, G, D, causal, window), by
-#: record entry: qwen3-1.7b's training step, seamless-m4t-large-v2's
-#: three, pixtral-12b's and recurrentgemma-9b's
+#: record entry: qwen3-1.7b's training step, qwen3-moe-30b-a3b's,
+#: seamless-m4t-large-v2's three, pixtral-12b's and recurrentgemma-9b's
 BWD_TIMED = {"flash_attention_bwd": (TRAIN_B, TRAIN_T, TRAIN_T, 16, 8, 128,
                                      True, None),
+             MOE_ENTRY: (TRAIN_B, TRAIN_T, TRAIN_T, 32, 4, 64, True, None),
              "flash_attention_bwd_enc": ENCDEC_BWD_SHAPES[0] + (None,),
              "flash_attention_bwd_dec": ENCDEC_BWD_SHAPES[1] + (None,),
              "flash_attention_bwd_cross": ENCDEC_BWD_SHAPES[2] + (None,),
@@ -4687,7 +4739,7 @@ def wkv6_layers_vs_plain(torch, model, params, batch, label, fault=False):
 
 def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
                           leaf_limit, fault=None, fault_launches=0,
-                          launches=None):
+                          launches=None, pin_routes=False):
     """One step's gradients with the kernels and with plain attention and
     WKV6 on the same weights and batch: relative L2 over the whole
     gradient (checked against ``limit``) and each leaf's (against
@@ -4696,23 +4748,40 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
     (which must launch the backward ``fault_launches`` times, once a
     layer that has the kernel), and the check must refuse them.  A
     ``launches`` dict gets the attention kernels' launches
-    (``flash_attention.LAUNCHES``) of the kernels' own pass.
+    (``flash_attention.LAUNCHES``) of the kernels' own pass.  With
+    ``pin_routes`` (an MoE model) the plain pass takes the kernels'
+    pass's routes (:func:`with_routes`, the forward's and remat's
+    recompute's), so the two differ in continuous values alone.
     Returns the whole gradient's relative L2."""
     from repro_torch.kernels import flash_attention as fa
     names = list(params)
+    routes = None
 
     def grads():
         loss, _ = model.loss(batch)
         return torch.autograd.grad(loss, [params[n] for n in names])
 
+    def pinned(fn):
+        return with_routes(torch, fn, replay=routes)[0] if pin_routes \
+            else fn()
+
+    def plain():
+        with plain_attention(), plain_wkv6():
+            return grads()
+
     def gaps(g_a, g_b):
         return gradient_gaps(names, g_a, g_b)
-    with plain_attention(), plain_wkv6():
-        g_plain = grads()
+    if not pin_routes:
+        g_plain = plain()
     before = dict(fa.LAUNCHES)
-    g_kernel = grads()
+    if pin_routes:
+        g_kernel, routes = with_routes(torch, grads)
+    else:
+        g_kernel = grads()
     if launches is not None:
         launches.update({n: fa.LAUNCHES[n] - before[n] for n in before})
+    if pin_routes:
+        g_plain = pinned(plain)
     rel, leaf = gaps(g_kernel, g_plain)
     del g_kernel
     log(f"[train] {label}: kernel vs plain gradients relative L2 {rel:.4g} "
@@ -4724,7 +4793,7 @@ def grads_kernel_vs_plain(torch, model, params, batch, label, limit,
           f"{leaf[0]:.4g} >= {leaf_limit}")
     if fault:
         with faulty_backward(torch, fault) as calls:
-            g_fault = grads()
+            g_fault = pinned(grads)
         check(calls[0] == fault_launches, f"{label}: the backward launched "
               f"{calls[0]} times under the planted fault, expected "
               f"{fault_launches}")
@@ -5065,7 +5134,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
                 T=TRAIN_T, steps=TRAIN_STEPS, ckpt_step=TRAIN_CKPT_STEP,
                 vocab_chunk=TRAIN_VOCAB_CHUNK, encdec_cfg=None,
                 encdec=ENCDEC_TRAIN, rwkv_cfg=None, rwkv_steps=RWKV_STEPS,
-                cut=CUT_TRAIN):
+                cut=CUT_TRAIN, moe=True):
     """Training on the card: the backward kernel against its plain
     version; qwen3-1.7b for ``steps`` steps through ``make_train_step``
     and ``train_loop`` (falling loss, exact launch counts each step, step
@@ -5077,8 +5146,10 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
     (:func:`phase_train_rwkv`, under ``"wkv6"``); recurrentgemma-9b's and
     pixtral-12b's at cut depth (:func:`phase_train_cut` over ``cut``,
     under ``"cut"``; ``{}`` leaves them out, as a rehearsal on the CPU
-    does, which drives :func:`phase_train_cut` on its own).  Returns the
-    record entries' numbers."""
+    does, which drives :func:`phase_train_cut` on its own);
+    qwen3-moe-30b-a3b's at cut depth with Adafactor
+    (:func:`phase_train_moe`, under ``"moe"``; ``moe=False`` leaves it
+    out).  Returns the record entries' numbers."""
     import shutil
     from repro_torch import configs
     from repro_torch.data import pipeline
@@ -5295,6 +5366,8 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
                            B, T, rwkv_steps, vocab_chunk)
     cut_runs = phase_train_cut(torch, seed, card, trainer, loop, dev, cut,
                                None, B, CUT_STEPS, vocab_chunk, times)
+    moe_run = phase_train_moe(torch, seed, card, dev, times=times) if moe \
+        else None
     return {"launches": n_bwd, "split_launches": n_split,
             "scalar_launches": n_scalar, "encdec_launches": shapes,
             "err": err, "split_err": split_err, "scalar_err": scalar_err,
@@ -5302,7 +5375,7 @@ def phase_train(torch, np, seed, card, dev="cuda", cfg=None, B=TRAIN_B,
             "step_flops": step_flops,
             "rel": (rel_bf16, rel_fp32, rel_encdec), "times": times,
             "fp32_times": fp32_times, "wkv6": wkv, "cut": cut_runs,
-            "mesh_ref": mesh_ref}
+            "moe": moe_run, "mesh_ref": mesh_ref}
 
 
 def phase_train_rwkv(torch, seed, card, trainer, loop, dev="cuda", cfg=None,
@@ -5416,11 +5489,13 @@ class PatchStream:
     """``stream``'s batches, each sequence after ``frames`` random patch
     embeddings (``frontend_embeds``, standard normal, float32, drawn from
     (seed, step)) whose labels are -1, as the vision-language model's
-    training batches carry them."""
+    training batches carry them; with ``masked=False`` the labels are the
+    tokens' alone, as the encoder-decoder's source frames carry none."""
 
-    def __init__(self, stream, frames, d_model, seed):
+    def __init__(self, stream, frames, d_model, seed, masked=True):
         self.stream, self.cfg = stream, stream.cfg
         self.frames, self.d_model, self.seed = frames, d_model, seed
+        self.masked = masked
 
     def batch_at(self, step):
         import numpy as np
@@ -5429,24 +5504,34 @@ class PatchStream:
         rng = np.random.default_rng((self.seed, step))
         batch["frontend_embeds"] = rng.standard_normal(
             (B, self.frames, self.d_model), dtype=np.float32)
-        batch["labels"] = np.concatenate(
-            [np.full((B, self.frames), -1, np.int32), batch["labels"]], 1)
+        if self.masked:
+            batch["labels"] = np.concatenate(
+                [np.full((B, self.frames), -1, np.int32), batch["labels"]],
+                1)
         return batch
 
 
 def train_stream(cfg, B, T, seed, frames=0):
     """The training batches of ``cfg``: ``B`` sequences of ``T`` tokens,
-    after ``frames`` patch embeddings each where ``frames`` > 0."""
+    after ``frames`` patch embeddings each where ``frames`` > 0 (an
+    encoder-decoder's: its source frames)."""
     from repro_torch.data import pipeline
     from repro_torch.models.types import ShapeSpec
     stream = pipeline.for_model(cfg, ShapeSpec("train", T, B, "train"),
                                 seed=seed)
-    return PatchStream(stream, frames, cfg.d_model, seed) if frames \
-        else stream
+    return PatchStream(stream, frames, cfg.d_model, seed,
+                       masked=not cfg.is_encdec) if frames else stream
 
 
 def attention_layers(cfg) -> int:
     return sum(cfg.block_kind(i) == "attn" for i in range(cfg.num_layers))
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls a forward: an encoder-decoder's encoder layers and
+    its decoder's self- and cross-attention, else the attention layers."""
+    return cfg.encoder_layers + 2 * cfg.num_layers if cfg.is_encdec \
+        else attention_layers(cfg)
 
 
 def attention_layers_vs_plain(torch, model, params, batch, label, limit):
@@ -5608,6 +5693,118 @@ def phase_train_cut(torch, seed, card, trainer, loop, dev="cuda",
     return out
 
 
+def phase_train_moe(torch, seed, card, dev="cuda", cfg=None,
+                    shape=MOE_TRAIN, B=TRAIN_B, T=TRAIN_T,
+                    vocab_chunk=TRAIN_VOCAB_CHUNK, times=None):
+    """qwen3-moe-30b-a3b's training on one card at full width and the
+    depth :data:`MOE_TRAIN` cuts it to (``shape``: layers, steps, the
+    gradient check's depth; ``cfg`` a config in place of the full one,
+    e.g. a reduced one on the CPU), with Adafactor (:data:`MOE_TCFG`): a
+    finite loss that falls; the launches of every step exact, each
+    attention layer's forward and its recompute on the tensor cores and
+    one ``flash_attention_bwd_tc`` a layer, none scalar; every attention
+    backward launch of a bf16 step on the trained weights within 1e-2 of
+    the plain version on its own inputs; one step's gradients with the
+    kernels against plain attention at the check's depth, in bf16 with
+    the routes pinned to the kernels' pass's (a route is a step function
+    of bf16 logits) and in fp32 with the routes free, within
+    :data:`TRAIN_GRAD_L2` and :data:`TRAIN_LEAF_L2`.  Returns the
+    numbers."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.train.train_loop import (TrainConfig, to_device,
+                                              trainable_params)
+    on_card = torch.device(dev).type == "cuda"
+    layers, steps, grad_layers = shape
+    cfg = dataclasses.replace(cfg or configs.get(MOE_ARCH),
+                              num_layers=layers)
+    A = attention_layers(cfg)
+    stream = train_stream(cfg, B, T, seed)
+    trainer, loop = train_kit(TrainConfig(**MOE_TCFG), vocab_chunk, stream)
+    t0 = time.perf_counter()
+    free_card(torch, dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=seed)
+    keys = ("flash_attention_tc", "flash_attention_bwd_tc",
+            "flash_attention_scalar", "flash_attention_bwd_scalar")
+    params, state, step_fn, counted = trainer(model, keys)
+    n_params = sum(p.numel() for p in params.values())
+    params, state, hist = loop(model, params, state, step_fn, 0, steps)
+    losses, step_s = hist["loss"], hist["step_time"]
+    peak = card_gib(torch, dev, peak=True)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{cfg.name}: losses {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: "
+          f"{losses}")
+    want = [(2 * A, A, 0, 0) if on_card else (0, 0, 0, 0)] * steps
+    check(counted == want, f"{cfg.name}: launches (tensor-core forward, "
+          f"backward, scalar forward, backward) a step {counted}, expected "
+          f"{want[0]}")
+    med_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    log(f"[train] {cfg.name} ({layers} layers of "
+        f"{configs.get(MOE_ARCH).num_layers}, d_model {cfg.d_model}, "
+        f"{cfg.num_experts} experts, top {cfg.experts_per_token}, "
+        f"{n_params / 1e9:.3f} B params, {cfg.dtype}) on {card}: {steps} "
+        f"steps of {B} x {T} tokens, Adafactor ({MOE_TCFG}), remat, "
+        f"vocab_chunk {vocab_chunk}: loss by step "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x * 1e3, 2) for x in step_s]} (the first warms up), "
+        f"median after the first {med_s * 1e3:.3f} ms, "
+        f"{B * T / med_s:,.1f} tokens/s; peak {peak:.2f} GiB; launches a "
+        f"step (forward tc, backward tc, scalar forward, backward) "
+        f"{counted[0]}")
+    share = None
+    if times is not None:
+        bwd_ms = times[MOE_ENTRY]["ms"]
+        share = A * bwd_ms / (med_s * 1e3)
+        log(f"[train] {cfg.name}: the backward kernel's share of a step: "
+            f"{A} x {bwd_ms:.4f} ms = {share:.1%} of {med_s * 1e3:.3f} ms")
+    del state, step_fn
+    free_card(torch, dev)
+    batch = to_device(stream.batch_at(steps), model.device)
+    with msettings.use(vocab_chunk=vocab_chunk):
+        layer_rel, n_held = attention_layers_vs_plain(
+            torch, model, params, batch, f"{cfg.name} {cfg.dtype} {layers} "
+            f"layers", BWD_LIMIT[cfg.dtype])
+    check(n_held == (A if on_card else 0), f"{cfg.name}: {n_held} backward "
+          f"launches held, expected {A}")
+    del model, params
+    free_card(torch, dev)
+    rel, split_n = {}, 0
+    for dtype in dict.fromkeys((cfg.dtype, "float32")):
+        cfg_n = dataclasses.replace(cfg, num_layers=grad_layers, dtype=dtype)
+        model = build_model(cfg_n, device=dev, seed=seed)
+        params = trainable_params(model)
+        batch = to_device(stream.batch_at(0), model.device)
+        n = {}
+        with msettings.use(vocab_chunk=vocab_chunk):
+            rel[dtype] = grads_kernel_vs_plain(
+                torch, model, params, batch, f"{cfg.name} {dtype} "
+                f"{grad_layers} layers, routes "
+                f"{'free' if dtype == 'float32' else 'pinned'}",
+                TRAIN_GRAD_L2[dtype], TRAIN_LEAF_L2[dtype], launches=n,
+                pin_routes=dtype != "float32")
+        if dtype == "float32":
+            split_n = n["flash_attention_bwd_split"]
+            A_n = attention_layers(cfg_n) if on_card else 0
+            check(split_n == A_n and n["flash_attention_bwd_scalar"] == 0,
+                  f"{cfg.name}: the fp32 gradients launched the split "
+                  f"backward {split_n} and the scalar one "
+                  f"{n['flash_attention_bwd_scalar']} times, expected {A_n} "
+                  f"and 0")
+        del model, params
+        free_card(torch, dev)
+    log(f"[train] {cfg.name} phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": sum(c[1] for c in counted),
+            "fwd_launches": sum(c[0] for c in counted), "losses": losses,
+            "step_ms": med_s * 1e3, "tokens_per_s": B * T / med_s,
+            "peak": peak, "share": share, "layer_rel": layer_rel,
+            "rel": rel[cfg.dtype], "rel_fp32": rel["float32"],
+            "split_launches": split_n, "params": n_params}
+
+
 def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
                         T=TRAIN_T, vocab_chunk=TRAIN_VOCAB_CHUNK, frames=0):
     """Where a training step's time goes: the model (qwen3-1.7b unless
@@ -5685,10 +5882,21 @@ def phase_train_profile(torch, np, seed, dev="cuda", cfg=None, B=TRAIN_B,
 #: the one-card mesh's steps, held against phase 9b's first steps (the same
 #: seed, batches and vocabulary chunks)
 MESH_STEPS = 3
-#: the cards' leg: qwen3-1.7b's first step on each mesh against the
-#: one-card step, its loss within this relative distance and its
-#: gradients within the bf16 limits (TRAIN_GRAD_L2, TRAIN_LEAF_L2)
-MESH_LOSS_RTOL = 1e-2
+#: the cards' leg: a model's first step on a mesh against the one-card
+#: step, its loss within this relative distance and its gradients within
+#: the limits (TRAIN_GRAD_L2, TRAIN_LEAF_L2), by dtype
+MESH_LOSS_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
+#: qwen3-moe-30b-a3b on four cards: at full depth on (2, cards / 2) and
+#: (1, cards), Adafactor (MOE_TCFG), BIG_STEPS steps; at this many fp32
+#: layers on the first against the one-card step (fp32 keeps the routes
+#: where bf16's reordered partial sums flip some)
+MOE_MESH_FP32_LAYERS = 2
+#: seamless-m4t-large-v2 at full depth on (2, cards / 2) against the
+#: one-card step: its source frames a sequence, and AdamW at its peak rate
+#: from the first step (the first step's loss and gradients, which the
+#: check compares, precede any update)
+ENCDEC_MESH_FRAMES = 4096
+ENCDEC_MESH_TCFG = dict(warmup_steps=1)
 #: recurrentgemma-9b and pixtral-12b at full width and depth on the
 #: (cards, 1) mesh: patch embeddings a sequence, the steps, every rank's
 #: peak memory under this
@@ -5701,6 +5909,9 @@ MESH_PEAK_GIB = 75.0
 ELASTIC_LAYERS, ELASTIC_RTOL = 2, 1e-5
 #: the ranks' time limit (the whole leg, the kernels' build excluded)
 MESH_TIMEOUT_S = 1800
+#: the parts of the cards' leg, in order (``--mesh-parts`` takes some)
+MESH_PARTS = ("qwen3", "compression", "elastic", "big", "moe", "moe_fp32",
+              "encdec")
 
 
 def free_port() -> int:
@@ -5729,23 +5940,33 @@ def mesh_shapes(world):
     return [(2, world // 2), (world, 1)] if world >= 4 else [(world, 1)]
 
 
+def moe_mesh_shapes(world):
+    """The MoE model's meshes: 2 x (cards / 2) and 1 x (cards), the
+    experts split over the model axis on both, or (cards) x 1 alone under
+    four cards."""
+    return [(2, world // 2), (1, world)] if world >= 4 else [(world, 1)]
+
+
 def mesh_model(torch, cfg, dims, seed, dev):
-    """``cfg``'s LM on a (data, model) mesh of ``dims``: its weights drawn
-    from ``seed`` one whole leaf at a time on ``dev`` and sliced
-    (``place.init_placed``), equal leaf for leaf to ``LM(cfg,
-    seed=seed)``.  Returns (mesh, rules, model)."""
+    """``cfg``'s model (an LM, or an EncDec) on a (data, model) mesh of
+    ``dims``: its weights drawn from ``seed`` one whole leaf at a time on
+    ``dev`` and sliced (``place.init_placed``), equal leaf for leaf to the
+    one-card model from ``seed``.  Returns (mesh, rules, model)."""
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import encdec as encdec_lib
     from repro_torch.models import lm as lm_lib
     from repro_torch.sharding import place
     from repro_torch.sharding import rules as R
+    mod, cls = (encdec_lib, encdec_lib.EncDec) if cfg.is_encdec \
+        else (lm_lib, lm_lib.LM)
     dev = torch.device(dev)
     mesh = make_mesh(dims, ("data", "model"), device_type=dev.type)
     rules = R.production_rules().with_overrides(
         **R.arch_overrides(cfg, dims[1]))
-    placed = place.init_placed(lm_lib.param_specs(cfg), rules, mesh,
+    placed = place.init_placed(mod.param_specs(cfg), rules, mesh,
                                seed=seed, compute_dtype=cfg.compute_dtype,
                                device=dev)
-    return mesh, rules, lm_lib.LM(cfg, device=dev, params=placed)
+    return mesh, rules, cls(cfg, device=dev, params=placed)
 
 
 def mesh_batches(torch, stream, rules, mesh, start, dev):
@@ -5870,13 +6091,15 @@ def phase_train_mesh(torch, seed, card, ref, dev="cuda", cfg=None,
 
 
 def phase_train_cards(torch, seed, card, n=None, dev_type="cuda",
-                      reduced=False, timeout=MESH_TIMEOUT_S):
+                      reduced=False, timeout=MESH_TIMEOUT_S,
+                      parts=MESH_PARTS):
     """Phase 9c where the machine has 2 or more cards: one process a card
     (``python3 chip_smoke.py --mesh-rank R ...``, :func:`mesh_leg`), NCCL
     between them; the phase fails if any rank exits non-zero (the others
     are then stopped) or outlasts ``timeout``.  Rank 0's lines are
     printed; returns its record.  ``dev_type="cpu"`` rehearses it over
-    gloo CPU ranks (``reduced``: the reduced configs)."""
+    gloo CPU ranks (``reduced``: the reduced configs); ``parts`` are
+    :func:`mesh_leg`'s."""
     import shutil
     n = n or torch.cuda.device_count()
     out = ROOT / "build" / "mesh_ranks"
@@ -5885,7 +6108,7 @@ def phase_train_cards(torch, seed, card, n=None, dev_type="cuda",
     free_card(torch, "cuda" if dev_type == "cuda" else "cpu")
     port = free_port()
     args = ["--mesh-world", str(n), "--mesh-port", str(port), "--mesh-out",
-            str(out), "--seed", str(seed)] + \
+            str(out), "--seed", str(seed), "--mesh-parts", ",".join(parts)] + \
         (["--mesh-cpu"] if dev_type == "cpu" else []) + \
         (["--mesh-reduced"] if reduced else [])
     logs = [open(out / f"rank{r}.log", "w") for r in range(n)]
@@ -5932,7 +6155,8 @@ def mesh_rank_main(args) -> int:
     dev = "cpu" if args.mesh_cpu else f"cuda:{rank}"
     open_group(torch, rank, world, args.mesh_port, dev)
     try:
-        rec = mesh_leg(torch, np, args.seed, dev, world, args.mesh_reduced)
+        rec = mesh_leg(torch, np, args.seed, dev, world, args.mesh_reduced,
+                       args.mesh_parts.split(","))
         with open(Path(args.mesh_out) / f"rank{rank}.json", "w") as f:
             json.dump(rec, f)
     finally:
@@ -5940,52 +6164,83 @@ def mesh_rank_main(args) -> int:
     return 0
 
 
-def mesh_leg(torch, np, seed, dev, world, reduced=False):
-    """A rank's part of the cards' leg (see :func:`phase_train_cards`):
-    qwen3-1.7b on each of :func:`mesh_shapes` against the one-card step
-    (:func:`mesh_qwen3`); the int8 compressed all-reduce on the card's
-    collectives (:func:`mesh_compression`); the elastic restore
-    (:func:`mesh_elastic`); recurrentgemma-9b and pixtral-12b at full
-    depth (:func:`mesh_run`).  ``reduced``: the reduced configs and 32
-    tokens a sequence (a CPU rehearsal)."""
+def mesh_leg(torch, np, seed, dev, world, reduced=False, parts=MESH_PARTS):
+    """A rank's part of the cards' leg (see :func:`phase_train_cards`), by
+    ``parts``: qwen3-1.7b on each of :func:`mesh_shapes` against the
+    one-card step (``"qwen3"``, :func:`mesh_against_one`); the int8
+    compressed all-reduce on the card's collectives (:func:`mesh_compression`);
+    the elastic restore (:func:`mesh_elastic`); recurrentgemma-9b and
+    pixtral-12b at full depth (``"big"``, :func:`mesh_run`);
+    qwen3-moe-30b-a3b at full depth with Adafactor on each of
+    :func:`moe_mesh_shapes` (``"moe"``) and at
+    :data:`MOE_MESH_FP32_LAYERS` fp32 layers on the first against the
+    one-card step (``"moe_fp32"``);
+    seamless-m4t-large-v2 at full depth on the first of
+    :func:`mesh_shapes` against the one-card step (``"encdec"``).
+    ``reduced``: the reduced configs and 32 tokens a sequence (a CPU
+    rehearsal)."""
     from repro_torch import configs
     get = (lambda a: configs.reduced(configs.get(a))) if reduced \
         else configs.get
     T = 32 if reduced else TRAIN_T
     on_card = torch.device(dev).type == "cuda"
     rec = {"card": gpu_name_and_limit() if on_card else "cpu"}
-    rec["qwen3"] = mesh_qwen3(torch, seed, dev, world, get(TRAIN_ARCH),
-                              TRAIN_B, T)
-    rec["compression"] = mesh_compression(torch, seed, dev, world,
-                                          get(TRAIN_ARCH), TRAIN_B, T)
-    rec["elastic"] = mesh_elastic(torch, seed, dev, world, dataclasses.replace(
-        get(TRAIN_ARCH), num_layers=ELASTIC_LAYERS, dtype="float32"),
-        TRAIN_B, T)
-    for arch, frames in BIG_TRAIN.items():
+    if "qwen3" in parts:
+        rec["qwen3"] = mesh_against_one(torch, seed, dev, get(TRAIN_ARCH),
+                                        TRAIN_B, T, mesh_shapes(world))
+    if "compression" in parts:
+        rec["compression"] = mesh_compression(torch, seed, dev, world,
+                                              get(TRAIN_ARCH), TRAIN_B, T)
+    if "elastic" in parts:
+        rec["elastic"] = mesh_elastic(
+            torch, seed, dev, world, dataclasses.replace(
+                get(TRAIN_ARCH), num_layers=ELASTIC_LAYERS,
+                dtype="float32"), TRAIN_B, T)
+    for arch, frames in BIG_TRAIN.items() if "big" in parts else ():
         cfg = get(arch)
         frames = min(frames, cfg.frontend_len) if reduced else frames
         stream = train_stream(cfg, TRAIN_B, T, seed, frames)
         rec[arch] = mesh_run(torch, cfg, (world, 1), seed, dev, stream,
                              TRAIN_B, T + frames, BIG_STEPS, big=True)
+    from repro_torch.train.train_loop import TrainConfig
+    cfg, tcfg = get(MOE_ARCH), TrainConfig(**MOE_TCFG)
+    if "moe" in parts:
+        stream = train_stream(cfg, TRAIN_B, T, seed)
+        rec["moe"] = {f"{d}x{m}": mesh_run(
+            torch, cfg, (d, m), seed, dev, stream, TRAIN_B, T, BIG_STEPS,
+            big=True, tcfg=tcfg) for d, m in moe_mesh_shapes(world)}
+    if "moe_fp32" in parts:
+        rec["moe_fp32"] = mesh_against_one(
+            torch, seed, dev, dataclasses.replace(
+                cfg, num_layers=MOE_MESH_FP32_LAYERS, dtype="float32"),
+            TRAIN_B, T, moe_mesh_shapes(world)[:1], tcfg=tcfg)
+    if "encdec" in parts:
+        cfg = get("seamless-m4t-large-v2")
+        frames = cfg.frontend_len if reduced else ENCDEC_MESH_FRAMES
+        rec["encdec"] = mesh_against_one(
+            torch, seed, dev, cfg, TRAIN_B, T, mesh_shapes(world)[:1],
+            frames=frames, steps=BIG_STEPS, big=True,
+            tcfg=TrainConfig(**ENCDEC_MESH_TCFG))
     return rec
 
 
 def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
-             compare=False, big=False):
+             compare=False, big=False, tcfg=None):
     """``cfg`` trained ``steps`` steps on the (data, model) mesh ``dims``
     through ``train_loop`` and the sharded prefetch, then one more step
     under the profiler: each rank's parameter bytes equal to
     ``bytes_per_device``; finite losses (and, ``big``, the last below the
     first, every rank's peak under ``MESH_PEAK_GIB``); every attention
-    backward launch on the tensor cores.  With ``compare`` (on every
+    backward launch on its dtype's kernel (the tensor cores in bf16, the
+    split kernel in fp32).  With ``compare`` (on every
     rank) the first step's gradients are gathered whole on rank 0 and,
     with its loss, held to ``one`` (rank 0's one-card first step: its loss
-    and gradients) within the bf16 limits.  Returns the
+    and gradients) within the limits of ``cfg``'s dtype.  ``tcfg``: the
+    TrainConfig (default: the defaults, AdamW).  Returns the
     record: losses, step ms (median after the first), positions/s, peak
     GiB (this rank's), the collectives' share of the profiled step's
     device time, launches a step."""
     import torch.distributed as dist
-    from repro_torch.models import lm as lm_lib
     from repro_torch.sharding import ctx
     from repro_torch.sharding import rules as R
     from repro_torch.train.train_loop import (TrainConfig, make_train_step,
@@ -6001,7 +6256,7 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
     t_init = time.perf_counter() - t0
     local = sum(p.to_local().numel() * p.to_local().element_size()
                 for p in model.parameters())
-    want = R.bytes_per_device(lm_lib.param_specs(cfg), rules, mesh,
+    want = R.bytes_per_device(model.param_specs(), rules, mesh,
                               dtype=cfg.compute_dtype)
     check(local == want, f"{name}: rank {rank} holds {local} parameter "
           f"bytes, bytes_per_device says {want}")
@@ -6014,7 +6269,8 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
                 w = whole(v)
                 grads[k] = w if rank == 0 else None
         return g
-    step_fn, opt = make_train_step(model, TrainConfig(),
+    tcfg = tcfg or TrainConfig()
+    step_fn, opt = make_train_step(model, tcfg,
                                    compress_fn=record if compare else None)
     counted = []
     state = opt.init(params)
@@ -6022,7 +6278,7 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
     try:
         with ctx.use(rules, mesh):
             params, state, hist = train_loop(
-                model, TrainConfig(), params, state, batches, steps=steps,
+                model, tcfg, params, state, batches, steps=steps,
                 log_every=0, train_step=counting_step(torch, step_fn,
                                                       counted))
             step = counting_step(torch, step_fn, counted)
@@ -6039,13 +6295,16 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
     total = sum(t for t, _, _ in by_name) or 1.0
     coll = sum(t for t, key, _ in by_name if "nccl" in key.lower())
     med_s = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2]
-    n_attn = attention_layers(cfg)
-    per_step = [(c["flash_attention_bwd"], c["flash_attention_bwd_tc"])
+    n_attn = attention_calls(cfg)
+    # the dtype's backward: the tensor cores in bf16, the split kernel
+    # (three bf16 pieces) in fp32
+    variant = "tc" if cfg.dtype == "bfloat16" else "split"
+    per_step = [(c["flash_attention_bwd"], c[f"flash_attention_bwd_{variant}"])
                 for c in counted]
     check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
     if on_card:
         check(per_step == [(n_attn, n_attn)] * (steps + 1),
-              f"{name}: attention backward launches (all, tensor-core) a "
+              f"{name}: attention backward launches (all, {variant}) a "
               f"step {per_step}, expected {(n_attn, n_attn)}")
     if big:
         check(losses[-1] < losses[0], f"{name}: the loss did not fall: "
@@ -6055,7 +6314,7 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
                   f"{peak:.2f} GiB")
     rel = None
     if rank == 0 and compare:
-        check(abs(losses[0] - one["loss"]) <= MESH_LOSS_RTOL
+        check(abs(losses[0] - one["loss"]) <= MESH_LOSS_RTOL[cfg.dtype]
               * abs(one["loss"]), f"{name}: first loss {losses[0]} "
               f"against the one-card step's {one['loss']}")
         whole_rel, (worst, leaf) = gradient_gaps(
@@ -6073,7 +6332,7 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
          split and split[0] / 1e3, "collective_wait_ms":
          split and split[1] / 1e3,
          "init_s": t_init, "launches": per_step[0], "grad_rel": rel,
-         "param_bytes": local}
+         "param_bytes": local, "first_loss_one": one and one["loss"]}
     log(f"[mesh] {name}: {steps} steps of {B} x {T} positions, losses "
         f"{[round(x, 4) for x in losses]}; step ms "
         f"{[round(s * 1e3, 1) for s in hist['step_time']]}, median after "
@@ -6086,23 +6345,25 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
            f"{coll / 1e3:.3f} ms; ranks' kernel counts differ, not split")
         + f"), card busy "
         f"{busy_us / 1e6 / wall:.1%} of {wall * 1e3:.1f} ms; attention "
-        f"backward launches a step (all, tensor-core) {per_step[0]}"
-        + (f"; against the one-card step: first loss {one['loss']:.6f}, "
-           f"gradients whole {rel[0]:.4g}, worst leaf {rel[1]:.4g} "
+        f"backward launches a step (all, {variant}) {per_step[0]}"
+        + (f"; against the one-card step: first loss {one['loss']:.8g} "
+           f"(relative {abs(losses[0] - one['loss']) / abs(one['loss']):.3g}"
+           f"), gradients whole {rel[0]:.4g}, worst leaf {rel[1]:.4g} "
            f"({rel[2]})" if rel else ""))
     del model, params, state, step_fn, opt, grads
     free_card(torch, dev)
     return r
 
 
-def mesh_qwen3(torch, seed, dev, world, cfg, B, T):
-    """qwen3-1.7b on each of :func:`mesh_shapes` (:func:`mesh_run`,
-    ``MESH_STEPS`` steps), its first step held to the one-card step on
+def mesh_against_one(torch, seed, dev, cfg, B, T, meshes, frames=0,
+                     steps=MESH_STEPS, big=False, tcfg=None):
+    """``cfg`` on each of ``meshes`` (:func:`mesh_run`, ``steps`` steps,
+    ``frames`` a sequence), its first step held to the one-card step on
     rank 0's card (plain tensors, the same seed and batch)."""
     import torch.distributed as dist
     from repro_torch.models import build_model
     from repro_torch.train.train_loop import to_device, trainable_params
-    stream = train_stream(cfg, B, T, seed)
+    stream = train_stream(cfg, B, T, seed, frames)
     one = None
     if dist.get_rank() == 0:
         model = build_model(cfg, device=dev, seed=seed)
@@ -6115,8 +6376,9 @@ def mesh_qwen3(torch, seed, dev, world, cfg, B, T):
         free_card(torch, dev)
     dist.barrier()
     return {f"{d}x{m}": mesh_run(torch, cfg, (d, m), seed, dev, stream, B,
-                                 T, MESH_STEPS, one=one, compare=True)
-            for d, m in mesh_shapes(world)}
+                                 T + frames, steps, one=one, compare=True,
+                                 big=big, tcfg=tcfg)
+            for d, m in meshes}
 
 
 def mesh_compression(torch, seed, dev, world, cfg, B, T):
@@ -6269,6 +6531,8 @@ def main() -> int:
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-cpu", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-reduced", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-parts", default=",".join(MESH_PARTS),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mesh_rank is not None:
@@ -6551,6 +6815,8 @@ def main() -> int:
                 elif bwd_name in cut_of:
                     n_launches = train["cut"][cut_of[bwd_name]]["launches"]
                     err = train["err"]
+                elif bwd_name == MOE_ENTRY:
+                    n_launches, err = train["moe"]["launches"], train["err"]
                 else:
                     _, Tq, Tk, _, _, _, causal, _ = r["shape"]
                     n_launches = train["encdec_launches"].get(
@@ -6562,6 +6828,9 @@ def main() -> int:
                 if bwd_name == "flash_attention_bwd":
                     kernels[-1].update(step_ms=train["step_ms"],
                                        step_share=train["share"])
+                if bwd_name == MOE_ENTRY:
+                    kernels[-1].update(step_ms=train["moe"]["step_ms"],
+                                       step_share=train["moe"]["share"])
                 if bwd_name in cut_of:
                     cut_run = train["cut"][cut_of[bwd_name]]
                     kernels[-1].update(
@@ -6605,6 +6874,11 @@ def main() -> int:
                 decode_earlier_ms=r["decode_earlier_ms"],
                 decode_earlier_graph_ms=r["decode_earlier_graph_ms"],
                 decode_bound_ms=r["decode_bound"][0])
+    # qwen3-moe-30b-a3b's training forward: the same kernel and shape as
+    # its serving entry's, launched by phase 9b's MoE steps
+    for e in kernels:
+        if e["name"] == "flash_attention_d64":
+            e["train_launches"] = train["moe"]["fwd_launches"]
     # phase 9c's launches: the 1 x 1 mesh's steps
     for e in kernels:
         if e["name"] == "flash_attention":

@@ -1,5 +1,9 @@
 """Train the PyTorch port's LM on a (data, model) mesh, one process a rank.
 
+A decoder-only architecture (dense, MoE with its experts split over the
+model axis, RWKV-6, RG-LRU, vision-language), e.g.
+``--arch qwen3-moe-30b-a3b --optimizer adafactor``:
+
     PYTHONPATH=src torchrun --nproc-per-node 4 \
         examples/train_sharded_torch.py --reduced --mesh 2x2 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 \
@@ -10,9 +14,9 @@ keeps its slice (``sharding.place.init_placed``: the same weights as the
 one-process ``LM(cfg, seed=...)``), takes its rows of each batch
 (``PrefetchIterator(shardings=)``), and runs ``train_loop`` over the
 sharded step inside ``sharding.ctx.use(rules, mesh)``: FSDP for the
-weights and AdamW's moments over ``data``, the heads, MLP and
-vocabulary over ``model`` (``sharding.rules.production_rules`` with the
-architecture's overrides).  On the CPU the ranks are gloo processes and
+weights and the optimizer's state over ``data``, the heads, MLP,
+experts and vocabulary over ``model``
+(``sharding.rules.production_rules`` with the architecture's overrides).  On the CPU the ranks are gloo processes and
 the kernels' plain versions run; on cards each rank takes the card of
 its ``LOCAL_RANK``.
 """
@@ -42,6 +46,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=("adamw", "adafactor"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
     dims = tuple(int(n) for n in args.mesh.split("x"))
@@ -60,7 +66,7 @@ def main() -> None:
         model = lm_lib.LM(cfg, device=device, params=place.init_placed(
             lm_lib.param_specs(cfg), rules, mesh, seed=args.seed,
             compute_dtype=cfg.compute_dtype, device=device))
-        tcfg = TrainConfig()
+        tcfg = TrainConfig(optimizer=args.optimizer)
         params = trainable_params(model)
         step, opt = make_train_step(model, tcfg)
         stream = pipeline.for_model(cfg, ShapeSpec(

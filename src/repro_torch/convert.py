@@ -60,7 +60,8 @@ from repro_torch.selector.store import ProfilingStore
 
 __all__ = ["FLEET_ARRAYS", "adafactor_state_from_reference",
            "adamw_state_from_reference", "encdec_params_from_reference",
-           "encdec_state_from_reference", "fleet_state_from_reference",
+           "encdec_state_from_reference", "encdec_tree_from_reference",
+           "fleet_state_from_reference",
            "lm_params_from_reference", "lm_state_from_reference",
            "lm_tree_from_reference",
            "model_config_from_reference", "store_from_reference"]
@@ -220,13 +221,22 @@ def encdec_params_from_reference(cfg: ModelConfig,
     is unstacked under the encoder's config (``num_layers`` the encoder's
     depth), as the reference builds it, and the decoder stack under
     ``cfg``."""
-    tree = {"embed": _map_leaves(np.asarray, params["embed"]),
+    return EncDec(cfg, device=device,
+                  params=encdec_tree_from_reference(cfg, params))
+
+
+def encdec_tree_from_reference(cfg: ModelConfig, params: Mapping[str, Any]
+                               ) -> Dict[str, Any]:
+    """The reference ``EncDec.init`` tree as the port's parameter tree
+    (``{"embed", "enc_layers", "enc_norm", "dec_layers", "final_norm"}``,
+    numpy leaves), which ``EncDec(params=)`` loads and
+    :func:`repro_torch.sharding.place.place_tree` places on a mesh."""
+    return {"embed": _map_leaves(np.asarray, params["embed"]),
             "enc_layers": _unstack_layers(encoder_config(cfg),
                                           params["enc_stack"]),
             "enc_norm": _map_leaves(np.asarray, params["enc_norm"]),
             "dec_layers": _unstack_layers(cfg, params["dec_stack"]),
             "final_norm": _map_leaves(np.asarray, params["final_norm"])}
-    return EncDec(cfg, device=device, params=tree)
 
 
 def encdec_state_from_reference(cfg: ModelConfig, state: Mapping[str, Any],

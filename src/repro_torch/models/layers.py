@@ -578,18 +578,82 @@ def moe_route(p: Params, cfg: ModelConfig, x: torch.Tensor
 
     The logits are taken in the compute dtype, then cast to float32;
     gates are sigmoids for K = 1, otherwise softmax probabilities
-    renormalised over the top K.  The top K break ties to the lower
-    expert index, as ``lax.top_k`` does: a stable descending sort, since
-    ``torch.topk`` promises no order for ties, and the order decides each
-    slot's arrival and so which tokens a full expert drops."""
-    K = cfg.experts_per_token
+    renormalised over the top K (:func:`_top_k`)."""
     logits = (x @ p["router"]).float()
+    return (logits,) + _top_k(logits, cfg.experts_per_token)
+
+
+def _top_k(logits: torch.Tensor, K: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gates and expert ids of the top K.  They break ties to the
+    lower expert index, as ``lax.top_k`` does: a stable descending sort,
+    since ``torch.topk`` promises no order for ties, and the order
+    decides each slot's arrival and so which tokens a full expert
+    drops."""
     probs = torch.sigmoid(logits) if K == 1 else torch.softmax(logits, -1)
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[..., :K], idx[..., :K]
     if K > 1:
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    return logits, gates, idx
+    return gates, idx
+
+
+def _capacity(cfg: ModelConfig, T: int) -> int:
+    return max(1, int(math.ceil(T * cfg.experts_per_token
+                                / cfg.num_experts * cfg.capacity_factor)))
+
+
+def _dispatch(x: torch.Tensor, idx: torch.Tensor, E: int, C: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each sequence's (token, k) slots into its experts' capacity rows:
+    (xe (B, E, C, d), the slots' flat rows (B T K,), keep (B, T K)).  A
+    slot's arrival position in its expert below C keeps it, otherwise it
+    goes to an overflow row, dropped; each kept row receives exactly one
+    token, so the sum of ``index_add_`` is that token."""
+    B, T, d = x.shape
+    K = idx.shape[-1]
+    idx_flat = idx.reshape(B, T * K)
+    pos = _positions_in_expert(idx_flat)                    # (B, T*K)
+    keep = pos < C
+    slot = torch.where(keep, idx_flat * C + pos, E * C)     # overflow bucket
+    rows = (slot + torch.arange(B, device=x.device)[:, None]
+            * (E * C + 1)).reshape(-1)                      # (B*T*K,)
+    x_tk = x.repeat_interleave(K, dim=1).reshape(B * T * K, d)
+    xe = x.new_zeros(B * (E * C + 1), d).index_add_(0, rows, x_tk)
+    xe = xe.view(B, E * C + 1, d)[:, :E * C]                # drop overflow
+    return xe.reshape(B, E, C, d), rows, keep
+
+
+def _experts(p: Params, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
+    """The expert products batched over experts: (B, E, C, d) in and
+    out, ``p``'s weights the same E experts."""
+    B, E, C, d = xe.shape
+    xe = xe.transpose(0, 1).reshape(E, B * C, d)
+    h = _act(torch.bmm(xe, p["w_gate"]), cfg.act) * torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(h, p["w_down"])                          # (E, B*C, d)
+    return ye.reshape(E, B, C, d).transpose(0, 1)
+
+
+def _combine(ye: torch.Tensor, rows: torch.Tensor, gates: torch.Tensor,
+             keep: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The experts' rows (B, E, C, d) back to the tokens (B, T, d),
+    weighted by the kept gates (B, T, K)."""
+    B, E, C, d = ye.shape
+    T, K = gates.shape[1:]
+    ye_flat = torch.cat([ye.reshape(B, E * C, d), ye.new_zeros(B, 1, d)],
+                        dim=1)                              # (B, E*C+1, d)
+    y_tk = ye_flat.reshape(B * (E * C + 1), d).index_select(0, rows)
+    w = (gates.reshape(B, T * K) * keep).to(dtype)
+    return (y_tk.view(B, T * K, d) * w[..., None]).reshape(B, T, K, d).sum(2)
+
+
+def _expert_counts(idx: torch.Tensor, E: int, n: int) -> torch.Tensor:
+    """Each expert's share of the ``n`` (token, k) slots among ``idx``'s,
+    float32 (E,)."""
+    flat = idx.reshape(-1)
+    return torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(
+        0, flat, torch.full(flat.shape, 1.0 / n, dtype=torch.float32,
+                            device=idx.device))
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
@@ -600,46 +664,98 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor
     each (token, k) slot's arrival position in its expert, kept below the
     capacity ``C = max(1, ceil(T K / E * capacity_factor))`` of the call's
     own T (a decode step gets C = 1) and otherwise sent to an overflow
-    row; dispatch by adding the tokens into (B, E C + 1, d) zeros (each
-    kept slot receives exactly one token, so the sum is that token); the
-    expert products batched over experts; the gather back, weighted by
-    the kept gates; the shared expert; the Switch load-balance loss.  No
-    step reads a value back to the host."""
+    row; dispatch by adding the tokens into (B, E C + 1, d) zeros
+    (:func:`_dispatch`); the expert products batched over experts; the
+    gather back, weighted by the kept gates; the shared expert; the
+    Switch load-balance loss.  No step reads a value back to the host.
+    A DTensor ``x`` (a mesh) runs :func:`_moe_apply_placed`."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _moe_apply_placed(p, cfg, x)
     B, T, d = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    C = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    E = cfg.num_experts
+    C = _capacity(cfg, T)
 
     logits, gates, idx = moe_route(p, cfg, x)               # (B, T, K)
-    idx_flat = idx.reshape(B, T * K)
-    pos = _positions_in_expert(idx_flat)                    # (B, T*K)
-    keep = pos < C
-    slot = torch.where(keep, idx_flat * C + pos, E * C)     # overflow bucket
-    rows = (slot + torch.arange(B, device=x.device)[:, None]
-            * (E * C + 1)).reshape(-1)                      # (B*T*K,)
-
-    x_tk = x.repeat_interleave(K, dim=1).reshape(B * T * K, d)
-    xe = x.new_zeros(B * (E * C + 1), d).index_add_(0, rows, x_tk)
-    xe = xe.view(B, E * C + 1, d)[:, :E * C]                # drop overflow
-    xe = constrain(xe.reshape(B, E, C, d), ("batch", "experts", None, None))
-    xe = xe.transpose(0, 1).reshape(E, B * C, d)
-
-    h = _act(torch.bmm(xe, p["w_gate"]), cfg.act) * torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(h, p["w_down"])                          # (E, B*C, d)
-    ye = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
-
-    ye_flat = torch.cat([ye, ye.new_zeros(B, 1, d)], dim=1)  # (B, E*C+1, d)
-    y_tk = ye_flat.reshape(B * (E * C + 1), d).index_select(0, rows)
-    w = (gates.reshape(B, T * K) * keep).to(x.dtype)
-    y = (y_tk.view(B, T * K, d) * w[..., None]).reshape(B, T, K, d).sum(2)
+    xe, rows, keep = _dispatch(x, idx, E, C)
+    xe = constrain(xe, ("batch", "experts", None, None))
+    y = _combine(_experts(p, cfg, xe), rows, gates, keep, x.dtype)
 
     if cfg.shared_expert:
         y = y + mlp_apply(p["shared"], cfg, x)
 
     # Switch-style load-balance auxiliary loss
     me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))     # (E,)
-    n = B * T * K
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, idx_flat.reshape(-1),
-        torch.full((n,), 1.0 / n, dtype=torch.float32, device=x.device))
+    ce = _expert_counts(idx, E, idx.numel())
     aux = E * torch.sum(me * ce)
+    return y, aux
+
+
+def _moe_apply_placed(p: Params, cfg: ModelConfig, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_apply` over a mesh, with the experts split over the
+    rules' ``experts`` axes (expert parallelism).
+
+    A sequence's slots depend only on its own tokens and C is a
+    per-sequence capacity, so each rank routes and dispatches its own
+    rows of the batch (``x`` split over the batch only; any other split
+    raises).  The dispatched ``xe`` is then a DTensor split as the batch
+    and replicated elsewhere, constrained to ``("batch", "experts", None,
+    None)``: a local slice.  The expert products run on each rank's
+    experts, their weights gathered over the other axes (FSDP; their
+    gradients partial sums over the batch's axes); ``ye`` is gathered
+    over the experts' axes before the combine, as the reference's XLA
+    gathers it after its constraint.  The load-balance term multiplies
+    the two global batch means: the router's mean probabilities and the
+    slots' shares, each reduced over the batch's axes first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    B, T, d = x.shape
+    E = cfg.num_experts
+    C = _capacity(cfg, T)
+    x = constrain(x, ("batch", "seq", None))
+    mesh, rows_pl = x.device_mesh, tuple(x.placements)
+    if not all(pl.is_replicate() or pl == Shard(0) for pl in rows_pl):
+        raise NotImplementedError(
+            f"MoE over a mesh routes each rank's own sequences: x must be "
+            f"split over the batch alone, not {rows_pl}")
+    R = Replicate()
+    batch_split = [pl.is_shard() for pl in rows_pl]
+
+    def as_dtensor(local, placements, shape):
+        shape = torch.Size(shape)
+        return DTensor.from_local(
+            local, mesh, placements, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+
+    router = placed(p["router"], [R] * mesh.ndim, weight=True)
+    logits = constrain((x @ router).float(), ("batch", "seq", None))
+    gates, idx = _top_k(logits.to_local(), cfg.experts_per_token)
+    xe, rows, keep = _dispatch(x.to_local(), idx, E, C)
+    xe = constrain(as_dtensor(xe, rows_pl, (B, E, C, d)),
+                   ("batch", "experts", None, None))
+    split = [pl == Shard(1) for pl in xe.placements]
+
+    def local_weight(w):
+        # this rank's experts, whole over the other axes
+        w = placed(w, [Shard(0) if s else R for s in split], weight=True)
+        return w.to_local(grad_placements=[
+            Shard(0) if s else Partial() if b else R
+            for s, b in zip(split, batch_split)])
+    ye = _experts({k: local_weight(p[k])
+                   for k in ("w_gate", "w_up", "w_down")}, cfg,
+                  xe.to_local())
+    ye = placed(as_dtensor(ye.contiguous(), xe.placements, (B, E, C, d)),
+                rows_pl)                                    # all experts
+    y = as_dtensor(_combine(ye.to_local(), rows, gates, keep, x.dtype),
+                   rows_pl, (B, T, d))
+
+    if cfg.shared_expert:
+        y = y + mlp_apply(p["shared"], cfg, x)
+
+    # the load-balance term of the global batch means
+    me = placed(torch.softmax(logits, dim=-1).mean(dim=(0, 1)),
+                [R] * mesh.ndim)
+    ce = as_dtensor(_expert_counts(idx, E, B * T * idx.shape[-1]),
+                    [Partial() if b else R for b in batch_split], (E,))
+    aux = E * torch.sum(me * ce.redistribute(mesh, [R] * mesh.ndim))
     return y, aux

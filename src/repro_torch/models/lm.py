@@ -55,7 +55,7 @@ from repro_torch.models import settings as settings_lib
 from repro_torch.models.types import (ModelConfig, ParamSpec, SpecTree,
                                       init_params, map_specs)
 from repro_torch.selector.fused_rank import resolve_device
-from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.ctx import constrain, remat_contexts
 
 __all__ = ["AUX_LOSS_WEIGHT", "Block", "LM", "LayerPlan", "Z_LOSS_WEIGHT",
            "block_apply", "block_cache_specs", "block_specs", "fused_xent",
@@ -314,8 +314,10 @@ def run_stack(cfg: ModelConfig, plans: List[LayerPlan], blocks, x, *,
     state or None without one).  With ``remat`` in mode ``train`` (the
     reference wraps each layer cycle in ``jax.checkpoint``) each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
-    recomputes the layer from its input and keeps nothing else of it.
-    Nothing in a layer draws random numbers, so no RNG state is kept."""
+    recomputes the layer from its input, under the forward's sharding
+    context (:func:`repro_torch.sharding.ctx.remat_contexts`), and keeps
+    nothing else of it.  Nothing in a layer draws random numbers, so no
+    RNG state is kept."""
     new_state: Optional[State] = [] if state is not None else None
     aux = x.new_zeros((), dtype=torch.float32)
     for i, (plan, block) in enumerate(zip(plans, blocks)):
@@ -323,7 +325,8 @@ def run_stack(cfg: ModelConfig, plans: List[LayerPlan], blocks, x, *,
         if remat and mode == "train" and cache is None:
             x, aux_i = checkpoint(_train_layer, cfg, plan, block, x,
                                   positions, enc_out, use_reentrant=False,
-                                  preserve_rng_state=False)
+                                  preserve_rng_state=False,
+                                  context_fn=remat_contexts)
             nc = {}
         else:
             x, aux_i, nc = block_apply(cfg, plan, block, x, mode=mode,

@@ -39,8 +39,8 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["constrain", "constrain_merged", "current", "placed", "spmd",
-           "use"]
+__all__ = ["constrain", "constrain_merged", "current", "placed",
+           "remat_contexts", "spmd", "use"]
 
 _TLS = threading.local()
 
@@ -66,6 +66,31 @@ def spmd():
     from torch.distributed.tensor.experimental import implicit_replication
     with implicit_replication():
         yield
+
+
+def _in_spmd() -> bool:
+    from torch.distributed.tensor import DTensor
+    return bool(DTensor._op_dispatcher._allow_implicit_replication)
+
+
+def remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute of a
+    checkpointed layer runs under the sharding context (and :func:`spmd`)
+    its forward ran under.  On a card autograd runs the backward, and so
+    the recompute, on its own device thread, where this module's
+    thread-local context is not set: the recompute's annotations would
+    do nothing there, and its activations would be placed otherwise than
+    the forward's (a DTensor MoE layer's local experts, for one)."""
+    ctx, implicit = current(), current() is not None and _in_spmd()
+
+    @contextlib.contextmanager
+    def recompute():
+        if ctx is None:
+            yield
+            return
+        with use(*ctx), (spmd() if implicit else contextlib.nullcontext()):
+            yield
+    return contextlib.nullcontext(), recompute()
 
 
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]], *,

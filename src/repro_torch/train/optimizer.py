@@ -74,12 +74,14 @@ def global_norm(tree: Tensors) -> torch.Tensor:
 
 def clip_by_global_norm(tree: Tensors, max_norm: float
                         ) -> Tuple[Tensors, torch.Tensor]:
-    """``tree`` scaled to at most ``max_norm`` global norm (each tensor in
-    its own dtype, scaled in float32), and the norm before."""
+    """``tree`` scaled in place to at most ``max_norm`` global norm (each
+    tensor in its own dtype, scaled in float32), and the norm before.
+    In place, so a step holds one copy of its gradients."""
     norm = global_norm(tree)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
-    return {k: (g.float() * scale).to(g.dtype) for k, g in tree.items()}, \
-        norm
+    for g in tree.values():
+        g.copy_(g.float() * scale)
+    return tree, norm
 
 
 def _settled(t: torch.Tensor) -> torch.Tensor:
@@ -209,35 +211,74 @@ class Adafactor:
         """One step, in place (see the module's note on the grouping)."""
         grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
         lr = self.schedule(_advance(state))
-        beta = self.decay
         for (members, stacked), f in zip(self.leaves(params), state["f"]):
+            if stacked and params[members[0]].dim() >= 2:
+                self._update_layers(members, f, grads, params, lr)
+                continue
             g32 = torch.stack([grads.pop(n).float() for n in members]) \
                 if stacked else grads.pop(members[0]).float()
             p32 = torch.stack([params[n].float() for n in members]) \
                 if stacked else params[members[0]].float()
-            g2 = g32 * g32 + self.eps
-            if self._factored(g32.shape):
-                vr = beta * f["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * f["vc"] + (1 - beta) * g2.mean(-2)
-                denom = (vr[..., None] / torch.clamp_min(
-                    vr.mean(-1, keepdim=True)[..., None], self.eps)) \
-                    * vc[..., None, :]
-                step = g32 * torch.rsqrt(torch.clamp_min(denom, self.eps))
-                _assign(f["vr"], vr)
-                _assign(f["vc"], vc)
-            else:
-                v = beta * f["v"] + (1 - beta) * g2
-                step = g32 * torch.rsqrt(torch.clamp_min(v, self.eps))
-                _assign(f["v"], v)
-            rms = torch.sqrt(torch.mean(step * step) + 1e-12)
-            step = step / torch.clamp_min(rms / self.clip_threshold, 1.0)
-            new = p32 - lr * (step + self.weight_decay * p32)
+            m = self._moments(g32, f)
+            for k, v in m.items():
+                _assign(f[k], v)
+            step = self._step(g32, m)
+            new = self._moved(p32, step / self._clip(torch.mean(step * step)),
+                              lr)
             if stacked:
                 for i, n in enumerate(members):
                     _assign(params[n], new[i])
             else:
                 _assign(params[members[0]], new)
         return params, state, {"grad_norm": gnorm, "lr": lr}
+
+    def _moments(self, g32: torch.Tensor, old: Dict) -> Dict:
+        """The new second-moment statistics from the old ones (``vr``,
+        ``vc`` of a factored leaf, else ``v``)."""
+        beta, g2 = self.decay, g32 * g32 + self.eps
+        if "vr" in old:
+            return {"vr": beta * old["vr"] + (1 - beta) * g2.mean(-1),
+                    "vc": beta * old["vc"] + (1 - beta) * g2.mean(-2)}
+        return {"v": beta * old["v"] + (1 - beta) * g2}
+
+    def _step(self, g32: torch.Tensor, m: Dict) -> torch.Tensor:
+        """The gradient over the root of its second moment's estimate."""
+        if "vr" in m:
+            vr, vc = m["vr"], m["vc"]
+            denom = (vr[..., None] / torch.clamp_min(
+                vr.mean(-1, keepdim=True)[..., None], self.eps)) \
+                * vc[..., None, :]
+        else:
+            denom = m["v"]
+        return g32 * torch.rsqrt(torch.clamp_min(denom, self.eps))
+
+    def _clip(self, mean_square: torch.Tensor) -> torch.Tensor:
+        """The update clip's divisor from the step's mean square."""
+        rms = torch.sqrt(mean_square + 1e-12)
+        return torch.clamp_min(rms / self.clip_threshold, 1.0)
+
+    def _moved(self, p32: torch.Tensor, step: torch.Tensor,
+               lr: torch.Tensor) -> torch.Tensor:
+        return p32 - lr * (step + self.weight_decay * p32)
+
+    def _update_layers(self, members: List[str], f: Dict, grads: Tensors,
+                       params: Tensors, lr: torch.Tensor) -> None:
+        """A cycle-stacked leaf of matrices (or larger) a layer at a time,
+        never stacked in float32: each layer's statistics are its own, and
+        the update clip's RMS spans every layer, so a first pass sums the
+        steps' squares and a second takes the steps (each computed twice,
+        in float32, one layer at a time)."""
+        ms = [self._moments(grads[n].float(), {k: v[i] for k, v in f.items()})
+              for i, n in enumerate(members)]
+        total = sum(torch.sum(torch.square(self._step(grads[n].float(), m)))
+                    for n, m in zip(members, ms))
+        for k in f:
+            _assign(f[k], torch.stack([m[k] for m in ms]))
+        clip = self._clip(total / (len(members) * grads[members[0]].numel()))
+        for n, m in zip(members, ms):
+            step = self._step(grads.pop(n).float(), m)
+            _assign(params[n], self._moved(params[n].float(), step / clip,
+                                           lr))
 
 
 def make_optimizer(kind: str = "adamw", *, peak_lr: float = 3e-4,

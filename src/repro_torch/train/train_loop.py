@@ -164,14 +164,18 @@ def make_train_step(model: nn.Module, tcfg: TrainConfig,
     def grads_of(params: Tensors, batch: Tensors):
         loss, metrics = model.loss(batch, remat=tcfg.remat)
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names],
-                                    allow_unused=True)
-        # a compress_fn reduces the data axis's partial sums itself
+        raw = list(torch.autograd.grad(loss, [params[k] for k in names],
+                                       allow_unused=True))
+        # a compress_fn reduces the data axis's partial sums itself; each
+        # partial sum is dropped once reduced, so the two coexist a leaf
+        # at a time
         place = (lambda g, p: g) if compress_fn is not None \
             else _placed_like
-        grads = {k: place(g, params[k]) if g is not None
-                 else torch.zeros_like(params[k])
-                 for k, g in zip(names, grads)}
+        grads = {}
+        for i, k in enumerate(names):
+            g, raw[i] = raw[i], None
+            grads[k] = place(g, params[k]) if g is not None \
+                else torch.zeros_like(params[k])
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return grads, metrics

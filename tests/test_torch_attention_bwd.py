@@ -303,6 +303,29 @@ def test_cut_training_phase_rehearses_on_the_cpu():
     assert all(n == 0 for n in ops.launches().values())
 
 
+def test_moe_training_phase_rehearses_on_the_cpu():
+    """``chip_smoke.phase_train_moe`` (qwen3-moe-30b-a3b's training at cut
+    depth with Adafactor) on the reduced config in bf16 on the CPU: 2
+    layers, 4 steps, a finite loss that falls, no kernel launch, and the
+    gradient checks' two passes: bf16 with the routes pinned to the
+    first pass's (``with_routes``' replay across the forward and remat's
+    recompute), fp32 with them free; on the CPU both passes are the plain
+    version, so their gradients agree exactly."""
+    import dataclasses
+    from repro_torch import configs
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(configs.reduced(configs.get(cs.MOE_ARCH)),
+                              dtype="bfloat16")
+    ops.reset_launches()
+    run = cs.phase_train_moe(torch, 0, "cpu", dev="cpu", cfg=cfg,
+                             shape=(2, 4, 2), B=2, T=32, vocab_chunk=100)
+    assert len(run["losses"]) == 4 and all(np.isfinite(run["losses"]))
+    assert run["losses"][-1] < run["losses"][0]
+    assert run["launches"] == run["fwd_launches"] == 0
+    assert run["rel"] == 0 and run["rel_fp32"] == 0
+    assert all(n == 0 for n in ops.launches().values())
+
+
 _PTXAS_HEAD = ("ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__"
                "733d37c0_22_flash_attention_bwd_cu_2b1a21a5{}' for 'sm_90a'\n"
                "ptxas info    : Function properties for _ZN55_GLOBAL__N__"

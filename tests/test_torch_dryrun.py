@@ -10,6 +10,10 @@ the reference's arithmetic, and its counts against analytic ones.
   analytic count stated below; a reduced rwkv6-3b cell data-parallel over
   the same 4 ranks within 2% of its own, and on the 2 x 2 mesh between the
   fully split and the model-replicated counts.
+* A reduced qwen3-moe-30b-a3b cell on 2 x 2 and 4 x 1 traces, and one
+  MoE layer's forward counts the analytic FLOPs exactly (its router and
+  its experts' three products over every capacity slot, split by the
+  mesh).
 * The CLI's ``--append``, and a port-written report through both
   packages' ``records_from_dryrun_report`` (equal records) and
   ``service_from_dryrun_report`` (the same mesh).
@@ -22,6 +26,7 @@ put back at once, before any JAX backend starts.
 """
 import dataclasses
 import json
+import math
 import os
 
 import pytest
@@ -236,6 +241,97 @@ def test_reduced_cells_count_within_two_percent(reduced_cells):
         rwkv_reduced_flops(True) * 1.02
     # split over the model axis the batch is not: more collectives
     assert q["roofline"]["wire_bytes_per_device"] > 0
+
+
+def moe_layer_flops(cfg, B, T, dims):
+    """Analytic per-device FLOPs of one MoE layer's forward on a (data,
+    model) mesh: the router 2 B T d E with the batch split over data
+    (replicated over model), and three expert products over all E C
+    capacity slots, 3 x 2 B E C d f, the batch split over data and the
+    experts over model."""
+    d, E, K = cfg.d_model, cfg.num_experts, cfg.experts_per_token
+    f = cfg.moe_d_ff or cfg.d_ff
+    C = max(1, math.ceil(T * K / E * cfg.capacity_factor))
+    data, model = dims
+    return 2 * (B // data) * T * d * E \
+        + 3 * 2 * (B // data) * (E // model) * C * d * f
+
+
+@pytest.mark.parametrize("dims", [(2, 2), (4, 1)],
+                         ids=lambda d: f"{d[0]}x{d[1]}")
+def test_moe_cell_traces_and_its_layer_counts_analytic_flops(dims):
+    """A reduced qwen3-moe-30b-a3b ``train_4k`` cell traces on the mesh,
+    and one MoE layer's forward on meta DTensors counts exactly the
+    analytic FLOPs (expert parallelism: each rank's experts only)."""
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import ctx as ctx_lib
+    from repro_torch.sharding import rules as rules_lib
+    cfg = TC.reduced(TC.get("qwen3-moe-30b-a3b"))
+    cell = dryrun.lower_cell("qwen3-moe-30b-a3b", "train_4k",
+                             multi_pod=False, mesh_shape=dims, cfg=cfg,
+                             quiet=True)
+    assert cell["ok"] and cell["roofline"]["flops_per_device"] > 0
+    Bs, Ts = 8, 64
+    with mesh_lib.fake_world(4), dryrun._meta_mesh():
+        mesh = mesh_lib.make_mesh(dims, ("data", "model"),
+                                  device_type="meta")
+        rules = rules_lib.production_rules().with_overrides(
+            **rules_lib.arch_overrides(cfg, dims[1]))
+        p = dryrun._placed_tree(L.moe_specs(cfg), rules, mesh,
+                                cfg.compute_dtype)
+        shape = (Bs, Ts, cfg.d_model)
+        x = dryrun._placed(shape, cfg.compute_dtype, rules_lib.NamedSharding(
+            mesh, rules_lib.spec_for(shape, ("batch", "seq", None), rules,
+                                     mesh)))
+        with ctx_lib.use(rules, mesh), ctx_lib.spmd(), \
+                roofline.count() as c:
+            y, aux = L.moe_apply(p, cfg, x)
+        assert tuple(y.shape) == shape and aux.shape == ()
+    assert c.flops == moe_layer_flops(cfg, Bs, Ts, dims)
+
+
+def test_remat_recompute_keeps_the_sharding_context_on_another_thread():
+    """On a card autograd runs the backward, and remat's recompute, on its
+    own device thread, where the thread-local sharding context is not
+    set.  A reduced qwen3-moe-30b-a3b step on meta DTensors over 2 x 2,
+    its backward taken on another thread, recomputes each layer under
+    the forward's context: the MoE layer's local experts keep their
+    shapes (else ``torch.utils.checkpoint`` refuses the recompute)."""
+    import threading
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models.types import ShapeSpec
+    from repro_torch.configs import shapes as shapes_lib
+    from repro_torch.sharding import ctx as ctx_lib
+    from repro_torch.sharding import rules as rules_lib
+    from repro_torch.train.train_loop import trainable_params
+    cfg = TC.reduced(TC.get("qwen3-moe-30b-a3b"))
+    with mesh_lib.fake_world(4), dryrun._meta_mesh():
+        mesh = mesh_lib.make_mesh((2, 2), ("data", "model"),
+                                  device_type="meta")
+        rules = rules_lib.production_rules().with_overrides(
+            **rules_lib.arch_overrides(cfg, 2))
+        model = lm_lib.LM(cfg, device="meta", params=dryrun._placed_tree(
+            lm_lib.param_specs(cfg), rules, mesh, cfg.compute_dtype))
+        params = trainable_params(model)
+        batch = dryrun._placed_batch(shapes_lib.batch_specs(
+            cfg, ShapeSpec("t", 32, 4, "train"), with_labels=True), rules,
+            mesh)
+        with ctx_lib.use(rules, mesh), ctx_lib.spmd():
+            loss, _ = model.loss(batch, remat=True)
+        out = {}
+
+        def backward():
+            try:
+                with ctx_lib.spmd():
+                    out["grads"] = torch.autograd.grad(
+                        loss, list(params.values()))
+            except Exception as e:     # reported below
+                out["error"] = e
+        worker = threading.Thread(target=backward)
+        worker.start()
+        worker.join()
+    assert "error" not in out, out.get("error")
+    assert len(out["grads"]) == len(params)
 
 
 def test_lower_cell_refuses_a_live_group():
