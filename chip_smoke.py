@@ -264,7 +264,10 @@ Phases:
    (``--mesh-rank``, NCCL; any rank that fails fails the run):
    qwen3-1.7b at 2 x 2 and 4 x 1 (2 x 1 on two cards), its first step
    against the one-card step (loss within relative 1e-2, gradients within
-   the bf16 limits), each rank's parameter bytes ``bytes_per_device``;
+   the bf16 limits), each rank's parameter bytes ``bytes_per_device``,
+   and at 2 x 2 again with the head over vocabulary chunks of 16,384
+   split over the model axis, held to the one-card step and to the
+   plain-head run;
    the int8 compressed all-reduce over NCCL (``compressed_psum`` and a
    step with ``make_compressed_allreduce``, within n scale / 2); a save on
    the first mesh restored on the second (qwen3-1.7b at full width, 2
@@ -274,14 +277,27 @@ Phases:
    finite losses that fall, every rank's peak under 75 GiB, every
    attention backward on the tensor cores; qwen3-moe-30b-a3b at full
    width and depth (48 layers, 128 experts split over the model axis) on
-   2 x 2 and 1 x 4, Adafactor, 4 steps, as those two; qwen3-moe-30b-a3b
+   2 x 2 and 1 x 4, Adafactor, 4 steps, as those two, and at 1 x 4 again
+   with the chunked head, held to the plain-head run's first loss and
+   gradients and to the one-card model's first loss (its weights fill a
+   card; no gradient); qwen3-moe-30b-a3b
    at 2 fp32 layers on 2 x 2 against the one-card fp32 step (loss within
    relative 1e-5, gradients within 1e-3 and 1e-4 a leaf, every backward
    the split kernel); seamless-m4t-large-v2 at full depth (24 + 24,
    4,096 source frames a sequence) on 2 x 2, 4 steps, against the
    one-card step within the bf16 limits, 72 tensor-core backward
-   launches a step; step ms, positions/s, peak GiB a rank and the
+   launches a step; step ms, positions/s, every rank's peak GiB and the
    collectives' share of a profiled step (``[mesh]`` lines);
+9d. the head over a split vocabulary:
+   qwen3-1.7b's head at full width (4 x 1,024 tokens, d 2,048, V
+   151,936, chunks of 16,384), random weights in fp32 and bf16, through
+   the plain head, the one-process chunked head and the split path's
+   local pass and combine over 2 and over 4 slices of the table (as the
+   ranks of a model axis run it): (lse, ll) and the gradients of the
+   hidden states and the table within relative L2 1e-5 in fp32 and 1e-2
+   in bf16 of the other two heads, labels on every slice's and chunk's
+   edge; each head's peak memory over forward and backward (``[head]``
+   lines);
 10. last, the profiled phases: a second 1,000-event daemon on phase 4's
     service under ``torch.profiler`` (the card's busy share), then each
     served model's first-wave prefill and 8 decode steps (device time by
@@ -406,6 +422,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -6090,6 +6107,102 @@ def phase_train_mesh(torch, seed, card, ref, dev="cuda", cfg=None,
             "bwd_launches": sum(c[1] for c in per_step)}
 
 
+# --- phase 9d: the head over a split vocabulary --------------------------------
+
+#: the vocabulary cut as a model axis of 2 and of 4 ranks cuts it
+HEAD_PARTS = (2, 4)
+#: each cut head's (lse, ll, dx, dw) within this relative L2 of the
+#: one-process chunked head's and the plain head's, by dtype
+HEAD_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def head_labels(torch, gen, B, T, V, chunk, parts, dev):
+    """Random labels in [0, V), the first row's first ones each slice's
+    first and last id and the ids on its first chunk's edge."""
+    labels = torch.randint(0, V, (B, T), generator=gen, device=dev)
+    edges = sorted({e for m in parts for k in range(m)
+                    for e in (k * V // m, k * V // m + chunk - 1,
+                              k * V // m + chunk, (k + 1) * V // m - 1)
+                    if e < (k + 1) * V // m})
+    labels[0, :len(edges)] = torch.tensor(edges, device=dev)
+    return labels
+
+
+def phase_head(torch, seed, card, dev="cuda", cfg=None, B=TRAIN_B, T=TRAIN_T,
+               chunk=TRAIN_VOCAB_CHUNK, parts=HEAD_PARTS):
+    """Phase 9d: qwen3-1.7b's head (``cfg``) at full width, its table and
+    hidden states random from ``seed``, in float32 and in bf16, through
+    the plain head (``plain_xent``), the one-process chunked head
+    (``fused_xent``) and the split vocabulary's local pass and combine
+    (``sliced_xent``) over each of ``parts`` slices, as the ranks of a
+    model axis run it: per-token (lse, ll) and the gradients of the
+    hidden states and the table of the training loss over them, each cut
+    head's within :data:`HEAD_LIMIT` of the other two; and each head's
+    peak memory over its forward and backward, beyond its inputs
+    (``[head]`` lines).  Returns {dtype: {head: peak GiB}}."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as lm_lib
+    cfg = cfg or configs.get(TRAIN_ARCH)
+    V, d = cfg.vocab_size, cfg.d_model
+    on_card = torch.device(dev).type == "cuda"
+    peaks = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(B, T, d, generator=gen, device=dev).to(dt)
+        embed = {"embedding": (torch.randn(V, d, generator=gen, device=dev)
+                               * 0.02).to(dt)}
+        if not cfg.tie_embeddings:
+            embed["head"] = (torch.randn(d, V, generator=gen, device=dev)
+                             * d ** -0.5).to(dt)
+        w = embed["embedding" if cfg.tie_embeddings else "head"]
+        labels = head_labels(torch, gen, B, T, V, chunk, parts, dev)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        heads = {"plain": lambda: lm_lib.plain_xent(
+                     L.head_apply(embed, cfg, x), labels),
+                 "fused": lambda: lm_lib.fused_xent(embed, cfg, x, labels,
+                                                    chunk)}
+        heads.update({f"split{m}": functools.partial(
+            lm_lib.sliced_xent, embed, cfg, x, labels, chunk, m)
+            for m in parts})
+        got, peaks[dtype] = {}, {}
+        for name, head in heads.items():
+            free_card(torch, dev)
+            base = card_gib(torch, dev)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            lse, ll = head()
+            loss, _ = lm_lib.xent_loss(lse, ll, labels, 0.0, 0.0)
+            gx, gw = torch.autograd.grad(loss, [x, w])
+            sync(torch, dev)
+            peaks[dtype][name] = card_gib(torch, dev, peak=True) - base
+            got[name] = (lse.detach(), ll.detach(), gx, gw)
+            del lse, ll, loss, gx, gw
+        gaps = {}
+        for m in parts:
+            for ref in ("fused", "plain"):
+                gaps[m, ref] = [rel_l2(a, b) for a, b in
+                                zip(got[f"split{m}"], got[ref])]
+                check(max(gaps[m, ref]) <= HEAD_LIMIT[dtype],
+                      f"the head cut in {m} ({dtype}) against the {ref} "
+                      f"head: (lse, ll, dx, dw) within relative L2 "
+                      f"{gaps[m, ref]}")
+        log(f"[head] {cfg.name}'s head in {dtype} on {card}: {B} x {T} "
+            f"tokens, d {d}, V {V:,}, chunks of {chunk:,}; (lse, ll, dx, "
+            f"dw) relative L2 " + "; ".join(
+                f"cut in {m} against the {ref} head "
+                + ", ".join(f"{g:.3g}" for g in gaps[m, ref])
+                for m, ref in gaps))
+        log(f"[head] {dtype} peak GiB over forward + backward beyond the "
+            f"inputs: " + ", ".join(f"{name} {p:.3f}"
+                                    for name, p in peaks[dtype].items()))
+        del got, x, w, embed
+        free_card(torch, dev)
+    return peaks
+
+
 def phase_train_cards(torch, seed, card, n=None, dev_type="cuda",
                       reduced=False, timeout=MESH_TIMEOUT_S,
                       parts=MESH_PARTS):
@@ -6186,8 +6299,9 @@ def mesh_leg(torch, np, seed, dev, world, reduced=False, parts=MESH_PARTS):
     on_card = torch.device(dev).type == "cuda"
     rec = {"card": gpu_name_and_limit() if on_card else "cpu"}
     if "qwen3" in parts:
-        rec["qwen3"] = mesh_against_one(torch, seed, dev, get(TRAIN_ARCH),
-                                        TRAIN_B, T, mesh_shapes(world))
+        rec["qwen3"] = mesh_against_one(
+            torch, seed, dev, get(TRAIN_ARCH), TRAIN_B, T, mesh_shapes(world),
+            chunked=[s for s in mesh_shapes(world)[:1] if s[1] > 1])
     if "compression" in parts:
         rec["compression"] = mesh_compression(torch, seed, dev, world,
                                               get(TRAIN_ARCH), TRAIN_B, T)
@@ -6206,9 +6320,28 @@ def mesh_leg(torch, np, seed, dev, world, reduced=False, parts=MESH_PARTS):
     cfg, tcfg = get(MOE_ARCH), TrainConfig(**MOE_TCFG)
     if "moe" in parts:
         stream = train_stream(cfg, TRAIN_B, T, seed)
+        # the last mesh again with the head over vocabulary chunks, held
+        # to its plain-head run and to the one-card loss (the model's
+        # weights fill a card; its gradients do not fit beside them)
+        last = moe_mesh_shapes(world)[-1]
+        split = last[1] > 1
+        one = {"loss": one_card_loss(torch, seed, dev, cfg, stream)} \
+            if split else None
+        kept = {} if split else None
         rec["moe"] = {f"{d}x{m}": mesh_run(
             torch, cfg, (d, m), seed, dev, stream, TRAIN_B, T, BIG_STEPS,
-            big=True, tcfg=tcfg) for d, m in moe_mesh_shapes(world)}
+            big=True, tcfg=tcfg, compare=(d, m) == last and split,
+            keep=kept if (d, m) == last else None)
+            for d, m in moe_mesh_shapes(world)}
+        if split:
+            plain = {"loss": rec["moe"][f"{last[0]}x{last[1]}"]["losses"][0],
+                     "grads": kept}
+            rec["moe"][f"{last[0]}x{last[1]} chunked"] = mesh_run(
+                torch, cfg, last, seed, dev, stream, TRAIN_B, T, BIG_STEPS,
+                big=True, tcfg=tcfg, compare=True,
+                one=one, plain=plain,
+                vocab_chunk=TRAIN_VOCAB_CHUNK)
+            del plain, kept
     if "moe_fp32" in parts:
         rec["moe_fp32"] = mesh_against_one(
             torch, seed, dev, dataclasses.replace(
@@ -6225,22 +6358,28 @@ def mesh_leg(torch, np, seed, dev, world, reduced=False, parts=MESH_PARTS):
 
 
 def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
-             compare=False, big=False, tcfg=None):
+             compare=False, big=False, tcfg=None, vocab_chunk=0, plain=None,
+             keep=None):
     """``cfg`` trained ``steps`` steps on the (data, model) mesh ``dims``
     through ``train_loop`` and the sharded prefetch, then one more step
-    under the profiler: each rank's parameter bytes equal to
-    ``bytes_per_device``; finite losses (and, ``big``, the last below the
-    first, every rank's peak under ``MESH_PEAK_GIB``); every attention
-    backward launch on its dtype's kernel (the tensor cores in bf16, the
-    split kernel in fp32).  With ``compare`` (on every
-    rank) the first step's gradients are gathered whole on rank 0 and,
-    with its loss, held to ``one`` (rank 0's one-card first step: its loss
-    and gradients) within the limits of ``cfg``'s dtype.  ``tcfg``: the
-    TrainConfig (default: the defaults, AdamW).  Returns the
-    record: losses, step ms (median after the first), positions/s, peak
-    GiB (this rank's), the collectives' share of the profiled step's
-    device time, launches a step."""
+    under the profiler, the head over vocabulary chunks of
+    ``vocab_chunk`` ids (0: the plain head): each rank's parameter bytes
+    equal to ``bytes_per_device``; finite losses (and, ``big``, the last
+    below the first, every rank's peak under ``MESH_PEAK_GIB``); every
+    attention backward launch on its dtype's kernel (the tensor cores in
+    bf16, the split kernel in fp32).  With ``compare`` (on every rank)
+    the first step's gradients are gathered whole leaf by leaf and, with
+    its loss, held on rank 0 to ``one`` (rank 0's one-card first step:
+    its loss, and its gradients where it has them) and to ``plain`` (the
+    same mesh's plain-head run: its first loss and ``keep``) within the
+    limits of ``cfg``'s dtype; ``keep``, a dict, takes rank 0's whole
+    gradients.  ``tcfg``: the TrainConfig (default: the defaults,
+    AdamW).  Returns the record: losses, step ms (median after the
+    first), positions/s, peak GiB (this rank's, and every rank's), the
+    collectives' share of the profiled step's device time, launches a
+    step."""
     import torch.distributed as dist
+    from repro_torch.models import settings as msettings
     from repro_torch.sharding import ctx
     from repro_torch.sharding import rules as R
     from repro_torch.train.train_loop import (TrainConfig, make_train_step,
@@ -6261,13 +6400,29 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
     check(local == want, f"{name}: rank {rank} holds {local} parameter "
           f"bytes, bytes_per_device says {want}")
     params = trainable_params(model)
-    grads = {}
+    refs = {name: ref for name, ref in (("one", one), ("plain", plain))
+            if rank == 0 and ref is not None}
+    # each reference's gradient gap as it comes: sum of squared
+    # differences, of squares, and the worst leaf's (gap, name)
+    sums = {name: [0.0, 0.0, (0.0, "")] for name, ref in refs.items()
+            if ref.get("grads") is not None}
+    recorded = []
 
     def record(g):      # the first step's gradients, whole on rank 0
-        if not grads:
-            for k, v in g.items():
-                w = whole(v)
-                grads[k] = w if rank == 0 else None
+        if recorded:
+            return g
+        recorded.append(True)
+        for k, v in g.items():
+            w = v.full_tensor() if hasattr(v, "full_tensor") else v
+            if rank:
+                continue
+            for name, acc in sums.items():
+                a, b = w.float(), refs[name]["grads"][k].to(w.device).float()
+                acc[0] += float((a - b).square().sum())
+                acc[1] += float(b.square().sum())
+                acc[2] = max(acc[2], (leaf_gap(a, b), k))
+            if keep is not None:
+                keep[k] = w.detach().to("cpu", copy=True)
         return g
     tcfg = tcfg or TrainConfig()
     step_fn, opt = make_train_step(model, tcfg,
@@ -6276,7 +6431,7 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
     state = opt.init(params)
     batches = mesh_batches(torch, stream, rules, mesh, 0, dev)
     try:
-        with ctx.use(rules, mesh):
+        with ctx.use(rules, mesh), msettings.use(vocab_chunk=vocab_chunk):
             params, state, hist = train_loop(
                 model, tcfg, params, state, batches, steps=steps,
                 log_every=0, train_step=counting_step(torch, step_fn,
@@ -6291,6 +6446,8 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
     split = collective_waits([d for _, d, k in kernels if "nccl" in
                               k.lower()])
     peak = card_gib(torch, dev, peak=True)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
     losses = hist["loss"]
     total = sum(t for t, _, _ in by_name) or 1.0
     coll = sum(t for t, key, _ in by_name if "nccl" in key.lower())
@@ -6312,31 +6469,38 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
         if on_card:
             check(peak < MESH_PEAK_GIB, f"{name}: rank {rank}'s peak "
                   f"{peak:.2f} GiB")
-    rel = None
-    if rank == 0 and compare:
-        check(abs(losses[0] - one["loss"]) <= MESH_LOSS_RTOL[cfg.dtype]
-              * abs(one["loss"]), f"{name}: first loss {losses[0]} "
-              f"against the one-card step's {one['loss']}")
-        whole_rel, (worst, leaf) = gradient_gaps(
-            list(grads), [grads[k] for k in grads],
-            [one["grads"][k] for k in grads])
-        rel = (whole_rel, worst, leaf)
-        check(whole_rel < TRAIN_GRAD_L2[cfg.dtype]
-              and worst < TRAIN_LEAF_L2[cfg.dtype],
-              f"{name}: gradients against the one-card step's: whole "
-              f"{whole_rel:.4g}, worst leaf {worst:.4g} ({leaf})")
-    r = {"losses": losses, "step_ms": med_s * 1e3,
+    gaps = {}
+    whom = {"one": "the one-card step", "plain": "the plain head's run"}
+    for ref_name, ref in refs.items() if compare else ():
+        check(abs(losses[0] - ref["loss"]) <= MESH_LOSS_RTOL[cfg.dtype]
+              * abs(ref["loss"]), f"{name}: first loss {losses[0]} "
+              f"against {whom[ref_name]}'s {ref['loss']}")
+        if ref_name in sums:
+            num, den, (worst, leaf) = sums[ref_name]
+            gaps[ref_name] = ((num / den) ** 0.5, worst, leaf)
+            check(gaps[ref_name][0] < TRAIN_GRAD_L2[cfg.dtype]
+                  and worst < TRAIN_LEAF_L2[cfg.dtype],
+                  f"{name}: gradients against {whom[ref_name]}'s: whole "
+                  f"{gaps[ref_name][0]:.4g}, worst leaf {worst:.4g} "
+                  f"({leaf})")
+    rel = gaps.get("one")
+    r = {"losses": losses, "step_ms": med_s * 1e3, "vocab_chunk": vocab_chunk,
          "positions_per_s": B * T / med_s, "peak_gib": peak,
+         "peaks_gib": peaks, "grad_rel_plain": gaps.get("plain"),
+         "first_loss_plain": plain and plain["loss"],
          "collective_share": coll / total, "busy": busy_us / 1e6 / wall,
          "collective_ms": coll / 1e3, "collective_transfer_ms":
          split and split[0] / 1e3, "collective_wait_ms":
          split and split[1] / 1e3,
          "init_s": t_init, "launches": per_step[0], "grad_rel": rel,
          "param_bytes": local, "first_loss_one": one and one["loss"]}
-    log(f"[mesh] {name}: {steps} steps of {B} x {T} positions, losses "
+    head = f"chunks of {vocab_chunk:,}" if vocab_chunk else "plain"
+    log(f"[mesh] {name} ({head} head): {steps} steps of {B} x {T} "
+        f"positions, losses "
         f"{[round(x, 4) for x in losses]}; step ms "
         f"{[round(s * 1e3, 1) for s in hist['step_time']]}, median after "
         f"the first {med_s * 1e3:.1f} ({B * T / med_s:,.1f} positions/s); "
+        f"peak GiB by rank {[round(p, 2) for p in peaks]}; "
         f"rank {rank}: peak {peak:.2f} GiB, {local / 2**30:.3f} GiB of "
         f"parameters (bytes_per_device), init {t_init:.1f} s; the profiled "
         f"step: collectives {coll / total:.1%} of device time ("
@@ -6346,20 +6510,25 @@ def mesh_run(torch, cfg, dims, seed, dev, stream, B, T, steps, one=None,
         + f"), card busy "
         f"{busy_us / 1e6 / wall:.1%} of {wall * 1e3:.1f} ms; attention "
         f"backward launches a step (all, {variant}) {per_step[0]}"
-        + (f"; against the one-card step: first loss {one['loss']:.8g} "
-           f"(relative {abs(losses[0] - one['loss']) / abs(one['loss']):.3g}"
-           f"), gradients whole {rel[0]:.4g}, worst leaf {rel[1]:.4g} "
-           f"({rel[2]})" if rel else ""))
-    del model, params, state, step_fn, opt, grads
+        + "".join(
+            f"; against {whom[n]}: first loss {ref['loss']:.8g} (relative "
+            f"{abs(losses[0] - ref['loss']) / abs(ref['loss']):.3g})"
+            + (f", gradients whole {gaps[n][0]:.4g}, worst leaf "
+               f"{gaps[n][1]:.4g} ({gaps[n][2]})" if n in gaps else "")
+            for n, ref in refs.items() if compare))
+    del model, params, state, step_fn, opt
     free_card(torch, dev)
     return r
 
 
 def mesh_against_one(torch, seed, dev, cfg, B, T, meshes, frames=0,
-                     steps=MESH_STEPS, big=False, tcfg=None):
+                     steps=MESH_STEPS, big=False, tcfg=None, chunked=()):
     """``cfg`` on each of ``meshes`` (:func:`mesh_run`, ``steps`` steps,
     ``frames`` a sequence), its first step held to the one-card step on
-    rank 0's card (plain tensors, the same seed and batch)."""
+    rank 0's card (plain tensors, the same seed and batch); on each mesh
+    of ``chunked`` again with the head over vocabulary chunks of
+    ``TRAIN_VOCAB_CHUNK`` (``"<d>x<m> chunked"``), held to the one-card
+    step and to the same mesh's plain-head run."""
     import torch.distributed as dist
     from repro_torch.models import build_model
     from repro_torch.train.train_loop import to_device, trainable_params
@@ -6375,10 +6544,42 @@ def mesh_against_one(torch, seed, dev, cfg, B, T, meshes, frames=0,
         del model, params, g, loss
         free_card(torch, dev)
     dist.barrier()
-    return {f"{d}x{m}": mesh_run(torch, cfg, (d, m), seed, dev, stream, B,
-                                 T + frames, steps, one=one, compare=True,
-                                 big=big, tcfg=tcfg)
-            for d, m in meshes}
+    out = {}
+    for d, m in meshes:
+        kept = {} if (d, m) in chunked else None
+        out[f"{d}x{m}"] = mesh_run(torch, cfg, (d, m), seed, dev, stream, B,
+                                   T + frames, steps, one=one, compare=True,
+                                   big=big, tcfg=tcfg, keep=kept)
+        if kept is not None:
+            out[f"{d}x{m} chunked"] = mesh_run(
+                torch, cfg, (d, m), seed, dev, stream, B, T + frames, steps,
+                one=one, compare=True, big=big, tcfg=tcfg,
+                vocab_chunk=TRAIN_VOCAB_CHUNK, plain={
+                    "loss": out[f"{d}x{m}"]["losses"][0], "grads": kept})
+    return out
+
+
+def one_card_loss(torch, seed, dev, cfg, stream):
+    """The first batch's loss of ``cfg``'s one-card model from ``seed``,
+    no gradient, the head over vocabulary chunks (rank 0; None on the
+    others, after a barrier): the
+    reference a model whose gradients do not fit one card beside its
+    weights is held to."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.models import settings as msettings
+    from repro_torch.train.train_loop import to_device
+    loss = None
+    if dist.get_rank() == 0:
+        model = build_model(cfg, device=dev, seed=seed)
+        with torch.no_grad(), \
+                msettings.use(vocab_chunk=TRAIN_VOCAB_CHUNK):
+            loss = float(model.loss(to_device(stream.batch_at(0),
+                                              model.device))[0])
+        del model
+        free_card(torch, dev)
+    dist.barrier()
+    return loss
 
 
 def mesh_compression(torch, seed, dev, world, cfg, B, T):
@@ -6683,6 +6884,8 @@ def main() -> int:
     if torch.cuda.device_count() >= 2:
         phase_train_cards(torch, args.seed, card)
         done("mesh cards")
+    phase_head(torch, args.seed, card)
+    done("head")
     check_card_cell(card_cell, train, card)
     # the profiled phases come last: a profiler session may slow the
     # host's launches for the rest of the process (phase_lm_profile reads

@@ -314,6 +314,10 @@ def main(argv=None) -> None:
                          "(data, model) splits of mesh_options(256), named "
                          "dp{d}xtp{m}, which the mesh selection ranks; or "
                          "one such name")
+    ap.add_argument("--vocab-chunk", type=int, default=0,
+                    help="train cells: the head over vocabulary chunks of "
+                         "this many ids (the model setting vocab_chunk; 0: "
+                         "the plain head)")
     ap.add_argument("--out", default="dryrun_report.json")
     ap.add_argument("--append", action="store_true",
                     help="merge results into an existing report")
@@ -351,7 +355,8 @@ def main(argv=None) -> None:
                     continue
                 print(f"=== {arch} x {shape_name} x {mesh_name}", flush=True)
                 try:
-                    cell = lower_cell(arch, shape_name, **mesh_kwargs)
+                    cell = lower_cell(arch, shape_name, settings_extra={
+                        "vocab_chunk": args.vocab_chunk}, **mesh_kwargs)
                 except Exception as e:
                     traceback.print_exc()
                     cell = {"arch": arch, "shape": shape_name,

@@ -9,7 +9,8 @@ the vision-language backbone (counterpart of ``repro/models/lm.py``).
 * **Entry modes**, as the reference: ``forward`` (causal, no cache; the
   logits), ``loss`` (the training loss and its metrics, through the plain
   head or :func:`fused_xent` over vocabulary chunks when
-  ``settings.vocab_chunk`` is set; with ``remat`` each layer runs under
+  ``settings.vocab_chunk`` is set, also on a head split over a mesh's
+  model axis; with ``remat`` each layer runs under
   ``torch.utils.checkpoint``), ``prefill`` (causal, writes the
   KV/recurrent state) and ``decode_step`` (one token, reads and writes
   the state).  A state is a list with one dict per layer; KV caches are
@@ -60,7 +61,7 @@ from repro_torch.sharding.ctx import constrain, remat_contexts
 __all__ = ["AUX_LOSS_WEIGHT", "Block", "LM", "LayerPlan", "Z_LOSS_WEIGHT",
            "block_apply", "block_cache_specs", "block_specs", "fused_xent",
            "layer_plans", "model_groups", "named_specs", "param_groups",
-           "param_specs", "xent_loss"]
+           "param_specs", "sliced_xent", "xent_loss"]
 
 State = List[Dict[str, torch.Tensor]]
 #: a parameter group: the reference leaf's path in its tree and the port's
@@ -347,9 +348,10 @@ def _train_layer(cfg, plan, block, x, positions, enc_out):
 
 def _xent_chunk(x, w, labels, m, s, ll, c0: int, chunk: int, V: int,
                 tied: bool):
-    """One vocabulary chunk of :func:`fused_xent`: the chunk's logits (the
-    last chunk's padding scored -1e30), the running max and sum, and the
-    label's logit where the label falls in the chunk."""
+    """One vocabulary chunk of :func:`fused_xent` over a whole head: the
+    chunk's logits (the last chunk's padding scored -1e30), the running
+    max and sum, and the label's logit where the label falls in the
+    chunk."""
     pad = chunk - (w.shape[0] if tied else w.shape[1])
     if pad:
         w = torch.nn.functional.pad(w, (0, 0, 0, pad) if tied else (0, pad))
@@ -371,18 +373,21 @@ def fused_xent(embed, cfg: ModelConfig, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused head matmul and cross-entropy over vocabulary chunks (the
     reference's ``fused_xent``): per token (logsumexp, label logit), (B, T)
-    float32 each, without the (B, T, V) float32 logits.  Each chunk runs
-    under ``torch.utils.checkpoint``, so its logits live only inside its
-    step, forward and backward.  ``labels`` must be in [0, V).  A head
-    split over the vocabulary (a DTensor) is refused: the plain head
-    serves it."""
+    float32 each, without the (B, T, V) float32 logits.  ``labels`` must
+    be in [0, V).
+
+    A whole head runs each chunk under ``torch.utils.checkpoint``, so its
+    logits live only inside its step, forward and backward.  A head split
+    over the vocabulary (a DTensor on a mesh's model axis) keeps the
+    split, as the reference's constraints do: each rank runs its own
+    slice chunk by chunk and the ranks combine their maxima, sums and
+    picks (:func:`_split_xent`), so no rank holds its (B, T, V / m)
+    float32 logits either."""
     tied = cfg.tie_embeddings
     w = embed["embedding"] if tied else embed["head"]
-    if L.vocab_dims(w, 0 if tied else 1):
-        raise NotImplementedError(
-            "vocab_chunk over a head split over the vocabulary (a mesh's "
-            "model axis): the plain head (vocab_chunk=0) keeps the logits "
-            "split there and picks the labels shard by shard")
+    vdims = L.vocab_dims(w, 0 if tied else 1)
+    if vdims:
+        return _split_xent(w, x, labels, chunk, tied, vdims)
     V = w.shape[0] if tied else w.shape[1]
     chunk = min(chunk, V)
     # views of one split: the backward assembles w's gradient once
@@ -396,6 +401,177 @@ def fused_xent(embed, cfg: ModelConfig, x: torch.Tensor,
                               i * chunk, chunk, V, tied,
                               use_reentrant=False, preserve_rng_state=False)
     return m + torch.log(torch.clamp_min(s, 1e-30)), ll
+
+
+# --- the head over a split vocabulary -----------------------------------------
+#
+# A slice of the head holds vocabulary ids v0 .. v0 + n - 1 (its rows when
+# tied, (V, d); its columns when not, (d, V)).  The local pass runs one
+# slice chunk by chunk, the last chunk ragged, and needs no process group;
+# the combine joins slices: stacked on one device, and over the ranks of
+# the vocabulary's mesh dimensions by all-reduces.
+
+
+def _chunk_logits(x, w, c0: int, c1: int, tied: bool) -> torch.Tensor:
+    """The float32 logits of the slice's ids ``c0 .. c1 - 1``."""
+    w_c = w[c0:c1].t() if tied else w[:, c0:c1]
+    return (x @ w_c).float()
+
+
+def xent_slice_stats(x, w, labels, v0: int, chunk: int, tied: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The local pass over one slice of the head (ids from ``v0``), no
+    gradient: per token the slice's max logit, its sum of exp(logit -
+    max) and the label's logit where the label lies in the slice (0
+    elsewhere), (B, T) float32 each."""
+    n = w.shape[0 if tied else 1]
+    m = torch.full(labels.shape, L.NEG_INF, dtype=torch.float32,
+                   device=x.device)
+    s = torch.zeros(labels.shape, dtype=torch.float32, device=x.device)
+    ll = torch.zeros(labels.shape, dtype=torch.float32, device=x.device)
+    rel = labels - v0
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        logits = _chunk_logits(x, w, c0, c1, tied)
+        m_new = torch.maximum(m, logits.amax(-1))
+        s = s * torch.exp(m - m_new) \
+            + torch.exp(logits - m_new[..., None]).sum(-1)
+        m = m_new
+        hit = (rel >= c0) & (rel < c1)
+        picked = logits.gather(-1, (rel - c0).clamp(0, c1 - c0 - 1)
+                               [..., None])[..., 0]
+        ll = torch.where(hit, picked, ll)
+    return m, s, ll
+
+
+def _all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced by ``op`` over each (mesh, dimension) of ``groups``
+    (the functional collective, which the dry run's count sees)."""
+    from torch.distributed import _functional_collectives as funcol
+    for group in groups:
+        t = funcol.all_reduce(t, op, group)
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+def xent_combine(m, s, ll, groups=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, label logit) from slices' :func:`xent_slice_stats`
+    stacked on dimension 0, and over the ranks of ``groups`` ((mesh,
+    dimension) pairs, none on one device): the maxima's max, each sum
+    rescaled to it and summed, the picks summed (one slice holds each
+    label)."""
+    top = _all_reduce(m.amax(0), "max", groups)
+    s, ll = _all_reduce(torch.stack([(s * torch.exp(m - top)).sum(0),
+                                     ll.sum(0)]), "sum", groups)
+    return top + torch.log(torch.clamp_min(s, 1e-30)), ll
+
+
+def _slice_grad(x, w, labels, v0: int, lse, dlse, dll, chunk: int,
+                tied: bool, dx: torch.Tensor) -> torch.Tensor:
+    """One slice's part of the backward: each chunk's logits recomputed,
+    softmax * dlse + onehot * dll formed in their place; adds the
+    slice's dx into ``dx`` (float32) and returns the slice's dw."""
+    n = w.shape[0 if tied else 1]
+    dw = torch.empty_like(w)
+    x2 = x.reshape(-1, x.shape[-1])
+    rel = labels - v0
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        g = _chunk_logits(x, w, c0, c1, tied)
+        g.sub_(lse[..., None]).exp_().mul_(dlse[..., None])
+        hit = (rel >= c0) & (rel < c1)
+        g.scatter_add_(-1, (rel - c0).clamp(0, c1 - c0 - 1)[..., None],
+                       (dll * hit)[..., None])
+        g = g.to(x.dtype).reshape(-1, c1 - c0)
+        if tied:
+            dx.add_((g @ w[c0:c1]).view(dx.shape))
+            dw[c0:c1] = g.t() @ x2
+        else:
+            dx.add_((g @ w[:, c0:c1].t()).view(dx.shape))
+            dw[:, c0:c1] = x2.t() @ g
+    return dw
+
+
+class _SlicedXent(torch.autograd.Function):
+    """(logsumexp, label logit) over the head slices ``ws`` (ids from
+    ``offsets``) and the other ranks' slices over ``groups``.  The forward
+    keeps x, the slices, the labels and the logsumexp; the backward
+    recomputes each chunk's logits (the reference's per-chunk
+    ``jax.checkpoint``) and returns dx over these slices alone (a partial
+    sum over ``groups``) and each slice's dw."""
+
+    @staticmethod
+    def forward(ctx, x, labels, chunk, tied, offsets, groups, *ws):
+        stats = [xent_slice_stats(x, w, labels, v0, chunk, tied)
+                 for w, v0 in zip(ws, offsets)]
+        lse, ll = xent_combine(*(torch.stack(t) for t in zip(*stats)),
+                               groups=groups)
+        ctx.save_for_backward(x, labels, lse, *ws)
+        ctx.chunk, ctx.tied, ctx.offsets = chunk, tied, offsets
+        return lse, ll
+
+    @staticmethod
+    def backward(ctx, dlse, dll):
+        x, labels, lse, *ws = ctx.saved_tensors
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dws = [_slice_grad(x, w, labels, v0, lse, dlse, dll, ctx.chunk,
+                           ctx.tied, dx) for w, v0 in zip(ws, ctx.offsets)]
+        return (dx.to(x.dtype), None, None, None, None, None, *dws)
+
+
+def sliced_xent(embed, cfg: ModelConfig, x: torch.Tensor,
+                labels: torch.Tensor, chunk: int, parts: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_xent`'s split path on one device, no process group:
+    the head cut into ``parts`` equal slices of the vocabulary, each run
+    through the local pass and combined as a model axis of ``parts``
+    ranks combines them."""
+    tied = cfg.tie_embeddings
+    w = embed["embedding"] if tied else embed["head"]
+    V = w.shape[0 if tied else 1]
+    if V % parts:
+        raise ValueError(f"a vocabulary of {V} does not split in {parts}")
+    ws = w.split(V // parts, dim=0 if tied else 1)
+    return _SlicedXent.apply(x, labels, chunk, tied,
+                             tuple(range(0, V, V // parts)), (), *ws)
+
+
+def _split_xent(w, x, labels, chunk: int, tied: bool, vdims: List[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_xent` over a DTensor head ``w`` split over the
+    vocabulary on the mesh dimensions ``vdims``: any other split of ``w``
+    (FSDP's) gathered, ``x`` and the labels replicated over ``vdims``,
+    and each rank's local slice through :class:`_SlicedXent`.  dx comes
+    back a partial sum over ``vdims``; dw exact on each rank's slice, a
+    partial sum over the axes that split the batch (as
+    :func:`repro_torch.models.layers.vocab_lookup`'s).  (lse, ll) are
+    DTensors split as the batch, replicated over ``vdims``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.sharding.ctx import placed
+    mesh, vdim = w.device_mesh, 0 if tied else 1
+    w = placed(w, [Shard(vdim) if i in vdims else Replicate()
+                   for i in range(mesh.ndim)], weight=True)
+    rows = [Replicate() if i in vdims else p
+            for i, p in enumerate(x.placements)]
+    if tuple(x.placements) != tuple(rows):
+        x = placed(x, rows)
+    labels = L._placed_ids(labels, mesh, rows)
+    local_w = w.to_local(grad_placements=[
+        Shard(vdim) if i in vdims else
+        Partial() if isinstance(p, Shard) else Replicate()
+        for i, p in enumerate(rows)])
+    local_x = x.to_local(grad_placements=[
+        Partial() if i in vdims else p for i, p in enumerate(rows)])
+    v0 = L._vocab_offset(mesh, vdims, local_w.shape[vdim])
+    lse, ll = _SlicedXent.apply(local_x, labels.to_local(), chunk, tied,
+                                (v0,), tuple((mesh, i) for i in vdims),
+                                local_w)
+    shape = torch.Size(labels.shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return tuple(DTensor.from_local(t, mesh, rows, run_check=False,
+                                    shape=shape, stride=stride)
+                 for t in (lse, ll))
 
 
 def plain_xent(logits: torch.Tensor, labels: torch.Tensor

@@ -3,7 +3,9 @@
 
 Training reads ``vocab_chunk``: with it set, ``LM.loss`` computes the head
 and the cross-entropy over vocabulary chunks (:func:`repro_torch.models.
-lm.fused_xent`), so the (B, T, V) float32 logits never exist at once.
+lm.fused_xent`), so the (B, T, V) float32 logits never exist at once, on
+one device or on any mesh (a head split over the model axis runs each
+rank's slice chunk by chunk, and the ranks combine their results).
 ``q_chunk``, ``kv_chunk`` and ``wkv_chunk`` keep the reference's names and
 defaults as constants only: the port's attention and WKV recurrence are
 kernels with tiles of their own, so :func:`use` refuses them rather than

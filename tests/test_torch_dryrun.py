@@ -243,6 +243,84 @@ def test_reduced_cells_count_within_two_percent(reduced_cells):
     assert q["roofline"]["wire_bytes_per_device"] > 0
 
 
+def _head_alone(cfg, dims, chunk):
+    """One step of the head alone (``fused_xent`` at ``chunk``, or the
+    plain head at 0) over train_4k's batch, counted on a meta mesh of
+    ``dims`` with the weights and the hidden states placed as in the
+    cell.  Returns (counts, the placements of x's gradient)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.configs import shapes as TS
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding import rules as R
+    shape = TS.SHAPES["train_4k"]
+    with mesh_lib.fake_world(math.prod(dims)), dryrun._meta_mesh():
+        mesh = mesh_lib.make_mesh(dims, ("data", "model"), device_type="meta")
+        rules = R.production_rules().with_overrides(
+            **R.arch_overrides(cfg, dims[1]))
+        embed = {k: dryrun._placed(s.shape, torch.float32, R.sharding_for_spec(
+            s, rules, mesh)).requires_grad_(True)
+            for k, s in lm_lib.param_specs(cfg)["embed"].items()}
+        rows = [Shard(0), Replicate()]
+        B, T = shape.global_batch, shape.seq_len
+        x = distribute_tensor(torch.empty(B, T, cfg.d_model, device="meta"),
+                              mesh, rows).requires_grad_(True)
+        labels = distribute_tensor(torch.empty(B, T, dtype=torch.long,
+                                               device="meta"), mesh, rows)
+        with ctx.use(rules, mesh), roofline.count() as counts:
+            if chunk:
+                lse, ll = lm_lib.fused_xent(embed, cfg, x, labels, chunk)
+            else:
+                lse, ll = lm_lib.plain_xent(L.head_apply(embed, cfg, x),
+                                            labels)
+            (lse - ll).sum().backward()
+        return counts, x.grad.placements
+
+
+def test_chunked_head_cell_on_a_split_vocabulary(reduced_cells):
+    """A reduced qwen3-1.7b train_4k cell on 2 x 2 with ``vocab_chunk``
+    100 (each rank's 256 ids in two chunks of 100 and one of 56) against
+    the plain head's cell.  FLOPs a device: the plain cell's plus one
+    recompute of the rank's head products in the backward, 2 (B / 2) T d
+    (V / 2), exactly (the last chunk is ragged, not padded).  The head
+    alone moves, besides the FSDP gather of its slice of the table over
+    data, (V / 2) d float32 (the plain head's too), the forward's two
+    all-reduces over model: the ranks' maxima, (B / 2, T) float32, and
+    their rescaled sums and picks, (2, B / 2, T); dx comes back a
+    partial sum over model, as the plain head's, for the stack's
+    constraint to reduce.  The plain head alone moves the logits through
+    DTensor's all-to-alls and reduce-scatters; the cells differ by the
+    two heads' collectives, less three scalar all-reduces over model
+    (the plain head leaves the loss's terms a partial sum over model)."""
+    cfg = TC.reduced(TC.get("qwen3-1.7b"))
+    plain = reduced_cells["qwen3-1.7b", (2, 2), "train_4k"]
+    cell = dryrun.lower_cell("qwen3-1.7b", "train_4k", multi_pod=False,
+                             mesh_shape=(2, 2), cfg=cfg, quiet=True,
+                             settings_extra={"vocab_chunk": 100})
+    assert cell["ok"]
+    rows, d, Vm = B // 2 * T, cfg.d_model, cfg.vocab_size // 2
+    recompute = 2 * rows * d * Vm
+    assert cell["roofline"]["flops_per_device"] == pytest.approx(
+        plain["roofline"]["flops_per_device"] + recompute, rel=1e-9)
+    from torch.distributed.tensor import Partial
+    chunked, dx = _head_alone(cfg, (2, 2), 100)
+    assert dx[1] == Partial()
+    assert chunked.flops == 4 * recompute
+    want = dict.fromkeys(roofline.COLLECTIVES, 0)
+    want["all-reduce"] = 2 * (4 * rows + 4 * 2 * rows)
+    want["all-gather"] = Vm * d * 4
+    assert chunked.collectives == want
+    head, _ = _head_alone(cfg, (2, 2), 0)
+    scalars = 3 * 2 * 4
+    for kind in roofline.COLLECTIVES:
+        added = chunked.collectives[kind] - head.collectives[kind]
+        if kind == "all-reduce":
+            added -= scalars
+        assert cell["roofline"]["collectives"][kind] == \
+            plain["roofline"]["collectives"][kind] + added, kind
+
+
 def moe_layer_flops(cfg, B, T, dims):
     """Analytic per-device FLOPs of one MoE layer's forward on a (data,
     model) mesh: the router 2 B T d E with the batch split over data

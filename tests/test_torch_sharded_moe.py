@@ -27,7 +27,13 @@ port's are placed leaf by leaf from them (``convert``, ``place_tree``):
   of the whole batch; ``init_placed`` gives the one-process model's
   weights, bit for bit, the 3-D expert leaves among them;
 * Adafactor's factored statistics ``vr``, ``vc`` of every leaf placed as
-  the reference's ``state_specs`` axes resolve on the mesh.
+  the reference's ``state_specs`` axes resolve on the mesh;
+* qwen3-moe-30b-a3b's head over vocabulary chunks (``vocab_chunk`` 100)
+  at 1 x 4, each rank's 128 ids in a chunk of 100 and a ragged one of
+  28, on a batch whose labels include -1 and the ids on the slices' and
+  chunks' edges: the loss within relative 1e-5 and each gradient leaf
+  within relative L2 1e-4 of the one-process chunked head's, the same
+  mesh's plain head's and the reference's chunked head's on 2 x 2.
 
 One launch of four ranks runs every port case, beside a JAX subprocess
 an architecture; all start together.
@@ -67,6 +73,10 @@ OPTIMIZERS = {"qwen3-moe-30b-a3b": ("adamw", "adafactor"),
 #: the encoder-decoder's vocabulary here: 2 x 257, as 256,206 = 2 x 128,103
 ENCDEC_VOCAB = 514
 CASES = [(a, o) for a in ARCHS for o in OPTIMIZERS[a]]
+#: the head over vocabulary chunks: qwen3-moe-30b-a3b on this mesh
+CHUNK_ARCH, CHUNK_MESH, VOCAB_CHUNK = "qwen3-moe-30b-a3b", (1, 4), 100
+#: labels on the edges of the ranks' slices and of the chunks
+EDGE_LABELS = [0, 99, 100, 127, 128, 255, 256, 355, 356, 383, 384, 511]
 
 
 def _ref_cfg(arch):
@@ -80,7 +90,7 @@ JAX_CHILD = textwrap.dedent("""
     import pickle, sys
     import jax, jax.numpy as jnp, numpy as np
     from jax.sharding import AxisType
-    from repro.models import build_model
+    from repro.models import build_model, settings
     from repro.models.types import ModelConfig
     from repro.sharding import ctx as ctx_lib, rules as rules_lib
     from repro.train.train_loop import TrainConfig, make_train_step
@@ -125,6 +135,14 @@ JAX_CHILD = textwrap.dedent("""
                     r["grads"] = host(g)
             r["params"] = host(p)
             out[opt_name] = r
+        if "head_batch" in case:
+            # the chunked head on the head batch
+            hb = {k: jnp.asarray(v) for k, v in case["head_batch"].items()}
+            with settings.use(vocab_chunk=inp["vocab_chunk"]):
+                (loss, _), g = jax.jit(
+                    jax.value_and_grad(loss_fn, has_aux=True),
+                    in_shardings=(p_sh, b_sh))(params, hb)
+            out["chunked"] = {"loss": float(loss), "grads": host(g)}
     with open(sys.argv[2], "wb") as f:
         pickle.dump(out, f)
 """)
@@ -136,6 +154,7 @@ RANK_CHILD = textwrap.dedent("""
     from repro_torch import convert
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import encdec as encdec_lib, lm as lm_lib
+    from repro_torch.models import settings as msettings
     from repro_torch.sharding import ctx, place, rules as R
     from repro_torch.train.train_loop import (TrainConfig, make_train_step,
                                               trainable_params)
@@ -235,6 +254,20 @@ RANK_CHILD = textwrap.dedent("""
                         r["aux"].append(float(m["aux"]))
                 r["params"] = {k: whole(v) for k, v in p.items()}
                 out[(arch, opt_name, dims)] = r
+        if "head_batch" in case:
+            # the head over vocabulary chunks, and the plain head
+            mesh, rules, model = setup(cfg, tuple(inp["chunk_mesh"]),
+                                       tree=tree)
+            p = trainable_params(model)
+            for chunk in (inp["vocab_chunk"], 0):
+                with ctx.use(rules, mesh), ctx.spmd(), \
+                        msettings.use(vocab_chunk=chunk):
+                    loss, _ = model.loss(place.place_batch(
+                        case["head_batch"], rules, mesh))
+                    g = torch.autograd.grad(loss, list(p.values()))
+                out[("head", arch, chunk)] = {
+                    "loss": float(whole(loss)),
+                    "grads": {k: whole(v) for k, v in zip(p, g)}}
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -260,6 +293,17 @@ def _batches(cfg, n, seed=1):
                 (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
         out.append(b)
     return out
+
+
+def _head_batch(cfg, seed=2):
+    """A batch whose labels hold -1 (the first row's first 5) and every
+    id of ``EDGE_LABELS`` (the second row's first 12)."""
+    rng = np.random.default_rng(seed)
+    b = {k: rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+         for k in ("tokens", "labels")}
+    b["labels"][0, :5] = -1
+    b["labels"][1, :len(EDGE_LABELS)] = EDGE_LABELS
+    return b
 
 
 def _rel(a, b) -> float:
@@ -296,6 +340,20 @@ def _one_process(arch, case, opt_name):
             "params": {k: v.detach().numpy().copy() for k, v in p.items()}}
 
 
+def _one_head(arch, case):
+    """The one-process chunked head's loss and gradients on the head
+    batch, from the initial weights."""
+    from repro_torch.models import settings as psettings
+    model = _port_model(arch, case)
+    p = trainable_params(model)
+    with psettings.use(vocab_chunk=VOCAB_CHUNK):
+        loss, _ = model.loss({k: torch.from_numpy(v)
+                              for k, v in case["head_batch"].items()})
+    g = torch.autograd.grad(loss, list(p.values()))
+    return {"loss": float(loss.detach()),
+            "grads": {k: v.numpy() for k, v in zip(p, g)}}
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The reference's sharded steps (a JAX subprocess an architecture over
@@ -313,7 +371,8 @@ def run(tmp_path_factory):
                              WORLD_SIZE="4"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(4)]
-    inp = {"archs": {}, "meshes": [list(m) for m in MESHES], "steps": STEPS}
+    inp = {"archs": {}, "meshes": [list(m) for m in MESHES], "steps": STEPS,
+           "vocab_chunk": VOCAB_CHUNK, "chunk_mesh": list(CHUNK_MESH)}
     try:
         for arch in ARCHS:
             rcfg = _ref_cfg(arch)
@@ -323,6 +382,8 @@ def run(tmp_path_factory):
                 "params0": jax.tree_util.tree_map(np.asarray, params),
                 "batches": _batches(rcfg, STEPS),
                 "optimizers": OPTIMIZERS[arch]}
+        inp["archs"][CHUNK_ARCH]["head_batch"] = _head_batch(
+            _ref_cfg(CHUNK_ARCH))
         with open(tmp / "inputs.part", "wb") as f:
             pickle.dump(inp, f)
         os.replace(tmp / "inputs.part", tmp / "inputs.pkl")
@@ -337,6 +398,7 @@ def run(tmp_path_factory):
                              stderr=subprocess.PIPE, text=True)
             for arch in ARCHS]
     one = {(a, o): _one_process(a, inp["archs"][a], o) for a, o in CASES}
+    one["head"] = _one_head(CHUNK_ARCH, inp["archs"][CHUNK_ARCH])
     for p in ranks:
         _, err = p.communicate(timeout=600)
         assert p.returncode == 0, err[-4000:]
@@ -429,6 +491,22 @@ def test_adafactor_state_placed_as_reference_state_specs(run, dims):
     for r in run["ranks"]:
         assert r[("qwen3-moe-30b-a3b", "adafactor", dims)]["state_placed"] \
             is True
+
+
+def test_vocab_chunks_over_a_split_vocabulary(run):
+    """qwen3-moe-30b-a3b's head over chunks of ``VOCAB_CHUNK`` ids at
+    ``CHUNK_MESH`` (each rank's slice of the vocabulary): its loss and
+    gradients as the one-process chunked head's, the same mesh's plain
+    head's and the reference's chunked head's on its 2 x 2 mesh."""
+    r0 = run["ranks"][0]
+    got = r0[("head", CHUNK_ARCH, VOCAB_CHUNK)]
+    ref = run["ref"][CHUNK_ARCH]["chunked"]
+    model = run["one"][CHUNK_ARCH, "adamw"]["model"]
+    for want in (run["one"]["head"], r0[("head", CHUNK_ARCH, 0)],
+                 {"loss": ref["loss"],
+                  "grads": _ref_by_name(ref["grads"], model)}):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+        _within(got["grads"], want["grads"])
 
 
 def test_encdec_vocabulary_split_by_mesh():

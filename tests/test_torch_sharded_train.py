@@ -31,7 +31,15 @@ ranks, its weights placed leaf by leaf from the reference's
   the exact sum; and ROADMAP.md §C entries 11 and 14 pinned on 2 gloo
   ranks (the data axis) and on a 2-device XLA CPU mesh; error feedback
   keeping one residual a rank;
-* ``fused_xent`` refusing a head split over the vocabulary;
+* the head over vocabulary chunks (``vocab_chunk`` 100, ragged on every
+  rank's slice) at 2 x 2, 4 x 1 and 1 x 4, on a batch whose labels
+  include -1 and the ids on the slices' and chunks' edges: the loss
+  within relative 1e-5 and each gradient leaf within relative L2 1e-4 of
+  the one-process chunked head's, the same mesh's plain head's and, on 2
+  x 2, the reference's chunked head's; and, at 2 x 2 over 64 tokens a
+  sequence, every tensor ``LM.loss`` saves for its backward: none of
+  the chunked head's a float32 tensor of a rank's (B / 2, T, V / 2)
+  logits' size or more, as the plain head's exponentials are;
 * elastic restore: saved at 2 x 2 after step 2, restored at 4 x 1 and in
   one process, steps 3-4 within the limits of the uninterrupted run;
 * ``PrefetchIterator(shardings=)``: each rank's rows equal the shard the
@@ -81,6 +89,14 @@ LOSS_RTOL, LEAF_L2 = 1e-5, 1e-4
 VARIANTS = {"adamw_bf16": {"moment_dtype": "bfloat16"},
             "adafactor": {"optimizer": "adafactor"},
             "micro2": {"microbatches": 2}}
+#: the head's vocabulary chunks: 512 ids, 256, 512 and 128 a rank on
+#: 2 x 2, 4 x 1 and 1 x 4, each rank's last chunk ragged
+VOCAB_CHUNK = 100
+#: labels on the edges of the ranks' slices and of the chunks
+EDGE_LABELS = [0, 99, 100, 127, 128, 255, 256, 355, 356, 383, 384, 511]
+#: the saved-tensor probe's tokens a sequence (2 x 64 x 256 elements a
+#: rank's logits, more than its (256, 64) slice of the table)
+PROBE_T = 64
 #: the compression pins' two shards (ROADMAP.md §C entry 11)
 SHARDS = ([1.0, -0.5, 0.25, 0.1], [0.01, 0.02, -0.01, 0.005])
 REF_ENTRY_11 = [1.496, 0.496, -0.244, 0.354]
@@ -94,7 +110,7 @@ JAX_CHILD = textwrap.dedent("""
     from jax.experimental.shard_map import shard_map
     from jax.sharding import AxisType, PartitionSpec as P
     from repro.data import pipeline
-    from repro.models import build_model
+    from repro.models import build_model, settings
     from repro.sharding import ctx as ctx_lib, rules as rules_lib
     from repro.train import compression as comp
     from repro.train.train_loop import TrainConfig, make_train_step
@@ -136,6 +152,13 @@ JAX_CHILD = textwrap.dedent("""
                 if i == 0:
                     r["grads"] = host(g)
             r["losses"], r["params"] = losses, host(p)
+            # the chunked head on the head batch
+            hb = {k: jnp.asarray(v) for k, v in case["head_batch"].items()}
+            with settings.use(vocab_chunk=inp["vocab_chunk"]):
+                (loss, _), g = jax.jit(
+                    jax.value_and_grad(loss_fn, has_aux=True),
+                    in_shardings=(p_sh, b_sh))(params, hb)
+            r["chunked"] = {"loss": float(loss), "grads": host(g)}
             if arch == "qwen3-1.7b":
                 steps = {n: make_train_step(model, TrainConfig(
                     remat=False, **kw)) for n, kw in inp["variants"].items()}
@@ -409,14 +432,44 @@ RANK_CHILD = textwrap.dedent("""
         torch.allclose(deq["part"].to_local() + res["part"],
                        part.to_local(), rtol=0, atol=1e-7))
 
-    # vocabulary chunks over a head split over the vocabulary: refused
-    try:
+    def head_grads(model, rules, mesh, batch, chunk):
+        # the loss and its gradients, whole, through the head over chunks
+        # of ``chunk`` ids (0: the plain head)
+        p = trainable_params(model)
         with ctx.use(rules, mesh), ctx.spmd(), \
-                msettings.use(vocab_chunk=100):
-            model.loss(place.place_batch(case["batches"][0], rules, mesh))
-        out["chunks_refused"] = False
-    except NotImplementedError:
-        out["chunks_refused"] = True
+                msettings.use(vocab_chunk=chunk):
+            loss, _ = model.loss(place.place_batch(batch, rules, mesh))
+            g = torch.autograd.grad(loss, list(p.values()))
+        return {"loss": float(whole(loss)),
+                "grads": {k: whole(v) for k, v in zip(p, g)}}
+
+    # the head over vocabulary chunks on each mesh, and the plain head
+    for arch, case in inp["archs"].items():
+        tree = convert.lm_tree_from_reference(
+            configs.reduced(configs.get(arch)), case["params0"])
+        for dims in map(tuple, inp["meshes"]):
+            _, mesh, rules, model = setup(arch, dims, tree=tree)
+            for chunk in (inp["vocab_chunk"], 0):
+                out[("head", arch, dims, chunk)] = head_grads(
+                    model, rules, mesh, case["head_batch"], chunk)
+
+    # what LM.loss saves for its backward at 2 x 2, chunked and plain:
+    # each saved tensor's dtype and size on this rank
+    _, mesh, rules, model = setup("qwen3-1.7b", (2, 2), seed=0)
+    trainable_params(model)
+    for chunk in (inp["vocab_chunk"], 0):
+        seen = out[("saved", chunk)] = []
+
+        def pack(t):
+            local = t._local_tensor if isinstance(t, DTensor) else t
+            seen.append((local.dtype, local.numel()))
+            return t
+        with ctx.use(rules, mesh), ctx.spmd(), \
+                msettings.use(vocab_chunk=chunk), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = model.loss(place.place_batch(inp["probe_batch"], rules,
+                                                   mesh))
+            loss.backward()
 
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -439,6 +492,17 @@ def _batches(cfg, n, seed=1):
         out.append({"tokens": rng.integers(0, cfg.vocab_size, (B, T))
                     .astype(np.int32), "labels": labels})
     return out
+
+
+def _head_batch(cfg, T, seed=2):
+    """A batch whose labels hold -1 (the first row's first 5) and every
+    id of ``EDGE_LABELS`` (the second row's first 12)."""
+    rng = np.random.default_rng(seed)
+    b = {k: rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+         for k in ("tokens", "labels")}
+    b["labels"][0, :5] = -1
+    b["labels"][1, :len(EDGE_LABELS)] = EDGE_LABELS
+    return b
 
 
 def _rel(a, b) -> float:
@@ -473,6 +537,22 @@ def _one_process(arch, case, tcfg=None, batches=None, model=None):
     return {"grads": grads, "grads64": grads64, "losses": losses,
             "model": model,
             "params": {k: v.detach().numpy().copy() for k, v in p.items()}}
+
+
+def _one_head(arch, case):
+    """The one-process chunked head's loss and gradients on the head
+    batch, from the initial weights."""
+    from repro_torch.models import settings as psettings
+    cfg = _port_cfg(arch)
+    model = lm_lib.LM(cfg, device="cpu", params=convert.
+                      lm_tree_from_reference(cfg, case["params0"]))
+    p = trainable_params(model)
+    with psettings.use(vocab_chunk=VOCAB_CHUNK):
+        loss, _ = model.loss({k: torch.from_numpy(v)
+                              for k, v in case["head_batch"].items()})
+    g = torch.autograd.grad(loss, list(p.values()))
+    return {"loss": float(loss.detach()),
+            "grads": {k: v.numpy() for k, v in zip(p, g)}}
 
 
 def _grads64(cfg, case):
@@ -517,14 +597,18 @@ def run(tmp_path_factory):
             for r in range(4)]
     inp = {"archs": {}, "meshes": [list(m) for m in MESHES],
            "variants": VARIANTS, "steps": STEPS, "B": B, "T": T,
-           "shards": [np.asarray(x, np.float32) for x in SHARDS]}
+           "shards": [np.asarray(x, np.float32) for x in SHARDS],
+           "vocab_chunk": VOCAB_CHUNK}
     try:
         for arch in ARCHS:
             rcfg = RC.reduced(RC.get(arch))
             params = ref_build_model(rcfg).init(jax.random.PRNGKey(0))
             inp["archs"][arch] = {
                 "params0": jax.tree_util.tree_map(np.asarray, params),
-                "batches": _batches(rcfg, STEPS + 1)}
+                "batches": _batches(rcfg, STEPS + 1),
+                "head_batch": _head_batch(rcfg, T)}
+        inp["probe_batch"] = _head_batch(RC.reduced(RC.get("qwen3-1.7b")),
+                                         PROBE_T)
         with open(tmp / "inputs.part", "wb") as f:
             pickle.dump(inp, f)
         os.replace(tmp / "inputs.part", tmp / "inputs.pkl")
@@ -541,6 +625,8 @@ def run(tmp_path_factory):
             for arch in ARCHS]
     # meanwhile, in this process: the one-process port and the meta count
     one = {arch: _one_process(arch, inp["archs"][arch]) for arch in ARCHS}
+    for arch in ARCHS:
+        one[arch]["head"] = _one_head(arch, inp["archs"][arch])
     case = inp["archs"]["qwen3-1.7b"]
     one["variants"] = {n: _one_process("qwen3-1.7b", case, TrainConfig(**kw),
                                        case["batches"][:1])
@@ -668,10 +754,39 @@ def test_error_feedback_keeps_a_residual_a_rank(run):
         assert r["error_feedback"] == (True, True, True)
 
 
-def test_vocab_chunks_refuse_a_split_vocabulary(run):
-    """``fused_xent`` over a head split over the vocabulary raises (the
-    plain head serves a mesh that splits it)."""
-    assert all(r["chunks_refused"] for r in run["ranks"])
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_vocab_chunks_over_a_split_vocabulary(run, arch, dims):
+    """The head over chunks of ``VOCAB_CHUNK`` ids on the mesh (each
+    rank's slice of the vocabulary on 2 x 2 and 1 x 4, the whole
+    vocabulary on 4 x 1): its loss and gradients as the one-process
+    chunked head's, the same mesh's plain head's and (on 2 x 2) the
+    reference's chunked head's on its mesh."""
+    r0 = run["ranks"][0]
+    got = r0[("head", arch, dims, VOCAB_CHUNK)]
+    wants = [run["one"][arch]["head"], r0[("head", arch, dims, 0)]]
+    if dims == (2, 2):
+        ref = run["ref"][arch]["chunked"]
+        wants.append({"loss": ref["loss"], "grads": _ref_by_name(
+            arch, ref["grads"], run["one"][arch]["model"])})
+    for want in wants:
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+        _within(got["grads"], want["grads"])
+
+
+def test_chunked_head_saves_no_rank_logits(run):
+    """At 2 x 2 no tensor ``LM.loss`` saves for its backward through the
+    chunked head is float32 with as many elements as a rank's (B / 2,
+    PROBE_T, V / 2) logits; through the plain head one is (the
+    probe sees what it must)."""
+    V = RC.reduced(RC.get("qwen3-1.7b")).vocab_size
+    logits = (B // 2) * PROBE_T * (V // 2)
+    for r in run["ranks"]:
+        def largest(chunk):
+            return max(n for dtype, n in r[("saved", chunk)]
+                       if dtype == torch.float32)
+        assert largest(VOCAB_CHUNK) < logits
+        assert largest(0) >= logits
 
 
 def test_elastic_restore_continues_the_run(run):
